@@ -11,6 +11,8 @@ criterion follows the same split:
     stateless).
   * ``viterbi(outputs, params)`` — decoding: device work + host cleanup,
     returning ragged int32 numpy arrays.
+  * ``train()`` / ``eval()`` — the mode, which the drivers switch at each
+    epoch's start and before evaluation (STC anneals only in training).
 
 A criterion instance is also callable with stored parameters
 (``crit(inputs, targets)``) for parity with the reference's module API.
@@ -19,6 +21,16 @@ A criterion instance is also callable with stored parameters
 
 class Criterion:
     """Base class; subclasses implement the four methods above."""
+
+    training = True
+
+    def train(self):
+        self.training = True
+        return self
+
+    def eval(self):
+        self.training = False
+        return self
 
     def init_params(self):
         return {}

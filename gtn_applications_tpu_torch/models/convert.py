@@ -1,4 +1,5 @@
-"""Load a Flax ``TDS2d`` parameter tree into the port's module.
+"""Load a Flax ``TDS2d`` parameter tree into the port's module, and JAX
+criterion parameters into the port's criterion.
 
 The tree is the one the JAX package's ``TDS2d.init`` returns, as
 nested dicts of numpy arrays (with or without the outer ``"params"`` key).
@@ -60,3 +61,14 @@ def tds2d_from_flax(params, model):
         _norm(block.norm2, bp["InstanceNorm_1"])
     _dense(model.linear, p["Dense_0"])
     return model
+
+
+def criterion_params_from_jax(params, device=None):
+    """JAX's ``params["criterion"]`` (a dict of numpy arrays: ASG's
+    ``transitions``, ``{}`` for CTC and STC) as the port's
+    ``criterion.params`` on ``device``, each a leaf that requires grad."""
+    return {
+        name: torch.from_numpy(np.array(value, dtype=np.float32))
+        .to(device).requires_grad_(True)
+        for name, value in params.items()
+    }

@@ -7,9 +7,10 @@ started together) into a shared library with a plain C interface:
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 No ``--use_fast_math``: the lattice kernels rely on exact ``expf``/``logf``
-near the 1e-30 sum floor.  Libraries land in ``build/`` at the root of the
-checkout (ignored by git), named by a hash of their source and flags, so a
-changed source rebuilds and an unchanged one is loaded as is.
+near their sum floors (1e-30 for CTC, 1e-37 for the dense scan).
+Libraries land in ``build/`` at the root of the checkout (ignored by git),
+named by a hash of their source and flags, so a changed source rebuilds
+and an unchanged one is loaded as is.
 
 Every wrapper that launches a kernel adds one to its entry of ``LAUNCHES``
 there and nowhere else, so a run can show which kernels its path reached.
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("gather", "ctc")
+SOURCES = ("gather", "ctc", "viterbi", "dense_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,9 +46,19 @@ _SIGNATURES = {
         "ctc_grad": (8, 3),
         "ctc_chain_probe": (2, 1),
     },
+    "viterbi": {
+        "dense_backtrace": (3, 4),
+    },
+    "dense_scan": {
+        "dense_scan_fwd": (6, 4),
+        "dense_scan_bwd": (8, 4),
+    },
 }
 
-LAUNCHES = {"gather_fwd": 0, "gather_bwd": 0, "ctc_alpha": 0, "ctc_grad": 0}
+LAUNCHES = {
+    "gather_fwd": 0, "gather_bwd": 0, "ctc_alpha": 0, "ctc_grad": 0,
+    "dense_bt": 0, "dense_scan_fwd": 0, "dense_scan_bwd": 0,
+}
 
 # Shared memory one block can use on Hopper (227 KB).
 MAX_SMEM = 232448

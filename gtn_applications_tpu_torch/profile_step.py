@@ -1,9 +1,11 @@
-"""Where one train step of the main path spends its device time.
+"""Where one train step of a main path spends its device time.
 
-    python -m gtn_applications_tpu_torch.profile_step [--steps 10]
+    python -m gtn_applications_tpu_torch.profile_step [--steps 10] \
+        [--config configs/iamdb/tds2d_asg.json]
 
-Builds the TDS2d model of configs/iamdb/tds2d.json with random weights
-from a seed, takes one batch of 32 synthetic 64-row lines, warms up, then
+Builds the model and criterion of the config (configs/iamdb/tds2d.json, the
+CTC path, by default) with random weights from a seed, takes one batch of
+32 synthetic 64-row lines, warms up, then
 runs ``--steps`` train steps under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON object: the host-clock median step time, the
 device-busy share of the profiled window (kernel time over wall time), and
@@ -20,7 +22,6 @@ import torch
 
 from . import train as train_mod
 from . import utils
-from .criterions import CTC
 from .datasets import synthetic
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "iamdb" / "tds2d.json"
@@ -34,29 +35,32 @@ def _self_device_us(evt):
     return 0.0
 
 
-def profile(steps=10, top=12, seed=0):
+def profile(steps=10, top=12, seed=0, config_path=CONFIG):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     device = train_mod.select_device()
-    with open(CONFIG) as fid:
+    with open(config_path) as fid:
         config = json.load(fid)
     pre = synthetic.Preprocessor(None, num_features=config["data"]["num_features"])
     ds = synthetic.Dataset(None, pre, split="train")
     batch = config["optim"]["batch_size"]
     inputs, _, targets = utils.padding_collate([ds[i] for i in range(batch)])
-    crit = CTC(pre.num_tokens)
+    crit, n_out = utils.load_criterion(
+        config.get("criterion_type", "ctc"), pre, config.get("criterion", {}))
+    train_mod.criterion_to_device(crit, device)
     gen = torch.Generator().manual_seed(seed)
     model = utils.load_model(
-        config["model_type"], pre.num_features, pre.num_tokens + 1,
-        config["model"], generator=gen,
+        config["model_type"], pre.num_features, n_out, config["model"],
+        generator=gen,
     ).to(device)
     optim = config["optim"]
     step = train_mod.make_train_step(
-        model, crit, optim["learning_rate"], optim["learning_rate"],
+        model, crit, optim["learning_rate"],
+        optim.get("crit_learning_rate", optim["learning_rate"]),
         optim["max_grad_norm"],
     )
     x = torch.from_numpy(inputs).to(device)
-    prepared = tuple(p.to(device) for p in crit.prepare(targets))
+    prepared = train_mod.to_device(crit.prepare(targets), device)
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
 
     def run_step():
@@ -95,6 +99,7 @@ def profile(steps=10, top=12, seed=0):
 
     return {
         "card": utils.card_name_and_power_limit(),
+        "criterion": config.get("criterion_type", "ctc"),
         "input_shape": list(inputs.shape),
         "steps": steps,
         "host_step_ms_median": statistics.median(host_ms),
@@ -110,8 +115,9 @@ def profile(steps=10, top=12, seed=0):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--config", type=str, default=str(CONFIG))
     args = parser.parse_args(argv)
-    print(json.dumps(profile(args.steps)))
+    print(json.dumps(profile(args.steps, config_path=args.config)))
 
 
 if __name__ == "__main__":

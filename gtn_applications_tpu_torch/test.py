@@ -13,7 +13,9 @@ import json
 import logging
 
 from . import utils
-from .train import evaluate, load_experiment, make_eval_step, select_device
+from .train import (
+    criterion_to_device, evaluate, load_experiment, make_eval_step, select_device,
+)
 
 
 def parse_args(argv=None):
@@ -51,6 +53,8 @@ def run_test(args):
     state = utils.load_checkpoint(args.checkpoint_path, load_last=args.load_last)
     model.load_state_dict(state["model"])
     model.to(device)
+    criterion_to_device(criterion, device, state["criterion"])
+    criterion.eval()
 
     def report(predictions, targets):
         for p, t in zip(predictions, targets):

@@ -113,10 +113,32 @@ def output_lengths(model, widths):
     return torch.as_tensor(-(-np.asarray(widths) // stride), dtype=torch.int32)
 
 
+def to_device(obj, device):
+    """``obj`` with every tensor and numpy array in it (through nested
+    tuples, lists and dicts) on ``device``; host scalars stay as they are."""
+    if isinstance(obj, np.ndarray):
+        obj = torch.from_numpy(obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(v, device) for v in obj)
+    return obj
+
+
 def _to_device(inputs, prepared, device):
-    inputs = torch.from_numpy(inputs).to(device)
-    prepared = tuple(p.to(device) for p in prepared)
-    return inputs, prepared
+    return torch.from_numpy(inputs).to(device), to_device(prepared, device)
+
+
+def criterion_to_device(criterion, device, params=None):
+    """Set ``criterion.params`` (``params`` if given, e.g. from a
+    checkpoint, else its own) to leaves on ``device`` that require grad."""
+    params = criterion.params if params is None else params
+    criterion.params = {
+        k: v.detach().to(device).requires_grad_(True) for k, v in params.items()
+    }
+    return criterion
 
 
 def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
@@ -206,10 +228,12 @@ def train(args):
     val_loader = utils.data_loader(valset, config, seed=seed)
 
     model.to(device)
+    criterion_to_device(criterion, device)
     num_updates = 0
     if args.restore:
         state = utils.load_checkpoint(args.checkpoint_path, load_last=True)
         model.load_state_dict(state["model"])
+        criterion_to_device(criterion, device, state["criterion"])
         num_updates = state.get("num_updates", 0)
         logging.info(f"Restored model from epoch {args.last_epoch}")
 
@@ -236,6 +260,7 @@ def train(args):
     for epoch in range(args.last_epoch, epochs):
         logging.info("Epoch {} started. ".format(epoch + 1))
         lr_scale = 0.5 ** (epoch // step_size)
+        criterion.train()
         start_time = time.time()
         meters = utils.Meters()
         losses = []
@@ -273,6 +298,7 @@ def train(args):
         )
         logging.info("Evaluating validation set..")
         timers.start("test_total")
+        criterion.eval()
         val_loss, val_cer, val_wer = test(
             model, criterion, val_loader, preprocessor, eval_step, device,
             use_lengths,

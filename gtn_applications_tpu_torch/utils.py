@@ -1,10 +1,10 @@
 """Experiment runtime: factories, batching, metrics, timers, checkpoints.
 
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
-TDS2d + CTC path uses.  The batch sampler emits width-sorted, bucketed
+TDS2d path uses with the CTC, ASG and STC criteria.  The batch sampler emits width-sorted, bucketed
 batches; timers synchronise the CUDA device before reading the clock; and
 checkpoints are pickled ``state_dict``s.  Only the ``tds2d`` model and the
-``ctc`` criterion resolve in the factories so far.
+``ctc``, ``asg`` and ``stc`` criteria resolve in the factories so far.
 """
 
 import logging
@@ -303,10 +303,18 @@ def load_model(model_type, input_size, output_size, config, generator=None):
 
 
 def load_criterion(criterion_type, preprocessor, config):
-    """Criterion factory.  Only ``ctc`` is ported."""
-    from .criterions import CTC
+    """Criterion factory: (criterion, model output size).  ``ctc``, ``asg``
+    and ``stc`` are ported."""
+    from .criterions import ASG, CTC, STC
 
     num_tokens = preprocessor.num_tokens
+    if criterion_type == "asg":
+        num_replabels = config.get("num_replabels", 0)
+        use_garbage = config.get("use_garbage", True)
+        return (
+            ASG(num_tokens, num_replabels, use_garbage),
+            num_tokens + num_replabels + int(use_garbage),
+        )
     if criterion_type == "ctc":
         if "use_pt" in config:
             raise NotImplementedError(
@@ -319,10 +327,23 @@ def load_criterion(criterion_type, preprocessor, config):
                 "Long-sequence CTC)"
             )
         return CTC(num_tokens, config.get("impl", "auto")), num_tokens + 1
-    if criterion_type in ("asg", "stc", "transducer"):
+    if criterion_type == "stc":
+        # the model emits [blank, tokens...]; star channels are internal.
+        # The class defaults to reduction "none", the factory to "mean".
+        return (
+            STC(
+                blank_idx=0,
+                p0=config.get("p0", 1.0),
+                plast=config.get("plast", 1.0),
+                thalf=config.get("thalf", 1.0),
+                reduction=config.get("reduction", "mean"),
+                shift_targets=1,
+            ),
+            num_tokens + 1,
+        )
+    if criterion_type == "transducer":
         raise NotImplementedError(
-            f"criterion {criterion_type!r} is not ported yet (ROADMAP queue A "
-            "items 5-8)"
+            "criterion 'transducer' is not ported yet (ROADMAP queue A item 8)"
         )
     raise ValueError(f"Unknown criterion type {criterion_type}")
 

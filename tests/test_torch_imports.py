@@ -19,7 +19,15 @@ MODULES = [
     "gtn_applications_tpu_torch.ops.lattice_pallas",
     "gtn_applications_tpu_torch.ops.lattice",
     "gtn_applications_tpu_torch.ops._build",
+    "gtn_applications_tpu_torch.ops.viterbi_scan_pallas",
+    "gtn_applications_tpu_torch.ops.dense_scan_pallas",
+    "gtn_applications_tpu_torch.ops.factored",
+    "gtn_applications_tpu_torch.wfst",
+    "gtn_applications_tpu_torch.wfst.graph",
+    "gtn_applications_tpu_torch.wfst.compile",
     "gtn_applications_tpu_torch.criterions",
+    "gtn_applications_tpu_torch.criterions.asg",
+    "gtn_applications_tpu_torch.criterions.stc",
     "gtn_applications_tpu_torch.models",
     "gtn_applications_tpu_torch.models.convert",
     "gtn_applications_tpu_torch.datasets",

@@ -1,7 +1,7 @@
 """The port's CUDA kernel wrappers refuse what their kernels do not take.
 
 These tests need an NVIDIA GPU; elsewhere they skip.  Each kernel is held
-against its plain version on the card by ``chip_smoke.py`` (phases 3-5),
+against its plain version on the card by ``chip_smoke.py`` (phases 3-8),
 at the bench headline and at the main path's shapes.  The file imports
 nothing of JAX, so it runs on a machine without it:
 
@@ -12,7 +12,9 @@ nothing of JAX, so it runs on a machine without it:
 import pytest
 import torch
 
-from gtn_applications_tpu_torch.ops import gathers, lattice_pallas
+from gtn_applications_tpu_torch.ops import (
+    dense_scan_pallas, gathers, lattice_pallas, viterbi_scan_pallas,
+)
 
 
 @pytest.fixture
@@ -37,3 +39,23 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
         lattice_pallas.ctc_alpha_cuda(
             em, em[:, 0], em[:, 0], torch.zeros(2, dtype=torch.int64,
                                                  device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_new_cuda_wrappers_refuse_bad_inputs(cuda_device):
+    bp = torch.zeros(2, 4, 3, dtype=torch.int32, device=cuda_device)
+    last = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.dense_backtrace_cuda(bp.long(), last)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.dense_backtrace_cuda(bp[:, :0], last)
+    em = torch.zeros(2, 3, 5, device=cuda_device)
+    adj = torch.zeros(2, 5, 5, device=cuda_device)
+    vec = torch.zeros(2, 5, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        dense_scan_pallas.dense_scan_fwd_cuda(em, adj[:, :4], vec, vec, lens)
+    with pytest.raises(ValueError):
+        dense_scan_pallas.dense_scan_fwd_cuda(em, adj, vec, vec, lens.long())
+    with pytest.raises(ValueError):
+        dense_scan_pallas.dense_scan_bwd_cuda(em, adj, vec, vec, lens, vec.cpu())
