@@ -9,7 +9,8 @@ prints no result):
 1. device: fail without CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` does;
 2. build: compile the CUDA kernels of ``gtn_applications_tpu_torch/ops/csrc``
-   with nvcc (one process per source, in parallel) and print the time;
+   with nvcc (one process per source, in parallel) and, beside them, the
+   native graph compiler (``make -C native``), and print the times;
 3. gather kernels against their plain versions at x [32, 250, 80],
    idx [32, 89] with -1 padding, and at a wide S = 4096 with many
    duplicates: the forward bitwise, the backward within 1e-5;
@@ -26,26 +27,45 @@ prints no result):
    which every state is live and z stays far from the floor: the
    trajectory within atol 1e-3 + rtol 1e-5 on live states, dem and dadj
    entry by entry within 1e-5 (|p| + the median nonzero |p|);
-7. three main paths, CTC, ASG and STC: ``train.train`` of the port for 2
-   epochs (64 synthetic samples, batch 32: 4 steps plus validation) with
-   the model and criterion sections of configs/iamdb/tds2d.json,
-   tds2d_asg.json and tds2d_stc.json unchanged, then ``test.run_test`` on
-   the checkpoint; the launch counters are zeroed just before each path
-   and read just after: each kernel of the path must have launched once
-   per train step (backward kernels) or once per train step and per
-   evaluation batch (forward kernels and the backtrace, which the decode
-   of every batch reaches), and no kernel of another path at all;
-8. the trainer's first batch of each path through its trained model: for
+7. the factored-scan kernels against their plain versions on the bigram
+   Transducer's lattices: the bench ngram-2 headline (B=32, T=250, L=44,
+   N=80, blank none, so S=96), ``configs/iamdb/ngram_ctc.json``'s IAM width
+   (79 graphemes and an optional blank, no repeats, S=136), a random
+   case with every state live and z far from the floor, and an IAM-like
+   line of L=100 (B=8, T=128, S=304) whose matrices live in global
+   scratch, past shared memory: the trajectory
+   within atol 1e-3 + rtol 1e-5 on live states, dem, dadj, dwsel and dws
+   entry by entry within 1e-5 (|p| + the median nonzero |p|);
+8. the whole-scan Viterbi kernels against their plain versions at the
+   decode headline (B=32, T=250, C=80 on the ngram-2 decode table with
+   random weights: 82 states, 6,480 arcs, D=81; lengths 200-250), on the
+   bigram table over 160 labels (B=8; D=161, S=162: tables past shared
+   memory) and on a skewed random table with an infeasible sample: slots
+   and labels bitwise equal, final alphas and scores within 1e-6;
+9. four main paths, CTC, ASG, STC and the Transducer: ``train.train`` of
+   the port for 2 epochs (64 synthetic samples, batch 32: 4 steps plus
+   validation) with the model and criterion sections of
+   configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json and
+   ngram_ctc.json unchanged, then ``test.run_test`` on the checkpoint; the
+   launch counters are zeroed just before each path and read just after:
+   each kernel of the path must have launched once per train step
+   (backward kernels) or once per train step and per evaluation batch
+   (forward kernels and the decode's, which every batch reaches), and no
+   kernel of another path at all;
+10. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
-   the logit gradient (and ASG's transitions gradient) on the card against
-   the CPU on the same logits (CTC 1e-4 and 1e-6, ASG and STC 1e-4 and
-   1e-5); and the path's kernels against their plain versions on the
-   inputs the train step gives them, at the tolerances of phases 3-6;
-9. times: CUDA-event medians of 30 runs after warm-up at the phase 4-6
+   the logit gradient (and ASG's and the Transducer's transitions
+   gradient) on the card against the CPU on the same logits (CTC 1e-4 and
+   1e-6, the others 1e-4 and 1e-5); and the path's kernels against their
+   plain versions on the inputs the train step and the decode give them,
+   at the tolerances of phases 3-8;
+11. times: CUDA-event medians of 30 runs after warm-up at the phase 4-8
    headline shapes for each kernel, its plain version and F.ctc_loss, the
-   host-clock median of 20 full train steps of each path, and the latency
-   of one frame of the CTC recursion's dependent chain (``ctc_chain_probe``)
-   for the CTC kernels' chain bound.
+   host-clock median of 20 full train steps of each path, the latency of
+   one frame of the CTC recursion's dependent chain (``ctc_chain_probe``)
+   for the CTC kernels' chain bound, and the device time and kernel
+   launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
+   forward and backward at its main path's batch shape.
 
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -126,10 +146,31 @@ def phase_device(torch):
 
 
 def phase_build():
-    from gtn_applications_tpu_torch.ops import _build
+    """nvcc for the kernels and make for the native graph compiler (which
+    the Transducer's host compilation calls), side by side."""
+    import threading
 
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.wfst import native
+
+    native_s, failure = [], []
+
+    def build_native():
+        t0 = time.perf_counter()
+        try:
+            native.load_library()
+        except Exception as exc:  # re-raised below, in this thread
+            failure.append(exc)
+        native_s.append(time.perf_counter() - t0)
+
+    worker = threading.Thread(target=build_native)
+    worker.start()
     _build.load_library("gather")
-    log(f"build: {_build.build_seconds:.1f} s (nvcc, {len(_build.SOURCES)} sources)")
+    worker.join()
+    if failure:
+        raise failure[0]
+    log(f"build: {_build.build_seconds:.1f} s (nvcc, {len(_build.SOURCES)} sources), "
+        f"native graph compiler {native_s[0]:.1f} s")
     return _build.build_seconds
 
 
@@ -440,11 +481,261 @@ def phase_dense_scan(torch, dev):
     return errs
 
 
+# The bigram Transducer's lattices: bench.py's ngram-2 protocol (L = 44
+# tokens out of N = 80, no blank: S = 96) and ngram_ctc.json at the IAM
+# width (79 graphemes and an optional blank, no repeats: S = 136)
+NGRAM_CASES = {"ngram2": dict(n=N, blank="none"),
+               "iam": dict(n=N - 1, blank="optional")}
+
+
+def transducer_criterion(n, blank):
+    from gtn_applications_tpu_torch.criterions import Transducer
+
+    return Transducer([(i,) for i in range(n)], {i: i for i in range(n)}, ngram=2,
+                      blank=blank, allow_repeats=blank != "optional",
+                      reduction="mean")
+
+
+def factored_inputs(torch, crit, logits, prepared, params):
+    """The factored scan's inputs as Transducer.loss builds them:
+    em_state [B, T, S], adj, wsel and lab_oh, ws_state, start, and the
+    accept row the final alpha meets (accept + we_state)."""
+    from gtn_applications_tpu_torch.ops import factored
+
+    f = prepared["factored"]
+    ws, W, we, _ = factored.ngram_rows(params["transitions"], 2, crit.num_channels)
+    lab = f["lab_oh"]
+    em_state = torch.einsum("btn,bsn->bts", logits, lab)
+    wsel = torch.einsum("bsn,nl->bsl", lab, W)
+    ws_state = torch.einsum("n,bsn->bs", ws, lab)
+    acc = f["accept"] + torch.einsum("n,bsn->bs", we, lab)
+    return tuple(x.detach().contiguous() for x in (
+        em_state, f["adj_exp"], wsel, lab, ws_state, f["start"], acc))
+
+
+def factored_headline_inputs(torch, dev, b=B, t=T, length=L, n=N, blank="none",
+                             seed=4):
+    """Random logits, random transitions (N(0, 0.3)) and targets of
+    ``length`` tokens through a bigram Transducer; input lengths over
+    4t/5..t."""
+    from gtn_applications_tpu_torch.train import to_device
+
+    rng = np.random.RandomState(seed)
+    crit = transducer_criterion(n, blank)
+    C = crit.num_channels
+    logits = torch.as_tensor(rng.randn(b, t, C).astype(np.float32), device=dev)
+    params = {"transitions": torch.as_tensor(
+        (rng.randn(crit.num_transition_arcs) * 0.3).astype(np.float32), device=dev)}
+    prepared = to_device(
+        crit.prepare([rng.randint(0, n, size=length).tolist() for _ in range(b)]), dev)
+    il = torch.as_tensor(ragged_lengths(rng, b, t), dtype=torch.int32, device=dev)
+    return factored_inputs(torch, crit, logits, prepared, params) + (il,)
+
+
+def factored_random_inputs(torch, dev, b, t, s, n, seed=5):
+    """A factored-scan case in which every state is live on every frame and
+    z stays far from the floor: every state starts and has a random label,
+    every adjacency entry is at least 0.05 / S, and the shifted exp of the
+    best source is 1, so z >= 0.05 / S.  Emissions N(-4, 1), wsel and
+    ws_state N(0, 0.3), accept 0, input lengths over 4t/5..t."""
+    rng = np.random.RandomState(seed)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    lab = np.zeros((b, s, n), np.float32)
+    lab[np.arange(b)[:, None], np.arange(s)[None, :], rng.randint(0, n, (b, s))] = 1.0
+    zeros = torch.zeros(b, s, device=dev)
+    return (to((rng.randn(b, t, s) - 4).astype(np.float32)),
+            to((rng.uniform(0.05, 1.0, (b, s, s)) / s).astype(np.float32)),
+            to((rng.randn(b, s, n) * 0.3).astype(np.float32)), to(lab),
+            to((rng.randn(b, s) * 0.3).astype(np.float32)), zeros, zeros,
+            to(ragged_lengths(rng, b, t).astype(np.int32)))
+
+
+def hold_entrywise(torch, name, k, p, what):
+    """``entrywise_err`` of k against p on the entries p keeps finite (both
+    must overflow alike), raising past 1e-5; returns (rel, max abs)."""
+    finite = torch.isfinite(p)
+    if not torch.equal(torch.isfinite(k), finite):
+        raise AssertionError(f"{name}: non-finite entries differ at {what}")
+    k, p = k[finite], p[finite]
+    rel = entrywise_err(torch, k, p)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{name}: entrywise error {rel} > 1e-5 at {what}")
+    return rel, float((k - p).abs().max()) if p.numel() else 0.0
+
+
+def hold_factored_scan_kernels(torch, em_state, adj, wsel, lab, ws_state, start,
+                               accept, il, what, all_live=False):
+    """Both factored-scan kernels against their plain versions on the same
+    inputs: the trajectory within atol 1e-3 + rtol 1e-5 on live states;
+    dem, dadj, dwsel and dws entry by entry, |k - p| <= 1e-5 (|p| + median
+    nonzero |p|); the backward without dadj gives the same rest.  With
+    ``all_live`` every state of every frame must be live."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+    from gtn_applications_tpu_torch.ops.semiring import DEAD
+
+    tr_k = dsp.factored_scan_fwd_cuda(em_state, adj, wsel, lab, ws_state, start, il)
+    tr_p = dsp.factored_scan_fwd_plain(em_state, adj, wsel, lab, ws_state, start, il)
+    live = tr_p > DEAD
+    if not torch.equal(tr_k > DEAD, live):
+        raise AssertionError(f"factored_scan_fwd: live states differ at {what}")
+    if all_live and not bool(live.all()):
+        raise AssertionError(f"factored_scan_fwd: dead states in the all-live case {what}")
+    torch.testing.assert_close(tr_k[live], tr_p[live], atol=1e-3, rtol=1e-5)
+    fwd_err = float((tr_k[live] - tr_p[live]).abs().max())
+    g = score_cotangent(torch, tr_p[:, -1], accept)
+    args = (tr_p, adj, wsel, lab, start, il, g)
+    out_k = dsp.factored_scan_bwd_cuda(*args)
+    out_p = dsp.factored_scan_bwd_plain(*args)
+    no_dadj = dsp.factored_scan_bwd_cuda(*args, need_dadj=False)
+    torch.cuda.synchronize()
+    if no_dadj[1] is not None:
+        raise AssertionError("factored_scan_bwd returned dadj without need_dadj")
+    rels, errs = {}, {}
+    names = ("dem", "dadj", "dwsel", "dws")
+    for name, k, p in zip(names, out_k, out_p):
+        rels[name], errs[name] = hold_entrywise(torch, name, k, p, what)
+    for name, k, p in zip(names, no_dadj, out_p):
+        if k is not None:
+            rels[name + " without dadj"], _ = hold_entrywise(
+                torch, name + " without dadj", k, p, what)
+    log(f"factored_scan {what}: traj max|d| (live states) {fwd_err:.3g}, entrywise "
+        f"error dem {rels['dem']:.3g}, dadj {rels['dadj']:.3g}, dwsel "
+        f"{rels['dwsel']:.3g}, dws {rels['dws']:.3g} (dwsel max|d| "
+        f"{errs['dwsel']:.3g}, largest {float(out_p[2].abs().max()):.3g})")
+    return {"factored_scan_fwd": fwd_err,
+            "factored_scan_bwd": max(errs.values()),
+            "factored_scan_bwd_rel": max(rels.values())}
+
+
+def phase_factored_scan(torch, dev):
+    errs = {}
+    for case, kw in NGRAM_CASES.items():
+        inputs = factored_headline_inputs(torch, dev, **kw)
+        what = (case, B, T, inputs[0].shape[2], kw["n"])
+        merge_errs(errs, hold_factored_scan_kernels(torch, *inputs, what))
+    s = inputs[0].shape[2]
+    merge_errs(errs, hold_factored_scan_kernels(
+        torch, *factored_random_inputs(torch, dev, B, T, s, N),
+        ("all live", B, T, s, N), all_live=True))
+    # an IAM-like line of L = 100 (S = 304): the kernels' matrices no
+    # longer fit in shared memory and live in their global scratch
+    wide = factored_headline_inputs(torch, dev, *WIDE_STC, **NGRAM_CASES["iam"])
+    merge_errs(errs, hold_factored_scan_kernels(
+        torch, *wide, ("past shared memory",) + WIDE_STC[:2] + (wide[0].shape[2], N)))
+    return errs
+
+
+def viterbi_headline_inputs(torch, dev, b=B, t=T, n=N, seed=6):
+    """Logits [b, t, n] and the decode plan of the ngram-2 transition graph
+    over n labels with N(0, 0.5) weights (n + 2 states, n + n^2 arcs,
+    D = n + 1), as Transducer.viterbi builds it; lengths over 4t/5..t."""
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.wfst import compile as wcompile
+
+    rng = np.random.RandomState(seed)
+    crit = transducer_criterion(n, "none")
+    w = (rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32)
+    table = wcompile.apply_decode_weights(
+        wcompile.build_decode_template(crit.transitions), w)
+    plan = vsp.build_plan(table)
+    em = torch.as_tensor(rng.randn(b, t, n).astype(np.float32), device=dev)
+    il = torch.as_tensor(ragged_lengths(rng, b, t), dtype=torch.int32, device=dev)
+    return (em,) + plan.to(dev) + (il,)
+
+
+def viterbi_skewed_inputs(torch, dev, b=B, t=T, s=40, a=400, c=N, seed=7):
+    """A random table whose in-degree is skewed (a quarter of the random
+    arcs enter state 0: D about 2.5 times the mean in-degree) over a chain
+    0 -> s-1; no arc runs from 0 to s-1, so sample 1, of length 1, has no
+    accepting path."""
+    from gtn_applications_tpu_torch.ops import sparse
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    rng = np.random.RandomState(seed)
+    src, dst = list(range(s - 1)), list(range(1, s))
+    while len(src) < a:
+        u = int(rng.randint(0, s))
+        v = 0 if rng.rand() < 0.25 else int(rng.randint(0, s))
+        if (u, v) != (0, s - 1):
+            src.append(u)
+            dst.append(v)
+    start = np.full((s,), NEG, np.float32)
+    start[0] = 0.0
+    accept = np.full((s,), NEG, np.float32)
+    accept[s - 1] = 0.0
+    as_t = lambda x, dt: torch.from_numpy(np.asarray(x, dt))  # noqa: E731
+    z = torch.zeros(0, dtype=torch.int32)
+    table = sparse.ArcTable(
+        as_t(src, np.int32), as_t(dst, np.int32),
+        as_t(rng.randint(0, c, len(src)), np.int32),
+        as_t(rng.randn(len(src)) * 0.5, np.float32), as_t(start, np.float32),
+        as_t(accept, np.float32), z, z, torch.zeros(0), eps_depth=0)
+    plan = vsp.build_plan(table)
+    em = torch.as_tensor(rng.randn(b, t, c).astype(np.float32), device=dev)
+    il = ragged_lengths(rng, b, t)
+    il[1] = 1
+    return (em,) + plan.to(dev) + (torch.as_tensor(il, dtype=torch.int32, device=dev),)
+
+
+def hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start, accept, il, what):
+    """Both Viterbi kernels against their plain versions on the same
+    inputs: slots and labels bitwise equal, final alphas and scores within
+    1e-6 (the backtrace from the plain scan's slots)."""
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    slots_k, final_k = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il)
+    slots_p, final_p = vsp.viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, il)
+    lab_k, score_k = vsp.viterbi_backtrace_cuda(slots_p, final_p, accept, src_b, lab_b)
+    lab_p, score_p = vsp.viterbi_backtrace_plain(slots_p, final_p, accept, src_b,
+                                                 lab_b)
+    torch.cuda.synchronize()
+    if not torch.equal(slots_k, slots_p):
+        raise AssertionError(f"viterbi_scan_fwd: slots differ from plain at {what}")
+    fwd_err = float((final_k - final_p).abs().max())
+    if not fwd_err <= 1e-6:
+        raise AssertionError(f"viterbi_scan_fwd: final alpha max|d| {fwd_err} at {what}")
+    if not torch.equal(lab_k, lab_p):
+        raise AssertionError(f"viterbi_backtrace: labels differ from plain at {what}")
+    bt_err = float((score_k - score_p).abs().max())
+    if not bt_err <= 1e-6:
+        raise AssertionError(f"viterbi_backtrace: score max|d| {bt_err} at {what}")
+    infeasible = int((score_p <= NEG / 2).sum())
+    log(f"viterbi {what}: slots and labels bitwise equal, final max|d| {fwd_err:.3g}, "
+        f"score max|d| {bt_err:.3g}, {infeasible} infeasible samples")
+    return {"viterbi_scan_fwd": fwd_err, "viterbi_backtrace": bt_err}
+
+
+def phase_viterbi(torch, dev):
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    errs = hold_viterbi_kernels(torch, *viterbi_headline_inputs(torch, dev),
+                                ("ngram-2 decode", B, T, N))
+    # a bigram over 2N labels: D = 161, S = 162, whose bucket tables (and
+    # slots) no longer fit in shared memory and are read from global memory
+    merge_errs(errs, hold_viterbi_kernels(
+        torch, *viterbi_headline_inputs(torch, dev, b=8, n=2 * N),
+        ("past shared memory", 8, T, 2 * N)))
+    em, src_b, lab_b, w_b, start, accept, il = viterbi_skewed_inputs(torch, dev)
+    merge_errs(errs, hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start,
+                                          accept, il, ("skewed", B, T, N)))
+    slots, final = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il)
+    labels, score = vsp.viterbi_backtrace_cuda(slots, final, accept, src_b, lab_b)
+    if not (float(score[1]) <= NEG / 2 and bool((labels[1] == -1).all())):
+        raise AssertionError("viterbi: the infeasible sample did not decode empty")
+    return errs
+
+
 # path -> (config file, its forward kernels (and decode), its backward kernels)
 PATHS = {
     "ctc": ("tds2d.json", ("gather_fwd", "ctc_alpha"), ("gather_bwd", "ctc_grad")),
     "asg": ("tds2d_asg.json", ("gather_fwd", "dense_bt"), ("gather_bwd",)),
     "stc": ("tds2d_stc.json", ("dense_scan_fwd",), ("dense_scan_bwd",)),
+    "transducer": ("ngram_ctc.json",
+                   ("factored_scan_fwd", "viterbi_scan_fwd", "viterbi_backtrace"),
+                   ("factored_scan_bwd",)),
 }
 SPLITS = {"train": 64, "validation": 16, "test": 16}  # synthetic split sizes
 
@@ -628,6 +919,31 @@ def phase_main_batch_stc(torch, dev, model, config):
     return errs, dict(diffs, stc_main_batch_shape=list(what))
 
 
+def phase_main_batch_transducer(torch, dev, model, config):
+    """The Transducer trainer's first batch: loss, logit and transitions
+    gradients on the card against the CPU; both factored-scan kernels on
+    the inputs its loss gives them, and both Viterbi kernels on its
+    decode's plan."""
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.train import to_device
+
+    inputs, crit, prepared = first_batch(torch, config, "transducer")
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    diffs = card_vs_cpu(torch, dev, crit, logits, prepared, 1e-4, 1e-5, "transducer")
+    params = {k: v.to(dev) for k, v in crit.params.items()}
+    scan_inputs = factored_inputs(torch, crit, logits, to_device(prepared, dev), params)
+    bsz, frames = logits.shape[:2]
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    what = (bsz, frames, scan_inputs[0].shape[2], crit.num_channels)
+    errs = hold_factored_scan_kernels(torch, *scan_inputs, il, what)
+    plan = vsp.build_plan(crit._decode_table(params))
+    merge_errs(errs, hold_viterbi_kernels(torch, logits.contiguous(), *plan.to(dev),
+                                          il, ("decode",) + what))
+    return errs, dict(diffs, transducer_main_batch_shape=list(what),
+                      transducer_decode_plan=[plan.D, plan.S])
+
+
 def time_train_step(torch, dev, model, config):
     """Host-clock median ms of 20 full train steps (after 5) on the first
     batch of the train split, without augmentation."""
@@ -668,6 +984,54 @@ def scan_work(il, S, per_state, per_pair):
     products and ``per_state`` per state."""
     frames = int(il.clamp(min=1).sum())
     return frames * (per_pair * S * S + per_state * S)
+
+
+def factored_work(lab_oh, il, forward):
+    """fp32 operations the factored scan needs over the live frames of
+    this run's inputs.  Per live frame and sample, with S states, S_l of
+    them labelled and N_l labels in use: z = adj[u, :] . E[:, l_u] for each
+    labelled state (2 S), E over the labels in use (add, max, sub, exp:
+    4 N_l S) and 6 per labelled state (log, floor, adds, selects); the
+    backward also adj^T dz over each label's states (2 S_l S), dv, its
+    sum into dwsel and g (3 N_l S) and the dz division."""
+    S = lab_oh.shape[1]
+    s_lab = (lab_oh.sum(-1) > 0).sum(1).double()
+    n_lab = (lab_oh.sum(1) > 0).sum(1).double()
+    frames = il.clamp(min=1).double()
+    if forward:
+        per = 2 * s_lab * S + 4 * n_lab * S + 6 * s_lab
+    else:
+        per = 4 * s_lab * S + 7 * n_lab * S + 8 * s_lab
+    return float((frames * per).sum())
+
+
+def norm_cost(torch, dev, b, t, n):
+    """Device ms (CUDA events) and kernel launches (torch.profiler) of one
+    ``dense_ngram_norm`` forward and backward, a loop of small PyTorch
+    operations, at the Transducer path's batch shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gtn_applications_tpu_torch.ops import factored
+
+    rng = np.random.RandomState(8)
+    em = torch.as_tensor(rng.randn(b, t, n).astype(np.float32), device=dev)
+    params = torch.as_tensor((rng.randn(2 * n + n * n + 1) * 0.3).astype(np.float32),
+                             device=dev)
+    em.requires_grad_(True)
+    params.requires_grad_(True)
+
+    def run():
+        ws, W, we, we0 = factored.ngram_rows(params, 2, n)
+        norm = factored.dense_ngram_norm(em, ws, W, we, None, we0)
+        torch.autograd.grad(norm.sum(), (em, params))
+
+    ms = gpu_median_ms(torch, run, runs=20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA"))
+    return ms, launches
 
 
 def phase_times(torch, dev, paths):
@@ -755,6 +1119,48 @@ def phase_times(torch, dev, paths):
                                                        need_dadj=False))
     S_stc, stc_il = scans[""]
 
+    # the factored scan at the ngram-2 headline and at the IAM width; the
+    # main path's backward needs no dadj (the adjacency is data)
+    facts = {}
+    for case, kw in NGRAM_CASES.items():
+        em_f, adj_f, wsel, lab, ws_f, st_f, acc_f, fil = factored_headline_inputs(
+            torch, dev, **kw)
+        traj = dsp.factored_scan_fwd_cuda(em_f, adj_f, wsel, lab, ws_f, st_f, fil)
+        gf = score_cotangent(torch, traj[:, -1], acc_f)
+        key = "" if case == "ngram2" else "_iam"
+        facts[key] = (lab, fil)
+        t["factored_scan_fwd" + key] = gpu_median_ms(
+            torch, lambda: dsp.factored_scan_fwd_cuda(em_f, adj_f, wsel, lab, ws_f,
+                                                      st_f, fil))
+        t["factored_scan_bwd" + key] = gpu_median_ms(
+            torch, lambda: dsp.factored_scan_bwd_cuda(traj, adj_f, wsel, lab, st_f, fil,
+                                                      gf, need_dadj=False))
+        t["factored_scan_bwd_with_dadj" + key] = gpu_median_ms(
+            torch, lambda: dsp.factored_scan_bwd_cuda(traj, adj_f, wsel, lab, st_f, fil,
+                                                      gf))
+        if key == "":
+            t["factored_scan_fwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.factored_scan_fwd_plain(em_f, adj_f, wsel, lab, ws_f,
+                                                           st_f, fil), runs=20)
+            t["factored_scan_bwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.factored_scan_bwd_plain(traj, adj_f, wsel, lab, st_f,
+                                                           fil, gf, need_dadj=False),
+                runs=20)
+
+    # the whole-scan Viterbi at the decode headline
+    em_v, src_b, lab_b, w_b, st_v, acc_v, vil = viterbi_headline_inputs(torch, dev)
+    slots, final = vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil)
+    t["viterbi_scan_fwd"] = gpu_median_ms(
+        torch, lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil))
+    t["viterbi_scan_fwd_plain"] = gpu_median_ms(
+        torch, lambda: vsp.viterbi_scan_fwd_plain(em_v, src_b, lab_b, w_b, st_v, vil),
+        runs=20)
+    t["viterbi_backtrace"] = gpu_median_ms(
+        torch, lambda: vsp.viterbi_backtrace_cuda(slots, final, acc_v, src_b, lab_b))
+    t["viterbi_backtrace_plain"] = gpu_median_ms(
+        torch, lambda: vsp.viterbi_backtrace_plain(slots, final, acc_v, src_b, lab_b),
+        runs=20)
+
     # one full train step of each path at its main path's shape
     for path, info in paths.items():
         t[f"train_step_{path}"], t[f"train_step_{path}_shape"] = time_train_step(
@@ -807,13 +1213,43 @@ def phase_times(torch, dev, paths):
             stc_live * 4 + 2 * stc_adj + 3 * stc_vec + B * 4 + B * T * S_stc * 4,
             scan_work(stc_il, S_stc, DENSE_BWD_OPS, 6)),
     }
+    # the factored scan: its inputs and outputs once, live frames only, and
+    # the O(S^2) work the function needs (factored_work), not the TPU
+    # kernel's [S, S] x [S, N] product
+    f_lab, f_il = facts[""]
+    f_b, S_f, N_f = f_lab.shape
+    f_live = int(f_il.clamp(min=1).sum()) * S_f * 4
+    f_mats = f_b * S_f * S_f * 4 + 2 * f_b * S_f * N_f * 4
+    bounds["factored_scan_fwd"] = bound_ms(
+        f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4 + f_b * T * S_f * 4,
+        factored_work(f_lab, f_il, True))
+    bounds["factored_scan_bwd"] = bound_ms(
+        f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4
+        + f_b * T * S_f * 4 + f_b * S_f * N_f * 4 + f_b * S_f * 4,
+        factored_work(f_lab, f_il, False))
+    # the Viterbi scan: emission rows of the live frames, the plan, start
+    # and lengths in; slots and final alpha out; B T D S relaxations of two
+    # adds and a compare over the live frames.  The backtrace: per live
+    # frame three dependent loads (slot, source, label) of at least one
+    # 32 B sector each, one per dead frame; final, accept in; labels, score out
+    D_v, S_v = src_b.shape
+    v_frames = int(vil.sum())
+    bounds["viterbi_scan_fwd"] = bound_ms(
+        v_frames * N * 4 + 3 * D_v * S_v * 4 + S_v * 4 + B * 4
+        + B * T * S_v * 4 + B * S_v * 4, 3 * v_frames * D_v * S_v)
+    bounds["viterbi_backtrace"] = bound_ms(
+        (3 * v_frames + (B * T - v_frames)) * 32 + B * S_v * 4 + S_v * 4
+        + B * T * 4 + B * 4, 0)
+
     # both recursions take max(len) - 1 dependent frames (the forward from
     # frame 1, the backward down to frame 1); no design with this
     # arithmetic can take less
     chain = {name: (int(il.max()) - 1) * t["chain_frame_us"] * 1e-3
              for name in ("ctc_alpha", "ctc_grad")}
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
-                  "asg_C": ASG_C, "stc_L": STC_L, "stc_S": S_stc}
+                  "asg_C": ASG_C, "stc_L": STC_L, "stc_S": S_stc,
+                  "ngram2_S": S_f, "iam_S": facts["_iam"][0].shape[1],
+                  "decode_D": D_v, "decode_S": S_v}
     return t, bounds, chain
 
 
@@ -832,6 +1268,14 @@ KERNELS = [
      "gtn_applications_tpu/ops/dense_scan_pallas.py:90", None),
     ("dense_scan_bwd", "gtn_applications_tpu_torch/ops/csrc/dense_scan.cu",
      "gtn_applications_tpu/ops/dense_scan_pallas.py:119", None),
+    ("viterbi_scan_fwd", "gtn_applications_tpu_torch/ops/csrc/viterbi.cu",
+     "gtn_applications_tpu/ops/viterbi_scan_pallas.py:153", None),
+    ("viterbi_backtrace", "gtn_applications_tpu_torch/ops/csrc/viterbi.cu",
+     "gtn_applications_tpu/ops/viterbi_scan_pallas.py:191", None),
+    ("factored_scan_fwd", "gtn_applications_tpu_torch/ops/csrc/dense_scan.cu",
+     "gtn_applications_tpu/ops/dense_scan_pallas.py:276", None),
+    ("factored_scan_bwd", "gtn_applications_tpu_torch/ops/csrc/dense_scan.cu",
+     "gtn_applications_tpu/ops/dense_scan_pallas.py:308", None),
 ]
 
 
@@ -847,15 +1291,21 @@ def run():
     errs.update(phase_ctc(torch, dev))
     merge_errs(errs, phase_dense_bt(torch, dev))
     merge_errs(errs, phase_dense_scan(torch, dev))
+    merge_errs(errs, phase_factored_scan(torch, dev))
+    merge_errs(errs, phase_viterbi(torch, dev))
     paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
              for path in PATHS}
     diffs = {}
     for path, check in (("ctc", phase_main_batch), ("asg", phase_main_batch_asg),
-                        ("stc", phase_main_batch_stc)):
+                        ("stc", phase_main_batch_stc),
+                        ("transducer", phase_main_batch_transducer)):
         main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
+    b, frames, _, n = diffs["transducer_main_batch_shape"]
+    times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
+        torch, dev, b, frames, n)
 
     launches = {name: sum(p["launches"][name] for p in paths.values())
                 for name, *_ in KERNELS}
@@ -880,7 +1330,8 @@ def run():
             "library_ms": times[library] if library else None,
         })
         # dadj's entries reach 1e38, so its absolute error says little: the
-        # entrywise error of hold_dense_scan_kernels is the one checked
+        # entrywise error of hold_dense_scan_kernels (and of
+        # hold_factored_scan_kernels) is the one checked
         if f"{name}_rel" in errs:
             kernels[-1]["max_rel_err"] = errs[f"{name}_rel"]
     print(json.dumps({"timing": timing}))

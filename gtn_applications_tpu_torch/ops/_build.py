@@ -48,16 +48,22 @@ _SIGNATURES = {
     },
     "viterbi": {
         "dense_backtrace": (3, 4),
+        "viterbi_scan_fwd": (8, 6),
+        "viterbi_backtrace": (7, 5),
     },
     "dense_scan": {
         "dense_scan_fwd": (6, 4),
         "dense_scan_bwd": (8, 4),
+        "factored_scan_fwd": (9, 5),
+        "factored_scan_bwd": (12, 6),
     },
 }
 
 LAUNCHES = {
     "gather_fwd": 0, "gather_bwd": 0, "ctc_alpha": 0, "ctc_grad": 0,
     "dense_bt": 0, "dense_scan_fwd": 0, "dense_scan_bwd": 0,
+    "viterbi_scan_fwd": 0, "viterbi_backtrace": 0,
+    "factored_scan_fwd": 0, "factored_scan_bwd": 0,
 }
 
 # Shared memory one block can use on Hopper (227 KB).

@@ -1,10 +1,11 @@
-"""Whole-scan dense-adjacency lattice recursion with a hand-written VJP.
+"""Whole-scan dense-adjacency lattice recursions with hand-written VJPs.
 
-Counterpart of ``dense_scan`` in ``gtn_applications_tpu/ops/dense_scan_pallas.py``
-(Pallas kernels ``_fwd_kernel`` / ``_bwd_kernel``).  The module keeps the
-JAX file's name; the kernels are CUDA C++ for Hopper (``csrc/dense_scan.cu``).
-The transition-factored pair of that file (``factored_scan``) waits for
-ROADMAP queue A item 8.
+Counterpart of ``dense_scan`` and ``factored_scan`` in
+``gtn_applications_tpu/ops/dense_scan_pallas.py`` (Pallas kernels
+``_fwd_kernel`` / ``_bwd_kernel`` and ``_fact_fwd_kernel`` /
+``_fact_bwd_kernel``).  The module keeps the JAX file's name; the kernels
+are CUDA C++ for Hopper (``csrc/dense_scan.cu``).  ``factored_scan`` is
+described at its section below.
 
 Recursion (frame 0 always applied; frames t >= len keep alpha):
 
@@ -189,3 +190,231 @@ def dense_scan(em_state, adj_exp, start, has_lab, lengths):
     Differentiable in ``em_state`` and ``adj_exp``.
     """
     return _DenseScan.apply(em_state, adj_exp, start, has_lab, lengths)
+
+
+# ---------------------------------------------------------------------
+# Transition-factored (bigram) recursion, the scorer of
+# ``factored.factored_lattice_score``:
+#
+#   t = 0 : z = adj_exp @ exp(min(start, 0)) * (start > NEG/2)
+#           alpha = (z > 0) & has ? (em_state + ws_state) + log(max(z, floor))
+#                                 : NEG
+#   t > 0 : v[s, l] = alpha[s] + wsel[s, l],  sh[l] = max(max_s v, NEG)
+#           z[u, l] = sum_s adj_exp[u, s] exp(v[s, l] - sh[l])
+#           m = z > 0 ? sh + log(max(z, floor)) : NEG
+#           alpha[u] = has[u] ? em_state[t, u] + m[u, l_u] : NEG
+#
+# (frames t >= len keep alpha) where has[u] = lab_oh[u] is not all zero and
+# l_u is u's one in-label.  The plain versions compute that literally, the
+# full [S, S] x [S, N] product each frame as the TPU kernel does; the CUDA
+# kernels only the column l_u of each row (``csrc/dense_scan.cu``).
+# Cotangents go to em_state, adj_exp (when it needs one), wsel and
+# ws_state; lab_oh, start and lengths are prepared data and get none.
+# ---------------------------------------------------------------------
+
+
+def factored_scan_fwd_plain(em_state, adj_exp, wsel, lab_oh, ws_state, start,
+                            lengths):
+    """The alpha trajectory [B, T, S], frame by frame."""
+    B, T, _ = em_state.shape
+    has = torch.sum(lab_oh, dim=-1) > 0.0
+    lens = lengths.view(B, 1)
+    z = _bmv(adj_exp, _start_e(start))
+    alpha = torch.where((z > 0.0) & has,
+                        em_state[:, 0] + ws_state
+                        + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
+    traj = [alpha]
+    for t in range(1, T):
+        v = alpha[:, :, None] + wsel                          # [B, S, N]
+        sh = torch.clamp(torch.amax(v, dim=1, keepdim=True), min=NEG)
+        z = torch.bmm(adj_exp, torch.exp(v - sh))             # [B, S, N]
+        m = torch.where(z > 0.0, sh + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
+        pick = torch.sum(m * lab_oh, dim=-1)
+        new = torch.where(has, em_state[:, t] + pick, NEG)
+        alpha = torch.where(t < lens, new, alpha)
+        traj.append(alpha)
+    return torch.stack(traj, dim=1)
+
+
+def factored_scan_bwd_plain(traj, adj_exp, wsel, lab_oh, start, lengths,
+                            g_final, need_dadj=True):
+    """(dem [B, T, S], dadj [B, S, S] or None, dwsel [B, S, N], dws [B, S])
+    from the cotangent of the final alpha, replaying the recursion in
+    reverse."""
+    B, T, S = traj.shape
+    has = torch.sum(lab_oh, dim=-1) > 0.0
+    lens = lengths.view(B, 1)
+    g = g_final
+    dem = [None] * T
+    dadj = torch.zeros_like(adj_exp) if need_dadj else None
+    dwsel = torch.zeros_like(wsel)
+    for t in reversed(range(1, T)):
+        v = traj[:, t - 1, :, None] + wsel
+        sh = torch.clamp(torch.amax(v, dim=1, keepdim=True), min=NEG)
+        E = torch.exp(v - sh)
+        z = torch.bmm(adj_exp, E)
+        live = t < lens
+        ga = torch.where(live & has, g, 0.0)
+        dem[t] = ga
+        dz = torch.where(z > 0.0,
+                         ga[:, :, None] * lab_oh / torch.clamp(z, min=_FLOOR), 0.0)
+        if need_dadj:
+            dadj = dadj + torch.bmm(dz, E.transpose(1, 2))
+        dv = torch.bmm(adj_exp.transpose(1, 2), dz) * E
+        dwsel = dwsel + dv
+        g = torch.sum(dv, dim=-1) + torch.where(live, 0.0, g)
+    e = _start_e(start)
+    z = _bmv(adj_exp, e)
+    ga = torch.where((z > 0.0) & has, g, 0.0)
+    dem[0] = ga
+    if need_dadj:
+        dadj = dadj + (ga / torch.clamp(z, min=_FLOOR))[:, :, None] * e[:, None, :]
+    return torch.stack(dem, dim=1), dadj, dwsel, ga
+
+
+def label_index(lab_oh):
+    """Each state's in-label [B, S] int32: the one-hot's index, -1 for a
+    zero row."""
+    has = torch.sum(lab_oh, dim=-1) > 0.0
+    return torch.where(has, torch.argmax(lab_oh, dim=-1), -1).to(torch.int32)
+
+
+def _fact_mats_in_smem(S, N, backward):
+    """Whether the kernel's matrices fit in shared memory beside its
+    vectors (the layout of ``fact_smem`` in csrc/dense_scan.cu)."""
+    L = min(S, N)
+    ints = N + 3 * L + 2 * S + 2 if backward else N + L + S + 1
+    vecs = 4 * S if backward else 2 * S + L
+    mats = S * S + (3 if backward else 2) * L * S
+    return 4 * (ints + vecs + mats) <= _build.MAX_SMEM
+
+
+def _fact_check(name, em_or_traj, adj, wsel, lab_oh, start, lengths):
+    _build.require_cuda(name, em_or_traj, adj, wsel, lab_oh, start, lengths)
+    B, T, S = em_or_traj.shape
+    N = wsel.shape[2]
+    _build.require(f"{name} states", em_or_traj, (B, T, S), torch.float32)
+    _build.require(f"{name} adj_exp", adj, (B, S, S), torch.float32)
+    _build.require(f"{name} wsel", wsel, (B, S, N), torch.float32)
+    _build.require(f"{name} lab_oh", lab_oh, (B, S, N), torch.float32)
+    _build.require(f"{name} start", start, (B, S), torch.float32)
+    _build.require(f"{name} lengths", lengths, (B,), torch.int32)
+    if T < 1 or N < 1:
+        raise ValueError(f"{name} needs at least one frame and one label")
+    return B, T, S, N
+
+
+def _scratch(B, S, N, backward, device):
+    """The kernel's matrices in global memory when they do not fit in
+    shared memory (a null pointer otherwise)."""
+    if _fact_mats_in_smem(S, N, backward):
+        return None, 1
+    per = S * S + (3 if backward else 2) * min(S, N) * S
+    return torch.empty(B * per, dtype=torch.float32, device=device), 0
+
+
+def factored_scan_fwd_cuda(em_state, adj_exp, wsel, lab_oh, ws_state, start,
+                           lengths):
+    """Launch ``factored_scan_fwd``: em_state [B, T, S], adj_exp [B, S, S],
+    wsel/lab_oh [B, S, N], ws_state/start [B, S] float32, lengths [B] int32
+    -> traj [B, T, S]."""
+    B, T, S, N = _fact_check("factored_scan_fwd", em_state, adj_exp, wsel, lab_oh,
+                             start, lengths)
+    _build.require_cuda("factored_scan_fwd", em_state, ws_state)
+    _build.require("factored_scan_fwd ws_state", ws_state, (B, S), torch.float32)
+    lab_idx = label_index(lab_oh)
+    traj = torch.empty((B, T, S), dtype=torch.float32, device=em_state.device)
+    scratch, in_smem = _scratch(B, S, N, False, em_state.device)
+    lib = _build.load_library("dense_scan")
+    with torch.cuda.device(em_state.device):
+        err = lib.factored_scan_fwd(
+            em_state.data_ptr(), adj_exp.data_ptr(), wsel.data_ptr(),
+            lab_idx.data_ptr(), ws_state.data_ptr(), start.data_ptr(),
+            lengths.data_ptr(), traj.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, T, S, N, in_smem, _build.stream_handle(em_state),
+        )
+    _build.check(lib, err, "factored_scan_fwd")
+    _build.LAUNCHES["factored_scan_fwd"] += 1
+    return traj
+
+
+def factored_scan_bwd_cuda(traj, adj_exp, wsel, lab_oh, start, lengths,
+                           g_final, need_dadj=True):
+    """Launch ``factored_scan_bwd``: traj [B, T, S], adj_exp [B, S, S],
+    wsel/lab_oh [B, S, N], start/g_final [B, S] float32, lengths [B] int32
+    -> (dem [B, T, S], dadj [B, S, S] or None, dwsel [B, S, N], dws [B, S])."""
+    B, T, S, N = _fact_check("factored_scan_bwd", traj, adj_exp, wsel, lab_oh,
+                             start, lengths)
+    _build.require_cuda("factored_scan_bwd", traj, g_final)
+    _build.require("factored_scan_bwd g_final", g_final, (B, S), torch.float32)
+    lab_idx = label_index(lab_oh)
+    dev = traj.device
+    dem = torch.empty((B, T, S), dtype=torch.float32, device=dev)
+    dadj = torch.empty_like(adj_exp) if need_dadj else None
+    dwsel = torch.empty_like(wsel)
+    dws = torch.empty((B, S), dtype=torch.float32, device=dev)
+    scratch, in_smem = _scratch(B, S, N, True, dev)
+    lib = _build.load_library("dense_scan")
+    with torch.cuda.device(dev):
+        err = lib.factored_scan_bwd(
+            traj.data_ptr(), adj_exp.data_ptr(), wsel.data_ptr(),
+            lab_idx.data_ptr(), start.data_ptr(), lengths.data_ptr(),
+            g_final.data_ptr(), dem.data_ptr(),
+            dadj.data_ptr() if need_dadj else None, dwsel.data_ptr(),
+            dws.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, T, S, N, in_smem, _build.MAX_SMEM, _build.stream_handle(traj),
+        )
+    _build.check(lib, err, "factored_scan_bwd")
+    _build.LAUNCHES["factored_scan_bwd"] += 1
+    return dem, dadj, dwsel, dws
+
+
+class _FactoredScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, em_state, adj_exp, wsel, lab_oh, ws_state, start, lengths):
+        em_state = em_state.to(torch.float32).contiguous()
+        adj_exp = adj_exp.to(torch.float32).contiguous()
+        wsel = wsel.to(torch.float32).contiguous()
+        lab_oh = lab_oh.to(torch.float32).contiguous()
+        ws_state = ws_state.to(torch.float32).contiguous()
+        start = start.to(torch.float32).contiguous()
+        lengths = lengths.to(device=em_state.device, dtype=torch.int32).contiguous()
+        args = (em_state, adj_exp, wsel, lab_oh, ws_state, start, lengths)
+        if _build.on_cuda(em_state):
+            traj = factored_scan_fwd_cuda(*args)
+        else:
+            traj = factored_scan_fwd_plain(*args)
+        ctx.save_for_backward(traj, adj_exp, wsel, lab_oh, start, lengths)
+        return traj[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, g_final):
+        traj, adj_exp, wsel, lab_oh, start, lengths = ctx.saved_tensors
+        g_final = g_final.to(torch.float32).contiguous()
+        args = (traj, adj_exp, wsel, lab_oh, start, lengths, g_final,
+                ctx.needs_input_grad[1])
+        if _build.on_cuda(traj):
+            dem, dadj, dwsel, dws = factored_scan_bwd_cuda(*args)
+        else:
+            dem, dadj, dwsel, dws = factored_scan_bwd_plain(*args)
+        return dem, dadj, dwsel, None, dws, None, None
+
+
+def factored_scan(em_state, adj_exp, wsel, lab_oh, ws_state, start, lengths):
+    """Final alpha [B, S] of the transition-factored recursion.
+
+    Args:
+      em_state: [B, T, S] per-state emissions.
+      adj_exp: [B, S, S] — adj_exp[b, u, s] = sum over arcs s -> u of e^w.
+      wsel: [B, S, N] — wsel[b, s, l] = W[l_s, l], the bigram weight of
+        entering label l from state s.
+      lab_oh: [B, S, N] one-hot of each state's in-label (zero rows for
+        states without one).
+      ws_state: [B, S] start weight of each state's label (frame 0).
+      start: [B, S] 0-or-NEG start potentials.
+      lengths: [B] int input lengths (frame 0 is applied even at 0).
+    Differentiable in ``em_state``, ``adj_exp``, ``wsel`` and ``ws_state``.
+    """
+    return _FactoredScan.apply(em_state, adj_exp, wsel, lab_oh, ws_state,
+                               start, lengths)

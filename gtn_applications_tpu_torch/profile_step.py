@@ -1,7 +1,7 @@
 """Where one train step of a main path spends its device time.
 
     python -m gtn_applications_tpu_torch.profile_step [--steps 10] \
-        [--config configs/iamdb/tds2d_asg.json]
+        [--config configs/iamdb/tds2d_asg.json | tds2d_stc.json | ngram_ctc.json]
 
 Builds the model and criterion of the config (configs/iamdb/tds2d.json, the
 CTC path, by default) with random weights from a seed, takes one batch of

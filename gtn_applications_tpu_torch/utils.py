@@ -1,10 +1,11 @@
 """Experiment runtime: factories, batching, metrics, timers, checkpoints.
 
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
-TDS2d path uses with the CTC, ASG and STC criteria.  The batch sampler emits width-sorted, bucketed
-batches; timers synchronise the CUDA device before reading the clock; and
-checkpoints are pickled ``state_dict``s.  Only the ``tds2d`` model and the
-``ctc``, ``asg`` and ``stc`` criteria resolve in the factories so far.
+TDS2d path uses with the CTC, ASG, STC and Transducer criteria.  The batch
+sampler emits width-sorted, bucketed batches; timers synchronise the CUDA
+device before reading the clock; and checkpoints are pickled
+``state_dict``s.  Only the ``tds2d`` model and the ``ctc``, ``asg``,
+``stc`` and ``transducer`` criteria resolve in the factories so far.
 """
 
 import logging
@@ -303,9 +304,10 @@ def load_model(model_type, input_size, output_size, config, generator=None):
 
 
 def load_criterion(criterion_type, preprocessor, config):
-    """Criterion factory: (criterion, model output size).  ``ctc``, ``asg``
-    and ``stc`` are ported."""
-    from .criterions import ASG, CTC, STC
+    """Criterion factory: (criterion, model output size).  ``ctc``,
+    ``asg``, ``stc`` and ``transducer`` (full n-gram or no transitions)
+    are ported."""
+    from .criterions import ASG, CTC, STC, Transducer
 
     num_tokens = preprocessor.num_tokens
     if criterion_type == "asg":
@@ -342,9 +344,18 @@ def load_criterion(criterion_type, preprocessor, config):
             num_tokens + 1,
         )
     if criterion_type == "transducer":
-        raise NotImplementedError(
-            "criterion 'transducer' is not ported yet (ROADMAP queue A item 8)"
+        if config.get("transitions") is not None:
+            raise NotImplementedError(
+                "Transducer transitions loaded from a file (the backoff "
+                "variants) are not ported yet (ROADMAP queue A items 7 and 8)"
+            )
+        blank = config.get("blank", "none")
+        criterion = Transducer(
+            preprocessor.tokens, preprocessor.graphemes_to_index,
+            ngram=config.get("ngram", 0), blank=blank,
+            allow_repeats=config.get("allow_repeats", True), reduction="mean",
         )
+        return criterion, num_tokens + int(blank != "none")
     raise ValueError(f"Unknown criterion type {criterion_type}")
 
 

@@ -1,9 +1,15 @@
-"""Host WFST front of the port: graphs and their compiled arc tables.
+"""Host WFST front of the port: graphs, their compiled arc tables, and the
+bindings to the native graph compiler.
 
-Only what the STC dense tier needs is here (``Graph``, ``compile_acceptor``
-without epsilon removal).  The sparse arc-table tier, epsilon removal and
-the native graph bindings wait for ROADMAP queue A item 7.
+What the STC dense tier and the Transducer's factored path need is here
+(``Graph``, ``compile_acceptor`` without epsilon removal, the decode
+template, ``to_arc_table``, ``native.compile_alignment``).  The sparse
+arc-table tier, epsilon removal and the pure-Python composition
+(``wfst/ops.py``) wait for ROADMAP queue A item 7.
 """
 
-from .compile import CompiledGraph, compile_acceptor
-from .graph import EPSILON, Graph
+from .compile import (
+    CompiledGraph, DecodeTemplate, apply_decode_weights, build_decode_template,
+    compile_acceptor, to_arc_table,
+)
+from .graph import EPSILON, Graph, linear_graph

@@ -1,18 +1,24 @@
 """Compile host Graphs into fixed-shape numpy arc tables.
 
-Counterpart of ``CompiledGraph``, ``_eps_depth`` and ``compile_acceptor``
-of ``gtn_applications_tpu/wfst/compile.py``: an acceptor Graph becomes
-numpy arrays (emitting arcs, epsilon arcs with their closure depth, start
-and accept potentials).  Epsilon removal (``remove_eps=True``), the padded
-and stacked arc tables and the sparse scorer they feed are not ported yet
-(ROADMAP queue A item 7).
+Counterpart of ``CompiledGraph``, ``_eps_depth``, ``compile_acceptor``,
+the decode template (``DecodeTemplate``, ``build_decode_template``,
+``apply_decode_weights``) and ``to_arc_table`` of
+``gtn_applications_tpu/wfst/compile.py``: an acceptor Graph becomes numpy
+arrays (emitting arcs, epsilon arcs with their closure depth, start and
+accept potentials), and a transition graph with learnable arc weights
+becomes an epsilon-free tropical decode ``ArcTable`` re-weighted per
+parameter update in O(nnz) numpy.  Epsilon removal inside
+``compile_acceptor`` (``remove_eps=True``) and the stacked arc tables of
+the sparse scorer are not ported yet (ROADMAP queue A item 7).
 """
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..ops.semiring import NEG
+from ..ops.sparse import ArcTable
 from .graph import EPSILON, Graph
 
 
@@ -113,4 +119,149 @@ def compile_acceptor(g: Graph, remove_eps: bool = False) -> CompiledGraph:
         eps_weight=np.asarray(eweight, dtype=np.float32),
         eps_arc_id=np.asarray(earc_id, dtype=np.int32),
         eps_depth=_eps_depth(g),
+    )
+
+
+class DecodeTemplate(NamedTuple):
+    """Weight-independent epsilon-removed structure for tropical decode
+    tables: which arcs exist, and which original arcs each derives from.
+
+    weight[i] = sum(w[contrib_ids[indptr[i]:indptr[i+1]]])
+    accept[s] = max over final terms t at s of
+                final_const[t] + sum(w[f_contrib[f_indptr[t]:f_indptr[t+1]]])
+    """
+
+    src: np.ndarray
+    dst: np.ndarray
+    label: np.ndarray
+    start: np.ndarray
+    contrib_ids: np.ndarray
+    indptr: np.ndarray
+    final_state: np.ndarray
+    final_const: np.ndarray
+    f_contrib: np.ndarray
+    f_indptr: np.ndarray
+    num_states: int
+
+
+_MAX_EPS_PATHS = 100000  # epsilon paths out of one state before refusing
+
+
+def build_decode_template(g: Graph) -> DecodeTemplate:
+    """One-time structural epsilon removal with arc-id provenance: every
+    epsilon run folds into the following emitting arc, trailing runs into
+    finals.  Dead states are kept (their NEG accept potential excludes them
+    from any tropical best path)."""
+    eps_adj, nonteps = {}, {}
+    for i in range(g.num_arcs()):
+        il, ol = g.arc_ilabel[i], g.arc_olabel[i]
+        if il == EPSILON and ol == EPSILON:
+            eps_adj.setdefault(g.arc_src[i], []).append(i)
+        else:
+            if il == EPSILON or ol == EPSILON:
+                raise ValueError(
+                    "build_decode_template requires an acceptor"
+                )
+            nonteps.setdefault(g.arc_src[i], []).append(i)
+
+    src, dst, label = [], [], []
+    contrib, indptr = [], [0]
+    f_state, f_const, f_contrib, f_indptr = [], [], [], [0]
+    for s in range(g.num_nodes()):
+        # all epsilon paths out of s, with the arc ids along each
+        stack = [(s, (), frozenset([s]))]
+        paths = []
+        while stack:
+            u, ids, onpath = stack.pop()
+            paths.append((u, ids))
+            if len(paths) > _MAX_EPS_PATHS:
+                raise ValueError("epsilon path explosion")
+            for a in eps_adj.get(u, ()):
+                v = g.arc_dst[a]
+                if v in onpath:
+                    raise ValueError("epsilon cycle detected")
+                stack.append((v, ids + (a,), onpath | {v}))
+        for u, ids in paths:
+            for fw in g.finals.get(u, ()):
+                f_state.append(s)
+                f_const.append(fw)
+                f_contrib.extend(ids)
+                f_indptr.append(len(f_contrib))
+            for a in nonteps.get(u, ()):
+                src.append(s)
+                dst.append(g.arc_dst[a])
+                label.append(g.arc_ilabel[a])
+                contrib.extend(ids)
+                contrib.append(a)
+                indptr.append(len(contrib))
+
+    start = np.full((g.num_nodes(),), NEG, dtype=np.float32)
+    for s in g.start_nodes():
+        start[s] = 0.0
+    return DecodeTemplate(
+        src=np.asarray(src, np.int32),
+        dst=np.asarray(dst, np.int32),
+        label=np.asarray(label, np.int32),
+        start=start,
+        contrib_ids=np.asarray(contrib, np.int64),
+        indptr=np.asarray(indptr, np.int64),
+        final_state=np.asarray(f_state, np.int64),
+        final_const=np.asarray(f_const, np.float64),
+        f_contrib=np.asarray(f_contrib, np.int64),
+        f_indptr=np.asarray(f_indptr, np.int64),
+        num_states=g.num_nodes(),
+    )
+
+
+def _segment_sums(w, ids, indptr):
+    cs = np.concatenate([[0.0], np.cumsum(w[ids])])
+    return cs[indptr[1:]] - cs[indptr[:-1]]
+
+
+def apply_decode_weights(tmpl: DecodeTemplate, weights):
+    """Re-weight a DecodeTemplate -> tropical decode ArcTable in O(nnz)."""
+    w = np.asarray(weights, dtype=np.float64)
+    weight = _segment_sums(w, tmpl.contrib_ids, tmpl.indptr)
+    accept = np.full((tmpl.num_states,), NEG, dtype=np.float64)
+    if len(tmpl.final_state):
+        terms = tmpl.final_const + _segment_sums(
+            w, tmpl.f_contrib, tmpl.f_indptr
+        )
+        np.maximum.at(accept, tmpl.final_state, terms)
+    empty_i, empty_f = np.asarray([], np.int32), np.asarray([], np.float32)
+    cg = CompiledGraph(
+        src=tmpl.src, dst=tmpl.dst, label=tmpl.label,
+        weight=weight.astype(np.float32),
+        arc_id=np.arange(len(tmpl.src), dtype=np.int32),
+        start=tmpl.start, accept=accept.astype(np.float32),
+        eps_src=empty_i, eps_dst=empty_i, eps_weight=empty_f,
+        eps_arc_id=empty_i, eps_depth=0,
+    )
+    return to_arc_table(cg)
+
+
+def to_arc_table(cg: CompiledGraph):
+    """Single CompiledGraph -> ArcTable of CPU tensors.  A graph without
+    arcs (or states) gets one padding arc from state 0 to the last state
+    with weight NEG (one state with NEG start and accept potentials)."""
+    A = max(len(cg.src), 1)
+    S = max(len(cg.start), 1)
+    E = len(cg.eps_src)
+
+    def pad(x, size, value, dtype):
+        x = np.asarray(x, dtype)
+        return torch.from_numpy(
+            np.concatenate([x, np.full(size - len(x), value, dtype)]))
+
+    return ArcTable(
+        src=pad(cg.src, A, 0, np.int32),
+        dst=pad(cg.dst, A, S - 1, np.int32),
+        label=pad(cg.label, A, 0, np.int32),
+        weight=pad(cg.weight, A, NEG, np.float32),
+        start=pad(cg.start, S, NEG, np.float32),
+        accept=pad(cg.accept, S, NEG, np.float32),
+        eps_src=pad(cg.eps_src, E, 0, np.int32),
+        eps_dst=pad(cg.eps_dst, E, S - 1, np.int32),
+        eps_weight=pad(cg.eps_weight, E, NEG, np.float32),
+        eps_depth=cg.eps_depth,
     )

@@ -59,3 +59,32 @@ def test_new_cuda_wrappers_refuse_bad_inputs(cuda_device):
         dense_scan_pallas.dense_scan_fwd_cuda(em, adj, vec, vec, lens.long())
     with pytest.raises(ValueError):
         dense_scan_pallas.dense_scan_bwd_cuda(em, adj, vec, vec, lens, vec.cpu())
+
+
+@pytest.mark.cuda
+def test_transducer_cuda_wrappers_refuse_bad_inputs(cuda_device):
+    B, T, S, N, D = 2, 3, 4, 5, 2
+    em = torch.zeros(B, T, S, device=cuda_device)
+    adj = torch.zeros(B, S, S, device=cuda_device)
+    wsel = torch.zeros(B, S, N, device=cuda_device)
+    vec = torch.zeros(B, S, device=cuda_device)
+    lens = torch.ones(B, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        dense_scan_pallas.factored_scan_fwd_cuda(em, adj, wsel[:, :, :4], wsel,
+                                                 vec, vec, lens)
+    with pytest.raises(ValueError):
+        dense_scan_pallas.factored_scan_fwd_cuda(em, adj, wsel, wsel, vec, vec,
+                                                 lens.long())
+    with pytest.raises(ValueError):
+        dense_scan_pallas.factored_scan_bwd_cuda(em, adj, wsel, wsel, vec, lens,
+                                                 vec.cpu())
+    src = torch.zeros(D, S, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(D, S, device=cuda_device)
+    start = torch.zeros(S, device=cuda_device)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src, src, w, start[:3], lens)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src.long(), src, w, start, lens)
+    slots = torch.zeros(B, T, S, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.viterbi_backtrace_cuda(slots, vec, start, src, src[:1])
