@@ -42,26 +42,43 @@ prints no result):
    bigram table over 160 labels (B=8; D=161, S=162: tables past shared
    memory) and on a skewed random table with an infeasible sample: slots
    and labels bitwise equal, final alphas and scores within 1e-6;
-9. four main paths, CTC, ASG, STC and the Transducer: ``train.train`` of
-   the port for 2 epochs (64 synthetic samples, batch 32: 4 steps plus
-   validation) with the model and criterion sections of
-   configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json and
-   ngram_ctc.json unchanged, then ``test.run_test`` on the checkpoint; the
-   launch counters are zeroed just before each path and read just after:
-   each kernel of the path must have launched once per train step
-   (backward kernels) or once per train step and per evaluation batch
-   (forward kernels and the decode's, which every batch reaches), and no
-   kernel of another path at all;
-10. the trainer's first batch of each path through its trained model: for
+9. the sparse kernels (seg_lse on each round of a table's start closure,
+   the whole sparse scan on the table) against their plain versions run
+   in float64, at bench.py's loaded backoff-LM protocol (its normaliser,
+   S=1,004, A=6,618, E=1,183, and its composed union tables; B=32, T=100,
+   N=1,001), on the main path's per-sample trigram tables (T=300), on an
+   all-live random table, on STC's depth-0 union table and on a table
+   past shared memory: values within atol 1e-3 + rtol 1e-5 on live states
+   (the scan's trajectory: within 80 nats of the frame's best), the
+   cotangents (dalpha, dcontrib; dem, dw, deps, dalpha0) entry by entry
+   within 1e-5 (|p| + the median nonzero |p|);
+10. five main paths, CTC, ASG, STC, the Transducer and the Transducer
+   with a loaded backoff LM: ``train.train`` of the port for 2 epochs (64
+   synthetic samples, batch 32: 4 steps plus validation) with the model
+   and criterion sections of configs/iamdb/tds2d.json, tds2d_asg.json,
+   tds2d_stc.json, ngram_ctc.json and pruned_ngram_ctc.json unchanged
+   (the last on the long-line corpus, its transitions the grapheme
+   trigram of the recipe's settings built into build/), then
+   ``test.run_test`` on the checkpoint; the launch counters are zeroed
+   just before each path and read just after: each kernel of the path
+   must have launched once per train step (backward kernels) or once per
+   train step and per evaluation batch (forward kernels and the decode's,
+   which every batch reaches), the backoff path's sparse kernels exactly
+   as often as its tables' closure depths say, and no kernel of another
+   path at all;
+11. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
    gradient) on the card against the CPU on the same logits (CTC 1e-4 and
-   1e-6, the others 1e-4 and 1e-5); and the path's kernels against their
-   plain versions on the inputs the train step and the decode give them,
-   at the tolerances of phases 3-8;
-11. times: CUDA-event medians of 30 runs after warm-up at the phase 4-8
-   headline shapes for each kernel, its plain version and F.ctc_loss, the
-   host-clock median of 20 full train steps of each path, the latency of
+   1e-6, the others 1e-4 and 1e-5; the backoff path against the CPU in
+   float64, loss 1e-4, gradients 1e-3 of their largest entry); and the
+   path's kernels against their plain versions on the inputs the train
+   step and the decode give them, at the tolerances of phases 3-9;
+12. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9
+   headline shapes for each kernel, its plain version and F.ctc_loss (the
+   sparse kernels also on the 1kwp composed tables and the main path's
+   trigram tables), the host-clock median of 20 full train steps of each
+   path, the latency of
    one frame of the CTC recursion's dependent chain (``ctc_chain_probe``)
    for the CTC kernels' chain bound, and the device time and kernel
    launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
@@ -71,6 +88,7 @@ Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 """
 
+import functools
 import json
 import math
 import statistics
@@ -728,6 +746,287 @@ def phase_viterbi(torch, dev):
     return errs
 
 
+# The sparse tier at the loaded backoff-LM protocol of bench.py: a pruned
+# bigram with optional blank and self-loops over 1,000 wordpieces (N = 1,001
+# channels), B = 32, T = 100, targets of L = 15
+LM_B, LM_T, LM_L, LM_TOKENS = 32, 100, 15, 1000
+# a random table past shared memory: B, T, C, S, A, E
+WIDE_SPARSE = (8, 64, 100, 1024, 18000, 1024)
+
+
+def backoff_lm_criterion(ntok=LM_TOKENS):
+    """bench.py's ``_backoff_lm_protocol`` graph and Transducer, built with
+    the port's copy of build_transitions (the same corpus from the same
+    seed)."""
+    import random
+
+    from gtn_applications_tpu_torch.criterions import Transducer
+    from gtn_applications_tpu_torch.scripts.build_transitions import build_from_lines
+
+    rng = random.Random(0)
+    lines = [[str(min(ntok - 1, int(rng.paretovariate(1.1)) - 1))
+              for _ in range(rng.randint(5, 20))] for _ in range(4000)]
+    order = list(range(ntok))
+    rng.shuffle(order)
+    lines += [[str(i) for i in order[k:k + 10]] for k in range(0, ntok, 10)]
+    g = build_from_lines(lines, [str(i) for i in range(ntok)], [0, 0], "optional",
+                         self_loops=True)
+    return Transducer([(i,) for i in range(ntok)], {i: i for i in range(ntok)},
+                      transitions=g, blank="optional", reduction="mean")
+
+
+def transducer_tables(torch, dev, crit, prepared, params):
+    """The composed ("score") and normaliser ("norm") tables as
+    Transducer.loss weights them, on the card."""
+    from gtn_applications_tpu_torch.train import to_device
+
+    prep = to_device(prepared, dev)
+    score = crit._apply_params(prep["table"], prep["widx"], prep["eps_widx"], params)
+    return {"score": score, "norm": crit._apply_params(*crit._norm_table_on(dev), params)}
+
+
+def backoff_lm_inputs(torch, dev, seed=0):
+    """bench.py's inputs [B, T, N + 1] and targets for the protocol, random
+    N(0, 0.3) transition weights, input lengths over 4T/5..T; returns
+    (criterion, em, lens, tables)."""
+    crit = backoff_lm_criterion()
+    rng = np.random.RandomState(seed)
+    em = torch.as_tensor(rng.randn(LM_B, LM_T, LM_TOKENS + 1).astype(np.float32),
+                         device=dev)
+    targets = [rng.randint(0, LM_TOKENS, size=LM_L).tolist() for _ in range(LM_B)]
+    params = torch.as_tensor((rng.randn(crit.num_transition_arcs) * 0.3)
+                             .astype(np.float32), device=dev)
+    lens = torch.as_tensor(ragged_lengths(rng, LM_B, LM_T), dtype=torch.int32,
+                           device=dev)
+    return crit, em, lens, transducer_tables(torch, dev, crit, crit.prepare(targets),
+                                             params)
+
+
+def _layered_eps(rng, s, e):
+    """Epsilon arcs from the top half of the states to the second quarter
+    and from there to the first: a closure of depth 2."""
+    half, quarter = s // 2, s // 4
+    top = e // 2
+    src = np.concatenate([rng.randint(half, s, top), rng.randint(quarter, half, e - top)])
+    dst = np.concatenate([rng.randint(quarter, half, top), rng.randint(0, quarter, e - top)])
+    return src, dst
+
+
+def random_sparse_table(torch, dev, b, t, c, s, a, e, seed=9):
+    """A shared random table in which every state is live on every frame:
+    every state starts (start 0) and has an in-arc from state 0 (whose
+    self-loop keeps it live), the rest of the arcs random, weights N(0,
+    0.5), layered epsilon arcs of depth 2; emissions N(-4, 1), accept 0,
+    input lengths over 4t/5..t."""
+    from gtn_applications_tpu_torch.ops import sparse
+
+    rng = np.random.RandomState(seed)
+    src = np.concatenate([np.zeros(s, np.int64), rng.randint(0, s, a - s)])
+    dst = np.concatenate([np.arange(s), rng.randint(0, s, a - s)])
+    esrc, edst = _layered_eps(rng, s, e)
+    to = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)  # noqa: E731
+    table = sparse.ArcTable(
+        to(src, torch.int32), to(dst, torch.int32), to(rng.randint(0, c, a), torch.int32),
+        to(rng.randn(a) * 0.5, torch.float32), torch.zeros(s, device=dev),
+        torch.zeros(s, device=dev), to(esrc, torch.int32), to(edst, torch.int32),
+        to(rng.randn(e) * 0.5, torch.float32), eps_depth=2)
+    em = to(rng.randn(b, t, c) - 4, torch.float32)
+    return em, table, to(ragged_lengths(rng, b, t), torch.int32)
+
+
+def _as2d(x):
+    return x[None] if x.dim() == 1 else x
+
+
+def sparse_fields(table):
+    """(src, dst, label, weight, eps_src, eps_dst, eps_weight) 2-D,
+    start and accept 2-D, and the depth the kernels run."""
+    fields = [_as2d(getattr(table, f)).contiguous() for f in (
+        "src", "dst", "label", "weight", "eps_src", "eps_dst", "eps_weight")]
+    depth = table.eps_depth if fields[4].shape[-1] else 0
+    return fields, _as2d(table.start), _as2d(table.accept), depth
+
+
+def hold_live(torch, name, k, p, what, all_live=False, floor=None):
+    """k against p within atol 1e-3 + rtol 1e-5 on the states p keeps live
+    (both must agree on which) and, with ``floor``, above it: returns the
+    max abs error there."""
+    from gtn_applications_tpu_torch.ops.semiring import DEAD
+
+    live = p > DEAD
+    if not torch.equal(k > DEAD, live):
+        raise AssertionError(f"{name}: live states differ at {what}")
+    if all_live and not bool(live.all()):
+        raise AssertionError(f"{name}: dead states in the all-live case {what}")
+    if floor is not None:
+        live = live & (p > floor)
+    torch.testing.assert_close(k[live], p[live], atol=1e-3, rtol=1e-5)
+    return float((k[live] - p[live]).abs().max()) if bool(live.any()) else 0.0
+
+
+def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
+                        past_smem=False):
+    """The seg_lse pair on each step of the table's start closure and the
+    whole-scan pair on the table, kernels against their plain versions on
+    the same inputs, the plain versions evaluated in float64: values within
+    atol 1e-3 + rtol 1e-5 on live states (the scan's trajectory: on those
+    within 80 nats of the frame's largest), the cotangents (dalpha and
+    dcontrib; dem, dw, deps, dalpha0) entry by entry within 1e-5 (|p| +
+    the median nonzero |p|).  float64, because the plain versions' sums
+    (``scatter_add`` over up to 1,000 arcs into one state, in no fixed
+    order) are the less accurate side in float32: at the 1kwp normaliser
+    their backward is 1.25e-5 from float64 entry by entry, the kernel's
+    1.5e-6.  ``past_smem``: the scan's tables must be read from global
+    memory."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+    from gtn_applications_tpu_torch.ops.semiring import logaddexp
+
+    (src, dst, label, w, esrc, edst, ew), start, accept, depth = sparse_fields(table)
+    B, T, C = em.shape
+    S = start.shape[-1]
+    f64 = lambda *xs: [x.double() for x in xs]  # noqa: E731
+    errs, rels = {"seg_lse_fwd": 0.0, "seg_lse_bwd": 0.0}, {}
+    alpha0 = start.expand(B, S).contiguous()
+    rng = np.random.RandomState(10)
+    if depth:
+        idx = slp.arc_index(esrc, edst, S)
+        zero = torch.zeros_like(ew)
+        ew_s, z_s = slp.take(ew, idx.order), slp.take(zero, idx.order)
+        acc = cur = alpha0
+        for d in range(depth):
+            out_k = slp.seg_lse_fwd_cuda(cur, ew_s, z_s, idx)
+            c64, ew64, zero64 = f64(cur, ew, zero)
+            out_p = slp.seg_lse_fwd_plain(c64, esrc, edst, ew64, zero64)
+            errs["seg_lse_fwd"] = max(errs["seg_lse_fwd"], hold_live(
+                torch, "seg_lse_fwd", out_k.double(), out_p, what))
+            g = torch.as_tensor(rng.rand(B, S).astype(np.float32), device=em.device)
+            da_k, dc_k = slp.seg_lse_bwd_cuda(cur, ew_s, z_s, idx, g)
+            da_p, dc_p = slp.seg_lse_bwd_plain(c64, esrc, edst, ew64, zero64, g.double())
+            for name, k, p in (("dalpha", da_k, da_p),
+                               ("dcontrib", slp.untake(dc_k, idx.order), dc_p)):
+                rel, err = hold_entrywise(torch, f"seg_lse_bwd {name}", k, p, what)
+                rels[f"seg_lse {name}"] = max(rels.get(f"seg_lse {name}", 0.0), rel)
+                errs["seg_lse_bwd"] = max(errs["seg_lse_bwd"], err)
+            cur = out_p.float()
+            acc = logaddexp(acc, cur)
+        alpha0 = acc.contiguous()
+    plan = ssp.scan_plan(src, dst, label, esrc, edst, S, C)
+    fwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, False)
+    bwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, True)
+    if past_smem and (fwd_smem or bwd_smem):
+        raise AssertionError(f"sparse_scan: the tables of {what} fit in shared memory")
+    em64, a64, w64, ew64 = f64(em, alpha0, w, ew)
+    tr_k, sh_k = ssp.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, depth)
+    tr_p, sh_p = ssp.sparse_scan_fwd_plain(em64, a64, lens, plan, w64, ew64, depth)
+    # the trajectory is relative to each frame's largest alpha: states more
+    # than 80 nats below it carry no probability (exp underflows; the TPU
+    # kernel flushes them to NEG), and over ~600 frames their float32
+    # values drift by more than the tolerance, so they are compared only
+    # for liveness
+    errs["sparse_scan_fwd"] = hold_live(torch, "sparse_scan_fwd", tr_k.double(), tr_p,
+                                        what, all_live, floor=-80.0)
+    torch.testing.assert_close(sh_k.double(), sh_p, atol=1e-3, rtol=1e-5)
+    # the backward from the same float32 trajectory, the kernel's
+    g = score_cotangent(torch, tr_k[:, -1], accept)
+    out_k = ssp.sparse_scan_bwd_cuda(em, tr_k, lens, plan, w, ew, depth, g)
+    out_p = ssp.sparse_scan_bwd_plain(em64, tr_k.double(), lens, plan, w64, ew64,
+                                      depth, g.double())
+    torch.cuda.synchronize()
+    errs["sparse_scan_bwd"] = 0.0
+    for name, k, p in zip(("dem", "dw", "deps", "dalpha0"), out_k, out_p):
+        if p.numel():
+            rels[name], err = hold_entrywise(torch, f"sparse_scan_bwd {name}", k, p, what)
+            errs["sparse_scan_bwd"] = max(errs["sparse_scan_bwd"], err)
+    log(f"sparse {what}: S={S} A={src.shape[1]} E={esrc.shape[1]} depth={depth} "
+        f"layout src/w/eps {src.shape[0]}/{w.shape[0]}/{ew.shape[0]}, tables in "
+        f"shared memory fwd {fwd_smem} bwd {bwd_smem}; seg_lse fwd max|d| "
+        f"{errs['seg_lse_fwd']:.3g}, scan traj max|d| (live states) "
+        f"{errs['sparse_scan_fwd']:.3g}, entrywise errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
+    errs["seg_lse_bwd_rel"] = max([v for k, v in rels.items() if k.startswith("seg")],
+                                  default=0.0)
+    errs["sparse_scan_bwd_rel"] = max(
+        [v for k, v in rels.items() if not k.startswith("seg")], default=0.0)
+    return errs
+
+
+def stc_sparse_inputs(torch, dev, b=B, t=T, length=STC_L, n=N, seed=2):
+    """STC's sparse tier at the STC headline (a union table of depth 0):
+    the star channels of random logits and the penalised table, with the
+    dense gate shut."""
+    import dataclasses
+
+    from gtn_applications_tpu_torch.criterions import STC
+    from gtn_applications_tpu_torch.criterions import stc as stc_mod
+    from gtn_applications_tpu_torch.train import to_device
+
+    rng = np.random.RandomState(seed)
+    crit = STC(0, p0=1.0, plast=0.1, thalf=100, reduction="mean", shift_targets=1)
+    gate = stc_mod._DENSE_MAX_WORKSET
+    stc_mod._DENSE_MAX_WORKSET = 0
+    try:
+        prepared = to_device(crit.prepare(
+            [rng.randint(0, n, size=length).tolist() for _ in range(b)]), dev)
+    finally:
+        stc_mod._DENSE_MAX_WORKSET = gate
+    logits = torch.as_tensor(rng.randn(b, t, n + 1).astype(np.float32), device=dev)
+    em = crit.star_channels(torch.log_softmax(logits, 2), prepared["select"])
+    table = prepared["table"]
+    table = dataclasses.replace(
+        table, weight=table.weight + prepared["star_mask"] * prepared["log_penalty"])
+    il = torch.as_tensor(ragged_lengths(rng, b, t), dtype=torch.int32, device=dev)
+    return em.contiguous(), table, il
+
+
+def backoff_main_inputs(torch, dev, t=300, seed=11):
+    """The main path's tables: the pruned_ngram_ctc.json criterion over the
+    grapheme trigram, on the first 32 targets of the long-line train split,
+    random logits [32, t, 12] and N(0, 0.3) transitions."""
+    from gtn_applications_tpu_torch import utils
+    from gtn_applications_tpu_torch.datasets import synthetic_long
+
+    config = main_path_config("transducer_backoff")
+    pre = synthetic_long.Preprocessor(None, num_features=config["data"]["num_features"])
+    crit, n_out = utils.load_criterion("transducer", pre, config["criterion"])
+    ds = synthetic_long.Dataset(None, pre, split="train")
+    targets = [ds[i][1] for i in range(32)]
+    rng = np.random.RandomState(seed)
+    params = torch.as_tensor((rng.randn(crit.num_transition_arcs) * 0.3)
+                             .astype(np.float32), device=dev)
+    em = torch.as_tensor(rng.randn(32, t, n_out).astype(np.float32), device=dev)
+    lens = torch.as_tensor(ragged_lengths(rng, 32, t), dtype=torch.int32, device=dev)
+    return crit, em, lens, transducer_tables(torch, dev, crit, crit.prepare(targets),
+                                             params)
+
+
+def phase_sparse(torch, dev):
+    errs = {}
+    crit, em, lens, tables = backoff_lm_inputs(torch, dev)
+    if tables["score"].src.dim() != 1 or tables["norm"].src.dim() != 1:
+        raise AssertionError("the 1kwp protocol's tables are not shared / union")
+    for key in ("norm", "score"):
+        merge_errs(errs, hold_sparse_kernels(torch, em, tables[key], lens,
+                                             ("1kwp " + key, LM_B, LM_T)))
+    _, em3, lens3, tables3 = backoff_main_inputs(torch, dev)
+    for key in ("norm", "score"):
+        merge_errs(errs, hold_sparse_kernels(torch, em3, tables3[key], lens3,
+                                             ("trigram " + key,) + tuple(em3.shape[:2])))
+    em_r, table_r, lens_r = random_sparse_table(torch, dev, B, T, N, 64, 1024, 128)
+    merge_errs(errs, hold_sparse_kernels(torch, em_r, table_r, lens_r,
+                                         ("all live", B, T, 64), all_live=True))
+    em_s, table_s, lens_s = stc_sparse_inputs(torch, dev)
+    if table_s.src.dim() != 1 or table_s.eps_depth != 0:
+        raise AssertionError("the STC sparse table is not a depth-0 union table")
+    merge_errs(errs, hold_sparse_kernels(torch, em_s, table_s, lens_s,
+                                         ("stc union depth 0", B, T)))
+    em_w, table_w, lens_w = random_sparse_table(torch, dev, *WIDE_SPARSE)
+    merge_errs(errs, hold_sparse_kernels(torch, em_w, table_w, lens_w,
+                                         ("past shared memory",) + WIDE_SPARSE,
+                                         past_smem=True))
+    return errs
+
+
 # path -> (config file, its forward kernels (and decode), its backward kernels)
 PATHS = {
     "ctc": ("tds2d.json", ("gather_fwd", "ctc_alpha"), ("gather_bwd", "ctc_grad")),
@@ -736,18 +1035,36 @@ PATHS = {
     "transducer": ("ngram_ctc.json",
                    ("factored_scan_fwd", "viterbi_scan_fwd", "viterbi_backtrace"),
                    ("factored_scan_bwd",)),
+    "transducer_backoff": ("pruned_ngram_ctc.json",
+                           ("seg_lse_fwd", "sparse_scan_fwd", "viterbi_scan_fwd",
+                            "viterbi_backtrace"),
+                           ("seg_lse_bwd", "sparse_scan_bwd")),
 }
+# the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json
+DATASETS = {"transducer_backoff": "synthetic_long"}
 SPLITS = {"train": 64, "validation": 16, "test": 16}  # synthetic split sizes
 
 
+@functools.lru_cache(maxsize=1)
+def trigram_transitions():
+    """The grapheme trigram of the IAM recipe's settings (``--prune 0 5 10
+    --blank optional``) over the long-line train split's texts, built with
+    the port's builder into build/chip_smoke; returns its path."""
+    from gtn_applications_tpu_torch.profile_step import long_corpus_trigram
+
+    return long_corpus_trigram(WORK / "transitions_trigram.bin")
+
+
 def main_path_config(path):
-    """The config's model and criterion sections unchanged; synthetic
-    data, 2 epochs."""
+    """The config's model and criterion sections unchanged (the backoff
+    path's transitions: the grapheme trigram); synthetic data, 2 epochs."""
     with open(ROOT / "configs" / "iamdb" / PATHS[path][0]) as fid:
         base = json.load(fid)
+    if "transitions" in base.get("criterion", {}):
+        base["criterion"] = dict(base["criterion"], transitions=str(trigram_transitions()))
     config = {
         "seed": 0,
-        "data": {"dataset": "synthetic", "num_features": 64},
+        "data": {"dataset": DATASETS.get(path, "synthetic"), "num_features": 64},
         "model_type": base["model_type"],
         "model": base["model"],
         "criterion_type": base.get("criterion_type", "ctc"),
@@ -798,6 +1115,12 @@ def phase_main_path(torch, dev, path, config):
             raise AssertionError(
                 f"{path}: kernel {name} launched {n} times, expected "
                 + (f">= {need}" if need else "none (not on this path)"))
+    if path == "transducer_backoff":
+        expected = backoff_expected_launches(config, steps, evals)
+        for name, n in expected.items():
+            if launches[name] != n:
+                raise AssertionError(f"{path}: kernel {name} launched {launches[name]} "
+                                     f"times, expected {n}")
     log(f"main path {path}: {seconds:.1f} s, history {json.dumps(history)}, "
         f"test loss {meters.avg_loss:.4f} CER {meters.cer:.2f} WER {meters.wer:.2f}, "
         f"launches {json.dumps(launches)}")
@@ -806,14 +1129,41 @@ def phase_main_path(torch, dev, path, config):
             "test": {"loss": meters.avg_loss, "cer": meters.cer, "wer": meters.wer}}
 
 
+def backoff_expected_launches(config, steps, evals):
+    """The sparse kernels' launches on the backoff path: per loss two whole
+    scans (the composed tables and the normaliser) and one seg_lse per
+    round of each table's start closure (its eps_depth, 0 without epsilon
+    arcs); the backward kernels once per train step.  The closure depth of
+    each batch's composed table is read from its ``prepare`` over the
+    sampler's fixed batches (an epoch only permutes their order)."""
+    from gtn_applications_tpu_torch import datasets, utils
+
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
+    depth = lambda t: t.eps_depth if t.eps_src.shape[-1] else 0  # noqa: E731
+    norm = depth(crit._norm_table)
+    rounds = {}
+    for split in SPLITS:
+        ds = data.Dataset(None, pre, split=split)
+        batches = utils.BatchSortedSampler(ds, config["optim"]["batch_size"]).batches
+        rounds[split] = sum(depth(crit.prepare([ds[i][1] for i in b])["table"]) + norm
+                            for b in batches)
+    epochs = config["optim"]["epochs"]
+    return {"sparse_scan_fwd": 2 * (steps + evals), "sparse_scan_bwd": 2 * steps,
+            "seg_lse_fwd": epochs * (rounds["train"] + rounds["validation"])
+            + rounds["test"],
+            "seg_lse_bwd": epochs * rounds["train"]}
+
+
 def first_batch(torch, config, path):
     """The trainer's first batch, its criterion (with the trained
     parameters of the path's checkpoint) and its prepared targets."""
-    from gtn_applications_tpu_torch import utils
-    from gtn_applications_tpu_torch.datasets import synthetic
+    from gtn_applications_tpu_torch import datasets, utils
 
-    pre = synthetic.Preprocessor(None, num_features=config["data"]["num_features"])
-    trainset = synthetic.Dataset(None, pre, split="train", augment=True)
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    trainset = data.Dataset(None, pre, split="train", augment=True)
     loader = utils.data_loader(trainset, config, seed=config["seed"])
     inputs, _, targets = next(iter(loader))
     crit, _ = utils.load_criterion(config["criterion_type"], pre,
@@ -944,15 +1294,87 @@ def phase_main_batch_transducer(torch, dev, model, config):
                       transducer_decode_plan=[plan.D, plan.S])
 
 
+def card_vs_cpu64(torch, dev, crit, logits, prepared, path):
+    """The criterion's loss and gradients (logits and its parameters) on
+    the card, in float32, against the CPU's plain route in float64 on the
+    same logits and parameters: the loss within 1e-4, each gradient within
+    1e-3 of its largest entry.  float64 on the CPU because at this path's T
+    of ~600 frames of raw logits the scores reach ~4,000, where the CPU's
+    float32 route itself is ~1e-3 off in the loss.  1e-3, not 1e-5: the
+    card's float32 forward trajectory carries its rounding over those ~600
+    frames into the posteriors (the backward itself runs in float64); the
+    logit gradient measured 9.7e-6 to 6.0e-5 of its largest entry across
+    runs, whose trained models (and so logits) differ through cuDNN's
+    nondeterministic weight gradients.  Each gradient is a difference of
+    the normaliser's and the composed lattice's posteriors, so its small
+    entries are cancellations: the entry-by-entry rule is the kernels' (in
+    hold_sparse_kernels), not the criterion's."""
+    from gtn_applications_tpu_torch.train import to_device
+
+    def loss_and_grads(device, dtype):
+        x = logits.detach().to(device, dtype).clone().requires_grad_(True)
+        params = {k: v.detach().to(device, dtype).clone().requires_grad_(True)
+                  for k, v in crit.params.items()}
+        loss = crit.loss(params, x, to_device(prepared, device))
+        grads = torch.autograd.grad(loss, [x] + list(params.values()))
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    loss_g, grads_g = loss_and_grads(dev, torch.float32)
+    loss_c, grads_c = loss_and_grads(torch.device("cpu"), torch.float64)
+    d_loss = abs(loss_g - loss_c)
+    names = ["logit"] + list(crit.params)
+    rels = [float((a.double() - b).abs().max() / b.abs().max())
+            for a, b in zip(grads_g, grads_c)]
+    log(f"main batch {path} {list(logits.shape)}: loss {loss_g:.6f} card vs cpu (float64) "
+        f"|d| {d_loss:.3g}, "
+        + ", ".join(f"{n} grad max|d| / max|p| {r:.3g}" for n, r in zip(names, rels)))
+    if not (d_loss <= 1e-4 and all(r <= 1e-3 for r in rels)):
+        raise AssertionError(f"{path}: the card and the CPU disagree on the main batch")
+    return {f"{path}_card_vs_cpu64_loss_abs_diff": d_loss,
+            **{f"{path}_card_vs_cpu64_{n}_grad_rel_err": r for n, r in zip(names, rels)}}
+
+
+def phase_main_batch_backoff(torch, dev, model, config):
+    """The backoff Transducer trainer's first batch: loss, logit and
+    transitions gradients on the card against the CPU (float64); the sparse
+    kernels on the tables and logits of its loss, and the Viterbi kernels
+    on its decode's plan."""
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+
+    path = "transducer_backoff"
+    inputs, crit, prepared = first_batch(torch, config, path)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    diffs = card_vs_cpu64(torch, dev, crit, logits, prepared, path)
+    params = crit.params["transitions"].to(dev)
+    tables = transducer_tables(torch, dev, crit, prepared, params)
+    bsz, frames = logits.shape[:2]
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    errs = {}
+    for key in ("score", "norm"):
+        merge_errs(errs, hold_sparse_kernels(torch, logits.contiguous(), tables[key], il,
+                                             ("main batch " + key, bsz, frames)))
+    plan = vsp.build_plan(crit._decode_table({"transitions": params}))
+    what = (bsz, frames, crit.num_channels)
+    merge_errs(errs, hold_viterbi_kernels(torch, logits.contiguous(), *plan.to(dev),
+                                          il, ("backoff decode",) + what))
+    shapes = {key: [int(tables[key].start.shape[-1]), int(tables[key].src.shape[-1]),
+                    int(tables[key].eps_src.shape[-1]), tables[key].eps_depth]
+              for key in tables}
+    return errs, dict(diffs, transducer_backoff_main_batch_shape=list(what),
+                      transducer_backoff_tables_S_A_E_depth=shapes,
+                      transducer_backoff_decode_plan=[plan.D, plan.S])
+
+
 def time_train_step(torch, dev, model, config):
     """Host-clock median ms of 20 full train steps (after 5) on the first
     batch of the train split, without augmentation."""
+    from gtn_applications_tpu_torch import datasets, utils
     from gtn_applications_tpu_torch import train as train_mod
-    from gtn_applications_tpu_torch import utils
-    from gtn_applications_tpu_torch.datasets import synthetic
 
-    pre = synthetic.Preprocessor(None, num_features=config["data"]["num_features"])
-    ds = synthetic.Dataset(None, pre, split="train")
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    ds = data.Dataset(None, pre, split="train")
     optim = config["optim"]
     inputs, _, tgts = utils.padding_collate(
         [ds[i] for i in range(optim["batch_size"])])
@@ -1032,6 +1454,113 @@ def norm_cost(torch, dev, b, t, n):
     launches = sum(e.count for e in prof.key_averages()
                    if str(e.device_type).endswith("CUDA"))
     return ms, launches
+
+
+def scan_bound(em, table, lens, backward):
+    """The whole scan's least time on this run's inputs: the em rows of
+    the live frames, the tables (each field once) and alpha0 read, the
+    trajectory written (the backward: the trajectory's live rows and g
+    read, dem, dw, deps and dalpha0 written); fp32 operations per live
+    frame 7 an arc (two adds, max, sub, exp, sum, mask), 4 a state, and
+    per closure round 5 an epsilon arc and 14 a state (its lse and the
+    logaddexp); the backward adds the replay's 9 an arc, 7 an epsilon arc
+    and 8 a state a round, and 2 a state."""
+    (src, dst, label, w, esrc, edst, ew), start, _, depth = sparse_fields(table)
+    B, T, C = em.shape
+    S, A = start.shape[-1], src.shape[1]
+    E = esrc.shape[1] if depth else 0
+    frames = int(lens.clamp(min=0, max=T).sum())
+    tables = 4 * A * sum(x.shape[0] for x in (src, dst, label, w))
+    if depth:
+        tables += 4 * E * sum(x.shape[0] for x in (esrc, edst, ew))
+    per_frame = 7 * A + 4 * S + depth * (5 * E + 14 * S)
+    if not backward:
+        return bound_ms(frames * C * 4 + tables + B * S * 4 + B * 4 + B * (T + 1) * S * 4,
+                        frames * per_frame)
+    return bound_ms(frames * (C + S) * 4 + tables + 2 * B * S * 4 + B * 4
+                    + B * T * C * 4 + B * (A + E) * 4,
+                    frames * (per_frame + 9 * A + 2 * S + depth * (7 * E + 8 * S)))
+
+
+def seg_lse_bound(B, S, fields, backward):
+    """One seg_lse over arcs ``fields`` (src, dst, w, em): alpha and the
+    fields read once, new written (the backward: g read too, dalpha and
+    dcontrib written); 7 fp32 operations an arc and 4 a state (the
+    backward, which recomputes the shifts and sums: 13 an arc and 2 a
+    state)."""
+    A = fields[0].shape[-1]
+    arcs = 4 * A * sum(x.shape[0] for x in fields)
+    if not backward:
+        return bound_ms(2 * B * S * 4 + arcs, B * (7 * A + 4 * S))
+    return bound_ms(3 * B * S * 4 + arcs + B * A * 4, B * (13 * A + 2 * S))
+
+
+def sparse_times(torch, dev):
+    """CUDA-event medians of the sparse kernels and their plain versions
+    at the 1kwp protocol's normaliser (the first round of its start
+    closure for seg_lse), the kernels alone at its composed tables and at
+    the main path's trigram tables; and their bounds."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+    from gtn_applications_tpu_torch.ops.semiring import logaddexp
+
+    t, bounds = {}, {}
+    _, em, lens, tables = backoff_lm_inputs(torch, dev)
+    _, em3, lens3, tables3 = backoff_main_inputs(torch, dev)
+    cases = [("", em, lens, tables["norm"]), ("_1kwp_score", em, lens, tables["score"]),
+             ("_trigram_norm", em3, lens3, tables3["norm"]),
+             ("_trigram_score", em3, lens3, tables3["score"])]
+    for key, e, il, table in cases:
+        (src, dst, label, w, esrc, edst, ew), start, accept, depth = sparse_fields(table)
+        Bk, S = e.shape[0], start.shape[-1]
+        alpha0 = start.expand(Bk, S).contiguous()
+        if key == "":
+            idx = slp.arc_index(esrc, edst, S)
+            zero = torch.zeros_like(ew)
+            ew_s, z_s = slp.take(ew, idx.order), slp.take(zero, idx.order)
+            g = torch.rand(Bk, S, device=dev)
+            t["seg_lse_fwd"] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_fwd_cuda(alpha0, ew_s, z_s, idx))
+            t["seg_lse_fwd_plain"] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_fwd_plain(alpha0, esrc, edst, ew, zero))
+            t["seg_lse_bwd"] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_bwd_cuda(alpha0, ew_s, z_s, idx, g))
+            t["seg_lse_bwd_plain"] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_bwd_plain(alpha0, esrc, edst, ew, zero, g))
+            arcs = (esrc, edst, ew, zero)
+            bounds["seg_lse_fwd"] = seg_lse_bound(Bk, S, arcs, False)
+            bounds["seg_lse_bwd"] = seg_lse_bound(Bk, S, arcs, True)
+        acc = cur = alpha0
+        for _ in range(depth):
+            cur = slp.seg_lse_fwd_plain(cur, esrc, edst, ew, torch.zeros_like(ew))
+            acc = logaddexp(acc, cur)
+        alpha0 = acc.contiguous()
+        plan = ssp.scan_plan(src, dst, label, esrc, edst, S, e.shape[2])
+        traj, _ = ssp.sparse_scan_fwd_cuda(e, alpha0, il, plan, w, ew, depth)
+        gf = score_cotangent(torch, traj[:, -1], accept)
+        t["sparse_scan_fwd" + key] = gpu_median_ms(
+            torch, lambda: ssp.sparse_scan_fwd_cuda(e, alpha0, il, plan, w, ew, depth))
+        t["sparse_scan_bwd" + key] = gpu_median_ms(
+            torch, lambda: ssp.sparse_scan_bwd_cuda(e, traj, il, plan, w, ew, depth, gf))
+        if key == "":
+            t["sparse_scan_fwd_plain"] = gpu_median_ms(
+                torch, lambda: ssp.sparse_scan_fwd_plain(e, alpha0, il, plan, w, ew, depth),
+                runs=10)
+            t["sparse_scan_bwd_plain"] = gpu_median_ms(
+                torch, lambda: ssp.sparse_scan_bwd_plain(e, traj, il, plan, w, ew, depth,
+                                                         gf), runs=10)
+            bounds["sparse_scan_fwd"] = scan_bound(e, table, il, False)
+            bounds["sparse_scan_bwd"] = scan_bound(e, table, il, True)
+        else:
+            t["sparse_scan_fwd" + key + "_bound"] = scan_bound(e, table, il, False)
+            t["sparse_scan_bwd" + key + "_bound"] = scan_bound(e, table, il, True)
+    # per case: S, A, E, eps_depth and the emissions' shape
+    t["sparse_shapes"] = {
+        key or "_1kwp_norm": [int(table.start.shape[-1]), int(table.src.shape[-1]),
+                              int(table.eps_src.shape[-1]), table.eps_depth,
+                              list(e.shape)]
+        for key, e, _, table in cases}
+    return t, bounds
 
 
 def phase_times(torch, dev, paths):
@@ -1276,16 +1805,24 @@ KERNELS = [
      "gtn_applications_tpu/ops/dense_scan_pallas.py:276", None),
     ("factored_scan_bwd", "gtn_applications_tpu_torch/ops/csrc/dense_scan.cu",
      "gtn_applications_tpu/ops/dense_scan_pallas.py:308", None),
+    ("seg_lse_fwd", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/seglse_pallas.py:69", None),
+    ("seg_lse_bwd", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/seglse_pallas.py:97", None),
+    ("sparse_scan_fwd", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/sparse_scan_pallas.py:265", None),
+    ("sparse_scan_bwd", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/sparse_scan_pallas.py:312", None),
 ]
 
 
-def run():
+def run(device="cuda"):
     import torch
 
     import gtn_applications_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card = phase_device(torch)
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     build_s = phase_build()
     errs = phase_gather(torch, dev)
     errs.update(phase_ctc(torch, dev))
@@ -1293,16 +1830,21 @@ def run():
     merge_errs(errs, phase_dense_scan(torch, dev))
     merge_errs(errs, phase_factored_scan(torch, dev))
     merge_errs(errs, phase_viterbi(torch, dev))
+    merge_errs(errs, phase_sparse(torch, dev))
     paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
              for path in PATHS}
     diffs = {}
     for path, check in (("ctc", phase_main_batch), ("asg", phase_main_batch_asg),
                         ("stc", phase_main_batch_stc),
-                        ("transducer", phase_main_batch_transducer)):
+                        ("transducer", phase_main_batch_transducer),
+                        ("transducer_backoff", phase_main_batch_backoff)):
         main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
+    more_times, more_bounds = sparse_times(torch, dev)
+    times.update(more_times)
+    bounds.update(more_bounds)
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)

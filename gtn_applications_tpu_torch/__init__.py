@@ -2,13 +2,14 @@
 
 A second package beside the JAX one, which stays as the frozen reference.
 The port runs the TDS2d train-then-evaluate path with the CTC, ASG, STC
-and Transducer (full n-gram or no transitions) criteria on an NVIDIA H100:
-the encoder is plain PyTorch (cuDNN/cuBLAS convolutions and matmuls), and
-the CTC lattice, the emission gather, the ASG Viterbi backtrace, the
-dense-adjacency lattice scan of STC, the Transducer's transition-factored
-scan and its whole-scan Viterbi decode run on CUDA kernels written by hand
-for ``sm_90a`` (``ops/csrc/``), each with a plain PyTorch version that CPU
-tensors take.  The Transducer's host compilation calls the native graph
+and Transducer (full n-gram, no transitions, or a loaded backoff n-gram)
+criteria on an NVIDIA H100: the encoder is plain PyTorch (cuDNN/cuBLAS
+convolutions and matmuls), and the CTC lattice, the emission gather, the
+ASG Viterbi backtrace, the dense-adjacency lattice scan of STC, the
+Transducer's transition-factored scan, the sparse-arc scan of composed
+lattices (one step, ``seg_lse``, and the whole scan) and the whole-scan
+Viterbi decode run on CUDA kernels written by hand for ``sm_90a``
+(``ops/csrc/``), each with a plain PyTorch version that CPU tensors take.  The Transducer's host compilation calls the native graph
 compiler (``native/``, built at first use with ``make -C native``).  Module and function names
 mirror the JAX package.
 """

@@ -1,4 +1,4 @@
-"""Star Temporal Classification criterion (PyTorch), dense tier.
+"""Star Temporal Classification criterion (PyTorch).
 
 Counterpart of ``gtn_applications_tpu/criterions/stc.py``: training from
 partially labeled sequences by appending a ``<star>`` channel (logsumexp of
@@ -10,20 +10,24 @@ WFST with an annealed token insertion penalty
 Every STC graph state has a unique in-label, so the lattice is scored by
 the dense-adjacency recursion (``ops.factored.alignment_lattice_score``,
 whose ``dense_scan`` runs on the card's kernels).  The penalty enters as
-``adj = adj0 + e^penalty * adj_star``, two host-built matrices.  The sparse
-arc-table tier, which the JAX class takes when the dense gate refuses a
-batch, waits for ROADMAP queue A item 7: here such a batch raises.
+``adj = adj0 + e^penalty * adj_star``, two host-built matrices.  A batch
+that the dense tier's working-set gate refuses is scored by the sparse
+tier, as in the JAX class: the graphs stacked into one arc table (a shared
+union skeleton where the batch allows) whose star arcs carry the penalty
+as their weight (``ops.sparse.forward_score_batch_tables``: the whole
+sparse-scan kernels on the card).
 
 Blank index is REQUIRED to be 0.
 """
 
+import dataclasses
 import math
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ..ops import factored
+from ..ops import factored, sparse
 from ..ops.semiring import NEG
 from ..wfst import compile as wcompile
 from ..wfst.graph import Graph
@@ -122,7 +126,8 @@ class STC(Criterion):
 
     def prepare(self, targets, select_multiple=8):
         """Host: per-batch token subsetting, target remapping, STC graph
-        compilation to dense tables, and the annealed penalty (a host
+        compilation to dense tables (an arc table where the dense gate refuses
+        the batch), and the annealed penalty (a host
         float).  The annealing step counts only in training mode."""
         if self.training:
             self.nstep += 1
@@ -144,17 +149,34 @@ class STC(Criterion):
 
         remapped = [tuple(target_map[t] for t in tgt) for tgt in targets]
         compiled = [self._compiled(tgt, star_idx) for tgt in remapped]
-        dense = self._prepare_dense(compiled, Csel)
-        if dense is None:
-            raise NotImplementedError(
-                "STC batch refused by the dense tier's gate: the sparse "
-                "arc-table tier is not ported yet (ROADMAP queue A item 7)"
-            )
-        return {
+        prepared = {
             "select": torch.as_tensor(select_padded, dtype=torch.int64),
             "log_penalty": math.log(prob),
-            "dense": dense,
         }
+        dense = self._prepare_dense(compiled, Csel)
+        if dense is not None:
+            prepared["dense"] = dense
+        else:
+            prepared["table"], prepared["star_mask"] = self._prepare_sparse(compiled)
+        return prepared
+
+    @staticmethod
+    def _prepare_sparse(compiled):
+        """One arc table of the batch's graphs (union skeleton or stacked)
+        and the [B, A] mask of its star arcs."""
+        cgs = [c[0] for c in compiled]
+        union = wcompile.union_stack_arc_tables(cgs)
+        if union is not None:
+            table, positions, _ = union
+            star_mask = np.zeros((len(cgs), table.src.shape[0]), np.float32)
+            for b, c in enumerate(compiled):
+                star_mask[b, positions[b]] = c[1]
+        else:
+            table = wcompile.stack_arc_tables(cgs)
+            A = table.src.shape[1]
+            star_mask = np.stack([np.concatenate([c[1], np.zeros(A - len(c[1]), np.float32)])
+                                  for c in compiled])
+        return table, torch.from_numpy(star_mask)
 
     def _prepare_dense(self, compiled, Csel):
         """Dense-adjacency tables for ``alignment_lattice_score``: adj0
@@ -214,11 +236,17 @@ class STC(Criterion):
         B, T, C = inputs.shape
         inputs = torch.log_softmax(inputs, dim=2)
         em = self.star_channels(inputs, prepared["select"])
-        d = prepared["dense"]
-        adj = d["adj0"] + math.exp(prepared["log_penalty"]) * d["adj_star"]
-        scores = factored.alignment_lattice_score(
-            em, adj, d["lab_oh"], d["start"], d["accept"], input_lengths
-        )
+        if "dense" in prepared:
+            d = prepared["dense"]
+            adj = d["adj0"] + math.exp(prepared["log_penalty"]) * d["adj_star"]
+            scores = factored.alignment_lattice_score(
+                em, adj, d["lab_oh"], d["start"], d["accept"], input_lengths
+            )
+        else:
+            table = prepared["table"]
+            weight = table.weight + prepared["star_mask"] * prepared["log_penalty"]
+            scores = sparse.forward_score_batch_tables(
+                em, dataclasses.replace(table, weight=weight), input_lengths)
         losses = -scores
         if self.reduction == "mean":
             losses = losses / T

@@ -1,5 +1,4 @@
-"""Generic WFST transducer criterion (PyTorch), full n-gram and
-transitions-free variants.
+"""Generic WFST transducer criterion (PyTorch).
 
 Counterpart of ``gtn_applications_tpu/criterions/transducer.py``: the
 reference composes, per sample, the target chain with a lexicon (wordpiece
@@ -7,31 +6,44 @@ decompositions), then with a token graph (alignments over emission labels)
 and optionally with a transition model, and scores the result against the
 emissions.  Here the per-target pipeline runs once per distinct target in
 the native graph compiler (``wfst.native.compile_alignment``), cached, and
-the alignment lattice is packed into dense tables (adjacency, in-labels,
-start, accept) that the device recursions score:
+the device recursions score its tables:
 
   * ``ngram`` 1 or 2: the transition weight between two alignment arcs
-    depends only on their labels, so the lattice is scored under a bigram
-    factor (``ops.factored.factored_lattice_score``, whose
-    ``factored_scan`` runs on the card's kernels) and normalised by the
-    dense n-gram lattice alone (``dense_ngram_norm``);
-  * no transitions: the log-softmaxed emissions through the plain
-    alignment lattice (``alignment_lattice_score`` and ``dense_scan``).
+    depends only on their labels, so the plain alignment lattice is packed
+    into dense tables and scored under a bigram factor
+    (``ops.factored.factored_lattice_score``, whose ``factored_scan`` runs
+    on the card's kernels) and normalised by the dense n-gram lattice
+    (``dense_ngram_norm``);
+  * no transitions: the log-softmaxed emissions through the dense
+    alignment lattice (``alignment_lattice_score`` and ``dense_scan``);
+  * the composed path: a loaded transition graph (a pruned backoff n-gram
+    with epsilon backoff arcs, ``scripts/build_transitions.py``),
+    ``ngram`` > 2, and any batch that the dense packing refuses.  The
+    transitions are composed into each sample's lattice on the host, with
+    the provenance ``widx``/``eps_widx`` of every arc's learnable weight,
+    and stacked into one arc table (a shared union skeleton where the
+    batch allows); the loss is its forward score less that of the
+    transition graph alone (``ops.sparse.forward_score_batch_tables`` and
+    ``forward_score_batch``: the ``seg_lse`` and whole sparse-scan kernels
+    on the card).
 
-The JAX package gates the transitions-free dense variant on the TPU; the
-port always takes it.  Decoding with transitions goes through a decode
-template of the transition graph (``wfst.compile``) and the whole-scan
-Viterbi (``ops.sparse.viterbi_batch``); without, it is an argmax.  The
-transitions' weights are learnable (zero-initialised), one per arc of
-``make_transitions_graph``.
+JAX routes a loaded graph through its dense backoff factorings on the TPU
+and through the composed path elsewhere; the port always composes (the
+factorings have no Pallas kernel and wait for ROADMAP queue A item 8).
+Decoding with transitions goes through a decode template of the
+transition graph (``wfst.compile``) and the whole-scan Viterbi
+(``ops.sparse.viterbi_batch``); without, it is an argmax.  JAX decodes a
+huge LM (destination-factorable, S_c * N > 2^15) through its
+destination-factored scan, which the port does not have yet: such a
+decode raises.  The transitions' weights are learnable (zero-initialised),
+one per arc of the transition graph, whose own weights are set to 0.
 
-Not ported yet, each raising ``NotImplementedError``: a loaded
-``transitions`` graph and the backoff variants (ROADMAP queue A items 7
-and 8), ``ngram`` > 2 and batches the dense packing refuses (the composed
-sparse path, A.7), ``blank="forced"`` decoding (native ``forced_collapse``,
-A.7).  The ``ConvTransduce1D`` layer is A.9.
+Not ported yet, each raising ``NotImplementedError``: ``blank="forced"``
+decoding (native ``forced_collapse``, ROADMAP A.7) and the huge-LM decode
+(A.8).  The ``ConvTransduce1D`` layer is A.9.
 """
 
+import dataclasses
 from multiprocessing.pool import ThreadPool
 from typing import Dict
 
@@ -47,6 +59,10 @@ from .base import Criterion
 
 # [B, S, S] adjacency + [B, S, N] label working-set gate (floats), as JAX's
 _DENSE_MAX_WORKSET = 48_000_000
+
+# JAX decodes through its destination-factored scan once the epsilon-removed
+# decode table would exceed this many arcs (S_c * N)
+_DECODE_FACTORED_MIN_ARCS = 1 << 15
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +169,9 @@ class Transducer(Criterion):
       tokens: list of iterables (e.g. strings / tuples) — output tokens.
       graphemes_to_idx: grapheme -> integer index of the emission channels
         consumed by target chains.
-      ngram: order of a full n-gram transition model: 0 (none), 1 or 2.
-      transitions: a pre-built transition Graph; not ported yet (raises).
+      ngram: order of a full n-gram transition model (0 = none).
+      transitions: a pre-built transition Graph (e.g. a pruned backoff
+        model from ``scripts.build_transitions``); exclusive with ngram.
       blank: 'none' | 'optional' | 'forced'.
       allow_repeats: allow consecutive identical tokens in alignments.
       reduction: 'none' or 'mean' (scale per-sample loss by 1/target_len).
@@ -176,17 +193,6 @@ class Transducer(Criterion):
             )
         if ngram > 0 and transitions is not None:
             raise ValueError("ngram and transitions are mutually exclusive")
-        if transitions is not None:
-            raise NotImplementedError(
-                "a loaded transitions graph (the backoff variants and the "
-                "composed path) is not ported yet (ROADMAP queue A items 7 "
-                "and 8)"
-            )
-        if ngram > 2:
-            raise NotImplementedError(
-                f"ngram={ngram} needs the composed sparse path, which is not "
-                "ported yet (ROADMAP queue A item 7)"
-            )
         self.tokens = make_token_graph(tokens, blank=blank, allow_repeats=allow_repeats)
         self.lexicon = make_lexicon_graph(tokens, graphemes_to_idx)
         self.blank = blank
@@ -194,16 +200,51 @@ class Transducer(Criterion):
         self._num_tokens = len(tokens)
         self.num_channels = len(tokens) + int(blank != "none")
         self.ngram = ngram
+        if ngram > 0:
+            transitions = make_transitions_graph(ngram, self.num_channels)
         self.transitions = None
         self.num_transition_arcs = 0
-        if ngram > 0:
+        if transitions is not None:
             # the arc weights are the learnable parameters (zero-initialised,
-            # as in the reference); the graph's own weights stay 0
-            self.transitions = make_transitions_graph(ngram, self.num_channels)
-            self.num_transition_arcs = self.transitions.num_arcs()
-        self._align_cache: Dict[tuple, wcompile.CompiledGraph] = {}
+            # as in the reference); the graph's own weights are set to 0
+            self.transitions = transitions.copy()
+            self.transitions.set_weights([0.0] * transitions.num_arcs())
+            self.num_transition_arcs = transitions.num_arcs()
+            norm_cg = wcompile.compile_acceptor(self.transitions)
+            self._norm_table = wcompile.to_arc_table(norm_cg)
+            self._norm_widx = torch.from_numpy(norm_cg.arc_id.astype(np.int64))
+            self._norm_eps_widx = torch.from_numpy(norm_cg.eps_arc_id.astype(np.int64))
+            self._norm_on = {}
+        # full n-gram models of order 1-2 factorize (ops/factored.py)
+        self._factored_ngram = ngram if ngram in (1, 2) else 0
+        # JAX's backoff factorings: only the decode's routing reads them
+        self._factored_backoff = self._factored_backoff_dst = False
+        if self.transitions is not None and not self._factored_ngram:
+            self._backoff_gates()
+        self._align_cache: Dict[tuple, tuple] = {}
         self._decode_template = None
         self._decode_cache = None
+
+    def _backoff_gates(self):
+        """JAX's ``_factored_backoff`` (dense [N, S_c, S_c] matrices fit)
+        and ``_factored_backoff_dst`` (every label's non-self arcs share one
+        destination, and [S_c, N] fits)."""
+        nt = self._norm_table
+        S_c, N = nt.start.shape[0], self.num_channels
+        labels = nt.label.numpy()
+        real = nt.weight.numpy() > NEG / 2
+        labels_ok = bool(nt.eps_depth <= 4 and (labels[real] < N).all()
+                         and (labels[real] >= 0).all())
+        self._factored_backoff = labels_ok and N * S_c * S_c <= 4_000_000
+        if not (labels_ok and N * S_c <= 4_000_000):
+            return
+        src, dst = nt.src.numpy()[real], nt.dst.numpy()[real]
+        adv = src != dst
+        dst_of = {}
+        for lab, d in zip(labels[real][adv].tolist(), dst[adv].tolist()):
+            if dst_of.setdefault(lab, d) != d:
+                return
+        self._factored_backoff_dst = True
 
     # -- parameters -----------------------------------------------------
     def init_params(self):
@@ -213,22 +254,27 @@ class Transducer(Criterion):
 
     # -- host compilation ----------------------------------------------
     def _native_handles(self):
-        """Persistent native handles of the lexicon and token graphs,
-        warmed so that the prepare thread pool can share them."""
+        """Persistent native handles of the lexicon, token and transition
+        graphs, warmed so that the prepare thread pool can share them."""
         if not hasattr(self, "_nh"):
             self._nh = (
                 native.to_native(self.lexicon, warm=True),
                 native.to_native(self.tokens, warm=True),
+                native.to_native(self.transitions, warm=True)
+                if self.transitions is not None else None,
             )
         return self._nh
 
-    def _compile_target(self, target: tuple):
-        """The plain alignment lattice of one target (cached)."""
-        cached = self._align_cache.get(target)
+    def _compile_target(self, target: tuple, compose_transitions=True):
+        """(compiled lattice, widx, eps_widx) of one target (cached): with
+        the transitions composed in, or the plain alignment lattice."""
+        key = target if compose_transitions else (target, "plain")
+        cached = self._align_cache.get(key)
         if cached is not None:
             return cached
-        lex, tok = self._native_handles()
-        t = native.compile_alignment(lex, tok, None, target)
+        lex, tok, trans = self._native_handles()
+        t = native.compile_alignment(lex, tok, trans if compose_transitions else None,
+                                     target)
         cg = wcompile.CompiledGraph(
             src=t["src"], dst=t["dst"], label=t["label"], weight=t["weight"],
             arc_id=np.arange(len(t["src"]), dtype=np.int32),
@@ -240,36 +286,70 @@ class Transducer(Criterion):
         )
         if len(self._align_cache) > 100000:
             self._align_cache.clear()
-        self._align_cache[target] = cg
-        return cg
+        result = (cg, t["widx"], t["eps_widx"])
+        self._align_cache[key] = result
+        return result
+
+    def _compile_all(self, keys, compose_transitions):
+        """Compile the batch's targets, cache misses in parallel on a
+        thread pool (the native pipeline releases the GIL)."""
+        missing = [k for k in dict.fromkeys(keys)
+                   if (k if compose_transitions else (k, "plain")) not in self._align_cache]
+        if len(missing) > 1:
+            self._native_handles()
+            with ThreadPool(min(8, len(missing))) as pool:
+                pool.map(lambda k: self._compile_target(k, compose_transitions), missing)
+        return [self._compile_target(k, compose_transitions) for k in keys]
 
     def prepare(self, targets):
-        """Compile and pack per-sample alignment lattices (host, cached).
-
-        Cache misses compile in parallel on a thread pool (the native
-        pipeline releases the GIL)."""
+        """Compile and pack per-sample lattices (host, cached): the dense
+        tables of the factored path for ``ngram`` 1-2 and for no
+        transitions, else (or when the dense packing refuses the batch) the
+        composed arc table."""
         keys = [tuple(int(t) for t in np.asarray(tgt).reshape(-1)) for tgt in targets]
-        prepared = self._prepare_factored(keys)
-        if prepared is None:
-            raise NotImplementedError(
-                "Transducer batch refused by the dense packing (epsilon arcs, "
-                "mixed in-labels, large arc weights or the working-set gate): "
-                "the composed sparse path is not ported yet (ROADMAP queue A "
-                "item 7)"
-            )
-        return prepared
+        if self._factored_ngram or self.transitions is None:
+            prepared = self._prepare_factored(keys)
+            if prepared is not None:
+                return prepared
+        return self._prepare_composed(keys)
+
+    def _prepare_composed(self, keys):
+        """One arc table of the batch's composed lattices: on a union
+        skeleton where one exists, else stacked per sample, with the
+        provenance of each arc's learnable weight (-1 for none)."""
+        compiled = self._compile_all(keys, compose_transitions=True)
+        cgs = [c[0] for c in compiled]
+        union = wcompile.union_stack_arc_tables(cgs)
+        if union is not None:
+            table, positions, eps_positions = union
+            A, E = table.src.shape[0], table.eps_src.shape[0]
+            widx = -np.ones((len(cgs), A), np.int64)
+            eps_widx = -np.ones((len(cgs), max(E, 1)), np.int64)
+            for b, c in enumerate(compiled):
+                widx[b, positions[b]] = c[1]
+                if E and len(eps_positions[b]):
+                    eps_widx[b, eps_positions[b]] = c[2]
+        else:
+            table = wcompile.stack_arc_tables(cgs)
+            A, E = table.src.shape[1], table.eps_src.shape[1]
+            widx = np.stack([np.concatenate([c[1], -np.ones(A - len(c[1]), np.int32)])
+                             for c in compiled]).astype(np.int64)
+            eps_widx = np.stack([np.concatenate([c[2], -np.ones(E - len(c[2]), np.int32)])
+                                 for c in compiled]).astype(np.int64)
+        return {
+            "table": table,
+            "widx": torch.from_numpy(widx),
+            "eps_widx": torch.from_numpy(eps_widx),
+            "target_lengths": torch.from_numpy(
+                np.asarray([len(k) for k in keys], dtype=np.int32)),
+        }
 
     def _prepare_factored(self, keys):
         """Plain alignment lattices as dense adjacency + in-label tables,
         or None if a sample's lattice has epsilon arcs, a state with mixed
         in-labels, arc weights too large for the exp-space adjacency, or
         the batch exceeds the working-set gate."""
-        missing = [k for k in dict.fromkeys(keys) if k not in self._align_cache]
-        if len(missing) > 1:
-            self._native_handles()
-            with ThreadPool(min(8, len(missing))) as pool:
-                pool.map(self._compile_target, missing)
-        cgs = [self._compile_target(k) for k in keys]
+        cgs = [c[0] for c in self._compile_all(keys, compose_transitions=False)]
 
         N = self.num_channels
         # states rounded up to a multiple of 8, so width-sorted batches see
@@ -316,8 +396,39 @@ class Transducer(Criterion):
         }
 
     # -- loss -----------------------------------------------------------
+    @staticmethod
+    def _apply_params(table, widx, eps_widx, params):
+        """``table`` with the learnable weights added: weight + params[widx]
+        (nothing where widx is -1), likewise for the epsilon arcs."""
+        w_ext = torch.cat([params, params.new_zeros(1)])
+        n = params.shape[0]
+        weight = table.weight + w_ext[torch.where(widx >= 0, widx, n)]
+        eps_weight = table.eps_weight + w_ext[torch.where(eps_widx >= 0, eps_widx, n)]
+        return dataclasses.replace(table, weight=weight, eps_weight=eps_weight)
+
+    def _norm_table_on(self, device):
+        """The transition graph's own table and provenance on ``device``."""
+        if device not in self._norm_on:
+            self._norm_on[device] = (
+                self._norm_table.to(device),
+                self._norm_widx.to(device), self._norm_eps_widx.to(device))
+        return self._norm_on[device]
+
     def loss(self, params, inputs, prepared, input_lengths=None):
         """inputs: [B, T, N] logits, blank (if any) at the last channel."""
+        if "table" in prepared:
+            table = prepared["table"]
+            if self.transitions is None:
+                # log_softmax normalises each frame; the lattice score is the loss
+                em = torch.log_softmax(inputs, dim=2)
+                score = sparse.forward_score_batch_tables(em, table, input_lengths)
+                return self._reduce(-score, prepared)
+            p = params["transitions"]
+            table = self._apply_params(table, prepared["widx"], prepared["eps_widx"], p)
+            score = sparse.forward_score_batch_tables(inputs, table, input_lengths)
+            norm_table = self._apply_params(*self._norm_table_on(inputs.device), p)
+            norm = sparse.forward_score_batch(inputs, norm_table, input_lengths)
+            return self._reduce(-(score - norm), prepared)
         f = prepared["factored"]
         if self.transitions is None:
             # log_softmax normalises each frame; the lattice score is the loss
@@ -373,6 +484,12 @@ class Transducer(Criterion):
             )
         outputs = outputs.detach()
         if self.transitions is not None:
+            if (self._factored_backoff_dst and self._norm_table.start.shape[0]
+                    * self.num_channels > _DECODE_FACTORED_MIN_ARCS):
+                raise NotImplementedError(
+                    "decoding a transition graph of S_c * N > 2^15 goes through "
+                    "the destination-factored scan, which is not ported yet "
+                    "(ROADMAP queue A item 8)")
             params = params if params is not None else self.params
             labels, _ = sparse.viterbi_batch(
                 outputs, self._decode_table(params), input_lengths)

@@ -65,8 +65,9 @@ def tds2d_from_flax(params, model):
 
 def criterion_params_from_jax(params, device=None):
     """JAX's ``params["criterion"]`` (a dict of numpy arrays: ASG's and the
-    n-gram Transducer's ``transitions``, ``{}`` for CTC, STC and the
-    transitions-free Transducer) as the port's
+    Transducer's ``transitions``, one weight per arc of its n-gram or loaded
+    transition graph in the graph's arc order on both sides; ``{}`` for
+    CTC, STC and the transitions-free Transducer) as the port's
     ``criterion.params`` on ``device``, each a leaf that requires grad."""
     return {
         name: torch.from_numpy(np.array(value, dtype=np.float32))

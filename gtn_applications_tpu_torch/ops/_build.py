@@ -7,7 +7,8 @@ started together) into a shared library with a plain C interface:
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 No ``--use_fast_math``: the lattice kernels rely on exact ``expf``/``logf``
-near their sum floors (1e-30 for CTC, 1e-37 for the dense scan).
+near their sum floors (1e-30 for CTC and the sparse scan, 1e-37 for the
+dense scan).
 Libraries land in ``build/`` at the root of the checkout (ignored by git),
 named by a hash of their source and flags, so a changed source rebuilds
 and an unchanged one is loaded as is.
@@ -27,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("gather", "ctc", "viterbi", "dense_scan")
+SOURCES = ("gather", "ctc", "viterbi", "dense_scan", "sparse_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -57,6 +58,12 @@ _SIGNATURES = {
         "factored_scan_fwd": (9, 5),
         "factored_scan_bwd": (12, 6),
     },
+    "sparse_scan": {
+        "seg_lse_fwd": (6, 6),
+        "seg_lse_bwd": (10, 6),
+        "sparse_scan_fwd": (12, 12),
+        "sparse_scan_bwd": (21, 12),
+    },
 }
 
 LAUNCHES = {
@@ -64,6 +71,7 @@ LAUNCHES = {
     "dense_bt": 0, "dense_scan_fwd": 0, "dense_scan_bwd": 0,
     "viterbi_scan_fwd": 0, "viterbi_backtrace": 0,
     "factored_scan_fwd": 0, "factored_scan_bwd": 0,
+    "seg_lse_fwd": 0, "seg_lse_bwd": 0, "sparse_scan_fwd": 0, "sparse_scan_bwd": 0,
 }
 
 # Shared memory one block can use on Hopper (227 KB).

@@ -52,6 +52,21 @@ def logsumexp(x, dim=-1, keepdim=False):
     return out
 
 
+def segment_logsumexp(values, segment_ids, num_segments):
+    """logsumexp of ``values [..., A]`` grouped by ``segment_ids`` (same
+    shape, or broadcast to it; each in [0, num_segments)) ->
+    [..., num_segments], each segment shifted by its own (gradient-free)
+    max.  An empty or all-dead segment gives NEG."""
+    ids = segment_ids.long().expand(values.shape)
+    shape = values.shape[:-1] + (num_segments,)
+    m = torch.full(shape, NEG, dtype=values.dtype, device=values.device)
+    m = _stable_shift(m.scatter_reduce(-1, ids, values.detach(), "amax"))
+    shifted = torch.where(values > DEAD, torch.exp(values - m.gather(-1, ids)), 0.0)
+    sums = torch.zeros(shape, dtype=values.dtype, device=values.device)
+    sums = sums.scatter_add(-1, ids, shifted)
+    return torch.where(sums > 0.0, m + torch.log(torch.clamp(sums, min=_FLOOR)), NEG)
+
+
 def gather_channels(x, idx, batched=True):
     """Channel gather ``x[..., idx]`` through the gather kernel.
 

@@ -1,15 +1,21 @@
 """Where one train step of a main path spends its device time.
 
     python -m gtn_applications_tpu_torch.profile_step [--steps 10] \
-        [--config configs/iamdb/tds2d_asg.json | tds2d_stc.json | ngram_ctc.json]
+        [--config configs/iamdb/tds2d_asg.json | tds2d_stc.json | ngram_ctc.json
+                  | pruned_ngram_ctc.json]
 
 Builds the model and criterion of the config (configs/iamdb/tds2d.json, the
 CTC path, by default) with random weights from a seed, takes one batch of
-32 synthetic 64-row lines, warms up, then
+32 synthetic 64-row lines (the long-line corpus for a config that loads a
+transition graph: pruned_ngram_ctc.json's time stride of 16 needs it), warms
+up, then
 runs ``--steps`` train steps under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON object: the host-clock median step time, the
 device-busy share of the profiled window (kernel time over wall time), and
 the operators and kernels that took the most device time.  Needs a GPU.
+Where the config's transition graph file is absent (the IAM recipe's
+``<replace_me>`` paths), the grapheme trigram of the recipe's settings is
+built over the corpus into ``build/profile_step`` and loaded instead.
 """
 
 import argparse
@@ -22,9 +28,37 @@ import torch
 
 from . import train as train_mod
 from . import utils
-from .datasets import synthetic
+from .datasets import synthetic, synthetic_long
 
-CONFIG = Path(__file__).resolve().parents[1] / "configs" / "iamdb" / "tds2d.json"
+ROOT = Path(__file__).resolve().parents[1]
+CONFIG = ROOT / "configs" / "iamdb" / "tds2d.json"
+
+
+def long_corpus_trigram(path):
+    """Write the grapheme trigram of the IAM recipe's settings over the
+    long-line train split's texts to ``path``; returns ``path``."""
+    from .scripts.build_transitions import grapheme_lm
+    from .wfst import graph as wgraph
+
+    pre = synthetic_long.Preprocessor(None, num_features=64)
+    texts = synthetic_long.Dataset(None, pre, split="train").texts
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    wgraph.save(path, grapheme_lm(texts, pre.tokens))
+    return path
+
+
+def _data_and_criterion(config):
+    """(dataset module, criterion config): the long-line corpus and, where
+    the config's transition graph file is absent, the grapheme trigram of
+    the recipe's settings built over that corpus."""
+    crit_cfg = dict(config.get("criterion", {}))
+    if "transitions" not in crit_cfg:
+        return synthetic, crit_cfg
+    if not Path(crit_cfg["transitions"]).exists():
+        crit_cfg["transitions"] = str(long_corpus_trigram(
+            ROOT / "build" / "profile_step" / "transitions_trigram.bin"))
+    return synthetic_long, crit_cfg
 
 
 def _self_device_us(evt):
@@ -41,12 +75,13 @@ def profile(steps=10, top=12, seed=0, config_path=CONFIG):
     device = train_mod.select_device()
     with open(config_path) as fid:
         config = json.load(fid)
-    pre = synthetic.Preprocessor(None, num_features=config["data"]["num_features"])
-    ds = synthetic.Dataset(None, pre, split="train")
+    data, crit_cfg = _data_and_criterion(config)
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    ds = data.Dataset(None, pre, split="train")
     batch = config["optim"]["batch_size"]
     inputs, _, targets = utils.padding_collate([ds[i] for i in range(batch)])
     crit, n_out = utils.load_criterion(
-        config.get("criterion_type", "ctc"), pre, config.get("criterion", {}))
+        config.get("criterion_type", "ctc"), pre, crit_cfg)
     train_mod.criterion_to_device(crit, device)
     gen = torch.Generator().manual_seed(seed)
     model = utils.load_model(

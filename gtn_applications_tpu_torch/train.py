@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import utils
+from .ops.sparse import ArcTable
 
 
 def parse_args(argv=None):
@@ -115,7 +116,10 @@ def output_lengths(model, widths):
 
 def to_device(obj, device):
     """``obj`` with every tensor and numpy array in it (through nested
-    tuples, lists and dicts) on ``device``; host scalars stay as they are."""
+    tuples, lists, dicts and arc tables) on ``device``; host scalars stay as
+    they are."""
+    if isinstance(obj, ArcTable):
+        return obj.to(device)
     if isinstance(obj, np.ndarray):
         obj = torch.from_numpy(obj)
     if isinstance(obj, torch.Tensor):
@@ -180,7 +184,8 @@ def load_experiment(config, generator=None):
     dataset_name = config["data"]["dataset"]
     if not hasattr(ds_pkg, dataset_name) or dataset_name == "text":
         raise ValueError(
-            f"Unknown dataset {dataset_name} (the port has 'synthetic'; "
+            f"Unknown dataset {dataset_name} (the port has 'synthetic' and "
+            "'synthetic_long'; "
             "the others wait for their data)"
         )
     dataset = getattr(ds_pkg, dataset_name)

@@ -5,7 +5,9 @@ TDS2d path uses with the CTC, ASG, STC and Transducer criteria.  The batch
 sampler emits width-sorted, bucketed batches; timers synchronise the CUDA
 device before reading the clock; and checkpoints are pickled
 ``state_dict``s.  Only the ``tds2d`` model and the ``ctc``, ``asg``,
-``stc`` and ``transducer`` criteria resolve in the factories so far.
+``stc`` and ``transducer`` criteria resolve in the factories so far; a
+Transducer's ``transitions`` file is read with the port's ``wfst`` graph
+files.
 """
 
 import logging
@@ -305,7 +307,8 @@ def load_model(model_type, input_size, output_size, config, generator=None):
 
 def load_criterion(criterion_type, preprocessor, config):
     """Criterion factory: (criterion, model output size).  ``ctc``,
-    ``asg``, ``stc`` and ``transducer`` (full n-gram or no transitions)
+    ``asg``, ``stc`` and ``transducer`` (full n-gram, no transitions, or a
+    transition graph loaded from the binary file ``transitions`` names)
     are ported."""
     from .criterions import ASG, CTC, STC, Transducer
 
@@ -344,15 +347,15 @@ def load_criterion(criterion_type, preprocessor, config):
             num_tokens + 1,
         )
     if criterion_type == "transducer":
-        if config.get("transitions") is not None:
-            raise NotImplementedError(
-                "Transducer transitions loaded from a file (the backoff "
-                "variants) are not ported yet (ROADMAP queue A items 7 and 8)"
-            )
         blank = config.get("blank", "none")
+        transitions = config.get("transitions")
+        if transitions is not None:
+            from .wfst import graph as wgraph
+
+            transitions = wgraph.load(transitions)
         criterion = Transducer(
             preprocessor.tokens, preprocessor.graphemes_to_index,
-            ngram=config.get("ngram", 0), blank=blank,
+            ngram=config.get("ngram", 0), transitions=transitions, blank=blank,
             allow_repeats=config.get("allow_repeats", True), reduction="mean",
         )
         return criterion, num_tokens + int(blank != "none")

@@ -7,12 +7,15 @@ the decode template (``DecodeTemplate``, ``build_decode_template``,
 arrays (emitting arcs, epsilon arcs with their closure depth, start and
 accept potentials), and a transition graph with learnable arc weights
 becomes an epsilon-free tropical decode ``ArcTable`` re-weighted per
-parameter update in O(nnz) numpy.  Epsilon removal inside
-``compile_acceptor`` (``remove_eps=True``) and the stacked arc tables of
-the sparse scorer are not ported yet (ROADMAP queue A item 7).
+parameter update in O(nnz) numpy; a batch of compiled graphs becomes one
+table of the sparse scorer, on a shared union skeleton
+(``union_stack_arc_tables``) or stacked per sample (``stack_arc_tables``),
+both with JAX's shape bucketing.  Epsilon removal inside
+``compile_acceptor`` (``remove_eps=True``) is not ported: the decode
+template removes epsilons on its own.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -240,13 +243,18 @@ def apply_decode_weights(tmpl: DecodeTemplate, weights):
     return to_arc_table(cg)
 
 
-def to_arc_table(cg: CompiledGraph):
-    """Single CompiledGraph -> ArcTable of CPU tensors.  A graph without
-    arcs (or states) gets one padding arc from state 0 to the last state
-    with weight NEG (one state with NEG start and accept potentials)."""
-    A = max(len(cg.src), 1)
-    S = max(len(cg.start), 1)
-    E = len(cg.eps_src)
+def to_arc_table(cg: CompiledGraph, pad_arcs=None, pad_states=None, pad_eps=None):
+    """Single CompiledGraph -> ArcTable of CPU tensors, padded to
+    ``pad_arcs`` arcs, ``pad_states`` states and ``pad_eps`` epsilon arcs
+    (default: their own counts, at least one arc and one state).  Padding
+    arcs run from state 0 to the last state with weight NEG; padding
+    states have NEG start and accept potentials."""
+    A = pad_arcs or max(len(cg.src), 1)
+    S = pad_states or max(len(cg.start), 1)
+    E = pad_eps if pad_eps is not None else len(cg.eps_src)
+    if len(cg.src) > A or len(cg.eps_src) > E:
+        raise ValueError(f"arc counts {len(cg.src)}/{len(cg.eps_src)} exceed "
+                         f"the pad sizes {A}/{E}")
 
     def pad(x, size, value, dtype):
         x = np.asarray(x, dtype)
@@ -264,4 +272,117 @@ def to_arc_table(cg: CompiledGraph):
         eps_dst=pad(cg.eps_dst, E, S - 1, np.int32),
         eps_weight=pad(cg.eps_weight, E, NEG, np.float32),
         eps_depth=cg.eps_depth,
+    )
+
+
+def _round_up(x, multiple):
+    return ((max(x, 1) + multiple - 1) // multiple) * multiple
+
+
+def _union_slots(per_sample_pairs):
+    """Align per-sample (src, dst) arc lists onto a shared union skeleton.
+
+    Slot identity is (src, dst, occurrence): the k-th arc between the same
+    state pair in any sample lands in the same slot, so a sample that lacks
+    an arc leaves that slot dead (NEG weight).  Returns (src_u, dst_u,
+    positions) where positions[b][i] is the slot of sample b's i-th arc."""
+    counts = {}
+    per_sample_keys = []
+    for pairs in per_sample_pairs:
+        occ = {}
+        keys = []
+        for sd in pairs:
+            k = occ.get(sd, 0)
+            occ[sd] = k + 1
+            keys.append((sd[0], sd[1], k))
+        per_sample_keys.append(keys)
+        for sd, c in occ.items():
+            counts[sd] = max(counts.get(sd, 0), c)
+    union = sorted((s, d, k) for (s, d), c in counts.items() for k in range(c))
+    slot = {key: i for i, key in enumerate(union)}
+    positions = [np.asarray([slot[k] for k in keys], np.int64)
+                 for keys in per_sample_keys]
+    src_u = np.asarray([k[0] for k in union], np.int32)
+    dst_u = np.asarray([k[1] for k in union], np.int32)
+    return src_u, dst_u, positions
+
+
+def _tensors(**fields):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in fields.items()}
+
+
+def union_stack_arc_tables(cgs: Sequence[CompiledGraph], pad_multiple=8,
+                           max_blowup=1.75):
+    """Shared-skeleton stacking: 1-D src/dst (and epsilon endpoints) with
+    per-sample [B, A] labels and weights ([B, S] start and accept, [B, E]
+    epsilon weights).
+
+    Returns (table, positions, eps_positions), where positions[b] maps
+    sample b's arc order to union slots (for provenance arrays such as the
+    Transducer's widx), or None when the union skeleton exceeds
+    ``max_blowup`` times the largest per-sample arc count: structurally
+    unrelated graphs, which ``stack_arc_tables`` stacks per sample."""
+    B = len(cgs)
+    max_A = max(max(len(c.src) for c in cgs), 1)
+    max_E = max(len(c.eps_src) for c in cgs)
+    src_u, dst_u, positions = _union_slots(
+        [list(zip(c.src.tolist(), c.dst.tolist())) for c in cgs])
+    if len(src_u) > max_blowup * max_A:
+        return None
+    if max_E:
+        esrc_u, edst_u, eps_positions = _union_slots(
+            [list(zip(c.eps_src.tolist(), c.eps_dst.tolist())) for c in cgs])
+        if len(esrc_u) > max_blowup * max_E:
+            return None
+    else:
+        esrc_u = edst_u = np.zeros((0,), np.int32)
+        eps_positions = [np.zeros((0,), np.int64) for _ in cgs]
+
+    S = _round_up(max(len(c.start) for c in cgs), pad_multiple)
+    A = _round_up(len(src_u), pad_multiple)
+    E = _round_up(len(esrc_u), pad_multiple) if len(esrc_u) else 0
+    depth = max(c.eps_depth for c in cgs)
+
+    def pad_ends(src, dst, n):
+        return (np.concatenate([src, np.zeros(n - len(src), np.int32)]),
+                np.concatenate([dst, np.full(n - len(dst), S - 1, np.int32)]))
+
+    src_u, dst_u = pad_ends(src_u, dst_u, A)
+    esrc_u, edst_u = pad_ends(esrc_u, edst_u, E)
+    label = np.zeros((B, A), np.int32)
+    weight = np.full((B, A), NEG, np.float32)
+    start = np.full((B, S), NEG, np.float32)
+    accept = np.full((B, S), NEG, np.float32)
+    eps_weight = np.full((B, E), NEG, np.float32)
+    for b, c in enumerate(cgs):
+        label[b, positions[b]] = c.label
+        weight[b, positions[b]] = c.weight
+        start[b, : len(c.start)] = c.start
+        accept[b, : len(c.accept)] = c.accept
+        if E and len(c.eps_src):
+            eps_weight[b, eps_positions[b]] = c.eps_weight
+    table = ArcTable(
+        **_tensors(src=src_u, dst=dst_u, label=label, weight=weight,
+                   start=start, accept=accept, eps_src=esrc_u,
+                   eps_dst=edst_u, eps_weight=eps_weight),
+        eps_depth=depth,
+    )
+    return table, positions, eps_positions
+
+
+def stack_arc_tables(cgs: Sequence[CompiledGraph], pad_multiple=8):
+    """Pad a batch of CompiledGraphs to shared shapes and stack: an
+    ArcTable with a leading batch dimension on every field."""
+    A = _round_up(max(len(c.src) for c in cgs), pad_multiple)
+    S = _round_up(max(len(c.start) for c in cgs), pad_multiple)
+    E = max(len(c.eps_src) for c in cgs)
+    if E:
+        E = _round_up(E, pad_multiple)
+    depth = max(c.eps_depth for c in cgs)
+    tables = [to_arc_table(c._replace(eps_depth=depth), A, S, E) for c in cgs]
+    fields = ("src", "dst", "label", "weight", "start", "accept", "eps_src",
+              "eps_dst", "eps_weight")
+    return ArcTable(
+        **{f: torch.stack([getattr(t, f) for t in tables]) for f in fields},
+        eps_depth=depth,
     )

@@ -1,17 +1,21 @@
-"""Host-side weighted finite-state transducer graphs (no file I/O).
+"""Host-side weighted finite-state transducer graphs and their files.
 
-Counterpart of the ``Graph`` class and ``linear_graph`` of
+Counterpart of the ``Graph`` class, ``linear_graph`` and the file I/O
+(``savetxt``/``loadtxt``, the binary ``save``/``load``) of
 ``gtn_applications_tpu/wfst/graph.py``, kept as a copy so that the port
 does not import the JAX package (whose ``wfst`` package imports JAX).
-What the STC label graphs and the Transducer's builders need is here:
-building nodes and arcs, arc sorting, and the counts and start nodes that
-``wfst.compile`` reads.  Graphs are built on
-the host once per target and compiled to fixed-shape tables that the
-device recursions consume.
+What the STC label graphs, the Transducer's builders and its loaded
+transition graphs need is here: building nodes and arcs, copying, arc
+sorting, and the counts and start nodes that ``wfst.compile`` reads.
+Graphs are built on the host once per target and compiled to fixed-shape
+tables that the device recursions consume.
 
 Accepting states carry a *multiset* of final weights, as in the JAX class.
+Both packages read and write the same files: the text format of GTN's
+``savetxt`` and a little-endian binary format with the magic ``TWFST001``.
 """
 
+import struct
 from typing import Dict, List
 
 EPSILON = -1
@@ -41,6 +45,9 @@ class Graph:
             self.finals[idx] = [0.0]
         return idx
 
+    def add_final(self, node, weight=0.0):
+        self.finals.setdefault(node, []).append(float(weight))
+
     def add_arc(self, src, dst, ilabel, olabel=None, weight=0.0):
         if olabel is None:
             olabel = ilabel
@@ -60,6 +67,37 @@ class Graph:
     def start_nodes(self):
         return [i for i, s in enumerate(self.start) if s]
 
+    def accept_nodes(self):
+        return sorted(self.finals)
+
+    def arcs(self):
+        """Iterate (src, dst, ilabel, olabel, weight) tuples."""
+        return zip(self.arc_src, self.arc_dst, self.arc_ilabel,
+                   self.arc_olabel, self.arc_weight)
+
+    def has_simple_finals(self):
+        return all(ws == [0.0] for ws in self.finals.values())
+
+    def set_weights(self, weights):
+        """Overwrite all arc weights from a flat sequence."""
+        weights = [float(w) for w in weights]
+        if len(weights) != self.num_arcs():
+            raise ValueError(
+                f"set_weights got {len(weights)} weights for {self.num_arcs()} arcs"
+            )
+        self.arc_weight = weights
+
+    def copy(self):
+        g = Graph()
+        g.start = list(self.start)
+        g.finals = {k: list(v) for k, v in self.finals.items()}
+        g.arc_src = list(self.arc_src)
+        g.arc_dst = list(self.arc_dst)
+        g.arc_ilabel = list(self.arc_ilabel)
+        g.arc_olabel = list(self.arc_olabel)
+        g.arc_weight = list(self.arc_weight)
+        return g
+
     def arc_sort(self):
         """Order the arcs by (source, input label); gtn.arc_sort is a
         performance hint, here it fixes the arc order the compiled tables
@@ -78,8 +116,104 @@ class Graph:
     def __repr__(self):
         return (
             f"Graph(nodes={self.num_nodes()}, arcs={self.num_arcs()}, "
-            f"start={self.start_nodes()}, accept={sorted(self.finals)})"
+            f"start={self.start_nodes()}, accept={self.accept_nodes()})"
         )
+
+
+def savetxt(path_or_file, g: Graph):
+    """GTN text format: start line, accept line, then
+    ``src dst ilabel olabel weight`` rows (the format of
+    ``tests/goldens/trans_backoff_test.txt``)."""
+    if not g.has_simple_finals():
+        raise ValueError("text format cannot represent weighted finals")
+    lines = [
+        " ".join(str(i) for i in g.start_nodes()),
+        " ".join(str(i) for i in g.accept_nodes()),
+    ]
+    for s, d, il, ol, w in g.arcs():
+        lines.append(f"{s} {d} {il} {ol} {w:g}")
+    data = "\n".join(lines) + "\n"
+    if hasattr(path_or_file, "write"):
+        path_or_file.write(data)
+    else:
+        with open(path_or_file, "w") as fid:
+            fid.write(data)
+
+
+def loadtxt(path_or_file) -> Graph:
+    if hasattr(path_or_file, "read"):
+        text = path_or_file.read()
+    else:
+        with open(path_or_file, "r") as fid:
+            text = fid.read()
+    lines = text.splitlines()
+    if len(lines) < 2:
+        raise ValueError("invalid graph text: need start and accept lines")
+    starts = {int(x) for x in lines[0].split()}
+    accepts = {int(x) for x in lines[1].split()}
+    max_node = max(starts | accepts, default=-1)
+    arcs = []
+    for line in lines[2:]:
+        parts = line.split()
+        if not parts:
+            continue
+        if len(parts) == 3:
+            s, d, il = (int(p) for p in parts)
+            ol, w = il, 0.0
+        elif len(parts) == 4:
+            s, d, il, ol = (int(p) for p in parts)
+            w = 0.0
+        elif len(parts) == 5:
+            s, d, il, ol = (int(p) for p in parts[:4])
+            w = float(parts[4])
+        else:
+            raise ValueError(f"invalid arc line: {line!r}")
+        arcs.append((s, d, il, ol, w))
+        max_node = max(max_node, s, d)
+    g = Graph()
+    for i in range(max_node + 1):
+        g.add_node(i in starts, i in accepts)
+    for arc in arcs:
+        g.add_arc(*arc)
+    return g
+
+
+_MAGIC = b"TWFST001"
+
+
+def save(path, g: Graph):
+    """Binary file: the magic, node/arc/final counts (int64), start flags
+    (uint8), (node int64, weight float32) finals, then the arcs' src, dst,
+    ilabel, olabel (int64 each) and weights (float32), little-endian."""
+    n, a = g.num_nodes(), g.num_arcs()
+    finals = [(node, w) for node, ws in sorted(g.finals.items()) for w in ws]
+    with open(path, "wb") as fid:
+        fid.write(_MAGIC)
+        fid.write(struct.pack("<qqq", n, a, len(finals)))
+        fid.write(struct.pack(f"<{n}B", *[int(x) for x in g.start]))
+        for node, w in finals:
+            fid.write(struct.pack("<qf", node, w))
+        for field in (g.arc_src, g.arc_dst, g.arc_ilabel, g.arc_olabel):
+            fid.write(struct.pack(f"<{a}q", *field))
+        fid.write(struct.pack(f"<{a}f", *g.arc_weight))
+
+
+def load(path) -> Graph:
+    with open(path, "rb") as fid:
+        if fid.read(8) != _MAGIC:
+            raise ValueError(f"not a {_MAGIC!r} graph file")
+        n, a, nf = struct.unpack("<qqq", fid.read(24))
+        g = Graph()
+        for s in struct.unpack(f"<{n}B", fid.read(n)):
+            g.add_node(bool(s), False)
+        for _ in range(nf):
+            node, w = struct.unpack("<qf", fid.read(12))
+            g.add_final(node, w)
+        fields = [struct.unpack(f"<{a}q", fid.read(8 * a)) for _ in range(4)]
+        weights = struct.unpack(f"<{a}f", fid.read(4 * a))
+        for arc in zip(*fields, weights):
+            g.add_arc(*arc)
+        return g
 
 
 def linear_graph(sequence):

@@ -22,6 +22,8 @@ MODULES = [
     "gtn_applications_tpu_torch.ops.viterbi_scan_pallas",
     "gtn_applications_tpu_torch.ops.dense_scan_pallas",
     "gtn_applications_tpu_torch.ops.factored",
+    "gtn_applications_tpu_torch.ops.seglse_pallas",
+    "gtn_applications_tpu_torch.ops.sparse_scan_pallas",
     "gtn_applications_tpu_torch.ops.sparse",
     "gtn_applications_tpu_torch.wfst",
     "gtn_applications_tpu_torch.wfst.graph",
@@ -34,6 +36,8 @@ MODULES = [
     "gtn_applications_tpu_torch.models",
     "gtn_applications_tpu_torch.models.convert",
     "gtn_applications_tpu_torch.datasets",
+    "gtn_applications_tpu_torch.datasets.synthetic_long",
+    "gtn_applications_tpu_torch.scripts.build_transitions",
     "gtn_applications_tpu_torch.utils",
     "gtn_applications_tpu_torch.train",
     "gtn_applications_tpu_torch.test",

@@ -88,3 +88,36 @@ def test_transducer_cuda_wrappers_refuse_bad_inputs(cuda_device):
     slots = torch.zeros(B, T, S, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         viterbi_scan_pallas.viterbi_backtrace_cuda(slots, vec, start, src, src[:1])
+
+
+@pytest.mark.cuda
+def test_sparse_cuda_wrappers_refuse_bad_inputs(cuda_device):
+    from gtn_applications_tpu_torch.ops import seglse_pallas, sparse_scan_pallas
+
+    B, T, S, A, C = 2, 3, 4, 6, 5
+    src = torch.zeros(1, A, dtype=torch.int32, device=cuda_device)
+    idx = seglse_pallas.arc_index(src, src + 1, S)
+    alpha = torch.zeros(B, S, device=cuda_device)
+    w = torch.zeros(1, A, device=cuda_device)
+    with pytest.raises(ValueError):
+        seglse_pallas.seg_lse_fwd_cuda(alpha[:, :3], w, w, idx)
+    with pytest.raises(ValueError):
+        seglse_pallas.seg_lse_fwd_cuda(alpha, w.double(), w, idx)
+    with pytest.raises(ValueError):
+        seglse_pallas.seg_lse_bwd_cuda(alpha, w, w, idx, alpha.cpu())
+    em = torch.zeros(B, T, C, device=cuda_device)
+    lens = torch.full((B,), T, dtype=torch.int32, device=cuda_device)
+    empty = torch.zeros(1, 0, dtype=torch.int32, device=cuda_device)
+    plan = sparse_scan_pallas.scan_plan(src, src + 1, src, empty, empty, S, C)
+    with pytest.raises(ValueError):
+        sparse_scan_pallas.sparse_scan_fwd_cuda(em[:, :, :4], alpha, lens, plan, w,
+                                                w[:, :0], 0)
+    with pytest.raises(ValueError):
+        sparse_scan_pallas.sparse_scan_fwd_cuda(em, alpha, lens.long(), plan, w,
+                                                w[:, :0], 0)
+    cpu_plan = plan._replace(main=None)
+    with pytest.raises(ValueError):
+        sparse_scan_pallas.sparse_scan_fwd_cuda(em, alpha, lens, cpu_plan, w, w[:, :0], 0)
+    with pytest.raises(ValueError):
+        sparse_scan_pallas.sparse_scan_bwd_cuda(em, torch.zeros(B, T, S, device=cuda_device),
+                                                lens, plan, w, w[:, :0], 0, alpha)

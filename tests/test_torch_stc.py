@@ -1,4 +1,4 @@
-"""The port's STC criterion (dense tier) against the JAX package.
+"""The port's STC criterion (dense and sparse tiers) against the JAX package.
 
 Same targets, same numpy-seeded logits, same annealing step: the port's
 ``STC.loss`` (its ``dense_scan`` plain versions on CPU tensors) against JAX
@@ -83,9 +83,51 @@ def test_stc_anneals_only_in_training_mode():
 
 
 def test_stc_refused_by_dense_gate_raises(monkeypatch):
+    """A batch that the dense tier's gate refuses no longer raises: it
+    takes the sparse tier (an arc table with its star-arc mask)."""
     monkeypatch.setattr(stc_mod, "_DENSE_MAX_WORKSET", 10)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        STC(shift_targets=1).prepare([[1, 2]])
+    prep = STC(shift_targets=1).prepare([[1, 2]])
+    assert "dense" not in prep
+    assert prep["table"].src.dim() == 1 and prep["star_mask"].shape[0] == 1
+
+
+@pytest.mark.parametrize("seed,B,T,C,layout", [
+    (0, 3, 9, 7, "union"), (1, 4, 12, 10, "union"), (2, 2, 6, 5, "stacked"),
+])
+def test_stc_sparse_tier_matches_jax(monkeypatch, seed, B, T, C, layout):
+    """The dense gate shut (the port's working-set limit patched to 0):
+    STC's sparse tier, union or stacked tables with the penalty on the
+    star arcs, against JAX's with ``stc._DENSE_IMPL = "off"``; tables,
+    star masks and penalty exactly, loss rtol 1e-5 + atol 1e-5, input
+    gradient rtol 1e-4 + atol 1e-5."""
+    monkeypatch.setattr(stc_mod, "_DENSE_MAX_WORKSET", 0)
+    monkeypatch.setattr(jax_stc, "_DENSE_IMPL", "off")
+    if layout == "stacked":  # no union skeleton: graphs stacked per sample
+        monkeypatch.setattr(wcompile, "union_stack_arc_tables", lambda cgs: None)
+        monkeypatch.setattr(jax_wcompile, "union_stack_arc_tables",
+                            lambda cgs: None)
+    rng = np.random.default_rng(seed)
+    crit, jcrit = _pair(p0=0.4, plast=0.1, thalf=4.0, reduction="mean", shift_targets=1)
+    inputs = rng.normal(size=(B, T, C)).astype(np.float32)
+    targets = [rng.integers(0, C - 1, size=rng.integers(1, 4)).tolist()
+               for _ in range(B)]
+    lens = rng.integers(2, T + 1, size=B).astype(np.int32)
+    prep, jprep = crit.prepare(targets), jcrit.prepare(targets)
+    assert "dense" not in prep
+    assert (prep["table"].src.dim() == 1) == (layout == "union")
+    for f in ("src", "dst", "label", "weight", "start", "accept", "eps_src",
+              "eps_dst", "eps_weight"):
+        np.testing.assert_array_equal(getattr(prep["table"], f).numpy(),
+                                      np.asarray(getattr(jprep["table"], f)), err_msg=f)
+    np.testing.assert_array_equal(prep["star_mask"].numpy(), np.asarray(jprep["star_mask"]))
+
+    x = torch.from_numpy(inputs).requires_grad_(True)
+    loss = crit.loss({}, x, prep, torch.from_numpy(lens))
+    (gx,) = torch.autograd.grad(loss, x)
+    j_loss, j_gx = jax.value_and_grad(
+        lambda x: jcrit.loss({}, x, jprep, jnp.asarray(lens)))(jnp.asarray(inputs))
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), rtol=1e-4, atol=1e-5)
 
 
 def test_logsubexp_matches_jax():

@@ -337,9 +337,9 @@ def test_load_criterion_output_sizes(crit_type, n_extra):
     assert n_out == pre.num_tokens + n_extra
     if crit_type == "stc":
         assert crit.reduction == "mean" and crit.shift_targets == 1
-    # the Transducer resolves (one extra channel with a blank); a loaded
-    # transitions graph is not ported yet
+    # the Transducer resolves (one extra channel with a blank); a
+    # transitions file that does not exist is an error
     crit, n_out = utils.load_criterion("transducer", pre, {"blank": "optional"})
     assert n_out == pre.num_tokens + 1 and crit.reduction == "mean"
-    with pytest.raises(NotImplementedError, match="queue A items 7 and 8"):
-        utils.load_criterion("transducer", pre, {"transitions": "lm.bin"})
+    with pytest.raises(FileNotFoundError):
+        utils.load_criterion("transducer", pre, {"transitions": "missing-lm.bin"})

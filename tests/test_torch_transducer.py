@@ -37,6 +37,7 @@ from gtn_applications_tpu_torch.models.convert import (
     criterion_params_from_jax, tds2d_from_flax,
 )
 from gtn_applications_tpu_torch.wfst import compile as wcompile
+from gtn_applications_tpu_torch.wfst import graph as wgraph
 
 from tests.test_torch_train import MODEL, _updates_match
 
@@ -197,21 +198,25 @@ def test_decode_template_matches_jax():
     assert table.eps_depth == jtable.eps_depth == 0
 
 
-def test_what_is_not_ported_raises(monkeypatch):
+def test_what_is_not_ported_raises(monkeypatch, tmp_path):
+    """blank="forced" decoding still raises (ROADMAP A.7).  What raised
+    before the composed path was ported now runs it: a loaded transitions
+    graph (also from a file), ngram 3, and a batch the dense packing
+    refuses."""
     tokens, g2i = [(0,), (1,)], {0: 0, 1: 1}
-    with pytest.raises(NotImplementedError, match="queue A items 7 and 8"):
-        td.Transducer(tokens, g2i, transitions=td.make_transitions_graph(2, 2))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        td.Transducer(tokens, g2i, ngram=3)
     forced = td.Transducer(tokens, g2i, blank="forced")
     with pytest.raises(NotImplementedError, match="queue A item 7"):
         forced.viterbi(torch.zeros(1, 3, 3))
+    loaded = td.Transducer(tokens, g2i, transitions=td.make_transitions_graph(2, 2))
+    assert "table" in loaded.prepare([[0, 1]])
+    assert "table" in td.Transducer(tokens, g2i, ngram=3).prepare([[0, 1]])
     monkeypatch.setattr(td, "_DENSE_MAX_WORKSET", 0)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        td.Transducer(tokens, g2i).prepare([[0, 1]])
+    assert "table" in td.Transducer(tokens, g2i).prepare([[0, 1]])
     pre = synthetic.Preprocessor(None, num_features=16)
-    with pytest.raises(NotImplementedError, match="queue A items 7 and 8"):
-        utils.load_criterion("transducer", pre, {"transitions": "lm.bin"})
+    path = tmp_path / "lm.bin"
+    wgraph.save(path, td.make_transitions_graph(2, pre.num_tokens))
+    crit, _ = utils.load_criterion("transducer", pre, {"transitions": str(path)})
+    assert crit.num_transition_arcs == td.make_transitions_graph(2, pre.num_tokens).num_arcs()
 
 
 NGRAM_CTC = {"allow_repeats": False, "blank": "optional", "ngram": 2}

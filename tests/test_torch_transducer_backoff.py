@@ -1,0 +1,392 @@
+"""The loaded backoff-LM Transducer of the port against the JAX package.
+
+``configs/iamdb/pruned_ngram_ctc.json`` loads a pruned backoff n-gram
+transition graph (epsilon backoff arcs) built by
+``scripts/build_transitions.py``; the Transducer composes it into each
+target's lattice (the composed path) and scores it against the transition
+graph alone.  Held to JAX here:
+
+  * the graph files: the binary ``save``/``load`` in both directions, byte
+    for byte, and ``loadtxt``/``savetxt`` on the reference's backoff
+    fixture ``tests/goldens/trans_backoff_test.txt``;
+  * the builder copy: the same arcs as the JAX builder on the synthetic
+    corpus, at the recipe's settings and others;
+  * ``prepare``'s composed tables and weight provenance, exactly;
+  * the loss and its gradients to the logits and the transitions, on the
+    fixture and on the grapheme trigram, through the plain route and the
+    kernels' route (their plain versions here): loss rtol 1e-5 + atol
+    1e-5, gradients rtol 1e-4 + atol 1e-6; and a numeric-gradient check of
+    the transitions (as ``tests/test_transducer.py`` checks JAX's);
+  * ``ngram=3`` through the composed path;
+  * the decode template and ``Transducer.viterbi`` on a backoff graph,
+    labels exactly;
+  * one SGD step of a narrow TDS2d with this criterion (loss 1e-4, each
+    update within 1e-3 of its norm), and train.py + test.py end to end on
+    the CPU with a transitions file.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gtn_applications_tpu import train as jax_train
+from gtn_applications_tpu import wfst as jax_wfst
+from gtn_applications_tpu.criterions import transducer as jax_td
+from gtn_applications_tpu.datasets import synthetic_long as jax_long
+from gtn_applications_tpu.models import TDS2d as FlaxTDS2d
+from gtn_applications_tpu.scripts import build_transitions as jax_bt
+from gtn_applications_tpu.wfst import compile as jax_wcompile
+from gtn_applications_tpu_torch import profile_step, utils
+from gtn_applications_tpu_torch import test as test_mod
+from gtn_applications_tpu_torch import train as train_mod
+from gtn_applications_tpu_torch.criterions import transducer as td
+from gtn_applications_tpu_torch.datasets import synthetic, synthetic_long
+from gtn_applications_tpu_torch.models import TDS2d
+from gtn_applications_tpu_torch.models.convert import (
+    criterion_params_from_jax, tds2d_from_flax,
+)
+from gtn_applications_tpu_torch.ops import sparse
+from gtn_applications_tpu_torch.scripts import build_transitions as bt
+from gtn_applications_tpu_torch.wfst import compile as wcompile
+from gtn_applications_tpu_torch.wfst import graph as wgraph
+
+from tests.test_torch_train import MODEL, _updates_match
+
+FIXTURE = "tests/goldens/trans_backoff_test.txt"
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+TABLE_FIELDS = ("src", "dst", "label", "weight", "start", "accept", "eps_src",
+                "eps_dst", "eps_weight")
+
+
+def _same_graph(g, jg):
+    assert g.start == jg.start
+    assert g.finals == jg.finals
+    for f in ("arc_src", "arc_dst", "arc_ilabel", "arc_olabel", "arc_weight"):
+        assert getattr(g, f) == getattr(jg, f), f
+
+
+def _weighted_fixture(module):
+    g = module.loadtxt(FIXTURE)
+    g.set_weights(np.random.RandomState(0).randn(g.num_arcs()).astype(np.float32).tolist())
+    g.add_final(3, 0.25)  # a second way of accepting at node 3
+    return g
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_graph_files_round_trip_with_jax(writer, tmp_path):
+    path = tmp_path / "g.bin"
+    (wgraph if writer == "port" else jax_wfst).save(path, _weighted_fixture(
+        wgraph if writer == "port" else jax_wfst))
+    _same_graph(wgraph.load(path), jax_wfst.load(path))
+    other = tmp_path / "other.bin"
+    (jax_wfst if writer == "port" else wgraph).save(other, _weighted_fixture(
+        jax_wfst if writer == "port" else wgraph))
+    assert path.read_bytes() == other.read_bytes()
+
+
+def test_text_files_match_jax(tmp_path):
+    g, jg = wgraph.loadtxt(FIXTURE), jax_wfst.loadtxt(FIXTURE)
+    _same_graph(g, jg)
+    assert g.num_arcs() == 37 and g.num_nodes() == 8
+    wgraph.savetxt(tmp_path / "port.txt", g)
+    jax_wfst.savetxt(tmp_path / "jax.txt", jg)
+    assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
+    _same_graph(wgraph.loadtxt(tmp_path / "jax.txt"), g)
+    copy = g.copy()
+    copy.arc_weight[0] = 5.0
+    assert g.arc_weight[0] == 0.0
+
+
+def _texts(long=False):
+    module = synthetic_long if long else synthetic
+    pre = module.Preprocessor(None, num_features=16)
+    return pre, module.Dataset(None, pre, split="train").texts
+
+
+@pytest.mark.parametrize("prune,blank,self_loops,long", [
+    ((0, 5, 10), "optional", False, True),  # the IAM recipe's settings
+    ((0, 5, 10), "optional", False, False),
+    ((0, 2), "forced", False, False),
+    ((0, 0), "none", True, False),
+])
+def test_builder_matches_jax(prune, blank, self_loops, long):
+    pre, texts = _texts(long)
+    lines = [list(t) for t in texts]
+    g = bt.build_from_lines(lines, pre.tokens, list(prune), blank, self_loops)
+    t2i = {t: i for i, t in enumerate(pre.tokens)}
+    kept = jax_bt.prune_ngrams(jax_bt.count_ngrams(lines, len(prune), t2i), list(prune))
+    if blank != "none":
+        kept = jax_bt.add_blank_grams(kept, len(t2i), blank)
+    if self_loops:
+        kept = jax_bt.add_self_loops(kept)
+    _same_graph(g, jax_bt.build_graph(kept))
+    if blank == "optional" and long:
+        _same_graph(bt.grapheme_lm(texts, pre.tokens), jax_bt.build_graph(kept))
+
+
+def test_builder_cli_writes_the_jax_file(tmp_path):
+    pre, texts = _texts()
+    (tmp_path / "train.txt").write_text("\n".join(texts) + "\n")
+    (tmp_path / "tokens.txt").write_text("\n".join(pre.tokens) + "\n")
+    args = ["--data_path", str(tmp_path / "train.txt"), "--tokens",
+            str(tmp_path / "tokens.txt"), "--prune", "0", "5", "10", "--blank", "optional"]
+    bt.main(args + ["--save_path", str(tmp_path / "port.bin")])
+    jax_bt.main(args + ["--save_path", str(tmp_path / "jax.bin")])
+    assert (tmp_path / "port.bin").read_bytes() == (tmp_path / "jax.bin").read_bytes()
+
+
+def _fixture_pair(n=5):
+    kw = dict(blank="optional", allow_repeats=False, reduction="mean")
+    args = ([(i,) for i in range(n)], {i: i for i in range(n)})
+    return (td.Transducer(*args, transitions=wgraph.loadtxt(FIXTURE), **kw),
+            jax_td.Transducer(*args, transitions=jax_wfst.loadtxt(FIXTURE), **kw))
+
+
+def _trigram_pair():
+    pre, texts = _texts()
+    kw = dict(blank="optional", allow_repeats=False, reduction="mean")
+    g = bt.grapheme_lm(texts, pre.tokens)
+    jg = jax_bt.build_graph(jax_bt.add_blank_grams(jax_bt.prune_ngrams(
+        jax_bt.count_ngrams([list(t) for t in texts], 3,
+                            {t: i for i, t in enumerate(pre.tokens)}), [0, 5, 10]),
+        len(pre.tokens), "optional"))
+    return (td.Transducer(pre.tokens, pre.graphemes_to_index, transitions=g, **kw),
+            jax_td.Transducer(pre.tokens, pre.graphemes_to_index, transitions=jg, **kw))
+
+
+def _ngram3_pair():
+    kw = dict(ngram=3, blank="optional", allow_repeats=False, reduction="mean")
+    args = ([(i,) for i in range(3)], {i: i for i in range(3)})
+    return td.Transducer(*args, **kw), jax_td.Transducer(*args, **kw)
+
+
+CASES = {"fixture": _fixture_pair, "trigram": _trigram_pair, "ngram3": _ngram3_pair}
+
+
+def _targets(name, rng, B=4):
+    if name == "trigram":
+        pre, _ = _texts()
+        ds = synthetic.Dataset(None, pre, split="train")
+        return [ds[i][1].tolist() for i in range(B)], 48
+    n = 5 if name == "fixture" else 3
+    return [rng.randint(0, n, size=rng.randint(1, 4)).tolist() for _ in range(B)], 9
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_composed_prepare_matches_jax(name):
+    crit, jcrit = CASES[name]()
+    assert crit.num_transition_arcs == jcrit.num_transition_arcs
+    targets, _ = _targets(name, np.random.RandomState(1))
+    prep, jprep = crit.prepare(targets), jcrit.prepare(targets)
+    assert "table" in prep and "table" in jprep
+    for f in TABLE_FIELDS:
+        a, b = getattr(prep["table"], f).numpy(), np.asarray(getattr(jprep["table"], f))
+        assert a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert prep["table"].eps_depth == jprep["table"].eps_depth
+    for key in ("widx", "eps_widx", "target_lengths"):
+        np.testing.assert_array_equal(prep[key].numpy(), np.asarray(jprep[key]),
+                                      err_msg=key)
+    for f in TABLE_FIELDS:
+        np.testing.assert_array_equal(getattr(crit._norm_table, f).numpy(),
+                                      np.asarray(getattr(jcrit._norm_table, f)), err_msg=f)
+    np.testing.assert_array_equal(crit._norm_widx.numpy(), jcrit._norm_widx)
+    np.testing.assert_array_equal(crit._norm_eps_widx.numpy(), jcrit._norm_eps_widx)
+    assert crit._factored_backoff == jcrit._factored_backoff
+    assert crit._factored_backoff_dst == jcrit._factored_backoff_dst
+
+
+@pytest.mark.parametrize("route", ["plain", "kernels"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_loss_and_gradients_match_jax(name, route, monkeypatch):
+    if route == "kernels":
+        monkeypatch.setattr(sparse, "forward_score_batch_tables",
+                            sparse._forward_batched_kernels)
+    crit, jcrit = CASES[name]()
+    rng = np.random.RandomState(2)
+    targets, T = _targets(name, rng)
+    B, N = len(targets), crit.num_channels
+    x = rng.randn(B, T, N).astype(np.float32)
+    lens = np.asarray([T, T - 1, T - 3, T], np.int32)
+    trans = (rng.randn(crit.num_transition_arcs) * 0.3).astype(np.float32)
+
+    jprep = jcrit.prepare(targets)
+    j_loss, (j_gp, j_gx) = jax.value_and_grad(
+        lambda p, x: jcrit.loss({"transitions": p}, x, jprep, jnp.asarray(lens)),
+        argnums=(0, 1))(jnp.asarray(trans), jnp.asarray(x))
+    p_t = torch.from_numpy(trans).requires_grad_(True)
+    x_t = torch.from_numpy(x).requires_grad_(True)
+    loss = crit.loss({"transitions": p_t}, x_t, crit.prepare(targets), torch.from_numpy(lens))
+    gx, gp = torch.autograd.grad(loss, [x_t, p_t])
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), **LOSS_TOL)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), err_msg="logits", **GRAD_TOL)
+    np.testing.assert_allclose(gp.numpy(), np.asarray(j_gp), err_msg="transitions",
+                               **GRAD_TOL)
+
+
+def test_backoff_fixture_numeric_gradient():
+    """The port's form of ``tests/test_transducer.py``'s backoff-fixture
+    check: the transitions gradient against central differences over every
+    arc (T=4, labels [0, 1, 0], optional blank, no repeats)."""
+    crit, _ = _fixture_pair()
+    T, N = 4, 5
+    inputs = torch.from_numpy(np.random.RandomState(13).randn(1, T, N).astype(np.float32))
+    prepared = crit.prepare([[0, 1, 0]])
+    base = torch.zeros(crit.num_transition_arcs, requires_grad=True)
+    (analytic,) = torch.autograd.grad(crit.loss({"transitions": base}, inputs, prepared),
+                                      base)
+    eps = 1e-3
+    numeric = np.zeros(crit.num_transition_arcs)
+    for i in range(crit.num_transition_arcs):
+        probe = torch.zeros(crit.num_transition_arcs)
+        probe[i] = eps
+        up = float(crit.loss({"transitions": probe}, inputs, prepared))
+        down = float(crit.loss({"transitions": -probe}, inputs, prepared))
+        numeric[i] = (up - down) / (2 * eps)
+    np.testing.assert_allclose(analytic.numpy(), numeric, rtol=1e-2, atol=1e-3)
+    assert np.abs(numeric).max() > 1e-2
+
+
+@pytest.mark.parametrize("name", ["fixture", "trigram"])
+def test_backoff_decode_matches_jax(name):
+    crit, jcrit = CASES[name]()
+    rng = np.random.RandomState(7)
+    w = (rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32)
+    tmpl = wcompile.build_decode_template(crit.transitions)
+    jtmpl = jax_wcompile.build_decode_template(jcrit.transitions)
+    for f in tmpl._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(tmpl, f)),
+                                      np.asarray(getattr(jtmpl, f)), err_msg=f)
+    B, T = 5, 12
+    x = rng.randn(B, T, crit.num_channels).astype(np.float32)
+    lens = np.asarray([T, T - 1, T - 5, 2, 1], np.int32)
+    preds = crit.viterbi(torch.from_numpy(x), {"transitions": torch.from_numpy(w)},
+                         torch.from_numpy(lens))
+    j_preds = jcrit.viterbi(jnp.asarray(x), {"transitions": jnp.asarray(w)},
+                            jnp.asarray(lens))
+    assert [p.tolist() for p in preds] == [np.asarray(p).tolist() for p in j_preds]
+    assert any(len(p) for p in preds)
+
+
+def test_huge_lm_decode_raises():
+    """A destination-factorable graph with S_c * N > 2^15: JAX decodes it
+    through its destination-factored scan (ROADMAP A.8), the port raises."""
+    ntok = 200
+    rng = np.random.RandomState(3)
+    lines = [[str(i) for i in rng.randint(0, ntok, 12)] for _ in range(400)]
+    g = bt.build_from_lines(lines, [str(i) for i in range(ntok)], [0, 0], "optional",
+                            self_loops=True)
+    crit = td.Transducer([(i,) for i in range(ntok)], {i: i for i in range(ntok)},
+                         transitions=g, blank="optional", reduction="mean")
+    assert crit._factored_backoff_dst
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        crit.viterbi(torch.zeros(1, 3, ntok + 1),
+                     {"transitions": torch.zeros(crit.num_transition_arcs)})
+
+
+def test_train_step_matches_jax(tmp_path):
+    """One SGD step of a narrow TDS2d with pruned_ngram_ctc.json's
+    criterion (the grapheme trigram loaded from a file; random transitions
+    with their own learning rate) against JAX."""
+    pre, texts = _texts()
+    path = tmp_path / "trigram.bin"
+    wgraph.save(path, bt.grapheme_lm(texts, pre.tokens))
+    with open("configs/iamdb/pruned_ngram_ctc.json") as fid:
+        crit_cfg = dict(json.load(fid)["criterion"], transitions=str(path))
+    ds = synthetic.Dataset(None, pre, split="train")
+    inputs, _, targets = utils.padding_collate([ds[i] for i in range(8)])
+    crit, n_out = utils.load_criterion("transducer", pre, crit_cfg)
+    jcrit = jax_td.Transducer(pre.tokens, pre.graphemes_to_index,
+                              transitions=jax_wfst.load(path), blank="optional",
+                              allow_repeats=False, reduction="mean")
+    trans = (np.random.RandomState(0).randn(crit.num_transition_arcs) * 0.1).astype(
+        np.float32)
+    crit.params = criterion_params_from_jax({"transitions": trans})
+    lr, crit_lr, max_grad_norm = 0.05, 0.1, 100.0
+
+    flax_model = FlaxTDS2d(input_size=16, output_size=n_out, **MODEL)
+    variables = flax_model.init(jax.random.PRNGKey(0), jnp.asarray(inputs))
+    model = TDS2d(input_size=16, output_size=n_out, **MODEL)
+    tds2d_from_flax(jax.tree_util.tree_map(np.asarray, variables), model)
+    params = list(model.parameters()) + list(crit.params.values())
+    old = [p.detach().double().clone() for p in params]
+
+    jstep = jax_train.make_train_step(flax_model, jcrit, lr, crit_lr, max_grad_norm)
+    jparams, jloss, _ = jstep(
+        {"model": variables, "criterion": {"transitions": jnp.asarray(trans)}},
+        jnp.asarray(inputs), jcrit.prepare(targets), jax.random.PRNGKey(1),
+        jnp.float32(1.0),
+    )
+    step = train_mod.make_train_step(model, crit, lr, crit_lr, max_grad_norm)
+    loss, _ = step(torch.from_numpy(inputs), crit.prepare(targets), torch.Generator(), 1.0)
+    assert abs(float(loss) - float(jloss)) < 1e-4
+
+    ref = tds2d_from_flax(jax.tree_util.tree_map(np.asarray, jparams["model"]),
+                          TDS2d(input_size=16, output_size=n_out, **MODEL))
+    ref_params = list(ref.parameters()) + list(criterion_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams["criterion"])).values())
+    names = [n for n, _ in model.named_parameters()] + list(crit.params)
+    total = _updates_match(old, [p.detach().double() for p in params],
+                           [q.detach().double() for q in ref_params], names)
+    assert total > 0.05
+    assert float((params[-1].detach().double() - old[-1]).norm()) > 1e-3
+
+
+def test_pruned_ngram_ctc_train_then_test_cpu(tmp_path):
+    """pruned_ngram_ctc.json's criterion and optimiser sections, its
+    transitions a grapheme trigram file, on a small TDS2d and the synthetic
+    lines: train.py then test.py with --disable_cuda; the trained
+    transitions are saved and restored."""
+    pre, texts = _texts()
+    path = tmp_path / "trigram.bin"
+    wgraph.save(path, bt.grapheme_lm(texts, pre.tokens))
+    with open("configs/iamdb/pruned_ngram_ctc.json") as fid:
+        base = json.load(fid)
+    config = {
+        "seed": 0, "data": {"dataset": "synthetic", "num_features": 16},
+        "model_type": "tds2d", "model": MODEL, "criterion_type": "transducer",
+        "criterion": dict(base["criterion"], transitions=str(path)),
+        "optim": dict(base["optim"], epochs=1, batch_size=32),
+    }
+    cfg = tmp_path / "config.json"
+    cfg.write_text(json.dumps(config))
+    ckpt = ["--config", str(cfg), "--checkpoint_path", str(tmp_path), "--disable_cuda"]
+    _, history = train_mod.train(train_mod.parse_args(ckpt))
+    assert np.isfinite(history[-1]["train_loss"]) and np.isfinite(history[-1]["val_loss"])
+    state = utils.load_checkpoint(str(tmp_path), load_last=True)
+    assert float(state["criterion"]["transitions"].abs().sum()) > 0
+    meters = test_mod.run_test(test_mod.parse_args(ckpt + ["--split", "test"]))
+    assert meters.num_samples == 16 and np.isfinite(meters.avg_loss)
+
+
+def test_synthetic_long_matches_jax():
+    pre = synthetic_long.Preprocessor(None, num_features=16)
+    jpre = jax_long.Preprocessor(None, num_features=16)
+    ds = synthetic_long.Dataset(None, pre, split="validation")
+    jds = jax_long.Dataset(None, jpre, split="validation")
+    assert ds.texts == jds.texts and pre.tokens == jpre.tokens
+    for i in (0, 7):
+        np.testing.assert_array_equal(ds[i][0], jds[i][0])
+        np.testing.assert_array_equal(ds[i][1], jds[i][1])
+    widths = [w for (w, _), _ in ds.sample_sizes()]
+    assert min(widths) >= 4096 and max(widths) <= 9728
+    dataset, *_ = train_mod.load_experiment({
+        "data": {"dataset": "synthetic_long", "num_features": 16},
+        "model_type": "tds2d", "model": MODEL, "criterion_type": "ctc"})
+    assert dataset is synthetic_long
+
+
+def test_profile_step_builds_the_trigram_for_a_missing_graph():
+    with open("configs/iamdb/pruned_ngram_ctc.json") as fid:
+        config = json.load(fid)
+    data, crit_cfg = profile_step._data_and_criterion(config)
+    assert data is synthetic_long
+    pre, texts = _texts(long=True)
+    _same_graph(wgraph.load(crit_cfg["transitions"]), bt.grapheme_lm(texts, pre.tokens))
+    with open("configs/iamdb/ngram_ctc.json") as fid:
+        assert profile_step._data_and_criterion(json.load(fid))[0] is synthetic
