@@ -46,39 +46,55 @@ prints no result):
    the whole sparse scan on the table) against their plain versions run
    in float64, at bench.py's loaded backoff-LM protocol (its normaliser,
    S=1,004, A=6,618, E=1,183, and its composed union tables; B=32, T=100,
-   N=1,001), on the main path's per-sample trigram tables (T=300), on an
-   all-live random table, on STC's depth-0 union table and on a table
+   N=1,001), on the backoff paths' per-sample trigram and 4-gram tables
+   (T=300; the 4-gram normaliser's backward state, 250 KB, lives in global
+   scratch), on an all-live random table, on STC's depth-0 union table and on a table
    past shared memory: values within atol 1e-3 + rtol 1e-5 on live states
    (the scan's trajectory: within 80 nats of the frame's best), the
    cotangents (dalpha, dcontrib; dem, dw, deps, dalpha0) entry by entry
    within 1e-5 (|p| + the median nonzero |p|);
-10. five main paths, CTC, ASG, STC, the Transducer and the Transducer
-   with a loaded backoff LM: ``train.train`` of the port for 2 epochs (64
-   synthetic samples, batch 32: 4 steps plus validation) with the model
-   and criterion sections of configs/iamdb/tds2d.json, tds2d_asg.json,
-   tds2d_stc.json, ngram_ctc.json and pruned_ngram_ctc.json unchanged
-   (the last on the long-line corpus, its transitions the grapheme
-   trigram of the recipe's settings built into build/), then
-   ``test.run_test`` on the checkpoint; the launch counters are zeroed
-   just before each path and read just after: each kernel of the path
-   must have launched once per train step (backward kernels) or once per
-   train step and per evaluation batch (forward kernels and the decode's,
-   which every batch reaches), the backoff path's sparse kernels exactly
-   as often as its tables' closure depths say, and no kernel of another
-   path at all;
-11. the trainer's first batch of each path through its trained model: for
+10. seg_max, the per-step decode's tropical step, against its plain
+   version: on the epsilon-removed decode table of the unpruned grapheme
+   4-gram over the long-line texts (S=1,058, A=35,455, a hub of in-degree
+   1,057, C=12; shared, by label, B=32, alpha with NEG states), on a
+   per-sample random table, on fields of mixed batch dims, on integer
+   inputs with exact ties (at the hub too) and on a table with padding arcs
+   and dead destinations: values bitwise, winning arcs exactly; then the
+   per-step decode at that table (T=300, ragged lengths, one infeasible
+   sample) on the card against the CPU route: backarcs and labels bitwise,
+   scores within 1e-6;
+11. six main paths, CTC, ASG, STC, the Transducer and the Transducer
+   with a loaded backoff LM, the grapheme trigram and the 4-gram:
+   ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
+   32: 4 steps plus validation) with the model and criterion sections of
+   configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json
+   and pruned_ngram_ctc.json unchanged (the last two on the long-line
+   corpus, their transitions the grapheme trigram of the recipe's settings
+   and the unpruned 4-gram, built into build/), then ``test.run_test`` on
+   the checkpoint; the launch counters are zeroed just before each path
+   and read just after: each kernel of the path must have launched once
+   per train step (backward kernels) or once per train step and per
+   evaluation batch (forward kernels and the decode's, which every batch
+   reaches), the backoff paths' sparse kernels exactly as often as their
+   tables' closure depths say, their decode's kernels exactly once per
+   decoded batch (the trigram's whole scan) or once per decoded frame (the
+   4-gram's seg_max), and no kernel of another path at all;
+12. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
    gradient) on the card against the CPU on the same logits (CTC 1e-4 and
-   1e-6, the others 1e-4 and 1e-5; the backoff path against the CPU in
-   float64, loss 1e-4, gradients 1e-3 of their largest entry); and the
-   path's kernels against their plain versions on the inputs the train
-   step and the decode give them, at the tolerances of phases 3-9;
-12. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9
+   1e-6, the others 1e-4 and 1e-5; the backoff paths against the CPU in
+   float64, loss 1e-4, gradients 1e-3 of their largest entry, the 4-gram
+   on the batch's first 8 samples and 96 frames); the path's kernels
+   against their plain versions on the inputs the train step and the
+   decode give them, at the tolerances of phases 3-10; and the 4-gram's
+   decode of the first validation batch on the card against the CPU
+   route, labels exactly;
+13. times: CUDA-event medians of 30 runs after warm-up at the phase 4-10
    headline shapes for each kernel, its plain version and F.ctc_loss (the
    sparse kernels also on the 1kwp composed tables and the main path's
    trigram tables), the host-clock median of 20 full train steps of each
-   path, the latency of
+   path and of 5 decodes of the 4-gram path's first batch, the latency of
    one frame of the CTC recursion's dependent chain (``ctc_chain_probe``)
    for the CTC kernels' chain bound, and the device time and kernel
    launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
@@ -914,6 +930,7 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
     plan = ssp.scan_plan(src, dst, label, esrc, edst, S, C)
     fwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, False)
     bwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, True)
+    bwd_state = ssp.state_in_smem(S, src.shape[1], esrc.shape[1], C, depth, True)
     if past_smem and (fwd_smem or bwd_smem):
         raise AssertionError(f"sparse_scan: the tables of {what} fit in shared memory")
     em64, a64, w64, ew64 = f64(em, alpha0, w, ew)
@@ -940,7 +957,8 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
             errs["sparse_scan_bwd"] = max(errs["sparse_scan_bwd"], err)
     log(f"sparse {what}: S={S} A={src.shape[1]} E={esrc.shape[1]} depth={depth} "
         f"layout src/w/eps {src.shape[0]}/{w.shape[0]}/{ew.shape[0]}, tables in "
-        f"shared memory fwd {fwd_smem} bwd {bwd_smem}; seg_lse fwd max|d| "
+        f"shared memory fwd {fwd_smem} bwd {bwd_smem}, bwd state in shared memory "
+        f"{bwd_state}; seg_lse fwd max|d| "
         f"{errs['seg_lse_fwd']:.3g}, scan traj max|d| (live states) "
         f"{errs['sparse_scan_fwd']:.3g}, entrywise errors "
         + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
@@ -979,14 +997,14 @@ def stc_sparse_inputs(torch, dev, b=B, t=T, length=STC_L, n=N, seed=2):
     return em.contiguous(), table, il
 
 
-def backoff_main_inputs(torch, dev, t=300, seed=11):
-    """The main path's tables: the pruned_ngram_ctc.json criterion over the
-    grapheme trigram, on the first 32 targets of the long-line train split,
-    random logits [32, t, 12] and N(0, 0.3) transitions."""
+def backoff_main_inputs(torch, dev, t=300, seed=11, path="transducer_backoff"):
+    """A backoff path's tables: the pruned_ngram_ctc.json criterion over
+    the path's grapheme LM, on the first 32 targets of the long-line train
+    split, random logits [32, t, 12] and N(0, 0.3) transitions."""
     from gtn_applications_tpu_torch import utils
     from gtn_applications_tpu_torch.datasets import synthetic_long
 
-    config = main_path_config("transducer_backoff")
+    config = main_path_config(path)
     pre = synthetic_long.Preprocessor(None, num_features=config["data"]["num_features"])
     crit, n_out = utils.load_criterion("transducer", pre, config["criterion"])
     ds = synthetic_long.Dataset(None, pre, split="train")
@@ -1008,10 +1026,11 @@ def phase_sparse(torch, dev):
     for key in ("norm", "score"):
         merge_errs(errs, hold_sparse_kernels(torch, em, tables[key], lens,
                                              ("1kwp " + key, LM_B, LM_T)))
-    _, em3, lens3, tables3 = backoff_main_inputs(torch, dev)
-    for key in ("norm", "score"):
-        merge_errs(errs, hold_sparse_kernels(torch, em3, tables3[key], lens3,
-                                             ("trigram " + key,) + tuple(em3.shape[:2])))
+    for lm, path in (("trigram", "transducer_backoff"), ("4-gram", "transducer_backoff_4gram")):
+        _, em3, lens3, tables3 = backoff_main_inputs(torch, dev, path=path)
+        for key in ("norm", "score"):
+            merge_errs(errs, hold_sparse_kernels(torch, em3, tables3[key], lens3,
+                                                 (f"{lm} {key}",) + tuple(em3.shape[:2])))
     em_r, table_r, lens_r = random_sparse_table(torch, dev, B, T, N, 64, 1024, 128)
     merge_errs(errs, hold_sparse_kernels(torch, em_r, table_r, lens_r,
                                          ("all live", B, T, 64), all_live=True))
@@ -1027,6 +1046,179 @@ def phase_sparse(torch, dev):
     return errs
 
 
+# The backoff paths' transition graphs: the grapheme LM of the recipe's
+# builder (optional blank) over the long-line train texts, one order per
+# count threshold: the IAM recipe's pruned trigram, and an unpruned 4-gram
+# whose epsilon-removed decode table (S = 1,058, A = 35,455, a hub state of
+# in-degree 1,057) the whole-scan Viterbi's bucket plan refuses, so that
+# its decode runs the per-step seg_max
+LM_PRUNE = {"transducer_backoff": (0, 5, 10), "transducer_backoff_4gram": (0, 0, 0, 0)}
+STEP_T = 300  # frames of the per-step decode's check at the 4-gram table
+
+
+@functools.lru_cache(maxsize=None)
+def lm_transitions(prune):
+    """The grapheme LM of ``prune`` built into build/chip_smoke with the
+    port's builder; returns its path."""
+    from gtn_applications_tpu_torch.profile_step import long_corpus_lm
+
+    return long_corpus_lm(WORK / f"transitions_{len(prune)}gram.bin", prune)
+
+
+@functools.lru_cache(maxsize=1)
+def fourgram_template():
+    """(transition graph, decode template) of the 4-gram path."""
+    from gtn_applications_tpu_torch.wfst import compile as wcompile
+    from gtn_applications_tpu_torch.wfst import graph as wgraph
+
+    g = wgraph.load(lm_transitions(LM_PRUNE["transducer_backoff_4gram"]))
+    return g, wcompile.build_decode_template(g)
+
+
+def fourgram_decode_table(seed, integer=False):
+    """The 4-gram's tropical decode table (CPU tensors) under random
+    transition weights, N(0, 0.5) or, with ``integer``, integers in
+    [-2, 2] (so that contributions tie exactly); and its channel count."""
+    from gtn_applications_tpu_torch.wfst import compile as wcompile
+
+    g, tmpl = fourgram_template()
+    rng = np.random.RandomState(seed)
+    w = rng.randint(-2, 3, g.num_arcs()) if integer else rng.randn(g.num_arcs()) * 0.5
+    table = wcompile.apply_decode_weights(tmpl, w.astype(np.float32))
+    return table, int(table.label.max()) + 1
+
+
+def segmax_cases(torch, dev, b=B, seed=12):
+    """(what, alpha, src, dst, w, em, label) of seg_max's five checks: the
+    4-gram decode table (shared fields, emissions by label), a per-sample
+    random table (emissions per arc), fields of mixed batch dims, the
+    4-gram table with integer alpha, weights and emissions (exact ties),
+    and a table with padding arcs (-1 endpoints, NEG weight), arcs whose
+    source is -1, and destinations that no arc enters.  A tenth of the
+    alpha entries are NEG."""
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    rng = np.random.RandomState(seed)
+
+    def to(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    def alpha(s, integer=False):
+        a = (rng.randint(-3, 4, (b, s)) if integer else rng.randn(b, s) * 3).astype(np.float32)
+        a[rng.rand(b, s) < 0.1] = NEG
+        return to(a)
+
+    def row(x):  # a shared table field [1, A] on the device
+        return x[None].to(dev).contiguous()
+
+    cases = []
+    for what, integer in (("4-gram decode table", False), ("4-gram integer ties", True)):
+        t, C = fourgram_decode_table(13, integer)
+        em = rng.randint(-2, 3, (b, C)) if integer else rng.randn(b, C)
+        cases.append(((what, b) + tuple(t.src.shape) + (C,), alpha(t.start.shape[0], integer),
+                      row(t.src), row(t.dst), row(t.weight), to(em), row(t.label)))
+    S, A, C = 512, 8192, 16
+    ints = lambda lo, hi, shape: to(rng.randint(lo, hi, shape), torch.int32)  # noqa: E731
+    cases.append((("per sample", b, S, A), alpha(S), ints(0, S, (b, A)), ints(0, S, (b, A)),
+                  to(rng.randn(b, A) * 0.5), to(rng.randn(b, A)), None))
+    cases.append((("mixed batch dims", b, S, A, C), alpha(S), ints(0, S, (1, A)),
+                  ints(0, S, (b, A)), to(rng.randn(1, A) * 0.5), to(rng.randn(b, C)),
+                  ints(-1, C + 2, (b, A))))
+    src, dst = rng.randint(0, S, A), rng.randint(0, S // 2, A)  # [S/2, S) dead
+    w = rng.randn(A) * 0.5
+    pad = rng.rand(A) < 0.1
+    src[pad], dst[pad], w[pad] = -1, -1, NEG
+    src[rng.rand(A) < 0.05] = -1
+    cases.append((("padding and dead states", b, S, A, C), alpha(S),
+                  to(src[None], torch.int32), to(dst[None], torch.int32), to(w[None]),
+                  to(rng.randn(b, C)), ints(0, C, (1, A))))
+    return cases
+
+
+def hold_segmax_kernel(torch, alpha, src, dst, w, em, label, what, need_ties=False):
+    """seg_max's kernel against its plain version on the same inputs:
+    values bitwise equal, winning arcs exactly.  With ``need_ties``, some
+    state, the hub (the state of most in-arcs) among them, must have its
+    maximum attained by several arcs."""
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops.seglse_pallas import arc_index, take
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    S = alpha.shape[1]
+    idx = (arc_index(src, dst, S) if label is None
+           else arc_index(src, dst, S, label, em.shape[1]))
+    new_k, arc_k = smp.seg_max_cuda(alpha, take(w, idx.order),
+                                    em if label is not None else take(em, idx.order), idx)
+    new_p, arc_p = smp.seg_max_plain(alpha, src, dst, w, em, label)
+    torch.cuda.synchronize()
+    if not torch.equal(new_k, new_p):
+        raise AssertionError(f"seg_max: values differ from plain at {what}")
+    if not torch.equal(arc_k, arc_p):
+        raise AssertionError(f"seg_max: winning arcs differ from plain at {what}")
+    # the arcs that attain their state's maximum, counted by state
+    keys, c = smp._arc_fields(alpha, src, dst, w, em, label)
+    best = torch.cat([new_p, new_p[:, :1]], 1).gather(1, keys)
+    won = (keys < S) & (c > NEG) & (c == best)
+    hits = torch.zeros(keys.shape[0], S + 1, device=keys.device).scatter_add_(
+        1, keys, won.float())[:, :S]
+    hub = int(torch.bincount(keys[keys < S], minlength=S).argmax())
+    ties, hub_ties = int((hits > 1).sum()), int((hits[:, hub] > 1).sum())
+    if need_ties and not (ties and hub_ties):
+        raise AssertionError(f"seg_max: no exact ties (at the hub) in {what}")
+    log(f"seg_max {what}: values bitwise equal, winning arcs equal; "
+        f"{int((arc_p < smp.BIG).sum())} of {arc_p.numel()} states won, {ties} tied "
+        f"({hub_ties} at the hub state {hub})")
+    return {"seg_max": float((new_k - new_p).abs().max())}
+
+
+def hold_step_decode(torch, dev, b=B, t=STEP_T, seed=14):
+    """The per-step decode at the 4-gram table on the card against the CPU
+    route on the same inputs (emissions N(0, 1), lengths over 4t/5..t;
+    sample 1 meets an all-NEG frame at t/3, so no path accepts it):
+    backarcs and labels bitwise, scores within 1e-6.  Returns the score
+    error."""
+    from gtn_applications_tpu_torch.ops import sparse
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    table, C = fourgram_decode_table(seed)
+    if vsp.build_plan(table) is not None:
+        raise AssertionError("the whole-scan plan takes the 4-gram decode table")
+    rng = np.random.RandomState(seed)
+    em = rng.randn(b, t, C).astype(np.float32)
+    em[1, t // 3] = NEG
+    em = torch.from_numpy(em)
+    lens = torch.from_numpy(ragged_lengths(rng, b, t).astype(np.int32))
+    out = []
+    for where in (dev, torch.device("cpu")):
+        tab = table.to(where)
+        back, final = sparse._viterbi_step_scan(em.to(where), tab, lens.to(where))
+        labels, score = sparse._viterbi_step_backtrace(back, final, tab)
+        out.append([x.cpu() for x in (back, labels, score)])
+    (back_k, lab_k, score_k), (back_p, lab_p, score_p) = out
+    if not torch.equal(back_k, back_p):
+        raise AssertionError("step decode: backarcs differ between the card and the CPU")
+    if not torch.equal(lab_k, lab_p):
+        raise AssertionError("step decode: labels differ between the card and the CPU")
+    err = float((score_k - score_p).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"step decode: score max|d| {err}")
+    if not (float(score_p[1]) <= NEG / 2 and bool((lab_p[1] == -1).all())):
+        raise AssertionError("step decode: the infeasible sample did not decode empty")
+    log(f"step decode (4-gram, B={b}, T={t}, S={table.start.shape[0]}, "
+        f"A={table.src.shape[0]}): backarcs and labels bitwise equal card vs cpu, "
+        f"score max|d| {err:.3g}, {int((score_p <= NEG / 2).sum())} infeasible samples")
+    return err
+
+
+def phase_segmax(torch, dev):
+    errs = {}
+    for i, (what, *inputs) in enumerate(segmax_cases(torch, dev)):
+        merge_errs(errs, hold_segmax_kernel(torch, *inputs, what, need_ties=i == 1))
+    errs["step_decode_score"] = hold_step_decode(torch, dev)
+    return errs
+
+
 # path -> (config file, its forward kernels (and decode), its backward kernels)
 PATHS = {
     "ctc": ("tds2d.json", ("gather_fwd", "ctc_alpha"), ("gather_bwd", "ctc_grad")),
@@ -1039,29 +1231,25 @@ PATHS = {
                            ("seg_lse_fwd", "sparse_scan_fwd", "viterbi_scan_fwd",
                             "viterbi_backtrace"),
                            ("seg_lse_bwd", "sparse_scan_bwd")),
+    "transducer_backoff_4gram": ("pruned_ngram_ctc.json",
+                                 ("seg_lse_fwd", "sparse_scan_fwd", "seg_max"),
+                                 ("seg_lse_bwd", "sparse_scan_bwd")),
 }
 # the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json
-DATASETS = {"transducer_backoff": "synthetic_long"}
+DATASETS = {"transducer_backoff": "synthetic_long",
+            "transducer_backoff_4gram": "synthetic_long"}
 SPLITS = {"train": 64, "validation": 16, "test": 16}  # synthetic split sizes
-
-
-@functools.lru_cache(maxsize=1)
-def trigram_transitions():
-    """The grapheme trigram of the IAM recipe's settings (``--prune 0 5 10
-    --blank optional``) over the long-line train split's texts, built with
-    the port's builder into build/chip_smoke; returns its path."""
-    from gtn_applications_tpu_torch.profile_step import long_corpus_trigram
-
-    return long_corpus_trigram(WORK / "transitions_trigram.bin")
 
 
 def main_path_config(path):
     """The config's model and criterion sections unchanged (the backoff
-    path's transitions: the grapheme trigram); synthetic data, 2 epochs."""
+    paths' transitions: the grapheme LM of ``LM_PRUNE``); synthetic data,
+    2 epochs."""
     with open(ROOT / "configs" / "iamdb" / PATHS[path][0]) as fid:
         base = json.load(fid)
     if "transitions" in base.get("criterion", {}):
-        base["criterion"] = dict(base["criterion"], transitions=str(trigram_transitions()))
+        base["criterion"] = dict(base["criterion"],
+                                 transitions=str(lm_transitions(LM_PRUNE[path])))
     config = {
         "seed": 0,
         "data": {"dataset": DATASETS.get(path, "synthetic"), "num_features": 64},
@@ -1115,7 +1303,7 @@ def phase_main_path(torch, dev, path, config):
             raise AssertionError(
                 f"{path}: kernel {name} launched {n} times, expected "
                 + (f">= {need}" if need else "none (not on this path)"))
-    if path == "transducer_backoff":
+    if path in LM_PRUNE:
         expected = backoff_expected_launches(config, steps, evals)
         for name, n in expected.items():
             if launches[name] != n:
@@ -1130,47 +1318,65 @@ def phase_main_path(torch, dev, path, config):
 
 
 def backoff_expected_launches(config, steps, evals):
-    """The sparse kernels' launches on the backoff path: per loss two whole
+    """The kernels' launches on a backoff path: per loss two whole sparse
     scans (the composed tables and the normaliser) and one seg_lse per
     round of each table's start closure (its eps_depth, 0 without epsilon
-    arcs); the backward kernels once per train step.  The closure depth of
-    each batch's composed table is read from its ``prepare`` over the
-    sampler's fixed batches (an epoch only permutes their order)."""
+    arcs); the backward kernels once per train step; the decode of every
+    batch (each train step's and each evaluation batch's) one whole-scan
+    Viterbi where its bucket plan takes the decode table, else one seg_max
+    per frame.  Closure depths and frame counts are read from ``prepare``
+    and the padded widths of the sampler's fixed batches (an epoch only
+    permutes their order), over the model's time stride."""
+    import torch
+
     from gtn_applications_tpu_torch import datasets, utils
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
     data = getattr(datasets, config["data"]["dataset"])
     pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
     crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
     depth = lambda t: t.eps_depth if t.eps_src.shape[-1] else 0  # noqa: E731
     norm = depth(crit._norm_table)
-    rounds = {}
+    stride = int(np.prod([g["stride"][1] for g in config["model"]["tds_groups"]]))
+    rounds, frames = {}, {}
     for split in SPLITS:
         ds = data.Dataset(None, pre, split=split)
         batches = utils.BatchSortedSampler(ds, config["optim"]["batch_size"]).batches
         rounds[split] = sum(depth(crit.prepare([ds[i][1] for i in b])["table"]) + norm
                             for b in batches)
+        frames[split] = sum(-(-utils.padding_collate([ds[i] for i in b])[0].shape[2]
+                              // stride) for b in batches)
     epochs = config["optim"]["epochs"]
-    return {"sparse_scan_fwd": 2 * (steps + evals), "sparse_scan_bwd": 2 * steps,
-            "seg_lse_fwd": epochs * (rounds["train"] + rounds["validation"])
-            + rounds["test"],
-            "seg_lse_bwd": epochs * rounds["train"]}
+    expected = {"sparse_scan_fwd": 2 * (steps + evals), "sparse_scan_bwd": 2 * steps,
+                "seg_lse_fwd": epochs * (rounds["train"] + rounds["validation"])
+                + rounds["test"],
+                "seg_lse_bwd": epochs * rounds["train"]}
+    table = crit._decode_table({"transitions": torch.zeros(crit.num_transition_arcs)})
+    if vsp.build_plan(table) is None:
+        expected.update(seg_max=epochs * (frames["train"] + frames["validation"])
+                        + frames["test"], viterbi_scan_fwd=0, viterbi_backtrace=0)
+    else:
+        expected.update(seg_max=0, viterbi_scan_fwd=steps + evals,
+                        viterbi_backtrace=steps + evals)
+    return expected
 
 
-def first_batch(torch, config, path):
-    """The trainer's first batch, its criterion (with the trained
-    parameters of the path's checkpoint) and its prepared targets."""
+def first_batch(torch, config, path, split="train", n=None):
+    """The trainer's first batch of ``split`` (its first ``n`` samples),
+    its criterion (with the trained parameters of the path's checkpoint)
+    and its prepared targets."""
     from gtn_applications_tpu_torch import datasets, utils
 
     data = getattr(datasets, config["data"]["dataset"])
     pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
-    trainset = data.Dataset(None, pre, split="train", augment=True)
-    loader = utils.data_loader(trainset, config, seed=config["seed"])
+    dataset = data.Dataset(None, pre, split=split, augment=split == "train")
+    loader = utils.data_loader(dataset, config, seed=config["seed"])
     inputs, _, targets = next(iter(loader))
     crit, _ = utils.load_criterion(config["criterion_type"], pre,
                                    config.get("criterion", {}))
     state = utils.load_checkpoint(str(WORK / path), load_last=True)
     crit.params = state["criterion"]
-    return inputs, crit, crit.prepare(targets)
+    return inputs[:n], crit, crit.prepare(targets[:n])
 
 
 def card_vs_cpu(torch, dev, crit, logits, prepared, tol_loss, tol_grad, path):
@@ -1366,6 +1572,64 @@ def phase_main_batch_backoff(torch, dev, model, config):
                       transducer_backoff_decode_plan=[plan.D, plan.S])
 
 
+def phase_main_batch_backoff_4gram(torch, dev, model, config):
+    """The 4-gram backoff trainer's first batch: loss, logit and
+    transitions gradients on the card against the CPU (float64) on its
+    first 8 samples and 96 frames (the CPU's float64 plain route through
+    the 4-gram's normaliser, S=1,058 and closure depth 4, takes minutes on
+    the whole batch); the sparse kernels on the whole batch's tables and
+    logits; and the decode of the first validation batch on the card (one
+    seg_max per frame) against the CPU route, labels exactly, scores
+    within 1e-6."""
+    from gtn_applications_tpu_torch.ops import _build, sparse
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+
+    path = "transducer_backoff_4gram"
+    inputs, crit, prepared = first_batch(torch, config, path)
+    cut, _, cut_prepared = first_batch(torch, config, path, n=8)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+        cut_logits = model(torch.from_numpy(cut).to(dev))[:, :96]
+    diffs = card_vs_cpu64(torch, dev, crit, cut_logits, cut_prepared, path)
+    params = crit.params["transitions"].to(dev)
+    tables = transducer_tables(torch, dev, crit, prepared, params)
+    bsz, frames = logits.shape[:2]
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    errs = {}
+    for key in ("score", "norm"):
+        merge_errs(errs, hold_sparse_kernels(torch, logits.contiguous(), tables[key], il,
+                                             ("4-gram main batch " + key, bsz, frames)))
+
+    val_inputs, _, _ = first_batch(torch, config, path, split="validation")
+    with torch.no_grad():
+        val_logits = model(torch.from_numpy(val_inputs).to(dev))
+    table = crit._decode_table(crit.params)
+    if vsp.build_plan(table) is not None:
+        raise AssertionError(f"{path}: the whole-scan plan takes the decode table")
+    before = _build.LAUNCHES["seg_max"]
+    lab_k, score_k = sparse.viterbi_batch(val_logits, table)
+    launched = _build.LAUNCHES["seg_max"] - before
+    lab_p, score_p = sparse.viterbi_batch(val_logits.cpu(), table)
+    if launched != val_logits.shape[1]:
+        raise AssertionError(f"{path}: the decode launched seg_max {launched} times over "
+                             f"{val_logits.shape[1]} frames")
+    if not torch.equal(lab_k.cpu(), lab_p):
+        raise AssertionError(f"{path}: the decode's labels differ between the card and the CPU")
+    d_score = float((score_k.cpu() - score_p).abs().max())
+    if not d_score <= 1e-6:
+        raise AssertionError(f"{path}: decode score max|d| {d_score}")
+    log(f"4-gram decode of the first validation batch {list(val_logits.shape)}: labels equal "
+        f"card vs cpu, score max|d| {d_score:.3g}, {launched} seg_max launches")
+    shapes = {key: [int(tables[key].start.shape[-1]), int(tables[key].src.shape[-1]),
+                    int(tables[key].eps_src.shape[-1]), tables[key].eps_depth]
+              for key in tables}
+    return errs, dict(diffs, transducer_backoff_4gram_main_batch_shape=[bsz, frames],
+                      transducer_backoff_4gram_cpu64_shape=list(cut_logits.shape),
+                      transducer_backoff_4gram_tables_S_A_E_depth=shapes,
+                      transducer_backoff_4gram_val_decode_shape=list(val_logits.shape),
+                      transducer_backoff_4gram_val_decode_score_abs_diff=d_score)
+
+
 def time_train_step(torch, dev, model, config):
     """Host-clock median ms of 20 full train steps (after 5) on the first
     batch of the train split, without augmentation."""
@@ -1499,7 +1763,7 @@ def sparse_times(torch, dev):
     """CUDA-event medians of the sparse kernels and their plain versions
     at the 1kwp protocol's normaliser (the first round of its start
     closure for seg_lse), the kernels alone at its composed tables and at
-    the main path's trigram tables; and their bounds."""
+    the backoff paths' trigram and 4-gram tables; and their bounds."""
     from gtn_applications_tpu_torch.ops import seglse_pallas as slp
     from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
     from gtn_applications_tpu_torch.ops.semiring import logaddexp
@@ -1507,9 +1771,12 @@ def sparse_times(torch, dev):
     t, bounds = {}, {}
     _, em, lens, tables = backoff_lm_inputs(torch, dev)
     _, em3, lens3, tables3 = backoff_main_inputs(torch, dev)
+    _, em4, lens4, tables4 = backoff_main_inputs(torch, dev, path="transducer_backoff_4gram")
     cases = [("", em, lens, tables["norm"]), ("_1kwp_score", em, lens, tables["score"]),
              ("_trigram_norm", em3, lens3, tables3["norm"]),
-             ("_trigram_score", em3, lens3, tables3["score"])]
+             ("_trigram_score", em3, lens3, tables3["score"]),
+             ("_4gram_norm", em4, lens4, tables4["norm"]),
+             ("_4gram_score", em4, lens4, tables4["score"])]
     for key, e, il, table in cases:
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = sparse_fields(table)
         Bk, S = e.shape[0], start.shape[-1]
@@ -1560,6 +1827,54 @@ def sparse_times(torch, dev):
                               int(table.eps_src.shape[-1]), table.eps_depth,
                               list(e.shape)]
         for key, e, _, table in cases}
+    return t, bounds
+
+
+def segmax_bound(alpha, src, dst, w, em, label):
+    """One seg_max on this run's inputs: alpha, the arc fields (each row
+    once) and the emissions read, the values and winning arcs written; 3
+    fp32 operations (two adds and a compare) per sample and arc with valid
+    endpoints."""
+    B, S = alpha.shape
+    fields = [x for x in (src, dst, w, label) if x is not None]
+    A = max(x.shape[-1] for x in fields)
+    ok = ((src >= 0) & (src < S)).expand(B, A) & ((dst >= 0) & (dst < S)).expand(B, A)
+    n_bytes = 3 * B * S * 4 + sum(x.numel() * 4 for x in fields) + em.numel() * 4
+    return bound_ms(n_bytes, 3 * int(ok.sum()))
+
+
+def segmax_times(torch, dev, model, config):
+    """CUDA-event medians of seg_max and its plain version at the 4-gram
+    headline, its bound; and the host-clock median of 5 decodes of the
+    4-gram path's first train batch through ``viterbi_batch`` (after one
+    warm-up)."""
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops import sparse
+    from gtn_applications_tpu_torch.ops.seglse_pallas import arc_index, take
+
+    _, alpha, src, dst, w, em, label = segmax_cases(torch, dev)[0]
+    idx = arc_index(src, dst, alpha.shape[1], label, em.shape[1])
+    w_s = take(w, idx.order)
+    t = {"seg_max": gpu_median_ms(torch, lambda: smp.seg_max_cuda(alpha, w_s, em, idx)),
+         "seg_max_plain": gpu_median_ms(
+             torch, lambda: smp.seg_max_plain(alpha, src, dst, w, em, label))}
+    bounds = {"seg_max": segmax_bound(alpha, src, dst, w, em, label)}
+
+    path = "transducer_backoff_4gram"
+    inputs, crit, _ = first_batch(torch, config, path)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    table = crit._decode_table(crit.params)
+    ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sparse.viterbi_batch(logits, table)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    t[f"decode_batch_{path}"] = statistics.median(ms)
+    t[f"decode_batch_{path}_shape"] = list(logits.shape)
     return t, bounds
 
 
@@ -1813,6 +2128,8 @@ KERNELS = [
      "gtn_applications_tpu/ops/sparse_scan_pallas.py:265", None),
     ("sparse_scan_bwd", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
      "gtn_applications_tpu/ops/sparse_scan_pallas.py:312", None),
+    ("seg_max", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/segmax_pallas.py:41", None),
 ]
 
 
@@ -1831,20 +2148,25 @@ def run(device="cuda"):
     merge_errs(errs, phase_factored_scan(torch, dev))
     merge_errs(errs, phase_viterbi(torch, dev))
     merge_errs(errs, phase_sparse(torch, dev))
+    merge_errs(errs, phase_segmax(torch, dev))
     paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
              for path in PATHS}
     diffs = {}
     for path, check in (("ctc", phase_main_batch), ("asg", phase_main_batch_asg),
                         ("stc", phase_main_batch_stc),
                         ("transducer", phase_main_batch_transducer),
-                        ("transducer_backoff", phase_main_batch_backoff)):
+                        ("transducer_backoff", phase_main_batch_backoff),
+                        ("transducer_backoff_4gram", phase_main_batch_backoff_4gram)):
         main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
-    more_times, more_bounds = sparse_times(torch, dev)
-    times.update(more_times)
-    bounds.update(more_bounds)
+    for more_times, more_bounds in (
+            sparse_times(torch, dev),
+            segmax_times(torch, dev, paths["transducer_backoff_4gram"]["model"],
+                         main_path_config("transducer_backoff_4gram"))):
+        times.update(more_times)
+        bounds.update(more_bounds)
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)
@@ -1853,7 +2175,8 @@ def run(device="cuda"):
                 for name, *_ in KERNELS}
     timing = dict(times, card=card, build_s=build_s, **diffs,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],
-                  f_ctc_grad_max_abs_diff=errs["f_ctc_grad_max_abs_diff"])
+                  f_ctc_grad_max_abs_diff=errs["f_ctc_grad_max_abs_diff"],
+                  step_decode_score_abs_diff=errs["step_decode_score"])
     for path, info in paths.items():
         timing[f"main_path_{path}_s"] = info["seconds"]
         timing[f"main_path_{path}_launches"] = info["launches"]

@@ -31,16 +31,18 @@ JAX routes a loaded graph through its dense backoff factorings on the TPU
 and through the composed path elsewhere; the port always composes (the
 factorings have no Pallas kernel and wait for ROADMAP queue A item 8).
 Decoding with transitions goes through a decode template of the
-transition graph (``wfst.compile``) and the whole-scan Viterbi
-(``ops.sparse.viterbi_batch``); without, it is an argmax.  JAX decodes a
-huge LM (destination-factorable, S_c * N > 2^15) through its
-destination-factored scan, which the port does not have yet: such a
-decode raises.  The transitions' weights are learnable (zero-initialised),
-one per arc of the transition graph, whose own weights are set to 0.
-
-Not ported yet, each raising ``NotImplementedError``: ``blank="forced"``
-decoding (native ``forced_collapse``, ROADMAP A.7) and the huge-LM decode
-(A.8).  The ``ConvTransduce1D`` layer is A.9.
+transition graph (``wfst.compile``) and ``ops.sparse.viterbi_batch``: the
+whole-scan Viterbi where its in-degree bucket plan takes the table, else
+(a loaded LM whose epsilon-removed table has a hub state) the per-step
+``seg_max`` decode; without transitions, it is an argmax.  The alignment
+labels transduce to tokens by a run collapse, with ``blank="forced"``
+through the native ``forced_collapse`` (infeasible alignments decode to
+nothing).  JAX decodes a huge LM (destination-factorable, S_c * N > 2^15)
+through its destination-factored scan, which the port does not have yet:
+such a decode raises ``NotImplementedError`` (ROADMAP queue A item 8).
+The transitions' weights are learnable (zero-initialised), one per arc of
+the transition graph, whose own weights are set to 0.  The
+``ConvTransduce1D`` layer is A.9.
 """
 
 import dataclasses
@@ -477,11 +479,6 @@ class Transducer(Criterion):
         return table
 
     def viterbi_dispatch(self, outputs, params=None, input_lengths=None):
-        if self.blank == "forced":
-            raise NotImplementedError(
-                "blank='forced' decoding needs the native forced_collapse, "
-                "which is not ported yet (ROADMAP queue A item 7)"
-            )
         outputs = outputs.detach()
         if self.transitions is not None:
             if (self._factored_backoff_dst and self._norm_table.start.shape[0]
@@ -514,7 +511,11 @@ class Transducer(Criterion):
     def _transduce(self, labels, input_lengths):
         """For blank none / optional the token graph's shortest
         transduction is run-collapse-then-drop-blank; -1 labels occur only
-        on dead frames, which the length mask removes."""
+        on dead frames, which the length mask removes.  For 'forced' the
+        native ``forced_collapse`` also checks the alignment against the
+        forced token graph."""
+        if self.blank == "forced":
+            return native.forced_collapse(labels, self._num_tokens, input_lengths)
         Bn, Tn = labels.shape
         keep = np.ones((Bn, Tn), dtype=bool)
         keep[:, 1:] = labels[:, 1:] != labels[:, :-1]

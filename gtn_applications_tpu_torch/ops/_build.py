@@ -62,7 +62,8 @@ _SIGNATURES = {
         "seg_lse_fwd": (6, 6),
         "seg_lse_bwd": (10, 6),
         "sparse_scan_fwd": (12, 12),
-        "sparse_scan_bwd": (21, 12),
+        "sparse_scan_bwd": (22, 12),
+        "seg_max": (9, 8),
     },
 }
 
@@ -72,6 +73,7 @@ LAUNCHES = {
     "viterbi_scan_fwd": 0, "viterbi_backtrace": 0,
     "factored_scan_fwd": 0, "factored_scan_bwd": 0,
     "seg_lse_fwd": 0, "seg_lse_bwd": 0, "sparse_scan_fwd": 0, "sparse_scan_bwd": 0,
+    "seg_max": 0,
 }
 
 # Shared memory one block can use on Hopper (227 KB).

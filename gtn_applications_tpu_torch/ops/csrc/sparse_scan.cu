@@ -1,11 +1,14 @@
 // Sparse-arc lattice recursions over compiled WFST arc tables: one step
 // (seg_lse) and the whole scan with its epsilon closure, each with the
-// reverse replay for the cotangents.
+// reverse replay for the cotangents; and the tropical step with its
+// backpointers (seg_max) that the per-frame Viterbi decode runs.
 //
 // Replaces gtn_applications_tpu/ops/seglse_pallas.py: _fwd_kernel (:69) and
-// _bwd_kernel (:97), wrapped there by seg_lse (:139); and
+// _bwd_kernel (:97), wrapped there by seg_lse (:139);
 // gtn_applications_tpu/ops/sparse_scan_pallas.py: _fwd_kernel (:265) and
-// _bwd_kernel (:312), wrapped there by sparse_scan (:450).
+// _bwd_kernel (:312), wrapped there by sparse_scan (:450); and
+// gtn_applications_tpu/ops/segmax_pallas.py: _kernel (:41), wrapped there by
+// seg_max (:80).  seg_max is described above its kernel, below.
 //
 // One step, for each destination state s of sample b:
 //   c[a]   = (alpha[src[a]] + w[a]) + em[a]          (NEG where src < 0)
@@ -39,7 +42,9 @@
 // ~32 steps a lane.  The backward's sums by source and by label walk the
 // same kind of index (one warp a row), so there are no atomics and the
 // results are deterministic.  One block per sample runs the time loop, its
-// states in shared memory; the arc tables are staged there too when they fit
+// states in shared memory (the backward's float64 state, where it does not
+// fit, in a global scratch slice per sample: 250 KB at S = 1,058 and closure
+// depth 4, L2-resident); the arc tables are staged there too when they fit
 // (the 1k-wordpiece normaliser's forward), else read from global memory
 // (L2-resident: ~130 KB for a shared table).
 //
@@ -136,10 +141,11 @@ __device__ __forceinline__ V posterior(V c, Seg<V> sg, V g) {
   return (c > V(kDead) && sg.z > V(0)) ? ex(c - sg.m) / sg.z * g : V(0);
 }
 
-// A carve of shared memory, 4-byte words; staged copies of global arrays.
+// A carve of shared memory (or of a global scratch slice), 4-byte words;
+// staged copies of global arrays.
 struct Carve {
   float* p;
-  // doubles: carved first, from the (aligned) start of shared memory
+  // doubles: carved first, from the (8-byte aligned) start
   __device__ double* doubles(long n) {
     double* r = reinterpret_cast<double*>(p);
     p += 2 * n;
@@ -291,8 +297,106 @@ seg_lse_bwd_kernel(const float* __restrict__ alpha,
 }
 
 // ---------------------------------------------------------------------------
+// seg_max: one tropical step with the lowest winning arc id
+// ---------------------------------------------------------------------------
+//
+// new[b, s] = max(NEG, max over arcs a into s of (alpha[b, src[a]] + w[a]) +
+// e[a]) and best_arc[b, s] the lowest arc id attaining it (2^30 unless it is
+// strictly above NEG); arcs without a valid source are dropped (those
+// without a valid destination lie past dptr[S]).  e[a] = em[b, label[a]]
+// (0 for label -1) with a label index, else em[a] per arc.
+//
+// The TPU kernel builds [tile, S] one-hot masks of each arc tile and merges
+// tiles in increasing arc order with a strict >.  Here one warp takes one
+// (sample, destination): each lane scans a strided share of the
+// destination's arcs, which the stable sort of arc_index keeps in
+// increasing arc id, so a strict > keeps each lane's lowest id; the lanes
+// merge by shuffles under "greater value, else lower id", an associative
+// and exact rule, so the tie-break needs no order between lanes.  The grid
+// spreads B x ceil(S / 8) blocks of 8 warps over the SMs (4,256 blocks at
+// the 4-gram decode table, S = 1,058, B = 32).  Its hub destination (in
+// degree 1,057 against a mean of 33.5) costs one warp 33 strided rounds.
+//
+// What bounds it on the H100: 3 fp32 operations an arc and sample and ~1 MB
+// of tables, alpha and outputs, well under a microsecond; one launch per
+// decoded frame, so the launch and the hub warp's chain of dependent
+// loads set its time.
+
+constexpr int kBig = 1 << 30;
+constexpr int kMaxWarps = 8;
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
+seg_max_kernel(const float* __restrict__ alpha, const int* __restrict__ dptr,
+               const int* __restrict__ src, const long long* __restrict__ order,
+               const float* __restrict__ w, const int* __restrict__ label,
+               const float* __restrict__ em, float* __restrict__ out,
+               int* __restrict__ arc, int S, int A, int C, int em_ld, int sb, int wb,
+               int eb) {
+  const int b = blockIdx.y;
+  const int s = blockIdx.x * kMaxWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= S) return;  // s is one value across the warp: whole warps leave
+  const long so = sb ? static_cast<long>(b) : 0;
+  const int* D = dptr + so * (S + 1);
+  const int* Sr = src + so * A;
+  const long long* Id = order + so * A;
+  const int* L = label ? label + so * A : nullptr;
+  const float* W = w + (wb ? static_cast<long>(b) * A : 0);
+  const float* E = em + ((label || eb) ? static_cast<long>(b) * em_ld : 0);
+  const float* al = alpha + static_cast<long>(b) * S;
+  float best = -INFINITY;
+  int best_id = kBig;
+  for (int k = D[s] + lane; k < D[s + 1]; k += 32) {
+    const int u = Sr[k];
+    if (u < 0) continue;
+    float e;
+    if (L) {
+      const int l = L[k];
+      e = (l >= 0 && l < C) ? E[l] : 0.0f;
+    } else {
+      e = E[k];
+    }
+    const float c = (al[u] + W[k]) + e;
+    if (c > best) {
+      best = c;
+      best_id = static_cast<int>(Id[k]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, best, off);
+    const int oi = __shfl_xor_sync(kFull, best_id, off);
+    if (ov > best || (ov == best && oi < best_id)) {
+      best = ov;
+      best_id = oi;
+    }
+  }
+  if (lane == 0) {
+    const long o = static_cast<long>(b) * S + s;
+    const bool live = best > kNeg;
+    out[o] = live ? best : kNeg;
+    arc[o] = live ? best_id : kBig;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The whole scan
 // ---------------------------------------------------------------------------
+
+// Words (4 bytes) of shared memory: as ops/sparse_scan_pallas.py smem_bytes.
+__host__ __device__ long scan_state_words(int S, int A, int E, int C, int D,
+                                          bool backward) {
+  if (backward) return 2L * S * (5 * D + 7) + A + E + C;  // doubles: two words
+  return 32 + 4L * S + C;
+}
+
+// The backward's state slice of global scratch per sample, in words: a
+// whole number of doubles, so every slice starts 8-byte aligned.
+__host__ __device__ long scan_state_stride(int S, int A, int E, int C, int D) {
+  const long words = scan_state_words(S, A, E, C, D, true);
+  return words + (words & 1);
+}
+
 
 __global__ void __launch_bounds__(kScanThreads)
 sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ alpha0,
@@ -407,8 +511,8 @@ sparse_scan_bwd_kernel(const float* __restrict__ em, const float* __restrict__ t
                        const float* ew, const int* esptr, const int* esorder,
                        float* __restrict__ dem, double* __restrict__ dw,
                        double* __restrict__ deps, float* __restrict__ dalpha0,
-                       int T, int C, int S, int A, int E, int depth, int sb, int wb,
-                       int esb, int ewb, int in_smem) {
+                       float* scratch, int T, int C, int S, int A, int E, int depth,
+                       int sb, int wb, int esb, int ewb, int in_smem) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -416,7 +520,10 @@ sparse_scan_bwd_kernel(const float* __restrict__ em, const float* __restrict__ t
   const int nwarps = blockDim.x >> 5;
   const int D = depth;
   const long DS = static_cast<long>(D) * S;
-  Carve cv{smem};
+  // the state in shared memory, or in this sample's slice of global scratch
+  // where it does not fit (then the tables stay in global memory too);
+  // __syncthreads orders the block's global accesses as it does shared ones
+  Carve cv{scratch ? scratch + b * scan_state_stride(S, A, E, C, D) : smem};
   double* a_in = cv.doubles(S);
   double* curs = cv.doubles(DS + S);   // cur_0 = y0 .. cur_D
   double* seg_m = cv.doubles(DS + S);  // their shifts
@@ -561,12 +668,6 @@ sparse_scan_bwd_kernel(const float* __restrict__ em, const float* __restrict__ t
     dalpha0[static_cast<long>(b) * S + s] = static_cast<float>(g[s]);
 }
 
-// Words (4 bytes) of shared memory: as ops/sparse_scan_pallas.py smem_bytes.
-long scan_state_words(int S, int A, int E, int C, int D, bool backward) {
-  if (backward) return 2L * S * (5 * D + 7) + A + E + C;  // doubles: two words
-  return 32 + 4L * S + C;
-}
-
 long scan_table_words(int S, int A, int E, int C, int D, bool backward) {
   if (backward)
     return 2L * (S + 1) + 5L * A + (C + 1) + (D ? 2L * (S + 1) + 3L * E : 0);
@@ -618,6 +719,21 @@ int seg_lse_bwd(const float* alpha, const float* g, const int* dptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// alpha [B, S]; the index tables dptr [1 or B, S + 1], src and order (int64)
+// [1 or B, A], label [1 or B, A] or null; w [1 or B, A] in the index's arc
+// order; em: with labels, row b at em + b * em_ld (C channels), else [1 or
+// B, A] in the index's order (em_ld = A); writes out [B, S] and arc [B, S]
+// int32.  sb/wb/eb: 1 where that input is per sample.
+int seg_max(const float* alpha, const int* dptr, const int* src, const long long* order,
+            const float* w, const int* label, const float* em, float* out, int* arc,
+            int B, int S, int A, int C, int em_ld, int sb, int wb, int eb, void* stream) {
+  if (B == 0 || S == 0) return 0;
+  const dim3 grid((S + kMaxWarps - 1) / kMaxWarps, B);
+  seg_max_kernel<<<grid, kMaxWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      alpha, dptr, src, order, w, label, em, out, arc, S, A, C, em_ld, sb, wb, eb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // em [B, T, C], alpha0 [B, S], lens [B]; the main arcs' index (dptr, src,
 // label) and weights w, the epsilon arcs' (eptr, esrc) and weights ew (null
 // when depth is 0); traj [B, T + 1, S], alpha relative to shift [B, T + 1]
@@ -646,25 +762,28 @@ int sparse_scan_fwd(const float* em, const float* alpha0, const int* lens,
 // lptr [.., C + 1], lorder) and the epsilon arcs' source groups (esptr,
 // esorder); writes dem [B, T, C], dw [B, A] and deps [B, E] (float64; deps
 // null when depth is 0; both in the index's arc order) and dalpha0 [B, S].
+// scratch: null, or [B, scan_state_stride] words of global memory for a
+// state that does not fit in shared memory (in_smem must then be 0).
 int sparse_scan_bwd(const float* em, const float* traj, const int* lens,
                     const float* g_final, const int* dptr, const int* src,
                     const int* label, const float* w, const int* sptr,
                     const int* sorder, const int* lptr, const int* lorder,
                     const int* eptr, const int* esrc, const float* ew,
                     const int* esptr, const int* esorder, float* dem, double* dw,
-                    double* deps, float* dalpha0, int B, int T, int C, int S, int A,
-                    int E, int depth, int sb, int wb, int esb, int ewb, int in_smem,
-                    void* stream) {
+                    double* deps, float* dalpha0, float* scratch, int B, int T, int C,
+                    int S, int A, int E, int depth, int sb, int wb, int esb, int ewb,
+                    int in_smem, void* stream) {
   if (B == 0 || S == 0) return 0;
-  long words = scan_state_words(S, A, E, C, depth, true);
+  if (scratch && in_smem) return static_cast<int>(cudaErrorInvalidValue);
+  long words = scratch ? 0 : scan_state_words(S, A, E, C, depth, true);
   if (in_smem) words += scan_table_words(S, A, E, C, depth, true);
   const size_t smem = static_cast<size_t>(words) * 4;
   int err = launch_config(sparse_scan_bwd_kernel, smem);
   if (err) return err;
   sparse_scan_bwd_kernel<<<B, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       em, traj, lens, g_final, dptr, src, label, w, sptr, sorder, lptr, lorder, eptr,
-      esrc, ew, esptr, esorder, dem, dw, deps, dalpha0, T, C, S, A, E, depth, sb, wb,
-      esb, ewb, in_smem);
+      esrc, ew, esptr, esorder, dem, dw, deps, dalpha0, scratch, T, C, S, A, E, depth,
+      sb, wb, esb, ewb, in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

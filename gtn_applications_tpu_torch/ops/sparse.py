@@ -2,8 +2,8 @@
 
 Counterpart of ``ArcTable``, ``_eps_closure``, ``forward_score``,
 ``forward_score_batch``, ``forward_score_batch_tables``, the accelerator
-route ``_forward_batched_pallas`` and ``viterbi_batch`` of
-``gtn_applications_tpu/ops/sparse.py``.
+route ``_forward_batched_pallas``, ``viterbi``, ``_viterbi_batched_pallas``
+and ``viterbi_batch`` of ``gtn_applications_tpu/ops/sparse.py``.
 
 Forward scores: on CUDA tensors both batch functions take the kernel route
 (``_forward_batched_kernels``: the epsilon closure of the start
@@ -14,10 +14,14 @@ which autograd differentiates; JAX's ``vmap`` of it).  Both compute the
 same numbers: each destination shifted by its own max, dead contributions
 masked.
 
-Decode: ``viterbi_batch`` buckets a shared, epsilon-free table's arcs
-(``viterbi_scan_pallas.build_plan``) and runs the whole-scan Viterbi.
-Tables that the plan refuses, tables with epsilon arcs or per-sample
-fields wait for the per-step ``seg_max`` kernel (ROADMAP queue A item 7).
+Decode: ``viterbi_batch`` takes a shared, epsilon-free table.  It buckets
+the table's arcs (``viterbi_scan_pallas.build_plan``) and runs the
+whole-scan Viterbi; a table that the plan refuses (a hub state whose
+in-degree blows the bucket grid up, as in a loaded backoff LM's
+epsilon-removed table) goes to the per-step decode ``_viterbi_batched``:
+one ``segmax_pallas.seg_max`` a frame (JAX takes the same two routes on
+the TPU).  ``viterbi`` is JAX's per-sample oracle, with its 1e-6 near-tie
+rule.
 
 Arc table convention (padded to fixed length; each field 1-D, or [B, ·]
 per sample):
@@ -32,7 +36,7 @@ import dataclasses
 import torch
 
 from . import _build
-from .semiring import logaddexp, logsumexp, segment_logsumexp
+from .semiring import NEG, gather_channels, logaddexp, logsumexp, segment_logsumexp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,27 +157,142 @@ def forward_score_batch_tables(em, tables: ArcTable, input_lengths=None):
     return _forward_batched_plain(em, tables, input_lengths)
 
 
-def _not_ported(why):
-    return NotImplementedError(
-        f"viterbi_batch: {why}; only shared epsilon-free tables that the "
-        "whole-scan plan takes are ported (the per-step seg_max path waits "
-        "for ROADMAP queue A item 7)"
-    )
+def _require_epsilon_free(table: ArcTable):
+    if table.eps_depth != 0 or table.eps_src.numel() > 0:
+        raise ValueError("viterbi requires an epsilon-free arc table")
+
+
+def viterbi(em, table: ArcTable, input_length=None):
+    """Tropical scan with backpointers of ``em [T, C]`` over an
+    epsilon-free table with 1-D fields: (labels [T] int32, score).
+
+    JAX's per-sample oracle (``sparse.viterbi``): the winning arc of a
+    state is the lowest arc id within 1e-6 of its best contribution, and
+    a state without in-arcs keeps arc A (JAX: the empty segment's integer
+    maximum; only unreachable states, which no best path visits, hold
+    either).  ``labels[t]`` is -1 at frames past ``input_length`` and
+    everywhere when no path accepts."""
+    _require_epsilon_free(table)
+    T = em.shape[0]
+    S = table.start.shape[0]
+    A = table.src.shape[0]
+    src, dst, label = (getattr(table, f).long() for f in ("src", "dst", "label"))
+    n = T if input_length is None else int(input_length)
+    em_arc = gather_channels(em, table.label, batched=False)
+    ids = torch.arange(A, device=em.device)
+    alpha = table.start
+    backarcs = []
+    for t in range(T):
+        if t >= n:
+            backarcs.append(torch.full((S,), A, device=em.device))
+            continue
+        contrib = (alpha[src] + table.weight) + em_arc[t]
+        best = torch.full((S,), NEG, dtype=contrib.dtype, device=em.device)
+        best = best.scatter_reduce(0, dst, contrib, "amax")
+        cand = torch.where(contrib >= best[dst] - 1e-6, ids, A)
+        backarcs.append(torch.full((S,), A, device=em.device).scatter_reduce(
+            0, dst, cand, "amin"))
+        alpha = best
+    final = alpha + table.accept
+    score, state = final.max(), final.argmax()
+    pad_src = torch.cat([src, src.new_zeros(1)])
+    pad_label = torch.cat([label, label.new_full((1,), -1)])
+    labels = [None] * T
+    for t in reversed(range(T)):
+        arc = backarcs[t][state]
+        labels[t] = pad_label[arc]
+        state = torch.where(arc < A, pad_src[arc], state)
+    labels = torch.stack(labels).to(torch.int32) if T else torch.zeros(0, dtype=torch.int32)
+    return torch.where(score > NEG / 2, labels, -1), score
+
+
+def _viterbi_step_scan(em, table: ArcTable, input_lengths):
+    """The tropical scan of ``em [B, T, C]`` as T ``seg_max`` steps (label
+    mode: each frame's row, read by the arcs' labels) with the length
+    mask: (backarcs [B, T, S] int32, 2^30 past a sample's length and where
+    no live arc reaches; final alpha [B, S])."""
+    from .seglse_pallas import arc_index, take
+    from .segmax_pallas import BIG, seg_max_cuda, seg_max_plain
+
+    B, T, C = em.shape
+    src, dst, weight, label = (_as2d(getattr(table, f))
+                               for f in ("src", "dst", "weight", "label"))
+    S = table.start.shape[-1]
+    live = (torch.arange(T, device=em.device)[:, None]
+            < input_lengths.to(em.device)[None, :])[:, :, None]
+    if _build.on_cuda(em):
+        idx = arc_index(src, dst, S, label, C)
+        w_s = take(weight, idx.order)
+
+        def step(alpha, row):
+            return seg_max_cuda(alpha, w_s, row, idx)
+    else:
+        def step(alpha, row):
+            return seg_max_plain(alpha, src, dst, weight, row, label)
+    alpha = table.start.expand(B, S).contiguous()
+    backarcs = []
+    for t in range(T):
+        new, arc = step(alpha, em[:, t])
+        alpha = torch.where(live[t], new, alpha)
+        backarcs.append(torch.where(live[t], arc, BIG))
+    return torch.stack(backarcs, dim=1), alpha
+
+
+def _viterbi_step_backtrace(backarcs, final, table: ArcTable):
+    """(labels [B, T] int32, score [B]) from the first argmax of final +
+    accept, walking the backarcs (JAX's ``backstep``: label -1 and the
+    state kept where the arc is past A); infeasible samples, score <=
+    NEG / 2, decode to all -1."""
+    B, T, _ = backarcs.shape
+    src, label = table.src.long(), table.label.long()
+    A = src.shape[0]
+    pad_src = torch.cat([src, src.new_zeros(1)])
+    pad_label = torch.cat([label, label.new_full((1,), -1)])
+    scored = final + table.accept[None, :]
+    score, state = scored.max(dim=1).values, scored.argmax(dim=1)
+    labels = [None] * T
+    for t in reversed(range(T)):
+        arc = backarcs[:, t].gather(1, state[:, None])[:, 0].long().clamp(max=A)
+        labels[t] = pad_label[arc]
+        state = torch.where(arc < A, pad_src[arc], state)
+    labels = torch.stack(labels, dim=1).to(torch.int32)
+    return torch.where((score > NEG / 2)[:, None], labels, -1), score
+
+
+def _viterbi_batched(em, table: ArcTable, input_lengths=None):
+    """The per-step decode of ``em [B, T, C]`` through a shared,
+    epsilon-free table (JAX's ``_viterbi_batched_pallas``): T ``seg_max``
+    launches on CUDA tensors, their plain version on CPU tensors; the
+    backtrace in torch operations."""
+    B, T, _ = em.shape
+    em = em.detach().to(torch.float32).contiguous()
+    table = table.to(em.device)
+    if input_lengths is None:
+        input_lengths = torch.full((B,), T, dtype=torch.int32)
+    backarcs, final = _viterbi_step_scan(em, table, input_lengths)
+    return _viterbi_step_backtrace(backarcs, final, table)
 
 
 def viterbi_batch(em, table: ArcTable, input_lengths=None):
-    """Best path of each sample of ``em [B, T, C]`` through ``table``.
+    """Best path of each sample of ``em [B, T, C]`` through ``table``, a
+    shared (1-D fields) epsilon-free table with CPU tensors.
 
     Returns (labels [B, T] int32 on em's device, -1 at frames past the
     input length and for samples with no accepting path; score [B]).
-    Ties go to the lowest arc id (the whole-scan kernel's rule)."""
+    Routes as JAX on the TPU: a table whose in-degree bucket layout
+    ``viterbi_scan_pallas.build_plan`` accepts takes the whole-scan
+    Viterbi, any other the per-step ``seg_max`` decode.  Ties go to the
+    lowest arc id on the exact maximum (both kernels' rule)."""
     from . import viterbi_scan_pallas
 
-    if table.eps_depth != 0 or table.eps_src.numel() > 0:
-        raise _not_ported("the table has epsilon arcs")
-    if table.src.dim() != 1:
-        raise _not_ported("the table has per-sample fields")
+    _require_epsilon_free(table)
+    if any(getattr(table, f).dim() != 1 for f in (
+            "src", "dst", "label", "weight", "start", "accept")):
+        raise ValueError("viterbi_batch decodes a shared table (1-D fields); "
+                         "the table has per-sample fields")
+    if em.shape[1] == 0:
+        raise ValueError("viterbi_batch needs at least one frame")
     plan = viterbi_scan_pallas.build_plan(table)
-    if plan is None:
-        raise _not_ported("the table's in-degree bucket layout is refused")
-    return viterbi_scan_pallas.viterbi_scan(em, plan, input_lengths)
+    if plan is not None:
+        return viterbi_scan_pallas.viterbi_scan(em, plan, input_lengths)
+    return _viterbi_batched(em, table, input_lengths)

@@ -44,7 +44,10 @@ planner (``predict_vmem_bytes``, ``choose_tiles``) served the MXU and
 Mosaic only; the kernels here walk index tables built once per table
 (``seglse_pallas.arc_index``): arcs grouped by destination for the
 forward, and by source and by label for the backward.  A table that does
-not fit in shared memory beside the state is read from global memory.
+not fit in shared memory beside the state is read from global memory; a
+backward whose float64 state does not fit either (S = 1,058 at closure
+depth 4, the unpruned grapheme 4-gram's normaliser: 250 KB) keeps the
+state in a global scratch slice per sample, which stays in L2.
 """
 
 from typing import NamedTuple, Optional
@@ -194,12 +197,16 @@ def smem_bytes(S, A, E, C, depth, backward):
 
 
 def tables_in_smem(S, A, E, C, depth, backward):
+    """Whether the kernel stages the tables in shared memory (they fit
+    there beside its state)."""
     state, tables = smem_bytes(S, A, E, C, depth, backward)
-    if state > _build.MAX_SMEM:
-        raise ValueError(
-            f"sparse_scan: the state of S={S}, A={A}, E={E}, C={C}, depth={depth} "
-            f"needs {state} bytes of shared memory (at most {_build.MAX_SMEM})")
     return state + tables <= _build.MAX_SMEM
+
+
+def state_in_smem(S, A, E, C, depth, backward):
+    """Whether the kernel's state fits in shared memory; the backward's
+    otherwise lives in global scratch."""
+    return smem_bytes(S, A, E, C, depth, backward)[0] <= _build.MAX_SMEM
 
 
 def _launch_args(name, em, lens, plan, w, eps_w, depth):
@@ -234,6 +241,9 @@ def sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, eps_w, depth):
         "sparse_scan_fwd", em, lens, plan, w, eps_w, depth)
     S = plan.S
     _build.require("sparse_scan_fwd alpha0", alpha0, (B, S), torch.float32)
+    if not state_in_smem(S, A, E, C, depth, False):
+        raise ValueError(f"sparse_scan_fwd: the state of S={S} states does not fit "
+                         "in shared memory")
     in_smem = tables_in_smem(S, A, E, C, depth, False)
     idx, eidx = plan.main, plan.eps if depth else None
     traj = torch.empty((B, T + 1, S), dtype=torch.float32, device=em.device)
@@ -264,6 +274,11 @@ def sparse_scan_bwd_cuda(em, traj, lens, plan, w, eps_w, depth, g_final):
     in_smem = tables_in_smem(S, A, E, C, depth, True)
     idx, eidx = plan.main, plan.eps if depth else None
     dev = em.device
+    scratch = None
+    if not state_in_smem(S, A, E, C, depth, True):
+        # one slice a sample, a whole number of doubles (csrc: scan_state_stride)
+        words = smem_bytes(S, A, E, C, depth, True)[0] // 4
+        scratch = torch.empty((B, words + words % 2), dtype=torch.float32, device=dev)
     dem = torch.empty_like(em)
     dw_s = torch.empty((B, A), dtype=torch.float64, device=dev)
     deps_s = torch.empty((B, E), dtype=torch.float64, device=dev) if depth else None
@@ -278,7 +293,8 @@ def sparse_scan_bwd_cuda(em, traj, lens, plan, w, eps_w, depth, g_final):
             _ptr(eidx and eidx.dptr), _ptr(eidx and eidx.src), _ptr(ew_s),
             _ptr(eidx and eidx.sptr), _ptr(eidx and eidx.sorder),
             dem.data_ptr(), dw_s.data_ptr(), _ptr(deps_s), dalpha0.data_ptr(),
-            B, T, C, S, A, E, depth, *flags, int(in_smem), _build.stream_handle(em),
+            _ptr(scratch), B, T, C, S, A, E, depth, *flags, int(in_smem),
+            _build.stream_handle(em),
         )
     _build.check(lib, err, "sparse_scan_bwd")
     _build.LAUNCHES["sparse_scan_bwd"] += 1

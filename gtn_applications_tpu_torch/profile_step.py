@@ -34,9 +34,10 @@ ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs" / "iamdb" / "tds2d.json"
 
 
-def long_corpus_trigram(path):
-    """Write the grapheme trigram of the IAM recipe's settings over the
-    long-line train split's texts to ``path``; returns ``path``."""
+def long_corpus_lm(path, prune):
+    """Write the grapheme LM of the recipe's builder (optional blank) over
+    the long-line train split's texts to ``path``: one order per entry of
+    ``prune``, those count thresholds.  Returns ``path``."""
     from .scripts.build_transitions import grapheme_lm
     from .wfst import graph as wgraph
 
@@ -44,8 +45,14 @@ def long_corpus_trigram(path):
     texts = synthetic_long.Dataset(None, pre, split="train").texts
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    wgraph.save(path, grapheme_lm(texts, pre.tokens))
+    wgraph.save(path, grapheme_lm(texts, pre.tokens, prune))
     return path
+
+
+def long_corpus_trigram(path):
+    """``long_corpus_lm`` at the IAM recipe's settings (``--prune 0 5
+    10``, a trigram)."""
+    return long_corpus_lm(path, (0, 5, 10))
 
 
 def _data_and_criterion(config):

@@ -2,11 +2,11 @@
 tables, and the bindings to the native graph compiler.
 
 What the STC tiers and the Transducer's paths need is here (``Graph`` with
-its text and binary files, ``compile_acceptor`` without epsilon removal,
-the decode template, ``to_arc_table`` and the batch stacking of the
-sparse tier, ``native.compile_alignment``).  Epsilon removal inside
-``compile_acceptor`` and the pure-Python composition (``wfst/ops.py``)
-wait for ROADMAP queue A item 7.
+its text and binary files, ``compile_acceptor`` in the log and tropical
+semirings, with epsilon removal through the native graph compiler, the
+decode template, ``to_arc_table`` and the batch stacking of the sparse
+tier, ``native.compile_alignment`` and ``native.forced_collapse``).  The
+pure-Python graph operations of JAX's ``wfst/ops.py`` are not ported.
 """
 
 from .compile import (

@@ -10,9 +10,9 @@ becomes an epsilon-free tropical decode ``ArcTable`` re-weighted per
 parameter update in O(nnz) numpy; a batch of compiled graphs becomes one
 table of the sparse scorer, on a shared union skeleton
 (``union_stack_arc_tables``) or stacked per sample (``stack_arc_tables``),
-both with JAX's shape bucketing.  Epsilon removal inside
-``compile_acceptor`` (``remove_eps=True``) is not ported: the decode
-template removes epsilons on its own.
+both with JAX's shape bucketing.  ``compile_acceptor(remove_eps=True)``
+removes epsilons through the native graph compiler, as JAX's does when
+the library is there (the port has no Python fallback).
 """
 
 from typing import NamedTuple, Sequence
@@ -22,6 +22,7 @@ import torch
 
 from ..ops.semiring import NEG
 from ..ops.sparse import ArcTable
+from . import native
 from .graph import EPSILON, Graph
 
 
@@ -64,20 +65,18 @@ def _eps_depth(g: Graph) -> int:
     return max((dfs(s, frozenset()) for s in range(g.num_nodes())), default=0)
 
 
-def compile_acceptor(g: Graph, remove_eps: bool = False) -> CompiledGraph:
-    """Compile an acceptor Graph to arc tables, in the log semiring
-    (parallel final weights of a node combine by logsumexp; the JAX
-    function's ``semiring='tropical'`` option waits for the decoders that
-    use it).
+def compile_acceptor(g: Graph, semiring: str = "log",
+                     remove_eps: bool = False) -> CompiledGraph:
+    """Compile an acceptor Graph to arc tables.
 
     Args:
-      remove_eps: must be False: epsilon removal is not ported yet.
+      semiring: 'log' combines parallel final weights of a node with
+        logsumexp, 'tropical' with max (Viterbi decode tables).
+      remove_eps: fold the epsilon arcs away first (the native graph
+        compiler's ``remove``), as a Viterbi table needs.
     """
     if remove_eps:
-        raise NotImplementedError(
-            "compile_acceptor(remove_eps=True) needs epsilon removal, which "
-            "is not ported yet (ROADMAP queue A item 7, sparse WFST tier)"
-        )
+        g = native.remove(g)
 
     S = g.num_nodes()
     src, dst, label, weight, arc_id = [], [], [], [], []
@@ -106,8 +105,13 @@ def compile_acceptor(g: Graph, remove_eps: bool = False) -> CompiledGraph:
     accept = np.full((S,), NEG, dtype=np.float32)
     for s, ws in g.finals.items():
         ws = np.asarray(ws, dtype=np.float64)
-        m = ws.max()
-        accept[s] = m + np.log(np.exp(ws - m).sum())
+        if semiring == "log":
+            m = ws.max()
+            accept[s] = m + np.log(np.exp(ws - m).sum())
+        elif semiring == "tropical":
+            accept[s] = ws.max()
+        else:
+            raise ValueError(f"unknown semiring {semiring}")
 
     return CompiledGraph(
         src=np.asarray(src, dtype=np.int32),

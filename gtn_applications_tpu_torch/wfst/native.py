@@ -1,14 +1,18 @@
 """ctypes bindings to the native (C++) graph compiler, for the Transducer.
 
 Counterpart of the parts of ``gtn_applications_tpu/wfst/native.py`` that
-the Transducer's factored path calls: loading ``native/libtwgraph.so``,
-``to_native`` and the one-call per-target pipeline ``compile_alignment``.
+the port calls: loading ``native/libtwgraph.so``, ``to_native`` and
+``from_native``, epsilon removal (``remove``, for
+``compile.compile_acceptor(remove_eps=True)``), the one-call per-target
+pipeline ``compile_alignment``, and the forced-blank decode cleanup
+``forced_collapse``.
 Both packages share the library; its source is ``native/graph_compiler.cc``
 at the root of the checkout.  The ``.so`` is not committed: the first call
 builds it with ``make -C native`` (g++), under a file lock in ``build/``
 so that concurrent processes build it once.  If it cannot be built, the call
 raises and says how to build it; there is no pure-Python fallback in the
-port (``wfst/ops.py`` waits for ROADMAP queue A item 7).
+port (JAX's ``wfst/ops.py``, the graph operations in Python, is not
+ported).
 """
 
 import ctypes
@@ -78,6 +82,17 @@ def load_library():
         lib.tw_tables_free.argtypes = [ctypes.c_void_p]
         lib.tw_tables_sizes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.tw_tables_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 11
+        for fn in ("tw_num_nodes", "tw_num_arcs", "tw_num_finals"):
+            getattr(lib, fn).restype = ctypes.c_int64
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+        lib.tw_export.argtypes = [ctypes.c_void_p] * 9
+        lib.tw_remove.restype = ctypes.c_void_p
+        lib.tw_remove.argtypes = [ctypes.c_void_p]
+        lib.tw_forced_collapse.restype = ctypes.c_int64
+        lib.tw_forced_collapse.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
         _LIB = lib
         return lib
 
@@ -117,6 +132,66 @@ def to_native(g: Graph, warm=False):
     if warm:
         lib.tw_graph_warm(h)
     return handle
+
+
+def from_native(handle: _Handle) -> Graph:
+    """The ``Graph`` a native handle holds."""
+    lib = handle.lib
+    n = lib.tw_num_nodes(handle.h)
+    a = lib.tw_num_arcs(handle.h)
+    nf = lib.tw_num_finals(handle.h)
+    start = np.zeros(n, dtype=np.uint8)
+    fnode = np.zeros(nf, dtype=np.int64)
+    fw = np.zeros(nf, dtype=np.float32)
+    src, dst, il, ol = (np.zeros(a, dtype=np.int32) for _ in range(4))
+    w = np.zeros(a, dtype=np.float32)
+    lib.tw_export(handle.h, start.ctypes.data, fnode.ctypes.data, fw.ctypes.data,
+                  src.ctypes.data, dst.ctypes.data, il.ctypes.data, ol.ctypes.data,
+                  w.ctypes.data)
+    g = Graph()
+    for i in range(n):
+        g.add_node(bool(start[i]), False)
+    for node, weight in zip(fnode, fw):
+        g.add_final(int(node), float(weight))
+    g.arc_src = src.astype(int).tolist()
+    g.arc_dst = dst.astype(int).tolist()
+    g.arc_ilabel = il.astype(int).tolist()
+    g.arc_olabel = ol.astype(int).tolist()
+    g.arc_weight = w.astype(float).tolist()
+    return g
+
+
+def remove(g: Graph) -> Graph:
+    """``g`` with its epsilon arcs removed, path weights and multiplicity
+    kept (the native ``remove``)."""
+    lib = load_library()
+    h = to_native(g)
+    hr = lib.tw_remove(h.h)
+    if not hr:
+        raise ValueError("epsilon cycle or explosion in native remove()")
+    return from_native(_Handle(lib, hr))
+
+
+def forced_collapse(paths, blank_idx, lengths=None):
+    """The forced-blank Transducer's decode cleanup in one native call:
+    collapse each alignment's runs and keep its tokens if the forced token
+    graph accepts it (blank runs around and between every token run), else
+    decode it to nothing.  paths [B, T] int (negative labels are dead
+    frames), lengths [B] or None.  Returns a list of B int32 arrays."""
+    lib = load_library()
+    paths = np.ascontiguousarray(paths, dtype=np.int32)
+    B, T = paths.shape
+    cap = max(B * T, 1)
+    out = np.zeros(cap, dtype=np.int32)
+    counts = np.zeros(B, dtype=np.int64)
+    lens = None if lengths is None else np.ascontiguousarray(lengths, dtype=np.int32)
+    n = lib.tw_forced_collapse(
+        paths.ctypes.data, B, T, None if lens is None else lens.ctypes.data,
+        int(blank_idx), out.ctypes.data, cap, counts.ctypes.data)
+    if n < 0:
+        raise RuntimeError("forced_collapse: the output buffer overflowed")
+    ends = np.cumsum(counts)
+    return [out[e - c:e].copy() for e, c in zip(ends, counts)]
 
 
 def compile_alignment(lexicon_handle, tokens_handle, transitions_handle, target):

@@ -23,6 +23,7 @@ MODULES = [
     "gtn_applications_tpu_torch.ops.dense_scan_pallas",
     "gtn_applications_tpu_torch.ops.factored",
     "gtn_applications_tpu_torch.ops.seglse_pallas",
+    "gtn_applications_tpu_torch.ops.segmax_pallas",
     "gtn_applications_tpu_torch.ops.sparse_scan_pallas",
     "gtn_applications_tpu_torch.ops.sparse",
     "gtn_applications_tpu_torch.wfst",

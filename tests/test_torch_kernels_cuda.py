@@ -1,7 +1,7 @@
 """The port's CUDA kernel wrappers refuse what their kernels do not take.
 
 These tests need an NVIDIA GPU; elsewhere they skip.  Each kernel is held
-against its plain version on the card by ``chip_smoke.py`` (phases 3-8),
+against its plain version on the card by ``chip_smoke.py`` (phases 3-10),
 at the bench headline and at the main path's shapes.  The file imports
 nothing of JAX, so it runs on a machine without it:
 
@@ -121,3 +121,27 @@ def test_sparse_cuda_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         sparse_scan_pallas.sparse_scan_bwd_cuda(em, torch.zeros(B, T, S, device=cuda_device),
                                                 lens, plan, w, w[:, :0], 0, alpha)
+
+
+@pytest.mark.cuda
+def test_segmax_cuda_wrapper_refuses_bad_inputs(cuda_device):
+    from gtn_applications_tpu_torch.ops import seglse_pallas, segmax_pallas
+
+    B, S, A, C = 2, 4, 6, 5
+    src = torch.zeros(1, A, dtype=torch.int32, device=cuda_device)
+    label = torch.zeros(1, A, dtype=torch.int32, device=cuda_device)
+    idx = seglse_pallas.arc_index(src, src + 1, S, label, C)
+    alpha = torch.zeros(B, S, device=cuda_device)
+    w = torch.zeros(1, A, device=cuda_device)
+    row = torch.zeros(B, C, device=cuda_device)
+    with pytest.raises(ValueError):
+        segmax_pallas.seg_max_cuda(alpha[:, :3], w, row, idx)
+    with pytest.raises(ValueError):
+        segmax_pallas.seg_max_cuda(alpha, w.double(), row, idx)
+    with pytest.raises(ValueError):
+        segmax_pallas.seg_max_cuda(alpha, w, row.cpu(), idx)
+    with pytest.raises(ValueError):
+        segmax_pallas.seg_max_cuda(alpha, w, row[:1], idx)
+    per_arc = seglse_pallas.arc_index(src, src + 1, S)
+    with pytest.raises(ValueError):
+        segmax_pallas.seg_max_cuda(alpha, w, row, per_arc)

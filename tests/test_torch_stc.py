@@ -157,5 +157,9 @@ def test_compile_acceptor_matches_jax():
     assert cg._fields == jcg._fields
     for name, a, b in zip(cg._fields, cg, jcg):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        wcompile.compile_acceptor(g, remove_eps=True)
+    for semiring in ("log", "tropical"):
+        cg = wcompile.compile_acceptor(g, semiring=semiring, remove_eps=True)
+        jcg = jax_wcompile.compile_acceptor(jg, semiring=semiring, remove_eps=True)
+        assert cg.eps_depth == 0 and len(cg.eps_src) == 0
+        for name, a, b in zip(cg._fields, cg, jcg):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)

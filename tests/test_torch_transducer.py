@@ -199,14 +199,17 @@ def test_decode_template_matches_jax():
 
 
 def test_what_is_not_ported_raises(monkeypatch, tmp_path):
-    """blank="forced" decoding still raises (ROADMAP A.7).  What raised
-    before the composed path was ported now runs it: a loaded transitions
-    graph (also from a file), ngram 3, and a batch the dense packing
-    refuses."""
+    """What raised before now runs: blank="forced" decodes (through the
+    native ``forced_collapse``; a feasible alignment to its tokens, an
+    infeasible one to nothing), and the composed path takes a loaded
+    transitions graph (also from a file), ngram 3, and a batch the dense
+    packing refuses."""
     tokens, g2i = [(0,), (1,)], {0: 0, 1: 1}
     forced = td.Transducer(tokens, g2i, blank="forced")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        forced.viterbi(torch.zeros(1, 3, 3))
+    x = torch.full((2, 4, 3), -5.0)
+    for b, path in enumerate([(2, 0, 0, 2), (2, 0, 1, 2)]):  # blank is channel 2
+        x[b, torch.arange(4), torch.tensor(path)] = 5.0
+    assert [p.tolist() for p in forced.viterbi(x)] == [[0], []]
     loaded = td.Transducer(tokens, g2i, transitions=td.make_transitions_graph(2, 2))
     assert "table" in loaded.prepare([[0, 1]])
     assert "table" in td.Transducer(tokens, g2i, ngram=3).prepare([[0, 1]])

@@ -19,10 +19,15 @@ graph alone.  Held to JAX here:
     the transitions (as ``tests/test_transducer.py`` checks JAX's);
   * ``ngram=3`` through the composed path;
   * the decode template and ``Transducer.viterbi`` on a backoff graph,
-    labels exactly;
+    labels exactly; on the unpruned grapheme 4-gram over the long-line
+    texts, whose decode table the whole-scan plan refuses (the per-step
+    ``seg_max`` decode), outputs exactly; and ``blank="forced"`` decoding
+    (the native ``forced_collapse``), infeasible alignments decoding to
+    nothing;
   * one SGD step of a narrow TDS2d with this criterion (loss 1e-4, each
     update within 1e-3 of its norm), and train.py + test.py end to end on
-    the CPU with a transitions file.
+    the CPU with a transitions file: the trigram, and a 4-gram whose decode
+    runs the per-step path.
 """
 
 import json
@@ -37,6 +42,7 @@ from gtn_applications_tpu import train as jax_train
 from gtn_applications_tpu import wfst as jax_wfst
 from gtn_applications_tpu.criterions import transducer as jax_td
 from gtn_applications_tpu.datasets import synthetic_long as jax_long
+from gtn_applications_tpu.ops import viterbi_scan_pallas as jax_vsp
 from gtn_applications_tpu.models import TDS2d as FlaxTDS2d
 from gtn_applications_tpu.scripts import build_transitions as jax_bt
 from gtn_applications_tpu.wfst import compile as jax_wcompile
@@ -50,6 +56,7 @@ from gtn_applications_tpu_torch.models.convert import (
     criterion_params_from_jax, tds2d_from_flax,
 )
 from gtn_applications_tpu_torch.ops import sparse
+from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 from gtn_applications_tpu_torch.scripts import build_transitions as bt
 from gtn_applications_tpu_torch.wfst import compile as wcompile
 from gtn_applications_tpu_torch.wfst import graph as wgraph
@@ -273,6 +280,62 @@ def test_backoff_decode_matches_jax(name):
     assert any(len(p) for p in preds)
 
 
+def test_4gram_decode_takes_the_step_path_and_matches_jax(tmp_path):
+    """The unpruned grapheme 4-gram over the long-line texts: its decode
+    table (S=1,058, A=35,455) is refused by both packages' bucket plan and
+    not destination-factorable, so the port decodes it through the
+    per-step seg_max route and JAX (on the CPU) through its per-step
+    oracle; random N(0, 1) logits have no near ties."""
+    pre, texts = _texts(long=True)
+    path = tmp_path / "4gram.bin"
+    wgraph.save(path, bt.grapheme_lm(texts, pre.tokens, (0, 0, 0, 0)))
+    kw = dict(blank="optional", allow_repeats=False, reduction="mean")
+    crit = td.Transducer(pre.tokens, pre.graphemes_to_index, transitions=wgraph.load(path),
+                         **kw)
+    jcrit = jax_td.Transducer(pre.tokens, pre.graphemes_to_index,
+                              transitions=jax_wfst.load(path), **kw)
+    assert crit._factored_backoff_dst == jcrit._factored_backoff_dst is False
+    rng = np.random.RandomState(4)
+    w = (rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32)
+    table = crit._decode_table({"transitions": torch.from_numpy(w)})
+    jtable = jax_wcompile.apply_decode_weights(
+        jax_wcompile.build_decode_template(jcrit.transitions), w)
+    assert tuple(table.src.shape) == (35455,) and tuple(table.start.shape) == (1058,)
+    assert vsp.build_plan(table) is None and jax_vsp.build_plan(jtable) is None
+    B, T = 4, 12
+    x = rng.randn(B, T, crit.num_channels).astype(np.float32)
+    lens = np.asarray([T, T - 3, 5, T], np.int32)
+    preds = crit.viterbi(torch.from_numpy(x), {"transitions": torch.from_numpy(w)},
+                         torch.from_numpy(lens))
+    j_preds = jcrit.viterbi(jnp.asarray(x), {"transitions": jnp.asarray(w)},
+                            jnp.asarray(lens))
+    assert [p.tolist() for p in preds] == [np.asarray(p).tolist() for p in j_preds]
+    assert all(len(p) for p in preds)
+
+
+@pytest.mark.parametrize("ngram", [0, 2])
+def test_forced_blank_decode_matches_jax(ngram):
+    """``blank="forced"``: the alignment (argmax, or the bigram's Viterbi
+    path) transduces to tokens only if it starts and ends in blank runs
+    with one between every two token runs; else to nothing."""
+    n, T = 3, 10
+    args = ([(i,) for i in range(n)], {i: i for i in range(n)})
+    kw = dict(ngram=ngram, blank="forced")
+    crit, jcrit = td.Transducer(*args, **kw), jax_td.Transducer(*args, **kw)
+    rng = np.random.RandomState(6)
+    x = rng.randn(6, T, n + 1).astype(np.float32)
+    x[0, np.arange(T), [3, 3, 0, 0, 3, 1, 3, 3, 2, 3]] += 20.0  # a feasible path
+    lens = np.asarray([T, T, T - 2, 7, T, 4], np.int32)
+    params = {"transitions": rng.randn(crit.num_transition_arcs).astype(np.float32) * 0.3}
+    preds = crit.viterbi(torch.from_numpy(x),
+                         {k: torch.from_numpy(v) for k, v in params.items()},
+                         torch.from_numpy(lens))
+    j_preds = jcrit.viterbi(jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+                            jnp.asarray(lens))
+    assert [p.tolist() for p in preds] == [np.asarray(p).tolist() for p in j_preds]
+    assert preds[0].tolist() == [0, 1, 2] and any(len(p) == 0 for p in preds)
+
+
 def test_huge_lm_decode_raises():
     """A destination-factorable graph with S_c * N > 2^15: JAX decodes it
     through its destination-factored scan (ROADMAP A.8), the port raises."""
@@ -337,14 +400,13 @@ def test_train_step_matches_jax(tmp_path):
     assert float((params[-1].detach().double() - old[-1]).norm()) > 1e-3
 
 
-def test_pruned_ngram_ctc_train_then_test_cpu(tmp_path):
-    """pruned_ngram_ctc.json's criterion and optimiser sections, its
-    transitions a grapheme trigram file, on a small TDS2d and the synthetic
-    lines: train.py then test.py with --disable_cuda; the trained
-    transitions are saved and restored."""
-    pre, texts = _texts()
-    path = tmp_path / "trigram.bin"
-    wgraph.save(path, bt.grapheme_lm(texts, pre.tokens))
+def _train_then_test(tmp_path, g):
+    """train.py then test.py (--disable_cuda) with pruned_ngram_ctc.json's
+    criterion and optimiser sections, its transitions ``g`` from a file, on
+    a small TDS2d and the synthetic lines; the trained transitions are
+    saved and restored."""
+    path = tmp_path / "lm.bin"
+    wgraph.save(path, g)
     with open("configs/iamdb/pruned_ngram_ctc.json") as fid:
         base = json.load(fid)
     config = {
@@ -362,6 +424,24 @@ def test_pruned_ngram_ctc_train_then_test_cpu(tmp_path):
     assert float(state["criterion"]["transitions"].abs().sum()) > 0
     meters = test_mod.run_test(test_mod.parse_args(ckpt + ["--split", "test"]))
     assert meters.num_samples == 16 and np.isfinite(meters.avg_loss)
+
+
+def test_pruned_ngram_ctc_train_then_test_cpu(tmp_path):
+    """The recipe's grapheme trigram over the synthetic train texts."""
+    pre, texts = _texts()
+    _train_then_test(tmp_path, bt.grapheme_lm(texts, pre.tokens))
+
+
+def test_4gram_train_then_test_cpu(tmp_path):
+    """An unpruned grapheme 4-gram over 16 synthetic train texts (S=432,
+    A=11,077 after epsilon removal), whose decode table the whole-scan
+    plan refuses: every decode of the run takes the per-step path."""
+    pre, texts = _texts()
+    g = bt.grapheme_lm(texts[:16], pre.tokens, (0, 0, 0, 0))
+    table = wcompile.apply_decode_weights(wcompile.build_decode_template(g),
+                                          np.zeros(g.num_arcs(), np.float32))
+    assert vsp.build_plan(table) is None
+    _train_then_test(tmp_path, g)
 
 
 def test_synthetic_long_matches_jax():

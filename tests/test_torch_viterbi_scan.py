@@ -12,6 +12,15 @@ exact tie.  JAX's per-step oracle ``sparse.viterbi`` breaks ties within
 the whole scan, so it is held to the oracle only on data with no near
 ties (random normal emissions).
 
+The per-step decode (``viterbi_batch``'s route for a table the bucket
+plan refuses) against JAX's ``_viterbi_batched_pallas`` (its ``seg_max``
+in interpret mode), and the port's ``viterbi`` against JAX's per-sample
+oracle under ``vmap``: labels exactly, scores within 1e-6, on JAX's own
+test table (``tests/test_seglse.py``, compiled by both packages'
+``compile_acceptor(semiring="tropical", remove_eps=True)``) and on an
+unpruned grapheme 4-gram's decode table, which the plan refuses; with
+ragged lengths, T = 1 and an infeasible sample.
+
 The kernels run only on the card, where ``chip_smoke.py`` holds them
 against these plain versions; here that check is itself tested, with the
 plain versions standing in for the kernels.
@@ -19,18 +28,23 @@ plain versions standing in for the kernels.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gtn_applications_tpu import wfst as jax_wfst
 from gtn_applications_tpu.ops import sparse as jax_sparse
 from gtn_applications_tpu.ops import viterbi_scan_pallas as jax_vsp
 from gtn_applications_tpu.ops.sparse import ArcTable as JaxArcTable
 from gtn_applications_tpu_torch.ops import sparse
+from gtn_applications_tpu_torch import wfst
+from gtn_applications_tpu_torch.datasets import synthetic
 from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 from gtn_applications_tpu_torch.ops.semiring import NEG
 from gtn_applications_tpu_torch.ops.sparse import ArcTable
+from gtn_applications_tpu_torch.scripts.build_transitions import grapheme_lm
 
 
 def _tables(src, dst, label, w, start, accept):
@@ -135,18 +149,94 @@ def test_exact_tie_takes_the_lowest_arc():
 
 
 def test_viterbi_batch_refuses_what_is_not_ported():
+    """A table with epsilon arcs and one with per-sample fields raise
+    ``ValueError`` (JAX decodes only shared epsilon-free tables); a table
+    the bucket plan refuses (here: padding arcs only) takes the per-step
+    decode, in which no path accepts."""
     port, _ = _tables([0], [1], [0], [0.0], [0.0, NEG], [NEG, 0.0])
-    em = torch.zeros(1, 2, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    em = torch.zeros(2, 2, 2)
+    with pytest.raises(ValueError, match="epsilon-free"):
         sparse.viterbi_batch(em, dataclasses.replace(
             port, eps_src=torch.zeros(1, dtype=torch.int32),
             eps_dst=torch.ones(1, dtype=torch.int32),
             eps_weight=torch.zeros(1), eps_depth=1))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(ValueError, match="per-sample"):
         sparse.viterbi_batch(em, dataclasses.replace(port, src=port.src[None]))
     dead = dataclasses.replace(port, weight=torch.full((1,), NEG))  # padding only: no plan
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        sparse.viterbi_batch(em, dead)
+    assert vsp.build_plan(dead) is None
+    labels, score = sparse.viterbi_batch(em, dead)
+    assert labels.tolist() == [[-1, -1], [-1, -1]] and bool((score <= NEG / 2).all())
+
+
+def _seglse_test_graph(module):
+    """The graph of JAX's ``test_viterbi_batched_pallas_matches_vmap``
+    (``tests/test_seglse.py``), built with ``module``'s ``Graph``."""
+    rng = np.random.RandomState(5)
+    g = module.Graph()
+    for i in range(6):
+        g.add_node(i == 0, i >= 4)
+    for _ in range(14):
+        s = rng.randint(0, 5)
+        d = rng.randint(s, 6)
+        lbl = rng.randint(0, 4)
+        g.add_arc(s, min(d, 5), lbl, lbl, float(rng.randn() * 0.3))
+    for i in range(6):
+        g.add_arc(i, i, rng.randint(0, 4), None, float(rng.randn() * 0.3))
+    return g
+
+
+def _step_tables(name):
+    """(port table, JAX table, channels) of a step-decode case."""
+    if name == "seglse test graph":
+        cg = wfst.compile_acceptor(_seglse_test_graph(wfst), semiring="tropical",
+                                   remove_eps=True)
+        jcg = jax_wfst.compile_acceptor(_seglse_test_graph(jax_wfst),
+                                        semiring="tropical", remove_eps=True)
+        assert cg._fields == jcg._fields
+        for field, a, b in zip(cg._fields, cg, jcg):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=field)
+        table = wfst.to_arc_table(cg)
+        return table, jax_wfst.to_arc_table(jcg), 4
+    # an unpruned grapheme 4-gram over 16 synthetic lines: a hub of in-degree
+    # S - 1 blows the bucket grid up past the plan's gate
+    pre = synthetic.Preprocessor(None, num_features=16)
+    texts = synthetic.Dataset(None, pre, split="train").texts[:16]
+    g = grapheme_lm(texts, pre.tokens, (0, 0, 0, 0))
+    w = (np.random.RandomState(8).randn(g.num_arcs()) * 0.5).astype(np.float32)
+    table = wfst.apply_decode_weights(wfst.build_decode_template(g), w)
+    assert vsp.build_plan(table) is None
+    fields = [np.asarray(getattr(table, f)) for f in (
+        "src", "dst", "label", "weight", "start", "accept", "eps_src", "eps_dst",
+        "eps_weight")]
+    return table, JaxArcTable(*map(jnp.asarray, fields), eps_depth=0), pre.num_tokens + 1
+
+
+@pytest.mark.parametrize("T", [9, 1])
+@pytest.mark.parametrize("name", ["seglse test graph", "4-gram"])
+def test_step_decode_matches_jax(name, T):
+    table, jtable, C = _step_tables(name)
+    rng = np.random.default_rng(T)
+    em = rng.normal(size=(3, T, C)).astype(np.float32)
+    lens = np.asarray([T, max(T - 4, 0), T], np.int32)
+    em[2, T // 2] = NEG  # an all-NEG frame: sample 2 has no accepting path
+    labels, score = sparse._viterbi_batched(torch.from_numpy(em), table,
+                                            torch.from_numpy(lens))
+    j_labels, j_score = jax_sparse._viterbi_batched_pallas(
+        jnp.asarray(em), jtable, jnp.asarray(lens))
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(j_labels))
+    np.testing.assert_allclose(score.numpy(), np.asarray(j_score), rtol=0, atol=1e-6)
+    assert labels[2].tolist() == [-1] * T and float(score[2]) <= NEG / 2
+    # the per-sample oracles of both packages, on data without near ties
+    o_labels, o_score = jax.vmap(lambda e, n: jax_sparse.viterbi(e, jtable, n))(
+        jnp.asarray(em), jnp.asarray(lens))
+    for b in range(3):
+        lab, sc = sparse.viterbi(torch.from_numpy(em[b]), table, int(lens[b]))
+        np.testing.assert_array_equal(lab.numpy(), np.asarray(o_labels[b]))
+        np.testing.assert_array_equal(lab.numpy(), labels[b].numpy())
+        np.testing.assert_allclose(float(sc), float(o_score[b]), rtol=0, atol=1e-6)
+    if name == "4-gram":
+        routed, _ = sparse.viterbi_batch(torch.from_numpy(em), table, torch.from_numpy(lens))
+        assert torch.equal(routed, labels)
 
 
 @pytest.mark.parametrize("broken", [False, True])
