@@ -48,8 +48,13 @@ prints no result):
    S=1,004, A=6,618, E=1,183, and its composed union tables; B=32, T=100,
    N=1,001), on the backoff paths' per-sample trigram and 4-gram tables
    (T=300; the 4-gram normaliser's backward state, 250 KB, lives in global
-   scratch), on an all-live random table, on STC's depth-0 union table and on a table
-   past shared memory: values within atol 1e-3 + rtol 1e-5 on live states
+   scratch at one block a sample), on an all-live random table, on STC's
+   depth-0 union table and on a table past shared memory; the whole-scan
+   pair at its batch's cluster size (the most blocks a sample, of 1, 2, 4
+   and 8, with B k blocks on the card) and, on the 1kwp normaliser, the
+   4-gram normaliser, the table past shared memory and a batch of 5, at
+   every cluster size (one that does not fit must raise at launch):
+   values within atol 1e-3 + rtol 1e-5 on live states
    (the scan's trajectory: within 80 nats of the frame's best), the
    cotangents (dalpha, dcontrib; dem, dw, deps, dalpha0) entry by entry
    within 1e-5 (|p| + the median nonzero |p|);
@@ -91,12 +96,16 @@ prints no result):
    decode of the first validation batch on the card against the CPU
    route, labels exactly;
 13. times: CUDA-event medians of 30 runs after warm-up at the phase 4-10
-   headline shapes for each kernel, its plain version and F.ctc_loss (the
-   sparse kernels also on the 1kwp composed tables and the main path's
-   trigram tables), the host-clock median of 20 full train steps of each
-   path and of 5 decodes of the 4-gram path's first batch, the latency of
-   one frame of the CTC recursion's dependent chain (``ctc_chain_probe``)
-   for the CTC kernels' chain bound, and the device time and kernel
+   headline shapes for each kernel, its plain version and the one
+   PyTorch call that computes it where there is one (F.ctc_loss for the
+   CTC pair, torch.gather and scatter_add_ for the gather pair; the
+   sparse kernels also on the 1kwp composed tables and the main paths'
+   trigram and 4-gram tables), the host-clock median of 20 full train
+   steps of each path and of 5 decodes of the 4-gram path's first batch,
+   the latency of one frame of the CTC recursion's dependent chain
+   (``ctc_chain_probe``) and of one phase of the sparse scans' chain
+   (``sparse_scan_probe``: a load from another block's shared memory and
+   a cluster barrier) for those kernels' chain bounds, and the device time and kernel
    launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
    forward and backward at its main path's batch shape.
 
@@ -880,8 +889,29 @@ def hold_live(torch, name, k, p, what, all_live=False, floor=None):
     return float((k[live] - p[live]).abs().max()) if bool(live.any()) else 0.0
 
 
+def hold_cluster_refused(torch, em, alpha0, lens, plan, w, ew, depth, k, fit):
+    """A scan whose cluster of k blocks does not fit on the card (``fit``:
+    clusters that fit, forward and backward) must raise at launch."""
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+
+    B, T, S = em.shape[0], em.shape[1], alpha0.shape[1]
+    calls = [lambda: ssp.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, depth,
+                                              cluster=k),
+             lambda: ssp.sparse_scan_bwd_cuda(
+                 em, torch.zeros(B, T + 1, S, device=em.device), lens, plan, w, ew, depth,
+                 torch.zeros(B, S, device=em.device), cluster=k)]
+    for n, call in zip(fit, calls):
+        if n:
+            continue
+        try:
+            call()
+        except RuntimeError:
+            continue
+        raise AssertionError(f"sparse_scan: a cluster of {k} that does not fit launched")
+
+
 def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
-                        past_smem=False):
+                        past_smem=False, clusters=None):
     """The seg_lse pair on each step of the table's start closure and the
     whole-scan pair on the table, kernels against their plain versions on
     the same inputs, the plain versions evaluated in float64: values within
@@ -892,8 +922,10 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
     (``scatter_add`` over up to 1,000 arcs into one state, in no fixed
     order) are the less accurate side in float32: at the 1kwp normaliser
     their backward is 1.25e-5 from float64 entry by entry, the kernel's
-    1.5e-6.  ``past_smem``: the scan's tables must be read from global
-    memory."""
+    1.5e-6.  The scan pair runs at each cluster size of ``clusters``
+    (default: the one its batch launches with); a size whose cluster does
+    not fit on the card must raise at launch.  ``past_smem``: at one block
+    a sample, the scan's tables must be read from global memory."""
     from gtn_applications_tpu_torch.ops import seglse_pallas as slp
     from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
     from gtn_applications_tpu_torch.ops.semiring import logaddexp
@@ -928,39 +960,49 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
             acc = logaddexp(acc, cur)
         alpha0 = acc.contiguous()
     plan = ssp.scan_plan(src, dst, label, esrc, edst, S, C)
-    fwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, False)
-    bwd_smem = ssp.tables_in_smem(S, src.shape[1], esrc.shape[1], C, depth, True)
-    bwd_state = ssp.state_in_smem(S, src.shape[1], esrc.shape[1], C, depth, True)
-    if past_smem and (fwd_smem or bwd_smem):
+    A, E = src.shape[1], esrc.shape[1]
+    if past_smem and any(ssp.scan_route(ssp.plan_schedule(plan, 1).sizes, S, C, depth, bwd)[1]
+                         for bwd in (False, True)):
         raise AssertionError(f"sparse_scan: the tables of {what} fit in shared memory")
     em64, a64, w64, ew64 = f64(em, alpha0, w, ew)
-    tr_k, sh_k = ssp.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, depth)
     tr_p, sh_p = ssp.sparse_scan_fwd_plain(em64, a64, lens, plan, w64, ew64, depth)
-    # the trajectory is relative to each frame's largest alpha: states more
-    # than 80 nats below it carry no probability (exp underflows; the TPU
-    # kernel flushes them to NEG), and over ~600 frames their float32
-    # values drift by more than the tolerance, so they are compared only
-    # for liveness
-    errs["sparse_scan_fwd"] = hold_live(torch, "sparse_scan_fwd", tr_k.double(), tr_p,
-                                        what, all_live, floor=-80.0)
-    torch.testing.assert_close(sh_k.double(), sh_p, atol=1e-3, rtol=1e-5)
-    # the backward from the same float32 trajectory, the kernel's
-    g = score_cotangent(torch, tr_k[:, -1], accept)
-    out_k = ssp.sparse_scan_bwd_cuda(em, tr_k, lens, plan, w, ew, depth, g)
-    out_p = ssp.sparse_scan_bwd_plain(em64, tr_k.double(), lens, plan, w64, ew64,
-                                      depth, g.double())
-    torch.cuda.synchronize()
-    errs["sparse_scan_bwd"] = 0.0
-    for name, k, p in zip(("dem", "dw", "deps", "dalpha0"), out_k, out_p):
-        if p.numel():
-            rels[name], err = hold_entrywise(torch, f"sparse_scan_bwd {name}", k, p, what)
-            errs["sparse_scan_bwd"] = max(errs["sparse_scan_bwd"], err)
-    log(f"sparse {what}: S={S} A={src.shape[1]} E={esrc.shape[1]} depth={depth} "
-        f"layout src/w/eps {src.shape[0]}/{w.shape[0]}/{ew.shape[0]}, tables in "
-        f"shared memory fwd {fwd_smem} bwd {bwd_smem}, bwd state in shared memory "
-        f"{bwd_state}; seg_lse fwd max|d| "
-        f"{errs['seg_lse_fwd']:.3g}, scan traj max|d| (live states) "
-        f"{errs['sparse_scan_fwd']:.3g}, entrywise errors "
+    errs["sparse_scan_fwd"] = errs["sparse_scan_bwd"] = 0.0
+    routes = []
+    for k in clusters or [ssp.choose_cluster(plan, B, depth, em.device)]:
+        sizes = ssp.plan_schedule(plan, k).sizes
+        fit = [ssp.max_active_clusters(plan, depth, bwd, k, em.device) for bwd in (False, True)]
+        if not min(fit):
+            hold_cluster_refused(torch, em, alpha0, lens, plan, w, ew, depth, k, fit)
+            routes.append(f"k={k}: does not fit, its launch raised")
+            continue
+        tr_k, sh_k = ssp.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, depth, cluster=k)
+        # the trajectory is relative to each frame's largest alpha: states
+        # more than 80 nats below it carry no probability (exp underflows;
+        # the TPU kernel flushes them to NEG), and over ~600 frames their
+        # float32 values drift by more than the tolerance, so they are
+        # compared only for liveness
+        errs["sparse_scan_fwd"] = max(errs["sparse_scan_fwd"], hold_live(
+            torch, "sparse_scan_fwd", tr_k.double(), tr_p, (what, k), all_live, floor=-80.0))
+        torch.testing.assert_close(sh_k.double(), sh_p, atol=1e-3, rtol=1e-5)
+        # the backward from the same float32 trajectory, the kernel's
+        g = score_cotangent(torch, tr_k[:, -1], accept)
+        out_k = ssp.sparse_scan_bwd_cuda(em, tr_k, lens, plan, w, ew, depth, g, cluster=k)
+        out_p = ssp.sparse_scan_bwd_plain(em64, tr_k.double(), lens, plan, w64, ew64,
+                                          depth, g.double())
+        torch.cuda.synchronize()
+        for name, kv, pv in zip(("dem", "dw", "deps", "dalpha0"), out_k, out_p):
+            if pv.numel():
+                rel, err = hold_entrywise(torch, f"sparse_scan_bwd {name}", kv, pv, (what, k))
+                rels[name] = max(rels.get(name, 0.0), rel)
+                errs["sparse_scan_bwd"] = max(errs["sparse_scan_bwd"], err)
+        routes.append("k={}: {}/{} clusters fit (fwd/bwd), fwd tables in shared memory {}, "
+                      "bwd state {} and tables {}".format(
+                          k, *fit, ssp.scan_route(sizes, S, C, depth, False)[1],
+                          *ssp.scan_route(sizes, S, C, depth, True)))
+    log(f"sparse {what}: S={S} A={A} E={E} depth={depth} "
+        f"layout src/w/eps {src.shape[0]}/{w.shape[0]}/{ew.shape[0]}; "
+        + "; ".join(routes) + f"; seg_lse fwd max|d| {errs['seg_lse_fwd']:.3g}, scan traj "
+        f"max|d| (live states) {errs['sparse_scan_fwd']:.3g}, entrywise errors "
         + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
     errs["seg_lse_bwd_rel"] = max([v for k, v in rels.items() if k.startswith("seg")],
                                   default=0.0)
@@ -1019,18 +1061,28 @@ def backoff_main_inputs(torch, dev, t=300, seed=11, path="transducer_backoff"):
 
 
 def phase_sparse(torch, dev):
+    """The sparse kernels at each case; the scan pair at every cluster
+    size on the 1kwp normaliser, the 4-gram normaliser, the table past
+    shared memory and a batch of 5 (not a multiple of the cluster)."""
+    from gtn_applications_tpu_torch.ops.sparse_scan_pallas import CLUSTER_SIZES
+
     errs = {}
     crit, em, lens, tables = backoff_lm_inputs(torch, dev)
     if tables["score"].src.dim() != 1 or tables["norm"].src.dim() != 1:
         raise AssertionError("the 1kwp protocol's tables are not shared / union")
     for key in ("norm", "score"):
-        merge_errs(errs, hold_sparse_kernels(torch, em, tables[key], lens,
-                                             ("1kwp " + key, LM_B, LM_T)))
+        merge_errs(errs, hold_sparse_kernels(
+            torch, em, tables[key], lens, ("1kwp " + key, LM_B, LM_T),
+            clusters=CLUSTER_SIZES if key == "norm" else None))
+    merge_errs(errs, hold_sparse_kernels(torch, em[:5].contiguous(), tables["norm"],
+                                         lens[:5].contiguous(), ("1kwp norm", 5, LM_T),
+                                         clusters=CLUSTER_SIZES))
     for lm, path in (("trigram", "transducer_backoff"), ("4-gram", "transducer_backoff_4gram")):
         _, em3, lens3, tables3 = backoff_main_inputs(torch, dev, path=path)
         for key in ("norm", "score"):
-            merge_errs(errs, hold_sparse_kernels(torch, em3, tables3[key], lens3,
-                                                 (f"{lm} {key}",) + tuple(em3.shape[:2])))
+            merge_errs(errs, hold_sparse_kernels(
+                torch, em3, tables3[key], lens3, (f"{lm} {key}",) + tuple(em3.shape[:2]),
+                clusters=CLUSTER_SIZES if (lm, key) == ("4-gram", "norm") else None))
     em_r, table_r, lens_r = random_sparse_table(torch, dev, B, T, N, 64, 1024, 128)
     merge_errs(errs, hold_sparse_kernels(torch, em_r, table_r, lens_r,
                                          ("all live", B, T, 64), all_live=True))
@@ -1042,7 +1094,7 @@ def phase_sparse(torch, dev):
     em_w, table_w, lens_w = random_sparse_table(torch, dev, *WIDE_SPARSE)
     merge_errs(errs, hold_sparse_kernels(torch, em_w, table_w, lens_w,
                                          ("past shared memory",) + WIDE_SPARSE,
-                                         past_smem=True))
+                                         past_smem=True, clusters=CLUSTER_SIZES))
     return errs
 
 
@@ -1803,6 +1855,8 @@ def sparse_times(torch, dev):
             acc = logaddexp(acc, cur)
         alpha0 = acc.contiguous()
         plan = ssp.scan_plan(src, dst, label, esrc, edst, S, e.shape[2])
+        if key == "":
+            headline_plan, headline_depth = plan, depth
         traj, _ = ssp.sparse_scan_fwd_cuda(e, alpha0, il, plan, w, ew, depth)
         gf = score_cotangent(torch, traj[:, -1], accept)
         t["sparse_scan_fwd" + key] = gpu_median_ms(
@@ -1821,13 +1875,35 @@ def sparse_times(torch, dev):
         else:
             t["sparse_scan_fwd" + key + "_bound"] = scan_bound(e, table, il, False)
             t["sparse_scan_bwd" + key + "_bound"] = scan_bound(e, table, il, True)
+    # one phase of the scans' chain (a dependent load from the next block's
+    # shared memory and a cluster barrier), at the headline's B and k: the
+    # probe's time for 2n phases less its time for n, over n; a frame is
+    # 1 + depth phases forward and 2 depth + 1 backward
+    Bh = em.shape[0]
+    k = ssp.choose_cluster(headline_plan, Bh, headline_depth, dev)
+    n = 4096
+    t_n = gpu_median_ms(torch, lambda: ssp.chain_probe(Bh, k, n, dev), runs=20)
+    t_2n = gpu_median_ms(torch, lambda: ssp.chain_probe(Bh, k, 2 * n, dev), runs=20)
+    t["sparse_chain_phase_us"] = (t_2n - t_n) / n * 1e3
+    t["sparse_chain_cluster"] = k
+    chain = {}
+    for key, e, il, table in cases:
+        depth = table.eps_depth if table.eps_src.shape[-1] else 0
+        frames = int(il.clamp(max=e.shape[1]).max())
+        for name, phases in (("sparse_scan_fwd", 1 + depth),
+                             ("sparse_scan_bwd", 2 * depth + 1)):
+            ms = frames * phases * t["sparse_chain_phase_us"] * 1e-3
+            if key == "":
+                chain[name] = ms
+            else:
+                t[name + key + "_chain"] = ms
     # per case: S, A, E, eps_depth and the emissions' shape
     t["sparse_shapes"] = {
         key or "_1kwp_norm": [int(table.start.shape[-1]), int(table.src.shape[-1]),
                               int(table.eps_src.shape[-1]), table.eps_depth,
                               list(e.shape)]
         for key, e, _, table in cases}
-    return t, bounds
+    return t, bounds, chain
 
 
 def segmax_bound(alpha, src, dst, w, em, label):
@@ -1901,6 +1977,13 @@ def phase_times(torch, dev, paths):
         torch, lambda: gathers.gather_bwd_cuda(grad, labels, N))
     t["gather_bwd_plain"] = gpu_median_ms(
         torch, lambda: gathers.gather_channels_bwd_plain(grad, labels, N))
+    # the one PyTorch call that computes each (timed only; the port never
+    # calls them): torch.gather, and scatter_add_ into zeros, at the
+    # channel index (-1 padding read as channel 0: the same work)
+    full = labels.long().clamp(min=0)[:, None, :].expand(B, T, labels.shape[1])
+    t["torch_gather"] = gpu_median_ms(torch, lambda: torch.gather(lp, 2, full))
+    t["torch_scatter_add"] = gpu_median_ms(
+        torch, lambda: torch.zeros_like(lp).scatter_add_(2, full, grad))
     t["ctc_alpha"] = gpu_median_ms(
         torch, lambda: lp_mod.ctc_alpha_cuda(em, start, skip, il))
     t["ctc_alpha_plain"] = gpu_median_ms(
@@ -2099,9 +2182,9 @@ def phase_times(torch, dev, paths):
 
 KERNELS = [
     ("gather_fwd", "gtn_applications_tpu_torch/ops/csrc/gather.cu",
-     "gtn_applications_tpu/ops/gathers.py:30", "f_ctc_loss_fwd"),
+     "gtn_applications_tpu/ops/gathers.py:30", "torch_gather"),
     ("gather_bwd", "gtn_applications_tpu_torch/ops/csrc/gather.cu",
-     "gtn_applications_tpu/ops/gathers.py:44", "f_ctc_loss_fwd_bwd"),
+     "gtn_applications_tpu/ops/gathers.py:44", "torch_scatter_add"),
     ("ctc_alpha", "gtn_applications_tpu_torch/ops/csrc/ctc.cu",
      "gtn_applications_tpu/ops/lattice_pallas.py:57", "f_ctc_loss_fwd"),
     ("ctc_grad", "gtn_applications_tpu_torch/ops/csrc/ctc.cu",
@@ -2161,12 +2244,15 @@ def run(device="cuda"):
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
-    for more_times, more_bounds in (
-            sparse_times(torch, dev),
-            segmax_times(torch, dev, paths["transducer_backoff_4gram"]["model"],
-                         main_path_config("transducer_backoff_4gram"))):
-        times.update(more_times)
-        bounds.update(more_bounds)
+    more_times, more_bounds, more_chain = sparse_times(torch, dev)
+    times.update(more_times)
+    bounds.update(more_bounds)
+    chain.update(more_chain)
+    more_times, more_bounds = segmax_times(
+        torch, dev, paths["transducer_backoff_4gram"]["model"],
+        main_path_config("transducer_backoff_4gram"))
+    times.update(more_times)
+    bounds.update(more_bounds)
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)

@@ -61,8 +61,10 @@ _SIGNATURES = {
     "sparse_scan": {
         "seg_lse_fwd": (6, 6),
         "seg_lse_bwd": (10, 6),
-        "sparse_scan_fwd": (12, 12),
-        "sparse_scan_bwd": (22, 12),
+        "sparse_scan_fwd": (11, 20),
+        "sparse_scan_bwd": (18, 23),
+        "sparse_scan_probe": (1, 3),
+        "sparse_scan_fit": (1, 3),
         "seg_max": (9, 8),
     },
 }

@@ -35,29 +35,49 @@
 // The TPU kernels recast the segment reductions as one-hot matmuls for the
 // MXU and shift each row by its largest contribution.  Here the arcs are
 // sorted by destination on the host (ops/seglse_pallas.py arc_index), and
-// one warp reduces one destination: lanes stride over its in-arcs, a
-// max pass and a sum pass with warp shuffles, so every destination gets its
-// own shift (the plain forward_score's arithmetic) and a destination with a
-// thousand in-arcs (the unigram backoff state of a 1k-wordpiece LM) costs
-// ~32 steps a lane.  The backward's sums by source and by label walk the
-// same kind of index (one warp a row), so there are no atomics and the
-// results are deterministic.  One block per sample runs the time loop, its
-// states in shared memory (the backward's float64 state, where it does not
-// fit, in a global scratch slice per sample: 250 KB at S = 1,058 and closure
-// depth 4, L2-resident); the arc tables are staged there too when they fit
-// (the 1k-wordpiece normaliser's forward), else read from global memory
-// (L2-resident: ~130 KB for a shared table).
+// every destination gets its own shift (the plain forward_score's
+// arithmetic).  seg_lse reduces one destination a warp.  The whole scan
+// runs a thread-block cluster of k blocks (1, 2, 4 or 8: the most with
+// B k blocks on the card's 132 multiprocessors) per sample, on a schedule
+// built once per table (ops/sparse_scan_pallas.py build_schedule):
+//   - each block (rank) owns a contiguous range of states, cut so that
+//     each holds about A / k of the arcs into them, and a range of labels;
+//   - within a rank, each row (a destination, or in the backward a source
+//     or a label) goes to a group of 1, 4, 8 or 32 lanes by its in-degree,
+//     each lane holding up to 8 of its arcs in registers; a group reduces
+//     with segmented shuffles, a max pass and then a sum pass; a hub of
+//     more than 256 arcs is cut into chunks of a warp each, whose maxima
+//     meet in shared memory before the sum pass, and then their sums, so
+//     the hub keeps its own shift;
+//   - after each phase (the arc step, each closure round) a block writes
+//     its states' values into every block's copy of the state vector
+//     through distributed shared memory, and cluster.sync() orders the
+//     phases; the frame shift is computed by every block from its copy
+//     of acc, so all agree;
+//   - the backward keeps the float64 state of its own states only (in
+//     shared memory; in a global scratch slice where even that does not
+//     fit), and its sums by source and by label read the posteriors of
+//     other blocks' arcs through distributed shared memory at (rank,
+//     offset) codes computed on the host: no atomics, so the results are
+//     deterministic.
+// The tables, codes and schedule of a rank are staged in its shared memory
+// when they fit.
 //
 // What bounds it on the H100: per frame a sample does ~10 fp32 operations
 // an arc and ~15 an epsilon arc per closure round, a few MFLOP a frame at
 // the 1k-wordpiece normaliser, microseconds at 67 TFLOP/s; the bytes
 // (em rows, tables, trajectory) are a few MB.  The kernels instead wait on
-// the chain of T frames, each a handful of block barriers (one per arc step
-// and closure round) and, per warp, a few dependent shuffle reductions per
-// destination.  Built without --use_fast_math: exact expf/logf.
+// the chain of T frames, each 1 + depth phases forward (2 depth + 1
+// backward) of one group reduction and one cluster barrier; the latency
+// probe sparse_scan_probe times a phase without arcs.  Built without
+// --use_fast_math: exact expf/logf.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -159,71 +179,6 @@ template <typename T>
 __device__ const T* stage(const T* src, long n, T* dst) {
   for (long i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
   return dst;
-}
-
-// One sample's tables: the arcs sorted by destination (dptr delimits each
-// destination's arcs), their sources, labels and weights, and for the
-// backward the source and label groups.
-struct Arcs {
-  const int* dptr;
-  const int* src;
-  const int* label;
-  const float* w;
-  const int* sptr;
-  const int* sorder;
-  const int* lptr;
-  const int* lorder;
-};
-
-__device__ Arcs sample_arcs(const int* dptr, const int* src, const int* label,
-                            const float* w, const int* sptr, const int* sorder,
-                            const int* lptr, const int* lorder, int b, int S, int A,
-                            int C, int sb, int wb) {
-  const long so = sb ? static_cast<long>(b) : 0;
-  Arcs r;
-  r.dptr = dptr + so * (S + 1);
-  r.src = src + so * A;
-  r.label = label ? label + so * A : nullptr;
-  r.w = w + (wb ? static_cast<long>(b) * A : 0);
-  r.sptr = sptr ? sptr + so * (S + 1) : nullptr;
-  r.sorder = sorder ? sorder + so * A : nullptr;
-  r.lptr = lptr ? lptr + so * (C + 1) : nullptr;
-  r.lorder = lorder ? lorder + so * A : nullptr;
-  return r;
-}
-
-// Stage the tables the kernel reads into shared memory (backward: with the
-// source and label groups).
-__device__ void stage_arcs(Arcs& r, Carve& cv, int S, int A, int C, bool backward,
-                           bool labels) {
-  r.dptr = stage(r.dptr, S + 1, cv.ints(S + 1));
-  r.src = stage(r.src, A, cv.ints(A));
-  if (labels) r.label = stage(r.label, A, cv.ints(A));
-  r.w = stage(r.w, A, cv.floats(A));
-  if (backward) {
-    r.sptr = stage(r.sptr, S + 1, cv.ints(S + 1));
-    r.sorder = stage(r.sorder, A, cv.ints(A));
-    if (labels) {
-      r.lptr = stage(r.lptr, C + 1, cv.ints(C + 1));
-      r.lorder = stage(r.lorder, A, cv.ints(A));
-    }
-  }
-}
-
-// An arc's contribution (alpha[src] + w) + em[label], in alpha's type.
-template <typename V>
-__device__ __forceinline__ V arc_value(const Arcs& r, const V* alpha, const float* em_row,
-                                       int C, int k) {
-  const int s = r.src[k];
-  const int l = r.label[k];
-  const V a = s >= 0 ? alpha[s] : V(kNeg);
-  return (a + V(r.w[k])) + ((l >= 0 && l < C) ? V(em_row[l]) : V(0));
-}
-
-template <typename V>
-__device__ __forceinline__ V eps_value(const Arcs& e, const V* cur, int k) {
-  const int s = e.src[k];
-  return (s >= 0 ? cur[s] : V(kNeg)) + V(e.w[k]);
 }
 
 // ---------------------------------------------------------------------------
@@ -383,295 +338,609 @@ seg_max_kernel(const float* __restrict__ alpha, const int* __restrict__ dptr,
 // The whole scan
 // ---------------------------------------------------------------------------
 
-// Words (4 bytes) of shared memory: as ops/sparse_scan_pallas.py smem_bytes.
-__host__ __device__ long scan_state_words(int S, int A, int E, int C, int D,
-                                          bool backward) {
-  if (backward) return 2L * S * (5 * D + 7) + A + E + C;  // doubles: two words
-  return 32 + 4L * S + C;
+// The schedule (ops/sparse_scan_pallas.py build_schedule): a part per
+// (sample or shared row, rank), `stride` words; its ranges, then per list
+// 6 words (slot offset, slots, hub offset, hubs, hub chunks, task offset).
+constexpr int kLaneArcs = 8;
+constexpr int kChunkMask = 0xffff;
+enum Range { kS0, kS1, kA0, kA1, kE0, kE1, kL0, kL1, kSJ0, kSJ1, kEJ0, kEJ1, kLJ0, kLJ1 };
+enum List { kDst, kEpsDst, kSrc, kEpsSrc, kLabel };
+
+struct ListHead {
+  int slot_off, nslots, hub_off, nhubs, nchunks;
+};
+
+__device__ __forceinline__ ListHead list_head(const int* part, int list) {
+  const int* h = part + 16 + 6 * list;
+  return ListHead{h[0], h[1], h[2], h[3], h[4]};
 }
 
-// The backward's state slice of global scratch per sample, in words: a
-// whole number of doubles, so every slice starts 8-byte aligned.
-__host__ __device__ long scan_state_stride(int S, int A, int E, int C, int D) {
-  const long words = scan_state_words(S, A, E, C, D, true);
-  return words + (words & 1);
+// The task a lane serves in slot q: a group of g lanes (sub: the lane's
+// place in it) reduces row `key` over positions [beg, end); aux is -1, or
+// a hub chunk's (hub << 16 | chunk).  Lanes past the slot's tasks get an
+// empty task (key -1) and still take part in the shuffles.
+struct Task {
+  int key, beg, end, aux, g, sub;
+};
+
+__device__ __forceinline__ Task slot_task(const int* part, const ListHead& h, int q,
+                                          int lane) {
+  const int* s = part + h.slot_off + 3 * q;
+  const int g = s[0];
+  Task t{-1, 0, 0, -1, g, lane & (g - 1)};
+  const int i = lane / g;
+  if (i < s[2]) {
+    const int* w = part + s[1] + 4 * i;
+    t.key = w[0];
+    t.beg = w[1];
+    t.end = w[2];
+    t.aux = w[3];
+  }
+  return t;
 }
 
+// Reductions over a group of g lanes (g a power of two, the same across
+// the warp): xor shuffles below g stay inside the group.
+template <typename V>
+__device__ __forceinline__ V group_max(V v, int g) {
+  for (int off = g >> 1; off > 0; off >>= 1) v = vmax(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
 
-__global__ void __launch_bounds__(kScanThreads)
-sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ alpha0,
-                       const int* __restrict__ lens, const int* dptr, const int* src,
-                       const int* label, const float* w, const int* eptr,
-                       const int* esrc, const float* ew, float* __restrict__ traj,
-                       double* __restrict__ shift, int T, int C, int S, int A, int E,
-                       int depth, int sb, int wb, int esb, int ewb, int in_smem) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+template <typename V>
+__device__ __forceinline__ V group_sum(V v, int g) {
+  for (int off = g >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+template <typename V>
+__device__ __forceinline__ V merged_max(const V* part_m, const int* hub) {
+  V m = V(-INFINITY);
+  for (int p = hub[1]; p < hub[1] + hub[2]; ++p) m = vmax(m, part_m[p]);
+  return vmax(m, V(kNeg));
+}
+
+// One logsumexp phase over a list of this rank's part: the Seg of every
+// row, handed to emit(row, seg) by one lane of its group (a hub's by one
+// thread after its chunks' maxima, then sums, have met in part_m/part_z).
+// value(k): the contribution at position k.  Every thread calls it.
+template <typename V, typename F, typename Emit>
+__device__ void lse_phase(const int* part, int list, V* part_m, V* part_z, F value,
+                          Emit emit) {
+  const ListHead h = list_head(part, list);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  for (int q = warp; q < h.nslots; q += nwarps) {
+    const Task t = slot_task(part, h, q, lane);
+    V c[kLaneArcs];
+    V m = V(-INFINITY);
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      const int k = t.beg + t.sub + j * t.g;
+      c[j] = k < t.end ? value(k) : V(-INFINITY);
+      m = vmax(m, c[j]);
+    }
+    m = vmax(group_max(m, t.g), V(kNeg));
+    if (t.aux >= 0) {  // a hub chunk (one a warp): its sum after the merge
+      if (lane == 0) part_m[t.aux & kChunkMask] = m;
+      continue;
+    }
+    V z = V(0);
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j)
+      if (c[j] > V(kDead)) z += ex(c[j] - m);
+    z = group_sum(z, t.g);
+    if (t.sub == 0 && t.key >= 0) emit(t.key, Seg<V>{m, z});
+  }
+  if (h.nhubs == 0) return;
+  __syncthreads();
+  for (int q = warp; q < h.nchunks; q += nwarps) {  // the chunks' slots come first
+    const Task t = slot_task(part, h, q, lane);
+    const V m = merged_max(part_m, part + h.hub_off + 3 * (t.aux >> 16));
+    V z = V(0);
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      const int k = t.beg + lane + j * 32;
+      if (k < t.end) {
+        const V c = value(k);
+        if (c > V(kDead)) z += ex(c - m);
+      }
+    }
+    z = group_sum(z, 32);
+    if (lane == 0) part_z[t.aux & kChunkMask] = z;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < h.nhubs; i += blockDim.x) {
+    const int* hub = part + h.hub_off + 3 * i;
+    V z = V(0);
+    for (int p = hub[1]; p < hub[1] + hub[2]; ++p) z += part_z[p];
+    emit(hub[0], Seg<V>{merged_max(part_m, hub), z});
+  }
+}
+
+// fn(row, k) for every position k of every row of a list of this rank.
+template <typename F>
+__device__ void map_phase(const int* part, int list, F fn) {
+  const ListHead h = list_head(part, list);
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < h.nslots; q += blockDim.x >> 5) {
+    const Task t = slot_task(part, h, q, lane);
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      const int k = t.beg + t.sub + j * t.g;
+      if (k < t.end) fn(t.key, k);
+    }
+  }
+}
+
+// The float64 sum of value(k) over each row of a list of this rank, handed
+// to emit(row, sum); a hub's chunks' sums meet in part (in chunk order).
+template <typename F, typename Emit>
+__device__ void sum_phase(const int* part, int list, double* part_s, F value, Emit emit) {
+  const ListHead h = list_head(part, list);
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < h.nslots; q += blockDim.x >> 5) {
+    const Task t = slot_task(part, h, q, lane);
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      const int k = t.beg + t.sub + j * t.g;
+      if (k < t.end) s += value(k);
+    }
+    s = group_sum(s, t.g);
+    if (t.sub == 0 && t.key >= 0) {
+      if (t.aux >= 0) {
+        part_s[t.aux & kChunkMask] = s;
+      } else {
+        emit(t.key, s);
+      }
+    }
+  }
+  if (h.nhubs == 0) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < h.nhubs; i += blockDim.x) {
+    const int* hub = part + h.hub_off + 3 * i;
+    double s = 0.0;
+    for (int p = hub[1]; p < hub[1] + hub[2]; ++p) s += part_s[p];
+    emit(hub[0], s);
+  }
+}
+
+// x at [s] of every block of the cluster's copy of `buf` (this block's
+// included): a state value the next phase reads anywhere.
+template <typename V>
+__device__ __forceinline__ void push(cg::cluster_group& cl, V* buf, int s, V x) {
+  for (unsigned r = 0; r < cl.num_blocks(); ++r) cl.map_shared_rank(buf, r)[s] = x;
+}
+
+// Shared memory in 4-byte words, as ops/sparse_scan_pallas.py smem_words:
+// the forward's state, and its staged tables and schedule.
+__host__ __device__ long fwd_state_words(int S, int C, int n, int p) {
+  return 32 + 4L * S + n + 2L * C + 2L * p;
+}
+
+__host__ __device__ long fwd_table_words(int a, int e, int fwd_words) {
+  return 3L * a + 2L * e + fwd_words;
+}
+
+// The backward's shared part (the state vectors other blocks write, their
+// posteriors), its own part (the float64 state of its own states and
+// arcs) and its staged tables, codes and schedule.
+__host__ __device__ long bwd_shared_words(int S, int C, int D, int a, int e, int p) {
+  return 2L * (static_cast<long>(D) * S + 2L * p) + 2L * S + 2L * a + 2L * e + 2L * C;
+}
+
+__host__ __device__ long bwd_own_words(int D, int n, int a, int e) {
+  return 2L * (static_cast<long>(n) * (5 * D + 6) + a + e);
+}
+
+__host__ __device__ long bwd_table_words(int a, int e, int stride, int sj, int ej, int lj) {
+  return 3L * a + 2L * e + stride + sj + ej + lj;
+}
+
+// Start copying n floats of src into dst (shared memory) with cp.async;
+// __pipeline_wait_prior(0) and a barrier later make them visible.
+__device__ __forceinline__ void prefetch(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ alpha0,
+                       const int* __restrict__ lens, const int* src, const int* label,
+                       const float* w, const int* esrc, const float* ew, const int* sched,
+                       float* __restrict__ traj, double* __restrict__ shift, int T, int C,
+                       int S, int A, int E, int depth, int sb, int wb, int esb, int ewb,
+                       int qb, int stride, int fwd_words, int n_own, int a_own, int e_own,
+                       int parts, int in_smem) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int b = blockIdx.x / k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int* part = sched + (static_cast<long>(qb ? b : 0) * k + rank) * stride;
+  const int s0 = part[kS0], s1 = part[kS1], a0 = part[kA0], a1 = part[kA1];
+  const int e0 = part[kE0], e1 = part[kE1];
   Carve cv{smem};
   float* red = cv.floats(32);
-  float* alpha = cv.floats(S);
-  float* acc = cv.floats(S);
-  float* cur = cv.floats(S);
-  float* nxt = cv.floats(S);
-  float* em_row = cv.floats(C);
-  Arcs r = sample_arcs(dptr, src, label, w, nullptr, nullptr, nullptr, nullptr, b,
-                       S, A, C, sb, wb);
-  Arcs e{};
-  if (depth > 0)
-    e = sample_arcs(eptr, esrc, nullptr, ew, nullptr, nullptr, nullptr, nullptr, b,
-                    S, E, C, esb, ewb);
+  float* cur0 = cv.floats(S);
+  float* cur1 = cv.floats(S);
+  // the frames' acc, every state, by frame parity: frame t reads alpha as
+  // acc[t - 1] less the running frame shift sh, and writes acc[t]
+  float* acc0 = cv.floats(S);
+  float* acc1 = cv.floats(S);
+  float* accl = cv.floats(n_own);  // acc_d of the own states
+  float* em0 = cv.floats(C);  // the emission rows, by frame parity
+  float* em1 = cv.floats(C);
+  float* part_m = cv.floats(parts);
+  float* part_z = cv.floats(parts);
+  const long so = sb ? static_cast<long>(b) : 0;
+  const int* Sr = src + so * A;
+  const int* Lb = label + so * A;
+  const float* W = w + (wb ? static_cast<long>(b) * A : 0);
+  const int* ES = depth > 0 ? esrc + (esb ? static_cast<long>(b) * E : 0) : nullptr;
+  const float* EW = depth > 0 ? ew + (ewb ? static_cast<long>(b) * E : 0) : nullptr;
   if (in_smem) {
-    stage_arcs(r, cv, S, A, C, false, true);
-    if (depth > 0) stage_arcs(e, cv, S, E, C, false, false);
+    part = stage(part, fwd_words, cv.ints(fwd_words));
+    Sr = stage(Sr + a0, a1 - a0, cv.ints(a_own)) - a0;
+    Lb = stage(Lb + a0, a1 - a0, cv.ints(a_own)) - a0;
+    W = stage(W + a0, a1 - a0, cv.floats(a_own)) - a0;
+    if (depth > 0) {
+      ES = stage(ES + e0, e1 - e0, cv.ints(e_own)) - e0;
+      EW = stage(EW + e0, e1 - e0, cv.floats(e_own)) - e0;
+    }
   }
   const long tb = static_cast<long>(b) * (T + 1) * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const float a = alpha0[static_cast<long>(b) * S + s];
-    alpha[s] = a;
-    traj[tb + s] = a;
-  }
+  const float* a0_b = alpha0 + static_cast<long>(b) * S;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) acc1[s] = a0_b[s];  // frame -1
+  for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) traj[tb + s] = a0_b[s];
   const int t_live = min(max(lens[b], 0), T);
+  const float* em_b = em + static_cast<long>(b) * T * C;
   double* shift_b = shift + static_cast<long>(b) * (T + 1);
   double k_run = 0.0;  // a sum of hundreds of shifts, kept exact
-  if (threadIdx.x == 0) shift_b[0] = 0.0;
-  __syncthreads();
+  float sh = 0.0f;
+  const bool lead = rank == 0 && threadIdx.x == 0;
+  if (lead) shift_b[0] = 0.0;
+  if (t_live > 0)
+    for (int c = threadIdx.x; c < C; c += blockDim.x) em0[c] = em_b[c];
+  cl.sync();  // every block of the cluster runs, its staging done
 
   for (int t = 0; t < t_live; ++t) {
-    const float* em_t = em + (static_cast<long>(b) * T + t) * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) em_row[c] = em_t[c];
-    __syncthreads();
-    for (int s = warp; s < S; s += nwarps) {
-      const float v = warp_seg(r.dptr[s], r.dptr[s + 1], lane, [&](int k) {
-        return arc_value(r, alpha, em_row, C, k);
-      }).value();
-      if (lane == 0) {
-        acc[s] = v;
-        cur[s] = v;
-      }
-    }
-    __syncthreads();
-    float* c0 = cur;
-    float* c1 = nxt;
+    const float* prev = (t & 1) ? acc0 : acc1;
+    float* accp = (t & 1) ? acc1 : acc0;
+    const float* em_row = (t & 1) ? em1 : em0;
+    if (t + 1 < t_live) prefetch((t & 1) ? em0 : em1, em_b + static_cast<long>(t + 1) * C, C);
+    // the arc step: y into acc_0 (own) and cur_0 (or, without a closure,
+    // the frame's acc) of every block
+    lse_phase<float>(
+        part, kDst, part_m, part_z,
+        [&](int kk) {
+          const int s = Sr[kk];
+          const int l = Lb[kk];
+          return ((s >= 0 ? prev[s] - sh : kNeg) + W[kk]) +
+                 ((l >= 0 && l < C) ? em_row[l] : 0.0f);
+        },
+        [&](int s, Seg<float> sg) {
+          const float v = sg.value();
+          accl[s - s0] = v;
+          push(cl, depth > 0 ? cur0 : accp, s, v);
+        });
+    cl.sync();
     for (int d = 0; d < depth; ++d) {
-      for (int s = warp; s < S; s += nwarps) {
-        const float v = warp_seg(e.dptr[s], e.dptr[s + 1], lane, [&](int k) {
-          return eps_value(e, c0, k);
-        }).value();
-        if (lane == 0) {
-          c1[s] = v;
-          acc[s] = lae(acc[s], v);
-        }
-      }
-      __syncthreads();
-      float* tmp = c0;
-      c0 = c1;
-      c1 = tmp;
+      const float* c0 = (d & 1) ? cur1 : cur0;
+      float* c1 = (d & 1) ? cur0 : cur1;
+      const bool last = d == depth - 1;
+      lse_phase<float>(
+          part, kEpsDst, part_m, part_z,
+          [&](int kk) {
+            const int s = ES[kk];
+            return (s >= 0 ? c0[s] : kNeg) + EW[kk];
+          },
+          [&](int s, Seg<float> sg) {
+            const float v = sg.value();
+            const float a = lae(accl[s - s0], v);
+            accl[s - s0] = a;
+            if (last) {
+              push(cl, accp, s, a);
+            } else {
+              push(cl, c1, s, v);
+            }
+          });
+      cl.sync();
     }
-    // the frame's shift: its largest alpha, 0 if every state is dead
+    // the frame's shift: its largest alpha, 0 if every state is dead; every
+    // block takes it from its own copy of acc, so all agree
     float m = -INFINITY;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) m = fmaxf(m, acc[s]);
+    for (int s = threadIdx.x; s < S; s += blockDim.x) m = fmaxf(m, accp[s]);
     m = warp_max(m);
     if (lane == 0) red[warp] = m;
+    __pipeline_wait_prior(0);
     __syncthreads();
-    float sh = -INFINITY;
-    for (int w = 0; w < nwarps; ++w) sh = fmaxf(sh, red[w]);
-    sh = sh > kDead ? sh : 0.0f;
+    m = -INFINITY;
+    for (int i = 0; i < nwarps; ++i) m = fmaxf(m, red[i]);
+    sh = m > kDead ? m : 0.0f;
     k_run += sh;
     float* tr = traj + tb + static_cast<long>(t + 1) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const float a = acc[s] - sh;
-      alpha[s] = a;
-      tr[s] = a;
-    }
-    if (threadIdx.x == 0) shift_b[t + 1] = k_run;
-    __syncthreads();
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) tr[s] = accp[s] - sh;
+    if (lead) shift_b[t + 1] = k_run;
   }
   // frozen tail: alpha and the shift keep their values past the length
+  const float* last = ((t_live - 1) & 1) ? acc1 : acc0;
   for (int t = t_live; t < T; ++t) {
     float* tr = traj + tb + static_cast<long>(t + 1) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) tr[s] = alpha[s];
-    if (threadIdx.x == 0) shift_b[t + 1] = k_run;
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) tr[s] = last[s] - sh;
+    if (lead) shift_b[t + 1] = k_run;
   }
+  cl.sync();  // no block leaves while another may still address its memory
 }
 
 // The backward recomputes each frame's chain in double precision (its
 // inputs and outputs are float): over a few hundred frames, the posteriors
 // of float intermediates (|value| ~ 10-30, an ulp ~ 1e-6) put ~1e-5 of
 // noise on the cotangents; the recompute is latency-bound, and the card's
-// fp64 rate is half its fp32 rate.
+// fp64 rate is half its fp32 rate.  Each step of the closure's reverse is
+// taken where its inputs are last written: logaddexp's VJP at round d in
+// the emit that finishes cur_d (round D) or the cotangent of cur_d (the
+// sum by source of round d + 1).
 __global__ void __launch_bounds__(kScanThreads)
 sparse_scan_bwd_kernel(const float* __restrict__ em, const float* __restrict__ traj,
                        const int* __restrict__ lens, const float* __restrict__ g_final,
-                       const int* dptr, const int* src, const int* label, const float* w,
-                       const int* sptr, const int* sorder, const int* lptr,
-                       const int* lorder, const int* eptr, const int* esrc,
-                       const float* ew, const int* esptr, const int* esorder,
-                       float* __restrict__ dem, double* __restrict__ dw,
-                       double* __restrict__ deps, float* __restrict__ dalpha0,
-                       float* scratch, int T, int C, int S, int A, int E, int depth,
-                       int sb, int wb, int esb, int ewb, int in_smem) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+                       const int* src, const int* label, const float* w, const int* esrc,
+                       const float* ew, const int* sched, const int* sref,
+                       const int* esref, const int* lref, float* __restrict__ dem,
+                       double* __restrict__ dw, double* __restrict__ deps,
+                       float* __restrict__ dalpha0, float* scratch, int T, int C, int S,
+                       int A, int E, int depth, int sb, int wb, int esb, int ewb, int qb,
+                       int stride, int n_own, int a_own, int e_own, int parts, int sj_own,
+                       int ej_own, int lj_own, int own_smem, int in_smem) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int b = blockIdx.x / k;
   const int D = depth;
-  const long DS = static_cast<long>(D) * S;
-  // the state in shared memory, or in this sample's slice of global scratch
-  // where it does not fit (then the tables stay in global memory too);
-  // __syncthreads orders the block's global accesses as it does shared ones
-  Carve cv{scratch ? scratch + b * scan_state_stride(S, A, E, C, D) : smem};
-  double* a_in = cv.doubles(S);
-  double* curs = cv.doubles(DS + S);   // cur_0 = y0 .. cur_D
-  double* seg_m = cv.doubles(DS + S);  // their shifts
-  double* seg_z = cv.doubles(DS + S);  // and sums
-  double* accs = cv.doubles(DS);       // acc_1 .. acc_D
-  double* g = cv.doubles(S);
-  double* gacc = cv.doubles(S);
-  double* gcur = cv.doubles(DS + S);
-  float* dc = cv.floats(A);
-  float* dce = cv.floats(E);
-  float* em_row = cv.floats(C);
-  Arcs r = sample_arcs(dptr, src, label, w, sptr, sorder, lptr, lorder, b, S, A, C,
-                       sb, wb);
-  Arcs e{};
-  if (D > 0)
-    e = sample_arcs(eptr, esrc, nullptr, ew, esptr, esorder, nullptr, nullptr, b, S,
-                    E, C, esb, ewb);
+  const int n = n_own;
+  const long row = qb ? static_cast<long>(b) : 0;
+  const int* part = sched + (row * k + rank) * stride;
+  const int s0 = part[kS0], s1 = part[kS1], a0 = part[kA0], a1 = part[kA1];
+  const int e0 = part[kE0], e1 = part[kE1];
+  const int sj0 = part[kSJ0], sj1 = part[kSJ1], ej0 = part[kEJ0], ej1 = part[kEJ1];
+  const int lj0 = part[kLJ0], lj1 = part[kLJ1];
+  // doubles first: the shared part's, then the own part where it lies in
+  // shared memory (else in this block's slice of global scratch, which
+  // only this block touches: __syncthreads orders it)
+  Carve cv{smem};
+  double* curs = cv.doubles(static_cast<long>(D) * S);  // cur_0 .. cur_{D-1}, every state
+  double* part_m = cv.doubles(parts);
+  double* part_z = cv.doubles(parts);
+  const long own_words = bwd_own_words(D, n, a_own, e_own);
+  Carve ov{own_smem ? cv.p : scratch + static_cast<long>(blockIdx.x) * own_words};
+  if (own_smem) cv.p += own_words;
+  double* cown = ov.doubles((D + 1L) * n);  // cur_0 .. cur_D of the own states
+  double* seg_m = ov.doubles((D + 1L) * n);  // their shifts
+  double* seg_z = ov.doubles((D + 1L) * n);  // and sums
+  double* accs = ov.doubles(static_cast<long>(D) * n);  // acc_1 .. acc_D
+  double* g = ov.doubles(n);
+  double* gacc = ov.doubles(n);
+  double* gcur = ov.doubles((D + 1L) * n);  // the cotangents of cur_1 .. cur_D
+  double* dw_acc = ov.doubles(a_own);
+  double* deps_acc = ov.doubles(e_own);
+  float* a_in0 = cv.floats(S);  // the trajectory's rows, by frame parity
+  float* a_in1 = cv.floats(S);
+  float* dcb = cv.floats(2L * a_own);   // the own arcs' posteriors, by frame parity
+  float* dceb = cv.floats(2L * e_own);  // the own epsilon arcs', by round parity
+  float* em0 = cv.floats(C);  // the emission rows, by frame parity
+  float* em1 = cv.floats(C);
+  const long so = sb ? static_cast<long>(b) : 0;
+  const int* Sr = src + so * A;
+  const int* Lb = label + so * A;
+  const float* W = w + (wb ? static_cast<long>(b) * A : 0);
+  const int* ES = D > 0 ? esrc + (esb ? static_cast<long>(b) * E : 0) : nullptr;
+  const float* EW = D > 0 ? ew + (ewb ? static_cast<long>(b) * E : 0) : nullptr;
+  const int* SR = sref + row * A;
+  const int* ESR = D > 0 ? esref + row * E : nullptr;
+  const int* LR = lref + row * A;
   if (in_smem) {
-    stage_arcs(r, cv, S, A, C, true, true);
-    if (D > 0) stage_arcs(e, cv, S, E, C, true, false);
+    part = stage(part, stride, cv.ints(stride));
+    Sr = stage(Sr + a0, a1 - a0, cv.ints(a_own)) - a0;
+    Lb = stage(Lb + a0, a1 - a0, cv.ints(a_own)) - a0;
+    W = stage(W + a0, a1 - a0, cv.floats(a_own)) - a0;
+    if (D > 0) {
+      ES = stage(ES + e0, e1 - e0, cv.ints(e_own)) - e0;
+      EW = stage(EW + e0, e1 - e0, cv.floats(e_own)) - e0;
+      ESR = stage(ESR + ej0, ej1 - ej0, cv.ints(ej_own)) - ej0;
+    }
+    SR = stage(SR + sj0, sj1 - sj0, cv.ints(sj_own)) - sj0;
+    LR = stage(LR + lj0, lj1 - lj0, cv.ints(lj_own)) - lj0;
   }
-  double* dw_b = dw + static_cast<long>(b) * A;
-  double* deps_b = D > 0 ? deps + static_cast<long>(b) * E : nullptr;
-  float* dem_b = dem + static_cast<long>(b) * T * C;
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    g[s] = g_final[static_cast<long>(b) * S + s];
-  for (int k = threadIdx.x; k < A; k += blockDim.x) {
-    dw_b[k] = 0.0;
-    dc[k] = 0.0f;  // arcs past dptr[S] (no valid destination) stay 0
-  }
-  for (int k = threadIdx.x; k < E; k += blockDim.x) {
-    if (D > 0) deps_b[k] = 0.0;
-    dce[k] = 0.0f;
-  }
+  for (int i = threadIdx.x; i < s1 - s0; i += blockDim.x)
+    g[i] = g_final[static_cast<long>(b) * S + s0 + i];
+  for (int i = threadIdx.x; i < a1 - a0; i += blockDim.x) dw_acc[i] = 0.0;
+  for (int i = threadIdx.x; i < e1 - e0; i += blockDim.x) deps_acc[i] = 0.0;
+  // arcs past dptr[S] (no valid destination) keep a posterior of 0
+  for (int i = threadIdx.x; i < 2 * a_own; i += blockDim.x) dcb[i] = 0.0f;
+  for (int i = threadIdx.x; i < 2 * e_own; i += blockDim.x) dceb[i] = 0.0f;
   const int t_live = min(max(lens[b], 0), T);
-  for (long i = static_cast<long>(t_live) * C + threadIdx.x; i < static_cast<long>(T) * C;
-       i += blockDim.x)
+  float* dem_b = dem + static_cast<long>(b) * T * C;
+  for (long i = static_cast<long>(t_live) * C + rank * blockDim.x + threadIdx.x;
+       i < static_cast<long>(T) * C; i += static_cast<long>(k) * blockDim.x)
     dem_b[i] = 0.0f;
-  __syncthreads();
+  const float* em_b = em + static_cast<long>(b) * T * C;
+  const float* tr_b = traj + static_cast<long>(b) * (T + 1) * S;
+  if (t_live > 0) {
+    const int t = t_live - 1;
+    float* a_in = (t & 1) ? a_in1 : a_in0;
+    float* em_row = (t & 1) ? em1 : em0;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) em_row[c] = em_b[static_cast<long>(t) * C + c];
+    for (int s = threadIdx.x; s < S; s += blockDim.x) a_in[s] = tr_b[static_cast<long>(t) * S + s];
+  }
+  cl.sync();  // every block of the cluster runs, its staging done
 
+  // logaddexp's VJP at round d of an own state i: its posteriors from its
+  // own shift (as autodiff forms them); gcur_d gets the share of cur_d,
+  // gacc keeps acc_{d-1}'s
+  auto lae_vjp = [&](int i, int d) {
+    const double a = d == 1 ? cown[i] : accs[(d - 2L) * n + i];
+    const double c = cown[static_cast<long>(d) * n + i];
+    const double m = fmax(fmax(a, c), static_cast<double>(kNeg));
+    const double ea = a > kDead ? exp(a - m) : 0.0;
+    const double ec = c > kDead ? exp(c - m) : 0.0;
+    const double z = ea + ec;
+    const double gz = z > 0.0 ? gacc[i] / z : 0.0;
+    gcur[static_cast<long>(d) * n + i] += gz * ec;
+    gacc[i] = gz * ea;
+  };
+  auto remote = [&](float* buf, int code) {
+    return static_cast<double>(cl.map_shared_rank(buf, code & 7)[code >> 3]);
+  };
   for (int t = t_live - 1; t >= 0; --t) {
-    const float* em_t = em + (static_cast<long>(b) * T + t) * C;
-    const float* tr = traj + (static_cast<long>(b) * (T + 1) + t) * S;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) em_row[c] = em_t[c];
-    for (int s = threadIdx.x; s < S; s += blockDim.x) a_in[s] = tr[s];
-    __syncthreads();
-    // recompute the frame's chain: y0, then cur_d and acc_d
-    for (int s = warp; s < S; s += nwarps) {
-      const Seg<double> sg = warp_seg(r.dptr[s], r.dptr[s + 1], lane, [&](int k) {
-        return arc_value(r, a_in, em_row, C, k);
-      });
-      if (lane == 0) {
-        curs[s] = sg.value();
-        seg_m[s] = sg.m;
-        seg_z[s] = sg.z;
-      }
+    const float* a_in = (t & 1) ? a_in1 : a_in0;
+    const float* em_row = (t & 1) ? em1 : em0;
+    if (t > 0) {
+      prefetch((t & 1) ? em0 : em1, em_b + (t - 1L) * C, C);
+      prefetch((t & 1) ? a_in0 : a_in1, tr_b + (t - 1L) * S, S);
     }
-    __syncthreads();
+    auto arc = [&](int kk) {
+      const int s = Sr[kk];
+      const int l = Lb[kk];
+      const double a = s >= 0 ? static_cast<double>(a_in[s]) : static_cast<double>(kNeg);
+      return (a + static_cast<double>(W[kk])) +
+             ((l >= 0 && l < C) ? static_cast<double>(em_row[l]) : 0.0);
+    };
+    // recompute the frame's chain: y0, then cur_d and acc_d; the last
+    // phase starts the reverse: gacc = g, and logaddexp's VJP at round D
+    lse_phase<double>(part, kDst, part_m, part_z, arc, [&](int s, Seg<double> sg) {
+      const int i = s - s0;
+      const double v = sg.value();
+      cown[i] = v;
+      seg_m[i] = sg.m;
+      seg_z[i] = sg.z;
+      if (D > 0) {
+        push(cl, curs, s, v);
+      } else {
+        gacc[i] = g[i];
+      }
+    });
+    if (D > 0) {
+      cl.sync();
+    } else {
+      __syncthreads();
+    }
     for (int d = 1; d <= D; ++d) {
-      const double* prev = curs + static_cast<long>(d - 1) * S;
-      const double* accp = d == 1 ? curs : accs + static_cast<long>(d - 2) * S;
-      for (int s = warp; s < S; s += nwarps) {
-        const Seg<double> sg = warp_seg(e.dptr[s], e.dptr[s + 1], lane,
-                                        [&](int k) { return eps_value(e, prev, k); });
-        if (lane == 0) {
-          const long i = static_cast<long>(d) * S + s;
-          curs[i] = sg.value();
-          seg_m[i] = sg.m;
-          seg_z[i] = sg.z;
-          accs[i - S] = lae(accp[s], curs[i]);
-        }
+      const double* prev = curs + (d - 1L) * S;
+      double* next = curs + static_cast<long>(d) * S;
+      lse_phase<double>(
+          part, kEpsDst, part_m, part_z,
+          [&](int kk) {
+            const int s = ES[kk];
+            return (s >= 0 ? prev[s] : static_cast<double>(kNeg)) +
+                   static_cast<double>(EW[kk]);
+          },
+          [&](int s, Seg<double> sg) {
+            const int i = s - s0;
+            const long di = static_cast<long>(d) * n + i;
+            const double v = sg.value();
+            cown[di] = v;
+            seg_m[di] = sg.m;
+            seg_z[di] = sg.z;
+            accs[di - n] = lae(d == 1 ? cown[i] : accs[di - 2L * n], v);
+            if (d < D) {
+              push(cl, next, s, v);
+            } else {
+              gacc[i] = g[i];
+              gcur[di] = 0.0;
+              lae_vjp(i, D);
+            }
+          });
+      if (d < D) {
+        cl.sync();
+      } else {
+        __syncthreads();
       }
-      __syncthreads();
     }
-    // reverse the closure: acc_d = lae(acc_{d-1}, cur_d), cur_d = eps(cur_{d-1})
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      gacc[s] = g[s];
-      for (int d = 0; d <= D; ++d) gcur[static_cast<long>(d) * S + s] = 0.0;
-    }
-    __syncthreads();
+    // reverse the closure: cur_d = eps(cur_{d-1}), then logaddexp's VJP at
+    // round d - 1 in the emit of cur_{d-1}'s cotangent
     for (int d = D; d >= 1; --d) {
-      const double* cd = curs + static_cast<long>(d) * S;
-      const double* prev = curs + static_cast<long>(d - 1) * S;
-      const double* accp = d == 1 ? curs : accs + static_cast<long>(d - 2) * S;
-      double* gcd = gcur + static_cast<long>(d) * S;
-      for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        // logaddexp's posteriors, from its own shift (as autodiff forms them)
-        const double a = accp[s];
-        const double c = cd[s];
-        const double m = fmax(fmax(a, c), double(kNeg));
-        const double ea = a > kDead ? exp(a - m) : 0.0;
-        const double ec = c > kDead ? exp(c - m) : 0.0;
-        const double z = ea + ec;
-        const double gz = z > 0.0 ? gacc[s] / z : 0.0;
-        gcd[s] += gz * ec;
-        gacc[s] = gz * ea;
-      }
-      __syncthreads();
-      for (int s = warp; s < S; s += nwarps) {
-        const long i = static_cast<long>(d) * S + s;
-        const Seg<double> sg{seg_m[i], seg_z[i]};
-        const double gy = gcd[s];
-        for (int k = e.dptr[s] + lane; k < e.dptr[s + 1]; k += 32) {
-          const double v = posterior(eps_value(e, prev, k), sg, gy);
-          dce[k] = static_cast<float>(v);
-          deps_b[k] += v;
-        }
-      }
-      __syncthreads();
-      double* gcp = gcur + static_cast<long>(d - 1) * S;
-      for (int s = warp; s < S; s += nwarps) {
-        const double v = warp_csr_sum<double>(e.sptr, e.sorder, dce, s, lane);
-        if (lane == 0) gcp[s] += v;
-      }
+      const double* prev = curs + (d - 1L) * S;
+      const double* sm = seg_m + static_cast<long>(d) * n;
+      const double* sz = seg_z + static_cast<long>(d) * n;
+      const double* gcd = gcur + static_cast<long>(d) * n;
+      float* dce = dceb + (d & 1) * static_cast<long>(e_own);
+      map_phase(part, kEpsDst, [&](int s, int kk) {
+        const int i = s - s0;
+        const int u = ES[kk];
+        const double c = (u >= 0 ? prev[u] : static_cast<double>(kNeg)) +
+                         static_cast<double>(EW[kk]);
+        const double v = posterior(c, Seg<double>{sm[i], sz[i]}, gcd[i]);
+        dce[kk - e0] = static_cast<float>(v);
+        deps_acc[kk - e0] += v;
+      });
+      cl.sync();
+      sum_phase(
+          part, kEpsSrc, part_z, [&](int j) { return remote(dce, ESR[j]); },
+          [&](int u, double v) {
+            const int i = u - s0;
+            if (d > 1) {
+              gcur[(d - 1L) * n + i] = v;
+              lae_vjp(i, d - 1);
+            } else {
+              gacc[i] += v;  // the cotangent of y0
+            }
+          });
       __syncthreads();
     }
-    // the arc step's VJP, with the cotangent of y0
-    for (int s = threadIdx.x; s < S; s += blockDim.x) gacc[s] += gcur[s];
-    __syncthreads();
-    for (int s = warp; s < S; s += nwarps) {
-      const Seg<double> sg{seg_m[s], seg_z[s]};
-      const double gy = gacc[s];
-      for (int k = r.dptr[s] + lane; k < r.dptr[s + 1]; k += 32) {
-        const double v = posterior(arc_value(r, a_in, em_row, C, k), sg, gy);
-        dc[k] = static_cast<float>(v);
-        dw_b[k] += v;
-      }
-    }
-    __syncthreads();
-    for (int s = warp; s < S; s += nwarps) {
-      const double v = warp_csr_sum<double>(r.sptr, r.sorder, dc, s, lane);
-      if (lane == 0) g[s] = v;
-    }
+    // the arc step's VJP
+    float* dc = dcb + (t & 1) * static_cast<long>(a_own);
+    map_phase(part, kDst, [&](int s, int kk) {
+      const int i = s - s0;
+      const double v = posterior(arc(kk), Seg<double>{seg_m[i], seg_z[i]}, gacc[i]);
+      dc[kk - a0] = static_cast<float>(v);
+      dw_acc[kk - a0] += v;
+    });
+    cl.sync();
+    sum_phase(
+        part, kSrc, part_z, [&](int j) { return remote(dc, SR[j]); },
+        [&](int u, double v) { g[u - s0] = v; });
     float* dem_t = dem_b + static_cast<long>(t) * C;
-    for (int l = warp; l < C; l += nwarps) {
-      const double v = warp_csr_sum<double>(r.lptr, r.lorder, dc, l, lane);
-      if (lane == 0) dem_t[l] = static_cast<float>(v);
-    }
+    sum_phase(
+        part, kLabel, part_m, [&](int j) { return remote(dc, LR[j]); },
+        [&](int l, double v) { dem_t[l] = static_cast<float>(v); });
+    __pipeline_wait_prior(0);
     __syncthreads();
   }
-  for (int s = threadIdx.x; s < S; s += blockDim.x)
-    dalpha0[static_cast<long>(b) * S + s] = static_cast<float>(g[s]);
+  for (int i = threadIdx.x; i < s1 - s0; i += blockDim.x)
+    dalpha0[static_cast<long>(b) * S + s0 + i] = static_cast<float>(g[i]);
+  for (int i = threadIdx.x; i < a1 - a0; i += blockDim.x)
+    dw[static_cast<long>(b) * A + a0 + i] = dw_acc[i];
+  if (D > 0)
+    for (int i = threadIdx.x; i < e1 - e0; i += blockDim.x)
+      deps[static_cast<long>(b) * E + e0 + i] = deps_acc[i];
+  cl.sync();  // no block leaves while another may still read its posteriors
 }
 
-long scan_table_words(int S, int A, int E, int C, int D, bool backward) {
-  if (backward)
-    return 2L * (S + 1) + 5L * A + (C + 1) + (D ? 2L * (S + 1) + 3L * E : 0);
-  return (S + 1) + 3L * A + (D ? (S + 1) + 2L * E : 0);
+// The scans' chain without arcs: each phase one load from the next block's
+// shared memory that depends on the last phase's, and one cluster barrier.
+__global__ void __launch_bounds__(kScanThreads)
+sparse_scan_probe_kernel(float* __restrict__ out, int phases) {
+  __shared__ float buf[2][32];
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = static_cast<int>(cl.num_blocks());
+  const int next = (static_cast<int>(cl.block_rank()) + 1) % k;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) buf[0][lane] = static_cast<float>(lane);
+  cl.sync();
+  float v = 0.0f;
+  for (int p = 0; p < phases; ++p) {
+    v = cl.map_shared_rank(&buf[p & 1][0], next)[lane] + 1.0f;
+    if (threadIdx.x < 32) buf[(p + 1) & 1][lane] = v;
+    cl.sync();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
 template <typename K>
@@ -682,6 +951,48 @@ int launch_config(K kernel, size_t smem) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// A launch of B clusters of k blocks of kScanThreads threads.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int B, int k, size_t smem, void* stream) {
+    cfg.gridDim = dim3(static_cast<unsigned>(B * k));
+    cfg.blockDim = dim3(kScanThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(k);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Launches; raises (returns an error) where not one cluster fits on the
+// card.
+template <typename K, typename... Args>
+int launch_cluster(K kernel, int B, int k, size_t smem, void* stream, Args... args) {
+  int err = launch_config(kernel, smem);
+  if (err) return err;
+  ClusterLaunch l(B, k, smem, stream);
+  int clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &l.cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  e = cudaLaunchKernelEx(&l.cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int max_clusters(K kernel, int k, size_t smem, int* out) {
+  int err = launch_config(kernel, smem);
+  if (err) return err;
+  ClusterLaunch l(1, k, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg));
 }
 
 }  // namespace
@@ -734,57 +1045,74 @@ int seg_max(const float* alpha, const int* dptr, const int* src, const long long
   return static_cast<int>(cudaGetLastError());
 }
 
-// em [B, T, C], alpha0 [B, S], lens [B]; the main arcs' index (dptr, src,
-// label) and weights w, the epsilon arcs' (eptr, esrc) and weights ew (null
-// when depth is 0); traj [B, T + 1, S], alpha relative to shift [B, T + 1]
-// (float64: the running sum of the frames' shifts).  sb, wb, esb, ewb: 1 where per
-// sample.  in_smem: stage the tables in shared memory (the caller checked
-// that they fit; the state always must).
-int sparse_scan_fwd(const float* em, const float* alpha0, const int* lens,
-                    const int* dptr, const int* src, const int* label, const float* w,
-                    const int* eptr, const int* esrc, const float* ew, float* traj,
-                    double* shift, int B, int T, int C, int S, int A, int E, int depth,
-                    int sb, int wb, int esb, int ewb, int in_smem, void* stream) {
+// em [B, T, C], alpha0 [B, S], lens [B]; the main arcs in the index's
+// destination order (src, label) and their weights w, the epsilon arcs'
+// (esrc) and weights ew (null when depth is 0); the schedule sched [rows,
+// k, stride] (qb: 1 where a row per sample); traj [B, T + 1, S], alpha
+// relative to shift [B, T + 1] (float64: the running sum of the frames'
+// shifts).  sb, wb, esb, ewb: 1 where per sample.  k: blocks a cluster;
+// fwd_words, n_own, a_own, e_own, parts: the schedule's sizes; in_smem:
+// stage the tables and schedule in shared memory (the caller checked that
+// they fit; the state always must).
+int sparse_scan_fwd(const float* em, const float* alpha0, const int* lens, const int* src,
+                    const int* label, const float* w, const int* esrc, const float* ew,
+                    const int* sched, float* traj, double* shift, int B, int T, int C,
+                    int S, int A, int E, int depth, int sb, int wb, int esb, int ewb,
+                    int qb, int k, int stride, int fwd_words, int n_own, int a_own,
+                    int e_own, int parts, int in_smem, void* stream) {
   if (B == 0 || S == 0) return 0;
-  long words = scan_state_words(S, A, E, C, depth, false);
-  if (in_smem) words += scan_table_words(S, A, E, C, depth, false);
-  const size_t smem = static_cast<size_t>(words) * 4;
-  int err = launch_config(sparse_scan_fwd_kernel, smem);
-  if (err) return err;
-  sparse_scan_fwd_kernel<<<B, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      em, alpha0, lens, dptr, src, label, w, eptr, esrc, ew, traj, shift, T, C, S, A,
-      E, depth, sb, wb, esb, ewb, in_smem);
-  return static_cast<int>(cudaGetLastError());
+  long words = fwd_state_words(S, C, n_own, parts);
+  if (in_smem) words += fwd_table_words(a_own, e_own, fwd_words);
+  return launch_cluster(sparse_scan_fwd_kernel, B, k, static_cast<size_t>(words) * 4,
+                        stream, em, alpha0, lens, src, label, w, esrc, ew, sched, traj,
+                        shift, T, C, S, A, E, depth, sb, wb, esb, ewb, qb, stride,
+                        fwd_words, n_own, a_own, e_own, parts, in_smem);
 }
 
-// As sparse_scan_fwd, with the (shifted) traj [B, T + 1, S] and the final cotangent
-// g_final [B, S], the main arcs' source and label groups (sptr, sorder,
-// lptr [.., C + 1], lorder) and the epsilon arcs' source groups (esptr,
-// esorder); writes dem [B, T, C], dw [B, A] and deps [B, E] (float64; deps
-// null when depth is 0; both in the index's arc order) and dalpha0 [B, S].
-// scratch: null, or [B, scan_state_stride] words of global memory for a
-// state that does not fit in shared memory (in_smem must then be 0).
+// As sparse_scan_fwd, with the (shifted) traj [B, T + 1, S] and the final
+// cotangent g_final [B, S], and the schedule's (rank, offset) codes by
+// source (sref [rows, A]), epsilon source (esref [rows, E]) and label
+// (lref [rows, A]); writes dem [B, T, C], dw [B, A] and deps [B, E]
+// (float64; deps null when depth is 0; both in the index's arc order) and
+// dalpha0 [B, S].  scratch: null, or [B k, bwd_own_words] words of global
+// memory for the own state where it does not fit in shared memory
+// (own_smem 0; in_smem must then be 0).
 int sparse_scan_bwd(const float* em, const float* traj, const int* lens,
-                    const float* g_final, const int* dptr, const int* src,
-                    const int* label, const float* w, const int* sptr,
-                    const int* sorder, const int* lptr, const int* lorder,
-                    const int* eptr, const int* esrc, const float* ew,
-                    const int* esptr, const int* esorder, float* dem, double* dw,
+                    const float* g_final, const int* src, const int* label, const float* w,
+                    const int* esrc, const float* ew, const int* sched, const int* sref,
+                    const int* esref, const int* lref, float* dem, double* dw,
                     double* deps, float* dalpha0, float* scratch, int B, int T, int C,
                     int S, int A, int E, int depth, int sb, int wb, int esb, int ewb,
-                    int in_smem, void* stream) {
+                    int qb, int k, int stride, int n_own, int a_own, int e_own, int parts,
+                    int sj_own, int ej_own, int lj_own, int own_smem, int in_smem,
+                    void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (scratch && in_smem) return static_cast<int>(cudaErrorInvalidValue);
-  long words = scratch ? 0 : scan_state_words(S, A, E, C, depth, true);
-  if (in_smem) words += scan_table_words(S, A, E, C, depth, true);
-  const size_t smem = static_cast<size_t>(words) * 4;
-  int err = launch_config(sparse_scan_bwd_kernel, smem);
-  if (err) return err;
-  sparse_scan_bwd_kernel<<<B, kScanThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      em, traj, lens, g_final, dptr, src, label, w, sptr, sorder, lptr, lorder, eptr,
-      esrc, ew, esptr, esorder, dem, dw, deps, dalpha0, scratch, T, C, S, A, E, depth,
-      sb, wb, esb, ewb, in_smem);
-  return static_cast<int>(cudaGetLastError());
+  if (own_smem == (scratch != nullptr) || (in_smem && !own_smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long words = bwd_shared_words(S, C, depth, a_own, e_own, parts);
+  if (own_smem) words += bwd_own_words(depth, n_own, a_own, e_own);
+  if (in_smem) words += bwd_table_words(a_own, e_own, stride, sj_own, ej_own, lj_own);
+  return launch_cluster(sparse_scan_bwd_kernel, B, k, static_cast<size_t>(words) * 4,
+                        stream, em, traj, lens, g_final, src, label, w, esrc, ew, sched,
+                        sref, esref, lref, dem, dw, deps, dalpha0, scratch, T, C, S, A, E,
+                        depth, sb, wb, esb, ewb, qb, stride, n_own, a_own, e_own, parts,
+                        sj_own, ej_own, lj_own, own_smem, in_smem);
+}
+
+// B clusters of k blocks run `phases` phases of the scans' chain without
+// arcs (sparse_scan_probe_kernel); out [B k].
+int sparse_scan_probe(float* out, int B, int k, int phases, void* stream) {
+  return launch_cluster(sparse_scan_probe_kernel, B, k, 0, stream, out, phases);
+}
+
+// How many clusters of k blocks of the forward (backward 0) or backward
+// (1) scan, with smem_bytes of shared memory each, the card holds at once:
+// *out.
+int sparse_scan_fit(int* out, int backward, int k, int smem_bytes, void* stream) {
+  (void)stream;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  return backward ? max_clusters(sparse_scan_bwd_kernel, k, smem, out)
+                  : max_clusters(sparse_scan_fwd_kernel, k, smem, out);
 }
 
 const char* error_string(int code) {

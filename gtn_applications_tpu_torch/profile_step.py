@@ -2,7 +2,7 @@
 
     python -m gtn_applications_tpu_torch.profile_step [--steps 10] \
         [--config configs/iamdb/tds2d_asg.json | tds2d_stc.json | ngram_ctc.json
-                  | pruned_ngram_ctc.json]
+                  | pruned_ngram_ctc.json] [--prune 0 5 10]
 
 Builds the model and criterion of the config (configs/iamdb/tds2d.json, the
 CTC path, by default) with random weights from a seed, takes one batch of
@@ -14,8 +14,10 @@ activities).  Prints one JSON object: the host-clock median step time, the
 device-busy share of the profiled window (kernel time over wall time), and
 the operators and kernels that took the most device time.  Needs a GPU.
 Where the config's transition graph file is absent (the IAM recipe's
-``<replace_me>`` paths), the grapheme trigram of the recipe's settings is
-built over the corpus into ``build/profile_step`` and loaded instead.
+``<replace_me>`` paths), the grapheme LM of ``--prune``'s count thresholds
+(one per order; default the recipe's trigram, ``0 5 10``; ``0 0 0 0`` is
+the smoke's unpruned 4-gram) is built over the corpus into
+``build/profile_step`` and loaded instead.
 """
 
 import argparse
@@ -49,22 +51,17 @@ def long_corpus_lm(path, prune):
     return path
 
 
-def long_corpus_trigram(path):
-    """``long_corpus_lm`` at the IAM recipe's settings (``--prune 0 5
-    10``, a trigram)."""
-    return long_corpus_lm(path, (0, 5, 10))
-
-
-def _data_and_criterion(config):
+def _data_and_criterion(config, prune=(0, 5, 10)):
     """(dataset module, criterion config): the long-line corpus and, where
-    the config's transition graph file is absent, the grapheme trigram of
-    the recipe's settings built over that corpus."""
+    the config's transition graph file is absent, the grapheme LM of
+    ``prune`` built over that corpus."""
     crit_cfg = dict(config.get("criterion", {}))
     if "transitions" not in crit_cfg:
         return synthetic, crit_cfg
     if not Path(crit_cfg["transitions"]).exists():
-        crit_cfg["transitions"] = str(long_corpus_trigram(
-            ROOT / "build" / "profile_step" / "transitions_trigram.bin"))
+        name = "_".join(str(p) for p in prune)
+        crit_cfg["transitions"] = str(long_corpus_lm(
+            ROOT / "build" / "profile_step" / f"transitions_{name}.bin", prune))
     return synthetic_long, crit_cfg
 
 
@@ -76,13 +73,13 @@ def _self_device_us(evt):
     return 0.0
 
 
-def profile(steps=10, top=12, seed=0, config_path=CONFIG):
+def profile(steps=10, top=12, seed=0, config_path=CONFIG, prune=(0, 5, 10)):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     device = train_mod.select_device()
     with open(config_path) as fid:
         config = json.load(fid)
-    data, crit_cfg = _data_and_criterion(config)
+    data, crit_cfg = _data_and_criterion(config, tuple(prune))
     pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
     ds = data.Dataset(None, pre, split="train")
     batch = config["optim"]["batch_size"]
@@ -158,8 +155,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--config", type=str, default=str(CONFIG))
+    parser.add_argument("--prune", type=int, nargs="+", default=[0, 5, 10],
+                        help="count thresholds of the grapheme LM built where the "
+                             "config's transition graph file is absent")
     args = parser.parse_args(argv)
-    print(json.dumps(profile(args.steps, config_path=args.config)))
+    print(json.dumps(profile(args.steps, config_path=args.config, prune=args.prune)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,149 @@
+"""Time the whole sparse scan pair of this checkout against another's.
+
+    python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
+        --baseline DIR [--clusters 1 2 4 8] [--phases] [--out FILE]
+
+DIR is the root of another checkout of this repository (for example the
+parent commit unpacked with ``git archive`` into an ignored directory):
+its ``gtn_applications_tpu_torch`` package is loaded under another name
+and builds its kernels into DIR/build.  Both versions run on the same
+inputs at the six cases ``chip_smoke.sparse_times`` times (the 1kwp
+protocol's normaliser and composed tables, B=32, T=100; the backoff
+paths' trigram and 4-gram normalisers and composed tables, B=32, T=300),
+in turns: baseline, this, this, baseline, each a CUDA-event median of 30
+runs (``chip_smoke.gpu_median_ms``).  One JSON line (also written to
+FILE) gives the times in ms, the card's name and power limit and, per
+case, the largest difference between the two trajectories on live
+states.  ``--clusters`` also times this checkout's pair at each of those
+cluster sizes, with how many of its clusters the card holds at once.
+``--phases`` also times it at each closure depth from 0 to the table's
+(its batch's cluster size throughout): the time at depth 0 is the arc
+step's and the frame shift's, and each further depth adds one closure
+round (forward) or its replay and reverse (backward).
+Run from the root of this checkout on a machine with one GPU.
+"""
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def load_baseline(root):
+    """The baseline checkout's ``ops.sparse_scan_pallas``, as a module of
+    the package ``baseline_port``."""
+    pkg = Path(root).resolve() / "gtn_applications_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "baseline_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["baseline_port"] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module("baseline_port.ops.sparse_scan_pallas")
+
+
+def cases(torch, cs, dev):
+    """(name, em, lens, table) of the six cases."""
+    _, em, lens, tables = cs.backoff_lm_inputs(torch, dev)
+    _, em3, lens3, tables3 = cs.backoff_main_inputs(torch, dev)
+    _, em4, lens4, tables4 = cs.backoff_main_inputs(torch, dev, path="transducer_backoff_4gram")
+    return [("1kwp_norm", em, lens, tables["norm"]), ("1kwp_score", em, lens, tables["score"]),
+            ("trigram_norm", em3, lens3, tables3["norm"]),
+            ("trigram_score", em3, lens3, tables3["score"]),
+            ("4gram_norm", em4, lens4, tables4["norm"]),
+            ("4gram_score", em4, lens4, tables4["score"])]
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", required=True, help="root of the other checkout")
+    parser.add_argument("--clusters", type=int, nargs="*", default=[],
+                        help="also time this checkout's pair at these cluster sizes")
+    parser.add_argument("--phases", action="store_true",
+                        help="also time this checkout's pair at each closure depth")
+    parser.add_argument("--out", default=None, help="also write the JSON line here")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from gtn_applications_tpu_torch import utils
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+    from gtn_applications_tpu_torch.ops.semiring import DEAD, logaddexp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_sparse_scan needs a GPU")
+    base = load_baseline(args.baseline)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {"card": utils.card_name_and_power_limit(), "cases": {}}
+    for name, em, lens, table in cases(torch, cs, dev):
+        (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)
+        B, S, C = em.shape[0], start.shape[-1], em.shape[2]
+        alpha0 = start.expand(B, S).contiguous()
+        acc = cur = alpha0
+        for _ in range(depth):
+            cur = slp.seg_lse_fwd_plain(cur, esrc, edst, ew, torch.zeros_like(ew))
+            acc = logaddexp(acc, cur)
+        alpha0 = acc.contiguous()
+        runs = {}
+        for who, mod in (("base", base), ("new", ssp)):
+            plan = mod.scan_plan(src, dst, label, esrc, edst, S, C)
+            traj, _ = mod.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, depth)
+            gf = cs.score_cotangent(torch, traj[:, -1], accept)
+            runs[who] = (
+                lambda mod=mod, plan=plan: mod.sparse_scan_fwd_cuda(
+                    em, alpha0, lens, plan, w, ew, depth),
+                lambda mod=mod, plan=plan, traj=traj, gf=gf: mod.sparse_scan_bwd_cuda(
+                    em, traj, lens, plan, w, ew, depth, gf),
+                traj, plan)
+        live = runs["base"][2] > DEAD
+        row = {"max_abs_traj_diff": float(
+            (runs["base"][2] - runs["new"][2]).abs()[live].max()),
+               "S": S, "A": int(src.shape[1]), "E": int(esrc.shape[1]), "depth": depth,
+               "em": list(em.shape), "max_len": int(lens.max()),
+               "cluster": ssp.choose_cluster(runs["new"][3], B, depth, dev)}
+        for who in ("base", "new", "new", "base"):
+            fwd, bwd = runs[who][:2]
+            row.setdefault(f"{who}_fwd_ms", []).append(cs.gpu_median_ms(torch, fwd))
+            row.setdefault(f"{who}_bwd_ms", []).append(cs.gpu_median_ms(torch, bwd))
+        plan, traj = runs["new"][3], runs["new"][2]
+        gf = cs.score_cotangent(torch, traj[:, -1], accept)
+        for k in args.clusters:
+            fit = [ssp.max_active_clusters(plan, depth, bwd, k, dev) for bwd in (False, True)]
+            if not min(fit):
+                row[f"k{k}"] = {"fit": fit}
+                continue
+            row[f"k{k}"] = {
+                "fit": fit,
+                "fwd_ms": cs.gpu_median_ms(torch, lambda k=k: ssp.sparse_scan_fwd_cuda(
+                    em, alpha0, lens, plan, w, ew, depth, cluster=k)),
+                "bwd_ms": cs.gpu_median_ms(torch, lambda k=k: ssp.sparse_scan_bwd_cuda(
+                    em, traj, lens, plan, w, ew, depth, gf, cluster=k))}
+        if args.phases:
+            k = row["cluster"]
+            row["by_depth"] = {}
+            for d in range(depth + 1):
+                traj_d, _ = ssp.sparse_scan_fwd_cuda(em, alpha0, lens, plan, w, ew, d,
+                                                     cluster=k)
+                row["by_depth"][d] = {
+                    "fwd_ms": cs.gpu_median_ms(torch, lambda d=d: ssp.sparse_scan_fwd_cuda(
+                        em, alpha0, lens, plan, w, ew, d, cluster=k)),
+                    "bwd_ms": cs.gpu_median_ms(
+                        torch, lambda d=d, traj_d=traj_d: ssp.sparse_scan_bwd_cuda(
+                            em, traj_d, lens, plan, w, ew, d, gf, cluster=k))}
+        result["cases"][name] = row
+        print(json.dumps({name: row}), flush=True)
+    line = json.dumps({"compare_sparse_scan": result})
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

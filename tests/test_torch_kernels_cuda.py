@@ -145,3 +145,25 @@ def test_segmax_cuda_wrapper_refuses_bad_inputs(cuda_device):
     per_arc = seglse_pallas.arc_index(src, src + 1, S)
     with pytest.raises(ValueError):
         segmax_pallas.seg_max_cuda(alpha, w, row, per_arc)
+
+
+@pytest.mark.cuda
+def test_sparse_scan_wrappers_refuse_bad_cluster_sizes(cuda_device):
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas
+
+    B, T, S, A, C = 2, 3, 4, 6, 5
+    src = torch.zeros(1, A, dtype=torch.int32, device=cuda_device)
+    empty = torch.zeros(1, 0, dtype=torch.int32, device=cuda_device)
+    plan = sparse_scan_pallas.scan_plan(src, src + 1, src, empty, empty, S, C)
+    em = torch.zeros(B, T, C, device=cuda_device)
+    alpha = torch.zeros(B, S, device=cuda_device)
+    lens = torch.full((B,), T, dtype=torch.int32, device=cuda_device)
+    w = torch.zeros(1, A, device=cuda_device)
+    traj = torch.zeros(B, T + 1, S, device=cuda_device)
+    for k in (0, 3, 16):
+        with pytest.raises(ValueError, match="cluster size"):
+            sparse_scan_pallas.sparse_scan_fwd_cuda(em, alpha, lens, plan, w, w[:, :0], 0,
+                                                    cluster=k)
+        with pytest.raises(ValueError, match="cluster size"):
+            sparse_scan_pallas.sparse_scan_bwd_cuda(em, traj, lens, plan, w, w[:, :0], 0,
+                                                    alpha, cluster=k)

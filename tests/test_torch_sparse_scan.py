@@ -224,7 +224,11 @@ def test_smoke_sparse_check_holds_kernels(monkeypatch, broken):
         return slp.seg_lse_bwd_plain(alpha, idx.src, _dst_of(idx, w_s.shape[1]), w_s,
                                      em_s, g)
 
-    def scan_bwd(*args):
+    def scan_fwd(*args, cluster):
+        assert cluster in ssp.CLUSTER_SIZES
+        return ssp.sparse_scan_fwd_plain(*args)
+
+    def scan_bwd(*args, cluster):
         dem, dw, deps, dalpha0 = ssp.sparse_scan_bwd_plain(*args)
         if broken:
             i = int(dem.abs().argmax())
@@ -234,8 +238,10 @@ def test_smoke_sparse_check_holds_kernels(monkeypatch, broken):
     monkeypatch.setattr(_build, "on_cuda", lambda x: True)
     monkeypatch.setattr(slp, "seg_lse_fwd_cuda", seg_fwd)
     monkeypatch.setattr(slp, "seg_lse_bwd_cuda", seg_bwd)
-    monkeypatch.setattr(ssp, "sparse_scan_fwd_cuda", ssp.sparse_scan_fwd_plain)
+    monkeypatch.setattr(ssp, "sparse_scan_fwd_cuda", scan_fwd)
     monkeypatch.setattr(ssp, "sparse_scan_bwd_cuda", scan_bwd)
+    monkeypatch.setattr(ssp, "choose_cluster", lambda plan, b, depth, dev: 2)
+    monkeypatch.setattr(ssp, "max_active_clusters", lambda *a: 1)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     em, table, lens = chip_smoke.random_sparse_table(torch, "cpu", 3, 12, 6, 16, 64, 12)
     check = lambda: chip_smoke.hold_sparse_kernels(  # noqa: E731
@@ -246,3 +252,316 @@ def test_smoke_sparse_check_holds_kernels(monkeypatch, broken):
     else:
         errs = check()
         assert errs["sparse_scan_bwd_rel"] < 1e-5 and errs["seg_lse_bwd_rel"] < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' schedule (work matched to in-degree, a cluster a sample)
+# ---------------------------------------------------------------------------
+
+HUB_B, HUB_S, HUB_A, HUB_E, HUB_C = 3, 40, 900, 320, 6
+
+
+def _hub_tables(layout):
+    """``_tables`` with hubs: 300 arcs into state 0 and 280 out of state 3
+    (a source hub), 300 arcs of label 0, and 270 epsilon arcs into state
+    5; per sample, the hubs move."""
+    t = _tables(layout, HUB_B, HUB_S, HUB_A, HUB_E, HUB_C, seed=21)
+    for f, lo, hi, v in (("dst", 100, 400, 0), ("src", 400, 680, 3), ("label", 0, 300, 0),
+                         ("eps_dst", 0, 270, 5)):
+        x = t[f]
+        if x.ndim == 1:
+            x[lo:hi] = v
+        else:
+            for b in range(x.shape[0]):
+                x[b, lo + 5 * b:hi + 5 * b] = v + b
+    return t
+
+
+def _index(t):
+    as2d = lambda x: torch.from_numpy(x[None] if x.ndim == 1 else x)  # noqa: E731
+    main = slp.arc_index(as2d(t["src"]), as2d(t["dst"]), HUB_S, as2d(t["label"]), HUB_C)
+    eps = slp.arc_index(as2d(t["eps_src"]), as2d(t["eps_dst"]), HUB_S)
+    return main, eps
+
+
+def _part(words):
+    """A rank's part of the schedule: its ranges and, per list, its tasks
+    by slot (width, [(row, begin, end, aux)]) and its hubs."""
+    ranges = dict(zip(ssp.RANGES, (int(x) for x in words)))
+    lists = []
+    for lst in range(len(ssp.LISTS)):
+        slot_off, ns, hub_off, nh, nchunk, _ = (int(x) for x in words[16 + 6 * lst:][:6])
+        slots = []
+        for q in range(ns):
+            g, toff, cnt = (int(x) for x in words[slot_off + 3 * q:][:3])
+            slots.append((g, [tuple(int(x) for x in words[toff + 4 * i:][:4])
+                              for i in range(cnt)]))
+        hubs = [tuple(int(x) for x in words[hub_off + 3 * h:][:3]) for h in range(nh)]
+        assert nchunk == sum(h[2] for h in hubs)
+        lists.append((slots, hubs))
+    return ranges, lists
+
+
+def _lanes(g, beg, end):
+    """Each lane's arcs of a group of g lanes: beg + sub + j g."""
+    arcs = [list(range(beg + sub, end, g)) for sub in range(g)]
+    assert all(len(a) <= ssp.LANE_ARCS for a in arcs)
+    return arcs
+
+
+def _butterfly(vals, op):
+    """A segmented xor-shuffle reduction over one group's lanes."""
+    vals, off = list(vals), len(vals) // 2
+    while off:
+        vals = [op(vals[i], vals[i ^ off]) for i in range(len(vals))]
+        off //= 2
+    return vals[0]
+
+
+def _emulate_lse(lst, value):
+    """One lse phase of a rank as the kernel runs it, in float64: per task
+    a max pass and a sum pass over its lane group; hub chunks' maxima
+    merged first, then their sums, in order.  {row: (m, z)}."""
+    slots, hubs = lst
+    out, part_m, part_z, chunks = {}, {}, {}, []
+    dead = lambda c: c <= -1e28  # noqa: E731
+    for g, tasks in slots:
+        for key, beg, end, aux in tasks:
+            cs = [[value(k) for k in arcs] for arcs in _lanes(g, beg, end)]
+            m = max(_butterfly([max(c, default=-np.inf) for c in cs], max), NEG)
+            if aux >= 0:
+                part_m[aux & 0xFFFF] = m
+                chunks.append((cs, aux))
+                continue
+            z = _butterfly([sum(np.exp(x - m) for x in c if not dead(x)) for c in cs],
+                           lambda a, b: a + b)
+            out[key] = (m, z)
+    for cs, aux in chunks:
+        _, pb, n = hubs[aux >> 16]
+        m = max(max(part_m[p] for p in range(pb, pb + n)), NEG)
+        part_z[aux & 0xFFFF] = _butterfly(
+            [sum(np.exp(x - m) for x in c if not dead(x)) for c in cs], lambda a, b: a + b)
+    for key, pb, n in hubs:
+        m = max(max(part_m[p] for p in range(pb, pb + n)), NEG)
+        out[key] = (m, sum(part_z[p] for p in range(pb, pb + n)))
+    return out
+
+
+def _emulate_sum(lst, value):
+    """One sum phase of a rank (by source or by label): {row: sum}."""
+    slots, hubs = lst
+    out, part = {}, {}
+    for g, tasks in slots:
+        for key, beg, end, aux in tasks:
+            s = _butterfly([sum(value(j) for j in arcs) for arcs in _lanes(g, beg, end)],
+                           lambda a, b: a + b)
+            if aux >= 0:
+                part[aux & 0xFFFF] = s
+            else:
+                out[key] = s
+    for key, pb, n in hubs:
+        out[key] = sum(part[p] for p in range(pb, pb + n))
+    return out
+
+
+LAYOUTS = ["shared", "per_sample", "union"]
+
+
+@pytest.mark.parametrize("k", ssp.CLUSTER_SIZES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_schedule_partitions_the_tables(layout, k):
+    """Every row of every list is in exactly one (rank, group); the tasks'
+    ranges cover each list's pointer range once; each rank holds its
+    share of the arcs within one hub; the (rank, offset) codes by source,
+    epsilon source and label invert the partition."""
+    main, eps = _index(_hub_tables(layout))
+    sched = ssp.build_schedule(main, eps, HUB_S, HUB_C, k)
+    rows = sched.words.shape[0]
+    assert rows == (1 if layout == "shared" else HUB_B)
+    n = lambda x: x.numpy().astype(np.int64)  # noqa: E731
+    pick = lambda x, r: x[r if x.shape[0] > 1 else 0]  # noqa: E731
+    hubs_seen = 0
+    for r in range(rows):
+        dptr, eptr = n(pick(main.dptr, r)), n(pick(eps.dptr, r))
+        ptrs = [dptr, eptr, n(pick(main.sptr, r)), n(pick(eps.sptr, r)),
+                n(pick(main.lptr, r))]
+        cost = np.diff(dptr) + np.diff(eptr)
+        parts = [_part(sched.words[r, q]) for q in range(k)]
+        for lst, ptr in enumerate(ptrs):
+            keys, spans = [], []
+            for q, (ranges, lists) in enumerate(parts):
+                lo, hi = (ranges["l0"], ranges["l1"]) if lst == 4 else (ranges["s0"],
+                                                                        ranges["s1"])
+                slots, hubs = lists[lst]
+                hubs_seen += len(hubs)
+                for key, _, _ in hubs:
+                    keys.append(key)
+                for g, tasks in slots:
+                    assert g in ssp.WIDTHS and len(tasks) <= 32 // g
+                    for key, beg, end, aux in tasks:
+                        assert lo <= key < hi, (lst, q, key)
+                        spans.append((beg, end))
+                        if aux < 0:
+                            keys.append(key)
+                            assert (beg, end) == (ptr[key], ptr[key + 1])
+                            assert end - beg <= g * ssp.LANE_ARCS
+                        else:
+                            assert g == 32 and hubs[aux >> 16][0] == key
+            assert sorted(keys) == list(range(len(ptr) - 1)), lst
+            spans.sort()
+            assert spans[0][0] == 0 and spans[-1][1] == ptr[-1], lst
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), lst
+        bounds = [p[0]["s0"] for p in parts] + [parts[-1][0]["s1"]]
+        assert bounds[0] == 0 and bounds[-1] == HUB_S
+        per_rank = np.array([cost[lo:hi].sum() for lo, hi in zip(bounds, bounds[1:])])
+        assert abs(per_rank - cost.sum() / k).max() <= cost.max() + 1e-9
+        codes = zip(sched.refs, ("a", "e", "a"), (pick(main.sorder, r), pick(eps.sorder, r),
+                                                  pick(main.lorder, r)))
+        for ref, kind, order in codes:
+            code = pick(ref, r).astype(np.int64)
+            rank, off = code & 7, code >> 3
+            a0 = np.array([p[0][kind + "0"] for p in parts])
+            a1 = np.array([p[0][kind + "1"] for p in parts])
+            assert (a0[rank] + off == n(order)).all()
+            assert (a0[rank] + off < a1[rank]).all()
+    assert hubs_seen > 0
+
+
+def _emulated_step(sched, idx, alpha, w, em, g):
+    """seg_lse and its VJP over ``idx``'s arcs as the kernels' phases run
+    them (by destination, then by source with the codes into each rank's
+    posteriors, then by label): (new, dalpha, dcontrib in sorted order,
+    sums by label)."""
+    B, S = alpha.shape
+    rows, k = sched.words.shape[:2]
+    src = idx.src.numpy()
+    new = np.full((B, S), np.nan)
+    dalpha = np.full((B, S), np.nan)
+    dc_all = np.zeros((B, src.shape[1]))
+    by_label = {}
+    for b in range(B):
+        parts = [_part(sched.words[b if rows > 1 else 0, q]) for q in range(k)]
+        s_b = src[b if src.shape[0] > 1 else 0]
+        value = lambda j: ((alpha[b, s_b[j]] if s_b[j] >= 0 else NEG)  # noqa: E731
+                           + w[b, j]) + em[b, j]
+        dcs = []
+        for ranges, lists in parts:
+            segs = _emulate_lse(lists[0], value)
+            for key, (m, z) in segs.items():
+                new[b, key] = m + np.log(max(z, 1e-30)) if z > 0 else NEG
+            dc = np.zeros(ranges["a1"] - ranges["a0"])
+            for _, tasks in lists[0][0]:
+                for key, beg, end, _ in tasks:
+                    m, z = segs[key]
+                    for j in range(beg, end):
+                        c = value(j)
+                        dc[j - ranges["a0"]] = (np.exp(c - m) / z * g[b, key]
+                                                if c > -1e28 and z > 0 else 0.0)
+            dcs.append(dc)
+        dc_all[b] = np.concatenate(dcs)
+        row = b if rows > 1 else 0
+        read = lambda ref: lambda j: dcs[ref[row, j] & 7][ref[row, j] >> 3]  # noqa: E731
+        for _, lists in parts:
+            for key, v in _emulate_sum(lists[2], read(sched.refs[0])).items():
+                dalpha[b, key] = v
+            for key, v in _emulate_sum(lists[4], read(sched.refs[2])).items():
+                by_label[b, key] = v
+    return new, dalpha, dc_all, by_label
+
+
+@pytest.mark.parametrize("k", ssp.CLUSTER_SIZES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_schedule_emulation_matches_seg_lse(layout, k):
+    """One step run as the kernels' phases run it (lane groups, segmented
+    two-pass reductions, hub chunks merged max-first, sums by source and
+    by label through the (rank, offset) codes), in float64, against
+    ``seg_lse_fwd_plain`` / ``seg_lse_bwd_plain`` within 1e-12."""
+    t = _hub_tables(layout)
+    main, _ = _index(t)
+    sched = ssp.build_schedule(main, None, HUB_S, HUB_C, k)
+    rng = np.random.RandomState(30 + k)
+    B = HUB_B
+    alpha = rng.randn(B, HUB_S) * 3
+    alpha[:, ::7] = NEG  # dead states
+    as2d = lambda x: np.broadcast_to(x[None] if x.ndim == 1 else x, (B, HUB_A))  # noqa: E731
+    w = as2d(t["weight"]).astype(np.float64)
+    em = rng.randn(B, HUB_A)
+    g = rng.rand(B, HUB_S)
+    order = main.order.expand(B, HUB_A).numpy()
+    sorted_ = lambda x: np.take_along_axis(x, order, 1)  # noqa: E731
+    new, dalpha, dc_s, by_label = _emulated_step(sched, main, alpha, sorted_(w),
+                                                 sorted_(em), g)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    src, dst = T(as2d(t["src"]).astype(np.int64)), T(as2d(t["dst"]).astype(np.int64))
+    ref = slp.seg_lse_fwd_plain(T(alpha), src, dst, T(w), T(em)).numpy()
+    live = ref > NEG / 2
+    assert np.array_equal(new > NEG / 2, live)
+    np.testing.assert_allclose(new[live], ref[live], rtol=0, atol=1e-12)
+    da, dc = slp.seg_lse_bwd_plain(T(alpha), src, dst, T(w), T(em), T(g))
+    np.testing.assert_allclose(dalpha, da.numpy(), rtol=0, atol=1e-12)
+    dc_k = np.zeros_like(dc_s)
+    np.put_along_axis(dc_k, order, dc_s, 1)
+    np.testing.assert_allclose(dc_k, dc.numpy(), rtol=0, atol=1e-12)
+    label = as2d(t["label"]).astype(np.int64)
+    for b in range(B):
+        want = np.bincount(label[b], weights=dc.numpy()[b], minlength=HUB_C)
+        got = np.array([by_label[b, c] for c in range(HUB_C)])
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", ssp.CLUSTER_SIZES)
+def test_schedule_emulation_matches_seg_lse_on_epsilon_arcs(k):
+    """The epsilon lists (a hub of in-degree 270): one closure round as
+    the kernels run it, against ``seg_lse_fwd_plain``, and its sums by
+    source against ``seg_lse_bwd_plain``, within 1e-12."""
+    t = _hub_tables("per_sample")
+    main, eps = _index(t)
+    sched = ssp.build_schedule(main, eps, HUB_S, HUB_C, k)
+    rng = np.random.RandomState(40 + k)
+    B, E = HUB_B, HUB_E
+    cur = rng.randn(B, HUB_S)
+    ew = t["eps_weight"].astype(np.float64)
+    g = rng.rand(B, HUB_S)
+    order = eps.order.numpy()
+    esrc = eps.src.numpy()
+    new = np.full((B, HUB_S), np.nan)
+    dprev = np.full((B, HUB_S), np.nan)
+    for b in range(B):
+        parts = [_part(sched.words[b, q]) for q in range(k)]
+        ew_s = ew[b][order[b]]
+        value = lambda j: (cur[b, esrc[b, j]] if esrc[b, j] >= 0 else NEG) + ew_s[j]  # noqa: E731,B023
+        dcs = []
+        for ranges, lists in parts:
+            segs = _emulate_lse(lists[1], value)
+            dc = np.zeros(ranges["e1"] - ranges["e0"])
+            for key, (m, z) in segs.items():
+                new[b, key] = m + np.log(max(z, 1e-30)) if z > 0 else NEG
+            for _, tasks in lists[1][0]:
+                for key, beg, end, _ in tasks:
+                    m, z = segs[key]
+                    for j in range(beg, end):
+                        dc[j - ranges["e0"]] = np.exp(value(j) - m) / z * g[b, key]
+            dcs.append(dc)
+        ref = sched.refs[1]
+        for _, lists in parts:
+            for key, v in _emulate_sum(
+                    lists[3], lambda j: dcs[ref[b, j] & 7][ref[b, j] >> 3]).items():  # noqa: B023
+                dprev[b, key] = v
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    es, ed = T(t["eps_src"].astype(np.int64)), T(t["eps_dst"].astype(np.int64))
+    zero = torch.zeros(B, E, dtype=torch.float64)
+    ref_new = slp.seg_lse_fwd_plain(T(cur), es, ed, T(ew), zero).numpy()
+    np.testing.assert_allclose(new, ref_new, rtol=0, atol=1e-12)
+    ref_d, _ = slp.seg_lse_bwd_plain(T(cur), es, ed, T(ew), zero, T(g))
+    np.testing.assert_allclose(dprev, ref_d.numpy(), rtol=0, atol=1e-12)
+
+
+def test_cluster_size_fills_the_card():
+    """The candidate sizes, largest first, are those of 1, 2, 4, 8 with
+    B k blocks on the card's multiprocessors; a bad size is refused."""
+    assert [ssp.cluster_candidates(b, 132)[0] for b in (1, 5, 16, 17, 33, 34, 66, 67, 200)
+            ] == [8, 8, 8, 4, 4, 2, 2, 1, 1]
+    assert ssp.cluster_candidates(32, 132) == [4, 2, 1]
+    main, eps = _index(_hub_tables("shared"))
+    with pytest.raises(ValueError, match="cluster size 3"):
+        ssp.build_schedule(main, eps, HUB_S, HUB_C, 3)
