@@ -64,10 +64,16 @@ prints no result):
    1,057, C=12; shared, by label, B=32, alpha with NEG states), on a
    per-sample random table, on fields of mixed batch dims, on integer
    inputs with exact ties (at the hub too) and on a table with padding arcs
-   and dead destinations: values bitwise, winning arcs exactly; then the
-   per-step decode at that table (T=300, ragged lengths, one infeasible
-   sample) on the card against the CPU route: backarcs and labels bitwise,
-   scores within 1e-6;
+   and dead destinations: values bitwise, winning arcs exactly; then
+   seg_max_scan, the whole tropical scan and its backtrace in one launch,
+   against its plain version (T seg_max steps and the walk) on that table
+   (B=32, T=300, ragged lengths, one infeasible sample), on a batch of 5
+   and on the table with integer weights and emissions (T=100, exact ties
+   at the hub required), at every cluster size (one that does not fit
+   must raise at launch): backarcs, final alpha and labels bitwise, scores
+   within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
+   launch) at B=32, T=300 on the card against the CPU route: labels
+   bitwise, scores within 1e-6;
 11. six main paths, CTC, ASG, STC, the Transducer and the Transducer
    with a loaded backoff LM, the grapheme trigram and the 4-gram:
    ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
@@ -81,9 +87,9 @@ prints no result):
    per train step (backward kernels) or once per train step and per
    evaluation batch (forward kernels and the decode's, which every batch
    reaches), the backoff paths' sparse kernels exactly as often as their
-   tables' closure depths say, their decode's kernels exactly once per
-   decoded batch (the trigram's whole scan) or once per decoded frame (the
-   4-gram's seg_max), and no kernel of another path at all;
+   tables' closure depths say, their decode's kernel exactly once per
+   decoded batch (the trigram's whole-scan Viterbi, the 4-gram's
+   seg_max_scan; seg_max never), and no kernel of another path at all;
 12. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
@@ -93,19 +99,21 @@ prints no result):
    on the batch's first 8 samples and 96 frames); the path's kernels
    against their plain versions on the inputs the train step and the
    decode give them, at the tolerances of phases 3-10; and the 4-gram's
-   decode of the first validation batch on the card against the CPU
-   route, labels exactly;
+   decode of the first validation batch on the card (one seg_max_scan
+   launch) against the CPU route, labels exactly;
 13. times: CUDA-event medians of 30 runs after warm-up at the phase 4-10
    headline shapes for each kernel, its plain version and the one
    PyTorch call that computes it where there is one (F.ctc_loss for the
    CTC pair, torch.gather and scatter_add_ for the gather pair; the
    sparse kernels also on the 1kwp composed tables and the main paths'
    trigram and 4-gram tables), the host-clock median of 20 full train
-   steps of each path and of 5 decodes of the 4-gram path's first batch,
+   steps of each path and of 5 decodes of the 4-gram path's first batch
+   (and seg_max_scan alone, there and at phase 10's T=300 case),
    the latency of one frame of the CTC recursion's dependent chain
    (``ctc_chain_probe``) and of one phase of the sparse scans' chain
    (``sparse_scan_probe``: a load from another block's shared memory and
-   a cluster barrier) for those kernels' chain bounds, and the device time and kernel
+   a cluster barrier, at the 1kwp normaliser's and at the decode's batch
+   and cluster size) for those kernels' chain bounds, and the device time and kernel
    launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
    forward and backward at its main path's batch shape.
 
@@ -1105,7 +1113,8 @@ def phase_sparse(torch, dev):
 # in-degree 1,057) the whole-scan Viterbi's bucket plan refuses, so that
 # its decode runs the per-step seg_max
 LM_PRUNE = {"transducer_backoff": (0, 5, 10), "transducer_backoff_4gram": (0, 0, 0, 0)}
-STEP_T = 300  # frames of the per-step decode's check at the 4-gram table
+STEP_T = 300  # frames of the decode's checks at the 4-gram table
+TIES_T = 100  # frames of the integer (tied) case
 
 
 @functools.lru_cache(maxsize=None)
@@ -1223,50 +1232,157 @@ def hold_segmax_kernel(torch, alpha, src, dst, w, em, label, what, need_ties=Fal
     return {"seg_max": float((new_k - new_p).abs().max())}
 
 
-def hold_step_decode(torch, dev, b=B, t=STEP_T, seed=14):
-    """The per-step decode at the 4-gram table on the card against the CPU
-    route on the same inputs (emissions N(0, 1), lengths over 4t/5..t;
-    sample 1 meets an all-NEG frame at t/3, so no path accepts it):
-    backarcs and labels bitwise, scores within 1e-6.  Returns the score
-    error."""
-    from gtn_applications_tpu_torch.ops import sparse
+def segmax_scan_inputs(torch, dev, b=B, t=STEP_T, seed=14, integer=False):
+    """(em [b, t, C], lens [b], table) of the decode at the 4-gram table:
+    emissions N(0, 1) (with ``integer``: integers in [-2, 2], and the
+    table's weights too, so that contributions tie exactly), lengths over
+    4t/5..t; sample 1 meets an all-NEG frame at t/3, so no path accepts
+    it.  The table on the CPU, em and lens on ``dev``."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.ops.semiring import NEG
 
-    table, C = fourgram_decode_table(seed)
+    table, C = fourgram_decode_table(seed, integer)
     if vsp.build_plan(table) is not None:
         raise AssertionError("the whole-scan plan takes the 4-gram decode table")
     rng = np.random.RandomState(seed)
-    em = rng.randn(b, t, C).astype(np.float32)
-    em[1, t // 3] = NEG
-    em = torch.from_numpy(em)
-    lens = torch.from_numpy(ragged_lengths(rng, b, t).astype(np.int32))
-    out = []
-    for where in (dev, torch.device("cpu")):
-        tab = table.to(where)
-        back, final = sparse._viterbi_step_scan(em.to(where), tab, lens.to(where))
-        labels, score = sparse._viterbi_step_backtrace(back, final, tab)
-        out.append([x.cpu() for x in (back, labels, score)])
-    (back_k, lab_k, score_k), (back_p, lab_p, score_p) = out
-    if not torch.equal(back_k, back_p):
-        raise AssertionError("step decode: backarcs differ between the card and the CPU")
-    if not torch.equal(lab_k, lab_p):
+    em = (rng.randint(-2, 3, (b, t, C)) if integer else rng.randn(b, t, C)).astype(np.float32)
+    em[1 % b, t // 3] = NEG
+    lens = ragged_lengths(rng, b, t).astype(np.int32)
+    return (torch.from_numpy(em).to(dev), torch.from_numpy(lens).to(dev), table)
+
+
+def scan_ties(torch, em, table, lens, final):
+    """(states tied, tied at the hub) over every live frame of the plain
+    scan: states whose maximum several arcs attain, and among them the
+    hub (the state of most in-arcs); ``final`` must be its final alpha."""
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    dev = em.device
+    fields = [smp._as2d(getattr(table, f)).to(dev) for f in ("src", "dst", "weight", "label")]
+    S = table.start.shape[-1]
+    B, T, _ = em.shape
+    alpha = table.start.to(dev).expand(B, S).contiguous()
+    ties = hub_ties = 0
+    hub = int(torch.bincount(table.dst.long(), minlength=S).argmax())
+    for t in range(T):
+        new, _ = smp.seg_max_plain(alpha, fields[0], fields[1], fields[2], em[:, t],
+                                   fields[3])
+        keys, c = smp._arc_fields(alpha, fields[0], fields[1], fields[2], em[:, t],
+                                  fields[3])
+        best = torch.cat([new, new[:, :1]], 1).gather(1, keys)
+        won = (keys < S) & (c > NEG) & (c == best)
+        hits = torch.zeros(B, S + 1, device=dev).scatter_add_(1, keys, won.float())[:, :S]
+        live = (t < lens)[:, None]
+        ties += int(((hits > 1) & live).sum())
+        hub_ties += int(((hits[:, hub] > 1) & live[:, 0]).sum())
+        alpha = torch.where(live, new, alpha)
+    if not torch.equal(alpha, final):
+        raise AssertionError("scan_ties: the replay's final alpha differs from the scan's")
+    return ties, hub_ties
+
+
+def hold_segmax_scan(torch, em, lens, table, what, clusters=None, need_ties=False):
+    """``seg_max_scan`` (the scan and its backtrace in one launch) against
+    its plain version (``seg_max_scan_plain`` and ``seg_max_backtrace_plain``
+    on the same tensors): backarcs, final alpha and labels bitwise, scores
+    within 1e-6, at each cluster size of ``clusters`` (default: the one its
+    batch launches with); a size whose clusters do not fit on the card must
+    raise at launch.  With ``need_ties``, some state, the hub among them,
+    must have its maximum attained by several arcs at some frame.  Returns
+    the largest difference of final alpha and score."""
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+    from gtn_applications_tpu_torch.ops.seglse_pallas import take
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    dev = em.device
+    tab = table.to(dev)
+    back_p, final_p = smp.seg_max_scan_plain(em, tab, lens)
+    labels_p, score_p = smp.seg_max_backtrace_plain(back_p, final_p, tab)
+    plan = smp.decode_plan(table, em.shape[2], dev)
+    w_s = take(smp._as2d(tab.weight), plan.main.order)
+    args = (em, w_s, tab.start.contiguous(), tab.accept.contiguous(), lens, plan)
+    err, routes = 0.0, []
+    for k in clusters or [smp.choose_cluster(plan, em.shape[0], dev)]:
+        if not smp.max_active_clusters(plan, k, dev):
+            try:
+                smp.seg_max_scan_cuda(*args, cluster=k)
+            except RuntimeError:
+                routes.append(f"k={k}: does not fit, its launch raised")
+                continue
+            raise AssertionError(f"seg_max_scan: a cluster of {k} that does not fit launched")
+        back_k, final_k, labels_k, score_k = smp.seg_max_scan_cuda(*args, cluster=k)
+        torch.cuda.synchronize()
+        for name, kv, pv in (("backarcs", back_k, back_p), ("final alpha", final_k, final_p),
+                             ("labels", labels_k, labels_p)):
+            if not torch.equal(kv, pv):
+                raise AssertionError(f"seg_max_scan: {name} differ from plain at {what}, k={k}")
+        d_score = float((score_k - score_p).abs().max())
+        if not d_score <= 1e-6:
+            raise AssertionError(f"seg_max_scan: score max|d| {d_score} at {what}, k={k}")
+        err = max(err, d_score)
+        sizes = ssp.plan_schedule(plan, k).sizes
+        routes.append(f"k={k}: {smp.max_active_clusters(plan, k, dev)} clusters fit, tables "
+                      f"in shared memory {smp.decode_route(sizes, plan.S, plan.C)}")
+    ties = ""
+    if need_ties:
+        n_ties, n_hub = scan_ties(torch, em, tab, lens, final_p)
+        if not (n_ties and n_hub):
+            raise AssertionError(f"seg_max_scan: no exact ties (at the hub) in {what}")
+        ties = f", {n_ties} states tied over the frames ({n_hub} at the hub)"
+    log(f"seg_max_scan {what}: backarcs, final alpha and labels bitwise equal, score "
+        f"max|d| {err:.3g}; {int((score_p <= NEG / 2).sum())} infeasible samples"
+        f"{ties}; " + "; ".join(routes))
+    return {"seg_max_scan": err}
+
+
+def hold_step_decode(torch, dev, b=B, t=STEP_T, seed=14):
+    """The decode at the 4-gram table through ``viterbi_batch`` on the card
+    (one ``seg_max_scan`` launch, nothing per frame) against its CPU route
+    on the same inputs (``segmax_scan_inputs``): labels bitwise, scores
+    within 1e-6.  Returns the score error."""
+    from gtn_applications_tpu_torch.ops import _build, sparse
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    em, lens, table = segmax_scan_inputs(torch, "cpu", b, t, seed)
+    before = dict(_build.LAUNCHES)
+    lab_k, score_k = sparse.viterbi_batch(em.to(dev), table, lens.to(dev))
+    launched = {key: n - before[key] for key, n in _build.LAUNCHES.items() if n != before[key]}
+    if launched != {"seg_max_scan": 1}:
+        raise AssertionError(f"step decode: launched {launched}, not one seg_max_scan")
+    lab_p, score_p = sparse.viterbi_batch(em, table, lens)
+    if not torch.equal(lab_k.cpu(), lab_p):
         raise AssertionError("step decode: labels differ between the card and the CPU")
-    err = float((score_k - score_p).abs().max())
+    err = float((score_k.cpu() - score_p).abs().max())
     if not err <= 1e-6:
         raise AssertionError(f"step decode: score max|d| {err}")
     if not (float(score_p[1]) <= NEG / 2 and bool((lab_p[1] == -1).all())):
         raise AssertionError("step decode: the infeasible sample did not decode empty")
     log(f"step decode (4-gram, B={b}, T={t}, S={table.start.shape[0]}, "
-        f"A={table.src.shape[0]}): backarcs and labels bitwise equal card vs cpu, "
-        f"score max|d| {err:.3g}, {int((score_p <= NEG / 2).sum())} infeasible samples")
+        f"A={table.src.shape[0]}): one seg_max_scan launch, labels bitwise equal card vs "
+        f"cpu, score max|d| {err:.3g}, {int((score_p <= NEG / 2).sum())} infeasible samples")
     return err
 
 
 def phase_segmax(torch, dev):
+    """seg_max's five checks; seg_max_scan at every cluster size on the
+    4-gram decode (B=32, T=300), a batch of 5 and the integer table with
+    ties at the hub; the routed decode card against CPU."""
+    from gtn_applications_tpu_torch.ops.sparse_scan_pallas import CLUSTER_SIZES
+
     errs = {}
     for i, (what, *inputs) in enumerate(segmax_cases(torch, dev)):
         merge_errs(errs, hold_segmax_kernel(torch, *inputs, what, need_ties=i == 1))
+    em, lens, table = segmax_scan_inputs(torch, dev)
+    merge_errs(errs, hold_segmax_scan(torch, em, lens, table, ("4-gram", B, STEP_T),
+                                      clusters=CLUSTER_SIZES))
+    merge_errs(errs, hold_segmax_scan(torch, em[:5].contiguous(), lens[:5].contiguous(), table,
+                                      ("4-gram", 5, STEP_T), clusters=CLUSTER_SIZES))
+    em_i, lens_i, table_i = segmax_scan_inputs(torch, dev, t=TIES_T, seed=15, integer=True)
+    merge_errs(errs, hold_segmax_scan(torch, em_i, lens_i, table_i,
+                                      ("4-gram integer ties", B, TIES_T),
+                                      clusters=CLUSTER_SIZES, need_ties=True))
     errs["step_decode_score"] = hold_step_decode(torch, dev)
     return errs
 
@@ -1284,7 +1400,7 @@ PATHS = {
                             "viterbi_backtrace"),
                            ("seg_lse_bwd", "sparse_scan_bwd")),
     "transducer_backoff_4gram": ("pruned_ngram_ctc.json",
-                                 ("seg_lse_fwd", "sparse_scan_fwd", "seg_max"),
+                                 ("seg_lse_fwd", "sparse_scan_fwd", "seg_max_scan"),
                                  ("seg_lse_bwd", "sparse_scan_bwd")),
 }
 # the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json
@@ -1375,10 +1491,10 @@ def backoff_expected_launches(config, steps, evals):
     round of each table's start closure (its eps_depth, 0 without epsilon
     arcs); the backward kernels once per train step; the decode of every
     batch (each train step's and each evaluation batch's) one whole-scan
-    Viterbi where its bucket plan takes the decode table, else one seg_max
-    per frame.  Closure depths and frame counts are read from ``prepare``
-    and the padded widths of the sampler's fixed batches (an epoch only
-    permutes their order), over the model's time stride."""
+    Viterbi where its bucket plan takes the decode table, else one
+    seg_max_scan; seg_max (the single step) never.  Closure depths are
+    read from ``prepare`` of the sampler's fixed batches (an epoch only
+    permutes their order)."""
     import torch
 
     from gtn_applications_tpu_torch import datasets, utils
@@ -1389,27 +1505,22 @@ def backoff_expected_launches(config, steps, evals):
     crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
     depth = lambda t: t.eps_depth if t.eps_src.shape[-1] else 0  # noqa: E731
     norm = depth(crit._norm_table)
-    stride = int(np.prod([g["stride"][1] for g in config["model"]["tds_groups"]]))
-    rounds, frames = {}, {}
+    rounds = {}
     for split in SPLITS:
         ds = data.Dataset(None, pre, split=split)
         batches = utils.BatchSortedSampler(ds, config["optim"]["batch_size"]).batches
         rounds[split] = sum(depth(crit.prepare([ds[i][1] for i in b])["table"]) + norm
                             for b in batches)
-        frames[split] = sum(-(-utils.padding_collate([ds[i] for i in b])[0].shape[2]
-                              // stride) for b in batches)
     epochs = config["optim"]["epochs"]
     expected = {"sparse_scan_fwd": 2 * (steps + evals), "sparse_scan_bwd": 2 * steps,
                 "seg_lse_fwd": epochs * (rounds["train"] + rounds["validation"])
                 + rounds["test"],
-                "seg_lse_bwd": epochs * rounds["train"]}
+                "seg_lse_bwd": epochs * rounds["train"], "seg_max": 0}
     table = crit._decode_table({"transitions": torch.zeros(crit.num_transition_arcs)})
-    if vsp.build_plan(table) is None:
-        expected.update(seg_max=epochs * (frames["train"] + frames["validation"])
-                        + frames["test"], viterbi_scan_fwd=0, viterbi_backtrace=0)
-    else:
-        expected.update(seg_max=0, viterbi_scan_fwd=steps + evals,
-                        viterbi_backtrace=steps + evals)
+    whole = vsp.build_plan(table) is not None
+    expected.update(seg_max_scan=0 if whole else steps + evals,
+                    viterbi_scan_fwd=steps + evals if whole else 0,
+                    viterbi_backtrace=steps + evals if whole else 0)
     return expected
 
 
@@ -1630,9 +1741,10 @@ def phase_main_batch_backoff_4gram(torch, dev, model, config):
     first 8 samples and 96 frames (the CPU's float64 plain route through
     the 4-gram's normaliser, S=1,058 and closure depth 4, takes minutes on
     the whole batch); the sparse kernels on the whole batch's tables and
-    logits; and the decode of the first validation batch on the card (one
-    seg_max per frame) against the CPU route, labels exactly, scores
-    within 1e-6."""
+    logits; the decode of the first validation batch on the card (one
+    seg_max_scan launch) against the CPU route, labels exactly, scores
+    within 1e-6; and seg_max_scan against its plain version on the whole
+    batch's decode."""
     from gtn_applications_tpu_torch.ops import _build, sparse
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
@@ -1658,20 +1770,22 @@ def phase_main_batch_backoff_4gram(torch, dev, model, config):
     table = crit._decode_table(crit.params)
     if vsp.build_plan(table) is not None:
         raise AssertionError(f"{path}: the whole-scan plan takes the decode table")
-    before = _build.LAUNCHES["seg_max"]
-    lab_k, score_k = sparse.viterbi_batch(val_logits, table)
-    launched = _build.LAUNCHES["seg_max"] - before
+    before = dict(_build.LAUNCHES)
+    lab_k, score_k = sparse.viterbi_batch(val_logits, table, plans=crit._decode_plans)
+    launched = {key: n - before[key] for key, n in _build.LAUNCHES.items() if n != before[key]}
     lab_p, score_p = sparse.viterbi_batch(val_logits.cpu(), table)
-    if launched != val_logits.shape[1]:
-        raise AssertionError(f"{path}: the decode launched seg_max {launched} times over "
-                             f"{val_logits.shape[1]} frames")
+    if launched != {"seg_max_scan": 1}:
+        raise AssertionError(f"{path}: the decode launched {launched}, not one seg_max_scan")
     if not torch.equal(lab_k.cpu(), lab_p):
         raise AssertionError(f"{path}: the decode's labels differ between the card and the CPU")
     d_score = float((score_k.cpu() - score_p).abs().max())
     if not d_score <= 1e-6:
         raise AssertionError(f"{path}: decode score max|d| {d_score}")
     log(f"4-gram decode of the first validation batch {list(val_logits.shape)}: labels equal "
-        f"card vs cpu, score max|d| {d_score:.3g}, {launched} seg_max launches")
+        f"card vs cpu, score max|d| {d_score:.3g}, one seg_max_scan launch")
+    # the kernel against its plain version on the train batch's decode
+    merge_errs(errs, hold_segmax_scan(torch, logits.contiguous(), il, table,
+                                      ("4-gram main batch decode", bsz, frames)))
     shapes = {key: [int(tables[key].start.shape[-1]), int(tables[key].src.shape[-1]),
                     int(tables[key].eps_src.shape[-1]), tables[key].eps_depth]
               for key in tables}
@@ -1919,13 +2033,32 @@ def segmax_bound(alpha, src, dst, w, em, label):
     return bound_ms(n_bytes, 3 * int(ok.sum()))
 
 
+def segmax_scan_bound(em, lens, table):
+    """One seg_max_scan on this run's inputs: the emission rows of the live
+    frames, the table (src, dst, label, weight, start, accept: each once)
+    and the lengths read; backarcs, final alpha, labels and scores written;
+    3 fp32 operations (two adds and a compare) per live frame, sample and
+    arc with a valid source.  The walk's dependent loads are not counted."""
+    B, T, C = em.shape
+    S, A = table.start.shape[0], table.src.shape[0]
+    frames = int(lens.clamp(min=0, max=T).sum())
+    arcs = int((table.src >= 0).sum())
+    n_bytes = (frames * C * 4 + 4 * A * 4 + 2 * S * 4 + B * 4
+               + B * T * S * 4 + B * S * 4 + B * T * 4 + B * 4)
+    return bound_ms(n_bytes, 3 * frames * arcs)
+
+
 def segmax_times(torch, dev, model, config):
     """CUDA-event medians of seg_max and its plain version at the 4-gram
-    headline, its bound; and the host-clock median of 5 decodes of the
-    4-gram path's first train batch through ``viterbi_batch`` (after one
-    warm-up)."""
+    headline, and of seg_max_scan (the scan and its backtrace) at the
+    4-gram decode of phase 10 (B=32, T=300) with its plain version and at
+    the 4-gram path's first train batch; their bounds and chain bounds
+    (live frames of the longest sample x one phase of ``sparse_scan_probe``
+    at the decode's batch and cluster size); and the host-clock median of 5
+    decodes of that batch through ``viterbi_batch`` (after one warm-up)."""
     from gtn_applications_tpu_torch.ops import segmax_pallas as smp
     from gtn_applications_tpu_torch.ops import sparse
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
     from gtn_applications_tpu_torch.ops.seglse_pallas import arc_index, take
 
     _, alpha, src, dst, w, em, label = segmax_cases(torch, dev)[0]
@@ -1941,17 +2074,51 @@ def segmax_times(torch, dev, model, config):
     with torch.no_grad():
         logits = model(torch.from_numpy(inputs).to(dev))
     table = crit._decode_table(crit.params)
+    main_lens = torch.full(logits.shape[:1], logits.shape[1], dtype=torch.int32, device=dev)
+    chain, phase_us = {}, {}
+    for key, (e, il, tab) in (("", segmax_scan_inputs(torch, dev)),
+                              ("_main_batch", (logits.contiguous(), main_lens, table))):
+        plan = smp.decode_plan(tab, e.shape[2], dev)
+        tab_d = tab.to(dev)
+        args = (e, take(smp._as2d(tab_d.weight), plan.main.order), tab_d.start.contiguous(),
+                tab_d.accept.contiguous(), il, plan)
+        name = "seg_max_scan" + key
+        t[name] = gpu_median_ms(torch, lambda: smp.seg_max_scan_cuda(*args))
+        k = smp.choose_cluster(plan, e.shape[0], dev)
+        if k not in phase_us:
+            n = 4096
+            t_n = gpu_median_ms(torch, lambda: ssp.chain_probe(e.shape[0], k, n, dev), runs=20)
+            t_2n = gpu_median_ms(torch, lambda: ssp.chain_probe(e.shape[0], k, 2 * n, dev),
+                                 runs=20)
+            phase_us[k] = (t_2n - t_n) / n * 1e3
+        frames = int(il.clamp(max=e.shape[1]).max())
+        chain_ms = frames * phase_us[k] * 1e-3
+        b_ms, b_by = segmax_scan_bound(e, il.cpu(), tab)
+        if key:
+            t[name + "_bound"] = [b_ms, b_by]
+            t[name + "_chain"] = chain_ms
+        else:
+            bounds[name] = (b_ms, b_by)
+            chain[name] = chain_ms
+            t["seg_max_scan_plain"] = gpu_median_ms(
+                torch, lambda: smp.seg_max_backtrace_plain(
+                    *smp.seg_max_scan_plain(e, tab_d, il), tab_d), runs=5, warmup=1)
+        t[name + "_per_frame_us"] = t[name] / frames * 1e3
+        t[name + "_cluster"] = k
+        t[name + "_shape"] = list(e.shape)
+    t["decode_chain_phase_us"] = phase_us
+
     ms = []
     for i in range(6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sparse.viterbi_batch(logits, table)
+        sparse.viterbi_batch(logits, table, plans=crit._decode_plans)
         torch.cuda.synchronize()
         if i:
             ms.append((time.perf_counter() - t0) * 1e3)
     t[f"decode_batch_{path}"] = statistics.median(ms)
     t[f"decode_batch_{path}_shape"] = list(logits.shape)
-    return t, bounds
+    return t, bounds, chain
 
 
 def phase_times(torch, dev, paths):
@@ -2213,6 +2380,8 @@ KERNELS = [
      "gtn_applications_tpu/ops/sparse_scan_pallas.py:312", None),
     ("seg_max", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
      "gtn_applications_tpu/ops/segmax_pallas.py:41", None),
+    ("seg_max_scan", "gtn_applications_tpu_torch/ops/csrc/sparse_scan.cu",
+     "gtn_applications_tpu/ops/segmax_pallas.py:41", None),
 ]
 
 
@@ -2248,11 +2417,12 @@ def run(device="cuda"):
     times.update(more_times)
     bounds.update(more_bounds)
     chain.update(more_chain)
-    more_times, more_bounds = segmax_times(
+    more_times, more_bounds, more_chain = segmax_times(
         torch, dev, paths["transducer_backoff_4gram"]["model"],
         main_path_config("transducer_backoff_4gram"))
     times.update(more_times)
     bounds.update(more_bounds)
+    chain.update(more_chain)
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)

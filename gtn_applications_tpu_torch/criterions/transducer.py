@@ -226,6 +226,9 @@ class Transducer(Criterion):
         self._align_cache: Dict[tuple, tuple] = {}
         self._decode_template = None
         self._decode_cache = None
+        # the decode table's structure for the kernels, by device (the
+        # template's arcs never change; only their weights do)
+        self._decode_plans = {}
 
     def _backoff_gates(self):
         """JAX's ``_factored_backoff`` (dense [N, S_c, S_c] matrices fit)
@@ -489,7 +492,7 @@ class Transducer(Criterion):
                     "(ROADMAP queue A item 8)")
             params = params if params is not None else self.params
             labels, _ = sparse.viterbi_batch(
-                outputs, self._decode_table(params), input_lengths)
+                outputs, self._decode_table(params), input_lengths, self._decode_plans)
         else:
             labels = torch.argmax(outputs, dim=2)
         return (labels, input_lengths)

@@ -66,6 +66,8 @@ _SIGNATURES = {
         "sparse_scan_probe": (1, 3),
         "sparse_scan_fit": (1, 3),
         "seg_max": (9, 8),
+        "seg_max_scan": (14, 14),
+        "seg_max_scan_fit": (1, 3),
     },
 }
 
@@ -75,7 +77,7 @@ LAUNCHES = {
     "viterbi_scan_fwd": 0, "viterbi_backtrace": 0,
     "factored_scan_fwd": 0, "factored_scan_bwd": 0,
     "seg_lse_fwd": 0, "seg_lse_bwd": 0, "sparse_scan_fwd": 0, "sparse_scan_bwd": 0,
-    "seg_max": 0,
+    "seg_max": 0, "seg_max_scan": 0,
 }
 
 # Shared memory one block can use on Hopper (227 KB).

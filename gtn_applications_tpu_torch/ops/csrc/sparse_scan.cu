@@ -1,14 +1,18 @@
 // Sparse-arc lattice recursions over compiled WFST arc tables: one step
 // (seg_lse) and the whole scan with its epsilon closure, each with the
-// reverse replay for the cotangents; and the tropical step with its
-// backpointers (seg_max) that the per-frame Viterbi decode runs.
+// reverse replay for the cotangents; the tropical step with its
+// backpointers (seg_max); and the whole tropical scan with its backtrace
+// (seg_max_scan) that the Viterbi decode of a table the bucket plan refuses
+// runs, one launch a batch.
 //
 // Replaces gtn_applications_tpu/ops/seglse_pallas.py: _fwd_kernel (:69) and
 // _bwd_kernel (:97), wrapped there by seg_lse (:139);
 // gtn_applications_tpu/ops/sparse_scan_pallas.py: _fwd_kernel (:265) and
 // _bwd_kernel (:312), wrapped there by sparse_scan (:450); and
 // gtn_applications_tpu/ops/segmax_pallas.py: _kernel (:41), wrapped there by
-// seg_max (:80).  seg_max is described above its kernel, below.
+// seg_max (:80), which gtn_applications_tpu/ops/sparse.py
+// _viterbi_batched_pallas scans over the frames.  seg_max and seg_max_scan
+// are described above their kernels, below.
 //
 // One step, for each destination state s of sample b:
 //   c[a]   = (alpha[src[a]] + w[a]) + em[a]          (NEG where src < 0)
@@ -72,6 +76,7 @@
 // probe sparse_scan_probe times a phase without arcs.  Built without
 // --use_fast_math: exact expf/logf.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -82,6 +87,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float kNeg = -1e30f;
+// NEG / 2 as the plain versions compare with it (a float32 tensor against
+// the Python float -5e29)
+constexpr float kHalfNeg = -5e29f;
 constexpr float kDead = -1e28f;
 constexpr float kFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -943,6 +951,278 @@ sparse_scan_probe_kernel(float* __restrict__ out, int phases) {
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
+// ---------------------------------------------------------------------------
+// seg_max_scan: the whole tropical scan of a shared decode table, and its
+// backtrace
+// ---------------------------------------------------------------------------
+//
+// For frames t < len[b] (past it alpha is kept and the backarcs row is 2^30):
+//   new[s] = max(NEG, max over arcs a into s of (alpha[src[a]] + w[a]) +
+//            em[b, t, label[a]])
+//   backarcs[b, t, s] = the lowest arc id attaining it, if it is strictly
+//            above NEG; else 2^30
+// which is what T launches of seg_max compute; then the first argmax of
+// final + accept, and the walk back through the backarcs (label -1 and the
+// state kept on an arc id >= A; every label -1 where the score is <= NEG/2).
+//
+// The TPU decode scans seg_max's one-hot tiles frame by frame
+// (jax.lax.scan).  Here one launch runs the frames of a sample on a
+// thread-block cluster, on the sparse scans' schedule (its list of rows by
+// destination): each rank owns a range of states cut by arc count, its rows
+// go to lane groups by in-degree, and a hub of more than 256 in-arcs (the
+// 4-gram decode table's backoff state, 1,057) is cut into warp chunks.  Every
+// reduction merges (value, sorted position) pairs under "greater value, else
+// lower position", an associative and exact rule, so ties need no order
+// between lanes or chunks; within a row the stable sort of arc_index keeps
+// positions in increasing arc id, so the lowest position is the lowest id,
+// and a lane's strict > over its increasing positions keeps it.  Alpha is
+// double-buffered in every rank's shared memory: after the arc step a rank
+// pushes its states' new values into every rank's copy of the next buffer
+// (distributed shared memory), and one cluster.sync() a frame orders the
+// frames (a fast rank's frame t + 1 writes the buffer that frame t read only
+// after every rank has passed frame t's barrier).  Each rank keeps its
+// states' winning positions in a buffer of its own (by frame parity) and
+// writes them to the frame's backarcs row during the next frame,
+// coalesced, while its slower warps finish their slots; after the last
+// frame it maps its columns' positions to arc ids in one pass.  A rank's
+// arcs (source and label packed in one word, and the weight) and its list
+// of rows are staged in its shared memory where they fit.  After a last
+// barrier (the backarcs of every rank visible), rank 0 takes the argmax
+// and one thread walks the T frames (backarcs read at L2).
+//
+// What bounds it on the H100: per live frame and sample 3 fp32 operations
+// an arc and the backarcs row written (at the 4-gram table, B = 32,
+// T = 300: 1.0 G operations, 41 MB, ~15 us); the kernel instead waits on
+// the chain of T frames, each one pass of the busiest rank's slots and one
+// cluster barrier (sparse_scan_probe times a phase without arcs: ~0.7 us),
+// and then on the walk's T dependent loads.  On an H100 at that shape a
+// frame takes ~11 us at k = 4: the busiest rank's pass over its ~100
+// slots (~300 instructions each, 6 a warp) holds it, the barrier and the
+// pushes ~2 us of it.
+
+__host__ __device__ long decode_state_words(int S, int C, int n, int p) {
+  return 66 + 2L * S + 2L * C + 2L * n + 2L * p;
+}
+
+__host__ __device__ long decode_table_words(int a, int dst_words) {
+  return 2L * a + dst_words;
+}
+
+// (v, k) merged into (best, bk): greater value, else lower position
+__device__ __forceinline__ void max_merge(float& best, int& bk, float v, int k) {
+  if (v > best || (v == best && k < bk)) {
+    best = v;
+    bk = k;
+  }
+}
+
+// The decode's arc step over this rank's list by destination: for every
+// row, the maximum of c[k] = (prev[src[k]] + w[k]) + em_row[label[k]] over
+// its positions k and the lowest position attaining it, handed to
+// emit(row, max, position) by one lane of its group (a hub's by one thread
+// after its chunks have met in part_m / part_k); a row without a live arc
+// emits (-INFINITY, INT_MAX).  The arcs come packed, src | label << 16,
+// with an arc whose source lies outside [0, S) given source 0 and weight
+// -INFINITY (it never wins), and a label outside [0, C) given C, where
+// em_row holds 0: the sum is formed in the plain version's order, so c is
+// the same float.  Each lane first loads all of its arcs (a clamped
+// position, masked after: no load waits on a branch), then gathers their
+// sources' alpha and emissions, so a slot costs one round of table loads
+// and one of gathers; a slot takes only the rounds its longest row needs.
+template <typename Emit>
+__device__ void max_phase(const int* part, const int* arcs, const float* w,
+                          const float* prev, const float* em_row, int safe, float* part_m,
+                          int* part_k, Emit emit) {
+  const ListHead h = list_head(part, kDst);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int q = warp; q < h.nslots; q += nwarps) {
+    const Task t = slot_task(part, h, q, lane);
+    const int k0 = t.beg + t.sub;
+    // the rounds the slot's longest row needs (the same in every lane)
+    const int nj = (__reduce_max_sync(kFull, t.end - t.beg) + t.g - 1) >> (__ffs(t.g) - 1);
+    int pk[kLaneArcs];
+    float wv[kLaneArcs];
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      if (j < nj) {
+        const int kc = k0 + j * t.g < t.end ? k0 + j * t.g : safe;
+        pk[j] = arcs[kc];
+        wv[j] = w[kc];
+      }
+    }
+    float best = -INFINITY;
+    int bj = kLaneArcs;
+#pragma unroll
+    for (int j = 0; j < kLaneArcs; ++j) {
+      if (j < nj) {
+        const float c = (prev[pk[j] & 0xffff] + wv[j]) + em_row[pk[j] >> 16];
+        if (k0 + j * t.g < t.end && c > best) {  // j increases: the lowest wins ties
+          best = c;
+          bj = j;
+        }
+      }
+    }
+    int bk = bj < kLaneArcs ? k0 + bj * t.g : INT_MAX;
+    for (int off = t.g >> 1; off > 0; off >>= 1)
+      max_merge(best, bk, __shfl_xor_sync(kFull, best, off), __shfl_xor_sync(kFull, bk, off));
+    if (t.aux >= 0) {  // a hub chunk (one a warp)
+      if (lane == 0) {
+        part_m[t.aux & kChunkMask] = best;
+        part_k[t.aux & kChunkMask] = bk;
+      }
+      continue;
+    }
+    if (t.sub == 0 && t.key >= 0) emit(t.key, best, bk);
+  }
+  if (h.nhubs == 0) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < h.nhubs; i += blockDim.x) {
+    const int* hub = part + h.hub_off + 3 * i;
+    float best = -INFINITY;
+    int bk = INT_MAX;
+    for (int p = hub[1]; p < hub[1] + hub[2]; ++p) max_merge(best, bk, part_m[p], part_k[p]);
+    emit(hub[0], best, bk);
+  }
+}
+
+// kInSmem: the rank's arcs and list are staged in shared memory (two
+// instantiations, so that the compiler knows which loads are shared ones)
+template <bool kInSmem>
+__global__ void __launch_bounds__(kScanThreads)
+seg_max_scan_kernel(const float* __restrict__ em, const int* __restrict__ lens,
+                    const float* __restrict__ start, const float* __restrict__ accept,
+                    const int* arcs, const float* w, const int* __restrict__ ids,
+                    const int* __restrict__ tsrc, const int* __restrict__ tlabel,
+                    const int* sched, int* __restrict__ backarcs,
+                    float* __restrict__ final_alpha, int* __restrict__ labels,
+                    float* __restrict__ score, int T, int C, int S, int A, int em_sb,
+                    int em_st, int stride, int dst_words, int n_own, int a_own, int parts) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int b = blockIdx.x / k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int* part = sched + static_cast<long>(rank) * stride;  // one shared row
+  const int s0 = part[kS0], s1 = part[kS1], a0 = part[kA0], a1 = part[kA1];
+  const int n = s1 - s0;
+  const int safe = min(max(a1 - 1, a0), A - 1);  // a position every load may read
+  Carve cv{smem};
+  float* red_v = cv.floats(32);
+  int* red_k = cv.ints(32);
+  float* al0 = cv.floats(S);  // alpha, every state, by frame parity: frame t
+  float* al1 = cv.floats(S);  // reads al1 (t even) or al0 and writes the other
+  float* em0 = cv.floats(C + 1);  // the emission rows, by frame parity, and a 0
+  float* em1 = cv.floats(C + 1);  // for the labels outside [0, C)
+  int* bar0 = cv.ints(n_own);  // the own states' winning positions, by frame parity
+  int* bar1 = cv.ints(n_own);
+  float* part_m = cv.floats(parts);
+  int* part_k = cv.ints(parts);
+  const int* Ar = arcs;
+  const float* W = w;
+  if (kInSmem) {
+    part = stage(part, dst_words, cv.ints(dst_words));
+    Ar = stage(Ar + a0, a1 - a0, cv.ints(a_own)) - a0;
+    W = stage(W + a0, a1 - a0, cv.floats(a_own)) - a0;
+  }
+  const int t_live = min(max(lens[b], 0), T);
+  const float* em_b = em + static_cast<long>(b) * em_sb;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) al1[s] = start[s];
+  if (t_live > 0)
+    for (int c = threadIdx.x; c < C; c += blockDim.x) em0[c] = em_b[c];
+  if (threadIdx.x == 0) em0[C] = em1[C] = 0.0f;
+  cl.sync();  // every block of the cluster runs, its staging done
+
+  // frame t's row of backarcs holds the own states' winning positions
+  // until the scan ends (written during frame t + 1, while the slower
+  // warps finish their slots: no load on that path)
+  int* back_b = backarcs + static_cast<long>(b) * T * S;
+  auto write_row = [&](int t) {
+    const int* barc = (t & 1) ? bar1 : bar0;
+    int* row = back_b + static_cast<long>(t) * S + s0;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) row[i] = barc[i];
+  };
+  for (int t = 0; t < t_live; ++t) {
+    const float* prev = (t & 1) ? al0 : al1;
+    float* next = (t & 1) ? al1 : al0;
+    int* barc = (t & 1) ? bar1 : bar0;
+    if (t + 1 < t_live)
+      prefetch((t & 1) ? em0 : em1, em_b + static_cast<long>(t + 1) * em_st, C);
+    max_phase(part, Ar, W, prev, (t & 1) ? em1 : em0, safe, part_m, part_k,
+              [&](int s, float v, int kk) {
+                const bool live = v > kNeg;
+                push(cl, next, s, live ? v : kNeg);
+                barc[s - s0] = live ? kk : kBig;
+              });
+    // the last frame's positions were written before the last barrier; the
+    // frame that writes them again comes after this one's
+    if (t > 0) write_row(t - 1);
+    __pipeline_wait_prior(0);
+    cl.sync();
+  }
+  if (t_live > 0) write_row(t_live - 1);
+  __syncthreads();
+  // positions to arc ids in the own states' columns of the live rows (the
+  // index's order, L2-resident), and 2^30 in the rows past the length: a
+  // warp a row at a time, four loads in flight a lane
+  for (int t = warp; t < T; t += nwarps) {
+    int* row = back_b + static_cast<long>(t) * S + s0;
+    for (int i0 = lane; i0 < n; i0 += 4 * 32) {
+      int p[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + 32 * u;
+        p[u] = (t < t_live && i < n) ? row[i] : kBig;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) p[u] = p[u] == kBig ? kBig : __ldg(ids + p[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + 32 * u < n) row[i0 + 32 * u] = p[u];
+    }
+  }
+  const float* fin = ((t_live - 1) & 1) ? al1 : al0;
+  for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x)
+    final_alpha[static_cast<long>(b) * S + s] = fin[s];
+  cl.sync();  // every rank's backarcs written (and no block leaves while
+              // another may still write into its shared memory)
+  if (rank != 0) return;
+
+  // the backtrace: the first argmax of final + accept, then the walk
+  float best = -INFINITY;
+  int bs = INT_MAX;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) max_merge(best, bs, fin[s] + accept[s], s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    max_merge(best, bs, __shfl_xor_sync(kFull, best, off), __shfl_xor_sync(kFull, bs, off));
+  if (lane == 0) {
+    red_v[warp] = best;
+    red_k[warp] = bs;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int i = 1; i < nwarps; ++i) max_merge(best, bs, red_v[i], red_k[i]);
+  score[b] = best;
+  int* lab = labels + static_cast<long>(b) * T;
+  const bool feasible = best > kHalfNeg;
+  int state = bs;
+  for (int t = T - 1; t >= 0; --t) {
+    int l = -1;
+    if (feasible && t < t_live) {
+      const int arc = __ldcg(back_b + static_cast<long>(t) * S + state);
+      if (arc < A) {
+        l = tlabel[arc];
+        state = tsrc[arc];
+      }
+    }
+    lab[t] = l;
+  }
+}
+
 template <typename K>
 int launch_config(K kernel, size_t smem) {
   if (smem > 48 * 1024) {
@@ -1113,6 +1393,43 @@ int sparse_scan_fit(int* out, int backward, int k, int smem_bytes, void* stream)
   const size_t smem = static_cast<size_t>(smem_bytes);
   return backward ? max_clusters(sparse_scan_bwd_kernel, k, smem, out)
                   : max_clusters(sparse_scan_fwd_kernel, k, smem, out);
+}
+
+// em: row (b, t) at em + b * em_sb + t * em_st (C channels), lens [B];
+// start, accept [S]; the shared decode table's arcs in the index's
+// destination order: arcs [A] int32, each (src + 1) | (label + 1) << 16
+// (src -1 where outside [0, S), label -1 where outside [0, C)), w [A] f32
+// and ids [A] int32 (the arc id at each sorted position); the table's own
+// src and label [A] (tsrc, tlabel: the walk's); the schedule sched [1, k,
+// stride]; writes backarcs [B, T, S] int32, final_alpha [B, S], labels
+// [B, T] int32 and score [B].  k: blocks a cluster; dst_words, n_own,
+// a_own, parts: the schedule's sizes; in_smem: stage the arcs and the
+// schedule's list by destination in shared memory (the caller checked that
+// they fit; the state always must).
+int seg_max_scan(const float* em, const int* lens, const float* start, const float* accept,
+                 const int* arcs, const float* w, const int* ids, const int* tsrc,
+                 const int* tlabel, const int* sched, int* backarcs, float* final_alpha,
+                 int* labels, float* score, int B, int T, int C, int S, int A, int em_sb,
+                 int em_st, int k, int stride, int dst_words, int n_own, int a_own,
+                 int parts, int in_smem, void* stream) {
+  if (B == 0 || S == 0 || T == 0 || A == 0) return 0;
+  long words = decode_state_words(S, C, n_own, parts);
+  if (in_smem) words += decode_table_words(a_own, dst_words);
+  const size_t smem = static_cast<size_t>(words) * 4;
+  auto kernel = in_smem ? seg_max_scan_kernel<true> : seg_max_scan_kernel<false>;
+  return launch_cluster(kernel, B, k, smem, stream, em, lens, start, accept, arcs, w, ids,
+                        tsrc, tlabel, sched, backarcs, final_alpha, labels, score, T, C, S,
+                        A, em_sb, em_st, stride, dst_words, n_own, a_own, parts);
+}
+
+// How many clusters of k blocks of seg_max_scan (its tables staged in shared
+// memory or not), with smem_bytes of shared memory each, the card holds at
+// once: *out.
+int seg_max_scan_fit(int* out, int k, int smem_bytes, int in_smem, void* stream) {
+  (void)stream;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  return in_smem ? max_clusters(seg_max_scan_kernel<true>, k, smem, out)
+                 : max_clusters(seg_max_scan_kernel<false>, k, smem, out);
 }
 
 const char* error_string(int code) {

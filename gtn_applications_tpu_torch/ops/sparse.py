@@ -18,10 +18,11 @@ Decode: ``viterbi_batch`` takes a shared, epsilon-free table.  It buckets
 the table's arcs (``viterbi_scan_pallas.build_plan``) and runs the
 whole-scan Viterbi; a table that the plan refuses (a hub state whose
 in-degree blows the bucket grid up, as in a loaded backoff LM's
-epsilon-removed table) goes to the per-step decode ``_viterbi_batched``:
-one ``segmax_pallas.seg_max`` a frame (JAX takes the same two routes on
-the TPU).  ``viterbi`` is JAX's per-sample oracle, with its 1e-6 near-tie
-rule.
+epsilon-removed table) goes to ``_viterbi_batched``, the tropical scan of
+``seg_max`` steps and its backtrace (JAX takes the same two routes on the
+TPU, the second as a ``jax.lax.scan`` of ``seg_max``): on CUDA tensors one
+``segmax_pallas.seg_max_scan`` launch a batch.  ``viterbi`` is JAX's
+per-sample oracle, with its 1e-6 near-tie rule.
 
 Arc table convention (padded to fixed length; each field 1-D, or [B, ·]
 per sample):
@@ -206,74 +207,31 @@ def viterbi(em, table: ArcTable, input_length=None):
     return torch.where(score > NEG / 2, labels, -1), score
 
 
-def _viterbi_step_scan(em, table: ArcTable, input_lengths):
-    """The tropical scan of ``em [B, T, C]`` as T ``seg_max`` steps (label
-    mode: each frame's row, read by the arcs' labels) with the length
-    mask: (backarcs [B, T, S] int32, 2^30 past a sample's length and where
-    no live arc reaches; final alpha [B, S])."""
-    from .seglse_pallas import arc_index, take
-    from .segmax_pallas import BIG, seg_max_cuda, seg_max_plain
+def _viterbi_batched(em, table: ArcTable, input_lengths=None, plans=None):
+    """The decode of ``em [B, T, C]`` through a shared, epsilon-free table
+    by its tropical scan and backtrace (JAX's ``_viterbi_batched_pallas``):
+    one ``seg_max_scan`` launch on CUDA tensors, nothing per frame; T
+    ``seg_max`` steps and the walk in torch operations, its plain version,
+    on CPU tensors.  ``plans``: see ``viterbi_batch``."""
+    from . import segmax_pallas
 
     B, T, C = em.shape
-    src, dst, weight, label = (_as2d(getattr(table, f))
-                               for f in ("src", "dst", "weight", "label"))
-    S = table.start.shape[-1]
-    live = (torch.arange(T, device=em.device)[:, None]
-            < input_lengths.to(em.device)[None, :])[:, :, None]
-    if _build.on_cuda(em):
-        idx = arc_index(src, dst, S, label, C)
-        w_s = take(weight, idx.order)
-
-        def step(alpha, row):
-            return seg_max_cuda(alpha, w_s, row, idx)
-    else:
-        def step(alpha, row):
-            return seg_max_plain(alpha, src, dst, weight, row, label)
-    alpha = table.start.expand(B, S).contiguous()
-    backarcs = []
-    for t in range(T):
-        new, arc = step(alpha, em[:, t])
-        alpha = torch.where(live[t], new, alpha)
-        backarcs.append(torch.where(live[t], arc, BIG))
-    return torch.stack(backarcs, dim=1), alpha
-
-
-def _viterbi_step_backtrace(backarcs, final, table: ArcTable):
-    """(labels [B, T] int32, score [B]) from the first argmax of final +
-    accept, walking the backarcs (JAX's ``backstep``: label -1 and the
-    state kept where the arc is past A); infeasible samples, score <=
-    NEG / 2, decode to all -1."""
-    B, T, _ = backarcs.shape
-    src, label = table.src.long(), table.label.long()
-    A = src.shape[0]
-    pad_src = torch.cat([src, src.new_zeros(1)])
-    pad_label = torch.cat([label, label.new_full((1,), -1)])
-    scored = final + table.accept[None, :]
-    score, state = scored.max(dim=1).values, scored.argmax(dim=1)
-    labels = [None] * T
-    for t in reversed(range(T)):
-        arc = backarcs[:, t].gather(1, state[:, None])[:, 0].long().clamp(max=A)
-        labels[t] = pad_label[arc]
-        state = torch.where(arc < A, pad_src[arc], state)
-    labels = torch.stack(labels, dim=1).to(torch.int32)
-    return torch.where((score > NEG / 2)[:, None], labels, -1), score
-
-
-def _viterbi_batched(em, table: ArcTable, input_lengths=None):
-    """The per-step decode of ``em [B, T, C]`` through a shared,
-    epsilon-free table (JAX's ``_viterbi_batched_pallas``): T ``seg_max``
-    launches on CUDA tensors, their plain version on CPU tensors; the
-    backtrace in torch operations."""
-    B, T, _ = em.shape
-    em = em.detach().to(torch.float32).contiguous()
-    table = table.to(em.device)
+    em = em.detach().to(torch.float32)
     if input_lengths is None:
         input_lengths = torch.full((B,), T, dtype=torch.int32)
-    backarcs, final = _viterbi_step_scan(em, table, input_lengths)
-    return _viterbi_step_backtrace(backarcs, final, table)
+    plan = None
+    if _build.on_cuda(em):
+        plans = {} if plans is None else plans
+        key = (em.device, C)
+        if key not in plans:
+            plans[key] = segmax_pallas.decode_plan(table, C, em.device)
+        plan = plans[key]
+    _, _, labels, score = segmax_pallas.seg_max_scan(
+        em, table, torch.as_tensor(input_lengths), plan)
+    return labels, score
 
 
-def viterbi_batch(em, table: ArcTable, input_lengths=None):
+def viterbi_batch(em, table: ArcTable, input_lengths=None, plans=None):
     """Best path of each sample of ``em [B, T, C]`` through ``table``, a
     shared (1-D fields) epsilon-free table with CPU tensors.
 
@@ -281,8 +239,13 @@ def viterbi_batch(em, table: ArcTable, input_lengths=None):
     input length and for samples with no accepting path; score [B]).
     Routes as JAX on the TPU: a table whose in-degree bucket layout
     ``viterbi_scan_pallas.build_plan`` accepts takes the whole-scan
-    Viterbi, any other the per-step ``seg_max`` decode.  Ties go to the
-    lowest arc id on the exact maximum (both kernels' rule)."""
+    Viterbi, any other the tropical scan of ``seg_max`` steps
+    (``_viterbi_batched``).  Ties go to the lowest arc id on the exact
+    maximum (every kernel's rule).  ``plans``: a dict the caller keeps
+    across decodes of tables of one structure (a template re-weighted, as
+    the Transducer's): the second route keeps its ``ScanPlan`` there by
+    device and channel count, so the arc index and schedules are built
+    once."""
     from . import viterbi_scan_pallas
 
     _require_epsilon_free(table)
@@ -295,4 +258,4 @@ def viterbi_batch(em, table: ArcTable, input_lengths=None):
     plan = viterbi_scan_pallas.build_plan(table)
     if plan is not None:
         return viterbi_scan_pallas.viterbi_scan(em, plan, input_lengths)
-    return _viterbi_batched(em, table, input_lengths)
+    return _viterbi_batched(em, table, input_lengths, plans)

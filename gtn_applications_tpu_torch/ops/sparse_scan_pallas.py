@@ -225,8 +225,10 @@ class Schedule(NamedTuple):
     orders as ``rank | offset << 3``, its owner and its place among the
     owner's arcs, so a sum reads another block's posteriors without
     atomics.  ``sizes``: the largest range of each kind over rows and
-    ranks, the most hub chunks in one list, the words of a part and of its
-    forward lists.  ``device``: (words, refs...) on the table's device."""
+    ranks, the most hub chunks in one list, the words of a part, of its
+    forward lists and of its list by destination alone (the decode's,
+    ``segmax_pallas.seg_max_scan``).  ``device``: (words, refs...) on the
+    table's device."""
 
     k: int
     words: np.ndarray
@@ -384,7 +386,8 @@ def build_schedule(main, eps, S, C, k):
     sizes = dict(states=span("s"), arcs=span("a"), eps=span("e"), src_refs=span("sj"),
                  eps_refs=span("ej"), label_refs=span("lj"),
                  parts=int(nchunk.max()) if nchunk.size else 0, stride=stride,
-                 fwd_words=int((HEADER + size[:, :2].sum(axis=1)).max()))
+                 fwd_words=int((HEADER + size[:, :2].sum(axis=1)).max()),
+                 dst_words=int((HEADER + size[:, 0]).max()))
     return Schedule(k, words.reshape(rows, k, stride).astype(np.int32), refs, sizes)
 
 

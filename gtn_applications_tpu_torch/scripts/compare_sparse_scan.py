@@ -1,7 +1,8 @@
-"""Time the whole sparse scan pair of this checkout against another's.
+"""Time the whole sparse scan pair (or, with ``--decode``, the Viterbi
+decode of the 4-gram path) of this checkout against another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
-        --baseline DIR [--clusters 1 2 4 8] [--phases] [--out FILE]
+        --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit unpacked with ``git archive`` into an ignored directory):
@@ -20,6 +21,17 @@ cluster sizes, with how many of its clusters the card holds at once.
 (its batch's cluster size throughout): the time at depth 0 is the arc
 step's and the frame shift's, and each further depth adds one closure
 round (forward) or its replay and reverse (backward).
+``--decode`` times ``ops.sparse.viterbi_batch`` instead, on the unpruned
+grapheme 4-gram's decode table (S=1,058, A=35,455, C=12, which the bucket
+plan refuses) at two shapes: ``chip_smoke.segmax_scan_inputs`` (B=32,
+T=300, ragged lengths, one infeasible sample) and the 4-gram path's first
+train batch (B=32, its frames, random N(0, 1) emissions, full lengths).
+Per case, in turns baseline, this, this, baseline: the host-clock median
+of 5 decodes after one warm-up, ending in ``torch.cuda.synchronize()``,
+and the CUDA-event median of the decode's kernel: ``seg_max_scan`` (one
+launch a batch, where the checkout has it) or one ``seg_max`` step (the
+parent's per-frame kernel; its decode launches it once a frame).  The
+two decodes' labels must be equal and their scores within 1e-6.
 Run from the root of this checkout on a machine with one GPU.
 """
 
@@ -33,16 +45,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def load_baseline(root):
-    """The baseline checkout's ``ops.sparse_scan_pallas``, as a module of
+def load_baseline(root, name="ops.sparse_scan_pallas"):
+    """The baseline checkout's module ``name`` of its port, as a module of
     the package ``baseline_port``."""
-    pkg = Path(root).resolve() / "gtn_applications_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        "baseline_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules["baseline_port"] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module("baseline_port.ops.sparse_scan_pallas")
+    if "baseline_port" not in sys.modules:
+        pkg = Path(root).resolve() / "gtn_applications_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "baseline_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["baseline_port"] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module("baseline_port." + name)
 
 
 def cases(torch, cs, dev):
@@ -57,6 +70,88 @@ def cases(torch, cs, dev):
             ("4gram_score", em4, lens4, tables4["score"])]
 
 
+def host_median_ms(torch, fn, runs=5):
+    """Host-clock median of ``fn`` ending in a synchronise, after one
+    warm-up."""
+    import statistics
+    import time
+
+    ms = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def decode_ab(torch, cs, root, dev):
+    """The ``--decode`` comparison (see the module docstring)."""
+    import numpy as np
+
+    from gtn_applications_tpu_torch import datasets, utils
+    from gtn_applications_tpu_torch.ops import _build, sparse
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops.seglse_pallas import arc_index, take
+
+    base_sparse = load_baseline(root, "ops.sparse")
+    base_smp = load_baseline(root, "ops.segmax_pallas")
+    config = cs.main_path_config("transducer_backoff_4gram")
+    # the trainer's first batch, as chip_smoke.first_batch reads it
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    loader = utils.data_loader(data.Dataset(None, pre, split="train", augment=True), config,
+                               seed=config["seed"])
+    inputs = next(iter(loader))[0]
+    stride = int(np.prod([g["stride"][1] for g in config["model"]["tds_groups"]]))
+    em, lens, table = cs.segmax_scan_inputs(torch, dev)
+    B, C = em.shape[0], em.shape[2]
+    frames = -(-inputs.shape[-1] // stride)
+    rng = np.random.RandomState(17)
+    em_main = torch.from_numpy(rng.randn(B, frames, C).astype(np.float32)).to(dev)
+    lens_main = torch.full((B,), frames, dtype=torch.int32, device=dev)
+    out = {}
+    for name, e, il in (("4gram_T300", em, lens), (f"4gram_main_T{frames}", em_main, lens_main)):
+        plans = {}
+        decode = {"base": lambda e=e, il=il: base_sparse.viterbi_batch(e, table, il),
+                  "new": lambda e=e, il=il: sparse.viterbi_batch(e, table, il, plans)}
+        (lab_b, score_b), (lab_n, score_n) = decode["base"](), decode["new"]()
+        if not torch.equal(lab_b, lab_n):
+            raise AssertionError(f"{name}: the decodes' labels differ")
+        d_score = float((score_b - score_n).abs().max())
+        if not d_score <= 1e-6:
+            raise AssertionError(f"{name}: the decodes' scores differ by {d_score}")
+        # each side's kernel: one seg_max step of the parent (at the
+        # batch's first frame from the start potentials), seg_max_scan here
+        tab = table.to(dev)
+        src, dst, w, label = (x[None] for x in (tab.src, tab.dst, tab.weight, tab.label))
+        alpha = tab.start.expand(B, -1).contiguous()
+        idx = arc_index(src, dst, alpha.shape[1], label, C)
+        w_s = take(w, idx.order)
+        row = e[:, 0]
+        plan = plans[(e.device, C)]
+        scan_args = (e, take(w, plan.main.order), tab.start.contiguous(),
+                     tab.accept.contiguous(), il, plan)
+        kernel = {"base": lambda: base_smp.seg_max_cuda(alpha, w_s, row, idx),
+                  "new": lambda: smp.seg_max_scan_cuda(*scan_args)}
+        row_out = {"shape": list(e.shape), "max_len": int(il.max()),
+                   "max_abs_score_diff": d_score,
+                   "kernel": {"base": "seg_max (one frame)", "new": "seg_max_scan"}}
+        before = dict(_build.LAUNCHES)
+        decode["new"]()
+        row_out["new_launches_per_decode"] = {
+            key: n - before[key] for key, n in _build.LAUNCHES.items() if n != before[key]}
+        for who in ("base", "new", "new", "base"):
+            row_out.setdefault(f"{who}_host_ms", []).append(host_median_ms(torch, decode[who]))
+            row_out.setdefault(f"{who}_kernel_ms", []).append(
+                cs.gpu_median_ms(torch, kernel[who]))
+        out[name] = row_out
+        print(json.dumps({name: row_out}), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, help="root of the other checkout")
@@ -64,6 +159,8 @@ def main(argv=None):
                         help="also time this checkout's pair at these cluster sizes")
     parser.add_argument("--phases", action="store_true",
                         help="also time this checkout's pair at each closure depth")
+    parser.add_argument("--decode", action="store_true",
+                        help="compare the 4-gram path's Viterbi decode instead")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -77,10 +174,13 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("compare_sparse_scan needs a GPU")
-    base = load_baseline(args.baseline)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"card": utils.card_name_and_power_limit(), "cases": {}}
+    if args.decode:
+        result["cases"] = decode_ab(torch, cs, args.baseline, dev)
+        return _report("compare_decode", result, args.out)
+    base = load_baseline(args.baseline)
     for name, em, lens, table in cases(torch, cs, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)
         B, S, C = em.shape[0], start.shape[-1], em.shape[2]
@@ -138,11 +238,15 @@ def main(argv=None):
                             em, traj_d, lens, plan, w, ew, d, gf, cluster=k))}
         result["cases"][name] = row
         print(json.dumps({name: row}), flush=True)
-    line = json.dumps({"compare_sparse_scan": result})
+    _report("compare_sparse_scan", result, args.out)
+
+
+def _report(key, result, out):
+    line = json.dumps({key: result})
     print(line)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
 
 
 if __name__ == "__main__":

@@ -167,3 +167,24 @@ def test_sparse_scan_wrappers_refuse_bad_cluster_sizes(cuda_device):
         with pytest.raises(ValueError, match="cluster size"):
             sparse_scan_pallas.sparse_scan_bwd_cuda(em, traj, lens, plan, w, w[:, :0], 0,
                                                     alpha, cluster=k)
+
+
+@pytest.mark.cuda
+def test_segmax_scan_cuda_wrapper_refuses_bad_inputs(cuda_device):
+    from gtn_applications_tpu_torch.ops import segmax_pallas, sparse_scan_pallas
+
+    B, T, S, A, C = 2, 3, 4, 6, 5
+    src = torch.zeros(1, A, dtype=torch.int32, device=cuda_device)
+    plan = sparse_scan_pallas.scan_plan(src, src + 1, src, src[:, :0], src[:, :0], S, C)
+    args = dict(em=torch.zeros(B, T, C, device=cuda_device),
+                w_s=torch.zeros(1, A, device=cuda_device),
+                start=torch.zeros(S, device=cuda_device),
+                accept=torch.zeros(S, device=cuda_device),
+                lens=torch.full((B,), T, dtype=torch.int32, device=cuda_device), plan=plan)
+    em, lens = args["em"], args["lens"]
+    for bad in (dict(em=em[:, :, :4]), dict(em=em.double()), dict(em=em[:, :0]),
+                dict(em=em.cpu()), dict(lens=lens.long()), dict(start=args["start"][:3]),
+                dict(w_s=args["w_s"].double()), dict(plan=plan._replace(main=None)),
+                dict(cluster=0), dict(cluster=3), dict(cluster=16)):
+        with pytest.raises(ValueError):
+            segmax_pallas.seg_max_scan_cuda(**dict(args, **bad))
