@@ -38,10 +38,16 @@ prints no result):
    entry by entry within 1e-5 (|p| + the median nonzero |p|);
 8. the whole-scan Viterbi kernels against their plain versions at the
    decode headline (B=32, T=250, C=80 on the ngram-2 decode table with
-   random weights: 82 states, 6,480 arcs, D=81; lengths 200-250), on the
-   bigram table over 160 labels (B=8; D=161, S=162: tables past shared
-   memory) and on a skewed random table with an infeasible sample: slots
-   and labels bitwise equal, final alphas and scores within 1e-6;
+   random weights: 82 states, 6,480 arcs, D=81; lengths 200-250) by each
+   of the scan's routes (arcs in registers, staged in shared memory, read
+   from global memory), on the bigram table over 160 labels (B=8; D=161,
+   S=162: 25,760 arcs staged in shared memory), over 240 labels (B=4;
+   57,840 arcs, past shared memory: read from global memory), on a skewed
+   random table with an infeasible sample, and on the headline table with
+   integer weights and emissions (exact ties required), also with two
+   arcs a lane so that every state is a hub of two warp chunks (ties
+   across them required): slots and labels bitwise equal, final alphas
+   and scores within 1e-6; each case logs its route;
 9. the sparse kernels (seg_lse on each round of a table's start closure,
    the whole sparse scan on the table) against their plain versions run
    in float64, at bench.py's loaded backoff-LM protocol (its normaliser,
@@ -113,7 +119,11 @@ prints no result):
    (``ctc_chain_probe``) and of one phase of the sparse scans' chain
    (``sparse_scan_probe``: a load from another block's shared memory and
    a cluster barrier, at the 1kwp normaliser's and at the decode's batch
-   and cluster size) for those kernels' chain bounds, and the device time and kernel
+   and cluster size) and of one frame of the whole-scan Viterbi's chain
+   (``viterbi_chain_probe``: a dependent shared-memory load and a block
+   barrier, at the headline's batch and block size) for those kernels'
+   chain bounds, ``seg_max_scan`` on the Viterbi headline's table as a
+   yardstick for the whole-scan Viterbi, and the device time and kernel
    launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
    forward and backward at its main path's batch shape.
 
@@ -676,22 +686,28 @@ def phase_factored_scan(torch, dev):
     return errs
 
 
-def viterbi_headline_inputs(torch, dev, b=B, t=T, n=N, seed=6):
+def viterbi_headline_inputs(torch, dev, b=B, t=T, n=N, seed=6, integer=False,
+                            with_table=False):
     """Logits [b, t, n] and the decode plan of the ngram-2 transition graph
     over n labels with N(0, 0.5) weights (n + 2 states, n + n^2 arcs,
-    D = n + 1), as Transducer.viterbi builds it; lengths over 4t/5..t."""
+    D = n + 1), as Transducer.viterbi builds it; lengths over 4t/5..t.
+    With ``integer``, weights and logits are integers in [-1, 1], so that
+    contributions tie exactly; ``with_table`` also returns the decode
+    table (CPU tensors)."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.wfst import compile as wcompile
 
     rng = np.random.RandomState(seed)
     crit = transducer_criterion(n, "none")
-    w = (rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32)
+    w = (rng.randint(-1, 2, crit.num_transition_arcs) if integer
+         else rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32)
     table = wcompile.apply_decode_weights(
         wcompile.build_decode_template(crit.transitions), w)
     plan = vsp.build_plan(table)
-    em = torch.as_tensor(rng.randn(b, t, n).astype(np.float32), device=dev)
+    x = rng.randint(-1, 2, (b, t, n)) if integer else rng.randn(b, t, n)
+    em = torch.as_tensor(x.astype(np.float32), device=dev)
     il = torch.as_tensor(ragged_lengths(rng, b, t), dtype=torch.int32, device=dev)
-    return (em,) + plan.to(dev) + (il,)
+    return (em,) + plan.to(dev) + (il,) + ((table,) if with_table else ())
 
 
 def viterbi_skewed_inputs(torch, dev, b=B, t=T, s=40, a=400, c=N, seed=7):
@@ -729,32 +745,82 @@ def viterbi_skewed_inputs(torch, dev, b=B, t=T, s=40, a=400, c=N, seed=7):
     return (em,) + plan.to(dev) + (torch.as_tensor(il, dtype=torch.int32, device=dev),)
 
 
-def hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start, accept, il, what):
+def viterbi_ties(torch, em, src_b, lab_b, w_b, start, il, span=None):
+    """(states tied, tied across chunks) over the live frames of the plain
+    scan: states above NEG whose maximum several slots attain, and those
+    whose tied slots lie in different chunks of ``span`` slots (a hub's
+    warps)."""
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    alpha = start[None].expand(em.shape[0], -1)
+    src, lab = src_b.long(), lab_b.long()
+    ties = across = 0
+    for t in range(int(il.max())):
+        contrib = (alpha[:, src] + w_b) + em[:, t][:, lab]
+        best = contrib.max(dim=1, keepdim=True).values
+        hit = (contrib == best) & (best > NEG) & (t < il)[:, None, None]
+        many = hit.sum(dim=1) > 1
+        ties += int(many.sum())
+        if span:
+            d = torch.arange(src.shape[0], device=em.device)[None, :, None] // span
+            lo = torch.where(hit, d, src.shape[0]).min(dim=1).values
+            hi = torch.where(hit, d, -1).max(dim=1).values
+            across += int((many & (lo != hi)).sum())
+        alpha = torch.where((t < il)[:, None], torch.clamp(best[:, 0], min=NEG), alpha)
+    return ties, across
+
+
+def hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start, accept, il, what,
+                         routes=(None,), cap=None, packed=None, need_ties=False):
     """Both Viterbi kernels against their plain versions on the same
     inputs: slots and labels bitwise equal, final alphas and scores within
-    1e-6 (the backtrace from the plain scan's slots)."""
+    1e-6 (the backtrace from the plain scan's slots).  The scan by each of
+    ``routes`` (None: its own choice) on ``packed`` (default: the buckets
+    packed with ``cap`` arcs a lane at most); ``need_ties``: the plain scan
+    must meet exact ties (and, with hubs, ties across a hub's chunks)."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.ops.semiring import NEG
 
-    slots_k, final_k = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il)
+    if packed is None:
+        packed = vsp.pack_buckets(src_b, lab_b, w_b, cap).to(em.device)
     slots_p, final_p = vsp.viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, il)
+    fwd_err = 0.0
+    taken = []
+    for route in routes:
+        slots_k, final_k = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il,
+                                                     packed=packed, route=route)
+        torch.cuda.synchronize()
+        taken.append(route or vsp.scan_route(packed, start.shape[0], em.shape[2]))
+        if not torch.equal(slots_k, slots_p):
+            raise AssertionError(f"viterbi_scan_fwd: slots differ from plain at {what}, "
+                                 f"route {taken[-1]}")
+        fwd_err = max(fwd_err, float((final_k - final_p).abs().max()))
+        if not fwd_err <= 1e-6:
+            raise AssertionError(f"viterbi_scan_fwd: final alpha max|d| {fwd_err} at {what}, "
+                                 f"route {taken[-1]}")
     lab_k, score_k = vsp.viterbi_backtrace_cuda(slots_p, final_p, accept, src_b, lab_b)
     lab_p, score_p = vsp.viterbi_backtrace_plain(slots_p, final_p, accept, src_b,
                                                  lab_b)
     torch.cuda.synchronize()
-    if not torch.equal(slots_k, slots_p):
-        raise AssertionError(f"viterbi_scan_fwd: slots differ from plain at {what}")
-    fwd_err = float((final_k - final_p).abs().max())
-    if not fwd_err <= 1e-6:
-        raise AssertionError(f"viterbi_scan_fwd: final alpha max|d| {fwd_err} at {what}")
     if not torch.equal(lab_k, lab_p):
         raise AssertionError(f"viterbi_backtrace: labels differ from plain at {what}")
     bt_err = float((score_k - score_p).abs().max())
     if not bt_err <= 1e-6:
         raise AssertionError(f"viterbi_backtrace: score max|d| {bt_err} at {what}")
+    ties = ""
+    if need_ties:
+        span = vsp.WARP * packed.cap if packed.hubs else None
+        tied, across = viterbi_ties(torch, em, src_b, lab_b, w_b, start, il, span)
+        if not tied or (span and not across):
+            raise AssertionError(f"viterbi: no exact ties (across a hub's chunks) in {what}")
+        ties = f", {tied} tied states ({across} across a hub's chunks)"
     infeasible = int((score_p <= NEG / 2).sum())
-    log(f"viterbi {what}: slots and labels bitwise equal, final max|d| {fwd_err:.3g}, "
-        f"score max|d| {bt_err:.3g}, {infeasible} infeasible samples")
+    rows = vsp.scan_rows(packed, start.shape[0], em.shape[1], em.shape[2], taken[0])
+    log(f"viterbi {what}: route {'/'.join(taken)} (cap {packed.cap}, {packed.slots} slots, "
+        f"{packed.hubs} hubs, {packed.A} arcs, {rows} emission rows a block): slots and "
+        f"labels bitwise equal, final "
+        f"max|d| {fwd_err:.3g}, score max|d| {bt_err:.3g}, {infeasible} infeasible "
+        f"samples{ties}")
     return {"viterbi_scan_fwd": fwd_err, "viterbi_backtrace": bt_err}
 
 
@@ -762,13 +828,19 @@ def phase_viterbi(torch, dev):
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.ops.semiring import NEG
 
-    errs = hold_viterbi_kernels(torch, *viterbi_headline_inputs(torch, dev),
-                                ("ngram-2 decode", B, T, N))
-    # a bigram over 2N labels: D = 161, S = 162, whose bucket tables (and
-    # slots) no longer fit in shared memory and are read from global memory
-    merge_errs(errs, hold_viterbi_kernels(
-        torch, *viterbi_headline_inputs(torch, dev, b=8, n=2 * N),
-        ("past shared memory", 8, T, 2 * N)))
+    head = viterbi_headline_inputs(torch, dev)
+    errs = hold_viterbi_kernels(torch, *head, ("ngram-2 decode", B, T, N),
+                                routes=vsp.ROUTES)
+    # bigrams over 2N and 3N labels: 25,760 arcs staged in shared memory,
+    # and 57,840 past it, read from global memory
+    for n, b, route in ((2 * N, 8, "shared"), (3 * N, 4, "global")):
+        inputs = viterbi_headline_inputs(torch, dev, b=b, n=n)
+        packed = vsp.pack_buckets(*inputs[1:4]).to(dev)
+        if vsp.scan_route(packed, n + 2, n) != route:
+            raise AssertionError(f"viterbi: the bigram over {n} labels does not take "
+                                 f"route {route}")
+        merge_errs(errs, hold_viterbi_kernels(torch, *inputs, (route, b, T, n),
+                                              packed=packed))
     em, src_b, lab_b, w_b, start, accept, il = viterbi_skewed_inputs(torch, dev)
     merge_errs(errs, hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start,
                                           accept, il, ("skewed", B, T, N)))
@@ -776,6 +848,12 @@ def phase_viterbi(torch, dev):
     labels, score = vsp.viterbi_backtrace_cuda(slots, final, accept, src_b, lab_b)
     if not (float(score[1]) <= NEG / 2 and bool((labels[1] == -1).all())):
         raise AssertionError("viterbi: the infeasible sample did not decode empty")
+    ties = viterbi_headline_inputs(torch, dev, seed=8, integer=True)
+    merge_errs(errs, hold_viterbi_kernels(torch, *ties, ("integer ties", B, T, N),
+                                          routes=vsp.ROUTES, need_ties=True))
+    # two arcs a lane: every state of in-degree 81 is a hub of two warp chunks
+    merge_errs(errs, hold_viterbi_kernels(torch, *ties, ("integer ties, hubs", B, T, N),
+                                          cap=2, need_ties=True))
     return errs
 
 
@@ -1658,7 +1736,8 @@ def phase_main_batch_transducer(torch, dev, model, config):
     errs = hold_factored_scan_kernels(torch, *scan_inputs, il, what)
     plan = vsp.build_plan(crit._decode_table(params))
     merge_errs(errs, hold_viterbi_kernels(torch, logits.contiguous(), *plan.to(dev),
-                                          il, ("decode",) + what))
+                                          il, ("decode",) + what,
+                                          packed=plan.packed(dev)))
     return errs, dict(diffs, transducer_main_batch_shape=list(what),
                       transducer_decode_plan=[plan.D, plan.S])
 
@@ -1726,7 +1805,8 @@ def phase_main_batch_backoff(torch, dev, model, config):
     plan = vsp.build_plan(crit._decode_table({"transitions": params}))
     what = (bsz, frames, crit.num_channels)
     merge_errs(errs, hold_viterbi_kernels(torch, logits.contiguous(), *plan.to(dev),
-                                          il, ("backoff decode",) + what))
+                                          il, ("backoff decode",) + what,
+                                          packed=plan.packed(dev)))
     shapes = {key: [int(tables[key].start.shape[-1]), int(tables[key].src.shape[-1]),
                     int(tables[key].eps_src.shape[-1]), tables[key].eps_depth]
               for key in tables}
@@ -2121,6 +2201,48 @@ def segmax_times(torch, dev, model, config):
     return t, bounds, chain
 
 
+def viterbi_scan_bound(em, lens, w_b):
+    """One whole-scan Viterbi on this run's inputs: the emission rows of the
+    live frames, the [D, S] plan (source, label, weight), start and the
+    lengths read; slots and final alpha written; two adds and a compare
+    per live frame, sample and real arc (the plan's slots above NEG: the
+    empty ones need no work)."""
+    B, T, C = em.shape
+    D, S = w_b.shape
+    frames = int(lens.clamp(min=0, max=T).sum())
+    arcs = int((w_b > -5e29).sum())
+    n_bytes = (frames * C * 4 + 3 * D * S * 4 + S * 4 + B * 4
+               + B * T * S * 4 + B * S * 4)
+    return bound_ms(n_bytes, 3 * frames * arcs)
+
+
+def viterbi_chain_frame_us(torch, b, threads, dev):
+    """One frame of the whole-scan Viterbi's chain without arcs (a
+    dependent shared-memory load and a block barrier), in us: the probe's
+    time for 2n frames less its time for n, over n (the launch cancels)."""
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+
+    n = 4096
+    t_n = gpu_median_ms(torch, lambda: vsp.chain_probe(b, threads, n, dev), runs=20)
+    t_2n = gpu_median_ms(torch, lambda: vsp.chain_probe(b, threads, 2 * n, dev), runs=20)
+    return (t_2n - t_n) / n * 1e3
+
+
+def viterbi_yardstick_ms(torch, em, lens, table):
+    """``seg_max_scan`` (the sparse tier's decode: scan and backtrace in
+    one launch) on a whole-scan Viterbi's table and inputs, CUDA-event
+    median: a yardstick for the whole-scan Viterbi, not a route of it."""
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops.seglse_pallas import take
+
+    dev = em.device
+    plan = smp.decode_plan(table, em.shape[2], dev)
+    tab = table.to(dev)
+    args = (em, take(smp._as2d(tab.weight), plan.main.order), tab.start.contiguous(),
+            tab.accept.contiguous(), lens, plan)
+    return gpu_median_ms(torch, lambda: smp.seg_max_scan_cuda(*args))
+
+
 def phase_times(torch, dev, paths):
     from gtn_applications_tpu_torch.ops import _build, gathers, lattice
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
@@ -2241,11 +2363,19 @@ def phase_times(torch, dev, paths):
                                                            fil, gf, need_dadj=False),
                 runs=20)
 
-    # the whole-scan Viterbi at the decode headline
-    em_v, src_b, lab_b, w_b, st_v, acc_v, vil = viterbi_headline_inputs(torch, dev)
-    slots, final = vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil)
+    # the whole-scan Viterbi at the decode headline, and seg_max_scan on its
+    # table as a yardstick (not a route of this table's decode)
+    em_v, src_b, lab_b, w_b, st_v, acc_v, vil, v_table = viterbi_headline_inputs(
+        torch, dev, with_table=True)
+    packed = vsp.pack_buckets(src_b, lab_b, w_b).to(dev)
+    slots, final = vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
+                                             packed=packed)
     t["viterbi_scan_fwd"] = gpu_median_ms(
-        torch, lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil))
+        torch, lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
+                                                 packed=packed))
+    t["viterbi_scan_fwd_route"] = vsp.scan_route(packed, st_v.shape[0], N)
+    t["viterbi_scan_fwd_cap_slots_arcs"] = [packed.cap, packed.slots, packed.A]
+    t["viterbi_yardstick_seg_max_scan"] = viterbi_yardstick_ms(torch, em_v, vil, v_table)
     t["viterbi_scan_fwd_plain"] = gpu_median_ms(
         torch, lambda: vsp.viterbi_scan_fwd_plain(em_v, src_b, lab_b, w_b, st_v, vil),
         runs=20)
@@ -2275,6 +2405,9 @@ def phase_times(torch, dev, paths):
     t_n = gpu_median_ms(torch, lambda: run_probe(n), runs=20)
     t_2n = gpu_median_ms(torch, lambda: run_probe(2 * n), runs=20)
     t["chain_frame_us"] = (t_2n - t_n) / n * 1e3
+    # one frame of the whole-scan Viterbi's chain, at its headline launch
+    v_threads = vsp.WARP * min(packed.slots, vsp.MAX_WARPS)
+    t["viterbi_chain_frame_us"] = viterbi_chain_frame_us(torch, B, v_threads, dev)
 
     # bounds from this run's inputs: live frames only where the kernel
     # skips the frozen tail
@@ -2321,16 +2454,12 @@ def phase_times(torch, dev, paths):
         f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4
         + f_b * T * S_f * 4 + f_b * S_f * N_f * 4 + f_b * S_f * 4,
         factored_work(f_lab, f_il, False))
-    # the Viterbi scan: emission rows of the live frames, the plan, start
-    # and lengths in; slots and final alpha out; B T D S relaxations of two
-    # adds and a compare over the live frames.  The backtrace: per live
+    # the Viterbi scan: viterbi_scan_bound.  The backtrace: per live
     # frame three dependent loads (slot, source, label) of at least one
     # 32 B sector each, one per dead frame; final, accept in; labels, score out
     D_v, S_v = src_b.shape
     v_frames = int(vil.sum())
-    bounds["viterbi_scan_fwd"] = bound_ms(
-        v_frames * N * 4 + 3 * D_v * S_v * 4 + S_v * 4 + B * 4
-        + B * T * S_v * 4 + B * S_v * 4, 3 * v_frames * D_v * S_v)
+    bounds["viterbi_scan_fwd"] = viterbi_scan_bound(em_v, vil, w_b)
     bounds["viterbi_backtrace"] = bound_ms(
         (3 * v_frames + (B * T - v_frames)) * 32 + B * S_v * 4 + S_v * 4
         + B * T * 4 + B * 4, 0)
@@ -2340,10 +2469,12 @@ def phase_times(torch, dev, paths):
     # arithmetic can take less
     chain = {name: (int(il.max()) - 1) * t["chain_frame_us"] * 1e-3
              for name in ("ctc_alpha", "ctc_grad")}
+    # the scan's frames each need the last: the longest sample's frames
+    chain["viterbi_scan_fwd"] = int(vil.max()) * t["viterbi_chain_frame_us"] * 1e-3
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
                   "asg_C": ASG_C, "stc_L": STC_L, "stc_S": S_stc,
                   "ngram2_S": S_f, "iam_S": facts["_iam"][0].shape[1],
-                  "decode_D": D_v, "decode_S": S_v}
+                  "decode_D": D_v, "decode_S": S_v, "decode_A": packed.A}
     return t, bounds, chain
 
 
@@ -2455,6 +2586,10 @@ def run(device="cuda"):
         # hold_factored_scan_kernels) is the one checked
         if f"{name}_rel" in errs:
             kernels[-1]["max_rel_err"] = errs[f"{name}_rel"]
+    # the sparse tier's decode on the whole-scan Viterbi's headline table, a
+    # yardstick for it (not a route of that table)
+    next(k for k in kernels if k["name"] == "viterbi_scan_fwd")["seg_max_scan_ms"] = times[
+        "viterbi_yardstick_seg_max_scan"]
     print(json.dumps({"timing": timing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

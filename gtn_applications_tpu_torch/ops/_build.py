@@ -49,7 +49,8 @@ _SIGNATURES = {
     },
     "viterbi": {
         "dense_backtrace": (3, 4),
-        "viterbi_scan_fwd": (8, 6),
+        "viterbi_scan_fwd": (7, 10),
+        "viterbi_chain_probe": (1, 3),
         "viterbi_backtrace": (7, 5),
     },
     "dense_scan": {

@@ -34,19 +34,47 @@
 // DEAD slot), and writes all -1 for a sample whose best score is <= NEG/2.
 //
 // What bounds them on the H100: at the decode headline (B=32, T=250,
-// C=80, 82 states, D=81) the scan moves ~3 MB (em in, slots out; ~1 us at
-// 3.35 TB/s) and does B T D S = 53 M relaxations of two adds and a compare,
-// ~2.4 us of fp32 issue; but each frame needs the last.  The TPU kernel
-// gathered em along the arcs first and ran each frame as a one-hot MXU
-// gather plus D slice maxima; here one block per sample runs the time loop
-// inside, with alpha (double-buffered), the frame's em row and the bucket
-// tables in shared memory, and P lanes per destination state (P a power of
-// two up to 32, P <= D) that each take every P-th slot and merge their
-// (value, slot) pairs with warp shuffles, the lower slot winning ties.
-// em is read by label straight from its row: no gather launch.  The
-// backtrace stages the sample's slots and bucket tables in shared memory
-// (from global memory when they do not fit) and walks with one thread.
+// C=80, 82 states, D=81, 6,480 real arcs) the scan moves ~3 MB (em in,
+// slots out; ~1 us at 3.35 TB/s) and does 2 adds and a compare for each of
+// B T D S = 53 M slots (~2.1 us at 67 TFLOP/s); but each frame needs the
+// last, so a frame's latency sets the time.  The TPU kernel gathered em
+// along the arcs first and ran each frame as a one-hot MXU gather plus D
+// slice maxima.  Here one block a sample runs the time loop inside, and a
+// frame is one pass over the table's real arcs and one block barrier:
+// - the arcs come as a list by destination (ops/viterbi_scan_pallas.py
+//   pack_buckets): each state's real slots in increasing d, 8 bytes an arc
+//   (src | label << 16, weight), so a list position less its row's start
+//   is the slot d, and a relaxation is two shared loads (alpha[src],
+//   em[label]) besides the arc's own;
+// - lanes are matched to in-degree (lane_schedule): a state of n arcs gets
+//   a group of g lanes (g a power of two, n / g <= the per-lane cap), a
+//   hub of more than 32 cap arcs a warp per chunk; groups of one width fill
+//   a warp slot, and every warp serves its slots in turn.  Each lane takes
+//   every g-th arc with a strict > (the lowest d wins within a lane), the
+//   group merges (value, d) by xor shuffles under "greater, else lower d",
+//   and a hub's chunks meet in shared memory after a second barrier (only
+//   in tables with hubs);
+// - route "registers": where the schedule has no more slots than a block
+//   has warps, each lane loads its arcs once into registers (as byte
+//   offsets into alpha and the emission row, and the weight) and a frame
+//   reads only alpha and the emission row from shared memory; "shared":
+//   the arcs and schedule are staged in shared memory; "global": read
+//   from global memory (L1/L2) when they do not fit;
+// - the emission rows are in shared memory before their frame: a
+//   sample's rows all copied (cp.async) before the first frame where they
+//   fit beside the rest (rows == T), else a ring of kRing rows filled by
+//   cp.async, row t + kRing - 1 during frame t; no frame waits on a global
+//   load;
+// - alpha is double-buffered, so a frame ends in its one barrier (after
+//   its row's copy has landed), and a second one only where hubs merge;
+// - a state of no arcs takes no lane (its value is NEG, its slot DEAD in
+//   every frame): the block's last threads write it, beside the row copy.
+// The backtrace stages the sample's slots and bucket tables in shared
+// memory (from global memory when they do not fit) and walks with one
+// thread.
 
+#include <climits>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -92,89 +120,238 @@ __global__ void dense_backtrace_kernel(const int* __restrict__ bp,
   }
 }
 
-__global__ void __launch_bounds__(1024)
-viterbi_scan_fwd_kernel(const float* __restrict__ em,
-                        const int* __restrict__ src_b,
-                        const int* __restrict__ lab_b,
-                        const float* __restrict__ w_b,
-                        const float* __restrict__ start,
-                        const int* __restrict__ lens,
-                        int* __restrict__ slots,
-                        float* __restrict__ final_alpha, int T, int C, int S,
-                        int D, int P, int staged) {
-  extern __shared__ float fsmem[];
-  float* alpha = fsmem;
-  float* nxt = fsmem + S;
-  float* em_s = fsmem + 2 * S;
-  const long DS = static_cast<long>(D) * S;
-  const int* SRC = src_b;
-  const int* LAB = lab_b;
-  const float* W = w_b;
-  if (staged) {
-    int* src_s = reinterpret_cast<int*>(em_s + C);
-    int* lab_s = src_s + DS;
-    float* w_s = reinterpret_cast<float*>(lab_s + DS);
-    for (long i = threadIdx.x; i < DS; i += blockDim.x) {
-      src_s[i] = src_b[i];
-      lab_s[i] = lab_b[i];
-      w_s[i] = w_b[i];
-    }
-    SRC = src_s;
-    LAB = lab_s;
-    W = w_s;
-  }
-  const int b = blockIdx.x;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) alpha[s] = start[s];
-  const int len = lens[b];
-  const int t_live = len < 0 ? 0 : (len < T ? len : T);
-  const int groups = blockDim.x / P;
-  const int lane_in_group = threadIdx.x & (P - 1);
+// The lane schedule (ops/viterbi_scan_pallas.py lane_schedule): a header,
+// then 3 words a slot (g, first task, tasks), 4 a task (key, position,
+// arcs, first slot d), 3 a hub (state, first chunk, chunks), 1 a state of
+// no arcs.  A task's key is its state, or -1 - p for a hub chunk whose
+// (value, d) goes to part p.
+// A lane holds at most kLaneArcs arcs and runs that many rounds; a block
+// has at most kMaxWarps warps.  Must match the Python side.
+constexpr int kLaneArcs = 12;
+constexpr int kRing = 8;
+constexpr int kMaxWarps = 24;
+constexpr int kNoTask = INT_MIN;
+enum Head {
+  kSlots, kTasks, kHubs, kChunks, kSlotOff, kTaskOff, kHubOff, kCap, kEmpty, kEmptyOff
+};
+enum Route { kRegisters, kShared, kGlobal };
 
+// What one lane serves in a slot: nl arcs at positions pos, pos + g, ...,
+// the first of slot d.
+struct Lane {
+  int key, pos, nl, d, g;
+};
+
+__device__ __forceinline__ Lane lane_task(const int* sched, int q, int lane, int pad) {
+  const int* s = sched + sched[kSlotOff] + 3 * q;
+  const int g = s[0], i = lane / g, sub = lane & (g - 1);
+  Lane ln{kNoTask, pad, 0, 0, g};
+  if (i < s[2]) {
+    const int* t = sched + sched[kTaskOff] + 4 * (s[1] + i);
+    ln.key = t[0];
+    ln.nl = t[2] > sub ? (t[2] - sub + g - 1) / g : 0;
+    ln.pos = ln.nl > 0 ? t[1] + sub : pad;
+    ln.d = t[3] + sub;
+  }
+  return ln;
+}
+
+// The lane's arcs, one a round: each packed (src | label << 16, weight)
+// and unpacked into byte offsets into alpha and into an emission row (so a
+// relaxation adds no address arithmetic).  A round past the lane's arcs
+// reads a real position (or the pad arc) at weight -inf, so it never wins
+// and no round needs a branch.
+__device__ __forceinline__ void load_arcs(const int2* arcs, const Lane& ln, unsigned* so,
+                                          unsigned* lo, float* wv) {
+#pragma unroll
+  for (int j = 0; j < kLaneArcs; ++j) {
+    const int2 a = arcs[j < ln.nl ? ln.pos + j * ln.g : ln.pos];
+    so[j] = (static_cast<unsigned>(a.x) & 0xffffu) * sizeof(float);
+    lo[j] = (static_cast<unsigned>(a.x) >> 16) * sizeof(float);
+    wv[j] = j < ln.nl ? __int_as_float(a.y) : -INFINITY;
+  }
+}
+
+// The float at byte offset `off` of `base` (shared memory)
+__device__ __forceinline__ float at(const float* base, unsigned off) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(base) + off);
+}
+
+// (v, d) merged into (best, bd): greater value, else lower slot
+__device__ __forceinline__ void max_merge(float& best, int& bd, float v, int d) {
+  if (v > best || (v == best && d < bd)) {
+    best = v;
+    bd = d;
+  }
+}
+
+// The best (value, slot) of the lane's group: each lane's strict > over
+// its increasing slots, then xor shuffles within the group (g is the same
+// across the warp's slot).  The sum is formed in the plain version's order.
+__device__ __forceinline__ void relax(const Lane& ln, const unsigned* so, const unsigned* lo,
+                                      const float* wv, const float* prev, const float* em_row,
+                                      float& best, int& bd) {
+  best = -INFINITY;
+  int bj = kLaneArcs;
+#pragma unroll
+  for (int j = 0; j < kLaneArcs; ++j) {
+    const float c = (at(prev, so[j]) + wv[j]) + at(em_row, lo[j]);
+    if (c > best) {
+      best = c;
+      bj = j;
+    }
+  }
+  bd = bj < kLaneArcs ? ln.d + bj * ln.g : INT_MAX;
+  for (int off = ln.g >> 1; off > 0; off >>= 1)
+    max_merge(best, bd, __shfl_xor_sync(kFull, best, off), __shfl_xor_sync(kFull, bd, off));
+}
+
+// Start copying one emission row into the ring (or nothing); one commit
+// group either way, so that the waits count rows.  The block's last
+// threads copy (as they write the states of no arcs): the schedule gives
+// its last warps the least work.
+__device__ __forceinline__ void fetch_row(float* ring, const float* em_b, int r, int t_live,
+                                          int C) {
+  if (r < t_live) {
+    float* dst = ring + (r % kRing) * C;
+    const float* src = em_b + static_cast<long>(r) * C;
+    for (int c = blockDim.x - 1 - threadIdx.x; c < C; c += blockDim.x)
+      __pipeline_memcpy_async(dst + c, src + c, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// Every row but the kRing - 2 latest fetched has landed (this thread's).
+__device__ __forceinline__ void wait_rows() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 2) : "memory");
+}
+
+template <int kRoute>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const int* sched,
+                        const float* __restrict__ start, const int* __restrict__ lens,
+                        int* __restrict__ slots, float* __restrict__ final_alpha, int T,
+                        int C, int S, int A, int sched_words, int chunks, int rows) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* p = fsmem;
+  if (kRoute == kShared) {
+    int2* arcs_s = reinterpret_cast<int2*>(p);
+    for (int i = threadIdx.x; i <= A; i += blockDim.x) arcs_s[i] = arcs[i];
+    int* sched_s = reinterpret_cast<int*>(p + 2L * (A + 1));
+    for (int i = threadIdx.x; i < sched_words; i += blockDim.x) sched_s[i] = sched[i];
+    arcs = arcs_s;
+    sched = sched_s;
+    p += 2L * (A + 1) + sched_words;
+  }
+  float* al0 = p;  // alpha by frame parity: frame t reads al0 (t even) or al1
+  float* al1 = al0 + S;
+  float* ring = al1 + S;
+  float* part_v = ring + static_cast<long>(rows) * C;
+  int* part_d = reinterpret_cast<int*>(part_v + chunks);
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int t_live = min(max(lens[b], 0), T);
+  const float* em_b = em + static_cast<long>(b) * T * C;
+  // the emission rows: all of them (one copy before the frames) where
+  // rows == T, else a ring of kRing filled kRing - 1 frames ahead
+  const bool in_ring = rows < T;
+  if (in_ring) {
+    for (int r = 0; r < kRing - 1; ++r) fetch_row(ring, em_b, r, t_live, C);
+  } else {
+    for (long i = threadIdx.x; i < static_cast<long>(t_live) * C; i += blockDim.x)
+      __pipeline_memcpy_async(ring + i, em_b + i, sizeof(float));
+    __pipeline_commit();
+  }
+  for (int s = threadIdx.x; s < S; s += blockDim.x) al0[s] = start[s];
+  __syncthreads();  // the staged tables
+  const int nslots = sched[kSlots];
+  const int nhubs = sched[kHubs];
+  const int nempty = sched[kEmpty];
+  const int* hubs = sched + sched[kHubOff];
+  const int* empty = sched + sched[kEmptyOff];
+
+  Lane ln{kNoTask, A, 0, 0, 1};
+  unsigned so[kLaneArcs], lo[kLaneArcs];
+  float wv[kLaneArcs];
+  if (kRoute == kRegisters && warp < nslots) {
+    ln = lane_task(sched, warp, lane, A);
+    load_arcs(arcs, ln, so, lo, wv);
+  }
+  if (in_ring)
+    wait_rows();
+  else
+    __pipeline_wait_prior(0);
+  __syncthreads();  // row 0 (every row)
+
+  int* slots_b = slots + static_cast<long>(b) * T * S;
   for (int t = 0; t < t_live; ++t) {
-    const float* em_t = em + (static_cast<long>(b) * T + t) * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) em_s[c] = em_t[c];
-    __syncthreads();
-    int* slot_t = slots + (static_cast<long>(b) * T + t) * S;
-    for (int base = 0; base < S; base += groups) {
-      const int s = base + threadIdx.x / P;
-      float best = -INFINITY;
-      int best_d = 0x7fffffff;
-      if (s < S) {
-        for (int d = lane_in_group; d < D; d += P) {
-          const long k = static_cast<long>(d) * S + s;
-          const float c = (alpha[SRC[k]] + W[k]) + em_s[LAB[k]];
-          if (c > best) {
-            best = c;
-            best_d = d;
-          }
-        }
+    const float* prev = (t & 1) ? al1 : al0;
+    float* next = (t & 1) ? al0 : al1;
+    const float* em_row = ring + (in_ring ? t % kRing : t) * C;
+    int* slot_t = slots_b + static_cast<long>(t) * S;
+    auto emit = [&](int s, float v, int d) {
+      v = fmaxf(v, kNeg);
+      next[s] = v;
+      slot_t[s] = v > kNeg ? d : kDead;
+    };
+    // the ring slot of row t - 1, read in frame t - 1 (before its barrier)
+    if (in_ring) fetch_row(ring, em_b, t + kRing - 1, t_live, C);
+    for (int i = blockDim.x - 1 - threadIdx.x; i < nempty; i += blockDim.x)
+      emit(empty[i], -INFINITY, INT_MAX);
+    for (int q = warp; q < nslots; q += nwarps) {
+      if (kRoute != kRegisters) {
+        ln = lane_task(sched, q, lane, A);
+        load_arcs(arcs, ln, so, lo, wv);
       }
-      // merge the P lanes of a state: the larger value, then the lower slot
-      for (int off = P >> 1; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(kFull, best, off);
-        const int od = __shfl_xor_sync(kFull, best_d, off);
-        if (ob > best || (ob == best && od < best_d)) {
-          best = ob;
-          best_d = od;
+      float best;
+      int bd;
+      relax(ln, so, lo, wv, prev, em_row, best, bd);
+      if (ln.key != kNoTask && (lane & (ln.g - 1)) == 0) {
+        if (ln.key >= 0) {
+          emit(ln.key, best, bd);
+        } else {
+          part_v[-1 - ln.key] = best;
+          part_d[-1 - ln.key] = bd;
         }
-      }
-      if (s < S && lane_in_group == 0) {
-        best = fmaxf(best, kNeg);
-        nxt[s] = best;
-        slot_t[s] = best > kNeg ? best_d : kDead;
       }
     }
-    __syncthreads();
-    float* tmp = alpha;
-    alpha = nxt;
-    nxt = tmp;
+    if (nhubs > 0) {
+      __syncthreads();  // the hub chunks' parts
+      for (int i = threadIdx.x; i < nhubs; i += blockDim.x) {
+        const int* h = hubs + 3 * i;
+        float best = -INFINITY;
+        int bd = INT_MAX;
+        for (int c = h[1]; c < h[1] + h[2]; ++c) max_merge(best, bd, part_v[c], part_d[c]);
+        emit(h[0], best, bd);
+      }
+    }
+    if (in_ring) wait_rows();
+    __syncthreads();  // next complete, row t + 1 landed
   }
+  __pipeline_wait_prior(0);
   for (int t = t_live; t < T; ++t) {
-    int* slot_t = slots + (static_cast<long>(b) * T + t) * S;
+    int* slot_t = slots_b + static_cast<long>(t) * S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) slot_t[s] = kDead;
   }
+  const float* fin = (t_live & 1) ? al1 : al0;
   for (int s = threadIdx.x; s < S; s += blockDim.x)
-    final_alpha[static_cast<long>(b) * S + s] = alpha[s];
+    final_alpha[static_cast<long>(b) * S + s] = fin[s];
+}
+
+// One frame of the scan's chain without arcs: a dependent shared-memory
+// load and a block barrier, `frames` times, in each of B blocks.
+__global__ void viterbi_chain_probe_kernel(int* __restrict__ out, int frames) {
+  __shared__ int link[64];
+  for (int k = threadIdx.x; k < 64; k += blockDim.x) link[k] = (7 * k + 1) & 63;
+  __syncthreads();
+  int i = threadIdx.x & 63;
+  for (int f = 0; f < frames; ++f) {
+    i = link[i];
+    __syncthreads();
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = i;
 }
 
 __global__ void viterbi_backtrace_kernel(const int* __restrict__ slots,
@@ -273,29 +450,40 @@ int dense_backtrace(const int* bp, const int* last, int* path, int B, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
-// em [B, T, C] f32, the plan's src/label [D, S] i32 and weight [D, S] f32,
-// start [S] f32, lens [B] i32 -> slots [B, T, S] i32 and final alpha
-// [B, S] f32.  Labels must lie in [0, C).  Shared memory: (2 S + C) floats,
-// plus 12 D S bytes for the tables when that fits in max_smem.
-int viterbi_scan_fwd(const float* em, const int* src_b, const int* lab_b,
-                     const float* w_b, const float* start, const int* lens,
-                     int* slots, float* final_alpha, int B, int T, int C,
-                     int S, int D, int max_smem, void* stream) {
+// em [B, T, C] f32, the plan's arcs by destination [A + 1] (int2: src |
+// label << 16 and the weight's bits; the last a pad arc of weight -inf)
+// and its lane schedule (sched_words int32), start [S] f32, lens [B] i32
+// -> slots [B, T, S] i32 and final alpha [B, S] f32.  threads: 32 a slot
+// of the schedule, at most 32 kMaxWarps (route kRegisters: exactly 32 a
+// slot); route: kRegisters, kShared or kGlobal; rows: T (every emission
+// row staged) or kRing (a ring).  Shared memory: (2 S + rows C + 2 chunks)
+// words, plus 2 (A + 1) + sched_words for route kShared.
+int viterbi_scan_fwd(const float* em, const int* arcs, const int* sched,
+                     const float* start, const int* lens, int* slots,
+                     float* final_alpha, int B, int T, int C, int S, int A,
+                     int sched_words, int chunks, int threads, int route, int rows,
+                     void* stream) {
   if (B == 0 || S == 0) return 0;
-  int P = 1;
-  while (P < 32 && 2 * P <= D && 2 * P * S <= 1024) P *= 2;
-  int threads = ((S * P + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t vec = (2 * static_cast<size_t>(S) + C) * sizeof(float);
-  const size_t tab = 12 * static_cast<size_t>(D) * S;
-  const int staged = vec + tab <= static_cast<size_t>(max_smem);
-  const size_t smem = vec + (staged ? tab : 0);
-  cudaError_t err = allow_smem(viterbi_scan_fwd_kernel, smem);
+  if (rows != T && rows != kRing) return static_cast<int>(cudaErrorInvalidValue);
+  long words = 2L * S + static_cast<long>(rows) * C + 2L * chunks;
+  if (route == kShared) words += 2L * (A + 1) + sched_words;
+  const size_t smem = static_cast<size_t>(words) * sizeof(float);
+  auto kernel = route == kRegisters ? viterbi_scan_fwd_kernel<kRegisters>
+                : route == kShared  ? viterbi_scan_fwd_kernel<kShared>
+                                    : viterbi_scan_fwd_kernel<kGlobal>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  viterbi_scan_fwd_kernel<<<B, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      em, src_b, lab_b, w_b, start, lens, slots, final_alpha, T, C, S, D, P,
-      staged);
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      em, reinterpret_cast<const int2*>(arcs), sched, start, lens, slots,
+      final_alpha, T, C, S, A, sched_words, chunks, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B blocks of `threads` threads run `frames` frames of the scan's chain
+// without arcs (viterbi_chain_probe_kernel); out [B threads] i32.
+int viterbi_chain_probe(int* out, int B, int threads, int frames, void* stream) {
+  viterbi_chain_probe_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, frames);
   return static_cast<int>(cudaGetLastError());
 }
 

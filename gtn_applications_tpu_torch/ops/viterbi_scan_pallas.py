@@ -14,11 +14,23 @@ destination state ``s``, filled in increasing arc id, empty slots at
 weight NEG) without the TPU's 128-lane padding of S; its backpointers are
 int32 slots ``[B, T, S]`` with ``DEAD`` = 2^30 for frames past the input
 length and for states that no live arc reaches.
+
+The scan's kernel reads the plan as a list by destination
+(``pack_buckets``): each state's slots up to its last real one, in
+increasing d, packed in 8 bytes (source | label << 16, weight), so a
+position less its row's start is the slot; trailing slots of weight <= NEG
+are not arcs (they contribute at most NEG, which never makes a slot).
+Beside it a lane schedule (``lane_schedule``) gives each state a group of
+lanes by its in-degree.  Both are built on the host once per plan
+(``Plan.packed``); the [D, S] buckets stay for the plain versions and the
+backtrace.  The kernel runs one block a sample, its arcs held in
+registers, shared or global memory (``scan_route``), the sample's
+emission rows all staged or passing through a ring (``scan_rows``).
 """
 
 import collections
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -103,6 +115,7 @@ class Plan:
     accept: torch.Tensor
     table_ref: object
     on_device: Dict = field(default_factory=dict)
+    packed_on: Dict = field(default_factory=dict)
 
     @property
     def D(self):
@@ -121,6 +134,18 @@ class Plan:
                 t.to(device) for t in (self.src_bucket, self.label_bucket,
                                        self.w_bucket, self.start, self.accept))
         return self.on_device[key]
+
+    def packed(self, device, cap=None):
+        """The scan kernel's ``Packed`` list and lane schedule on
+        ``device``, built on the host once per plan (and ``cap``)."""
+        key = (str(device), cap)
+        if key not in self.packed_on:
+            host = self.packed_on.get(("cpu", cap))
+            if host is None:
+                host = pack_buckets(self.src_bucket, self.label_bucket,
+                                    self.w_bucket, cap)
+            self.packed_on[key] = host.to(device)
+        return self.packed_on[key]
 
 
 _PLAN_CACHE = collections.OrderedDict()
@@ -187,6 +212,185 @@ def build_plan(table):
     return plan
 
 
+# ---------------------------------------------------------------------
+# The scan kernel's list by destination and lane schedule
+# ---------------------------------------------------------------------
+
+# Must match csrc/viterbi.cu: a lane holds at most LANE_ARCS arcs and runs
+# that many rounds, the emission rows pass through a ring of RING rows
+# where a sample's rows do not all fit, a block has at most MAX_WARPS
+# warps; HEAD words start the schedule.
+LANE_ARCS = 12
+RING = 8
+MAX_WARPS = 24
+WARP = 32
+HEAD = 10
+ROUTES = ("registers", "shared", "global")
+
+
+class Packed(NamedTuple):
+    """A plan's arcs by destination and lane schedule, as the scan kernel
+    reads them.  ``arcs [A + 1, 2]`` int32: (source | label << 16, the
+    weight's float32 bits), state by state, each row's slots in increasing
+    d; the last is a pad arc (0, -inf).  ``sched`` int32: ``lane_schedule``'s
+    words.  ``S``: the states; ``labels``: 1 + the largest label (the
+    emission rows must be that wide); ``slots``, ``hubs``, ``chunks``: the
+    schedule's counts; ``cap``: the most arcs a lane holds."""
+
+    arcs: torch.Tensor
+    sched: torch.Tensor
+    S: int
+    labels: int
+    A: int
+    slots: int
+    hubs: int
+    chunks: int
+    cap: int
+
+    def to(self, device):
+        return self._replace(arcs=self.arcs.to(device), sched=self.sched.to(device))
+
+
+def _widths(n, cap):
+    """(lanes of each row's group, hub rows): the smallest power of two g
+    with ceil(n / g) <= cap; a row of more than WARP cap arcs is a hub, a
+    warp per chunk of WARP cap arcs."""
+    need = np.maximum(1, -(-n // cap))
+    g = np.ones(n.shape, np.int64)
+    while (g < np.minimum(need, WARP)).any():
+        g = np.where(g < np.minimum(need, WARP), 2 * g, g)
+    return g, need > WARP
+
+
+def lane_schedule(n, cap):
+    """The scan kernel's lane schedule for rows (states) of ``n [S]`` arcs,
+    laid out one after another in the list by destination, each lane
+    holding at most ``cap`` arcs.  Row s gets a group of g lanes
+    (``_widths``); lane sub of the group takes the row's arcs sub, sub + g,
+    ...  A hub row is cut into chunks of WARP cap arcs, a warp each, whose
+    (value, slot) pairs go to parts merged after a barrier.  A row of no
+    arcs takes no lane: it is NEG with slot DEAD in every frame.  Tasks
+    (rows and chunks) come widest first, then longest first; a slot holds
+    WARP / g tasks of one width g and runs on one warp.
+
+    Returns int32 words: HEAD words (slots, tasks, hubs, chunks, slot
+    offset, task offset, hub offset, cap, empty rows, their offset), then
+    3 a slot (g, first task, tasks), 4 a task (key: the state, or -1 - p
+    for a hub chunk into part p; position of its first arc; arcs; the slot
+    d of its first arc), 3 a hub (state, first part, parts), 1 an empty
+    row (its state)."""
+    if not 1 <= cap <= LANE_ARCS:
+        raise ValueError(f"lane_schedule: cap {cap} is not in [1, {LANE_ARCS}]")
+    n = np.asarray(n, np.int64)
+    ptr = np.cumsum(n) - n
+    g, hub = _widths(n, cap)
+    tasks = [(int(g[s]), s, int(ptr[s]), int(n[s]), 0)
+             for s in np.flatnonzero(~hub & (n > 0))]
+    hubs, span = [], WARP * cap
+    for s in np.flatnonzero(hub):
+        chunks = -(-int(n[s]) // span)
+        p0 = len(hubs) and hubs[-1][1] + hubs[-1][2]
+        hubs.append((int(s), p0, chunks))
+        tasks += [(WARP, -1 - (p0 + i), int(ptr[s]) + i * span,
+                   min(span, int(n[s]) - i * span), i * span) for i in range(chunks)]
+    tasks.sort(key=lambda x: (-x[0], -x[3]))  # stable: rows, then chunks, in order
+    slots, i = [], 0
+    while i < len(tasks):
+        w = tasks[i][0]
+        j = i
+        while j < len(tasks) and j - i < WARP // w and tasks[j][0] == w:
+            j += 1
+        slots.append((w, i, j - i))
+        i = j
+    task_off = HEAD + 3 * len(slots)
+    hub_off = task_off + 4 * len(tasks)
+    chunks = hubs[-1][1] + hubs[-1][2] if hubs else 0
+    empty = np.flatnonzero(n == 0)
+    words = [len(slots), len(tasks), len(hubs), chunks, HEAD, task_off, hub_off, cap,
+             empty.size, hub_off + 3 * len(hubs)]
+    for x in slots:
+        words += x
+    for x in tasks:
+        words += x[1:]
+    for x in hubs:
+        words += x
+    words += empty.tolist()
+    return np.asarray(words, np.int32)
+
+
+def pack_buckets(src_bucket, label_bucket, w_bucket, cap=None):
+    """The ``Packed`` list by destination and lane schedule of [D, S]
+    buckets (CPU tensors or any, copied to the host): row s holds slots
+    d < n(s), n(s) = 1 + its last slot of weight > NEG.  ``cap``: the most
+    arcs a lane holds (LANE_ARCS when None; a lane runs LANE_ARCS rounds
+    all the same, so a smaller cap only widens the groups).  Raises for S
+    or a label of 2^16 or more, and for a source outside [0, S) or a
+    negative label."""
+    src, lab, w = (x.detach().cpu().numpy() for x in (src_bucket, label_bucket, w_bucket))
+    D, S = src.shape
+    if S >= 2**16:
+        raise ValueError(f"viterbi_scan: {S} states; the packed arcs take fewer than 2^16")
+    real = w.astype(np.float32) > np.float32(NEG)
+    n = np.where(real.any(0), D - np.argmax(real[::-1], axis=0), 0)
+    rows = (np.arange(D)[:, None] < n[None, :]).T  # [S, D]: by state, then slot
+    src, lab, w = src.T[rows], lab.T[rows], w.T[rows].astype(np.float32)
+    if src.size and (src.min() < 0 or src.max() >= S or lab.min() < 0):
+        raise ValueError("viterbi_scan: an arc's source lies outside [0, S) or its "
+                         "label is negative")
+    if src.size and lab.max() >= 2**16:
+        raise ValueError("viterbi_scan: a label of 2^16 or more does not pack")
+    A = src.size
+    arcs = np.empty((A + 1, 2), np.int32)
+    arcs[:A, 0] = (src.astype(np.uint32) | lab.astype(np.uint32) << 16).view(np.int32)
+    arcs[:A, 1] = w.view(np.int32)
+    arcs[A] = (0, np.float32(-np.inf).view(np.int32))
+    cap = LANE_ARCS if cap is None else cap
+    words = lane_schedule(n, cap)
+    return Packed(torch.from_numpy(arcs), torch.from_numpy(words), S,
+                  int(lab.max()) + 1 if A else 0, A, int(words[0]), int(words[2]),
+                  int(words[3]), cap)
+
+
+def smem_words(packed, S, C, route, rows=RING):
+    """Shared memory of a scan block, in 4-byte words: alpha by parity,
+    ``rows`` emission rows and the hub parts; route "shared" adds the arcs
+    and the schedule."""
+    words = 2 * S + rows * C + 2 * packed.chunks
+    if route == "shared":
+        words += 2 * (packed.A + 1) + packed.sched.numel()
+    return words
+
+
+def route_fits(packed, S, C, route):
+    """Whether ``route`` can run this plan: "registers" needs one slot a
+    warp of a block, "shared" the arcs and schedule in shared memory, any
+    route the state and a ring of RING emission rows in shared memory."""
+    if route not in ROUTES:
+        raise ValueError(f"viterbi_scan_fwd: route {route!r} is not one of {ROUTES}")
+    if route == "registers" and packed.slots > MAX_WARPS:
+        return False
+    return 4 * smem_words(packed, S, C, route) <= _build.MAX_SMEM
+
+
+def scan_route(packed, S, C):
+    """The scan's route: "registers" where the schedule fits one slot a
+    warp, else "shared" where the arcs fit in shared memory, else
+    "global".  Raises where even the state does not fit."""
+    for route in ROUTES:
+        if route_fits(packed, S, C, route):
+            return route
+    raise ValueError(f"viterbi_scan_fwd: the state of S={S} states and C={C} channels "
+                     "does not fit in shared memory")
+
+
+def scan_rows(packed, S, T, C, route):
+    """The emission rows a block keeps: all T where they fit beside the
+    route's state and tables (staged at the start: no copy during the
+    frames), else a ring of RING filled ahead."""
+    fits = 4 * smem_words(packed, S, C, route, rows=T) <= _build.MAX_SMEM
+    return T if fits else RING
+
+
 def viterbi_scan_fwd_plain(em, src_bucket, label_bucket, w_bucket, start,
                            lengths):
     """(slots [B, T, S] int32, final alpha [B, S]) of the tropical scan:
@@ -240,10 +444,14 @@ def _plan_check(name, src_bucket, label_bucket, w_bucket=None, start=None):
 
 
 def viterbi_scan_fwd_cuda(em, src_bucket, label_bucket, w_bucket, start,
-                          lengths):
+                          lengths, packed=None, route=None):
     """Launch ``viterbi_scan_fwd``: em [B, T, C] float32, the plan's
     [D, S] buckets and start [S], lengths [B] int32 -> (slots [B, T, S]
-    int32, final alpha [B, S]).  Every label must lie in [0, C)."""
+    int32, final alpha [B, S]).  Every label must lie in [0, C).
+    ``packed``: the buckets' ``Packed`` on em's device (``Plan.packed``);
+    built from them here (a copy to the host) when None.  ``route``: one of
+    ``ROUTES``, default ``scan_route``'s; a route that does not fit
+    raises."""
     _build.require_cuda("viterbi_scan_fwd", em, src_bucket, label_bucket,
                         w_bucket, start, lengths)
     B, T, C = em.shape
@@ -251,19 +459,49 @@ def viterbi_scan_fwd_cuda(em, src_bucket, label_bucket, w_bucket, start,
     D, S = _plan_check("viterbi_scan_fwd", src_bucket, label_bucket, w_bucket,
                        start)
     _build.require("viterbi_scan_fwd lengths", lengths, (B,), torch.int32)
+    if C >= 2**16:
+        raise ValueError(f"viterbi_scan_fwd: {C} channels; the packed arcs take "
+                         "fewer than 2^16")
+    if packed is None:
+        packed = pack_buckets(src_bucket, label_bucket, w_bucket).to(em.device)
+    _build.require_cuda("viterbi_scan_fwd", em, packed.arcs, packed.sched)
+    if packed.S != S or packed.labels > C:
+        raise ValueError(f"viterbi_scan_fwd: the packed plan (S={packed.S}, labels up to "
+                         f"{packed.labels - 1}) does not fit S={S}, C={C}")
+    if route is None:
+        route = scan_route(packed, S, C)
+    elif not route_fits(packed, S, C, route):
+        raise ValueError(f"viterbi_scan_fwd: route {route} does not fit this plan "
+                         f"({packed.slots} slots, {packed.A} arcs, S={S}, C={C})")
+    threads = WARP * max(1, min(packed.slots, MAX_WARPS))
+    rows = scan_rows(packed, S, T, C, route)
     slots = torch.empty((B, T, S), dtype=torch.int32, device=em.device)
     final = torch.empty((B, S), dtype=torch.float32, device=em.device)
     lib = _build.load_library("viterbi")
     with torch.cuda.device(em.device):
         err = lib.viterbi_scan_fwd(
-            em.data_ptr(), src_bucket.data_ptr(), label_bucket.data_ptr(),
-            w_bucket.data_ptr(), start.data_ptr(), lengths.data_ptr(),
-            slots.data_ptr(), final.data_ptr(), B, T, C, S, D,
-            _build.MAX_SMEM, _build.stream_handle(em),
+            em.data_ptr(), packed.arcs.data_ptr(), packed.sched.data_ptr(),
+            start.data_ptr(), lengths.data_ptr(), slots.data_ptr(),
+            final.data_ptr(), B, T, C, S, packed.A, packed.sched.numel(),
+            packed.chunks, threads, ROUTES.index(route), rows, _build.stream_handle(em),
         )
-    _build.check(lib, err, "viterbi_scan_fwd")
+    _build.check(lib, err, f"viterbi_scan_fwd (route {route})")
     _build.LAUNCHES["viterbi_scan_fwd"] += 1
     return slots, final
+
+
+def chain_probe(B, threads, frames, device):
+    """Launch ``viterbi_chain_probe``: B blocks of ``threads`` threads run
+    ``frames`` frames of the scan's chain without arcs (a dependent
+    shared-memory load and a block barrier each).  Not a kernel of any
+    path: it times one frame's floor for the scan's chain bound."""
+    out = torch.empty((B * threads,), dtype=torch.int32, device=device)
+    lib = _build.load_library("viterbi")
+    with torch.cuda.device(device):
+        err = lib.viterbi_chain_probe(out.data_ptr(), B, threads, frames,
+                                      _build.stream_handle(out))
+    _build.check(lib, err, "viterbi_chain_probe")
+    return out
 
 
 def viterbi_backtrace_cuda(slots, final_alpha, accept, src_bucket,
@@ -308,7 +546,8 @@ def viterbi_scan(em, plan: Plan, input_lengths=None):
     if _build.on_cuda(em):
         if int(plan.label_bucket.max()) >= C:
             raise ValueError(f"viterbi_scan: a label exceeds the {C} channels")
-        slots, final = viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, lengths)
+        slots, final = viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, lengths,
+                                             packed=plan.packed(em.device))
         return viterbi_backtrace_cuda(slots, final, accept, src_b, lab_b)
     slots, final = viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, lengths)
     return viterbi_backtrace_plain(slots, final, accept, src_b, lab_b)

@@ -1,8 +1,10 @@
 """Time the whole sparse scan pair (or, with ``--decode``, the Viterbi
-decode of the 4-gram path) of this checkout against another's.
+decode of the 4-gram path; with ``--viterbi``, the whole-scan Viterbi) of
+this checkout against another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
-        --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] [--out FILE]
+        --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] \
+        [--viterbi [--caps 4 8 16]] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit unpacked with ``git archive`` into an ignored directory):
@@ -32,6 +34,22 @@ and the CUDA-event median of the decode's kernel: ``seg_max_scan`` (one
 launch a batch, where the checkout has it) or one ``seg_max`` step (the
 parent's per-frame kernel; its decode launches it once a frame).  The
 two decodes' labels must be equal and their scores within 1e-6.
+``--viterbi`` times ``viterbi_scan_fwd`` (the whole-scan Viterbi's
+forward kernel) instead, at two tables: the decode headline
+(``chip_smoke.viterbi_headline_inputs``: B=32, T=250, C=80, S=82, 6,480
+arcs) and the backoff trigram path's decode table (its criterion's loaded
+weights; B=32, the path's first train batch's frames, random N(0, 1)
+emissions, full lengths), baseline, this, this, baseline (slots must be
+equal and final alphas within 1e-6); beside them this checkout's kernel
+by each route that fits and at each per-lane cap of ``--caps``, the
+bound (``chip_smoke.viterbi_scan_bound``), the chain bound (the longest
+sample's frames x ``viterbi_chain_probe``'s frame at the launch's block
+size) and ``seg_max_scan`` on the same table and inputs as a yardstick.
+Then the host-clock median of 5 decodes (``ops.sparse.viterbi_batch``,
+scan and backtrace) of the trigram path's batch, baseline, this, this,
+baseline: on one table (its plan cached), and on a table re-weighted
+before every decode, as each train step's decode meets it (plan and
+packing built anew).
 Run from the root of this checkout on a machine with one GPU.
 """
 
@@ -152,6 +170,110 @@ def decode_ab(torch, cs, root, dev):
     return out
 
 
+def trigram_decode_inputs(torch, cs, dev, B=32, seed=18):
+    """(criterion, em, lens) of the backoff trigram path's decode: its
+    criterion with the loaded LM's weights, random N(0, 1) emissions over
+    its first train batch's frames, full lengths."""
+    import numpy as np
+
+    from gtn_applications_tpu_torch import datasets, utils
+
+    config = cs.main_path_config("transducer_backoff")
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    loader = utils.data_loader(data.Dataset(None, pre, split="train", augment=True), config,
+                               seed=config["seed"])
+    inputs = next(iter(loader))[0]
+    stride = int(np.prod([g["stride"][1] for g in config["model"]["tds_groups"]]))
+    frames = -(-inputs.shape[-1] // stride)
+    crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
+    rng = np.random.RandomState(seed)
+    em = torch.from_numpy(rng.randn(B, frames, crit.num_channels).astype(np.float32)).to(dev)
+    return crit, em, torch.full((B,), frames, dtype=torch.int32, device=dev)
+
+
+def viterbi_ab(torch, cs, root, dev, caps):
+    """The ``--viterbi`` comparison (see the module docstring)."""
+    import numpy as np
+
+    from gtn_applications_tpu_torch.ops import sparse
+    from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
+    from gtn_applications_tpu_torch.wfst import compile as wcompile
+
+    base_vsp = load_baseline(root, "ops.viterbi_scan_pallas")
+    base_sparse = load_baseline(root, "ops.sparse")
+    head = cs.viterbi_headline_inputs(torch, dev, with_table=True)
+    crit, em3, lens3 = trigram_decode_inputs(torch, cs, dev)
+    table3 = crit._decode_table(crit.params)
+    out = {}
+    for name, em, lens, table in (("headline", head[0], head[6], head[7]),
+                                  ("trigram", em3, lens3, table3)):
+        B, T, C = em.shape
+        plan, plan_b = vsp.build_plan(table), base_vsp.build_plan(table)
+        src_b, lab_b, w_b, start, _ = plan.to(dev)
+        base_args = (em,) + plan_b.to(dev)[:4] + (lens,)
+        packed = plan.packed(dev)
+        run = {"base": lambda a=base_args: base_vsp.viterbi_scan_fwd_cuda(*a),
+               "new": lambda: vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, lens,
+                                                        packed=packed)}
+        (slots_b, final_b), (slots_n, final_n) = run["base"](), run["new"]()
+        if not torch.equal(slots_b, slots_n):
+            raise AssertionError(f"{name}: the two kernels' slots differ")
+        d_final = float((final_b - final_n).abs().max())
+        if not d_final <= 1e-6:
+            raise AssertionError(f"{name}: the two kernels' final alphas differ by {d_final}")
+        S = start.shape[0]
+        route = vsp.scan_route(packed, S, C)
+        threads = vsp.WARP * min(packed.slots, vsp.MAX_WARPS)
+        frame_us = cs.viterbi_chain_frame_us(torch, B, threads, dev)
+        b_ms, b_by = cs.viterbi_scan_bound(em, lens, w_b)
+        row = {"shape": list(em.shape), "S": S, "D": plan.D, "A": packed.A,
+               "DS": plan.D * S, "max_len": int(lens.max()), "route": route,
+               "cap": packed.cap, "slots": packed.slots, "threads": threads,
+               "max_abs_final_diff": d_final, "bound_ms": b_ms, "bound_by": b_by,
+               "chain_frame_us": frame_us, "chain_bound_ms": int(lens.max()) * frame_us * 1e-3,
+               "seg_max_scan_ms": cs.viterbi_yardstick_ms(torch, em, lens, table)}
+        for who in ("base", "new", "new", "base"):
+            row.setdefault(f"{who}_ms", []).append(cs.gpu_median_ms(torch, run[who]))
+        row["new_by_route_ms"] = {
+            r: cs.gpu_median_ms(torch, lambda r=r: vsp.viterbi_scan_fwd_cuda(
+                em, src_b, lab_b, w_b, start, lens, packed=packed, route=r))
+            for r in vsp.ROUTES if vsp.route_fits(packed, S, C, r)}
+        row["new_by_cap"] = {}
+        for cap in caps:
+            pc = plan.packed(dev, cap)
+            row["new_by_cap"][cap] = {
+                "route": vsp.scan_route(pc, S, C), "slots": pc.slots, "hubs": pc.hubs,
+                "ms": cs.gpu_median_ms(torch, lambda pc=pc: vsp.viterbi_scan_fwd_cuda(
+                    em, src_b, lab_b, w_b, start, lens, packed=pc))}
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+
+    # the trigram path's decode of a batch on the host clock: one table,
+    # then a table re-weighted before every decode (as in each train step)
+    rng = np.random.RandomState(19)
+    tmpl = wcompile.build_decode_template(crit.transitions)
+    w0 = crit.params["transitions"].detach().cpu().numpy()
+    decode = {"base": lambda: base_sparse.viterbi_batch(em3, table3, lens3),
+              "new": lambda: sparse.viterbi_batch(em3, table3, lens3)}
+    decode_fresh = {"base": lambda: base_sparse.viterbi_batch(em3, next(fresh), lens3),
+                    "new": lambda: sparse.viterbi_batch(em3, next(fresh), lens3)}
+    (lab_b, score_b), (lab_n, score_n) = decode["base"](), decode["new"]()
+    if not torch.equal(lab_b, lab_n):
+        raise AssertionError("trigram decode: the labels differ")
+    row = {"shape": list(em3.shape), "max_abs_score_diff": float((score_b - score_n).abs().max())}
+    for who in ("base", "new", "new", "base"):
+        row.setdefault(f"{who}_host_ms", []).append(host_median_ms(torch, decode[who], runs=5))
+    fresh = iter([wcompile.apply_decode_weights(  # 6 decodes a median, 4 medians
+        tmpl, w0 + (rng.randn(w0.size) * 0.01).astype(np.float32)) for _ in range(24)])
+    for who in ("base", "new", "new", "base"):
+        row.setdefault(f"{who}_fresh_table_host_ms", []).append(
+            host_median_ms(torch, decode_fresh[who], runs=5))
+    out["trigram_decode_batch"] = row
+    print(json.dumps({"trigram_decode_batch": row}), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, help="root of the other checkout")
@@ -161,6 +283,11 @@ def main(argv=None):
                         help="also time this checkout's pair at each closure depth")
     parser.add_argument("--decode", action="store_true",
                         help="compare the 4-gram path's Viterbi decode instead")
+    parser.add_argument("--viterbi", action="store_true",
+                        help="compare the whole-scan Viterbi kernel and decode instead")
+    parser.add_argument("--caps", type=int, nargs="*", default=[],
+                        help="with --viterbi, also time this checkout's kernel at these "
+                             "per-lane caps")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -180,6 +307,9 @@ def main(argv=None):
     if args.decode:
         result["cases"] = decode_ab(torch, cs, args.baseline, dev)
         return _report("compare_decode", result, args.out)
+    if args.viterbi:
+        result["cases"] = viterbi_ab(torch, cs, args.baseline, dev, args.caps)
+        return _report("compare_viterbi", result, args.out)
     base = load_baseline(args.baseline)
     for name, em, lens, table in cases(torch, cs, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)

@@ -188,3 +188,55 @@ def test_segmax_scan_cuda_wrapper_refuses_bad_inputs(cuda_device):
                 dict(cluster=0), dict(cluster=3), dict(cluster=16)):
         with pytest.raises(ValueError):
             segmax_pallas.seg_max_scan_cuda(**dict(args, **bad))
+
+
+@pytest.mark.cuda
+def test_viterbi_scan_routes_match_plain_and_refuse(cuda_device):
+    """The whole-scan Viterbi's forward kernel equals its plain version
+    bitwise by each route and with two arcs a lane (hub chunks), on a
+    random plan with integer weights (exact ties) and an isolated state;
+    a route that does not fit, 2^16 channels and a packed list on the
+    host raise."""
+    import numpy as np
+
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+    from gtn_applications_tpu_torch.ops.sparse import ArcTable
+
+    rng = np.random.RandomState(3)
+    S, C, B, T = 12, 5, 4, 20
+    dst = np.concatenate([np.full(90, 0), rng.randint(1, S - 1, 60)]).astype(np.int32)
+    src = rng.randint(0, S, dst.size).astype(np.int32)
+    start = np.full(S, NEG, np.float32)
+    start[:2] = 0.0
+    z = torch.zeros(0, dtype=torch.int32)
+    table = ArcTable(torch.from_numpy(src), torch.from_numpy(dst),
+                     torch.from_numpy(rng.randint(0, C, dst.size).astype(np.int32)),
+                     torch.from_numpy(rng.randint(-1, 2, dst.size).astype(np.float32)),
+                     torch.from_numpy(start), torch.zeros(S), z, z, torch.zeros(0))
+    plan = viterbi_scan_pallas.build_plan(table)
+    src_b, lab_b, w_b, st, _ = plan.to(cuda_device)
+    em = torch.from_numpy(rng.randint(-1, 2, (B, T, C)).astype(np.float32)).to(cuda_device)
+    lens = torch.tensor([T, T - 3, 1, 0], dtype=torch.int32, device=cuda_device)
+    want = viterbi_scan_pallas.viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, st, lens)
+    for cap in (None, 2):
+        packed = plan.packed(cuda_device, cap)
+        assert packed.hubs == (0 if cap is None else 1)
+        for route in viterbi_scan_pallas.ROUTES:
+            if not viterbi_scan_pallas.route_fits(packed, S, C, route):
+                with pytest.raises(ValueError, match="does not fit"):
+                    viterbi_scan_pallas.viterbi_scan_fwd_cuda(
+                        em, src_b, lab_b, w_b, st, lens, packed=packed, route=route)
+                continue
+            got = viterbi_scan_pallas.viterbi_scan_fwd_cuda(
+                em, src_b, lab_b, w_b, st, lens, packed=packed, route=route)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (cap, route)
+    with pytest.raises(ValueError):
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(
+            em, src_b, lab_b, w_b, st, lens, packed=plan.packed("cpu"))
+    with pytest.raises(ValueError, match="does not fit"):  # labels past the rows
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(
+            em[:, :, :2].contiguous(), src_b, lab_b, w_b, st, lens,
+            packed=plan.packed(cuda_device))
+    wide = torch.zeros(1, 1, 2**16, device=cuda_device)
+    with pytest.raises(ValueError, match="2\\^16"):
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(wide, src_b, lab_b, w_b, st, lens[:1])

@@ -246,7 +246,7 @@ def test_smoke_viterbi_check_holds_slots_bitwise(monkeypatch, broken):
     moved to another bucket."""
     import chip_smoke
 
-    def fwd(*args):
+    def fwd(*args, packed=None, route=None):
         slots, final = vsp.viterbi_scan_fwd_plain(*args)
         if broken:
             live = (slots < vsp.DEAD).nonzero()
@@ -263,3 +263,255 @@ def test_smoke_viterbi_check_holds_slots_bitwise(monkeypatch, broken):
     else:
         assert chip_smoke.hold_viterbi_kernels(torch, *inputs, "test") == {
             "viterbi_scan_fwd": 0.0, "viterbi_backtrace": 0.0}
+
+
+# ---------------------------------------------------------------------------
+# The scan kernel's list by destination and lane schedule, emulated
+# ---------------------------------------------------------------------------
+
+INT_MAX = 2**31 - 1
+NO_TASK = -2**31
+
+
+def _read_schedule(words):
+    """(slots, tasks, hubs, states of no arcs) of ``lane_schedule``'s
+    words."""
+    (n_slots, n_tasks, n_hubs, _, slot_off, task_off, hub_off, _, n_empty,
+     empty_off) = (int(x) for x in words[:vsp.HEAD])
+    row = lambda off, i, k: tuple(int(x) for x in words[off + k * i:off + k * i + k])  # noqa: E731
+    return ([row(slot_off, q, 3) for q in range(n_slots)],
+            [row(task_off, i, 4) for i in range(n_tasks)],
+            [row(hub_off, i, 3) for i in range(n_hubs)],
+            [int(x) for x in words[empty_off:empty_off + n_empty]])
+
+
+def _lanes_of(words, A):
+    """Each slot's 32 lanes as the kernel reads them (``lane_task``):
+    (g, [(key, position, arcs, slot d)] by lane)."""
+    slots, tasks, _, _ = _read_schedule(words)
+    out = []
+    for g, first, count in slots:
+        lanes = []
+        for lane in range(32):
+            i, sub = divmod(lane, g)
+            if i >= count:
+                lanes.append((NO_TASK, A, 0, 0))
+                continue
+            key, pos, n, d0 = tasks[first + i]
+            nl = -(-(n - sub) // g) if n > sub else 0
+            lanes.append((key, pos + sub if nl else A, nl, d0 + sub))
+        out.append((g, lanes))
+    return out
+
+
+def _packed_plan_cases():
+    """(name, [D, S] buckets) of the headline plan, the skewed plan of
+    ``chip_smoke.py`` and a random plan with an isolated state."""
+    import chip_smoke
+
+    head = chip_smoke.viterbi_headline_inputs(torch, "cpu", b=1, t=2)
+    skew = chip_smoke.viterbi_skewed_inputs(torch, "cpu", b=2, t=2)
+    port, _ = _random_table(9, 28, 5, np.random.default_rng(6))
+    isolated = dataclasses.replace(port, dst=torch.where(port.dst == 4, 5, port.dst))
+    plan = vsp.build_plan(isolated)
+    return [("headline", head[1:4]), ("skewed", skew[1:4]),
+            ("isolated state", (plan.src_bucket, plan.label_bucket, plan.w_bucket))]
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_packed_list_keeps_every_arcs_slot(case):
+    """Every real arc of the [D, S] grid sits in its state's row of the
+    list by destination at position row start + d, packed with its source,
+    label and weight; the lane schedule reaches every position exactly
+    once, each with that d, and gives each state one task, one hub or (an
+    isolated state) a place in the list of states of no arcs."""
+    name, (src_b, lab_b, w_b) = _packed_plan_cases()[case]
+    D, S = src_b.shape
+    packed = vsp.pack_buckets(src_b, lab_b, w_b)
+    arcs = packed.arcs.numpy()
+    real = w_b.numpy() > NEG / 2
+    deg = real.sum(0)
+    assert packed.A == int(deg.sum()) and arcs.shape == (packed.A + 1, 2)
+    assert (packed.S, packed.labels) == (S, int(lab_b.numpy()[real].max()) + 1)
+    assert arcs[-1, 0] == 0 and np.isneginf(arcs[-1:, 1].view(np.float32)[0])
+    ptr = np.cumsum(deg) - deg
+    for d, s in zip(*np.nonzero(real)):
+        pk, w = arcs[ptr[s] + d]
+        assert (pk & 0xFFFF, pk >> 16) == (src_b[d, s], lab_b[d, s]), (name, d, s)
+        assert np.int32(w).view(np.float32) == w_b[d, s]
+    seen = {}
+    for g, lanes in _lanes_of(packed.sched.numpy(), packed.A):
+        for key, pos, nl, d in lanes:
+            assert nl <= packed.cap <= vsp.LANE_ARCS
+            for j in range(nl):
+                p = pos + j * g
+                assert p not in seen
+                seen[p] = (key, d + j * g)
+    _, tasks, hubs, empty = _read_schedule(packed.sched.numpy())
+    state_of = {-1 - p: h[0] for h in hubs for p in range(h[1], h[1] + h[2])}
+    assert sorted(seen) == list(range(packed.A))
+    for p, (key, d) in seen.items():
+        s = state_of.get(key, key)
+        assert ptr[s] <= p < ptr[s] + deg[s] and p - ptr[s] == d
+    keys = [t[0] for t in tasks if t[0] >= 0] + [h[0] for h in hubs] + empty
+    assert sorted(keys) == list(range(S))
+    assert empty == np.flatnonzero(deg == 0).tolist()
+    if name == "isolated state":
+        assert deg[4] == 0 and 4 in empty
+
+
+def test_pack_refuses_what_does_not_fit_16_bits():
+    """S or a label of 2^16 or more raises: the kernel packs both in one
+    word."""
+    z = torch.zeros(1, 2**16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^16"):
+        vsp.pack_buckets(z, z, torch.zeros(1, 2**16))
+    lab = torch.tensor([[2**16, 0]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="2\\^16"):
+        vsp.pack_buckets(torch.zeros_like(lab), lab, torch.zeros(1, 2))
+    with pytest.raises(ValueError, match="outside"):
+        vsp.pack_buckets(torch.full_like(lab, 2), torch.zeros_like(lab), torch.zeros(1, 2))
+
+
+def _merge(x, y, ties):
+    """The kernel's merge of (value, slot): greater value, else lower slot;
+    counts the exact ties above NEG between different slots."""
+    if x[0] == y[0] and x[0] > NEG and x[1] != y[1]:
+        ties[0] += 1
+    return x if (x[0] > y[0] or (x[0] == y[0] and x[1] < y[1])) else y
+
+
+def _emulate_scan(packed, em, lens, start, S):
+    """``viterbi_scan_fwd_kernel`` on ``packed``, in float32: each slot's
+    lanes (a strict > over the kernel's rounds, a round past a lane's arcs
+    at weight -inf), the xor shuffles of each group, the hubs' parts merged
+    in order after the barrier, the states of no arcs NEG.  (slots,
+    final, ties across lanes, ties across a hub's chunks)."""
+    f32 = np.float32
+    arcs = packed.arcs.numpy()
+    src, lab = arcs[:, 0] & 0xFFFF, (arcs[:, 0].view(np.uint32) >> 16).astype(np.int64)
+    w = arcs[:, 1].view(np.float32)
+    words = packed.sched.numpy()
+    lanes = _lanes_of(words, packed.A)
+    _, _, hubs, empty = _read_schedule(words)
+    rounds = vsp.LANE_ARCS
+    B, T, _ = em.shape
+    slots = np.full((B, T, S), vsp.DEAD, np.int32)
+    final = np.empty((B, S), np.float32)
+    lane_ties, hub_ties = [0], [0]
+    for b in range(B):
+        alpha = start.copy()
+        for t in range(min(max(int(lens[b]), 0), T)):
+            new = np.full(S, np.nan, np.float32)
+            parts = {}
+
+            def emit(s, v, d):
+                assert np.isnan(new[s])  # every state once a frame
+                new[s] = max(v, f32(NEG))
+                slots[b, t, s] = d if new[s] > f32(NEG) else vsp.DEAD  # noqa: B023
+
+            for g, slot_lanes in lanes:
+                vals = []
+                for key, pos, nl, d in slot_lanes:
+                    best, bj = f32(-np.inf), rounds
+                    for j in range(rounds):
+                        p = pos + j * g if j < nl else pos
+                        wj = w[p] if j < nl else f32(-np.inf)
+                        c = f32(f32(alpha[src[p]] + wj) + em[b, t, lab[p]])
+                        if c > best:
+                            best, bj = c, j
+                    vals.append((best, d + bj * g if bj < rounds else INT_MAX))
+                off = g // 2
+                while off:
+                    vals = [_merge(vals[i], vals[i ^ off], lane_ties) for i in range(32)]
+                    off //= 2
+                for i in range(0, 32, g):
+                    key = slot_lanes[i][0]
+                    if key >= 0:
+                        emit(key, *vals[i])
+                    elif key != NO_TASK:
+                        parts[-1 - key] = vals[i]
+            for s in empty:
+                emit(s, f32(-np.inf), INT_MAX)
+            for s, p0, n in hubs:
+                m = (f32(-np.inf), INT_MAX)
+                for p in range(p0, p0 + n):
+                    m = _merge(m, parts[p], hub_ties)
+                emit(s, *m)
+            assert not np.isnan(new).any()
+            alpha = new
+        final[b] = alpha
+    return slots, final, lane_ties[0], hub_ties[0]
+
+
+def _tie_table(S=24, seed=40):
+    """A plan over S states with a hub (state 0, in-degree 150), rows of
+    every width, an isolated state (S - 2), integer weights in [-1, 1]."""
+    rng = np.random.RandomState(seed)
+    dst = np.concatenate([np.full(150, 0), np.full(40, 1), np.full(17, 2), np.full(9, 3)]
+                         + [np.full(rng.randint(1, 8), s) for s in range(4, S - 2)]
+                         + [np.full(3, S - 1)])
+    src = rng.randint(0, S, dst.size)
+    src[src == S - 2] = 0
+    label = rng.randint(0, 4, dst.size)
+    w = rng.randint(-1, 2, dst.size)
+    start = np.full(S, NEG)
+    start[:3] = (0, 1, 0)
+    accept = np.zeros(S)
+    port, _ = _tables(src, dst, label, w, start, accept)
+    return vsp.build_plan(port)
+
+
+@pytest.mark.parametrize("cap", [None, 1, 2])
+def test_lane_schedule_emulation_matches_scan_plain(cap):
+    """The kernel on its schedule, emulated in float32, is bitwise
+    ``viterbi_scan_fwd_plain`` on integer inputs with exact ties across the
+    lanes of a group and (caps 1 and 2: state 0 in 5 and 3 chunks, at cap 1
+    state 1 in 2) across a hub's warps; ragged lengths and a sample of
+    length 0."""
+    plan = _tie_table()
+    packed = vsp.pack_buckets(plan.src_bucket, plan.label_bucket, plan.w_bucket, cap)
+    rng = np.random.RandomState(41)
+    B, T, S = 3, 6, plan.S
+    em = rng.randint(-1, 2, (B, T, 4)).astype(np.float32)
+    lens = np.asarray([T, T - 2, 0], np.int32)
+    slots, final, lane_ties, hub_ties = _emulate_scan(packed, em, lens, plan.start.numpy(), S)
+    slots_p, final_p = vsp.viterbi_scan_fwd_plain(
+        torch.from_numpy(em), plan.src_bucket, plan.label_bucket, plan.w_bucket, plan.start,
+        torch.from_numpy(lens))
+    np.testing.assert_array_equal(slots, slots_p.numpy())
+    np.testing.assert_array_equal(final, final_p.numpy())
+    assert lane_ties > 0 and (slots < vsp.DEAD).any()
+    assert (packed.hubs, packed.chunks) == {None: (0, 0), 1: (2, 7), 2: (1, 3)}[cap]
+    if cap is not None:
+        assert hub_ties > 0
+
+
+def test_routes():
+    """The scan's route by plan: the headline's arcs in registers (one
+    slot a warp), a table of 25,760 arcs in shared memory, one past shared
+    memory in global memory, each with its emission rows all staged where
+    they fit, else in a ring; a state past shared memory raises, and so
+    does a forced route that does not fit."""
+    import chip_smoke
+
+    routes = {}
+    for n in (chip_smoke.N, 2 * chip_smoke.N, 3 * chip_smoke.N):
+        _, src_b, lab_b, w_b, *_ = chip_smoke.viterbi_headline_inputs(torch, "cpu", b=1,
+                                                                        t=2, n=n)
+        packed = vsp.pack_buckets(src_b, lab_b, w_b)
+        route = vsp.scan_route(packed, src_b.shape[1], n)
+        routes[n] = (route, packed.cap, packed.slots)
+        assert vsp.route_fits(packed, src_b.shape[1], n, "global")
+        # a sample's 250 emission rows staged at 80 channels (80 KB); a
+        # ring of them beside 206 KB of staged arcs, or at 240 channels
+        assert vsp.scan_rows(packed, src_b.shape[1], 250, n, route) == (
+            250 if n == chip_smoke.N else vsp.RING)
+        assert vsp.scan_rows(packed, src_b.shape[1], 10**5, n, route) == vsp.RING
+    assert routes == {80: ("registers", 12, 20), 160: ("shared", 12, 80),
+                      240: ("global", 12, 240)}
+    assert not vsp.route_fits(packed, 242, 240, "registers")
+    with pytest.raises(ValueError, match="does not fit"):
+        vsp.scan_route(packed, 242, 10**5)
+    with pytest.raises(ValueError, match="route"):
+        vsp.route_fits(packed, 242, 240, "texture")
