@@ -30,12 +30,19 @@ prints no result):
 7. the factored-scan kernels against their plain versions on the bigram
    Transducer's lattices: the bench ngram-2 headline (B=32, T=250, L=44,
    N=80, blank none, so S=96), ``configs/iamdb/ngram_ctc.json``'s IAM width
-   (79 graphemes and an optional blank, no repeats, S=136), a random
-   case with every state live and z far from the floor, and an IAM-like
-   line of L=100 (B=8, T=128, S=304) whose matrices live in global
-   scratch, past shared memory: the trajectory
-   within atol 1e-3 + rtol 1e-5 on live states, dem, dadj, dwsel and dws
-   entry by entry within 1e-5 (|p| + the median nonzero |p|);
+   (79 graphemes and an optional blank, no repeats, S=136), the forced
+   blank (S=136), a random case with every state live and z far from the
+   floor (S=96, 9,216 arcs a sample), the same at S=160 (B=8, T=64), whose
+   arcs fit in no block's shared memory, an IAM-like line of L=100 (B=8,
+   T=128, S=304) whose emission rows stream through a ring, the headline
+   with each label's weights from most sources 85-110 nats below its
+   shift (which states underflow is decided by the TPU's per-label shift)
+   and a batch of 5; each case logs its real arcs, largest in- and
+   out-degree and the routes that carried them (registers, shared or
+   global; emission rows staged or in the ring): the live sets equal, the
+   trajectory within atol 1e-3 + rtol 1e-5 on live states, dem, dadj,
+   dwsel and dws entry by entry within 1e-5 (|p| + the median nonzero
+   |p|), with dadj and without;
 8. the whole-scan Viterbi kernels against their plain versions at the
    decode headline (B=32, T=250, C=80 on the ngram-2 decode table with
    random weights: 82 states, 6,480 arcs, D=81; lengths 200-250) by each
@@ -123,9 +130,15 @@ prints no result):
    (``viterbi_chain_probe``: a dependent shared-memory load and a block
    barrier, at the headline's batch and block size) for those kernels'
    chain bounds, ``seg_max_scan`` on the Viterbi headline's table as a
-   yardstick for the whole-scan Viterbi, and the device time and kernel
-   launches (torch.profiler) of the Transducer's ``dense_ngram_norm``
-   forward and backward at its main path's batch shape.
+   yardstick for the whole-scan Viterbi, and of one frame of the factored
+   scans' chain (``factored_chain_probe``: a dependent shared-memory load,
+   one expf and one logf and a block barrier, at the kernels' block size)
+   for their chain bound, with the kernels one call of the factored pair
+   launches (torch.profiler) and their bound recounted by real arcs
+   (``factored_work``, the dense-row count beside it), and the device
+   time and kernel launches (torch.profiler) of the Transducer's
+   ``dense_ngram_norm`` forward and backward at its main path's batch
+   shape.
 
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -543,10 +556,12 @@ def phase_dense_scan(torch, dev):
 
 
 # The bigram Transducer's lattices: bench.py's ngram-2 protocol (L = 44
-# tokens out of N = 80, no blank: S = 96) and ngram_ctc.json at the IAM
-# width (79 graphemes and an optional blank, no repeats: S = 136)
+# tokens out of N = 80, no blank: S = 96), ngram_ctc.json at the IAM
+# width (79 graphemes and an optional blank, no repeats: S = 136) and the
+# forced-blank topology (a blank between tokens: S = 136)
 NGRAM_CASES = {"ngram2": dict(n=N, blank="none"),
-               "iam": dict(n=N - 1, blank="optional")}
+               "iam": dict(n=N - 1, blank="optional"),
+               "forced": dict(n=N, blank="forced")}
 
 
 def transducer_criterion(n, blank):
@@ -668,21 +683,66 @@ def hold_factored_scan_kernels(torch, em_state, adj, wsel, lab, ws_state, start,
             "factored_scan_bwd_rel": max(rels.values())}
 
 
+def factored_underflow_inputs(torch, dev, b=B, t=T, seed=13):
+    """The ngram-2 headline's lattices with each label's weights from most
+    sources 85-110 nats below the few (60 %) that lead it, and emissions
+    N(0, 0.1): after the TPU's per-label shift their exps are denormal or
+    zero, so which states live is decided by that shift.  Every state
+    accepts, so the backward meets every state still live at the end."""
+    inputs = list(factored_headline_inputs(torch, dev, b, t, seed=seed))
+    rng = np.random.RandomState(seed)
+    shape = tuple(inputs[2].shape)
+    lead = rng.rand(*shape) < 0.6
+    wsel = np.where(lead, 0.0, -rng.uniform(85.0, 110.0, shape)).astype(np.float32)
+    inputs[2] = torch.as_tensor(wsel, device=dev)
+    em = (rng.randn(*inputs[0].shape) * 0.1).astype(np.float32)
+    inputs[0] = torch.as_tensor(em, device=dev) * (inputs[3].sum(-1) > 0)[:, None, :]
+    inputs[6] = torch.zeros_like(inputs[6])  # every state accepts: the cotangent
+    return tuple(inputs)                     # reaches each live final state
+
+
+def factored_routes(torch, adj, lab, il, n):
+    """What the factored kernels do with a case (``factored_plan``): its
+    real arcs a sample, largest in- and out-degree, the forward's routes
+    and emission rows, and the chain's routes and group width."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    plans = dsp.factored_plan(adj, dsp.label_index(lab), il, n)
+    arcs = [p["arcs"] for p in plans]
+    pick = lambda key: sorted({str(p[key]) for p in plans})  # noqa: E731
+    return {"arcs": [min(arcs), max(arcs)],
+            "max_in_degree": max(p["max_in_degree"] for p in plans),
+            "max_out_degree": max(p["max_out_degree"] for p in plans),
+            "route": pick("route"), "rows": pick("rows"),
+            "chain_route": pick("chain_route"), "chain_group": pick("chain_group")}
+
+
 def phase_factored_scan(torch, dev):
     errs = {}
+    cases = []
     for case, kw in NGRAM_CASES.items():
         inputs = factored_headline_inputs(torch, dev, **kw)
-        what = (case, B, T, inputs[0].shape[2], kw["n"])
-        merge_errs(errs, hold_factored_scan_kernels(torch, *inputs, what))
-    s = inputs[0].shape[2]
-    merge_errs(errs, hold_factored_scan_kernels(
-        torch, *factored_random_inputs(torch, dev, B, T, s, N),
-        ("all live", B, T, s, N), all_live=True))
-    # an IAM-like line of L = 100 (S = 304): the kernels' matrices no
-    # longer fit in shared memory and live in their global scratch
+        cases.append((inputs, (case, B, T, inputs[0].shape[2], kw["n"]), False))
+    s = cases[0][0][0].shape[2]
+    cases.append((factored_random_inputs(torch, dev, B, T, s, N),
+                  ("all live", B, T, s, N), True))
+    # every state live at S = 160: its arcs (25,600 a sample) fit in no
+    # block's shared memory, so both kernels read them from global memory
+    cases.append((factored_random_inputs(torch, dev, 8, 64, 160, N),
+                  ("all live, global", 8, 64, 160, N), True))
+    # an IAM-like line of L = 100 (S = 304): the emission rows stream
+    # through the ring, the label columns through shared memory
     wide = factored_headline_inputs(torch, dev, *WIDE_STC, **NGRAM_CASES["iam"])
-    merge_errs(errs, hold_factored_scan_kernels(
-        torch, *wide, ("past shared memory",) + WIDE_STC[:2] + (wide[0].shape[2], N)))
+    cases.append((wide, ("S = 304",) + WIDE_STC[:2] + (wide[0].shape[2], N), False))
+    # the TPU's per-label shift decides which states underflow
+    cases.append((factored_underflow_inputs(torch, dev), ("underflow", B, T, s, N), False))
+    # a batch of 5
+    five = factored_headline_inputs(torch, dev, b=5, seed=14)
+    cases.append((five, ("batch of 5", 5, T, s, N), False))
+    for inputs, what, all_live in cases:
+        routes = factored_routes(torch, inputs[1], inputs[3], inputs[7], inputs[2].shape[2])
+        log(f"factored_scan {what}: {json.dumps(routes)}")
+        merge_errs(errs, hold_factored_scan_kernels(torch, *inputs, what, all_live=all_live))
     return errs
 
 
@@ -1918,14 +1978,35 @@ def scan_work(il, S, per_state, per_pair):
     return frames * (per_pair * S * S + per_state * S)
 
 
-def factored_work(lab_oh, il, forward):
+def factored_work(adj, lab_oh, il, forward, with_dadj=False):
     """fp32 operations the factored scan needs over the live frames of
-    this run's inputs.  Per live frame and sample, with S states, S_l of
-    them labelled and N_l labels in use: z = adj[u, :] . E[:, l_u] for each
-    labelled state (2 S), E over the labels in use (add, max, sub, exp:
-    4 N_l S) and 6 per labelled state (log, floor, adds, selects); the
-    backward also adj^T dz over each label's states (2 S_l S), dv, its
-    sum into dwsel and g (3 N_l S) and the dz division."""
+    this run's inputs, by what the function needs.  Per live frame and
+    sample, with S states, S_l of them labelled, N_l labels in use and A
+    real arcs into the labelled states: the per-label shift (an add and a
+    max per label in use and state: 2 N_l S), each arc's term (add, sub,
+    exp, mul, add: 5 A) and 6 per labelled state (log, floor, adds,
+    selects); the backward recomputes the shift and the sums, and adds the
+    chain's and dwsel's 9 an arc (exp, add, sub, division, compare, two
+    muls and two adds) and 2 per labelled state; the dense dadj (5 per
+    labelled state and s: S_l S) only ``with_dadj``."""
+    S = lab_oh.shape[1]
+    has = lab_oh.sum(-1) > 0
+    s_lab = has.sum(1).double()
+    n_lab = (lab_oh.sum(1) > 0).sum(1).double()
+    arcs = ((adj != 0) & has[:, :, None]).sum((1, 2)).double()
+    frames = il.clamp(min=1).double()
+    per = 2 * n_lab * S + 5 * arcs + 6 * s_lab
+    if not forward:
+        per = per + 9 * arcs + 2 * s_lab + (5 * s_lab * S if with_dadj else 0)
+    return float((frames * per).sum())
+
+
+def factored_work_dense(lab_oh, il, forward):
+    """The count PRs 3-8 used (kept for the log): z = adj[u, :] . E[:, l_u]
+    over all S for each labelled state (2 S), E over the labels in use
+    (4 N_l S) and 6 per labelled state; the backward also adj^T dz over
+    each label's states (2 S_l S), dv, its sum into dwsel and g (3 N_l S)
+    and the dz division."""
     S = lab_oh.shape[1]
     s_lab = (lab_oh.sum(-1) > 0).sum(1).double()
     n_lab = (lab_oh.sum(1) > 0).sum(1).double()
@@ -1935,6 +2016,34 @@ def factored_work(lab_oh, il, forward):
     else:
         per = 4 * s_lab * S + 7 * n_lab * S + 8 * s_lab
     return float((frames * per).sum())
+
+
+def factored_chain_frame_us(torch, b, dev):
+    """One frame of the factored scans' chain without arcs (a dependent
+    shared-memory load, one expf and one logf, and a block barrier, at the
+    kernels' block size), in us: the probe's time for 2n frames less its
+    time for n, over n (the launch cancels)."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    threads = 32 * dsp.FACT_WARPS
+    n = 4096
+    t_n = gpu_median_ms(torch, lambda: dsp.chain_probe(b, threads, n, dev), runs=20)
+    t_2n = gpu_median_ms(torch, lambda: dsp.chain_probe(b, threads, 2 * n, dev), runs=20)
+    return (t_2n - t_n) / n * 1e3
+
+
+def kernel_launches(torch, fn, match):
+    """CUDA kernels whose name holds ``match`` that one call of ``fn``
+    launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and match in e.key)
 
 
 def norm_cost(torch, dev, b, t, n):
@@ -2243,6 +2352,86 @@ def viterbi_yardstick_ms(torch, em, lens, table):
     return gpu_median_ms(torch, lambda: smp.seg_max_scan_cuda(*args))
 
 
+def factored_times(torch, dev):
+    """Times, bounds and chain bounds of the factored scan pair at the
+    bigram Transducer's lattices (``NGRAM_CASES``, B=32, T=250): the
+    kernels (the backward without dadj, the main path's, and with it), the
+    plain versions at the headline, the routes, the kernels one call
+    launches, and the chain probe's frame."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    t, bounds = {}, {}
+    # the factored scan at the ngram-2 headline, at the IAM width and on the
+    # forced-blank lattices; the main path's backward needs no dadj (the
+    # adjacency is data)
+    facts = {}
+    for case, kw in NGRAM_CASES.items():
+        em_f, adj_f, wsel, lab, ws_f, st_f, acc_f, fil = factored_headline_inputs(
+            torch, dev, **kw)
+        traj = dsp.factored_scan_fwd_cuda(em_f, adj_f, wsel, lab, ws_f, st_f, fil)
+        gf = score_cotangent(torch, traj[:, -1], acc_f)
+        key = {"ngram2": "", "iam": "_iam", "forced": "_forced"}[case]
+        facts[key] = (adj_f, lab, fil)
+        fwd = lambda: dsp.factored_scan_fwd_cuda(  # noqa: E731
+            em_f, adj_f, wsel, lab, ws_f, st_f, fil)
+        bwd = lambda: dsp.factored_scan_bwd_cuda(  # noqa: E731
+            traj, adj_f, wsel, lab, st_f, fil, gf, need_dadj=False)
+        bwd_dadj = lambda: dsp.factored_scan_bwd_cuda(  # noqa: E731
+            traj, adj_f, wsel, lab, st_f, fil, gf)
+        t["factored_scan_fwd" + key] = gpu_median_ms(torch, fwd)
+        t["factored_scan_bwd" + key] = gpu_median_ms(torch, bwd)
+        t["factored_scan_bwd_with_dadj" + key] = gpu_median_ms(torch, bwd_dadj)
+        t["factored_routes" + key] = factored_routes(torch, adj_f, lab, fil, wsel.shape[2])
+        if key == "":
+            t["factored_scan_fwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.factored_scan_fwd_plain(em_f, adj_f, wsel, lab, ws_f,
+                                                           st_f, fil), runs=20)
+            t["factored_scan_bwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.factored_scan_bwd_plain(traj, adj_f, wsel, lab, st_f,
+                                                           fil, gf, need_dadj=False),
+                runs=20)
+            # the kernels one call launches: the forward 1, the backward 2
+            # (statistics, chain), 3 with dadj
+            t["factored_kernel_launches"] = {
+                name: kernel_launches(torch, fn, "factored")
+                for name, fn in (("fwd", fwd), ("bwd", bwd), ("bwd_with_dadj", bwd_dadj))}
+    t["factored_chain_frame_us"] = factored_chain_frame_us(torch, B, dev)
+
+    # the factored scan: its inputs and outputs once, live frames only, and
+    # the work the function needs on these inputs (factored_work: the
+    # shifts and the real arcs), not the TPU kernel's [S, S] x [S, N]
+    # product; the count of PRs 3-8 (dense rows) is kept in the log
+    for key, (f_adj, f_lab, f_il) in facts.items():
+        f_b, S_f, N_f = f_lab.shape
+        f_live = int(f_il.clamp(min=1).sum()) * S_f * 4
+        f_mats = f_b * S_f * S_f * 4 + 2 * f_b * S_f * N_f * 4
+        ins = f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4
+        outs = f_b * T * S_f * 4
+        bounds["factored_scan_fwd" + key] = bound_ms(
+            ins + outs, factored_work(f_adj, f_lab, f_il, True))
+        bwd_bytes = ins + outs + f_b * S_f * N_f * 4 + f_b * S_f * 4
+        bounds["factored_scan_bwd" + key] = bound_ms(
+            bwd_bytes, factored_work(f_adj, f_lab, f_il, False))
+        bounds["factored_scan_bwd_with_dadj" + key] = bound_ms(
+            bwd_bytes + f_b * S_f * S_f * 4,
+            factored_work(f_adj, f_lab, f_il, False, with_dadj=True))
+        t["factored_work_ops" + key] = {
+            "fwd": factored_work(f_adj, f_lab, f_il, True),
+            "bwd": factored_work(f_adj, f_lab, f_il, False),
+            "fwd_dense_count": factored_work_dense(f_lab, f_il, True),
+            "bwd_dense_count": factored_work_dense(f_lab, f_il, False)}
+        t["factored_bounds" + key] = {
+            name: bounds[name + key] for name in (
+                "factored_scan_fwd", "factored_scan_bwd", "factored_scan_bwd_with_dadj")}
+    # the forward's frames each need the last (the longest sample's
+    # frames); the backward's chain takes one fewer
+    f_max = int(facts[""][2].max())
+    chain = {"factored_scan_fwd": f_max * t["factored_chain_frame_us"] * 1e-3,
+             "factored_scan_bwd": (f_max - 1) * t["factored_chain_frame_us"] * 1e-3}
+    t["factored_S"] = {key or "_ngram2": f[1].shape[1] for key, f in facts.items()}
+    return t, bounds, chain
+
+
 def phase_times(torch, dev, paths):
     from gtn_applications_tpu_torch.ops import _build, gathers, lattice
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
@@ -2335,34 +2524,6 @@ def phase_times(torch, dev, paths):
                                                        need_dadj=False))
     S_stc, stc_il = scans[""]
 
-    # the factored scan at the ngram-2 headline and at the IAM width; the
-    # main path's backward needs no dadj (the adjacency is data)
-    facts = {}
-    for case, kw in NGRAM_CASES.items():
-        em_f, adj_f, wsel, lab, ws_f, st_f, acc_f, fil = factored_headline_inputs(
-            torch, dev, **kw)
-        traj = dsp.factored_scan_fwd_cuda(em_f, adj_f, wsel, lab, ws_f, st_f, fil)
-        gf = score_cotangent(torch, traj[:, -1], acc_f)
-        key = "" if case == "ngram2" else "_iam"
-        facts[key] = (lab, fil)
-        t["factored_scan_fwd" + key] = gpu_median_ms(
-            torch, lambda: dsp.factored_scan_fwd_cuda(em_f, adj_f, wsel, lab, ws_f,
-                                                      st_f, fil))
-        t["factored_scan_bwd" + key] = gpu_median_ms(
-            torch, lambda: dsp.factored_scan_bwd_cuda(traj, adj_f, wsel, lab, st_f, fil,
-                                                      gf, need_dadj=False))
-        t["factored_scan_bwd_with_dadj" + key] = gpu_median_ms(
-            torch, lambda: dsp.factored_scan_bwd_cuda(traj, adj_f, wsel, lab, st_f, fil,
-                                                      gf))
-        if key == "":
-            t["factored_scan_fwd_plain"] = gpu_median_ms(
-                torch, lambda: dsp.factored_scan_fwd_plain(em_f, adj_f, wsel, lab, ws_f,
-                                                           st_f, fil), runs=20)
-            t["factored_scan_bwd_plain"] = gpu_median_ms(
-                torch, lambda: dsp.factored_scan_bwd_plain(traj, adj_f, wsel, lab, st_f,
-                                                           fil, gf, need_dadj=False),
-                runs=20)
-
     # the whole-scan Viterbi at the decode headline, and seg_max_scan on its
     # table as a yardstick (not a route of this table's decode)
     em_v, src_b, lab_b, w_b, st_v, acc_v, vil, v_table = viterbi_headline_inputs(
@@ -2440,20 +2601,6 @@ def phase_times(torch, dev, paths):
             stc_live * 4 + 2 * stc_adj + 3 * stc_vec + B * 4 + B * T * S_stc * 4,
             scan_work(stc_il, S_stc, DENSE_BWD_OPS, 6)),
     }
-    # the factored scan: its inputs and outputs once, live frames only, and
-    # the O(S^2) work the function needs (factored_work), not the TPU
-    # kernel's [S, S] x [S, N] product
-    f_lab, f_il = facts[""]
-    f_b, S_f, N_f = f_lab.shape
-    f_live = int(f_il.clamp(min=1).sum()) * S_f * 4
-    f_mats = f_b * S_f * S_f * 4 + 2 * f_b * S_f * N_f * 4
-    bounds["factored_scan_fwd"] = bound_ms(
-        f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4 + f_b * T * S_f * 4,
-        factored_work(f_lab, f_il, True))
-    bounds["factored_scan_bwd"] = bound_ms(
-        f_live + f_mats + 2 * f_b * S_f * 4 + f_b * 4
-        + f_b * T * S_f * 4 + f_b * S_f * N_f * 4 + f_b * S_f * 4,
-        factored_work(f_lab, f_il, False))
     # the Viterbi scan: viterbi_scan_bound.  The backtrace: per live
     # frame three dependent loads (slot, source, label) of at least one
     # 32 B sector each, one per dead frame; final, accept in; labels, score out
@@ -2473,7 +2620,7 @@ def phase_times(torch, dev, paths):
     chain["viterbi_scan_fwd"] = int(vil.max()) * t["viterbi_chain_frame_us"] * 1e-3
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
                   "asg_C": ASG_C, "stc_L": STC_L, "stc_S": S_stc,
-                  "ngram2_S": S_f, "iam_S": facts["_iam"][0].shape[1],
+
                   "decode_D": D_v, "decode_S": S_v, "decode_A": packed.A}
     return t, bounds, chain
 
@@ -2544,10 +2691,10 @@ def run(device="cuda"):
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
-    more_times, more_bounds, more_chain = sparse_times(torch, dev)
-    times.update(more_times)
-    bounds.update(more_bounds)
-    chain.update(more_chain)
+    for more in (factored_times(torch, dev), sparse_times(torch, dev)):
+        times.update(more[0])
+        bounds.update(more[1])
+        chain.update(more[2])
     more_times, more_bounds, more_chain = segmax_times(
         torch, dev, paths["transducer_backoff_4gram"]["model"],
         main_path_config("transducer_backoff_4gram"))

@@ -56,8 +56,9 @@ _SIGNATURES = {
     "dense_scan": {
         "dense_scan_fwd": (6, 4),
         "dense_scan_bwd": (8, 4),
-        "factored_scan_fwd": (9, 5),
-        "factored_scan_bwd": (12, 6),
+        "factored_scan_fwd": (8, 5),
+        "factored_scan_bwd": (12, 5),
+        "factored_chain_probe": (1, 3),
     },
     "sparse_scan": {
         "seg_lse_fwd": (6, 6),

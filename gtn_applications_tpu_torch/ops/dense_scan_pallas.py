@@ -207,7 +207,8 @@ def dense_scan(em_state, adj_exp, start, has_lab, lengths):
 # (frames t >= len keep alpha) where has[u] = lab_oh[u] is not all zero and
 # l_u is u's one in-label.  The plain versions compute that literally, the
 # full [S, S] x [S, N] product each frame as the TPU kernel does; the CUDA
-# kernels only the column l_u of each row (``csrc/dense_scan.cu``).
+# kernels only the column l_u of each row, over its real arcs, with the
+# same per-label shift (``csrc/dense_scan.cu``).
 # Cotangents go to em_state, adj_exp (when it needs one), wsel and
 # ws_state; lab_oh, start and lengths are prepared data and get none.
 # ---------------------------------------------------------------------
@@ -279,14 +280,127 @@ def label_index(lab_oh):
     return torch.where(has, torch.argmax(lab_oh, dim=-1), -1).to(torch.int32)
 
 
-def _fact_mats_in_smem(S, N, backward):
-    """Whether the kernel's matrices fit in shared memory beside its
-    vectors (the layout of ``fact_smem`` in csrc/dense_scan.cu)."""
+# The factored kernels' schedule (csrc/dense_scan.cu), mirrored so that the
+# wrappers size their scratch and a run can log the routes each sample
+# takes: blocks of FACT_WARPS warps; a member of in-degree n gets a group of
+# g lanes, g the least power of two with n <= g FACT_CAP (at most 32), the
+# largest of its round's; a round holds at most SHIFT_GROUPS slots (8 lanes
+# a slot's shift); a warp holding at most REG_ROUNDS rounds keeps its tasks
+# and wsel entries in registers where S <= 8 REG_K; rings of RING rows.
+FACT_WARPS = 16
+FACT_CAP = 4
+REG_ROUNDS = 1
+SHIFT_GROUPS = 4
+REG_K = 20
+RING = 8
+
+
+def _fact_arena(S, N, vec):
+    """Word offset of the arena in ``fact_layout`` (csrc/dense_scan.cu)."""
     L = min(S, N)
-    ints = N + 3 * L + 2 * S + 2 if backward else N + L + S + 1
-    vecs = 4 * S if backward else 2 * S + L
-    mats = S * S + (3 if backward else 2) * L * S
-    return 4 * (ints + vecs + mats) <= _build.MAX_SMEM
+    words = N + L + S + 8 + (L + 1) + S + (S + 1) + 2 * S + FACT_WARPS + 1
+    words += L * S + vec
+    return (words + 3) & ~3
+
+
+def group_width(deg):
+    """Lanes of a group serving ``deg`` arcs: the least power of two g with
+    deg <= g FACT_CAP, at most 32."""
+    g = 1
+    while g < 32 and g * FACT_CAP < deg:
+        g <<= 1
+    return g
+
+
+def compact_members(lab_idx_b):
+    """(label_of, jslot, members): label slots in order of first use, each
+    state's slot (-1 for none), and the labelled states slot by slot in
+    increasing index (the kernels' member order)."""
+    label_of, jslot = [], []
+    for lab in lab_idx_b.tolist():
+        if lab < 0:
+            jslot.append(-1)
+            continue
+        if lab not in label_of:
+            label_of.append(lab)
+        jslot.append(label_of.index(lab))
+    members = [u for j in range(len(label_of)) for u in range(len(jslot)) if jslot[u] == j]
+    return label_of, jslot, members
+
+
+def dest_rounds(deg_by_member, jslot, members, warps=FACT_WARPS):
+    """The forward's rounds (``plan_dest_rounds``): members in member order
+    packed into rounds (m0, m1, g) of at most SHIFT_GROUPS consecutive slots
+    and 32 lanes, g the round's largest group width; and the first round of
+    each warp: contiguous ranges of about equal cost (the shift, and the
+    arcs a lane)."""
+    S = len(jslot)
+    shift_cost = 2 * ((S + 7) // 8) + 8
+    rounds, costs = [], []
+    m = 0
+    while m < len(members):
+        m0, j0, g, most = m, jslot[members[m]], 1, 0
+        while m < len(members):
+            deg = deg_by_member[m]
+            gn = max(g, group_width(deg))
+            if (m - m0 + 1) * gn > 32 or jslot[members[m]] - j0 >= SHIFT_GROUPS:
+                break
+            g, most = gn, max(most, deg)
+            m += 1
+        rounds.append((m0, m, g))
+        costs.append(shift_cost + 3 * (-(-most // g) + 2))
+    total = sum(costs)
+    wbeg, cum, w = [0], 0, 0
+    for r, cost in enumerate(costs):
+        want = cum * warps // total if total > 0 else 0
+        while w < want and w < warps:
+            wbeg.append(r)
+            w += 1
+        cum += cost
+    while w < warps:
+        wbeg.append(len(rounds))
+        w += 1
+    return rounds, wbeg
+
+
+def factored_plan(adj_exp, lab_idx, lengths, N):
+    """What the factored kernels do with each sample, computed on the host
+    from the same inputs (for logs and tests; the kernels plan on the
+    device): its real arcs into labelled states, labelled states and
+    labels in use, largest in- and out-degree, the forward's route
+    (registers, shared, global) and where its emission rows live (staged,
+    ring), and the backward chain's route and group width."""
+    words = _build.MAX_SMEM // 4
+    B, S, _ = adj_exp.shape
+    L = min(S, N)
+    nz = (adj_exp != 0).cpu()
+    plans = []
+    for b in range(B):
+        label_of, jslot, members = compact_members(lab_idx[b].cpu())
+        rows = nz[b][members]
+        deg = rows.sum(1).tolist()
+        nnz = int(sum(deg))
+        out_deg = int(rows.sum(0).max()) if members else 0
+        arena = words - _fact_arena(S, N, 3 * S)
+        dense = 2 * nnz + RING * S > arena
+        _, wbeg = dest_rounds([S] * len(deg) if dense else deg, jslot, members)
+        most = max(wbeg[w + 1] - wbeg[w] for w in range(FACT_WARPS))
+        hub = max(deg, default=0) > 32 * FACT_CAP
+        g = group_width(out_deg)
+        chain_rounds = -(-S * g // 32)
+        chain_arena = words - _fact_arena(S, N, 2 * S)
+        plans.append(dict(
+            arcs=nnz, labelled=len(members), labels=len(label_of),
+            max_in_degree=int(max(deg, default=0)), max_out_degree=out_deg,
+            route=("global" if dense else "registers"
+                   if most <= REG_ROUNDS and S <= 8 * REG_K and not hub else "shared"),
+            rows=("staged" if (0 if dense else 2 * nnz) + max(1, int(lengths[b])) * S <= arena
+                  else "ring"),
+            chain_route=("global" if 3 * nnz + RING * (2 * S + L) > chain_arena
+                         else "registers" if -(-chain_rounds // FACT_WARPS) <= REG_ROUNDS
+                         and out_deg <= g * FACT_CAP else "shared"),
+            chain_group=g))
+    return plans
 
 
 def _fact_check(name, em_or_traj, adj, wsel, lab_oh, start, lengths):
@@ -301,16 +415,22 @@ def _fact_check(name, em_or_traj, adj, wsel, lab_oh, start, lengths):
     _build.require(f"{name} lengths", lengths, (B,), torch.int32)
     if T < 1 or N < 1:
         raise ValueError(f"{name} needs at least one frame and one label")
+    if S >= 2**16 or min(S, N) > 2**13:
+        raise ValueError(f"{name}: the kernels take S < 2^16 states and at most 2^13 "
+                         f"labels in use, got S={S}, N={N}")
     return B, T, S, N
 
 
-def _scratch(B, S, N, backward, device):
-    """The kernel's matrices in global memory when they do not fit in
-    shared memory (a null pointer otherwise)."""
-    if _fact_mats_in_smem(S, N, backward):
-        return None, 1
-    per = S * S + (3 if backward else 2) * min(S, N) * S
-    return torch.empty(B * per, dtype=torch.float32, device=device), 0
+def _bwd_scratch_words(B, T, S, N, need_dadj):
+    """Floats of the backward's scratch (``factored_scan_bwd``): sh
+    [B, T, Lmax], rz [B, T, S], the slots [B, S], with dadj dz [B, T, S];
+    and 3 S^2 a sample for the chain's arcs and sums where a dense
+    adjacency's could not fit in shared memory beside its ring."""
+    L = min(S, N)
+    words = B * T * (L + S) + B * S + (B * T * S if need_dadj else 0)
+    if _fact_arena(S, N, 2 * S) + RING * (2 * S + L) + 3 * S * S > _build.MAX_SMEM // 4:
+        words += 3 * B * S * S
+    return words
 
 
 def factored_scan_fwd_cuda(em_state, adj_exp, wsel, lab_oh, ws_state, start,
@@ -324,15 +444,13 @@ def factored_scan_fwd_cuda(em_state, adj_exp, wsel, lab_oh, ws_state, start,
     _build.require("factored_scan_fwd ws_state", ws_state, (B, S), torch.float32)
     lab_idx = label_index(lab_oh)
     traj = torch.empty((B, T, S), dtype=torch.float32, device=em_state.device)
-    scratch, in_smem = _scratch(B, S, N, False, em_state.device)
     lib = _build.load_library("dense_scan")
     with torch.cuda.device(em_state.device):
         err = lib.factored_scan_fwd(
             em_state.data_ptr(), adj_exp.data_ptr(), wsel.data_ptr(),
             lab_idx.data_ptr(), ws_state.data_ptr(), start.data_ptr(),
             lengths.data_ptr(), traj.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, T, S, N, in_smem, _build.stream_handle(em_state),
+            B, T, S, N, _build.MAX_SMEM, _build.stream_handle(em_state),
         )
     _build.check(lib, err, "factored_scan_fwd")
     _build.LAUNCHES["factored_scan_fwd"] += 1
@@ -341,7 +459,8 @@ def factored_scan_fwd_cuda(em_state, adj_exp, wsel, lab_oh, ws_state, start,
 
 def factored_scan_bwd_cuda(traj, adj_exp, wsel, lab_oh, start, lengths,
                            g_final, need_dadj=True):
-    """Launch ``factored_scan_bwd``: traj [B, T, S], adj_exp [B, S, S],
+    """Launch ``factored_scan_bwd`` (the statistics pass and the chain, and
+    the dadj pass with ``need_dadj``): traj [B, T, S], adj_exp [B, S, S],
     wsel/lab_oh [B, S, N], start/g_final [B, S] float32, lengths [B] int32
     -> (dem [B, T, S], dadj [B, S, S] or None, dwsel [B, S, N], dws [B, S])."""
     B, T, S, N = _fact_check("factored_scan_bwd", traj, adj_exp, wsel, lab_oh,
@@ -354,7 +473,8 @@ def factored_scan_bwd_cuda(traj, adj_exp, wsel, lab_oh, start, lengths,
     dadj = torch.empty_like(adj_exp) if need_dadj else None
     dwsel = torch.empty_like(wsel)
     dws = torch.empty((B, S), dtype=torch.float32, device=dev)
-    scratch, in_smem = _scratch(B, S, N, True, dev)
+    scratch = torch.empty(_bwd_scratch_words(B, T, S, N, need_dadj),
+                          dtype=torch.float32, device=dev)
     lib = _build.load_library("dense_scan")
     with torch.cuda.device(dev):
         err = lib.factored_scan_bwd(
@@ -362,12 +482,27 @@ def factored_scan_bwd_cuda(traj, adj_exp, wsel, lab_oh, start, lengths,
             lab_idx.data_ptr(), start.data_ptr(), lengths.data_ptr(),
             g_final.data_ptr(), dem.data_ptr(),
             dadj.data_ptr() if need_dadj else None, dwsel.data_ptr(),
-            dws.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, T, S, N, in_smem, _build.MAX_SMEM, _build.stream_handle(traj),
+            dws.data_ptr(), scratch.data_ptr(),
+            B, T, S, N, _build.MAX_SMEM, _build.stream_handle(traj),
         )
     _build.check(lib, err, "factored_scan_bwd")
     _build.LAUNCHES["factored_scan_bwd"] += 1
     return dem, dadj, dwsel, dws
+
+
+def chain_probe(B, threads, frames, device):
+    """Launch ``factored_chain_probe``: B blocks of ``threads`` threads run
+    ``frames`` frames of the factored scans' chain without arcs (a
+    dependent shared-memory load, one expf and one logf, and a block
+    barrier each).  Not a kernel of any path: it times one frame's floor
+    for the chain bound."""
+    out = torch.empty((B * threads,), dtype=torch.float32, device=device)
+    lib = _build.load_library("dense_scan")
+    with torch.cuda.device(device):
+        err = lib.factored_chain_probe(out.data_ptr(), B, threads, frames,
+                                       _build.stream_handle(out))
+    _build.check(lib, err, "factored_chain_probe")
+    return out
 
 
 class _FactoredScan(torch.autograd.Function):

@@ -1,10 +1,11 @@
 """Time the whole sparse scan pair (or, with ``--decode``, the Viterbi
-decode of the 4-gram path; with ``--viterbi``, the whole-scan Viterbi) of
-this checkout against another's.
+decode of the 4-gram path; with ``--viterbi``, the whole-scan Viterbi;
+with ``--factored``, the factored scan pair) of this checkout against
+another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
         --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] \
-        [--viterbi [--caps 4 8 16]] [--out FILE]
+        [--viterbi [--caps 4 8 16]] [--factored] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit unpacked with ``git archive`` into an ignored directory):
@@ -50,6 +51,17 @@ scan and backtrace) of the trigram path's batch, baseline, this, this,
 baseline: on one table (its plan cached), and on a table re-weighted
 before every decode, as each train step's decode meets it (plan and
 packing built anew).
+``--factored`` times the factored scan pair (``factored_scan_fwd`` and
+``factored_scan_bwd``, the bigram Transducer's criterion kernels) instead,
+on the lattices of ``chip_smoke.NGRAM_CASES`` (B=32, T=250: the ngram-2
+headline, S=96; the IAM width, S=136; the forced blank, S=136):
+baseline, this, this, baseline for the forward, the backward without
+dadj (the main path's) and with it; the two forwards' live sets must be
+equal and their trajectories within atol 1e-3 + rtol 1e-5 on live states.
+Beside them: this checkout's routes (``chip_smoke.factored_routes``), its
+bound (``chip_smoke.factored_work``) and the count of PRs 3-8, the chain
+bound (the longest sample's frames x ``factored_chain_probe``'s frame) and
+the kernels one call of each launches (torch.profiler), for both.
 Run from the root of this checkout on a machine with one GPU.
 """
 
@@ -274,6 +286,50 @@ def viterbi_ab(torch, cs, root, dev, caps):
     return out
 
 
+def factored_ab(torch, cs, root, dev):
+    """The ``--factored`` comparison (see the module docstring)."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+    from gtn_applications_tpu_torch.ops.semiring import DEAD
+
+    base = load_baseline(root, "ops.dense_scan_pallas")
+    frame_us = cs.factored_chain_frame_us(torch, cs.B, dev)
+    out = {"chain_frame_us": frame_us}
+    for name, kw in cs.NGRAM_CASES.items():
+        em, adj, wsel, lab, ws, st, acc, il = cs.factored_headline_inputs(torch, dev, **kw)
+        fwd_args = (em, adj, wsel, lab, ws, st, il)
+        traj_n = dsp.factored_scan_fwd_cuda(*fwd_args)
+        traj_b = base.factored_scan_fwd_cuda(*fwd_args)
+        live = traj_b > DEAD
+        if not torch.equal(traj_n > DEAD, live):
+            raise AssertionError(f"{name}: the two forwards' live sets differ")
+        torch.testing.assert_close(traj_n[live], traj_b[live], atol=1e-3, rtol=1e-5)
+        g = cs.score_cotangent(torch, traj_b[:, -1], acc)
+        bwd_args = (traj_b, adj, wsel, lab, st, il, g)
+        run = {who: {"fwd": lambda m=m: m.factored_scan_fwd_cuda(*fwd_args),
+                     "bwd": lambda m=m: m.factored_scan_bwd_cuda(*bwd_args, need_dadj=False),
+                     "bwd_with_dadj": lambda m=m: m.factored_scan_bwd_cuda(*bwd_args)}
+               for who, m in (("base", base), ("new", dsp))}
+        b, T, S = em.shape
+        row = {"shape": [b, T, S, wsel.shape[2]], "max_len": int(il.max()),
+               "max_abs_traj_diff": float((traj_n - traj_b).abs()[live].max()),
+               "routes": cs.factored_routes(torch, adj, lab, il, wsel.shape[2]),
+               "chain_bound_ms": {"fwd": int(il.max()) * frame_us * 1e-3,
+                                  "bwd": (int(il.max()) - 1) * frame_us * 1e-3},
+               "work_ops": {"fwd": cs.factored_work(adj, lab, il, True),
+                            "bwd": cs.factored_work(adj, lab, il, False),
+                            "bwd_with_dadj": cs.factored_work(adj, lab, il, False, True),
+                            "fwd_dense_count": cs.factored_work_dense(lab, il, True),
+                            "bwd_dense_count": cs.factored_work_dense(lab, il, False)},
+               "kernels_a_call": {who: {k: cs.kernel_launches(torch, fn, "factored")
+                                        for k, fn in run[who].items()} for who in run}}
+        for who in ("base", "new", "new", "base"):
+            for k, fn in run[who].items():
+                row.setdefault(f"{who}_{k}_ms", []).append(cs.gpu_median_ms(torch, fn))
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, help="root of the other checkout")
@@ -288,6 +344,8 @@ def main(argv=None):
     parser.add_argument("--caps", type=int, nargs="*", default=[],
                         help="with --viterbi, also time this checkout's kernel at these "
                              "per-lane caps")
+    parser.add_argument("--factored", action="store_true",
+                        help="compare the factored scan pair instead")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -310,6 +368,9 @@ def main(argv=None):
     if args.viterbi:
         result["cases"] = viterbi_ab(torch, cs, args.baseline, dev, args.caps)
         return _report("compare_viterbi", result, args.out)
+    if args.factored:
+        result["cases"] = factored_ab(torch, cs, args.baseline, dev)
+        return _report("compare_factored", result, args.out)
     base = load_baseline(args.baseline)
     for name, em, lens, table in cases(torch, cs, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)

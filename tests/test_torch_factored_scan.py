@@ -29,7 +29,7 @@ from gtn_applications_tpu.ops import dense_scan_pallas as jax_dsp
 from gtn_applications_tpu.ops import factored as jax_factored
 from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
 from gtn_applications_tpu_torch.ops import factored
-from gtn_applications_tpu_torch.ops.semiring import DEAD
+from gtn_applications_tpu_torch.ops.semiring import DEAD, NEG
 
 from tests.test_torch_dense_scan import _random_case
 
@@ -207,3 +207,279 @@ def test_smoke_factored_scan_check_holds_each_entry(monkeypatch, case, rel):
             check()
     else:
         assert check()["factored_scan_bwd_rel"] == 0.0
+
+
+# ---------------------------------------------------------------------
+# A float32 emulation of the CUDA kernels' algorithms (csrc/dense_scan.cu),
+# on the schedule ``dense_scan_pallas.factored_plan`` mirrors: the arcs
+# compacted from the dense adjacency by destination in member order, each
+# slot's shift over all S states, each member's sum by lanes matched to its
+# in-degree (lane k of a group of g takes every g-th arc, then the group's
+# xor merge); the backward as per-frame statistics from traj, the g chain
+# by source with each arc's dwsel sum in frame order, and the dense dadj
+# from the saved dz, where dz = g (1 / max(z, floor)), the reciprocal taken
+# once a frame and state off the chain (one rounding more than the plain
+# version's g / max(z, floor)).  Tolerances, each against the plain
+# versions and JAX:
+# live sets exactly (the shift is the TPU's, so which states underflow is
+# decided by the same float32 terms, and a sum of non-negative terms is
+# zero whatever its order); live values within atol 1e-4 + rtol 1e-5 (the
+# sums run in another order, and alpha reaches ~100, where a float32 ulp is
+# 7.6e-6); cotangents entry by entry within 1e-5 (|p| + median nonzero
+# |p|), the card's criterion, and against JAX within GRAD_TOL (JAX's
+# Pallas pair in interpret mode; on the underflow case JAX flushes denormal
+# sums to zero, see the test).
+# ---------------------------------------------------------------------
+
+FLOOR = 1e-37
+
+
+def _lane_sum(terms, g):
+    """A group's sum: lane k adds terms k, k + g, ... in order, then the
+    xor merge over offsets g/2 .. 1; the group's first lane's value."""
+    n = -(-terms.numel() // g)
+    lanes = torch.zeros(n * g, dtype=torch.float32)
+    lanes[:terms.numel()] = terms
+    lanes = lanes.view(n, g)
+    acc = torch.zeros(g, dtype=torch.float32)
+    for i in range(n):
+        acc = acc + lanes[i]
+    idx = torch.arange(g)
+    off = g // 2
+    while off:
+        acc = acc + acc[idx ^ off]
+        off //= 2
+    return acc[0]
+
+
+def _compact(adj_b, lab_b):
+    """The prologue's compaction of one sample: label slots, members, each
+    member's arcs (sources in increasing s) and its group width (its
+    round's, ``dest_rounds``); and each source's arcs into members (member
+    order: u, slot, adj) with the chain's one group width."""
+    label_of, jslot, members = dsp.compact_members(lab_b)
+    dest = [torch.nonzero(adj_b[u] != 0)[:, 0] for u in members]
+    rounds, _ = dsp.dest_rounds([d.numel() for d in dest], jslot, members)
+    g_mem = [g for m0, m1, g in rounds for _ in range(m0, m1)]
+    src = []
+    for s in range(adj_b.shape[0]):
+        src.append([(u, jslot[u], adj_b[u, s]) for u in members if adj_b[u, s] != 0])
+    g_src = dsp.group_width(max((len(x) for x in src), default=0))
+    return label_of, jslot, members, dest, g_mem, src, g_src
+
+
+def _start_e(start):
+    return torch.exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
+
+
+def _frame_stats(x, adj_b, wt, members, jslot, dest, g_mem, frame0):
+    """(sh by slot, z by member) of one frame from x (e0 or alpha)."""
+    sh = {}
+    if not frame0:
+        for j in range(wt.shape[0]):
+            sh[j] = torch.clamp(torch.max(x + wt[j]), min=NEG)
+    z = []
+    for m, u in enumerate(members):
+        j, srcs = jslot[u], dest[m]
+        a = adj_b[u, srcs]
+        e = x[srcs] if frame0 else torch.exp((x[srcs] + wt[j, srcs]) - sh[j])
+        z.append(_lane_sum(a * e, g_mem[m]))
+    return sh, z
+
+
+def emulate_fwd(em_state, adj, wsel, lab_oh, ws_state, start, lengths):
+    """The forward kernel's arithmetic: traj [B, T, S], and the number of
+    (frame, labelled state) pairs whose sum underflowed to 0 while one of
+    its sources was live."""
+    B, T, S = em_state.shape
+    lab_idx = dsp.label_index(lab_oh)
+    traj = torch.full((B, T, S), NEG, dtype=torch.float32)
+    underflow = 0
+    for b in range(B):
+        label_of, jslot, members, dest, g_mem, _, _ = _compact(adj[b], lab_idx[b])
+        wt = wsel[b][:, label_of].T.contiguous() if label_of else wsel[b][:, :0].T
+        t_live = max(1, min(int(lengths[b]), T))
+        alpha = torch.full((S,), NEG, dtype=torch.float32)
+        for t in range(t_live):
+            frame0 = t == 0
+            x = _start_e(start[b]) if frame0 else alpha
+            sh, z = _frame_stats(x, adj[b], wt, members, jslot, dest, g_mem, frame0)
+            new = torch.full((S,), NEG, dtype=torch.float32)
+            for m, u in enumerate(members):
+                zu = z[m]
+                if frame0:
+                    new[u] = ((em_state[b, 0, u] + ws_state[b, u]) + torch.log(
+                        torch.clamp(zu, min=FLOOR))) if zu > 0 else NEG
+                else:
+                    new[u] = em_state[b, t, u] + ((sh[jslot[u]] + torch.log(
+                        torch.clamp(zu, min=FLOOR))) if zu > 0 else NEG)
+                    if zu == 0 and bool((alpha[dest[m]] > DEAD).any()):
+                        underflow += 1
+            alpha = new
+            traj[b, t] = alpha
+        traj[b, t_live:] = alpha
+    return traj, underflow
+
+
+def emulate_bwd(traj, adj, wsel, lab_oh, start, lengths, g_final, need_dadj=True):
+    """The backward kernels' arithmetic: (dem, dadj or None, dwsel, dws)."""
+    B, T, S = traj.shape
+    N = wsel.shape[2]
+    lab_idx = dsp.label_index(lab_oh)
+    dem = torch.zeros((B, T, S), dtype=torch.float32)
+    dadj = torch.zeros_like(adj) if need_dadj else None
+    dwsel = torch.zeros((B, S, N), dtype=torch.float32)
+    dws = torch.zeros((B, S), dtype=torch.float32)
+    for b in range(B):
+        label_of, jslot, members, dest, g_mem, src, g_src = _compact(adj[b], lab_idx[b])
+        wt = wsel[b][:, label_of].T.contiguous() if label_of else wsel[b][:, :0].T
+        lab = torch.tensor([j >= 0 for j in jslot])
+        t_live = max(1, min(int(lengths[b]), T))
+        e0 = _start_e(start[b])
+        # the statistics pass, off the chain
+        stats = {}
+        for t in range(t_live):
+            x = e0 if t == 0 else traj[b, t - 1]
+            sh, zm = _frame_stats(x, adj[b], wt, members, jslot, dest, g_mem, t == 0)
+            rz = torch.zeros(S, dtype=torch.float32)  # 1 / max(z, floor), 0 where z = 0
+            for m, u in enumerate(members):
+                rz[u] = 1.0 / torch.clamp(zm[m], min=FLOOR) if zm[m] > 0 else 0.0
+            stats[t] = (sh, rz)
+        # the chain: one sparse product by source a frame
+        g = g_final[b].clone()
+        acc = [[torch.zeros((), dtype=torch.float32) for _ in arcs] for arcs in src]
+        dz = {}
+        for t in range(t_live - 1, 0, -1):
+            sh, rz = stats[t]
+            ga = torch.where(lab, g, torch.zeros(()))
+            dem[b, t] = ga
+            dz[t] = torch.where(lab, ga * rz, torch.zeros(()))
+            g_next = torch.zeros(S, dtype=torch.float32)
+            for s, arcs in enumerate(src):
+                if not arcs:
+                    continue
+                terms = []
+                for k, (u, j, a) in enumerate(arcs):
+                    e = torch.exp((traj[b, t - 1, s] + wt[j, s]) - sh[j])
+                    term = (a * (g[u] * rz[u])) * e
+                    terms.append(term)
+                    acc[s][k] = acc[s][k] + term
+                g_next[s] = _lane_sum(torch.stack(terms), g_src)
+            g = g_next
+        _, rz0 = stats[0]
+        ga0 = torch.where(lab & (rz0 > 0), g, torch.zeros(()))
+        dem[b, 0] = dws[b] = ga0
+        dz[0] = torch.where(lab, ga0 * rz0, torch.zeros(()))
+        # dwsel: each source's arcs run by slot, summed once
+        for s, arcs in enumerate(src):
+            k = 0
+            while k < len(arcs):
+                j, total = arcs[k][1], torch.zeros((), dtype=torch.float32)
+                while k < len(arcs) and arcs[k][1] == j:
+                    total = total + acc[s][k]
+                    k += 1
+                dwsel[b, s, label_of[j]] = total
+        if need_dadj:  # dense: every s of a labelled row, frames in decreasing t
+            for u in members:
+                j, row = jslot[u], torch.zeros(S, dtype=torch.float32)
+                for t in range(t_live - 1, 0, -1):
+                    row = row + dz[t][u] * torch.exp(
+                        (traj[b, t - 1] + wt[j]) - stats[t][0][j])
+                dadj[b, u] = row + dz[0][u] * e0
+    return dem, dadj, dwsel, dws
+
+
+def _entrywise(k, p):
+    a = p.abs().double()
+    nz = a[a > 0]
+    m = float(nz.median()) if nz.numel() else 1.0
+    return float(((k - p).abs().double() / (a + m)).max())
+
+
+def _emulation_case(case, rng):
+    """Inputs (em_state, adj, wsel, lab_oh, ws_state, start, lengths) as
+    numpy float32 / int32 for one named case."""
+    if case == "all_live":
+        import chip_smoke
+
+        xs = chip_smoke.factored_random_inputs(torch, "cpu", 3, 8, 40, 8)
+        em_state, adj, wsel, lab, ws_state, start, _, lens = [x.numpy() for x in xs]
+        return em_state, adj, wsel, lab, ws_state, start, lens
+    B, T, S, N = {"small": (3, 8, 12, 6), "mid": (2, 10, 50, 9), "wide_n": (4, 6, 96, 80),
+                  "hub": (3, 7, 50, 9), "underflow": (3, 8, 30, 6)}[case]
+    em, adj, lab, start, _, lens = _random_case(rng, B, T, S, N)
+    wsel = (rng.randn(B, S, N) * 0.3).astype(np.float32)
+    if case == "hub":  # one destination a sample with 40-45 sources
+        for b in range(B):
+            srcs = rng.choice(S, size=40 + b * 2, replace=False)
+            adj[b, 5, srcs] = np.exp(rng.randn(srcs.size).clip(-3, 3))
+            lab[b, 5] = 0.0
+            lab[b, 5, 1] = 1.0
+    if case == "underflow":
+        # each label's weights from most sources 85-110 nats below the few
+        # that lead it: their exps are denormal or zero after the shift
+        lead = rng.rand(B, S, N) < 0.15
+        wsel = np.where(lead, 0.0, -rng.uniform(85.0, 110.0, (B, S, N))).astype(np.float32)
+        em = (rng.randn(*em.shape) * 0.1).astype(np.float32)
+    em_state = np.einsum("btn,bsn->bts", em, lab).astype(np.float32)
+    ws_state = (rng.randn(B, S) * 0.3).astype(np.float32)
+    return em_state, adj, wsel, lab, ws_state, start, lens
+
+
+@pytest.mark.parametrize("case", ["small", "mid", "wide_n", "hub", "all_live", "underflow"])
+def test_emulated_kernels_match_plain_and_jax(case):
+    rng = np.random.RandomState(len(case))
+    em_state, adj, wsel, lab, ws_state, start, lens = _emulation_case(case, rng)
+    t = [torch.from_numpy(x) for x in (em_state, adj, wsel, lab, ws_state, start, lens)]
+    B, T, S = em_state.shape
+    plans = dsp.factored_plan(t[1], dsp.label_index(t[3]), t[6], wsel.shape[2])
+    if case == "hub":
+        assert min(p["max_in_degree"] for p in plans) > 32
+    if case == "all_live":
+        assert all(p["arcs"] == p["labelled"] * S for p in plans)
+
+    traj, underflow = emulate_fwd(*t)
+    traj_p = dsp.factored_scan_fwd_plain(*t)
+    live = traj_p > DEAD
+    assert torch.equal(traj > DEAD, live)
+    torch.testing.assert_close(traj[live], traj_p[live], atol=1e-4, rtol=1e-5)
+    if case == "all_live":
+        assert bool(live.all())
+    if case == "underflow":
+        assert underflow > 0  # the TPU's shift decided these deaths
+
+    g = torch.from_numpy(rng.randn(B, S).astype(np.float32))
+    args = (traj_p, t[1], t[2], t[3], t[5], t[6], g)
+    mine = emulate_bwd(*args)
+    plain = dsp.factored_scan_bwd_plain(*args)
+    for name, k, p in zip(("dem", "dadj", "dwsel", "dws"), mine, plain):
+        finite = torch.isfinite(p)
+        assert torch.equal(torch.isfinite(k), finite), name
+        assert _entrywise(k[finite], p[finite]) <= 1e-5, name
+    assert emulate_bwd(*args, need_dadj=False)[1] is None
+
+    # JAX's Pallas pair (interpret mode): final alpha and the cotangents
+    def jax_fn(e, a, w, s):
+        return jax_dsp.factored_scan(e, a, w, jnp.asarray(lab), s, jnp.asarray(start),
+                                     jnp.asarray(lens, jnp.float32))
+
+    j_alpha, vjp = jax.vjp(jax_fn, *[jnp.asarray(x) for x in (em_state, adj, wsel, ws_state)])
+    j_alpha = np.asarray(j_alpha)
+    j_live = j_alpha > DEAD
+    mine_live = traj[:, -1].numpy() > DEAD
+    if case == "underflow":
+        # XLA's CPU exp flushes float32 denormals to zero (as the TPU has
+        # none); PyTorch's plain version, and the kernels built without
+        # fast math, keep them, so a state whose z is denormal lives here
+        # (85 nats down) and dies in JAX, and its later frames differ: JAX's
+        # live set is a subset, and no more holds (ROADMAP queue C)
+        assert not (j_live & ~mine_live).any()
+        return
+    np.testing.assert_array_equal(mine_live, j_live)
+    np.testing.assert_allclose(traj[:, -1].numpy()[j_live], j_alpha[j_live],
+                               atol=1e-4, rtol=1e-5)
+    j_grads = vjp(jnp.asarray(g.numpy()))
+    for name, k, jg in zip(("dem", "dadj", "dwsel", "dws"), mine, j_grads):
+        jg = np.asarray(jg)
+        finite = np.isfinite(jg)
+        np.testing.assert_allclose(k.numpy()[finite], jg[finite], err_msg=name, **GRAD_TOL)

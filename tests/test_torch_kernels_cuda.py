@@ -240,3 +240,59 @@ def test_viterbi_scan_routes_match_plain_and_refuse(cuda_device):
     wide = torch.zeros(1, 1, 2**16, device=cuda_device)
     with pytest.raises(ValueError, match="2\\^16"):
         viterbi_scan_pallas.viterbi_scan_fwd_cuda(wide, src_b, lab_b, w_b, st, lens[:1])
+
+
+def _sparse_factored_case(rng, b, t, s, n, density, dev):
+    """A factored-scan case with a random sparse adjacency (each state at
+    least one arc, from its predecessor), every state labelled, one start
+    state, accept 0, ragged lengths."""
+    import numpy as np
+
+    adj = np.where(rng.rand(b, s, s) < density, rng.uniform(0.5, 1.5, (b, s, s)), 0.0)
+    adj[:, np.arange(1, s), np.arange(s - 1)] = 1.0
+    lab = np.zeros((b, s, n), np.float32)
+    lab[np.arange(b)[:, None], np.arange(s)[None, :], rng.randint(0, n, (b, s))] = 1.0
+    start = np.full((b, s), -1e30, np.float32)
+    start[:, 0] = 0.0
+    lens = rng.randint(t // 2, t + 1, b).astype(np.int32)
+    to = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return (to(rng.randn(b, t, s) - 2), to(adj), to(rng.randn(b, s, n) * 0.3), to(lab),
+            to(rng.randn(b, s) * 0.3), to(start), to(np.zeros((b, s))),
+            torch.as_tensor(lens, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route,rows,chain", [
+    ("sparse", "registers", "staged", "registers"),
+    ("wide", "shared", "staged", "registers"),
+    ("long", "shared", "ring", "shared"),
+    ("dense", "shared", "staged", "shared"),
+    ("dense_wide", "global", "staged", "global"),
+])
+def test_factored_scan_routes_match_plain(cuda_device, case, route, rows, chain):
+    """The factored pair by each of its routes (the forward's registers,
+    shared and global, its emission rows staged or in the ring; the chain's
+    registers, shared and global) against the plain versions, by
+    ``chip_smoke.hold_factored_scan_kernels``: live sets equal, the
+    trajectory within atol 1e-3 + rtol 1e-5, the cotangents entry by entry
+    within 1e-5 of |p| + the median nonzero |p|.  The route each case
+    takes is the one ``dense_scan_pallas.factored_plan`` mirrors."""
+    import numpy as np
+
+    import chip_smoke
+
+    rng = np.random.RandomState(11)
+    if case == "dense":
+        inputs = chip_smoke.factored_random_inputs(torch, cuda_device, 3, 30, 96, 8)
+    elif case == "dense_wide":
+        inputs = chip_smoke.factored_random_inputs(torch, cuda_device, 2, 20, 160, 80)
+    else:
+        shape = {"sparse": (4, 40, 40, 8), "wide": (3, 40, 200, 12),
+                 "long": (2, 240, 320, 12)}[case]
+        inputs = _sparse_factored_case(rng, *shape, 0.01, cuda_device)
+    routes = chip_smoke.factored_routes(torch, inputs[1], inputs[3], inputs[7],
+                                        inputs[2].shape[2])
+    assert (routes["route"], routes["rows"], routes["chain_route"]) == (
+        [route], [rows], [chain]), routes
+    chip_smoke.hold_factored_scan_kernels(torch, *inputs, case,
+                                          all_live=case.startswith("dense"))

@@ -6,7 +6,9 @@ its gradients to the logits and to the transitions are held to JAX's
 default route (the analytic-VJP fold for the bigram scorer) within loss
 rtol 1e-5 + atol 1e-5 and gradients rtol 2e-4 + atol 2e-5, the agreement
 of JAX's own two routes (``tests/test_dense_scan.py``): ngram 1 and 2 at
-the shapes of ``tests/test_dense_scan.py:118-146`` and the
+the shapes of ``tests/test_dense_scan.py:118-146`` (ngram 2 with blank
+none, optional without repeats, and forced, each of which ``prepare``
+packs for the factored scan) and the
 transitions-free word-decomposition case of :149-182.  The decode must
 give JAX's tokens on random logits and random transitions (JAX's per-step
 oracle, on data with no near ties) and must follow an in-place update of
@@ -89,6 +91,7 @@ CASES = {
     "ngram2": lambda: _numeric(12, ngram=2, reduction="mean"),
     "ngram2_optional_norep": lambda: _numeric(
         12, ngram=2, blank="optional", allow_repeats=False, reduction="mean"),
+    "ngram2_forced": lambda: _numeric(12, ngram=2, blank="forced", reduction="mean"),
     "word_decomps": _word_decomps,
 }
 
@@ -110,6 +113,7 @@ def test_prepare_matches_jax(name, monkeypatch):
     crit, jcrit, targets, _ = _case(name, rng)
     prep = crit.prepare(targets)
     jprep = _jax_prepare(jcrit, targets, monkeypatch)
+    assert "factored" in prep  # every case here scores through factored_scan
     for key in ("adj_exp", "lab_oh", "start", "accept"):
         np.testing.assert_array_equal(prep["factored"][key].numpy(),
                                       np.asarray(jprep["factored"][key]), err_msg=key)
