@@ -70,7 +70,13 @@ prints no result):
    values within atol 1e-3 + rtol 1e-5 on live states
    (the scan's trajectory: within 80 nats of the frame's best), the
    cotangents (dalpha, dcontrib; dem, dw, deps, dalpha0) entry by entry
-   within 1e-5 (|p| + the median nonzero |p|);
+   within 1e-5 (|p| + the median nonzero |p|); seg_lse also on a
+   synthetic step past every lane schedule of its kernels (B=32, S=3,000:
+   hubs of 4,500 and 400 in-arcs and of 4,300 and 700 out-arcs, empty
+   destinations, dead sources, endpoints outside [0, S)) with src/dst, w
+   and em each shared or per sample (em also absent), and with every
+   state dead; each seg_lse kernel runs twice and must agree with itself
+   bitwise;
 10. seg_max, the per-step decode's tropical step, against its plain
    version: on the epsilon-removed decode table of the unpruned grapheme
    4-gram over the long-line texts (S=1,058, A=35,455, a hub of in-degree
@@ -119,7 +125,12 @@ prints no result):
    PyTorch call that computes it where there is one (F.ctc_loss for the
    CTC pair, torch.gather and scatter_add_ for the gather pair; the
    sparse kernels also on the 1kwp composed tables and the main paths'
-   trigram and 4-gram tables), the host-clock median of 20 full train
+   trigram and 4-gram tables, seg_lse on the first round of each table's
+   start closure, with the whole step, wrapper included, forward and
+   forward and backward, and the kernels it launches by torch.profiler;
+   the seg_lse forward also by its other route, alpha, w and em staged in
+   shared memory or gathered, and without its statistics), the
+   host-clock median of 20 full train
    steps of each path and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 10's T=300 case),
    the latency of one frame of the CTC recursion's dependent chain
@@ -1056,6 +1067,124 @@ def hold_cluster_refused(torch, em, alpha0, lens, plan, w, ew, depth, k, fit):
         raise AssertionError(f"sparse_scan: a cluster of {k} that does not fit launched")
 
 
+def hold_seglse(torch, alpha, src, dst, w, em, idx, g, what):
+    """The seg_lse pair on one step against its plain versions in float64:
+    values within atol 1e-3 + rtol 1e-5 on live states, dalpha and
+    dcontrib entry by entry within 1e-5 (|p| + the median nonzero |p|).
+    Each kernel runs twice and must agree with itself bitwise, the
+    forward also by its other route (alpha, w and em staged in shared
+    memory or gathered from device memory, where both fit) and without its
+    statistics, the backward without dcontrib.  em may be None.  Returns (errors,
+    the plain forward in float64)."""
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+
+    S, A = alpha.shape[1], w.shape[1]
+    routes = [r for r in (False, True)
+              if not r or 4 * slp.stage_words(S, A, em) <= _build.MAX_SMEM]
+    fwd = slp.seg_lse_fwd_cuda(alpha, w, em, idx, stats=True)
+    again = [slp.seg_lse_fwd_cuda(alpha, w, em, idx, stats=True, staged=r) for r in routes]
+    bare = slp.seg_lse_fwd_cuda(alpha, w, em, idx)
+    if not (all(torch.equal(x, y) for o in again for x, y in zip(fwd, o))
+            and torch.equal(bare, fwd[0])):
+        raise AssertionError(f"seg_lse_fwd: two runs differ at {what}")
+    out_k, m_k, z_k = fwd
+    a64, w64 = alpha.double(), w.double()
+    em64 = 0.0 if em is None else em.double()
+    out_p = slp.seg_lse_fwd_plain(a64, src, dst, w64, em64)
+    errs = {"seg_lse_fwd": hold_live(torch, "seg_lse_fwd", out_k.double(), out_p, what)}
+    bwd = slp.seg_lse_bwd_cuda(alpha, w, em, idx, m_k, z_k, g)
+    again = slp.seg_lse_bwd_cuda(alpha, w, em, idx, m_k, z_k, g)
+    da_only, none = slp.seg_lse_bwd_cuda(alpha, w, em, idx, m_k, z_k, g, need_dcontrib=False)
+    if not (all(torch.equal(x, y) for x, y in zip(bwd, again))
+            and torch.equal(da_only, bwd[0]) and none is None):
+        raise AssertionError(f"seg_lse_bwd: two runs differ at {what}")
+    da_p, dc_p = slp.seg_lse_bwd_plain(a64, src, dst, w64, em64, g.double())
+    errs["seg_lse_bwd"] = errs["seg_lse_bwd_rel"] = 0.0
+    for name, k, p in (("dalpha", bwd[0], da_p), ("dcontrib", bwd[1], dc_p)):
+        rel, err = hold_entrywise(torch, f"seg_lse_bwd {name}", k, p, what)
+        errs["seg_lse_bwd_rel"] = max(errs["seg_lse_bwd_rel"], rel)
+        errs["seg_lse_bwd"] = max(errs["seg_lse_bwd"], err)
+    return errs, out_p
+
+
+def seglse_case(torch, dev, layout, b=B, s=3000, dead=False, seed=20):
+    """One seg_lse step past every lane schedule of its kernels.  Each
+    structure row has a destination hub of 4,500 in-arcs (past the 2,048 a
+    block holds in registers) and one of 400, a source hub of 4,300
+    out-arcs and one of 700, 40 % of the states without in-arcs and the
+    rest 1-256, a tenth of the states dead (NEG in alpha) and one
+    destination reached only from them, 32 arcs with a source and 32 with
+    a destination outside [0, S); rows are padded to one length with
+    arcs of -1 endpoints.  ``layout``: src/dst, w and em each "s" (shared)
+    or "b" (per sample), em also "n" (absent); ``dead``: every state of
+    alpha NEG.  Returns alpha [b, s], src, dst, w, em (or None), g [b, s]."""
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    rng = np.random.RandomState(seed)
+    dead_states = rng.choice(np.arange(16, s), s // 10, replace=False)
+    hubs = {"dst": (3, s // 2 + 7), "src": (9, 11)}
+
+    def structure(r):
+        g = np.random.RandomState(seed + 1 + r)
+        cls = g.choice(4, size=s, p=[0.7, 0.15, 0.1, 0.05])
+        deg = np.where(g.rand(s) < 0.6, g.randint(np.array([1, 9, 33, 65])[cls],
+                                                  np.array([9, 33, 65, 257])[cls]), 0)
+        deg[list(hubs["dst"])] = (4500, 400)
+        deg[13] = 3  # reached only from dead states
+        dst = np.repeat(np.arange(s), deg)
+        src = g.randint(0, s, dst.size)
+        perm = g.permutation(dst.size)
+        src[perm[:4300]], src[perm[4300:5000]] = hubs["src"]
+        src[dst == 13] = dead_states[:3]
+        src = np.concatenate([src, g.choice([-1, s], 32), g.randint(0, s, 32)])
+        dst = np.concatenate([dst, g.randint(0, s, 32), g.choice([-1, s + 3], 32)])
+        return src, dst
+
+    rows = {"s": 1, "b": b, "n": 0}
+    pairs = [structure(r) for r in range(rows[layout[0]])]
+    A = max(x[0].size for x in pairs)
+    pad = lambda x: np.concatenate([x, np.full(A - x.size, -1)])  # noqa: E731
+    src = np.stack([pad(x[0]) for x in pairs])
+    dst = np.stack([pad(x[1]) for x in pairs])
+    alpha = (rng.randn(b, s) * 3).astype(np.float32)
+    alpha[:, dead_states] = NEG
+    if dead:
+        alpha[:] = NEG
+    to = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+    w = to(rng.randn(rows[layout[1]], A) * 0.5)
+    em = to(rng.randn(rows[layout[2]], A)) if layout[2] != "n" else None
+    g = to(rng.rand(b, s))
+    return to(alpha), to(src, torch.int32), to(dst, torch.int32), w, em, g
+
+
+SEGLSE_LAYOUTS = [a + b + c for a in "sb" for b in "sb" for c in "sbn"]
+
+
+def phase_seglse(torch, dev):
+    """The seg_lse pair on the synthetic hub case (``seglse_case``) in every
+    layout of src/dst, w and em, and with every state dead."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+
+    errs = {}
+    for layout, dead in [(x, False) for x in SEGLSE_LAYOUTS] + [("bbb", True)]:
+        alpha, src, dst, w, em, g = seglse_case(torch, dev, layout, dead=dead)
+        idx = slp.arc_index(src, dst, alpha.shape[1])
+        din = torch.diff(idx.dptr.long(), dim=1)
+        dout = torch.diff(idx.sptr.long(), dim=1)
+        step_errs, out_p = hold_seglse(torch, alpha, src, dst, w, em, idx, g,
+                                       ("hub case", layout, "dead" if dead else "live"))
+        if dead and bool((out_p > -5e29).any()):
+            raise AssertionError("seg_lse: a live state in the all-dead case")
+        merge_errs(errs, step_errs)
+        log(f"seg_lse hub case {layout}{' all dead' if dead else ''}: B={alpha.shape[0]} "
+            f"S={alpha.shape[1]} A={src.shape[1]}, in-degree max {int(din.max())}, "
+            f"out-degree max {int(dout.max())}, empty destinations "
+            f"{float((din == 0).double().mean()):.3f}; fwd max|d| "
+            f"{step_errs['seg_lse_fwd']:.3g}, bwd entrywise {step_errs['seg_lse_bwd_rel']:.3g}")
+    return errs
+
+
 def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
                         past_smem=False, clusters=None):
     """The seg_lse pair on each step of the table's start closure and the
@@ -1085,23 +1214,13 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
     rng = np.random.RandomState(10)
     if depth:
         idx = slp.arc_index(esrc, edst, S)
-        zero = torch.zeros_like(ew)
-        ew_s, z_s = slp.take(ew, idx.order), slp.take(zero, idx.order)
         acc = cur = alpha0
         for d in range(depth):
-            out_k = slp.seg_lse_fwd_cuda(cur, ew_s, z_s, idx)
-            c64, ew64, zero64 = f64(cur, ew, zero)
-            out_p = slp.seg_lse_fwd_plain(c64, esrc, edst, ew64, zero64)
-            errs["seg_lse_fwd"] = max(errs["seg_lse_fwd"], hold_live(
-                torch, "seg_lse_fwd", out_k.double(), out_p, what))
             g = torch.as_tensor(rng.rand(B, S).astype(np.float32), device=em.device)
-            da_k, dc_k = slp.seg_lse_bwd_cuda(cur, ew_s, z_s, idx, g)
-            da_p, dc_p = slp.seg_lse_bwd_plain(c64, esrc, edst, ew64, zero64, g.double())
-            for name, k, p in (("dalpha", da_k, da_p),
-                               ("dcontrib", slp.untake(dc_k, idx.order), dc_p)):
-                rel, err = hold_entrywise(torch, f"seg_lse_bwd {name}", k, p, what)
-                rels[f"seg_lse {name}"] = max(rels.get(f"seg_lse {name}", 0.0), rel)
-                errs["seg_lse_bwd"] = max(errs["seg_lse_bwd"], err)
+            step_errs, out_p = hold_seglse(torch, cur, esrc, edst, ew, None, idx, g,
+                                           (what, f"closure round {d + 1}"))
+            merge_errs(errs, step_errs)
+            rels["seg_lse"] = max(rels.get("seg_lse", 0.0), step_errs["seg_lse_bwd_rel"])
             cur = out_p.float()
             acc = logaddexp(acc, cur)
         alpha0 = acc.contiguous()
@@ -1150,8 +1269,7 @@ def hold_sparse_kernels(torch, em, table, lens, what, all_live=False,
         + "; ".join(routes) + f"; seg_lse fwd max|d| {errs['seg_lse_fwd']:.3g}, scan traj "
         f"max|d| (live states) {errs['sparse_scan_fwd']:.3g}, entrywise errors "
         + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()))
-    errs["seg_lse_bwd_rel"] = max([v for k, v in rels.items() if k.startswith("seg")],
-                                  default=0.0)
+    errs["seg_lse_bwd_rel"] = rels.get("seg_lse", 0.0)
     errs["sparse_scan_bwd_rel"] = max(
         [v for k, v in rels.items() if not k.startswith("seg")], default=0.0)
     return errs
@@ -1241,7 +1359,7 @@ def phase_sparse(torch, dev):
     merge_errs(errs, hold_sparse_kernels(torch, em_w, table_w, lens_w,
                                          ("past shared memory",) + WIDE_SPARSE,
                                          past_smem=True, clusters=CLUSTER_SIZES))
-    return errs
+    return merge_errs(errs, phase_seglse(torch, dev))
 
 
 # The backoff paths' transition graphs: the grapheme LM of the recipe's
@@ -2035,15 +2153,7 @@ def factored_chain_frame_us(torch, b, dev):
 def kernel_launches(torch, fn, match):
     """CUDA kernels whose name holds ``match`` that one call of ``fn``
     launches (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and match in e.key)
+    return sum(n for k, n in kernel_counts(torch, fn).items() if match in k)
 
 
 def norm_cost(torch, dev, b, t, n):
@@ -2102,16 +2212,68 @@ def scan_bound(em, table, lens, backward):
 
 
 def seg_lse_bound(B, S, fields, backward):
-    """One seg_lse over arcs ``fields`` (src, dst, w, em): alpha and the
-    fields read once, new written (the backward: g read too, dalpha and
-    dcontrib written); 7 fp32 operations an arc and 4 a state (the
-    backward, which recomputes the shifts and sums: 13 an arc and 2 a
-    state)."""
+    """One seg_lse over arcs ``fields`` (src, dst, w and em where there is
+    one): alpha and the fields read once, new written (the backward: g
+    read too, dalpha and dcontrib written); 7 fp32 operations an arc and 4
+    a state (the backward as the function needs it from alpha alone,
+    recomputing the shifts and sums, which the kernel reads from its
+    forward instead: 13 an arc and 2 a state)."""
     A = fields[0].shape[-1]
     arcs = 4 * A * sum(x.shape[0] for x in fields)
     if not backward:
         return bound_ms(2 * B * S * 4 + arcs, B * (7 * A + 4 * S))
     return bound_ms(3 * B * S * 4 + arcs + B * A * 4, B * (13 * A + 2 * S))
+
+
+def kernel_counts(torch, fn, calls=3, sessions=3):
+    """{name: launches a call} of the CUDA kernels ``fn`` launches
+    (torch.profiler, ``calls`` calls a session after a warm-up call).
+    The profiler has been seen to miss the first kernel of a session, so
+    each session starts with a marker kernel (``torch.cuda._sleep``'s
+    spin kernel, left out of the counts), and each name takes its largest
+    count over ``sessions`` sessions; a count that is not a whole number a
+    call is kept as the fraction."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key:
+                counts[e.key] = max(counts.get(e.key, 0), e.count)
+    return {k: n // calls if n % calls == 0 else n / calls for k, n in counts.items()}
+
+
+def seglse_step_cost(torch, alpha, src, dst, w, idx, g):
+    """The whole ``seg_lse`` step as the closure runs it (wrapper
+    included; the epsilon weights and, past the first round, alpha need
+    gradients): CUDA-event medians of the forward and of forward and
+    backward, and the kernels each launches (torch.profiler)."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+
+    a_req = alpha.detach().clone().requires_grad_(True)
+    w_req = w.detach().clone().requires_grad_(True)
+
+    def fwd():
+        return slp.seg_lse(a_req, src, dst, w_req, None, idx)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (a_req, w_req), g)
+
+    kernels_fwd = kernel_counts(torch, fwd)
+    kernels_all = kernel_counts(torch, fwd_bwd)
+    kernels_bwd = {k: n - kernels_fwd.get(k, 0) for k, n in kernels_all.items()
+                   if n - kernels_fwd.get(k, 0)}
+    return {"seg_lse_step_fwd_ms": gpu_median_ms(torch, fwd),
+            "seg_lse_step_fwd_bwd_ms": gpu_median_ms(torch, fwd_bwd),
+            "seg_lse_step_fwd_kernels": kernels_fwd,
+            "seg_lse_step_bwd_kernels": kernels_bwd}
 
 
 def sparse_times(torch, dev):
@@ -2136,22 +2298,41 @@ def sparse_times(torch, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = sparse_fields(table)
         Bk, S = e.shape[0], start.shape[-1]
         alpha0 = start.expand(Bk, S).contiguous()
-        if key == "":
+        if depth:
+            # the first round of the table's start closure, as the loss runs it
             idx = slp.arc_index(esrc, edst, S)
-            zero = torch.zeros_like(ew)
-            ew_s, z_s = slp.take(ew, idx.order), slp.take(zero, idx.order)
             g = torch.rand(Bk, S, device=dev)
-            t["seg_lse_fwd"] = gpu_median_ms(
-                torch, lambda: slp.seg_lse_fwd_cuda(alpha0, ew_s, z_s, idx))
-            t["seg_lse_fwd_plain"] = gpu_median_ms(
-                torch, lambda: slp.seg_lse_fwd_plain(alpha0, esrc, edst, ew, zero))
-            t["seg_lse_bwd"] = gpu_median_ms(
-                torch, lambda: slp.seg_lse_bwd_cuda(alpha0, ew_s, z_s, idx, g))
-            t["seg_lse_bwd_plain"] = gpu_median_ms(
-                torch, lambda: slp.seg_lse_bwd_plain(alpha0, esrc, edst, ew, zero, g))
-            arcs = (esrc, edst, ew, zero)
-            bounds["seg_lse_fwd"] = seg_lse_bound(Bk, S, arcs, False)
-            bounds["seg_lse_bwd"] = seg_lse_bound(Bk, S, arcs, True)
+            _, m, z = slp.seg_lse_fwd_cuda(alpha0, ew, None, idx, stats=True)
+            t["seg_lse_fwd" + key] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_fwd_cuda(alpha0, ew, None, idx, stats=True))
+            t["seg_lse_bwd" + key] = gpu_median_ms(
+                torch, lambda: slp.seg_lse_bwd_cuda(alpha0, ew, None, idx, m, z, g))
+            t.update({name + key: v for name, v in seglse_step_cost(
+                torch, alpha0, esrc, edst, ew, idx, g).items()})
+            arcs = (esrc, edst, ew)
+            t["seg_lse_shape" + key] = [Bk, S, int(esrc.shape[-1])] + [
+                int(torch.diff(p.long(), dim=1).max()) for p in (idx.dptr, idx.sptr)]
+            if key == "":
+                t["seg_lse_fwd_no_stats"] = gpu_median_ms(
+                    torch, lambda: slp.seg_lse_fwd_cuda(alpha0, ew, None, idx))
+                # the route the wrapper takes (vectors staged in shared memory
+                # where they fit) and the other
+                staged = slp.stage_words(S, esrc.shape[-1], None) <= slp.STAGE_WORDS
+                t["seg_lse_fwd_staged"] = staged
+                t["seg_lse_fwd_other_route"] = gpu_median_ms(
+                    torch, lambda: slp.seg_lse_fwd_cuda(alpha0, ew, None, idx, stats=True,
+                                                        staged=not staged))
+                t["seg_lse_bwd_no_dcontrib"] = gpu_median_ms(torch, lambda: slp.seg_lse_bwd_cuda(
+                    alpha0, ew, None, idx, m, z, g, need_dcontrib=False))
+                t["seg_lse_fwd_plain"] = gpu_median_ms(
+                    torch, lambda: slp.seg_lse_fwd_plain(alpha0, esrc, edst, ew, 0.0))
+                t["seg_lse_bwd_plain"] = gpu_median_ms(
+                    torch, lambda: slp.seg_lse_bwd_plain(alpha0, esrc, edst, ew, 0.0, g))
+                bounds["seg_lse_fwd"] = seg_lse_bound(Bk, S, arcs, False)
+                bounds["seg_lse_bwd"] = seg_lse_bound(Bk, S, arcs, True)
+            else:
+                for name, bwd in (("seg_lse_fwd", False), ("seg_lse_bwd", True)):
+                    t[name + key + "_bound"] = seg_lse_bound(Bk, S, arcs, bwd)
         acc = cur = alpha0
         for _ in range(depth):
             cur = slp.seg_lse_fwd_plain(cur, esrc, edst, ew, torch.zeros_like(ew))

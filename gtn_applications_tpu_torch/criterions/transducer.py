@@ -227,8 +227,10 @@ class Transducer(Criterion):
         self._decode_template = None
         self._decode_cache = None
         # the decode table's structure for the kernels, by device (the
-        # template's arcs never change; only their weights do)
+        # template's arcs never change; only their weights do), and the
+        # normaliser's epsilon index likewise
         self._decode_plans = {}
+        self._norm_indexes = {}
 
     def _backoff_gates(self):
         """JAX's ``_factored_backoff`` (dense [N, S_c, S_c] matrices fit)
@@ -432,7 +434,8 @@ class Transducer(Criterion):
             table = self._apply_params(table, prepared["widx"], prepared["eps_widx"], p)
             score = sparse.forward_score_batch_tables(inputs, table, input_lengths)
             norm_table = self._apply_params(*self._norm_table_on(inputs.device), p)
-            norm = sparse.forward_score_batch(inputs, norm_table, input_lengths)
+            norm = sparse.forward_score_batch(inputs, norm_table, input_lengths,
+                                              self._norm_indexes)
             return self._reduce(-(score - norm), prepared)
         f = prepared["factored"]
         if self.transitions is None:

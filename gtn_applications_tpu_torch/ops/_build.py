@@ -61,8 +61,8 @@ _SIGNATURES = {
         "factored_chain_probe": (1, 3),
     },
     "sparse_scan": {
-        "seg_lse_fwd": (6, 6),
-        "seg_lse_bwd": (10, 6),
+        "seg_lse_fwd": (9, 7),
+        "seg_lse_bwd": (11, 6),
         "sparse_scan_fwd": (11, 20),
         "sparse_scan_bwd": (18, 23),
         "sparse_scan_probe": (1, 3),

@@ -20,8 +20,9 @@
 //   z      = sum over those arcs with c[a] > DEAD of exp(c[a] - m)
 //   new[s] = z > 0 ? m + log(max(z, 1e-30)) : NEG
 // and its VJP dc[a] = (c > DEAD && z > 0) ? exp(c - m) / z g[s] : 0 (the
-// posterior from the destination's own shift, recomputed), dalpha[u] = sum
-// over arcs from u of dc.  The whole scan runs that
+// posterior from the destination's own shift: seg_lse saves m and z, the
+// whole scan recomputes them), dalpha[u] = sum over arcs from u of dc.
+// The whole scan runs that
 // step each frame with em[a] = em[b, t, label[a]], then eps_depth rounds of
 // the epsilon closure (cur_d = step(cur_{d-1}) over the epsilon arcs, acc_d
 // = logaddexp(acc_{d-1}, cur_d), dead inputs masked), and keeps alpha past
@@ -40,7 +41,8 @@
 // MXU and shift each row by its largest contribution.  Here the arcs are
 // sorted by destination on the host (ops/seglse_pallas.py arc_index), and
 // every destination gets its own shift (the plain forward_score's
-// arithmetic).  seg_lse reduces one destination a warp.  The whole scan
+// arithmetic).  seg_lse spreads its rows over a grid (below, above its
+// kernels).  The whole scan
 // runs a thread-block cluster of k blocks (1, 2, 4 or 8: the most with
 // B k blocks on the card's 132 multiprocessors) per sample, on a schedule
 // built once per table (ops/sparse_scan_pallas.py build_schedule):
@@ -94,7 +96,6 @@ constexpr float kDead = -1e28f;
 constexpr float kFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScanThreads = 512;
-constexpr int kStepThreads = 256;
 
 // exp, log and max of float (the f-suffixed calls) and of double
 __device__ __forceinline__ float ex(float x) { return expf(x); }
@@ -133,33 +134,6 @@ struct Seg {
   __device__ V value() const { return z > V(0) ? m + lg(vmax(z, V(kFloor))) : V(kNeg); }
 };
 
-// The Seg of value(k) over k in [beg, end), by one warp (in every lane),
-// in the type value returns.
-template <typename F>
-__device__ __forceinline__ auto warp_seg(int beg, int end, int lane, F value)
-    -> Seg<decltype(value(0))> {
-  using V = decltype(value(0));
-  V m = V(-INFINITY);
-  for (int k = beg + lane; k < end; k += 32) m = vmax(m, value(k));
-  m = vmax(warp_max(m), V(kNeg));
-  V z = V(0);
-  for (int k = beg + lane; k < end; k += 32) {
-    const V v = value(k);
-    if (v > V(kDead)) z += ex(v - m);
-  }
-  return Seg<V>{m, warp_sum(z)};
-}
-
-// The sum, in Acc, of vals[order[j]] over j in [ptr[row], ptr[row + 1]),
-// by one warp.
-template <typename Acc, typename T>
-__device__ __forceinline__ Acc warp_csr_sum(const int* ptr, const int* order,
-                                            const T* vals, int row, int lane) {
-  Acc s = Acc(0);
-  for (int j = ptr[row] + lane; j < ptr[row + 1]; j += 32) s += Acc(vals[order[j]]);
-  return warp_sum(s);
-}
-
 // The posterior of one contribution c into a destination of shift and sum
 // sg, times the destination's cotangent g: exp(c - m) / z, formed from the
 // destination's own shift (as autodiff of the plain version forms it), so
@@ -193,69 +167,427 @@ __device__ const T* stage(const T* src, long n, T* dst) {
 // seg_lse: one step with per-arc emissions em[a]
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kStepThreads)
-seg_lse_fwd_kernel(const float* __restrict__ alpha, const int* __restrict__ dptr,
-                   const int* __restrict__ src, const float* __restrict__ w,
-                   const float* __restrict__ em, float* __restrict__ out,
-                   int S, int A, int sb, int wb, int eb) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// The TPU pair (seglse_pallas.py _fwd_kernel, _bwd_kernel) scans tiles of
+// arcs against one-hot [tile, S] masks on the MXU.  Here the work is one
+// step over a few thousand arcs (the 1kwp normaliser's start closure: S =
+// 1,004, 1,183 epsilon arcs, 99.8 % of the states without one, a hub of
+// in-degree 1,002 and a row of 181), so what bounds it is latency: the
+// launch and a chain of three dependent loads (the row's pointers, the
+// arc's source and original id, then alpha, w and em).  The design keeps
+// that chain short and spreads it over the card:
+// - a grid of B x ceil(S / 256) blocks, a block 256 rows (destinations in
+//   the forward, sources in the backward), a thread a row: its pointers
+//   give the row's in- (out-) degree n;
+// - each warp packs its own 32 rows into passes (warp_rows): a row of n
+//   arcs takes a group of g = 1, 2, 4, 8, 16 or 32 lanes, the fewest that
+//   hold n at 8 arcs a lane (in registers), none without arcs; the groups
+//   are laid out widest first, so each sits on a multiple of its width
+//   and a pass of 32 lanes mixes widths (a warp of short rows is one
+//   pass); a group reduces by xor shuffles that stay inside it.  The
+//   schedule is derived in the kernel from the pointers by ballots:
+//   nothing is built on the host.  (16 arcs a lane halves the passes of
+//   rows of 9-16 arcs but doubles every lane's predicated loads: slower
+//   on every table but the 4-gram normaliser);
+// - a lane loads its arcs in two rounds, each issued whole before any of
+//   its values is used (every source and id, then every alpha, w and em,
+//   at clamped addresses so that no load sits behind a branch): a pass
+//   waits on two loads, not on two an arc;
+// - a hub (n > 256) is taken by the warps that have no rows of their own
+//   (by all, where every warp has some) while the others run their
+//   passes; each of its threads holds 8 of its arcs in registers (more
+//   rounds past that), and the warps' maxima and then their sums meet in
+//   shared memory in warp order, so the hub keeps its own shift;
+// - the arcs are read through the index (ops/seglse_pallas.py ArcIndex):
+//   w and em at each arc's original id, so no gather into the sorted order
+//   runs before the kernel and dcontrib is written in the arcs' own order;
+//   em may be absent (the epsilon closure);
+// - the forward writes each destination's shift m and sum z when autograd
+//   will need them; the backward is one pass by source from them: an
+//   arc's cotangent exp(c - m[d]) / z[d] g[d] needs only its own
+//   destination's saved values, and the source's group sums its arcs' in a
+//   fixed order (no atomics: deterministic).  It keeps the division, as
+//   the plain version has it, and forms the posterior from the port's own
+//   shift, not from JAX's residual out (exp(c - out) would turn the
+//   rounding of out, an ulp of 6e-5 at |out| ~ 700, into a relative error
+//   of the posterior).
+// With `staged` (the wrapper's choice: where the copy takes at most 4
+// loads a thread), the forward copies the vectors a lane reads at an arc's
+// source and id (alpha, w, em) into shared memory while the row pointers
+// load, so a pass waits on two loads from device memory (the pointers, then
+// the arcs' sources and ids) and reads the rest from shared memory; else
+// they are gathered from device memory (__ldg).  The copy is a chain of
+// loads of its own, and on larger tables it costs more than it saves (the
+// backward's five vectors never paid).
+
+constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepArcs = 8;                 // arcs a lane holds in registers
+constexpr int kHubArcs = 32 * kStepArcs;     // a row of more arcs is a hub
+
+// The lanes of a row of n arcs: 0 (no arcs), the fewest lanes g of 1, 2,
+// 4, 8, 16 or 32 that hold them at kStepArcs a lane, or -1 (a hub).
+__device__ __forceinline__ int row_width(int n) {
+  if (n == 0) return 0;
+  if (n > kHubArcs) return -1;
+  int g = 1;
+  while (g * kStepArcs < n) g <<= 1;
+  return g;
+}
+
+// Reductions over aligned groups of g lanes, g a power of two that may
+// differ from lane to lane: every lane takes part in every shuffle, and
+// keeps the partner's value only while the partner is in its group.
+template <typename Op>
+__device__ __forceinline__ float mixed_reduce(float v, int g, Op op) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(kFull, v, off);
+    if (off < g) v = op(v, o);
+  }
+  return v;
+}
+
+// The passes of a warp over its 32 rows, lane l's own row at positions
+// [beg, end) of width w (row_width): the rows with arcs are laid out on
+// lane positions widest first (each width's rows in lane order), so each
+// group sits on a multiple of its width, and pass p takes positions 32 p ..
+// 32 p + 31.  Every lane calls fn(own, b0, e0, g, sub) in every pass, where
+// own is the lane that owns the row the lane serves (-1: no row; the lane
+// still takes part in the shuffles), [b0, e0) its positions, g its
+// group's width and sub the lane's place in it.  `list` is the warp's 32
+// words of shared memory: the owners, widest rows first.
+template <typename F>
+__device__ __forceinline__ void warp_rows(int beg, int end, int w, int* list, F fn) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* al = stage(alpha + static_cast<long>(b) * S, S, smem);
-  const long so = sb ? static_cast<long>(b) : 0;
-  const int* D = dptr + so * (S + 1);
-  const int* Sr = src + so * A;
-  const float* W = w + (wb ? static_cast<long>(b) * A : 0);
-  const float* M = em + (eb ? static_cast<long>(b) * A : 0);
-  __syncthreads();
-  for (int s = warp; s < S; s += nwarps) {
-    const float v = warp_seg(D[s], D[s + 1], lane, [&](int k) {
-      const int u = Sr[k];
-      return ((u >= 0 ? al[u] : kNeg) + W[k]) + M[k];
-    }).value();
-    if (lane == 0) out[static_cast<long>(b) * S + s] = v;
+  const unsigned below = (1u << lane) - 1u;
+  // per width 2^e, widest first: its first row in the list and first position
+  int row0[6], pos0[6], rows = 0, total = 0;
+#pragma unroll
+  for (int e = 5; e >= 0; --e) {
+    const unsigned mask = __ballot_sync(kFull, w == 1 << e);
+    if (w == 1 << e) list[rows + __popc(mask & below)] = lane;
+    row0[e] = rows;
+    pos0[e] = total;
+    rows += __popc(mask);
+    total += __popc(mask) << e;
+  }
+  __syncwarp();
+  for (int p0 = 0; p0 < total; p0 += 32) {
+    const int p = p0 + lane;
+    int g = 1, i = -1, sub = 0;
+#pragma unroll
+    for (int e = 5; e >= 0; --e) {
+      const int end_e = e > 0 ? pos0[e - 1] : total;  // the next width starts there
+      if (p >= pos0[e] && p < end_e) {
+        g = 1 << e;
+        i = row0[e] + ((p - pos0[e]) >> e);
+        sub = (p - pos0[e]) & (g - 1);
+      }
+    }
+    const int own = i >= 0 ? list[i] : -1;
+    const int b0 = __shfl_sync(kFull, beg, own & 31);
+    const int e0 = __shfl_sync(kFull, end, own & 31);
+    fn(own, b0, own >= 0 ? e0 : b0, g, sub);
+  }
+  __syncwarp();
+}
+
+// The block's hubs and the warps that take them.  Each warp lists its own
+// hubs (hub_row: the owner lane, hub_n: how many) and whether it has rows
+// for passes before the barrier; the hub warps are those without (all
+// warps where every warp has some).  Returns whether the block has a hub,
+// and in hw this warp's rank among the hub warps (-1: not one) and their
+// number.
+struct HubWarps {
+  int rank, count;
+};
+
+__device__ __forceinline__ bool hubs_pending(int w, int* hub_row, int* hub_n, int* busy,
+                                             HubWarps& hw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(kFull, w < 0);
+  const bool rows = __ballot_sync(kFull, w > 0) != 0;
+  if (w < 0) hub_row[warp * 32 + __popc(mask & ((1u << lane) - 1u))] = lane;
+  if (lane == 0) {
+    hub_n[warp] = __popc(mask);
+    busy[warp] = rows;
+  }
+  if (!__syncthreads_or(w < 0)) return false;
+  unsigned idle = 0;
+  for (int q = 0; q < kStepWarps; ++q) idle |= busy[q] ? 0u : 1u << q;
+  if (!idle) idle = (1u << kStepWarps) - 1u;
+  hw.count = __popc(idle);
+  hw.rank = idle >> warp & 1u ? __popc(idle & ((1u << warp) - 1u)) : -1;
+  return true;
+}
+
+// The arcs of one step: sorted position k (destination order) has source
+// src[k] and original id arc[k]; w and em (kEm) are read at arc[k].
+struct StepArcs {
+  const int* src;
+  const int* arc;
+  const float* w;
+  const float* em;
+};
+
+// A load from a staged copy in shared memory (kShared) or through the
+// read-only cache.
+template <bool kShared, typename T>
+__device__ __forceinline__ T ld(const T* p, int i) {
+  return kShared ? p[i] : __ldg(p + i);
+}
+
+// A lane's arcs at positions k0, k0 + stride, ... (below end; kStepArcs of
+// them) in two rounds of loads, each issued whole before any of its values
+// is used: every source and id, then every alpha, w and em (at addresses
+// clamped into their arrays, so that no load waits on a branch); -inf past
+// end.
+template <bool kStaged, bool kEm>
+__device__ __forceinline__ void lane_contribs(const StepArcs& arcs, const float* al, int k0,
+                                              int stride, int end, float* c) {
+  int u[kStepArcs], id[kStepArcs];
+#pragma unroll
+  for (int j = 0; j < kStepArcs; ++j) {
+    const int k = k0 + j * stride;
+    u[j] = k < end ? __ldg(arcs.src + k) : INT_MIN;
+    id[j] = k < end ? __ldg(arcs.arc + k) : 0;
+  }
+  float a[kStepArcs], wv[kStepArcs], ev[kStepArcs];
+#pragma unroll
+  for (int j = 0; j < kStepArcs; ++j) {
+    a[j] = ld<kStaged>(al, max(u[j], 0));
+    wv[j] = ld<kStaged>(arcs.w, id[j]);
+    ev[j] = kEm ? ld<kStaged>(arcs.em, id[j]) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kStepArcs; ++j) {
+    const float x = (u[j] >= 0 ? a[j] : kNeg) + wv[j];
+    c[j] = u[j] == INT_MIN ? -INFINITY : kEm ? x + ev[j] : x;
   }
 }
 
+template <bool kStaged, bool kEm>
 __global__ void __launch_bounds__(kStepThreads)
-seg_lse_bwd_kernel(const float* __restrict__ alpha,
-                   const float* __restrict__ g, const int* __restrict__ dptr,
-                   const int* __restrict__ src, const float* __restrict__ w,
-                   const float* __restrict__ em, const int* __restrict__ sptr,
-                   const int* __restrict__ sorder, float* __restrict__ dalpha,
-                   float* __restrict__ dcontrib, int S, int A, int sb, int wb, int eb) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* al = stage(alpha + static_cast<long>(b) * S, S, smem);
+seg_lse_fwd_kernel(const float* __restrict__ alpha, const int* __restrict__ dptr,
+                   const int* __restrict__ src, const int* __restrict__ arc,
+                   const float* __restrict__ w, const float* __restrict__ em,
+                   float* __restrict__ out, float* __restrict__ m_out,
+                   float* __restrict__ z_out, int S, int A, int sb, int wb, int eb) {
+  extern __shared__ float staged[];
+  __shared__ int list[kStepWarps][32];
+  __shared__ int hub_row[kStepThreads];
+  __shared__ int hub_n[kStepWarps], busy[kStepWarps];
+  __shared__ float part_m[kStepWarps], part_z[kStepWarps];
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kStepThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long so = sb ? static_cast<long>(b) : 0;
-  const int* D = dptr + so * (S + 1);
-  const int* Sr = src + so * A;
-  const int* Sp = sptr + so * (S + 1);
-  const int* So = sorder + so * A;
-  const float* W = w + (wb ? static_cast<long>(b) * A : 0);
-  const float* M = em + (eb ? static_cast<long>(b) * A : 0);
-  float* dc = dcontrib + static_cast<long>(b) * A;
-  const float* gb = g + static_cast<long>(b) * S;
-  for (int k = D[S] + threadIdx.x; k < A; k += blockDim.x) dc[k] = 0.0f;
-  __syncthreads();
-  for (int s = warp; s < S; s += nwarps) {
-    auto c = [&](int k) {
-      const int u = Sr[k];
-      return ((u >= 0 ? al[u] : kNeg) + W[k]) + M[k];
-    };
-    const auto sg = warp_seg(D[s], D[s + 1], lane, c);
-    const float gy = gb[s];
-    for (int k = D[s] + lane; k < D[s + 1]; k += 32) dc[k] = posterior(c(k), sg, gy);
+  const int* P = dptr + so * (S + 1);
+  const int r = r0 + threadIdx.x;
+  const int beg = r < S ? P[r] : 0, end = r < S ? P[r + 1] : 0;
+  StepArcs arcs{src + so * A, arc + so * A, w + (wb ? static_cast<long>(b) * A : 0),
+                kEm ? em + (eb ? static_cast<long>(b) * A : 0) : nullptr};
+  const float* al = alpha + static_cast<long>(b) * S;
+  if (kStaged) {
+    Carve cv{staged};
+    al = stage(al, S, cv.floats(S));
+    arcs.w = stage(arcs.w, A, cv.floats(A));
+    if (kEm) arcs.em = stage(arcs.em, A, cv.floats(A));
+    __syncthreads();
   }
-  __syncthreads();  // dc (global, this block's row) is visible block-wide
-  for (int s = warp; s < S; s += nwarps) {
-    const float v = warp_csr_sum<float>(Sp, So, dc, s, lane);
-    if (lane == 0) dalpha[static_cast<long>(b) * S + s] = v;
+  auto emit = [&](int r, float m, float z) {
+    const long o = static_cast<long>(b) * S + r;
+    out[o] = Seg<float>{m, z}.value();
+    if (m_out) {
+      m_out[o] = m;
+      z_out[o] = z;
+    }
+  };
+  const int wd = row_width(end - beg);
+  if (wd == 0 && r < S) emit(r, kNeg, 0.0f);
+  HubWarps hw{-1, 0};
+  const bool hubs = hubs_pending(wd, hub_row, hub_n, busy, hw);
+  // hub warps take the hubs first, the others their passes first
+  for (int phase = 0; phase < 2; ++phase) {
+    if (phase == (hw.rank >= 0 ? 1 : 0)) {
+      warp_rows(beg, end, wd, list[warp], [&](int own, int b0, int e0, int g, int sub) {
+        float c[kStepArcs];
+        lane_contribs<kStaged, kEm>(arcs, al, b0 + sub, g, e0, c);
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kStepArcs; ++j) m = fmaxf(m, c[j]);
+        m = fmaxf(mixed_reduce(m, g, [](float x, float y) { return fmaxf(x, y); }), kNeg);
+        float z = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kStepArcs; ++j)
+          if (c[j] > kDead) z += expf(c[j] - m);
+        z = mixed_reduce(z, g, [](float x, float y) { return x + y; });
+        if (sub == 0 && own >= 0) emit(r0 + warp * 32 + own, m, z);
+      });
+    }
+    if (phase == 1 || !hubs) continue;
+    // this thread's first hub position (none past the hub warps)
+    const int ht = hw.rank >= 0 ? hw.rank * 32 + lane : 0, stride = hw.count * 32;
+    for (int q = 0; q < kStepWarps; ++q) {
+      for (int i = 0; i < hub_n[q]; ++i) {
+        const int h = r0 + q * 32 + hub_row[q * 32 + i];
+        const int hb = P[h], he = hw.rank >= 0 ? P[h + 1] : hb;
+        float c[kStepArcs];
+        lane_contribs<kStaged, kEm>(arcs, al, hb + ht, stride, he, c);
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kStepArcs; ++j) m = fmaxf(m, c[j]);
+        const int k1 = hb + kStepArcs * stride + ht;  // rounds past the registers
+        float more[kStepArcs];
+        for (int k = k1; k < he; k += kStepArcs * stride) {
+          lane_contribs<kStaged, kEm>(arcs, al, k, stride, he, more);
+#pragma unroll
+          for (int j = 0; j < kStepArcs; ++j) m = fmaxf(m, more[j]);
+        }
+        m = warp_max(m);
+        if (lane == 0) part_m[warp] = m;
+        __syncthreads();
+        m = part_m[0];
+        for (int x = 1; x < kStepWarps; ++x) m = fmaxf(m, part_m[x]);
+        m = fmaxf(m, kNeg);
+        float z = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kStepArcs; ++j)
+          if (c[j] > kDead) z += expf(c[j] - m);
+        for (int k = k1; k < he; k += kStepArcs * stride) {
+          lane_contribs<kStaged, kEm>(arcs, al, k, stride, he, more);
+#pragma unroll
+          for (int j = 0; j < kStepArcs; ++j)
+            if (more[j] > kDead) z += expf(more[j] - m);
+        }
+        z = warp_sum(z);
+        if (lane == 0) part_z[warp] = z;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          z = 0.0f;
+          for (int x = 0; x < kStepWarps; ++x) z += part_z[x];
+          emit(h, m, z);
+        }
+      }
+    }
+  }
+}
+
+// By source: sptr [rows, S + 1] delimits each source's positions j, and
+// sarc[j] / sdst[j] are the arc's original id and destination (-1 where
+// invalid); positions past sptr[S] hold the arcs without a valid source.
+// The cotangents of a lane's arcs at positions j0, j0 + stride, ... (below
+// end; kStepArcs of them) from their source's value a, in two rounds of
+// loads (ids and destinations, then w, em, m, z and g), written to dc
+// (where it is not null); returns their sum, in position order.
+struct StepGrad {
+  const int* sarc;
+  const int* sdst;
+  const float* w;
+  const float* em;
+  const float* m;
+  const float* z;
+  const float* g;
+  float* dc;
+  // as lane_contribs: ids and destinations, then every w, em, m, z and g
+  template <bool kEm>
+  __device__ __forceinline__ float lane_sum(int j0, int stride, int end, float a) const {
+    int id[kStepArcs], d[kStepArcs];
+#pragma unroll
+    for (int j = 0; j < kStepArcs; ++j) {
+      const int k = j0 + j * stride;
+      id[j] = k < end ? __ldg(sarc + k) : -1;
+      d[j] = k < end ? __ldg(sdst + k) : -1;
+    }
+    float wv[kStepArcs], ev[kStepArcs], mv[kStepArcs], zv[kStepArcs], gv[kStepArcs];
+#pragma unroll
+    for (int j = 0; j < kStepArcs; ++j) {
+      const int i = max(id[j], 0), q = max(d[j], 0);
+      wv[j] = __ldg(w + i);
+      ev[j] = kEm ? __ldg(em + i) : 0.0f;
+      mv[j] = __ldg(m + q);
+      zv[j] = __ldg(z + q);
+      gv[j] = __ldg(g + q);
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kStepArcs; ++j) {
+      if (id[j] < 0) continue;
+      const float c = kEm ? (a + wv[j]) + ev[j] : a + wv[j];
+      const float v =
+          d[j] >= 0 && c > kDead && zv[j] > 0.0f ? expf(c - mv[j]) / zv[j] * gv[j] : 0.0f;
+      if (dc) dc[id[j]] = v;
+      s += v;
+    }
+    return s;
+  }
+};
+
+template <bool kEm>
+__global__ void __launch_bounds__(kStepThreads)
+seg_lse_bwd_kernel(const float* __restrict__ alpha, const float* __restrict__ g,
+                   const float* __restrict__ m_in, const float* __restrict__ z_in,
+                   const int* __restrict__ sptr, const int* __restrict__ sarc,
+                   const int* __restrict__ sdst, const float* __restrict__ w,
+                   const float* __restrict__ em, float* __restrict__ dalpha,
+                   float* __restrict__ dcontrib, int S, int A, int sb, int wb, int eb) {
+  __shared__ int list[kStepWarps][32];
+  __shared__ int hub_row[kStepThreads];
+  __shared__ int hub_n[kStepWarps], busy[kStepWarps];
+  __shared__ float part[2][kStepWarps];
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kStepThreads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long so = sb ? static_cast<long>(b) : 0;
+  const long row = static_cast<long>(b) * S;
+  const int* P = sptr + so * (S + 1);
+  const int r = r0 + threadIdx.x;
+  const int beg = r < S ? P[r] : 0, end = r < S ? P[r + 1] : 0;
+  const float au = r < S ? alpha[row + r] : 0.0f;
+  const StepGrad sg{sarc + so * A, sdst + so * A, w + (wb ? static_cast<long>(b) * A : 0),
+                    kEm ? em + (eb ? static_cast<long>(b) * A : 0) : nullptr,
+                    m_in + row, z_in + row, g + row,
+                    dcontrib ? dcontrib + static_cast<long>(b) * A : nullptr};
+  if (sg.dc) {  // the arcs without a valid source: spread over the sample's blocks
+    for (int j = P[S] + blockIdx.x * kStepThreads + threadIdx.x; j < A;
+         j += gridDim.x * kStepThreads)
+      sg.dc[sg.sarc[j]] = 0.0f;
+  }
+  const int wd = row_width(end - beg);
+  if (wd == 0 && r < S) dalpha[row + r] = 0.0f;
+  HubWarps hw{-1, 0};
+  const bool hubs = hubs_pending(wd, hub_row, hub_n, busy, hw);
+  for (int phase = 0; phase < 2; ++phase) {
+    if (phase == (hw.rank >= 0 ? 1 : 0)) {
+      warp_rows(beg, end, wd, list[warp], [&](int own, int b0, int e0, int gw, int sub) {
+        const float a = __shfl_sync(kFull, au, own & 31);
+        const float s = mixed_reduce(sg.template lane_sum<kEm>(b0 + sub, gw, e0, a), gw,
+                                     [](float x, float y) { return x + y; });
+        if (sub == 0 && own >= 0) dalpha[row + r0 + warp * 32 + own] = s;
+      });
+    }
+    if (phase == 1 || !hubs) continue;
+    // this thread's first hub position (none past the hub warps)
+    const int ht = hw.rank >= 0 ? hw.rank * 32 + lane : 0, stride = hw.count * 32;
+    int n = 0;
+    for (int q = 0; q < kStepWarps; ++q) {
+      for (int i = 0; i < hub_n[q]; ++i, ++n) {
+        const int h = r0 + q * 32 + hub_row[q * 32 + i];
+        const float a = alpha[row + h];
+        const int hb = P[h], he = hw.rank >= 0 ? P[h + 1] : hb;
+        float s = 0.0f;
+        for (int k = hb + ht; k < he; k += kStepArcs * stride)
+          s += sg.template lane_sum<kEm>(k, stride, he, a);
+        s = warp_sum(s);
+        if (lane == 0) part[n & 1][warp] = s;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          s = 0.0f;
+          for (int x = 0; x < kStepWarps; ++x) s += part[n & 1][x];
+          dalpha[row + h] = s;
+        }
+      }
+    }
   }
 }
 
@@ -1280,33 +1612,43 @@ int max_clusters(K kernel, int k, size_t smem, int* out) {
 extern "C" {
 
 // alpha [B, S]; the index tables (ops/seglse_pallas.py ArcIndex): dptr
-// [1 or B, S + 1], src [1 or B, A] int32; w, em [1 or B, A] f32 in the
-// index's arc order; out [B, S].  sb/wb/eb: 1 where that input is per sample.
-int seg_lse_fwd(const float* alpha, const int* dptr, const int* src, const float* w,
-                const float* em, float* out, int B, int S, int A, int sb, int wb,
-                int eb, void* stream) {
+// [1 or B, S + 1], src and arc [1 or B, A] int32 (each sorted position's
+// source and original arc id); w, em [1 or B, A] f32 in the arcs' own order
+// (em null: 0); writes out [B, S] and, where m_out is not null, each
+// destination's shift and sum m_out, z_out [B, S].  sb/wb/eb: 1 where that
+// input is per sample; staged: 1 to copy alpha, w and em into shared memory
+// (S + A or S + 2 A words).
+int seg_lse_fwd(const float* alpha, const int* dptr, const int* src, const int* arc,
+                const float* w, const float* em, float* out, float* m_out, float* z_out,
+                int B, int S, int A, int sb, int wb, int eb, int staged, void* stream) {
   if (B == 0 || S == 0) return 0;
-  const size_t smem = static_cast<size_t>(S) * sizeof(float);
-  int err = launch_config(seg_lse_fwd_kernel, smem);
+  const dim3 grid((S + kStepThreads - 1) / kStepThreads, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem =
+      staged ? (static_cast<size_t>(S) + static_cast<size_t>(A) * (em ? 2 : 1)) * sizeof(float)
+             : 0;
+  auto kernel = staged ? (em ? seg_lse_fwd_kernel<true, true> : seg_lse_fwd_kernel<true, false>)
+                       : (em ? seg_lse_fwd_kernel<false, true> : seg_lse_fwd_kernel<false, false>);
+  int err = launch_config(kernel, smem);
   if (err) return err;
-  seg_lse_fwd_kernel<<<B, kStepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      alpha, dptr, src, w, em, out, S, A, sb, wb, eb);
+  kernel<<<grid, kStepThreads, smem, st>>>(alpha, dptr, src, arc, w, em, out, m_out, z_out, S,
+                                           A, sb, wb, eb);
   return static_cast<int>(cudaGetLastError());
 }
 
-// As seg_lse_fwd, with the cotangent g [B, S] of its output, the source groups
-// sptr [1 or B, S + 1] and sorder [1 or B, A]; writes dalpha [B, S] and
-// dcontrib [B, A] (in the index's arc order).
-int seg_lse_bwd(const float* alpha, const float* g, const int* dptr,
-                const int* src, const float* w, const float* em, const int* sptr,
-                const int* sorder, float* dalpha, float* dcontrib, int B, int S, int A,
+// The VJP of seg_lse_fwd from its saved m, z [B, S] and the cotangent g
+// [B, S] of its output; the index by source: sptr [1 or B, S + 1], sarc
+// and sdst [1 or B, A]; w, em as seg_lse_fwd's.  Writes dalpha [B, S] and,
+// where it is not null, dcontrib [B, A] in the arcs' own order.
+int seg_lse_bwd(const float* alpha, const float* g, const float* m, const float* z,
+                const int* sptr, const int* sarc, const int* sdst, const float* w,
+                const float* em, float* dalpha, float* dcontrib, int B, int S, int A,
                 int sb, int wb, int eb, void* stream) {
   if (B == 0 || S == 0) return 0;
-  const size_t smem = static_cast<size_t>(S) * sizeof(float);
-  int err = launch_config(seg_lse_bwd_kernel, smem);
-  if (err) return err;
-  seg_lse_bwd_kernel<<<B, kStepThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      alpha, g, dptr, src, w, em, sptr, sorder, dalpha, dcontrib, S, A, sb, wb, eb);
+  const dim3 grid((S + kStepThreads - 1) / kStepThreads, B);
+  auto kernel = em ? seg_lse_bwd_kernel<true> : seg_lse_bwd_kernel<false>;
+  kernel<<<grid, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      alpha, g, m, z, sptr, sarc, sdst, w, em, dalpha, dcontrib, S, A, sb, wb, eb);
   return static_cast<int>(cudaGetLastError());
 }
 

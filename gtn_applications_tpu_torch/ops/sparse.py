@@ -113,10 +113,11 @@ def forward_score(em, table: ArcTable, input_length=None):
     return _forward_batched_plain(em[None], table, lens)[0]
 
 
-def _forward_batched_kernels(em, table: ArcTable, input_lengths=None):
+def _forward_batched_kernels(em, table: ArcTable, input_lengths=None, indexes=None):
     """The kernel route over [B, S] state vectors: the closure of the
     start potentials through ``seg_lse`` (eps_depth launches), then one
-    whole scan.  Fields may be shared or per sample, each on its own."""
+    whole scan.  Fields may be shared or per sample, each on its own.
+    ``indexes``: see ``forward_score_batch``."""
     from . import sparse_scan_pallas
     from .seglse_pallas import arc_index, seg_lse
 
@@ -131,30 +132,39 @@ def _forward_batched_kernels(em, table: ArcTable, input_lengths=None):
     eps_src, eps_dst, eps_w = fields[4:]
     depth = table.eps_depth if eps_src.shape[-1] else 0
     if depth:
-        idx = arc_index(eps_src, eps_dst, S) if _build.on_cuda(em) else None
-        zero = torch.zeros(eps_w.shape, dtype=torch.float32, device=em.device)
+        idx = None
+        if _build.on_cuda(em):
+            indexes = {} if indexes is None else indexes
+            key = (em.device, S)
+            if key not in indexes:
+                indexes[key] = arc_index(eps_src, eps_dst, S)
+            idx = indexes[key]
         acc = cur = alpha0
         for _ in range(depth):
-            cur = seg_lse(cur, eps_src, eps_dst, eps_w, zero, idx)
+            cur = seg_lse(cur, eps_src, eps_dst, eps_w, None, idx)
             acc = logaddexp(acc, cur)
         alpha0 = acc
     return sparse_scan_pallas.scan_scores(em, fields, alpha0, accept,
                                           input_lengths, depth)
 
 
-def forward_score_batch(em, table: ArcTable, input_lengths=None):
-    """Batched forward score [B] with a shared table over ``em [B, T, C]``."""
-    return forward_score_batch_tables(em, table, input_lengths)
+def forward_score_batch(em, table: ArcTable, input_lengths=None, indexes=None):
+    """Batched forward score [B] with a shared table over ``em [B, T, C]``.
+    ``indexes``: a dict the caller keeps across scores of tables of one
+    structure (re-weighted, as the Transducer's normaliser): the kernel
+    route keeps the epsilon arcs' ``arc_index`` there by device and state
+    count, so it is built once."""
+    return forward_score_batch_tables(em, table, input_lengths, indexes)
 
 
-def forward_score_batch_tables(em, tables: ArcTable, input_lengths=None):
+def forward_score_batch_tables(em, tables: ArcTable, input_lengths=None, indexes=None):
     """Forward scores [B] with per-sample tables: each field [B, ·]
     (stacked per sample) or [·] (shared, e.g. the union skeleton's src/dst
     of ``wfst.compile.union_stack_arc_tables`` with per-sample labels and
     weights).  CUDA tensors take the kernels, CPU tensors the plain
-    version."""
+    version.  ``indexes``: see ``forward_score_batch``."""
     if _build.on_cuda(em):
-        return _forward_batched_kernels(em, tables, input_lengths)
+        return _forward_batched_kernels(em, tables, input_lengths, indexes)
     return _forward_batched_plain(em, tables, input_lengths)
 
 

@@ -1,11 +1,11 @@
 """Time the whole sparse scan pair (or, with ``--decode``, the Viterbi
 decode of the 4-gram path; with ``--viterbi``, the whole-scan Viterbi;
-with ``--factored``, the factored scan pair) of this checkout against
-another's.
+with ``--factored``, the factored scan pair; with ``--seglse``, the
+seg_lse pair) of this checkout against another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
         --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] \
-        [--viterbi [--caps 4 8 16]] [--factored] [--out FILE]
+        [--viterbi [--caps 4 8 16]] [--factored] [--seglse] [--out FILE]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit unpacked with ``git archive`` into an ignored directory):
@@ -62,6 +62,20 @@ Beside them: this checkout's routes (``chip_smoke.factored_routes``), its
 bound (``chip_smoke.factored_work``) and the count of PRs 3-8, the chain
 bound (the longest sample's frames x ``factored_chain_probe``'s frame) and
 the kernels one call of each launches (torch.profiler), for both.
+``--seglse`` times the seg_lse pair instead, on the first round of the
+start closure of each of the six cases' tables that has epsilon arcs, as
+each checkout's loss runs it (the baseline's wrapper gathers w and a zero
+em into the index's order, this one's reads w through the index and has
+no em): baseline, this, this, baseline, the forward kernel (here with
+the statistics the backward reads), the backward kernel, and the whole
+step (``seg_lse``, wrapper included; epsilon weights and alpha needing
+gradients) forward and forward and backward; the two forwards' live sets
+must be equal and their values within atol 1e-3 + rtol 1e-5, and their
+cotangents' largest difference is logged.  Beside them: this checkout's
+forward by each route (alpha, w and em staged in shared memory or
+gathered from device memory; ``new_fwd_staged``: the wrapper's choice)
+and without its statistics, its backward without dcontrib, the kernels each side's step launches
+(torch.profiler), and the table's largest in- and out-degree.
 Run from the root of this checkout on a machine with one GPU.
 """
 
@@ -330,6 +344,71 @@ def factored_ab(torch, cs, root, dev):
     return out
 
 
+def seglse_ab(torch, cs, root, dev):
+    """The ``--seglse`` comparison (see the module docstring)."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops.semiring import DEAD
+
+    base = load_baseline(root, "ops.seglse_pallas")
+    out = {}
+    for name, em, _, table in cases(torch, cs, dev):
+        (_, _, _, _, esrc, edst, ew), start, _, depth = cs.sparse_fields(table)
+        if not depth:
+            continue
+        B, S = em.shape[0], start.shape[-1]
+        alpha = start.expand(B, S).contiguous()
+        g = torch.rand(B, S, device=dev)
+        idx, idx_b = slp.arc_index(esrc, edst, S), base.arc_index(esrc, edst, S)
+        zero = torch.zeros_like(ew)
+        w_s, z_s = base.take(ew, idx_b.order), base.take(zero, idx_b.order)
+        out_b = base.seg_lse_fwd_cuda(alpha, w_s, z_s, idx_b)
+        out_n, m, z = slp.seg_lse_fwd_cuda(alpha, ew, None, idx, stats=True)
+        live = out_b > DEAD
+        if not torch.equal(out_n > DEAD, live):
+            raise AssertionError(f"{name}: the two forwards' live sets differ")
+        torch.testing.assert_close(out_n[live], out_b[live], atol=1e-3, rtol=1e-5)
+        da_b, dc_b = base.seg_lse_bwd_cuda(alpha, w_s, z_s, idx_b, g)
+        da_n, dc_n = slp.seg_lse_bwd_cuda(alpha, ew, None, idx, m, z, g)
+        a_req = alpha.clone().requires_grad_(True)
+        w_req = ew.clone().requires_grad_(True)
+        steps = {"base": lambda: base.seg_lse(a_req, esrc, edst, w_req, zero, idx_b),
+                 "new": lambda: slp.seg_lse(a_req, esrc, edst, w_req, None, idx)}
+        run = {"base": {"fwd": lambda: base.seg_lse_fwd_cuda(alpha, w_s, z_s, idx_b),
+                        "bwd": lambda: base.seg_lse_bwd_cuda(alpha, w_s, z_s, idx_b, g)},
+               "new": {"fwd": lambda: slp.seg_lse_fwd_cuda(alpha, ew, None, idx, stats=True),
+                       "bwd": lambda: slp.seg_lse_bwd_cuda(alpha, ew, None, idx, m, z, g)}}
+        for who, step in steps.items():
+            run[who]["step_fwd"] = step
+            run[who]["step_fwd_bwd"] = lambda step=step: torch.autograd.grad(
+                step(), (a_req, w_req), g)
+        degree = lambda p: int(torch.diff(p.long(), dim=1).max())  # noqa: E731
+        row = {"B": B, "S": S, "E": int(esrc.shape[-1]), "rows": int(esrc.shape[0]),
+               "max_in_degree": degree(idx.dptr), "max_out_degree": degree(idx.sptr),
+               "max_abs_out_diff": float((out_n - out_b).abs()[live].max()),
+               "max_abs_dalpha_diff": float((da_n - da_b).abs().max()),
+               "max_abs_dcontrib_diff": float(
+                   (dc_n - base.untake(dc_b, idx_b.order)).abs().max()),
+               "step_kernels": {who: {k: cs.kernel_counts(torch, run[who][k])
+                                      for k in ("step_fwd", "step_fwd_bwd")}
+                                for who in run}}
+        for who in ("base", "new", "new", "base"):
+            for k, fn in run[who].items():
+                row.setdefault(f"{who}_{k}_ms", []).append(cs.gpu_median_ms(torch, fn))
+        row["new_fwd_no_stats_ms"] = cs.gpu_median_ms(
+            torch, lambda: slp.seg_lse_fwd_cuda(alpha, ew, None, idx))
+        for r in (False, True):
+            row[f"new_fwd_staged_{r}_ms"] = cs.gpu_median_ms(
+                torch, lambda r=r: slp.seg_lse_fwd_cuda(alpha, ew, None, idx, stats=True,
+                                                        staged=r))
+        row["new_fwd_staged"] = slp.stage_words(S, row["E"], None) <= slp.STAGE_WORDS
+        row["new_bwd_no_dcontrib_ms"] = cs.gpu_median_ms(
+            torch, lambda: slp.seg_lse_bwd_cuda(alpha, ew, None, idx, m, z, g,
+                                                need_dcontrib=False))
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", required=True, help="root of the other checkout")
@@ -346,6 +425,8 @@ def main(argv=None):
                              "per-lane caps")
     parser.add_argument("--factored", action="store_true",
                         help="compare the factored scan pair instead")
+    parser.add_argument("--seglse", action="store_true",
+                        help="compare the seg_lse pair instead")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -371,6 +452,9 @@ def main(argv=None):
     if args.factored:
         result["cases"] = factored_ab(torch, cs, args.baseline, dev)
         return _report("compare_factored", result, args.out)
+    if args.seglse:
+        result["cases"] = seglse_ab(torch, cs, args.baseline, dev)
+        return _report("compare_seglse", result, args.out)
     base = load_baseline(args.baseline)
     for name, em, lens, table in cases(torch, cs, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)

@@ -104,7 +104,11 @@ def test_sparse_cuda_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         seglse_pallas.seg_lse_fwd_cuda(alpha, w.double(), w, idx)
     with pytest.raises(ValueError):
-        seglse_pallas.seg_lse_bwd_cuda(alpha, w, w, idx, alpha.cpu())
+        seglse_pallas.seg_lse_fwd_cuda(alpha, w, w[:, :3], idx)
+    with pytest.raises(ValueError):
+        seglse_pallas.seg_lse_bwd_cuda(alpha, w, None, idx, alpha, alpha, alpha.cpu())
+    with pytest.raises(ValueError):
+        seglse_pallas.seg_lse_bwd_cuda(alpha, w, None, idx, alpha[:, :3], alpha, alpha)
     em = torch.zeros(B, T, C, device=cuda_device)
     lens = torch.full((B,), T, dtype=torch.int32, device=cuda_device)
     empty = torch.zeros(1, 0, dtype=torch.int32, device=cuda_device)
@@ -296,3 +300,38 @@ def test_factored_scan_routes_match_plain(cuda_device, case, route, rows, chain)
         [route], [rows], [chain]), routes
     chip_smoke.hold_factored_scan_kernels(torch, *inputs, case,
                                           all_live=case.startswith("dense"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sss", "bbb", "sbn", "bsb"])
+def test_seg_lse_kernels_match_plain_on_the_hub_case(cuda_device, layout):
+    """The seg_lse pair on ``chip_smoke.seglse_case`` (hubs past a block's
+    registers, every group width, empty destinations, dead sources,
+    invalid endpoints) against its plain versions in float64, bitwise
+    from run to run (``chip_smoke.hold_seglse``), and the autograd
+    Function's gradients against the plain route's."""
+    import chip_smoke
+    from gtn_applications_tpu_torch.ops import seglse_pallas
+
+    alpha, src, dst, w, em, g = chip_smoke.seglse_case(torch, cuda_device, layout, b=4,
+                                                       s=1200)
+    idx = seglse_pallas.arc_index(src, dst, alpha.shape[1])
+    errs, _ = chip_smoke.hold_seglse(torch, alpha, src, dst, w, em, idx, g, layout)
+    assert errs["seg_lse_bwd_rel"] <= 1e-5
+
+    xs = [x.clone().requires_grad_(True) for x in (alpha, w)]
+    e = None if em is None else em.clone().requires_grad_(True)
+    out = seglse_pallas.seg_lse(xs[0], src, dst, xs[1], e)
+    got = [out] + list(torch.autograd.grad(out, xs + ([] if e is None else [e]), g))
+    # the plain versions in float64 (the wrapper's CPU route runs float32)
+    em64 = 0.0 if em is None else em.double()
+    out_p = seglse_pallas.seg_lse_fwd_plain(alpha.double(), src, dst, w.double(), em64)
+    da_p, dc_p = seglse_pallas.seg_lse_bwd_plain(alpha.double(), src, dst, w.double(), em64,
+                                                 g.double())
+    want = [out_p, da_p, seglse_pallas.sum_to(dc_p, w.shape[0])]
+    if em is not None:
+        want.append(seglse_pallas.sum_to(dc_p, em.shape[0]))
+    live = out_p > -5e29
+    torch.testing.assert_close(got[0].double()[live], out_p[live], rtol=1e-5, atol=1e-3)
+    for k, p in zip(got[1:], want[1:]):
+        torch.testing.assert_close(k.double(), p, rtol=1e-5, atol=1e-5)

@@ -29,7 +29,7 @@ import torch
 from gtn_applications_tpu.ops import semiring as jax_semiring
 from gtn_applications_tpu.ops import sparse as jax_sparse
 from gtn_applications_tpu.ops import sparse_scan_pallas as jax_ssp
-from gtn_applications_tpu_torch.ops import _build, sparse
+from gtn_applications_tpu_torch.ops import sparse
 from gtn_applications_tpu_torch.ops import seglse_pallas as slp
 from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
 from gtn_applications_tpu_torch.ops.semiring import NEG
@@ -204,25 +204,15 @@ def test_kernel_route_matches_pallas_scan_in_interpret_mode(layout, depth):
         np.testing.assert_allclose(x, np.asarray(y), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
-def _dst_of(idx, A):
-    k = torch.arange(A).expand(idx.dptr.shape[0], A).contiguous()
-    return torch.searchsorted(idx.dptr[:, 1:].long().contiguous(), k, right=True)
-
-
 @pytest.mark.parametrize("broken", [False, True])
 def test_smoke_sparse_check_holds_kernels(monkeypatch, broken):
     """``chip_smoke.hold_sparse_kernels`` with the CUDA wrappers replaced by
-    plain versions that read the arc index as the kernels do (sorted
-    arcs, their destinations recovered from ``dptr``): it passes, and it
+    plain versions that read the arc index as the kernels do (the
+    endpoints from the index, w and em in the arcs' own order, the
+    forward's statistics handed to the backward): it passes, and it
     fails when one emission cotangent is off by 1e-4 of its size."""
     import chip_smoke
-
-    def seg_fwd(alpha, w_s, em_s, idx):
-        return slp.seg_lse_fwd_plain(alpha, idx.src, _dst_of(idx, w_s.shape[1]), w_s, em_s)
-
-    def seg_bwd(alpha, w_s, em_s, idx, g):
-        return slp.seg_lse_bwd_plain(alpha, idx.src, _dst_of(idx, w_s.shape[1]), w_s,
-                                     em_s, g)
+    from tests.test_torch_seglse import _stand_ins
 
     def scan_fwd(*args, cluster):
         assert cluster in ssp.CLUSTER_SIZES
@@ -235,9 +225,7 @@ def test_smoke_sparse_check_holds_kernels(monkeypatch, broken):
             dem.view(-1)[i] *= 1 + 1e-4
         return dem, dw, deps, dalpha0
 
-    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
-    monkeypatch.setattr(slp, "seg_lse_fwd_cuda", seg_fwd)
-    monkeypatch.setattr(slp, "seg_lse_bwd_cuda", seg_bwd)
+    _stand_ins(monkeypatch, [])
     monkeypatch.setattr(ssp, "sparse_scan_fwd_cuda", scan_fwd)
     monkeypatch.setattr(ssp, "sparse_scan_bwd_cuda", scan_bwd)
     monkeypatch.setattr(ssp, "choose_cluster", lambda plan, b, depth, dev: 2)

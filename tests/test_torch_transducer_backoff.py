@@ -470,3 +470,46 @@ def test_profile_step_builds_the_trigram_for_a_missing_graph():
     _same_graph(wgraph.load(crit_cfg["transitions"]), bt.grapheme_lm(texts, pre.tokens))
     with open("configs/iamdb/ngram_ctc.json") as fid:
         assert profile_step._data_and_criterion(json.load(fid))[0] is synthetic
+
+
+def test_normaliser_epsilon_index_is_built_once(monkeypatch):
+    """On the kernel route (forced on CPU tensors, the kernels' plain
+    versions standing in) the criterion builds its normaliser's epsilon
+    ``arc_index`` at the first loss and hands the same index to every
+    closure round of the second; the composed table's is built per loss."""
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops import sparse_scan_pallas as ssp
+
+    crit, _ = _fixture_pair()
+    rng = np.random.RandomState(3)
+    targets, T = _targets("fixture", rng)
+    x = torch.from_numpy(rng.randn(len(targets), T, crit.num_channels).astype(np.float32))
+    params = {"transitions": torch.zeros(crit.num_transition_arcs)}
+    prepared = crit.prepare(targets)
+    built, used = [], []
+    arc_index = slp.arc_index
+
+    def build(*args):
+        built.append(args[2])
+        return arc_index(*args)
+
+    def step(alpha, src, dst, w, em=None, idx=None):
+        used.append(idx)
+        return slp.seg_lse_fwd_plain(alpha, src, dst, w, 0.0 if em is None else em)
+
+    monkeypatch.setattr(_build, "on_cuda", lambda x: True)
+    monkeypatch.setattr(slp, "arc_index", build)
+    monkeypatch.setattr(slp, "seg_lse", step)
+    monkeypatch.setattr(ssp, "sparse_scan_fwd_cuda", ssp.sparse_scan_fwd_plain)
+    losses = []
+    for _ in range(2):
+        losses.append(float(crit.loss(params, x, prepared)))
+        if len(losses) == 1:
+            n_built, n_used = len(built), len(used)
+    (norm_idx,) = crit._norm_indexes.values()
+    assert n_built == 2 and len(built) == 3  # score and normaliser, then the score's
+    assert len(used) == 2 * n_used
+    rounds = sum(i is norm_idx for i in used[:n_used])
+    assert rounds > 0 and sum(i is norm_idx for i in used[n_used:]) == rounds
+    assert losses[0] == losses[1]
