@@ -24,9 +24,15 @@ prints no result):
 6. the dense-scan kernels against their plain versions at the STC bench
    headline (B=32, T=250, L=30, N=80, so S=96) and at S=304 (B=8, T=128,
    L=100), on STC tables and on a dense random case of the same shape in
-   which every state is live and z stays far from the floor: the
-   trajectory within atol 1e-3 + rtol 1e-5 on live states, dem and dadj
-   entry by entry within 1e-5 (|p| + the median nonzero |p|);
+   which every state is live and z stays far from the floor, on the S=304
+   tables with a hub of in-degree 150-250 a sample, on the headline's
+   tables with half of the arcs' weights 85-100 nats down (which states
+   underflow is decided by the shift), and on bench.py's
+   word decompositions at the 1k inventory (B=32, T=100, 15 pieces,
+   S=376); each case logs its real arcs, degrees and routes: the live
+   sets equal, the trajectory within atol 1e-3 + rtol 1e-5 on live
+   states, dem (with dadj and without) and dadj entry by entry within
+   1e-5 (|p| + the median nonzero |p|);
 7. the factored-scan kernels against their plain versions on the bigram
    Transducer's lattices: the bench ngram-2 headline (B=32, T=250, L=44,
    N=80, blank none, so S=96), ``configs/iamdb/ngram_ctc.json``'s IAM width
@@ -146,7 +152,11 @@ prints no result):
    one expf and one logf and a block barrier, at the kernels' block size)
    for their chain bound, with the kernels one call of the factored pair
    launches (torch.profiler) and their bound recounted by real arcs
-   (``factored_work``, the dense-row count beside it), and the device
+   (``factored_work``, the dense-row count beside it); the dense pair at
+   the STC headline, S=304 and the word decompositions, with dadj and
+   without, its kernels a call, its bound by real arcs (``dense_work``,
+   the O(S^2) count of PRs 2-10 beside it) and its chain bound (the probe
+   at the forward's and the chain's block sizes); and the device
    time and kernel launches (torch.profiler) of the Transducer's
    ``dense_ngram_norm`` forward and backward at its main path's batch
    shape.
@@ -553,16 +563,118 @@ def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, wh
             "dense_scan_bwd_rel": max(rels.values())}
 
 
-def phase_dense_scan(torch, dev):
-    errs = {}
+def dense_hub_inputs(torch, dev, b=WIDE_STC[0], t=WIDE_STC[1], length=WIDE_STC[2], seed=15,
+                     degree=(150, 251)):
+    """The S = 304 STC lattices with a hub: one labelled state a sample
+    takes arcs (weights exp(N(0, 1))) from 150-250 (``degree``) random
+    states, past the 32 kCap arcs a group's lanes hold in registers."""
+    inputs = list(stc_headline_inputs(torch, dev, b, t, length, seed=seed))
+    rng = np.random.RandomState(seed)
+    adj, has_lab = inputs[1].clone(), inputs[3]
+    S = adj.shape[1]
+    for i in range(b):
+        hub = int(torch.nonzero(has_lab[i] > 0)[S // 3])
+        srcs = torch.as_tensor(rng.choice(S, size=rng.randint(*degree), replace=False),
+                               device=dev)
+        adj[i, hub, srcs] = torch.as_tensor(np.exp(rng.randn(srcs.numel())).astype(np.float32),
+                                            device=dev)
+    inputs[1] = adj.contiguous()
+    return tuple(inputs)
+
+
+def dense_underflow_inputs(torch, dev, b=B, t=T, length=STC_L, seed=16):
+    """The STC headline's lattices with half of the arcs' weights 85-100
+    nats down (adj times exp(-U(85, 100))): a destination whose arcs are
+    all so scaled sums terms that are denormal or zero after the shift, so
+    which states live is decided by it; emissions N(0, 0.1).  Every state
+    accepts, so the backward meets every state still live at the end."""
+    inputs = list(stc_headline_inputs(torch, dev, b, t, length, seed=seed))
+    rng = np.random.RandomState(seed)
+    adj = inputs[1].cpu().numpy().astype(np.float64)
+    scale = np.where(rng.rand(*adj.shape) < 0.5, np.exp(-rng.uniform(85.0, 100.0, adj.shape)),
+                     1.0)
+    inputs[1] = torch.as_tensor((adj * scale).astype(np.float32), device=dev)
+    em = (rng.randn(*inputs[0].shape) * 0.1).astype(np.float32)
+    inputs[0] = torch.as_tensor(em, device=dev) * inputs[3][:, None, :]
+    inputs[4] = torch.zeros_like(inputs[4])  # every state accepts
+    return tuple(inputs)
+
+
+WORD_PIECES = ROOT / "benchmarks" / "word_pieces_scores_1000.tsv"
+WORD_T, WORD_PIECES_N = 100, 15  # bench.py's word-decomposition protocol
+
+
+def word_decomp_inputs(torch, dev, b=B, t=WORD_T, pieces=WORD_PIECES_N, seed=0):
+    """The dense scan's inputs at bench.py's word-decomposition protocol
+    (``bench_word_decomps_tpu``): the 1k-wordpiece inventory, targets of
+    ``pieces`` random pieces spelled in graphemes, the transitions-free
+    Transducer (blank optional, no repeats) and its ``prepare``, random
+    N(0, 1) logits over the 1,001 channels, log_softmax as its loss takes
+    them, every frame live."""
+    import random
+
+    from gtn_applications_tpu_torch.criterions import Transducer
+    from gtn_applications_tpu_torch.train import to_device
+
+    with open(WORD_PIECES) as fid:
+        tokens = sorted(line.rstrip("\n").split("\t")[0] for line in fid)
+    g2i = {c: i for i, c in enumerate(sorted({c for tok in tokens for c in tok}))}
+    pick = random.Random(seed)
+    targets = [[g2i[c] for _ in range(pieces) for c in pick.choice(tokens)] for _ in range(b)]
+    crit = Transducer(tokens, g2i, blank="optional", allow_repeats=False, reduction="mean")
+    f = to_device(crit.prepare(targets), dev)["factored"]
+    rng = np.random.RandomState(seed)
+    logits = torch.as_tensor(rng.randn(b, t, len(tokens) + 1).astype(np.float32), device=dev)
+    em_state = torch.einsum("btn,bsn->bts", torch.log_softmax(logits, dim=2), f["lab_oh"])
+    has_lab = (f["lab_oh"].sum(-1) > 0).to(torch.float32)
+    il = torch.full((b,), t, dtype=torch.int32, device=dev)
+    return (em_state.contiguous(), f["adj_exp"].contiguous(), f["start"].contiguous(),
+            has_lab.contiguous(), f["accept"], il)
+
+
+def dense_routes(torch, adj, has_lab, il):
+    """What the dense kernels do with a case (``dense_plan``): its real
+    arcs a sample, largest in- and out-degree, the forward's rounds, warps,
+    routes and emission rows, and the chain's group width, warps and
+    routes."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    plans = dsp.dense_plan(adj, has_lab, il)
+    pick = lambda key: sorted({str(p[key]) for p in plans})  # noqa: E731
+    span = lambda key: [min(p[key] for p in plans), max(p[key] for p in plans)]  # noqa: E731
+    return {"arcs": span("arcs"), "labelled": span("labelled"),
+            "max_in_degree": max(p["max_in_degree"] for p in plans),
+            "max_out_degree": max(p["max_out_degree"] for p in plans),
+            "rounds": span("rounds"), "warps": span("warps"), "route": pick("route"),
+            "rows": pick("rows"), "chain_group": pick("chain_group"),
+            "chain_warps": span("chain_warps"), "chain_route": pick("chain_route")}
+
+
+def dense_cases(torch, dev):
+    """(inputs, what, all_live) of the dense kernels' checks: the STC
+    headline and S = 304, each also with every state live, the hub, the
+    underflow and the word decompositions."""
+    cases = []
     for b, t, length in [(B, T, STC_L), WIDE_STC]:
         inputs = stc_headline_inputs(torch, dev, b, t, length)
         what = (b, t, inputs[0].shape[2])
-        merge_errs(errs, hold_dense_scan_kernels(torch, *inputs, what))
+        cases.append((inputs, what, False))
         # the same shape with every state live and z far from the floor
-        merge_errs(errs, hold_dense_scan_kernels(
-            torch, *dense_random_inputs(torch, dev, *what), ("all live",) + what,
-            all_live=True))
+        cases.append((dense_random_inputs(torch, dev, *what), ("all live",) + what, True))
+    hub = dense_hub_inputs(torch, dev)
+    cases.append((hub, ("hub",) + tuple(hub[0].shape), False))
+    under = dense_underflow_inputs(torch, dev)
+    cases.append((under, ("underflow",) + tuple(under[0].shape), False))
+    words = word_decomp_inputs(torch, dev)
+    cases.append((words, ("word decompositions",) + tuple(words[0].shape), False))
+    return cases
+
+
+def phase_dense_scan(torch, dev):
+    errs = {}
+    for inputs, what, all_live in dense_cases(torch, dev):
+        log(f"dense_scan {what}: {json.dumps(dense_routes(torch, inputs[1], inputs[3], inputs[5]))}")
+        merge_errs(errs, hold_dense_scan_kernels(torch, *inputs, what, all_live=all_live))
     return errs
 
 
@@ -2090,10 +2202,53 @@ def time_train_step(torch, dev, model, config):
 
 def scan_work(il, S, per_state, per_pair):
     """fp32 operations of the dense scan over the live frames of this
-    run's inputs: per frame ``per_pair`` per (u, s) pair of the S x S
-    products and ``per_state`` per state."""
+    run's inputs as PRs 2-10 counted them (kept for the log): per frame
+    ``per_pair`` per (u, s) pair of the S x S products and ``per_state``
+    per state."""
     frames = int(il.clamp(min=1).sum())
     return frames * (per_pair * S * S + per_state * S)
+
+
+def dense_work(adj, has_lab, il, forward, with_dadj=False):
+    """fp32 operations the dense scan needs over the live frames of this
+    run's inputs, by what the function needs.  Per live frame and sample,
+    with S states, S_l of them labelled and A real arcs into the labelled
+    states: the shift (a max a state: S), each arc's term (sub, exp, mul,
+    add: 4 A) and 6 per labelled state (log, floor, two adds, compare,
+    select); the backward recomputes the shift and the sums with their
+    reciprocals (S + 4 A + 2 S_l), and adds the chain's 3 an arc (two
+    muls, an add), 3 a source (sub, exp, mul) and 3 per labelled state
+    (dem's compare and select, dz's mul); the dense dadj (sub, exp, mul,
+    add per labelled state and s: 4 S_l S) only ``with_dadj``."""
+    S = adj.shape[1]
+    has = has_lab > 0
+    s_lab = has.sum(1).double()
+    arcs = ((adj != 0) & has[:, :, None]).sum((1, 2)).double()
+    frames = il.clamp(min=1).double()
+    if forward:
+        per = S + 4 * arcs + 6 * s_lab
+    else:
+        per = (S + 4 * arcs + 2 * s_lab) + 3 * arcs + 3 * S + 3 * s_lab
+        if with_dadj:
+            per = per + 4 * s_lab * S
+    return float((frames * per).sum())
+
+
+def dense_bounds(em_state, adj, has_lab, il):
+    """{form: (ms, by)} of the dense pair on these inputs: the forward,
+    the backward without dadj (the main paths') and with it.  Bytes: each
+    input once (em or traj on the live frames only), each output once;
+    operations: ``dense_work``."""
+    b, t, S = em_state.shape
+    live = int(il.clamp(min=1).sum()) * S * 4
+    mat, vec = b * S * S * 4, b * S * 4
+    rows = live + mat + b * 4 + b * t * S * 4
+    return {
+        "fwd": bound_ms(rows + 2 * vec, dense_work(adj, has_lab, il, True)),
+        "bwd": bound_ms(rows + 3 * vec, dense_work(adj, has_lab, il, False)),
+        "bwd_with_dadj": bound_ms(rows + 3 * vec + mat,
+                                  dense_work(adj, has_lab, il, False, with_dadj=True)),
+    }
 
 
 def factored_work(adj, lab_oh, il, forward, with_dadj=False):
@@ -2136,14 +2291,14 @@ def factored_work_dense(lab_oh, il, forward):
     return float((frames * per).sum())
 
 
-def factored_chain_frame_us(torch, b, dev):
+def factored_chain_frame_us(torch, b, dev, threads=None):
     """One frame of the factored scans' chain without arcs (a dependent
     shared-memory load, one expf and one logf, and a block barrier, at the
-    kernels' block size), in us: the probe's time for 2n frames less its
-    time for n, over n (the launch cancels)."""
+    kernels' block size or ``threads``), in us: the probe's time for 2n
+    frames less its time for n, over n (the launch cancels)."""
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
 
-    threads = 32 * dsp.FACT_WARPS
+    threads = threads or 32 * dsp.FACT_WARPS
     n = 4096
     t_n = gpu_median_ms(torch, lambda: dsp.chain_probe(b, threads, n, dev), runs=20)
     t_2n = gpu_median_ms(torch, lambda: dsp.chain_probe(b, threads, 2 * n, dev), runs=20)
@@ -2151,9 +2306,15 @@ def factored_chain_frame_us(torch, b, dev):
 
 
 def kernel_launches(torch, fn, match):
-    """CUDA kernels whose name holds ``match`` that one call of ``fn``
-    launches (torch.profiler)."""
-    return sum(n for k, n in kernel_counts(torch, fn).items() if match in k)
+    """CUDA kernels whose name holds ``match`` (or one of its strings)
+    that one call of ``fn`` launches (torch.profiler)."""
+    match = (match,) if isinstance(match, str) else match
+    return sum(n for k, n in kernel_counts(torch, fn).items() if any(m in k for m in match))
+
+
+# the names of each pair's kernels (the dadj pass serves both)
+FACTORED_KERNELS = ("factored", "scan_dadj")
+DENSE_KERNELS = ("dense", "scan_dadj")
 
 
 def norm_cost(torch, dev, b, t, n):
@@ -2574,7 +2735,7 @@ def factored_times(torch, dev):
             # the kernels one call launches: the forward 1, the backward 2
             # (statistics, chain), 3 with dadj
             t["factored_kernel_launches"] = {
-                name: kernel_launches(torch, fn, "factored")
+                name: kernel_launches(torch, fn, FACTORED_KERNELS)
                 for name, fn in (("fwd", fwd), ("bwd", bwd), ("bwd_with_dadj", bwd_dadj))}
     t["factored_chain_frame_us"] = factored_chain_frame_us(torch, B, dev)
 
@@ -2613,9 +2774,79 @@ def factored_times(torch, dev):
     return t, bounds, chain
 
 
+def dense_time_cases(torch, dev):
+    """(key, inputs) of the dense pair's timed shapes: the STC headline
+    (B=32, T=250, S=96), S = 304 (B=8, T=128) and the word decompositions
+    at the 1k inventory (B=32, T=100, S=376)."""
+    return [("", stc_headline_inputs(torch, dev)),
+            ("_s304", stc_headline_inputs(torch, dev, *WIDE_STC)),
+            ("_words", word_decomp_inputs(torch, dev))]
+
+
+def dense_chain_bounds(torch, dev, routes, b, max_len):
+    """The dense pair's chain bounds on a case: the longest sample's
+    frames x one frame of ``factored_chain_probe`` at the forward's block
+    (its frame warps), and its frames less one x one at the chain's (its
+    source warps and the side warp); and the two frames in us."""
+    fwd = factored_chain_frame_us(torch, b, dev, 32 * routes["warps"][1])
+    chain = factored_chain_frame_us(torch, b, dev, 32 * (routes["chain_warps"][1] + 1))
+    return ({"dense_scan_fwd": max_len * fwd * 1e-3,
+             "dense_scan_bwd": (max_len - 1) * chain * 1e-3},
+            {"fwd": fwd, "chain": chain})
+
+
+def dense_times(torch, dev):
+    """Times, bounds and chain bounds of the dense scan pair at
+    ``dense_time_cases``: the kernels (the backward without dadj, the main
+    paths' form, and with it), the plain versions at the headline, the
+    routes, the kernels one call launches, the work by real arcs beside
+    the O(S^2) count of PRs 2-10, and the chain probe's frames."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    t, bounds, chain = {}, {}, {}
+    for key, (em_s, adj, st, lab, acc, sil) in dense_time_cases(torch, dev):
+        traj = dsp.dense_scan_fwd_cuda(em_s, adj, st, lab, sil)
+        gf = score_cotangent(torch, traj[:, -1], acc)
+        fwd = lambda: dsp.dense_scan_fwd_cuda(em_s, adj, st, lab, sil)  # noqa: E731
+        bwd = lambda: dsp.dense_scan_bwd_cuda(  # noqa: E731
+            traj, adj, st, lab, sil, gf, need_dadj=False)
+        bwd_dadj = lambda: dsp.dense_scan_bwd_cuda(traj, adj, st, lab, sil, gf)  # noqa: E731
+        t["dense_scan_fwd" + key] = gpu_median_ms(torch, fwd)
+        t["dense_scan_bwd" + key] = gpu_median_ms(torch, bwd)
+        t["dense_scan_bwd_with_dadj" + key] = gpu_median_ms(torch, bwd_dadj)
+        routes = dense_routes(torch, adj, lab, sil)
+        t["dense_routes" + key] = routes
+        b, _, S = em_s.shape
+        t["dense_work_ops" + key] = {
+            "fwd": dense_work(adj, lab, sil, True), "bwd": dense_work(adj, lab, sil, False),
+            "bwd_with_dadj": dense_work(adj, lab, sil, False, with_dadj=True),
+            "fwd_dense_count": scan_work(sil, S, DENSE_FWD_OPS, 2),
+            "bwd_dense_count": scan_work(sil, S, DENSE_BWD_OPS, 6)}
+        forms = dense_bounds(em_s, adj, lab, sil)
+        t["dense_bounds" + key] = forms
+        bounds["dense_scan_fwd" + key] = forms["fwd"]
+        bounds["dense_scan_bwd" + key] = forms["bwd"]
+        bounds["dense_scan_bwd_with_dadj" + key] = forms["bwd_with_dadj"]
+        more, frame_us = dense_chain_bounds(torch, dev, routes, b, int(sil.max()))
+        chain.update({name + key: ms for name, ms in more.items()})
+        t["dense_chain_frame_us" + key] = frame_us
+        t["dense_S" + key] = S
+        if key == "":
+            t["dense_scan_fwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.dense_scan_fwd_plain(em_s, adj, st, lab, sil), runs=20)
+            t["dense_scan_bwd_plain"] = gpu_median_ms(
+                torch, lambda: dsp.dense_scan_bwd_plain(traj, adj, st, lab, sil, gf,
+                                                        need_dadj=False), runs=20)
+            # the kernels one call launches: the forward 1, the backward 2
+            # (statistics, chain), 3 with dadj
+            t["dense_kernel_launches"] = {
+                name: kernel_launches(torch, fn, DENSE_KERNELS)
+                for name, fn in (("fwd", fwd), ("bwd", bwd), ("bwd_with_dadj", bwd_dadj))}
+    return t, bounds, chain
+
+
 def phase_times(torch, dev, paths):
     from gtn_applications_tpu_torch.ops import _build, gathers, lattice
-    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
@@ -2682,29 +2913,6 @@ def phase_times(torch, dev, paths):
     t["dense_bt_plain"] = gpu_median_ms(
         torch, lambda: vsp.dense_backtrace_plain(bp, last), runs=20)
 
-    # the dense scan at the STC headline, and at S = 304
-    scans = {}
-    for key, shape in (("", (B, T, STC_L)), ("_s304", WIDE_STC)):
-        em_s, adj, st, lab, acc, sil = stc_headline_inputs(torch, dev, *shape)
-        traj = dsp.dense_scan_fwd_cuda(em_s, adj, st, lab, sil)
-        gf = score_cotangent(torch, traj[:, -1], acc)
-        scans[key] = (em_s.shape[2], sil)
-        t["dense_scan_fwd" + key] = gpu_median_ms(
-            torch, lambda: dsp.dense_scan_fwd_cuda(em_s, adj, st, lab, sil))
-        t["dense_scan_bwd" + key] = gpu_median_ms(
-            torch, lambda: dsp.dense_scan_bwd_cuda(traj, adj, st, lab, sil, gf))
-        if key == "":
-            t["dense_scan_fwd_plain"] = gpu_median_ms(
-                torch, lambda: dsp.dense_scan_fwd_plain(em_s, adj, st, lab, sil),
-                runs=20)
-            t["dense_scan_bwd_plain"] = gpu_median_ms(
-                torch, lambda: dsp.dense_scan_bwd_plain(traj, adj, st, lab, sil, gf),
-                runs=20)
-            t["dense_scan_bwd_no_dadj"] = gpu_median_ms(
-                torch, lambda: dsp.dense_scan_bwd_cuda(traj, adj, st, lab, sil, gf,
-                                                       need_dadj=False))
-    S_stc, stc_il = scans[""]
-
     # the whole-scan Viterbi at the decode headline, and seg_max_scan on its
     # table as a yardstick (not a route of this table's decode)
     em_v, src_b, lab_b, w_b, st_v, acc_v, vil, v_table = viterbi_headline_inputs(
@@ -2755,9 +2963,6 @@ def phase_times(torch, dev, paths):
     # skips the frozen tail
     live_states = int(il.clamp(max=T).sum()) * S
     state_bytes = B * S * 4
-    stc_live = int(stc_il.clamp(min=1).sum()) * S_stc
-    stc_vec = B * S_stc * 4
-    stc_adj = B * S_stc * S_stc * 4
     bounds = {
         "gather_fwd": bound_ms(lp.numel() * 4 + labels.numel() * 4 + B * T * S * 4, 0),
         "gather_bwd": bound_ms(grad.numel() * 4 + labels.numel() * 4 + lp.numel() * 4,
@@ -2771,16 +2976,6 @@ def phase_times(torch, dev, paths):
         # and the path written once; no arithmetic
         "dense_bt": bound_ms(bp.shape[0] * bp.shape[1] * 32 + last.numel() * 4
                              + B * T * 4, 0),
-        # em (live frames), adj, start, has_lab, lengths in; traj out; per
-        # frame a 2 S^2 matvec plus max, sub, exp, log, floor, adds, masks
-        "dense_scan_fwd": bound_ms(
-            stc_live * 4 + stc_adj + 2 * stc_vec + B * 4 + B * T * S_stc * 4,
-            scan_work(stc_il, S_stc, DENSE_FWD_OPS, 2)),
-        # traj (live frames), adj, start, has_lab, g, lengths in; dem, dadj
-        # out; per frame three S^2 products (z, adj^T dz, dz e^T)
-        "dense_scan_bwd": bound_ms(
-            stc_live * 4 + 2 * stc_adj + 3 * stc_vec + B * 4 + B * T * S_stc * 4,
-            scan_work(stc_il, S_stc, DENSE_BWD_OPS, 6)),
     }
     # the Viterbi scan: viterbi_scan_bound.  The backtrace: per live
     # frame three dependent loads (slot, source, label) of at least one
@@ -2800,7 +2995,7 @@ def phase_times(torch, dev, paths):
     # the scan's frames each need the last: the longest sample's frames
     chain["viterbi_scan_fwd"] = int(vil.max()) * t["viterbi_chain_frame_us"] * 1e-3
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
-                  "asg_C": ASG_C, "stc_L": STC_L, "stc_S": S_stc,
+                  "asg_C": ASG_C, "stc_L": STC_L,
 
                   "decode_D": D_v, "decode_S": S_v, "decode_A": packed.A}
     return t, bounds, chain
@@ -2872,7 +3067,7 @@ def run(device="cuda"):
         merge_errs(errs, main_errs)
         diffs.update(more)
     times, bounds, chain = phase_times(torch, dev, paths)
-    for more in (factored_times(torch, dev), sparse_times(torch, dev)):
+    for more in (dense_times(torch, dev), factored_times(torch, dev), sparse_times(torch, dev)):
         times.update(more[0])
         bounds.update(more[1])
         chain.update(more[2])

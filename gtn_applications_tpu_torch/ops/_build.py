@@ -55,7 +55,7 @@ _SIGNATURES = {
     },
     "dense_scan": {
         "dense_scan_fwd": (6, 4),
-        "dense_scan_bwd": (8, 4),
+        "dense_scan_bwd": (9, 4),
         "factored_scan_fwd": (8, 5),
         "factored_scan_bwd": (12, 5),
         "factored_chain_probe": (1, 3),

@@ -20,7 +20,11 @@ trajectory in reverse, recomputing ``z``, and gives cotangents to
 ``em_state`` and (only when it needs one) ``adj_exp``; ``start``,
 ``has_lab`` and ``lengths`` are prepared data and get none.  The layout is
 ``[B, T, S]`` with S unpadded: the TPU's ``[T, B, S]`` transpose and its
-128-lane padding existed only for its tiling.
+128-lane padding existed only for its tiling.  The CUDA kernels work on
+the adjacency's real arcs, which they compact in the kernel, with lanes
+matched to degree: the forward one launch, the backward a statistics pass
+and a chain by source (and a dadj pass when asked); ``dense_plan`` mirrors
+their schedule on the host for logs and tests.
 """
 
 import torch
@@ -106,6 +110,9 @@ def _check(name, em_or_traj, adj, start, has_lab, lengths):
     _build.require(f"{name} lengths", lengths, (B,), torch.int32)
     if T < 1:
         raise ValueError(f"{name} needs at least one frame")
+    if not dense_fits(S):
+        raise ValueError(f"{name}: the kernels' plan and rows take at most "
+                         f"{DENSE_MAX_S} states, got S={S}")
     return B, T, S
 
 
@@ -128,7 +135,8 @@ def dense_scan_fwd_cuda(em_state, adj_exp, start, has_lab, lengths):
 
 def dense_scan_bwd_cuda(traj, adj_exp, start, has_lab, lengths, g_final,
                         need_dadj=True):
-    """Launch ``dense_scan_bwd``: traj [B, T, S], adj_exp [B, S, S],
+    """Launch ``dense_scan_bwd`` (the statistics pass and the chain, and the
+    dadj pass with ``need_dadj``): traj [B, T, S], adj_exp [B, S, S],
     start/has_lab/g_final [B, S] float32, lengths [B] int32 ->
     (dem [B, T, S], dadj [B, S, S] or None)."""
     B, T, S = _check("dense_scan_bwd", traj, adj_exp, start, has_lab, lengths)
@@ -136,13 +144,15 @@ def dense_scan_bwd_cuda(traj, adj_exp, start, has_lab, lengths, g_final,
     _build.require("dense_scan_bwd g_final", g_final, (B, S), torch.float32)
     dem = torch.empty((B, T, S), dtype=torch.float32, device=traj.device)
     dadj = torch.empty_like(adj_exp) if need_dadj else None
+    scratch = torch.empty(_dense_scratch_words(B, T, S, need_dadj), dtype=torch.float32,
+                          device=traj.device)
     lib = _build.load_library("dense_scan")
     with torch.cuda.device(traj.device):
         err = lib.dense_scan_bwd(
             traj.data_ptr(), adj_exp.data_ptr(), start.data_ptr(),
             has_lab.data_ptr(), lengths.data_ptr(), g_final.data_ptr(),
             dem.data_ptr(), dadj.data_ptr() if need_dadj else None,
-            B, T, S, _build.MAX_SMEM, _build.stream_handle(traj),
+            scratch.data_ptr(), B, T, S, _build.MAX_SMEM, _build.stream_handle(traj),
         )
     _build.check(lib, err, "dense_scan_bwd")
     _build.LAUNCHES["dense_scan_bwd"] += 1
@@ -328,14 +338,15 @@ def compact_members(lab_idx_b):
     return label_of, jslot, members
 
 
-def dest_rounds(deg_by_member, jslot, members, warps=FACT_WARPS):
+def dest_rounds(deg_by_member, jslot, members, warps=FACT_WARPS, shift_cost=None):
     """The forward's rounds (``plan_dest_rounds``): members in member order
     packed into rounds (m0, m1, g) of at most SHIFT_GROUPS consecutive slots
     and 32 lanes, g the round's largest group width; and the first round of
-    each warp: contiguous ranges of about equal cost (the shift, and the
-    arcs a lane)."""
-    S = len(jslot)
-    shift_cost = 2 * ((S + 7) // 8) + 8
+    each warp: one a warp to the first ones where there are no more rounds
+    than warps, else contiguous ranges of about equal cost (``shift_cost`` a
+    round, by default the factored kernels' shift, and the arcs a lane)."""
+    if shift_cost is None:
+        shift_cost = 2 * ((len(jslot) + 7) // 8) + 8
     rounds, costs = [], []
     m = 0
     while m < len(members):
@@ -352,7 +363,7 @@ def dest_rounds(deg_by_member, jslot, members, warps=FACT_WARPS):
     total = sum(costs)
     wbeg, cum, w = [0], 0, 0
     for r, cost in enumerate(costs):
-        want = cum * warps // total if total > 0 else 0
+        want = r if len(rounds) <= warps else (cum * warps // total if total > 0 else 0)
         while w < want and w < warps:
             wbeg.append(r)
             w += 1
@@ -403,6 +414,108 @@ def factored_plan(adj_exp, lab_idx, lengths, N):
     return plans
 
 
+# The dense pair's schedule (csrc/dense_scan.cu, "The plain dense
+# recursion"), mirrored so that the wrappers size their scratch and a run
+# can log what each sample takes.  It is the factored one with every
+# labelled state in one slot: a round's fixed cost in the plan is
+# DENSE_ROUND_COST, a warp holds at most DENSE_REG_ROUNDS rounds (source
+# rounds) in registers, and the chain's source rounds run on at most
+# FACT_WARPS - 1 warps beside its side warp, which copies the ring rows.
+DENSE_REG_ROUNDS = 2
+DENSE_ROUND_COST = 8
+
+
+def _dense_fwd_vec(S):
+    return 3 * S + 2 * FACT_WARPS
+
+
+def _dense_ring_row(S):
+    return 2 * S + 4
+
+
+def _dense_arc_words(nnz):
+    """Shared words the arcs take before the rows after them (16-byte
+    aligned)."""
+    return (2 * nnz + 3) & ~3
+
+
+def dense_fits(S):
+    """Whether the dense kernels' plans and rows fit a block's shared
+    memory at S states (the forward with its ring, the statistics pass,
+    the chain with its ring), and S < 2^16."""
+    words = _build.MAX_SMEM // 4
+    return (S < 2**16 and _fact_arena(S, 1, _dense_fwd_vec(S)) + RING * S <= words
+            and _fact_arena(S, 1, (1 + FACT_WARPS) * S) <= words
+            and _fact_arena(S, 1, 2 * S) + RING * _dense_ring_row(S) <= words)
+
+
+DENSE_MAX_S = next(S for S in range(1, 2**16) if not dense_fits(S + 1))
+
+
+def _dense_scratch_words(B, T, S, need_dadj):
+    """Floats of the dense backward's scratch (``dense_scan_bwd``): sh
+    [B, T], rz [B, T, S], the slots [B, S], with dadj dz [B, T, S]; and,
+    from an even offset, 2 S^2 a sample for the chain's arcs where a dense
+    adjacency's (twice, to sort them by source) could not fit in shared
+    memory beside its ring."""
+    words = B * T * (1 + S) + B * S + (B * T * S if need_dadj else 0)
+    if _dense_chain_global(S * S, S):
+        words += 1 + 2 * B * S * S
+    return words
+
+
+def _dense_chain_global(nnz, S):
+    """Whether the chain keeps ``nnz`` arcs by source in global memory:
+    where the two lists it sorts them from (4 nnz words) or the arcs and
+    its ring do not fit in its shared memory."""
+    arena = _build.MAX_SMEM // 4 - _fact_arena(S, 1, 2 * S)
+    return 4 * nnz > arena or _dense_arc_words(nnz) + RING * _dense_ring_row(S) > arena
+
+
+def dense_plan(adj_exp, has_lab, lengths):
+    """What the dense kernels do with each sample, computed on the host
+    from the same inputs (for logs and tests; the kernels plan on the
+    device): its real arcs into labelled states, labelled states, largest
+    in- and out-degree, the forward's rounds, the warps that run its frames,
+    its route (registers, shared, global) and where its emission rows live
+    (staged, ring), and the chain's group width, source rounds, warps (and
+    the side warp) and route."""
+    words = _build.MAX_SMEM // 4
+    B, S, _ = adj_exp.shape
+    nz = (adj_exp != 0).cpu()
+    lab = (has_lab > 0).cpu()
+    plans = []
+    for b in range(B):
+        members = torch.nonzero(lab[b])[:, 0].tolist()
+        jslot = [0 if x else -1 for x in lab[b].tolist()]
+        rows = nz[b][members]
+        deg = rows.sum(1).tolist()
+        nnz = int(sum(deg))
+        out_deg = int(rows.sum(0).max()) if members else 0
+        arena = words - _fact_arena(S, 1, _dense_fwd_vec(S))
+        dense = _dense_arc_words(nnz) + RING * S > arena
+        rounds, wbeg = dest_rounds([S] * len(deg) if dense else deg, jslot, members,
+                                   shift_cost=DENSE_ROUND_COST)
+        most = max(wbeg[w + 1] - wbeg[w] for w in range(FACT_WARPS))
+        wide = max(deg, default=0) > 32 * FACT_CAP
+        g = group_width(out_deg)
+        chain_rounds = -(-S * g // 32)
+        chain_warps = min(chain_rounds, FACT_WARPS - 1)
+        plans.append(dict(
+            arcs=nnz, labelled=len(members),
+            max_in_degree=int(max(deg, default=0)), max_out_degree=out_deg,
+            rounds=len(rounds), warps=max(1, min(len(rounds), FACT_WARPS)),
+            route=("global" if dense else "registers"
+                   if most <= DENSE_REG_ROUNDS and not wide else "shared"),
+            rows=("staged" if (0 if dense else _dense_arc_words(nnz))
+                  + max(1, int(lengths[b])) * S <= arena else "ring"),
+            chain_group=g, chain_rounds=chain_rounds, chain_warps=chain_warps,
+            chain_route=("global" if _dense_chain_global(nnz, S)
+                         else "registers" if -(-chain_rounds // chain_warps) <= DENSE_REG_ROUNDS
+                         and out_deg <= g * FACT_CAP else "shared")))
+    return plans
+
+
 def _fact_check(name, em_or_traj, adj, wsel, lab_oh, start, lengths):
     _build.require_cuda(name, em_or_traj, adj, wsel, lab_oh, start, lengths)
     B, T, S = em_or_traj.shape
@@ -424,12 +537,13 @@ def _fact_check(name, em_or_traj, adj, wsel, lab_oh, start, lengths):
 def _bwd_scratch_words(B, T, S, N, need_dadj):
     """Floats of the backward's scratch (``factored_scan_bwd``): sh
     [B, T, Lmax], rz [B, T, S], the slots [B, S], with dadj dz [B, T, S];
-    and 3 S^2 a sample for the chain's arcs and sums where a dense
-    adjacency's could not fit in shared memory beside its ring."""
+    and, from an even offset, 3 S^2 a sample for the chain's arcs and sums
+    where a dense adjacency's could not fit in shared memory beside its
+    ring."""
     L = min(S, N)
     words = B * T * (L + S) + B * S + (B * T * S if need_dadj else 0)
     if _fact_arena(S, N, 2 * S) + RING * (2 * S + L) + 3 * S * S > _build.MAX_SMEM // 4:
-        words += 3 * B * S * S
+        words += 1 + 3 * B * S * S
     return words
 
 

@@ -1,11 +1,13 @@
 """Time the whole sparse scan pair (or, with ``--decode``, the Viterbi
 decode of the 4-gram path; with ``--viterbi``, the whole-scan Viterbi;
 with ``--factored``, the factored scan pair; with ``--seglse``, the
-seg_lse pair) of this checkout against another's.
+seg_lse pair; with ``--dense``, the dense scan pair) of this checkout
+against another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_sparse_scan \
         --baseline DIR [--clusters 1 2 4 8] [--phases] [--decode] \
-        [--viterbi [--caps 4 8 16]] [--factored] [--seglse] [--out FILE]
+        [--viterbi [--caps 4 8 16]] [--factored] [--seglse] [--dense] \
+        [--out FILE]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit unpacked with ``git archive`` into an ignored directory):
@@ -76,6 +78,21 @@ forward by each route (alpha, w and em staged in shared memory or
 gathered from device memory; ``new_fwd_staged``: the wrapper's choice)
 and without its statistics, its backward without dcontrib, the kernels each side's step launches
 (torch.profiler), and the table's largest in- and out-degree.
+``--dense`` times the dense scan pair (``dense_scan_fwd`` and
+``dense_scan_bwd``, the kernels of STC's dense tier and of the
+transitions-free Transducer) instead, at ``chip_smoke.dense_time_cases``
+(the STC headline, B=32, T=250, S=96; S=304, B=8, T=128; the word
+decompositions at the 1k inventory, B=32, T=100, S=376): baseline, this,
+this, baseline for the forward, the backward without dadj (the main
+paths') and with it; the two forwards' live sets must be equal and their
+trajectories within atol 1e-3 + rtol 1e-5 on live states, and the two
+backwards' dem and dadj are compared entry by entry
+(``chip_smoke.entrywise_err``, logged: each side is held to the plain
+versions by ``chip_smoke.py``).  Beside them: this checkout's routes
+(``chip_smoke.dense_routes``), its bounds by real arcs
+(``chip_smoke.dense_bounds``) beside the O(S^2) count of PRs 2-10, the
+chain bounds (``chip_smoke.dense_chain_bounds``) and the kernels one
+call of each launches (torch.profiler), for both.
 Run from the root of this checkout on a machine with one GPU.
 """
 
@@ -334,7 +351,57 @@ def factored_ab(torch, cs, root, dev):
                             "bwd_with_dadj": cs.factored_work(adj, lab, il, False, True),
                             "fwd_dense_count": cs.factored_work_dense(lab, il, True),
                             "bwd_dense_count": cs.factored_work_dense(lab, il, False)},
-               "kernels_a_call": {who: {k: cs.kernel_launches(torch, fn, "factored")
+               "kernels_a_call": {who: {k: cs.kernel_launches(torch, fn, cs.FACTORED_KERNELS)
+                                        for k, fn in run[who].items()} for who in run}}
+        for who in ("base", "new", "new", "base"):
+            for k, fn in run[who].items():
+                row.setdefault(f"{who}_{k}_ms", []).append(cs.gpu_median_ms(torch, fn))
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+    return out
+
+
+def dense_ab(torch, cs, root, dev):
+    """The ``--dense`` comparison (see the module docstring)."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+    from gtn_applications_tpu_torch.ops.semiring import DEAD
+
+    base = load_baseline(root, "ops.dense_scan_pallas")
+    out = {}
+    for key, (em, adj, st, lab, acc, il) in cs.dense_time_cases(torch, dev):
+        name = key.lstrip("_") or "headline"
+        fwd_args = (em, adj, st, lab, il)
+        traj_n = dsp.dense_scan_fwd_cuda(*fwd_args)
+        traj_b = base.dense_scan_fwd_cuda(*fwd_args)
+        live = traj_b > DEAD
+        if not torch.equal(traj_n > DEAD, live):
+            raise AssertionError(f"{name}: the two forwards' live sets differ")
+        torch.testing.assert_close(traj_n[live], traj_b[live], atol=1e-3, rtol=1e-5)
+        g = cs.score_cotangent(torch, traj_b[:, -1], acc)
+        bwd_args = (traj_b, adj, st, lab, il, g)
+        bwd_diff = {}
+        for part, k, b in zip(("dem", "dadj"), dsp.dense_scan_bwd_cuda(*bwd_args),
+                              base.dense_scan_bwd_cuda(*bwd_args)):
+            finite = torch.isfinite(b) & torch.isfinite(k)
+            bwd_diff[part] = cs.entrywise_err(torch, k[finite], b[finite])
+        run = {who: {"fwd": lambda m=m: m.dense_scan_fwd_cuda(*fwd_args),
+                     "bwd": lambda m=m: m.dense_scan_bwd_cuda(*bwd_args, need_dadj=False),
+                     "bwd_with_dadj": lambda m=m: m.dense_scan_bwd_cuda(*bwd_args)}
+               for who, m in (("base", base), ("new", dsp))}
+        b, T, S = em.shape
+        routes = cs.dense_routes(torch, adj, lab, il)
+        chain, frame_us = cs.dense_chain_bounds(torch, dev, routes, b, int(il.max()))
+        row = {"shape": [b, T, S], "max_len": int(il.max()),
+               "max_abs_traj_diff": float((traj_n - traj_b).abs()[live].max()),
+               "entrywise_bwd_diff": bwd_diff,
+               "routes": routes, "chain_bound_ms": chain, "chain_frame_us": frame_us,
+               "bound_ms": cs.dense_bounds(em, adj, lab, il),
+               "work_ops": {"fwd": cs.dense_work(adj, lab, il, True),
+                            "bwd": cs.dense_work(adj, lab, il, False),
+                            "bwd_with_dadj": cs.dense_work(adj, lab, il, False, True),
+                            "fwd_dense_count": cs.scan_work(il, S, cs.DENSE_FWD_OPS, 2),
+                            "bwd_dense_count": cs.scan_work(il, S, cs.DENSE_BWD_OPS, 6)},
+               "kernels_a_call": {who: {k: cs.kernel_launches(torch, fn, cs.DENSE_KERNELS)
                                         for k, fn in run[who].items()} for who in run}}
         for who in ("base", "new", "new", "base"):
             for k, fn in run[who].items():
@@ -427,6 +494,8 @@ def main(argv=None):
                         help="compare the factored scan pair instead")
     parser.add_argument("--seglse", action="store_true",
                         help="compare the seg_lse pair instead")
+    parser.add_argument("--dense", action="store_true",
+                        help="compare the dense scan pair instead")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -455,6 +524,9 @@ def main(argv=None):
     if args.seglse:
         result["cases"] = seglse_ab(torch, cs, args.baseline, dev)
         return _report("compare_seglse", result, args.out)
+    if args.dense:
+        result["cases"] = dense_ab(torch, cs, args.baseline, dev)
+        return _report("compare_dense", result, args.out)
     base = load_baseline(args.baseline)
     for name, em, lens, table in cases(torch, cs, dev):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)

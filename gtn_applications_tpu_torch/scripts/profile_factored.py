@@ -55,8 +55,8 @@ VARIANTS = {
     "no_log": [("      v = em + (z > 0.0f ? sh + logf(fmaxf(z, kFloor)) : kNeg);",
                 "      v = em + (z > 0.0f ? sh + z : kNeg);")],
     "no_traj_store": [("    next[u] = v;\n    tr_t[u] = v;", "    next[u] = v;")],
-    "no_dest_exp": [("    const float e = frame0 ? x[s] : expf((x[s] + wcol[s]) - sh);",
-                     "    const float e = frame0 ? x[s] : (x[s] + wcol[s]) - sh;"),
+    "no_dest_exp": [("    const float e = frame0 ? x[s] : expf((kLabels ? x[s] + wcol[s] : x[s]) - sh);",
+                     "    const float e = frame0 ? x[s] : (kLabels ? x[s] + wcol[s] : x[s]) - sh;"),
                     ("    const float e = f0 ? x[q.xs[k]] : expf((x[q.xs[k]] + q.wv[k]) - sh);",
                      "    const float e = f0 ? x[q.xs[k]] : (x[q.xs[k]] + q.wv[k]) - sh;")],
     "no_chain_exp": [("  const float e = expf((ps + wt[j * S + s]) - shr[j]);",

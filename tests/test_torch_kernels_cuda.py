@@ -272,11 +272,14 @@ def _sparse_factored_case(rng, b, t, s, n, density, dev):
     ("long", "shared", "ring", "shared"),
     ("dense", "shared", "staged", "shared"),
     ("dense_wide", "global", "staged", "global"),
+    ("dense_odd", "global", "staged", "global"),
 ])
 def test_factored_scan_routes_match_plain(cuda_device, case, route, rows, chain):
     """The factored pair by each of its routes (the forward's registers,
     shared and global, its emission rows staged or in the ring; the chain's
-    registers, shared and global) against the plain versions, by
+    registers, shared and global; "dense_odd" puts the chain's global arcs
+    after an odd number of scratch words, where they must still load as
+    8-byte pairs) against the plain versions, by
     ``chip_smoke.hold_factored_scan_kernels``: live sets equal, the
     trajectory within atol 1e-3 + rtol 1e-5, the cotangents entry by entry
     within 1e-5 of |p| + the median nonzero |p|.  The route each case
@@ -290,6 +293,8 @@ def test_factored_scan_routes_match_plain(cuda_device, case, route, rows, chain)
         inputs = chip_smoke.factored_random_inputs(torch, cuda_device, 3, 30, 96, 8)
     elif case == "dense_wide":
         inputs = chip_smoke.factored_random_inputs(torch, cuda_device, 2, 20, 160, 80)
+    elif case == "dense_odd":
+        inputs = chip_smoke.factored_random_inputs(torch, cuda_device, 1, 21, 161, 81)
     else:
         shape = {"sparse": (4, 40, 40, 8), "wide": (3, 40, 200, 12),
                  "long": (2, 240, 320, 12)}[case]
@@ -335,3 +340,48 @@ def test_seg_lse_kernels_match_plain_on_the_hub_case(cuda_device, layout):
     torch.testing.assert_close(got[0].double()[live], out_p[live], rtol=1e-5, atol=1e-3)
     for k, p in zip(got[1:], want[1:]):
         torch.testing.assert_close(k.double(), p, rtol=1e-5, atol=1e-5)
+
+
+def _dense_route_case(case, dev):
+    """The inputs of one dense-scan route case (``chip_smoke``'s builders)."""
+    import chip_smoke
+
+    if case == "stc":
+        return chip_smoke.stc_headline_inputs(torch, dev, 4, 60, 15)
+    if case == "hub":
+        return chip_smoke.dense_hub_inputs(torch, dev, 3, 128)
+    if case == "ring":
+        return chip_smoke.stc_headline_inputs(torch, dev, 2, 300, 100)
+    if case == "words":
+        return chip_smoke.word_decomp_inputs(torch, dev, 4, 100)
+    if case == "all_live":
+        return chip_smoke.dense_random_inputs(torch, dev, 3, 30, 96)
+    return chip_smoke.dense_random_inputs(torch, dev, 2, 20, 304)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route,rows,chain", [
+    ("stc", "registers", "staged", "registers"),
+    ("hub", "shared", "staged", "registers"),
+    ("ring", "registers", "ring", "registers"),
+    ("words", "registers", "staged", "registers"),
+    ("all_live", "shared", "staged", "shared"),
+    ("all_live_wide", "global", "staged", "global"),
+])
+def test_dense_scan_routes_match_plain(cuda_device, case, route, rows, chain):
+    """The dense pair by each of its routes (the forward's registers,
+    shared and global, its emission rows staged or in the ring; the chain's
+    registers, shared and global; "words" holds two rounds a warp in
+    registers both ways) against the plain versions, by
+    ``chip_smoke.hold_dense_scan_kernels``: live sets equal, the trajectory
+    within atol 1e-3 + rtol 1e-5, dem (with and without dadj) and dadj
+    entry by entry within 1e-5 of |p| + the median nonzero |p|.  The route
+    each case takes is the one ``dense_scan_pallas.dense_plan`` mirrors."""
+    import chip_smoke
+
+    inputs = _dense_route_case(case, cuda_device)
+    routes = chip_smoke.dense_routes(torch, inputs[1], inputs[3], inputs[5])
+    assert (routes["route"], routes["rows"], routes["chain_route"]) == (
+        [route], [rows], [chain]), routes
+    chip_smoke.hold_dense_scan_kernels(torch, *inputs, case,
+                                       all_live=case.startswith("all_live"))

@@ -168,6 +168,51 @@ def test_viterbi_matches_jax(name):
     assert any(len(p) for p in preds)
 
 
+def _word_decomps_1k(B=2, pieces=15, seed=0):
+    """Both packages' transitions-free Transducers over the 1k-wordpiece
+    inventory (``benchmarks/word_pieces_scores_1000.tsv``), as bench.py's
+    word-decomposition protocol builds them (blank optional, no repeats),
+    and B targets of ``pieces`` random pieces spelled in graphemes."""
+    import random
+
+    with open("benchmarks/word_pieces_scores_1000.tsv") as fid:
+        tokens = sorted(line.rstrip("\n").split("\t")[0] for line in fid)
+    g2i = {c: i for i, c in enumerate(sorted({c for tok in tokens for c in tok}))}
+    pick = random.Random(seed)
+    targets = [[g2i[c] for _ in range(pieces) for c in pick.choice(tokens)] for _ in range(B)]
+    kw = dict(blank="optional", allow_repeats=False, reduction="mean")
+    return td.Transducer(tokens, g2i, **kw), jax_td.Transducer(tokens, g2i, **kw), targets
+
+
+def test_word_decomps_1k_inventory_matches_jax(monkeypatch):
+    """Word decomposition at vocabulary scale (B=2, T=30, 15 pieces over
+    the 1,001 channels): the loss and the logit gradient against JAX's
+    dense transitions-free route (``_FACTORED_IMPL`` on), loss rtol 1e-5 +
+    atol 1e-5 and gradients GRAD_TOL, and the decode's tokens exactly."""
+    crit, jcrit, targets = _word_decomps_1k()
+    B, T, N = len(targets), 30, crit.num_channels
+    rng = np.random.RandomState(9)
+    x = rng.randn(B, T, N).astype(np.float32)
+    lens = np.asarray([T, T - 3], np.int32)
+
+    jprep = _jax_prepare(jcrit, targets, monkeypatch)
+    j_loss, j_gx = jax.value_and_grad(
+        lambda x: jcrit.loss({}, x, jprep, jnp.asarray(lens)))(jnp.asarray(x))
+    prep = crit.prepare(targets)
+    assert "factored" in prep
+    assert prep["factored"]["adj_exp"].shape[1] > 200  # hundreds of states a sample
+    x_t = torch.from_numpy(x).requires_grad_(True)
+    loss = crit.loss({}, x_t, prep, torch.from_numpy(lens))
+    (gx,) = torch.autograd.grad(loss, x_t)
+
+    assert float(loss.detach()) < 1e20  # every target fits in its frames
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), err_msg="logits", **GRAD_TOL)
+    preds = crit.viterbi(torch.from_numpy(x), {}, torch.from_numpy(lens))
+    j_preds = jcrit.viterbi(jnp.asarray(x), {}, jnp.asarray(lens))
+    assert [p.tolist() for p in preds] == [np.asarray(p).tolist() for p in j_preds]
+
+
 def test_decode_follows_in_place_update():
     """The decode table is cached per parameter tensor; an optimizer's
     in-place update must invalidate it."""
