@@ -15,9 +15,14 @@ prints no result):
    idx [32, 89] with -1 padding, and at a wide S = 4096 with many
    duplicates: the forward bitwise, the backward within 1e-5;
 4. CTC kernels against their plain versions at the bench headline
-   (B=32, T=250, L=44, N=80): alpha and score within atol 1e-3 + rtol 1e-5,
-   grad within 1e-5; the loss and logit gradients against F.ctc_loss
-   (same 1/len-then-mean reduction) within 1e-3;
+   (B=32, T=250, L=44, N=80; the backward's route "block", 3 warps a
+   sample), on the headline with an infeasible sample (22 labels in 11
+   frames), at L=11 (S=23, the backward's route "warp") and at wider
+   shapes (``CTC_WIDE``: S=241 at B=8, T=300, and S=401 at B=8, T=500, 8
+   and 13 warps a sample): alpha and score within atol 1e-3 + rtol
+   1e-5, grad within 1e-5, each case's route logged; the headline's loss
+   and logit gradients against F.ctc_loss (same 1/len-then-mean
+   reduction) within 1e-3;
 5. the dense backtrace kernel against its plain walk at the ASG bench
    headline (B=32, T=250, C=80, backpointers of the ASG Viterbi scan) and
    at B=8, T=1000 (a table past shared memory): paths bitwise equal;
@@ -49,18 +54,23 @@ prints no result):
    trajectory within atol 1e-3 + rtol 1e-5 on live states, dem, dadj,
    dwsel and dws entry by entry within 1e-5 (|p| + the median nonzero
    |p|), with dadj and without;
-8. the whole-scan Viterbi kernels against their plain versions at the
-   decode headline (B=32, T=250, C=80 on the ngram-2 decode table with
-   random weights: 82 states, 6,480 arcs, D=81; lengths 200-250) by each
-   of the scan's routes (arcs in registers, staged in shared memory, read
-   from global memory), on the bigram table over 160 labels (B=8; D=161,
-   S=162: 25,760 arcs staged in shared memory), over 240 labels (B=4;
-   57,840 arcs, past shared memory: read from global memory), on a skewed
-   random table with an infeasible sample, and on the headline table with
+8. the whole-scan Viterbi kernel against its plain versions, the scan
+   alone and the decode (the scan and its walk in one launch, held to
+   ``viterbi_backtrace_plain`` on the plain scan's slots), at the decode
+   headline (B=32, T=250, C=80 on the ngram-2 decode table with random
+   weights: 82 states, 6,480 arcs, D=81; lengths 200-250) by each of the
+   scan's routes (arcs in registers, staged in shared memory, read from
+   global memory) and each walk beside it (the walk words in shared
+   memory, or in a global scratch walked by chunks), on the bigram table
+   over 160 labels (B=8; D=161, S=162: 25,760 arcs staged in shared
+   memory), over 240 labels (B=4; 57,840 arcs, past shared memory: read
+   from global memory), on the headline table over T=720 frames (B=8:
+   the walk words fit only in the global scratch), on a skewed random
+   table with an infeasible sample, and on the headline table with
    integer weights and emissions (exact ties required), also with two
    arcs a lane so that every state is a hub of two warp chunks (ties
    across them required): slots and labels bitwise equal, final alphas
-   and scores within 1e-6; each case logs its route;
+   and scores within 1e-6; each case logs its routes;
 9. the sparse kernels (seg_lse on each round of a table's start closure,
    the whole sparse scan on the table) against their plain versions run
    in float64, at bench.py's loaded backoff-LM protocol (its normaliser,
@@ -139,8 +149,14 @@ prints no result):
    host-clock median of 20 full train
    steps of each path and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 10's T=300 case),
+   the CTC backward also at ``CTC_WIDE`` with its kernels a call
+   (torch.profiler), the whole-scan Viterbi's scan alone and its decode
+   in turns (the walk's share is their difference) with the kernels a
+   decode (torch.profiler),
    the latency of one frame of the CTC recursion's dependent chain
-   (``ctc_chain_probe``) and of one phase of the sparse scans' chain
+   (``ctc_chain_probe``), of one frame of the walks of the decode and the
+   dense backtrace (``backtrace_chain_probe``: a dependent shared load of
+   a word and its unpacking) and of one phase of the sparse scans' chain
    (``sparse_scan_probe``: a load from another block's shared memory and
    a cluster barrier, at the 1kwp normaliser's and at the decode's batch
    and cluster size) and of one frame of the whole-scan Viterbi's chain
@@ -309,10 +325,11 @@ def hold_gather_kernels(torch, x, idx, g, what):
 
 def hold_ctc_kernels(torch, em, start, accept, skip, il, g, what):
     """Both CTC kernels against their plain versions: alpha and score
-    within atol 1e-3 + rtol 1e-5, the gradient within 1e-5.  Returns the
-    errors and the kernel's gradient."""
+    within atol 1e-3 + rtol 1e-5, the gradient within 1e-5; logs the
+    backward's route (``lattice_pallas.grad_plan``) and the infeasible
+    samples.  Returns the errors and the kernel's gradient."""
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
-    from gtn_applications_tpu_torch.ops.semiring import DEAD
+    from gtn_applications_tpu_torch.ops.semiring import DEAD, NEG
 
     a_k = lp_mod.ctc_alpha_cuda(em, start, skip, il)
     a_p = lp_mod.ctc_alpha_plain(em, start, skip, il)
@@ -327,8 +344,11 @@ def hold_ctc_kernels(torch, em, start, accept, skip, il, g, what):
     grad_err = float((gr_k - gr_p).abs().max())
     if not grad_err <= 1e-5:
         raise AssertionError(f"ctc grad max|d|={grad_err} > 1e-5 at {what}")
+    route, k, warps, ring = lp_mod.grad_plan(em.shape[2])
     log(f"ctc {what}: alpha max|d| (live states) {alpha_err:.3g}, score max|d| "
-        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g}")
+        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g} (route {route}, "
+        f"K={k}, {warps} warps a sample, a ring of {ring} frames; "
+        f"{int((s_p <= NEG / 2).sum())} infeasible samples)")
     return {"ctc_alpha": alpha_err, "ctc_grad": grad_err}, gr_k
 
 
@@ -340,20 +360,26 @@ def phase_gather(torch, dev):
     return errs
 
 
-def headline_inputs(torch, dev, seed=0):
-    """Logits [B, T, N], targets [B, L] with repeated labels (some skips
-    disallowed), target lengths over 1..L and input lengths over 200..T."""
+def headline_inputs(torch, dev, seed=0, b=B, t=T, l=L, infeasible=False):
+    """Logits [b, t, N], targets [b, l] with repeated labels (some skips
+    disallowed), target lengths over 1..l and input lengths over
+    0.8 t..t; ``infeasible``: sample 2's l // 2 labels in l // 4 frames,
+    which no path covers (its score is NEG)."""
     rng = np.random.RandomState(seed)
-    logits = rng.randn(B, T, N).astype(np.float32)
-    tl = rng.randint(1, L + 1, size=B)
-    tl[0], tl[1] = L, 1
-    targets = np.zeros((B, L), np.int64)
-    for b in range(B):
-        t = rng.randint(0, N - 1, size=tl[b])
-        t[1::4] = t[0::4][: len(t[1::4])]
-        targets[b, : tl[b]] = t
-    il = rng.randint(200, T + 1, size=B)
-    il[0] = T
+    logits = rng.randn(b, t, N).astype(np.float32)
+    tl = rng.randint(1, l + 1, size=b)
+    tl[0], tl[1] = l, 1
+    if infeasible:
+        tl[2] = l // 2
+    targets = np.zeros((b, l), np.int64)
+    for i in range(b):
+        x = rng.randint(0, N - 1, size=tl[i])
+        x[1::4] = x[0::4][: len(x[1::4])]
+        targets[i, : tl[i]] = x
+    il = rng.randint(t * 4 // 5, t + 1, size=b)
+    il[0] = t
+    if infeasible:
+        il[2] = l // 4
     to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
     return (to(logits, torch.float32), to(targets, torch.int64),
             to(tl, torch.int32), to(il, torch.int32))
@@ -371,6 +397,21 @@ def ctc_kernel_inputs(torch, logits, targets, tl, blank=BLANK):
         skip_ok.to(torch.float32).contiguous()
 
 
+# the CTC backward's wider cases: (B, T, L), S = 2 L + 1 = 241 and 401
+# (route "block", 8 and 13 warps a sample); targets of 11 labels, S = 23,
+# take its warp route
+CTC_WIDE = ((8, 300, 120), (8, 500, 200))
+CTC_NARROW_L = 11
+
+
+def ctc_case(torch, dev, b=B, t=T, l=L, seed=0, infeasible=False):
+    """The CTC kernels' inputs (em, start, accept, skip, input lengths, g)
+    from ``headline_inputs``; g is d(mean of -score / len) / d score."""
+    logits, targets, tl, il = headline_inputs(torch, dev, seed, b, t, l, infeasible)
+    _, _, em, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
+    return em, start, accept, skip, il, -1.0 / (b * tl.to(torch.float32))
+
+
 def phase_ctc(torch, dev):
     from gtn_applications_tpu_torch.ops import lattice
 
@@ -379,6 +420,15 @@ def phase_ctc(torch, dev):
     g = -1.0 / (B * tl.to(torch.float32))  # d(mean of -score/len) / d score
     errs, _ = hold_ctc_kernels(torch, em, start, accept, skip, il, g,
                                (B, T, L, N))
+    # an infeasible sample (its gradient is the kernels' alone: F.ctc_loss
+    # gives inf there), the backward's warp route (S = 23) and wider shapes
+    merge_errs(errs, hold_ctc_kernels(torch, *ctc_case(torch, dev, seed=1, infeasible=True),
+                                      (B, T, L, N, "infeasible"))[0])
+    merge_errs(errs, hold_ctc_kernels(torch, *ctc_case(torch, dev, l=CTC_NARROW_L, seed=4),
+                                      (B, T, CTC_NARROW_L, N))[0])
+    for i, (b, t, l) in enumerate(CTC_WIDE):
+        merge_errs(errs, hold_ctc_kernels(torch, *ctc_case(torch, dev, b, t, l, seed=2 + i),
+                                          (b, t, l, N))[0])
 
     # value sanity: the port's loss and logit gradients against F.ctc_loss
     x = logits.clone().requires_grad_(True)
@@ -954,42 +1004,64 @@ def viterbi_ties(torch, em, src_b, lab_b, w_b, start, il, span=None):
 
 
 def hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start, accept, il, what,
-                         routes=(None,), cap=None, packed=None, need_ties=False):
-    """Both Viterbi kernels against their plain versions on the same
-    inputs: slots and labels bitwise equal, final alphas and scores within
-    1e-6 (the backtrace from the plain scan's slots).  The scan by each of
-    ``routes`` (None: its own choice) on ``packed`` (default: the buckets
-    packed with ``cap`` arcs a lane at most); ``need_ties``: the plain scan
-    must meet exact ties (and, with hubs, ties across a hub's chunks)."""
+                         routes=(None,), cap=None, packed=None, need_ties=False,
+                         walks=(None,)):
+    """The whole-scan Viterbi kernel against its plain versions on the
+    same inputs: the scan alone by each of ``routes`` (None: its own
+    choice), and the decode (the scan and its walk in one launch) by each
+    of those routes that has room for a walk, with each of ``walks`` that
+    fits beside it (None: its own choice): slots and labels bitwise equal,
+    final alphas and scores within 1e-6 (labels and scores against
+    ``viterbi_backtrace_plain`` on the plain scan's slots).  ``packed``:
+    default the buckets packed with ``cap`` arcs a lane at most;
+    ``need_ties``: the plain scan must meet exact ties (and, with hubs,
+    ties across a hub's chunks)."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.ops.semiring import NEG
 
     if packed is None:
         packed = vsp.pack_buckets(src_b, lab_b, w_b, cap).to(em.device)
+    S, T, C = start.shape[0], em.shape[1], em.shape[2]
     slots_p, final_p = vsp.viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, il)
-    fwd_err = 0.0
-    taken = []
-    for route in routes:
-        slots_k, final_k = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il,
-                                                     packed=packed, route=route)
+    lab_p, score_p = vsp.viterbi_backtrace_plain(slots_p, final_p, accept, src_b, lab_b)
+
+    def hold(outs, where):
         torch.cuda.synchronize()
-        taken.append(route or vsp.scan_route(packed, start.shape[0], em.shape[2]))
-        if not torch.equal(slots_k, slots_p):
-            raise AssertionError(f"viterbi_scan_fwd: slots differ from plain at {what}, "
-                                 f"route {taken[-1]}")
-        fwd_err = max(fwd_err, float((final_k - final_p).abs().max()))
-        if not fwd_err <= 1e-6:
-            raise AssertionError(f"viterbi_scan_fwd: final alpha max|d| {fwd_err} at {what}, "
-                                 f"route {taken[-1]}")
-    lab_k, score_k = vsp.viterbi_backtrace_cuda(slots_p, final_p, accept, src_b, lab_b)
-    lab_p, score_p = vsp.viterbi_backtrace_plain(slots_p, final_p, accept, src_b,
-                                                 lab_b)
-    torch.cuda.synchronize()
-    if not torch.equal(lab_k, lab_p):
-        raise AssertionError(f"viterbi_backtrace: labels differ from plain at {what}")
-    bt_err = float((score_k - score_p).abs().max())
-    if not bt_err <= 1e-6:
-        raise AssertionError(f"viterbi_backtrace: score max|d| {bt_err} at {what}")
+        if not torch.equal(outs[0], slots_p):
+            raise AssertionError(f"viterbi_scan_fwd: slots differ from plain at {what}, {where}")
+        err = float((outs[1] - final_p).abs().max())
+        if not err <= 1e-6:
+            raise AssertionError(f"viterbi_scan_fwd: final alpha max|d| {err} at {what}, {where}")
+        if len(outs) == 2:
+            return err, 0.0
+        if not torch.equal(outs[2], lab_p):
+            raise AssertionError(f"viterbi_backtrace: labels differ from plain at {what}, {where}")
+        bt = float((outs[3] - score_p).abs().max())
+        if not bt <= 1e-6:
+            raise AssertionError(f"viterbi_backtrace: score max|d| {bt} at {what}, {where}")
+        return err, bt
+
+    fwd_err = bt_err = 0.0
+    taken, decoded = [], []
+    for route in routes:
+        taken.append(route or vsp.scan_route(packed, S, C))
+        fwd_err = max(fwd_err, hold(vsp.viterbi_scan_fwd_cuda(
+            em, src_b, lab_b, w_b, start, il, packed=packed, route=route),
+            f"route {taken[-1]}")[0])
+        r = route or vsp.scan_route(packed, S, C, vsp.WALKS[-1], T)
+        if not vsp.route_fits(packed, S, C, r, vsp.WALKS[-1], T):
+            continue  # no room for a walk beside this route
+        for walk in walks:
+            w = walk or vsp.walk_route(packed, S, T, C, r)
+            if not vsp.route_fits(packed, S, C, r, w, T):
+                continue
+            errs = hold(vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il,
+                                                  packed=packed, route=route, accept=accept,
+                                                  walk=walk), f"decode {r}, walk {w}")
+            fwd_err, bt_err = max(fwd_err, errs[0]), max(bt_err, errs[1])
+            decoded.append(f"{r}/walk {w}")
+    if not decoded:
+        raise AssertionError(f"viterbi: no decode route fits {what}")
     ties = ""
     if need_ties:
         span = vsp.WARP * packed.cap if packed.hubs else None
@@ -998,13 +1070,18 @@ def hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start, accept, il, what,
             raise AssertionError(f"viterbi: no exact ties (across a hub's chunks) in {what}")
         ties = f", {tied} tied states ({across} across a hub's chunks)"
     infeasible = int((score_p <= NEG / 2).sum())
-    rows = vsp.scan_rows(packed, start.shape[0], em.shape[1], em.shape[2], taken[0])
-    log(f"viterbi {what}: route {'/'.join(taken)} (cap {packed.cap}, {packed.slots} slots, "
-        f"{packed.hubs} hubs, {packed.A} arcs, {rows} emission rows a block): slots and "
-        f"labels bitwise equal, final "
+    rows = vsp.scan_rows(packed, S, T, C, taken[0])
+    log(f"viterbi {what}: scan route {'/'.join(taken)}, decode {', '.join(decoded)} (cap "
+        f"{packed.cap}, {packed.slots} slots, {packed.hubs} hubs, {packed.A} arcs, {rows} "
+        f"emission rows a block for the scan alone): slots and labels bitwise equal, final "
         f"max|d| {fwd_err:.3g}, score max|d| {bt_err:.3g}, {infeasible} infeasible "
         f"samples{ties}")
     return {"viterbi_scan_fwd": fwd_err, "viterbi_backtrace": bt_err}
+
+
+# a decode whose walk words do not fit in shared memory (walk "chunked"):
+# the headline table over B, T frames
+VITERBI_LONG = (8, 720)
 
 
 def phase_viterbi(torch, dev):
@@ -1013,7 +1090,7 @@ def phase_viterbi(torch, dev):
 
     head = viterbi_headline_inputs(torch, dev)
     errs = hold_viterbi_kernels(torch, *head, ("ngram-2 decode", B, T, N),
-                                routes=vsp.ROUTES)
+                                routes=vsp.ROUTES, walks=vsp.WALKS)
     # bigrams over 2N and 3N labels: 25,760 arcs staged in shared memory,
     # and 57,840 past it, read from global memory
     for n, b, route in ((2 * N, 8, "shared"), (3 * N, 4, "global")):
@@ -1024,19 +1101,28 @@ def phase_viterbi(torch, dev):
                                  f"route {route}")
         merge_errs(errs, hold_viterbi_kernels(torch, *inputs, (route, b, T, n),
                                               packed=packed))
+    b, t = VITERBI_LONG
+    inputs = viterbi_headline_inputs(torch, dev, b=b, t=t)
+    packed = vsp.pack_buckets(*inputs[1:4]).to(dev)
+    S = inputs[4].shape[0]
+    if vsp.walk_route(packed, S, t, N, vsp.scan_route(packed, S, N, "chunked", t)) != "chunked":
+        raise AssertionError(f"viterbi: the decode over {t} frames does not take walk chunked")
+    merge_errs(errs, hold_viterbi_kernels(torch, *inputs, ("walk chunked", b, t, N),
+                                          packed=packed))
     em, src_b, lab_b, w_b, start, accept, il = viterbi_skewed_inputs(torch, dev)
     merge_errs(errs, hold_viterbi_kernels(torch, em, src_b, lab_b, w_b, start,
-                                          accept, il, ("skewed", B, T, N)))
-    slots, final = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il)
-    labels, score = vsp.viterbi_backtrace_cuda(slots, final, accept, src_b, lab_b)
+                                          accept, il, ("skewed", B, T, N), walks=vsp.WALKS))
+    _, _, labels, score = vsp.viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, il,
+                                                    accept=accept)
     if not (float(score[1]) <= NEG / 2 and bool((labels[1] == -1).all())):
         raise AssertionError("viterbi: the infeasible sample did not decode empty")
     ties = viterbi_headline_inputs(torch, dev, seed=8, integer=True)
     merge_errs(errs, hold_viterbi_kernels(torch, *ties, ("integer ties", B, T, N),
-                                          routes=vsp.ROUTES, need_ties=True))
+                                          routes=vsp.ROUTES, need_ties=True,
+                                          walks=vsp.WALKS))
     # two arcs a lane: every state of in-degree 81 is a hub of two warp chunks
     merge_errs(errs, hold_viterbi_kernels(torch, *ties, ("integer ties, hubs", B, T, N),
-                                          cap=2, need_ties=True))
+                                          cap=2, need_ties=True, walks=vsp.WALKS))
     return errs
 
 
@@ -2009,8 +2095,8 @@ def phase_main_batch_stc(torch, dev, model, config):
 def phase_main_batch_transducer(torch, dev, model, config):
     """The Transducer trainer's first batch: loss, logit and transitions
     gradients on the card against the CPU; both factored-scan kernels on
-    the inputs its loss gives them, and both Viterbi kernels on its
-    decode's plan."""
+    the inputs its loss gives them, and the whole-scan Viterbi (the scan
+    alone and the decode) on its decode's plan."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
     from gtn_applications_tpu_torch.train import to_device
 
@@ -2075,8 +2161,8 @@ def card_vs_cpu64(torch, dev, crit, logits, prepared, path):
 def phase_main_batch_backoff(torch, dev, model, config):
     """The backoff Transducer trainer's first batch: loss, logit and
     transitions gradients on the card against the CPU (float64); the sparse
-    kernels on the tables and logits of its loss, and the Viterbi kernels
-    on its decode's plan."""
+    kernels on the tables and logits of its loss, and the whole-scan
+    Viterbi (the scan alone and the decode) on its decode's plan."""
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
     path = "transducer_backoff"
@@ -2652,6 +2738,31 @@ def segmax_times(torch, dev, model, config):
     return t, bounds, chain
 
 
+def ctc_chain_frame_us(torch, dev, lp=None):
+    """One frame of the CTC recursions' dependent chain (``ctc_chain_probe``:
+    a warp, 3 states a lane, lse3 and the emission, neighbours by shuffle)
+    on 96 entries of the log-probabilities ``lp`` (default the headline's),
+    in us: the probe's time for 2n frames less its time for n, over n (the
+    launch cancels)."""
+    from gtn_applications_tpu_torch.ops import _build
+
+    if lp is None:
+        lp = torch.log_softmax(headline_inputs(torch, dev)[0], dim=2)
+    lib = _build.load_library("ctc")
+    n = 4096
+    pem = lp[0, 0, torch.arange(96, device=dev) % N].contiguous()
+    pout = torch.empty_like(pem)
+    stream = _build.stream_handle(pem)
+
+    def run_probe(frames):
+        err = lib.ctc_chain_probe(pem.data_ptr(), pout.data_ptr(), frames, stream)
+        _build.check(lib, err, "ctc_chain_probe")
+
+    t_n = gpu_median_ms(torch, lambda: run_probe(n), runs=20)
+    t_2n = gpu_median_ms(torch, lambda: run_probe(2 * n), runs=20)
+    return (t_2n - t_n) / n * 1e3
+
+
 def viterbi_scan_bound(em, lens, w_b):
     """One whole-scan Viterbi on this run's inputs: the emission rows of the
     live frames, the [D, S] plan (source, label, weight), start and the
@@ -2846,7 +2957,7 @@ def dense_times(torch, dev):
 
 
 def phase_times(torch, dev, paths):
-    from gtn_applications_tpu_torch.ops import _build, gathers, lattice
+    from gtn_applications_tpu_torch.ops import gathers, lattice
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
@@ -2883,6 +2994,23 @@ def phase_times(torch, dev, paths):
     t["ctc_grad_plain"] = gpu_median_ms(
         torch, lambda: lp_mod.ctc_grad_plain(em, alpha, accept, skip, il, score, g),
         runs=20)
+    t["ctc_grad_route"] = lp_mod.grad_plan(S)
+    # the backward at its wider shapes (S = 241 and 401, route "block")
+    wide = {}
+    for i, (b, tt, l) in enumerate(CTC_WIDE):
+        em_w, st_w, acc_w, skip_w, il_w, g_w = ctc_case(torch, dev, b, tt, l, seed=2 + i)
+        alpha_w = lp_mod.ctc_alpha_cuda(em_w, st_w, skip_w, il_w)
+        args = (em_w, alpha_w, acc_w, skip_w, il_w, lp_mod._final_score(alpha_w[:, -1], acc_w),
+                g_w)
+        wide[f"S{em_w.shape[2]}"] = {
+            "shape": [b, tt, em_w.shape[2]], "max_len": int(il_w.max()),
+            "route": lp_mod.grad_plan(em_w.shape[2]),
+            "ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_cuda(*a)),
+            "plain_ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_plain(*a), runs=10)}
+    t["ctc_grad_wide"] = wide
+    # the kernels one CTC backward launches (torch.profiler)
+    t["ctc_grad_kernel_launches"] = kernel_launches(
+        torch, lambda: lp_mod.ctc_grad_cuda(em, alpha, accept, skip, il, score, g), "ctc_grad")
 
     # F.ctc_loss copies its length tensors to the host; lengths already on
     # the host keep that copy from synchronising the device on every call
@@ -2913,51 +3041,60 @@ def phase_times(torch, dev, paths):
     t["dense_bt_plain"] = gpu_median_ms(
         torch, lambda: vsp.dense_backtrace_plain(bp, last), runs=20)
 
-    # the whole-scan Viterbi at the decode headline, and seg_max_scan on its
-    # table as a yardstick (not a route of this table's decode)
+    # the whole-scan Viterbi at the decode headline: the scan alone and the
+    # decode (scan and walk in one launch) in turns, scan, decode, decode,
+    # scan; the walk's share is their difference; seg_max_scan on its table
+    # as a yardstick (not a route of this table's decode)
     em_v, src_b, lab_b, w_b, st_v, acc_v, vil, v_table = viterbi_headline_inputs(
         torch, dev, with_table=True)
     packed = vsp.pack_buckets(src_b, lab_b, w_b).to(dev)
-    slots, final = vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
-                                             packed=packed)
-    t["viterbi_scan_fwd"] = gpu_median_ms(
-        torch, lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
-                                                 packed=packed))
-    t["viterbi_scan_fwd_route"] = vsp.scan_route(packed, st_v.shape[0], N)
+    S_v = st_v.shape[0]
+    runs = {"scan": lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
+                                                      packed=packed),
+            "decode": lambda: vsp.viterbi_scan_fwd_cuda(em_v, src_b, lab_b, w_b, st_v, vil,
+                                                        packed=packed, accept=acc_v)}
+    slots, final = runs["scan"]()
+    turns = {}
+    for who in ("scan", "decode", "decode", "scan"):
+        turns.setdefault(who, []).append(gpu_median_ms(torch, runs[who]))
+    t["viterbi_turns_ms"] = turns
+    t["viterbi_scan_fwd"] = statistics.mean(turns["scan"])
+    t["viterbi_decode"] = statistics.mean(turns["decode"])
+    t["viterbi_backtrace"] = t["viterbi_decode"] - t["viterbi_scan_fwd"]
+    t["viterbi_scan_fwd_route"] = vsp.scan_route(packed, S_v, N)
+    decode_route = vsp.scan_route(packed, S_v, N, "chunked", T)
+    decode_walk = vsp.walk_route(packed, S_v, T, N, decode_route)
+    t["viterbi_decode_route_walk_rows"] = [
+        decode_route, decode_walk, vsp.scan_rows(packed, S_v, T, N, decode_route, decode_walk)]
     t["viterbi_scan_fwd_cap_slots_arcs"] = [packed.cap, packed.slots, packed.A]
     t["viterbi_yardstick_seg_max_scan"] = viterbi_yardstick_ms(torch, em_v, vil, v_table)
     t["viterbi_scan_fwd_plain"] = gpu_median_ms(
         torch, lambda: vsp.viterbi_scan_fwd_plain(em_v, src_b, lab_b, w_b, st_v, vil),
         runs=20)
-    t["viterbi_backtrace"] = gpu_median_ms(
-        torch, lambda: vsp.viterbi_backtrace_cuda(slots, final, acc_v, src_b, lab_b))
     t["viterbi_backtrace_plain"] = gpu_median_ms(
         torch, lambda: vsp.viterbi_backtrace_plain(slots, final, acc_v, src_b, lab_b),
         runs=20)
+    # the kernels one decode launches (torch.profiler): scan and walk in one
+    plan_v = vsp.build_plan(v_table)
+    t["viterbi_decode_kernel_launches"] = kernel_launches(
+        torch, lambda: vsp.viterbi_scan(em_v, plan_v, vil), "viterbi")
 
     # one full train step of each path at its main path's shape
     for path, info in paths.items():
         t[f"train_step_{path}"], t[f"train_step_{path}_shape"] = time_train_step(
             torch, dev, info["model"], main_path_config(path))
 
-    # one frame of the recursion's dependent chain: the probe's time for
-    # 2n frames less its time for n, over n (the launch cancels)
-    lib = _build.load_library("ctc")
-    pem = lp[0, 0, torch.arange(96, device=dev) % N].contiguous()
-    pout = torch.empty_like(pem)
-    stream = _build.stream_handle(pem)
-
-    def run_probe(frames):
-        err = lib.ctc_chain_probe(pem.data_ptr(), pout.data_ptr(), frames, stream)
-        _build.check(lib, err, "ctc_chain_probe")
-
+    # one frame of the recursion's dependent chain
+    t["chain_frame_us"] = ctc_chain_frame_us(torch, dev, lp)
     n = 4096
-    t_n = gpu_median_ms(torch, lambda: run_probe(n), runs=20)
-    t_2n = gpu_median_ms(torch, lambda: run_probe(2 * n), runs=20)
-    t["chain_frame_us"] = (t_2n - t_n) / n * 1e3
     # one frame of the whole-scan Viterbi's chain, at its headline launch
     v_threads = vsp.WARP * min(packed.slots, vsp.MAX_WARPS)
     t["viterbi_chain_frame_us"] = viterbi_chain_frame_us(torch, B, v_threads, dev)
+    # one frame of the walk's chain (a dependent shared load of a word and
+    # its unpacking), for the decode's walk and the dense backtrace
+    t_n = gpu_median_ms(torch, lambda: vsp.walk_probe(B, n, dev), runs=20)
+    t_2n = gpu_median_ms(torch, lambda: vsp.walk_probe(B, 2 * n, dev), runs=20)
+    t["walk_frame_us"] = (t_2n - t_n) / n * 1e3
 
     # bounds from this run's inputs: live frames only where the kernel
     # skips the frozen tail
@@ -2978,22 +3115,27 @@ def phase_times(torch, dev, paths):
                              + B * T * 4, 0),
     }
     # the Viterbi scan: viterbi_scan_bound.  The backtrace: per live
-    # frame three dependent loads (slot, source, label) of at least one
-    # 32 B sector each, one per dead frame; final, accept in; labels, score out
-    D_v, S_v = src_b.shape
+    # frame one dependent load (the frame's backpointer) of at least one
+    # 32 B sector; final, accept in; labels, score out
+    D_v = src_b.shape[0]
     v_frames = int(vil.sum())
     bounds["viterbi_scan_fwd"] = viterbi_scan_bound(em_v, vil, w_b)
     bounds["viterbi_backtrace"] = bound_ms(
-        (3 * v_frames + (B * T - v_frames)) * 32 + B * S_v * 4 + S_v * 4
-        + B * T * 4 + B * 4, 0)
+        v_frames * 32 + B * S_v * 4 + S_v * 4 + B * T * 4 + B * 4, 0)
 
     # both recursions take max(len) - 1 dependent frames (the forward from
     # frame 1, the backward down to frame 1); no design with this
     # arithmetic can take less
     chain = {name: (int(il.max()) - 1) * t["chain_frame_us"] * 1e-3
              for name in ("ctc_alpha", "ctc_grad")}
-    # the scan's frames each need the last: the longest sample's frames
+    # the scan's frames each need the last: the longest sample's frames;
+    # the walks: the longest sample's live frames (the decode) and the
+    # T - 1 frames of the dense backtrace, a probe frame each
     chain["viterbi_scan_fwd"] = int(vil.max()) * t["viterbi_chain_frame_us"] * 1e-3
+    chain["viterbi_backtrace"] = int(vil.max()) * t["walk_frame_us"] * 1e-3
+    chain["dense_bt"] = (bp.shape[1]) * t["walk_frame_us"] * 1e-3
+    for key, row in t["ctc_grad_wide"].items():
+        row["chain_bound_ms"] = (row["max_len"] - 1) * t["chain_frame_us"] * 1e-3
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
                   "asg_C": ASG_C, "stc_L": STC_L,
 
@@ -3110,9 +3252,12 @@ def run(device="cuda"):
         if f"{name}_rel" in errs:
             kernels[-1]["max_rel_err"] = errs[f"{name}_rel"]
     # the sparse tier's decode on the whole-scan Viterbi's headline table, a
-    # yardstick for it (not a route of that table)
-    next(k for k in kernels if k["name"] == "viterbi_scan_fwd")["seg_max_scan_ms"] = times[
-        "viterbi_yardstick_seg_max_scan"]
+    # yardstick for it (not a route of that table); the decode's whole
+    # launch beside the walk's share; the CTC backward's wider routes
+    row = {k["name"]: k for k in kernels}
+    row["viterbi_scan_fwd"]["seg_max_scan_ms"] = times["viterbi_yardstick_seg_max_scan"]
+    row["viterbi_backtrace"]["decode_ms"] = times["viterbi_decode"]
+    row["ctc_grad"]["wide"] = times["ctc_grad_wide"]
     print(json.dumps({"timing": timing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

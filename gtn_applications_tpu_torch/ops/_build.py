@@ -49,9 +49,9 @@ _SIGNATURES = {
     },
     "viterbi": {
         "dense_backtrace": (3, 4),
-        "viterbi_scan_fwd": (7, 10),
+        "viterbi_scan_fwd": (11, 11),
         "viterbi_chain_probe": (1, 3),
-        "viterbi_backtrace": (7, 5),
+        "backtrace_chain_probe": (1, 2),
     },
     "dense_scan": {
         "dense_scan_fwd": (6, 4),

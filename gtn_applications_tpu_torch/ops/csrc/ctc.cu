@@ -19,16 +19,44 @@
 //
 // What bounds it on the H100: neither bytes (about 5.7 MB move at B=32,
 // T=250, S=89, under 2 us at 3.35 TB/s) nor arithmetic, but the chain of T
-// dependent steps, each an exp/log round plus a block barrier.  The TPU
-// kernel ran the time axis as its sequential grid with a VMEM carry; Hopper
-// blocks run in parallel and in no order, so the time loop moves inside one
-// block per sample, with the state double-buffered in shared memory and one
-// __syncthreads() per step (two in the backward).  Threads stride over the
-// S states; S is not padded.  With B=32 only 32 of the 132 SMs are busy.
-// Steps at t >= len are a plain copy (forward) or zeros (backward), so the
-// dependent chain is max(len) long.  Tiling several samples per block, or a
-// warp per sample, are later designs.
+// dependent steps, each an exp/log round.  The TPU kernel ran the time axis
+// as its sequential grid with a VMEM carry; Hopper blocks run in parallel
+// and in no order, so the time loop moves inside the kernel.  Steps at
+// t >= len are a plain copy (forward) or zeros (backward), so the dependent
+// chain is max(len) long.
+//
+// ctc_alpha: one block a sample, the state double-buffered in shared
+// memory, one __syncthreads() a step.
+//
+// ctc_grad: each frame is one block of code (no branch: frames past the
+// last are computed and dropped, stores predicated), so that the
+// scheduler can interleave the frame's independent work with its chain.
+// Route "block" (S > kWarpMaxS): a warp for each 32 states (W = min(32,
+// ceil(S / 32)); thread i holds states i + 32 W k, K = ceil(S / 32 W): one
+// state a thread up to 1,024 states, 16 past 8), beta and the skip flags
+// (a bit mask) in registers.  eb[s + 1] and eb[s + 2] come from the lanes
+// 1 and 2 above by __shfl_down_sync; a warp's top lanes take the warp
+// above's edge lanes through shared memory double-buffered by frame
+// parity: one __syncthreads() a frame.  The em[t] and alpha[t] rows pass
+// through a ring of kBlockRing frames in shared memory, filled by cp.async
+// (each thread its own states, coalesced) and read into registers two
+// frames ahead: no frame waits on a global load.  The posterior
+// exp(min(alpha + beta - score, 0)) g feeds nothing in the recursion: its
+// store is fire-and-forget; frames t >= len are zeroed before the frames.
+// Route "warp" (S <= kWarpMaxS): a block of two warps a sample, no block
+// barrier in the frames.  The chain warp runs the recursion, lane l holding
+// states l K + k (K = ceil(S / 32)), neighbours from its own states or the
+// lane above's by __shfl_down_sync (neighbours_above: the chain bound
+// probe's exchange reversed), its em rows in its own cp.async ring; the
+// helper warp takes the posterior off the chain: the chain writes each
+// frame's beta into a ring and arrives on the slot's "full" mbarrier, the
+// helper waits on it, reads beta and its own alpha rows, arrives on the
+// slot's "empty" mbarrier and stores the grad row coalesced.  A warp issues
+// its frame's work from one scheduler: with K >= 2 states a lane it loses
+// to route "block", whose K = 1 warps issue from several with one barrier
+// (PERF.md section 6), so the warp route takes S <= 32 only.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -93,19 +121,211 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ em,
   }
 }
 
-__global__ void ctc_grad_kernel(const float* __restrict__ em,
-                                const float* __restrict__ alpha,
-                                const float* __restrict__ accept,
-                                const float* __restrict__ skip,
-                                const int* __restrict__ lens,
-                                const float* __restrict__ score,
-                                const float* __restrict__ g,
-                                float* __restrict__ grad, int T, int S) {
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + S;
-  float* eb = smem + 2 * S;
-  float* skp = smem + 3 * S;
+// The exchange of the chain warp, whose lane l holds states l K + k: the
+// values of states s + 1 (y1) and s + 2 (y2) of its states, the lane's own
+// or, for its top states, the lane above's (by __shfl_down_sync); NEG past
+// the warp's last state.  y2 takes the skip-masked values (jm).  The alpha
+// recursion would take its mirror (s - 1 and s - 2, from the lane below).
+template <int K>
+__device__ __forceinline__ void neighbours_above(const float (&eb)[K], const float (&jm)[K],
+                                                 float (&y1)[K], float (&y2)[K], int lane) {
+  const float up1 = __shfl_down_sync(0xffffffffu, eb[0], 1);
+  const float upj = __shfl_down_sync(0xffffffffu, jm[0], K >= 2 ? 1 : 2);
+  const float upj1 = K >= 2 ? __shfl_down_sync(0xffffffffu, jm[K >= 2 ? 1 : 0], 1) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    y1[k] = k + 1 < K ? eb[k + 1] : (lane < 31 ? up1 : kNeg);
+    if (k + 2 < K)
+      y2[k] = jm[k + 2];
+    else if (K == 1)
+      y2[k] = lane < 30 ? upj : kNeg;
+    else
+      y2[k] = lane < 31 ? (k + 2 == K ? upj : upj1) : kNeg;
+  }
+}
+
+// Store v at p where `pred` holds: a predicated store, so that the value
+// is computed outside any branch (the frames' code stays one block).
+__device__ __forceinline__ void store_if(float* p, float v, unsigned pred) {
+  asm volatile("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n @q st.global.f32 [%0], %1;\n}"
+               ::"l"(p), "f"(v), "r"(pred) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile("{\n .reg .pred q;\n mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, q;\n}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Store v at shared p where `pred` holds (predicated, as store_if).
+__device__ __forceinline__ void store_shared_if(float* p, float v, unsigned pred) {
+  asm volatile("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n @q st.shared.f32 [%0], %1;\n}"
+               ::"r"(smem_addr(p)), "f"(v), "r"(pred) : "memory");
+}
+
+// Rings of rows in shared memory, filled by cp.async a ring's length of
+// frames ahead; a frame's row is read into registers kAhead frames before
+// its frame, so each cp.async group has ring - kAhead frames to land.  The
+// frames run in pairs (kAhead), each pair one block of code: frames past
+// the last (t < 0) are computed and dropped, their copies read frame 0.
+constexpr int kRing = 8;       // route "warp": the chain's em, the helper's alpha
+constexpr int kBlockRing = 4;  // route "block": em and alpha
+constexpr int kAhead = 2;
+
+// Copy states j = tid + n i (route "block") or tid K + i (the chain warp),
+// i < K, of a row of S into the same positions of dst (those past S read
+// the row's last): one 4-byte cp.async each, each thread its own states.
+template <int K, bool kConsecutive>
+__device__ __forceinline__ void fetch_row(float* dst, const float* row, int S, int tid, int n) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int j = kConsecutive ? tid * K + i : tid + i * n;
+    __pipeline_memcpy_async(dst + j, row + min(j, S - 1), sizeof(float));
+  }
+}
+
+// Route "warp": warp 0 the chain, warp 1 the helper (see the header).
+template <int K>
+__global__ void __launch_bounds__(64)
+ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alpha,
+                     const float* __restrict__ accept, const float* __restrict__ skip,
+                     const int* __restrict__ lens, const float* __restrict__ score,
+                     const float* __restrict__ g, float* __restrict__ grad, int T, int S) {
+  constexpr int kRow = 32 * K;  // a ring row: the warp's 32 K states
+  __shared__ __align__(16) float em_ring[kRing][kRow];
+  __shared__ __align__(16) float beta_ring[kRing][kRow];
+  __shared__ __align__(16) float al_ring[kRing][kRow];
+  __shared__ unsigned long long full[kRing], empty[kRing];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x;
+  const long base = static_cast<long>(b) * T * S;
+  const int len = lens[b];
+  const int t_live = len < 0 ? 0 : (len < T ? len : T);
+  if (threadIdx.x < kRing) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(smem_addr(&full[threadIdx.x])));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(smem_addr(&empty[threadIdx.x])));
+  }
+  __syncthreads();  // the barriers' initialisation; none in the frames
+
+  if (threadIdx.x < 32) {
+    // the chain warp: states lane K + k; the em ring's copies and reads are
+    // each lane's own states (no warp sync)
+    const float* em_b = em + base;
+    float be[K];
+    unsigned skp = 0, live = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int s = lane * K + k;
+      be[k] = s < S ? accept[static_cast<long>(b) * S + s] : kNeg;
+      if (s < S) live |= 1u << k;
+      if (s < S && skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
+    }
+    auto fetch = [&](int t) {
+      fetch_row<K, true>(em_ring[t & (kRing - 1)], em_b + static_cast<long>(max(t, 0)) * S, S,
+                         lane, 32);
+      __pipeline_commit();
+    };
+    auto load = [&](float (&e)[K], int t) {
+      const float* r = em_ring[t & (kRing - 1)] + lane * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = r[k];
+    };
+    for (int q = 0; q < kRing; ++q) fetch(t_live - 1 - q);
+    asm volatile("cp.async.wait_group %0;" ::"n"(kRing - kAhead) : "memory");
+    float e_r[kAhead][K];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) load(e_r[q], t_live - 1 - q);
+    // frames i = i0, i0 + 1 (t = t_live - 1 - i): beta to the helper, then
+    // beta of frame t - 1; the em slot refilled with frame t - kRing, frame
+    // t - kAhead read into the registers it leaves.  Both frames' beta
+    // slots are free once the helper is done with frame i0 + 1 - kRing (it
+    // pre-arrives on every "empty" slot once, for the first pass)
+    for (int i0 = 0; i0 < t_live; i0 += kAhead) {
+      mbar_wait(&empty[(i0 + 1) & (kRing - 1)], ((i0 + 1) / kRing) & 1);
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const int i = i0 + q, t = t_live - 1 - i;
+        float* out = beta_ring[i & (kRing - 1)] + lane * K;
+#pragma unroll
+        for (int k = 0; k < K; ++k) out[k] = be[k];
+        mbar_arrive(&full[i & (kRing - 1)]);
+        float eb[K], jm[K], n1[K], n2[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          eb[k] = (live >> k) & 1u ? e_r[q][k] + be[k] : kNeg;
+          jm[k] = (skp >> k) & 1u ? eb[k] : kNeg;
+        }
+        neighbours_above<K>(eb, jm, n1, n2, lane);
+#pragma unroll
+        for (int k = 0; k < K; ++k) be[k] = lse3(eb[k], n1[k], n2[k]);
+        fetch(t - kRing);
+        asm volatile("cp.async.wait_group %0;" ::"n"(kRing - kAhead) : "memory");
+        load(e_r[q], t - kAhead);
+      }
+    }
+  } else {
+    // the helper warp: states lane + 32 j, the posterior and the zeros
+    const float* al_b = alpha + base;
+    float* gr_b = grad + base;
+    const float sc = score[b];
+    const float gb = g[b];
+    for (int q = 0; q < kRing; ++q) mbar_arrive(&empty[q]);
+    for (long i = lane; i < static_cast<long>(T - t_live) * S; i += 32)
+      gr_b[static_cast<long>(t_live) * S + i] = 0.0f;
+    auto fetch = [&](int t) {
+      fetch_row<K, false>(al_ring[t & (kRing - 1)], al_b + static_cast<long>(max(t, 0)) * S, S,
+                          lane, 32);
+      __pipeline_commit();
+    };
+    for (int q = 0; q < kRing; ++q) fetch(t_live - 1 - q);
+    for (int i = 0; i < t_live; ++i) {
+      const int t = t_live - 1 - i, slot = i & (kRing - 1);
+      asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 1) : "memory");  // this lane's row t
+      mbar_wait(&full[slot], (i / kRing) & 1);
+      const float* al_t = al_ring[t & (kRing - 1)];
+      float post[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int s = lane + 32 * j;
+        post[j] = expf(fminf(al_t[s] + beta_ring[slot][s] - sc, 0.0f)) * gb;
+      }
+      mbar_arrive(&empty[slot]);
+      fetch(t - kRing);
+      float* gr_t = gr_b + static_cast<long>(t) * S;
+#pragma unroll
+      for (int j = 0; j < K; ++j) store_if(gr_t + lane + 32 * j, post[j], lane + 32 * j < S);
+    }
+  }
+}
+
+// Route "block": W warps a sample, thread i holding states i + 32 W k; em
+// and alpha through a ring of kBlockRing frames (kRinged) or read from
+// global memory (rows past the ring's shared memory).
+template <int K, bool kRinged>
+__global__ void __launch_bounds__(1024)
+ctc_grad_block_kernel(const float* __restrict__ em, const float* __restrict__ alpha,
+                      const float* __restrict__ accept, const float* __restrict__ skip,
+                      const int* __restrict__ lens, const float* __restrict__ score,
+                      const float* __restrict__ g, float* __restrict__ grad, int T, int S) {
+  extern __shared__ __align__(16) float ring_s[];
+  // each warp's lanes 0 and 1 (eb, then the skip-masked eb) by frame
+  // parity, for the top lanes of the warp below
+  __shared__ float bnd[2 * 2 * 32 * K * 2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockDim.x, W = n >> 5;
+  const int row = K * n;  // a ring slot: em's row, then alpha's
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
   const float* em_b = em + base;
@@ -116,34 +336,91 @@ __global__ void ctc_grad_kernel(const float* __restrict__ em,
   const float sc = score[b];
   const float gb = g[b];
 
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    cur[s] = accept[static_cast<long>(b) * S + s];
-    skp[s] = skip[static_cast<long>(b) * S + s];
-  }
-  for (int t = t_live; t < T; ++t) {
-    float* gr_t = gr_b + static_cast<long>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) gr_t[s] = 0.0f;
-  }
-  __syncthreads();
+  // frame t's rows into ring slot t mod kBlockRing, each thread its own
+  // states (coalesced across the warp); a commit group
+  auto fetch = [&](int t) {
+    if constexpr (kRinged) {
+      float* dst = ring_s + (t & (kBlockRing - 1)) * 2 * row;
+      const long off = static_cast<long>(max(t, 0)) * S;
+      fetch_row<K, false>(dst, em_b + off, S, tid, n);
+      fetch_row<K, false>(dst + row, al_b + off, S, tid, n);
+      __pipeline_commit();
+    }
+  };
+  // frame t's rows into registers, from the ring or global memory
+  auto load = [&](float (&e)[K], float (&a)[K], int t) {
+    const float* se = ring_s + (t & (kBlockRing - 1)) * 2 * row;
+    const long off = static_cast<long>(max(t, 0)) * S;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + k * n;
+      e[k] = kRinged ? se[j] : em_b[off + min(j, S - 1)];
+      a[k] = kRinged ? se[row + j] : al_b[off + min(j, S - 1)];
+    }
+  };
+  auto wait = [&]() {
+    if constexpr (kRinged) asm volatile("cp.async.wait_group %0;" ::"n"(kBlockRing - kAhead) : "memory");
+  };
 
-  for (int t = t_live - 1; t >= 0; --t) {
-    const long off = static_cast<long>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const float be = cur[s];
-      gr_b[off + s] = expf(fminf(al_b[off + s] + be - sc, 0.0f)) * gb;
-      eb[s] = em_b[off + s] + be;
+  for (int q = 0; q < kBlockRing; ++q) fetch(t_live - 1 - q);
+  float be[K];
+  unsigned skp = 0, live = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = tid + k * n;
+    be[k] = s < S ? accept[static_cast<long>(b) * S + s] : kNeg;
+    if (s < S) live |= 1u << k;
+    if (s < S && skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
+  }
+  for (long i = tid; i < static_cast<long>(T - t_live) * S; i += n)
+    gr_b[static_cast<long>(t_live) * S + i] = 0.0f;
+  float e_r[kAhead][K], a_r[kAhead][K];
+  wait();
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q) load(e_r[q], a_r[q], t_live - 1 - q);
+  const int up = warp + 1 < W ? warp + 1 : 0;  // the warp above; for the last warp,
+  const int dk = warp + 1 < W ? 0 : 1;          // warp 0's next slot
+  const int edge = lane < 30 ? 0 : lane - 30;   // the edge lane a top lane reads
+
+  // frame t (the posterior's store, then beta of frame t - 1), its ring
+  // slot refilled with frame t - kBlockRing and frame t - kAhead read into
+  // the registers it leaves; frames t < 0 are computed and dropped
+  for (int i0 = 0; i0 < t_live; i0 += kAhead) {
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const int t = t_live - 1 - i0 - q;
+      float* gr_t = gr_b + static_cast<long>(t) * S + tid;
+      float eb[K], jm[K], n1[K], n2[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        store_if(gr_t + k * n, expf(fminf(a_r[q][k] + be[k] - sc, 0.0f)) * gb,
+                 (live >> k) & static_cast<unsigned>(t >= 0));
+        eb[k] = (live >> k) & 1u ? e_r[q][k] + be[k] : kNeg;
+        jm[k] = (skp >> k) & 1u ? eb[k] : kNeg;
+        n1[k] = __shfl_down_sync(0xffffffffu, eb[k], 1);
+        n2[k] = __shfl_down_sync(0xffffffffu, jm[k], 2);
+      }
+      // the top lanes' s + 1 and s + 2 from the warp above's edge lanes
+      float* out = bnd + (t & 1) * (2 * 32 * K * 2);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        store_shared_if(out + ((0 * 32 + warp) * K + k) * 2 + (lane & 1), eb[k], lane < 2);
+        store_shared_if(out + ((1 * 32 + warp) * K + k) * 2 + (lane & 1), jm[k], lane < 2);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int kk = k + dk < K ? k + dk : k;
+        const float x1 = k + dk < K ? out[((0 * 32 + up) * K + kk) * 2] : kNeg;
+        const float x2 = k + dk < K ? out[((1 * 32 + up) * K + kk) * 2 + edge] : kNeg;
+        n1[k] = lane == 31 ? x1 : n1[k];
+        n2[k] = lane >= 30 ? x2 : n2[k];
+        be[k] = lse3(eb[k], n1[k], n2[k]);
+      }
+      fetch(t - kBlockRing);
+      wait();
+      load(e_r[q], a_r[q], t - kAhead);
     }
-    __syncthreads();
-    if (t == 0) break;  // beta before frame 0 is never read
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const float next = s + 1 < S ? eb[s + 1] : kNeg;
-      const float jump = (s + 2 < S && skp[s + 2] > 0.5f) ? eb[s + 2] : kNeg;
-      nxt[s] = lse3(eb[s], next, jump);
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
   }
 }
 
@@ -195,6 +472,50 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// ctc_grad's route and layout at S states (ops/lattice_pallas.py
+// grad_plan mirrors it): "warp" up to kWarpMaxS states, K = ceil(S / 32);
+// "block" beyond, W = min(32, ceil(S / 32)) warps and K = ceil(S / 32 W),
+// taken as 16 past 8, with its ring where kBlockRing frames of em and alpha
+// rows fit in kRingSmem (else em and alpha read from global memory).
+constexpr int kWarpMaxS = 32;
+constexpr long kRingSmem = 200 * 1024;
+
+struct GradPlan {
+  bool block;
+  int K, warps, ring;
+};
+
+GradPlan grad_plan(int S) {
+  if (S <= kWarpMaxS) return {false, S <= 32 ? 1 : (S + 31) / 32, 2, kRing};
+  const int W = (S + 31) / 32 > 32 ? 32 : (S + 31) / 32;
+  int K = (S + 32 * W - 1) / (32 * W);
+  K = K > 8 ? (K > 16 ? 0 : 16) : K;
+  const long ring_bytes = 2L * kBlockRing * K * 32 * W * sizeof(float);
+  return {true, K, W, ring_bytes <= kRingSmem ? kBlockRing : 0};
+}
+
+template <int K>
+int launch_grad_warp(const float* em, const float* alpha, const float* accept, const float* skip,
+                     const int* lens, const float* score, const float* g, float* grad, int B,
+                     int T, int S, cudaStream_t st) {
+  ctc_grad_warp_kernel<K><<<B, 64, 0, st>>>(em, alpha, accept, skip, lens, score, g, grad, T, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_grad_block(const GradPlan& plan, const float* em, const float* alpha,
+                      const float* accept, const float* skip, const int* lens,
+                      const float* score, const float* g, float* grad, int B, int T, int S,
+                      cudaStream_t st) {
+  const int threads = 32 * plan.warps;
+  const size_t smem = static_cast<size_t>(plan.ring) * 2 * K * threads * sizeof(float);
+  auto kernel = plan.ring ? ctc_grad_block_kernel<K, true> : ctc_grad_block_kernel<K, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, st>>>(em, alpha, accept, skip, lens, score, g, grad, T, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -215,18 +536,31 @@ int ctc_alpha(const float* em, const float* start, const float* skip,
 }
 
 // em, alpha [B, T, S], accept/skip [B, S] f32, lens [B] i32, score/g [B] f32
-// -> grad [B, T, S] f32.  Needs 4 * S * 4 bytes of shared memory per block.
+// -> grad [B, T, S] f32.  Route "warp" (one warp a sample, K = ceil(S / 32)
+// states a lane) for S <= 256, else "block" (grad_plan).
 int ctc_grad(const float* em, const float* alpha, const float* accept,
              const float* skip, const int* lens, const float* score,
              const float* g, float* grad, int B, int T, int S, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
-  const size_t smem = 4 * static_cast<size_t>(S) * sizeof(float);
-  cudaError_t err = allow_smem(ctc_grad_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ctc_grad_kernel<<<B, threads_for(S), smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      em, alpha, accept, skip, lens, score, g, grad, T, S);
-  return static_cast<int>(cudaGetLastError());
+  const GradPlan plan = grad_plan(S);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!plan.block) {
+    switch (plan.K) {
+      case 1: return launch_grad_warp<1>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 2: return launch_grad_warp<2>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 3: return launch_grad_warp<3>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 4: return launch_grad_warp<4>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (plan.K) {
+#define GRAD_BLOCK(k) \
+  case k: return launch_grad_block<k>(plan, em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+    GRAD_BLOCK(1) GRAD_BLOCK(2) GRAD_BLOCK(3) GRAD_BLOCK(4) GRAD_BLOCK(5) GRAD_BLOCK(6)
+    GRAD_BLOCK(7) GRAD_BLOCK(8) GRAD_BLOCK(16)
+#undef GRAD_BLOCK
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // em [96] f32 -> out [96] f32 after `iters` frames of the probe's chain.

@@ -69,9 +69,26 @@
 //   its row's copy has landed), and a second one only where hubs merge;
 // - a state of no arcs takes no lane (its value is NEG, its slot DEAD in
 //   every frame): the block's last threads write it, beside the row copy.
-// The backtrace stages the sample's slots and bucket tables in shared
-// memory (from global memory when they do not fit) and walks with one
-// thread.
+// The backtrace is the tail of the same launch (walk mode), not a launch
+// of its own:
+// - walk words: when a frame emits state s from its winning arc, it also
+//   writes that arc's packed word src | label << 16 (the list's own first
+//   word, held in registers beside the arc's offsets; the group's winner is
+//   lane d mod g of its group, so one shuffle brings it to the group's first
+//   lane), or on a DEAD slot s | 0xffff << 16 (label -1, the state kept);
+// - route "walk shared": a sample's T x S words stay in shared memory beside
+//   the alpha, the rows and the route's tables; route "walk chunked" (where
+//   they do not fit, ops/viterbi_scan_pallas.py walk_route): a frame's row
+//   is staged in shared memory and stored coalesced to a global scratch
+//   [B, T, S padded to 4], which the walk reads back by chunks of
+//   kWalkChunk frames, double-buffered by 16-byte cp.async;
+// - after the last frame the block takes the first argmax of final + accept
+//   (warp shuffles, then one merge of the warps: the lowest state on ties,
+//   as torch.max), writes score and final alpha, and one thread walks: a
+//   live frame is one dependent shared load, the word, whose halves are
+//   the label and the next state; frames past the length and infeasible
+//   samples (score <= NEG/2) write -1 with no load.  The labels go through
+//   shared memory and are stored coalesced.
 
 #include <climits>
 #include <cuda_pipeline.h>
@@ -131,10 +148,25 @@ constexpr int kLaneArcs = 12;
 constexpr int kRing = 8;
 constexpr int kMaxWarps = 24;
 constexpr int kNoTask = INT_MIN;
+// The walk: frames a chunk of route "walk chunked", and the label half of a
+// DEAD slot's word.  Must match the Python side.
+constexpr int kWalkChunk = 32;
+constexpr unsigned kDeadLabel = 0xffffu;
 enum Head {
   kSlots, kTasks, kHubs, kChunks, kSlotOff, kTaskOff, kHubOff, kCap, kEmpty, kEmptyOff
 };
 enum Route { kRegisters, kShared, kGlobal };
+enum Walk { kNoWalk, kWalkShared, kWalkChunked };
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+// Shared memory of the walk, in words: the walk words (a sample's T S, or
+// two chunks of padded rows), the labels and the argmax's scratch.
+__host__ __device__ __forceinline__ int walk_words(int walk, int T, int S) {
+  if (walk == kNoWalk) return 0;
+  const int rows = walk == kWalkShared ? round4(T * S) : 2 * kWalkChunk * round4(S);
+  return rows + round4(T) + 64;
+}
 
 // What one lane serves in a slot: nl arcs at positions pos, pos + g, ...,
 // the first of slot d.
@@ -158,17 +190,20 @@ __device__ __forceinline__ Lane lane_task(const int* sched, int q, int lane, int
 
 // The lane's arcs, one a round: each packed (src | label << 16, weight)
 // and unpacked into byte offsets into alpha and into an emission row (so a
-// relaxation adds no address arithmetic).  A round past the lane's arcs
-// reads a real position (or the pad arc) at weight -inf, so it never wins
-// and no round needs a branch.
+// relaxation adds no address arithmetic); with kWords the packed word too
+// (the walk's word).  A round past the lane's arcs reads a real position
+// (or the pad arc) at weight -inf, so it never wins and no round needs a
+// branch.
+template <bool kWords>
 __device__ __forceinline__ void load_arcs(const int2* arcs, const Lane& ln, unsigned* so,
-                                          unsigned* lo, float* wv) {
+                                          unsigned* lo, float* wv, unsigned* pw) {
 #pragma unroll
   for (int j = 0; j < kLaneArcs; ++j) {
     const int2 a = arcs[j < ln.nl ? ln.pos + j * ln.g : ln.pos];
     so[j] = (static_cast<unsigned>(a.x) & 0xffffu) * sizeof(float);
     lo[j] = (static_cast<unsigned>(a.x) >> 16) * sizeof(float);
     wv[j] = j < ln.nl ? __int_as_float(a.y) : -INFINITY;
+    if constexpr (kWords) pw[j] = static_cast<unsigned>(a.x);
   }
 }
 
@@ -188,22 +223,58 @@ __device__ __forceinline__ void max_merge(float& best, int& bd, float v, int d) 
 // The best (value, slot) of the lane's group: each lane's strict > over
 // its increasing slots, then xor shuffles within the group (g is the same
 // across the warp's slot).  The sum is formed in the plain version's order.
+// With kWords also the winning arc's word: slot d is lane d mod g's of the
+// group (a group's first slot is a multiple of g), so one shuffle from that
+// lane brings it.
+template <bool kWords>
 __device__ __forceinline__ void relax(const Lane& ln, const unsigned* so, const unsigned* lo,
-                                      const float* wv, const float* prev, const float* em_row,
-                                      float& best, int& bd) {
+                                      const float* wv, const unsigned* pw, const float* prev,
+                                      const float* em_row, float& best, int& bd, unsigned& bw) {
   best = -INFINITY;
   int bj = kLaneArcs;
+  unsigned w = 0;
 #pragma unroll
   for (int j = 0; j < kLaneArcs; ++j) {
     const float c = (at(prev, so[j]) + wv[j]) + at(em_row, lo[j]);
     if (c > best) {
       best = c;
       bj = j;
+      if constexpr (kWords) w = pw[j];
     }
   }
   bd = bj < kLaneArcs ? ln.d + bj * ln.g : INT_MAX;
   for (int off = ln.g >> 1; off > 0; off >>= 1)
     max_merge(best, bd, __shfl_xor_sync(kFull, best, off), __shfl_xor_sync(kFull, bd, off));
+  if constexpr (kWords)
+    bw = __shfl_sync(kFull, w, (threadIdx.x & 31 & ~(ln.g - 1)) | (bd & (ln.g - 1)));
+}
+
+// Copy 16 bytes from global to shared memory through L2 (cp.async.cg).
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(to), "l"(src) : "memory");
+}
+
+// Store a staged row of n words (a multiple of 4) to global memory, 16
+// bytes a thread, by the block's last threads (the schedule gives its last
+// warps the least work).
+__device__ __forceinline__ void store_row(unsigned* dst, const unsigned* src, int n) {
+  for (int i = blockDim.x - 1 - threadIdx.x; i < n / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+// The walk down frames hi .. lo from `state`, over rows of `stride` words
+// whose first is frame row0: one dependent shared load a frame, the word,
+// whose halves are the label (kDeadLabel: -1) and the next state.
+__device__ __forceinline__ int walk_frames(const unsigned* rows, int stride, int row0, int hi,
+                                           int lo, int state, int* out) {
+  for (int t = hi; t >= lo; --t) {
+    const unsigned w = rows[(t - row0) * stride + state];
+    const unsigned lab = w >> 16;
+    out[t] = lab == kDeadLabel ? -1 : static_cast<int>(lab);
+    state = static_cast<int>(w & 0xffffu);
+  }
+  return state;
 }
 
 // Start copying one emission row into the ring (or nothing); one commit
@@ -226,14 +297,25 @@ __device__ __forceinline__ void wait_rows() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kRing - 2) : "memory");
 }
 
-template <int kRoute>
+template <int kRoute, int kWalk>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const int* sched,
                         const float* __restrict__ start, const int* __restrict__ lens,
-                        int* __restrict__ slots, float* __restrict__ final_alpha, int T,
-                        int C, int S, int A, int sched_words, int chunks, int rows) {
+                        int* __restrict__ slots, float* __restrict__ final_alpha,
+                        const float* __restrict__ accept, int* __restrict__ labels,
+                        float* __restrict__ score, unsigned* __restrict__ words, int T, int C,
+                        int S, int A, int sched_words, int chunks, int rows) {
+  constexpr bool kWords = kWalk != kNoWalk;
   extern __shared__ __align__(16) float fsmem[];
   float* p = fsmem;
+  // the walk's area first (16-byte aligned for the chunks' copies): its
+  // words, the labels, the argmax's scratch
+  unsigned* walk_s = reinterpret_cast<unsigned*>(p);
+  const int walk_rows = kWalk == kWalkShared ? round4(T * S) : 2 * kWalkChunk * round4(S);
+  int* labels_s = reinterpret_cast<int*>(p + walk_rows);
+  float* red_v = p + walk_rows + round4(T);
+  int* red_s = reinterpret_cast<int*>(red_v + 32);
+  p += walk_words(kWalk, T, S);
   if (kRoute == kShared) {
     int2* arcs_s = reinterpret_cast<int2*>(p);
     for (int i = threadIdx.x; i <= A; i += blockDim.x) arcs_s[i] = arcs[i];
@@ -248,11 +330,14 @@ viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const in
   float* ring = al1 + S;
   float* part_v = ring + static_cast<long>(rows) * C;
   int* part_d = reinterpret_cast<int*>(part_v + chunks);
+  unsigned* part_w = reinterpret_cast<unsigned*>(part_d + chunks);
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int t_live = min(max(lens[b], 0), T);
+  const int S_pad = round4(S);
+  unsigned* words_b = words + static_cast<long>(b) * T * S_pad;  // walk chunked
   const float* em_b = em + static_cast<long>(b) * T * C;
   // the emission rows: all of them (one copy before the frames) where
   // rows == T, else a ring of kRing filled kRing - 1 frames ahead
@@ -273,11 +358,11 @@ viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const in
   const int* empty = sched + sched[kEmptyOff];
 
   Lane ln{kNoTask, A, 0, 0, 1};
-  unsigned so[kLaneArcs], lo[kLaneArcs];
+  unsigned so[kLaneArcs], lo[kLaneArcs], pw[kWords ? kLaneArcs : 1];
   float wv[kLaneArcs];
   if (kRoute == kRegisters && warp < nslots) {
     ln = lane_task(sched, warp, lane, A);
-    load_arcs(arcs, ln, so, lo, wv);
+    load_arcs<kWords>(arcs, ln, so, lo, wv, pw);
   }
   if (in_ring)
     wait_rows();
@@ -286,34 +371,44 @@ viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const in
   __syncthreads();  // row 0 (every row)
 
   int* slots_b = slots + static_cast<long>(b) * T * S;
-  for (int t = 0; t < t_live; ++t) {
+  int* slot_t = slots_b;  // frame t's slots, advanced a frame at a time
+  for (int t = 0; t < t_live; ++t, slot_t += S) {
     const float* prev = (t & 1) ? al1 : al0;
     float* next = (t & 1) ? al0 : al1;
     const float* em_row = ring + (in_ring ? t % kRing : t) * C;
-    int* slot_t = slots_b + static_cast<long>(t) * S;
-    auto emit = [&](int s, float v, int d) {
+    // walk chunked: frame t's words are staged in shared row t & 1 and
+    // stored to the global scratch, coalesced, during frame t + 1
+    unsigned* word_t = kWalk == kWalkShared    ? walk_s + t * S
+                       : kWalk == kWalkChunked ? walk_s + (t & 1) * S_pad
+                                               : nullptr;
+    if (kWalk == kWalkChunked && t > 0)
+      store_row(words_b + (t - 1L) * S_pad, walk_s + ((t - 1) & 1) * S_pad, S_pad);
+    auto emit = [&](int s, float v, int d, unsigned w) {
       v = fmaxf(v, kNeg);
       next[s] = v;
       slot_t[s] = v > kNeg ? d : kDead;
+      if constexpr (kWords) word_t[s] = v > kNeg ? w : (kDeadLabel << 16) | s;
     };
     // the ring slot of row t - 1, read in frame t - 1 (before its barrier)
     if (in_ring) fetch_row(ring, em_b, t + kRing - 1, t_live, C);
     for (int i = blockDim.x - 1 - threadIdx.x; i < nempty; i += blockDim.x)
-      emit(empty[i], -INFINITY, INT_MAX);
+      emit(empty[i], -INFINITY, INT_MAX, 0u);
     for (int q = warp; q < nslots; q += nwarps) {
       if (kRoute != kRegisters) {
         ln = lane_task(sched, q, lane, A);
-        load_arcs(arcs, ln, so, lo, wv);
+        load_arcs<kWords>(arcs, ln, so, lo, wv, pw);
       }
       float best;
       int bd;
-      relax(ln, so, lo, wv, prev, em_row, best, bd);
+      unsigned bw = 0;
+      relax<kWords>(ln, so, lo, wv, pw, prev, em_row, best, bd, bw);
       if (ln.key != kNoTask && (lane & (ln.g - 1)) == 0) {
         if (ln.key >= 0) {
-          emit(ln.key, best, bd);
+          emit(ln.key, best, bd, bw);
         } else {
           part_v[-1 - ln.key] = best;
           part_d[-1 - ln.key] = bd;
+          if constexpr (kWords) part_w[-1 - ln.key] = bw;
         }
       }
     }
@@ -323,21 +418,102 @@ viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const in
         const int* h = hubs + 3 * i;
         float best = -INFINITY;
         int bd = INT_MAX;
-        for (int c = h[1]; c < h[1] + h[2]; ++c) max_merge(best, bd, part_v[c], part_d[c]);
-        emit(h[0], best, bd);
+        unsigned bw = 0;
+        for (int c = h[1]; c < h[1] + h[2]; ++c) {
+          if (part_v[c] > best || (part_v[c] == best && part_d[c] < bd)) {
+            best = part_v[c];
+            bd = part_d[c];
+            if constexpr (kWords) bw = part_w[c];
+          }
+        }
+        emit(h[0], best, bd, bw);
       }
     }
     if (in_ring) wait_rows();
     __syncthreads();  // next complete, row t + 1 landed
   }
   __pipeline_wait_prior(0);
+  if (kWalk == kWalkChunked && t_live > 0)
+    store_row(words_b + (t_live - 1L) * S_pad, walk_s + ((t_live - 1) & 1) * S_pad, S_pad);
   for (int t = t_live; t < T; ++t) {
-    int* slot_t = slots_b + static_cast<long>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) slot_t[s] = kDead;
+    int* dead_t = slots_b + static_cast<long>(t) * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) dead_t[s] = kDead;
   }
   const float* fin = (t_live & 1) ? al1 : al0;
   for (int s = threadIdx.x; s < S; s += blockDim.x)
     final_alpha[static_cast<long>(b) * S + s] = fin[s];
+  if constexpr (!kWords) return;
+
+  // the walk: the first argmax of final + accept (each thread's states in
+  // increasing s with a strict >, then the warps' and the block's merges
+  // under "greater, else lower state": torch.max's first index)
+  float v = -INFINITY;
+  int arg = INT_MAX;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const float x = fin[s] + accept[s];
+    if (x > v) {
+      v = x;
+      arg = s;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    max_merge(v, arg, __shfl_xor_sync(kFull, v, off), __shfl_xor_sync(kFull, arg, off));
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_s[warp] = arg;
+  }
+  // chunked: the scan's global words reach L2 before the cp.async reads
+  if (kWalk == kWalkChunked) __threadfence();
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < nwarps ? red_v[lane] : -INFINITY;
+    arg = lane < nwarps ? red_s[lane] : INT_MAX;
+    for (int off = 16; off > 0; off >>= 1)
+      max_merge(v, arg, __shfl_xor_sync(kFull, v, off), __shfl_xor_sync(kFull, arg, off));
+    if (lane == 0) {
+      red_v[31] = v;
+      red_s[31] = arg;
+      score[b] = v;
+    }
+  }
+  __syncthreads();
+  // frames the walk takes: the live ones of a feasible sample; the others
+  // are -1 with no load
+  const int walked = red_v[31] > kNeg / 2 ? t_live : 0;
+  int state = red_s[31];
+  for (int t = walked + threadIdx.x; t < T; t += blockDim.x) labels_s[t] = -1;
+  if (kWalk == kWalkShared) {
+    if (threadIdx.x == 0) walk_frames(walk_s, S, 0, walked - 1, 0, state, labels_s);
+  } else if (walked > 0) {
+    // chunks of kWalkChunk frames from the last, each copied while the one
+    // above it is walked
+    const int nck = (walked + kWalkChunk - 1) / kWalkChunk;
+    for (int c = nck - 1; c >= 0; --c) {
+      // chunk c - 1 (and chunk c, the last, before the walk starts) copied
+      // into buffer (chunk & 1) while chunk c is walked; a commit group each
+      for (int f = c == nck - 1 ? c : c - 1; f >= max(c - 1, 0); --f) {
+        const int t0 = f * kWalkChunk;
+        const int n = (min(t0 + kWalkChunk, walked) - t0) * S_pad / 4;
+        const uint4* from = reinterpret_cast<const uint4*>(words_b + static_cast<long>(t0) * S_pad);
+        uint4* to = reinterpret_cast<uint4*>(walk_s + (f & 1) * kWalkChunk * S_pad);
+        for (int i = threadIdx.x; i < n; i += blockDim.x) copy16(to + i, from + i);
+        __pipeline_commit();
+      }
+      if (c > 0)
+        __pipeline_wait_prior(1);
+      else
+        __pipeline_wait_prior(0);
+      __syncthreads();  // chunk c landed (every thread's copies)
+      const int t0 = c * kWalkChunk;
+      if (threadIdx.x == 0)
+        state = walk_frames(walk_s + (c & 1) * kWalkChunk * S_pad, S_pad, t0,
+                            min(t0 + kWalkChunk, walked) - 1, t0, state, labels_s);
+      __syncthreads();  // chunk c walked: its buffer is free
+    }
+  }
+  __syncthreads();
+  int* lab_b = labels + static_cast<long>(b) * T;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) lab_b[t] = labels_s[t];
 }
 
 // One frame of the scan's chain without arcs: a dependent shared-memory
@@ -354,65 +530,19 @@ __global__ void viterbi_chain_probe_kernel(int* __restrict__ out, int frames) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = i;
 }
 
-__global__ void viterbi_backtrace_kernel(const int* __restrict__ slots,
-                                         const float* __restrict__ final_alpha,
-                                         const float* __restrict__ accept,
-                                         const int* __restrict__ src_b,
-                                         const int* __restrict__ lab_b,
-                                         int* __restrict__ labels,
-                                         float* __restrict__ score, int T,
-                                         int S, int D, int staged) {
-  extern __shared__ int ismem[];
-  const int b = blockIdx.x;
-  const long TS = static_cast<long>(T) * S;
-  const long DS = static_cast<long>(D) * S;
-  const int* SL = slots + static_cast<long>(b) * TS;
-  const int* SRC = src_b;
-  const int* LAB = lab_b;
-  int* out = labels + static_cast<long>(b) * T;
-  if (staged) {
-    int* sl_s = ismem;
-    int* src_s = sl_s + TS;
-    int* lab_s = src_s + DS;
-    for (long i = threadIdx.x; i < TS; i += blockDim.x) sl_s[i] = SL[i];
-    for (long i = threadIdx.x; i < DS; i += blockDim.x) {
-      src_s[i] = src_b[i];
-      lab_s[i] = lab_b[i];
-    }
-    SL = sl_s;
-    SRC = src_s;
-    LAB = lab_s;
-    out = lab_s + DS;
-    __syncthreads();
-  }
+// One frame of the walk's chain: the dependent shared load of a word and
+// its unpacking (walk_frames over a 16 x 64 table, labels to shared
+// memory), `frames` times, one thread in each of B blocks.
+__global__ void backtrace_chain_probe_kernel(int* __restrict__ out, int frames) {
+  __shared__ unsigned table[16 * 64];
+  __shared__ int labs[16];
+  for (int k = threadIdx.x; k < 16 * 64; k += blockDim.x)
+    table[k] = static_cast<unsigned>((7 * k + 1) & 63) | ((k % 3 ? k & 63 : kDeadLabel) << 16);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    const float* fa = final_alpha + static_cast<long>(b) * S;
-    float best = fa[0] + accept[0];
     int state = 0;
-    for (int s = 1; s < S; ++s) {
-      const float v = fa[s] + accept[s];
-      if (v > best) {
-        best = v;
-        state = s;
-      }
-    }
-    score[b] = best;
-    const bool feasible = best > kNeg / 2;
-    for (int t = T - 1; t >= 0; --t) {
-      const int d = SL[static_cast<long>(t) * S + state];
-      int lab = -1;
-      if (d < kDead) {
-        const long k = static_cast<long>(d) * S + state;
-        lab = LAB[k];
-        state = SRC[k];
-      }
-      out[t] = feasible ? lab : -1;
-    }
-  }
-  if (staged) {
-    __syncthreads();
-    int* dst = labels + static_cast<long>(b) * T;
-    for (int t = threadIdx.x; t < T; t += blockDim.x) dst[t] = out[t];
+    for (int f = 0; f < frames; f += 16) state = walk_frames(table, 64, 0, 15, 0, state, labs);
+    out[blockIdx.x] = state + labs[0];
   }
 }
 
@@ -453,29 +583,39 @@ int dense_backtrace(const int* bp, const int* last, int* path, int B, int T,
 // em [B, T, C] f32, the plan's arcs by destination [A + 1] (int2: src |
 // label << 16 and the weight's bits; the last a pad arc of weight -inf)
 // and its lane schedule (sched_words int32), start [S] f32, lens [B] i32
-// -> slots [B, T, S] i32 and final alpha [B, S] f32.  threads: 32 a slot
-// of the schedule, at most 32 kMaxWarps (route kRegisters: exactly 32 a
-// slot); route: kRegisters, kShared or kGlobal; rows: T (every emission
-// row staged) or kRing (a ring).  Shared memory: (2 S + rows C + 2 chunks)
-// words, plus 2 (A + 1) + sched_words for route kShared.
+// -> slots [B, T, S] i32 and final alpha [B, S] f32; with walk kWalkShared
+// or kWalkChunked also accept [S] f32 -> labels [B, T] i32 and score [B]
+// f32 (kWalkChunked: words, a scratch of B T round4(S) i32).  threads: 32 a
+// slot of the schedule, at most 32 kMaxWarps (route kRegisters: exactly 32
+// a slot); route: kRegisters, kShared or kGlobal; rows: T (every emission
+// row staged) or kRing (a ring).  Shared memory: (2 S + rows C + 3 chunks)
+// words, plus 2 (A + 1) + sched_words for route kShared and walk_words.
 int viterbi_scan_fwd(const float* em, const int* arcs, const int* sched,
                      const float* start, const int* lens, int* slots,
-                     float* final_alpha, int B, int T, int C, int S, int A,
-                     int sched_words, int chunks, int threads, int route, int rows,
-                     void* stream) {
+                     float* final_alpha, const float* accept, int* labels, float* score,
+                     int* words, int B, int T, int C, int S, int A, int sched_words, int chunks,
+                     int threads, int route, int rows, int walk, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (rows != T && rows != kRing) return static_cast<int>(cudaErrorInvalidValue);
-  long words = 2L * S + static_cast<long>(rows) * C + 2L * chunks;
-  if (route == kShared) words += 2L * (A + 1) + sched_words;
-  const size_t smem = static_cast<size_t>(words) * sizeof(float);
-  auto kernel = route == kRegisters ? viterbi_scan_fwd_kernel<kRegisters>
-                : route == kShared  ? viterbi_scan_fwd_kernel<kShared>
-                                    : viterbi_scan_fwd_kernel<kGlobal>;
+  if (route < kRegisters || route > kGlobal || walk < kNoWalk || walk > kWalkChunked)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long n_words = 2L * S + static_cast<long>(rows) * C + 3L * chunks + walk_words(walk, T, S);
+  if (route == kShared) n_words += 2L * (A + 1) + sched_words;
+  const size_t smem = static_cast<size_t>(n_words) * sizeof(float);
+  using Kernel = decltype(&viterbi_scan_fwd_kernel<kRegisters, kNoWalk>);
+  const Kernel kernels[3][3] = {
+      {viterbi_scan_fwd_kernel<kRegisters, kNoWalk>, viterbi_scan_fwd_kernel<kRegisters, kWalkShared>,
+       viterbi_scan_fwd_kernel<kRegisters, kWalkChunked>},
+      {viterbi_scan_fwd_kernel<kShared, kNoWalk>, viterbi_scan_fwd_kernel<kShared, kWalkShared>,
+       viterbi_scan_fwd_kernel<kShared, kWalkChunked>},
+      {viterbi_scan_fwd_kernel<kGlobal, kNoWalk>, viterbi_scan_fwd_kernel<kGlobal, kWalkShared>,
+       viterbi_scan_fwd_kernel<kGlobal, kWalkChunked>}};
+  const Kernel kernel = kernels[route][walk];
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      em, reinterpret_cast<const int2*>(arcs), sched, start, lens, slots,
-      final_alpha, T, C, S, A, sched_words, chunks, rows);
+      em, reinterpret_cast<const int2*>(arcs), sched, start, lens, slots, final_alpha, accept,
+      labels, score, reinterpret_cast<unsigned*>(words), T, C, S, A, sched_words, chunks, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -487,25 +627,10 @@ int viterbi_chain_probe(int* out, int B, int threads, int frames, void* stream) 
   return static_cast<int>(cudaGetLastError());
 }
 
-// slots [B, T, S] i32, final alpha [B, S] f32, accept [S] f32, the plan's
-// src/label [D, S] i32 -> labels [B, T] i32 and score [B] f32.  Stages the
-// sample's slots, the tables and the labels in shared memory when
-// (T S + 2 D S + T) * 4 bytes fit in max_smem.
-int viterbi_backtrace(const int* slots, const float* final_alpha,
-                      const float* accept, const int* src_b, const int* lab_b,
-                      int* labels, float* score, int B, int T, int S, int D,
-                      int max_smem, void* stream) {
-  if (B == 0 || S == 0) return 0;
-  const size_t smem = (static_cast<size_t>(T) * S +
-                       2 * static_cast<size_t>(D) * S + T) * sizeof(int);
-  const int staged = smem <= static_cast<size_t>(max_smem) ? 1 : 0;
-  const size_t launch_smem = staged ? smem : 0;
-  cudaError_t err = allow_smem(viterbi_backtrace_kernel, launch_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  viterbi_backtrace_kernel<<<B, kThreads, launch_smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      slots, final_alpha, accept, src_b, lab_b, labels, score, T, S, D,
-      staged);
+// B blocks run `frames` (a multiple of 16) frames of the walk's chain, one
+// thread each (backtrace_chain_probe_kernel); out [B] i32.
+int backtrace_chain_probe(int* out, int B, int frames, void* stream) {
+  backtrace_chain_probe_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(out, frames);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,12 @@ beta recursion and emits the posterior gradient with respect to the
 emissions (``ctc_grad_cuda`` / ``ctc_grad_plain``).  The layout is
 ``[B, T, S]`` with S unpadded: the TPU's ``[T, B, S_pad]`` transpose and
 128-lane padding existed only for its tiling.
+
+The backward kernel runs a sample's recursion on one warp where S <= 32
+(route "warp": neighbours by shuffles, no block barrier; a second warp
+takes the posterior), else on a warp for each 32 states that pass their
+edge lanes through shared memory (route "block", one barrier a frame);
+``grad_plan`` gives the route and layout the kernel takes.
 """
 
 import torch
@@ -74,6 +80,32 @@ def ctc_grad_plain(em, alpha, accept, skip, lens, score, g):
         new = _lse3(eb, _shift_states_rev(eb, 1), jump)
         beta = torch.where(live, new, beta)
     return torch.stack(grads, dim=1)
+
+
+# ctc_grad's routes; must match csrc/ctc.cu grad_plan
+GRAD_WARP_MAX_S = 32
+GRAD_RING = 8  # route "warp": frames of em and alpha rows in shared memory
+GRAD_BLOCK_RING = 4  # route "block": the same
+GRAD_RING_SMEM = 200 * 1024  # route "block": the ring's shared memory at most
+
+
+def grad_plan(S):
+    """(route, K, warps, ring) of the ``ctc_grad`` kernel at S states:
+    "warp" up to GRAD_WARP_MAX_S states (a chain warp whose lane l holds
+    states l K + k for k < K = ceil(S / 32), and a helper warp for the
+    posterior), else "block" (W = min(32, ceil(S / 32)) warps, thread i
+    holding states i + 32 W k for k < K = ceil(S / 32 W), taken as 16 past
+    8); ring: the frames of em (and alpha) rows a sample keeps in shared
+    memory, filled that many frames ahead (route "block": 0 where they do
+    not fit in GRAD_RING_SMEM, and em and alpha are read from global
+    memory)."""
+    if S <= GRAD_WARP_MAX_S:
+        return "warp", max(1, -(-S // 32)), 2, GRAD_RING
+    warps = min(32, -(-S // 32))
+    k = -(-S // (32 * warps))
+    k = 16 if k > 8 else k
+    fits = 2 * GRAD_BLOCK_RING * k * 32 * warps * 4 <= GRAD_RING_SMEM
+    return "block", k, warps, GRAD_BLOCK_RING if fits else 0
 
 
 def _states(name, em, *tensors):

@@ -22,10 +22,15 @@ position less its row's start is the slot; trailing slots of weight <= NEG
 are not arcs (they contribute at most NEG, which never makes a slot).
 Beside it a lane schedule (``lane_schedule``) gives each state a group of
 lanes by its in-degree.  Both are built on the host once per plan
-(``Plan.packed``); the [D, S] buckets stay for the plain versions and the
-backtrace.  The kernel runs one block a sample, its arcs held in
-registers, shared or global memory (``scan_route``), the sample's
-emission rows all staged or passing through a ring (``scan_rows``).
+(``Plan.packed``); the [D, S] buckets stay for the plain versions.  The
+kernel runs one block a sample, its arcs held in registers, shared or
+global memory (``scan_route``), the sample's emission rows all staged or
+passing through a ring (``scan_rows``).  The decode's backtrace is the
+tail of the same launch: each frame also writes its winning arcs' packed
+words (source | label << 16; a DEAD slot's is the state | 0xffff << 16),
+kept in shared memory where a sample's fit (``walk_route`` "shared"), else
+in a global scratch read back by chunks (``walk_route`` "chunked"), and one
+thread walks them from the best final state, one word a frame.
 """
 
 import collections
@@ -226,6 +231,11 @@ MAX_WARPS = 24
 WARP = 32
 HEAD = 10
 ROUTES = ("registers", "shared", "global")
+# The walk's routes (``walk_route``), its chunks' frames (route "chunked")
+# and the label half of a DEAD slot's walk word
+WALKS = ("shared", "chunked")
+WALK_CHUNK = 32
+DEAD_LABEL = 0xFFFF
 
 
 class Packed(NamedTuple):
@@ -351,43 +361,75 @@ def pack_buckets(src_bucket, label_bucket, w_bucket, cap=None):
                   int(words[3]), cap)
 
 
-def smem_words(packed, S, C, route, rows=RING):
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def walk_words(S, T, walk):
+    """Shared memory of the decode's walk, in 4-byte words: the walk words
+    (a sample's T S for ``walk`` "shared", two chunks of WALK_CHUNK frames
+    of S padded to 4 for "chunked"), the T labels and the argmax's 64 words
+    of scratch; 0 for the scan alone (``walk`` None)."""
+    if walk is None:
+        return 0
+    rows = _round4(T * S) if walk == "shared" else 2 * WALK_CHUNK * _round4(S)
+    return rows + _round4(T) + 2 * WARP
+
+
+def smem_words(packed, S, C, route, rows=RING, walk=None, T=0):
     """Shared memory of a scan block, in 4-byte words: alpha by parity,
-    ``rows`` emission rows and the hub parts; route "shared" adds the arcs
-    and the schedule."""
-    words = 2 * S + rows * C + 2 * packed.chunks
+    ``rows`` emission rows and the hub parts (value, slot, word); route
+    "shared" adds the arcs and the schedule, a decode over T frames its
+    ``walk_words``."""
+    words = 2 * S + rows * C + 3 * packed.chunks + walk_words(S, T, walk)
     if route == "shared":
         words += 2 * (packed.A + 1) + packed.sched.numel()
     return words
 
 
-def route_fits(packed, S, C, route):
+def route_fits(packed, S, C, route, walk=None, T=0):
     """Whether ``route`` can run this plan: "registers" needs one slot a
     warp of a block, "shared" the arcs and schedule in shared memory, any
-    route the state and a ring of RING emission rows in shared memory."""
+    route the state, a ring of RING emission rows and the walk (``walk``,
+    over T frames) in shared memory."""
     if route not in ROUTES:
         raise ValueError(f"viterbi_scan_fwd: route {route!r} is not one of {ROUTES}")
+    if walk is not None and walk not in WALKS:
+        raise ValueError(f"viterbi_scan_fwd: walk {walk!r} is not one of {WALKS}")
     if route == "registers" and packed.slots > MAX_WARPS:
         return False
-    return 4 * smem_words(packed, S, C, route) <= _build.MAX_SMEM
+    return 4 * smem_words(packed, S, C, route, RING, walk, T) <= _build.MAX_SMEM
 
 
-def scan_route(packed, S, C):
+def scan_route(packed, S, C, walk=None, T=0):
     """The scan's route: "registers" where the schedule fits one slot a
     warp, else "shared" where the arcs fit in shared memory, else
-    "global".  Raises where even the state does not fit."""
+    "global"; beside ``walk`` over T frames (a decode) where given.  Raises
+    where even the state does not fit."""
     for route in ROUTES:
-        if route_fits(packed, S, C, route):
+        if route_fits(packed, S, C, route, walk, T):
             return route
     raise ValueError(f"viterbi_scan_fwd: the state of S={S} states and C={C} channels "
-                     "does not fit in shared memory")
+                     f"(walk {walk}, T={T}) does not fit in shared memory")
 
 
-def scan_rows(packed, S, T, C, route):
+def walk_route(packed, S, T, C, route):
+    """The decode's walk beside the scan's ``route``: "shared" where a
+    sample's T S walk words fit in shared memory, else "chunked" (the words
+    in a global scratch, walked by chunks of WALK_CHUNK frames copied into
+    shared memory).  Raises where neither fits."""
+    for walk in WALKS:
+        if route_fits(packed, S, C, route, walk, T):
+            return walk
+    raise ValueError(f"viterbi_scan_fwd: no walk fits beside route {route} (S={S}, T={T}, "
+                     f"C={C})")
+
+
+def scan_rows(packed, S, T, C, route, walk=None):
     """The emission rows a block keeps: all T where they fit beside the
-    route's state and tables (staged at the start: no copy during the
-    frames), else a ring of RING filled ahead."""
-    fits = 4 * smem_words(packed, S, C, route, rows=T) <= _build.MAX_SMEM
+    route's state and tables and the ``walk`` (staged at the start: no copy
+    during the frames), else a ring of RING filled ahead."""
+    fits = 4 * smem_words(packed, S, C, route, T, walk, T) <= _build.MAX_SMEM
     return T if fits else RING
 
 
@@ -444,14 +486,16 @@ def _plan_check(name, src_bucket, label_bucket, w_bucket=None, start=None):
 
 
 def viterbi_scan_fwd_cuda(em, src_bucket, label_bucket, w_bucket, start,
-                          lengths, packed=None, route=None):
+                          lengths, packed=None, route=None, accept=None, walk=None):
     """Launch ``viterbi_scan_fwd``: em [B, T, C] float32, the plan's
     [D, S] buckets and start [S], lengths [B] int32 -> (slots [B, T, S]
-    int32, final alpha [B, S]).  Every label must lie in [0, C).
-    ``packed``: the buckets' ``Packed`` on em's device (``Plan.packed``);
-    built from them here (a copy to the host) when None.  ``route``: one of
-    ``ROUTES``, default ``scan_route``'s; a route that does not fit
-    raises."""
+    int32, final alpha [B, S]); with ``accept`` [S] the decode, the walk in
+    the same launch: -> (slots, final alpha, labels [B, T] int32, score
+    [B]).  Every label must lie in [0, C).  ``packed``: the buckets'
+    ``Packed`` on em's device (``Plan.packed``); built from them here (a
+    copy to the host) when None.  ``route``: one of ``ROUTES``, ``walk``
+    one of ``WALKS``, default ``scan_route``'s and ``walk_route``'s; a
+    choice that does not fit raises."""
     _build.require_cuda("viterbi_scan_fwd", em, src_bucket, label_bucket,
                         w_bucket, start, lengths)
     B, T, C = em.shape
@@ -459,6 +503,11 @@ def viterbi_scan_fwd_cuda(em, src_bucket, label_bucket, w_bucket, start,
     D, S = _plan_check("viterbi_scan_fwd", src_bucket, label_bucket, w_bucket,
                        start)
     _build.require("viterbi_scan_fwd lengths", lengths, (B,), torch.int32)
+    if accept is None and walk is not None:
+        raise ValueError("viterbi_scan_fwd: a walk needs accept")
+    if accept is not None:
+        _build.require_cuda("viterbi_scan_fwd", em, accept)
+        _build.require("viterbi_scan_fwd accept", accept, (S,), torch.float32)
     if C >= 2**16:
         raise ValueError(f"viterbi_scan_fwd: {C} channels; the packed arcs take "
                          "fewer than 2^16")
@@ -468,26 +517,46 @@ def viterbi_scan_fwd_cuda(em, src_bucket, label_bucket, w_bucket, start,
     if packed.S != S or packed.labels > C:
         raise ValueError(f"viterbi_scan_fwd: the packed plan (S={packed.S}, labels up to "
                          f"{packed.labels - 1}) does not fit S={S}, C={C}")
+    least = None if accept is None else WALKS[-1]  # the walk that takes least room
     if route is None:
-        route = scan_route(packed, S, C)
-    elif not route_fits(packed, S, C, route):
+        route = scan_route(packed, S, C, least, T)
+    elif not route_fits(packed, S, C, route, least, T):
         raise ValueError(f"viterbi_scan_fwd: route {route} does not fit this plan "
-                         f"({packed.slots} slots, {packed.A} arcs, S={S}, C={C})")
+                         f"({packed.slots} slots, {packed.A} arcs, S={S}, C={C}, T={T})")
+    if accept is not None:
+        if walk is None:
+            walk = walk_route(packed, S, T, C, route)
+        elif not route_fits(packed, S, C, route, walk, T):
+            raise ValueError(f"viterbi_scan_fwd: walk {walk} does not fit beside route "
+                             f"{route} (S={S}, T={T}, C={C})")
     threads = WARP * max(1, min(packed.slots, MAX_WARPS))
-    rows = scan_rows(packed, S, T, C, route)
-    slots = torch.empty((B, T, S), dtype=torch.int32, device=em.device)
-    final = torch.empty((B, S), dtype=torch.float32, device=em.device)
+    rows = scan_rows(packed, S, T, C, route, walk)
+    dev = em.device
+    slots = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    final = torch.empty((B, S), dtype=torch.float32, device=dev)
+    labels = score = words = None
+    if accept is not None:
+        labels = torch.empty((B, T), dtype=torch.int32, device=dev)
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+    if walk == "chunked":
+        words = torch.empty((B, T, _round4(S)), dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = _build.load_library("viterbi")
-    with torch.cuda.device(em.device):
+    with torch.cuda.device(dev):
         err = lib.viterbi_scan_fwd(
             em.data_ptr(), packed.arcs.data_ptr(), packed.sched.data_ptr(),
             start.data_ptr(), lengths.data_ptr(), slots.data_ptr(),
-            final.data_ptr(), B, T, C, S, packed.A, packed.sched.numel(),
-            packed.chunks, threads, ROUTES.index(route), rows, _build.stream_handle(em),
+            final.data_ptr(), ptr(accept), ptr(labels), ptr(score), ptr(words),
+            B, T, C, S, packed.A, packed.sched.numel(), packed.chunks, threads,
+            ROUTES.index(route), rows, 0 if walk is None else 1 + WALKS.index(walk),
+            _build.stream_handle(em),
         )
-    _build.check(lib, err, f"viterbi_scan_fwd (route {route})")
+    _build.check(lib, err, f"viterbi_scan_fwd (route {route}, walk {walk})")
     _build.LAUNCHES["viterbi_scan_fwd"] += 1
-    return slots, final
+    if accept is None:
+        return slots, final
+    _build.LAUNCHES["viterbi_backtrace"] += 1
+    return slots, final, labels, score
 
 
 def chain_probe(B, threads, frames, device):
@@ -504,31 +573,18 @@ def chain_probe(B, threads, frames, device):
     return out
 
 
-def viterbi_backtrace_cuda(slots, final_alpha, accept, src_bucket,
-                           label_bucket):
-    """Launch ``viterbi_backtrace``: slots [B, T, S] int32, final alpha
-    [B, S] and accept [S] float32, the plan's [D, S] buckets -> (labels
-    [B, T] int32, score [B])."""
-    _build.require_cuda("viterbi_backtrace", slots, final_alpha, accept,
-                        src_bucket, label_bucket)
-    B, T, S = slots.shape
-    D, _ = _plan_check("viterbi_backtrace", src_bucket, label_bucket)
-    _build.require("viterbi_backtrace slots", slots, (B, T, S), torch.int32)
-    _build.require("viterbi_backtrace final", final_alpha, (B, S), torch.float32)
-    _build.require("viterbi_backtrace accept", accept, (S,), torch.float32)
-    labels = torch.empty((B, T), dtype=torch.int32, device=slots.device)
-    score = torch.empty((B,), dtype=torch.float32, device=slots.device)
+def walk_probe(B, frames, device):
+    """Launch ``backtrace_chain_probe``: B blocks each walk ``frames`` (a
+    multiple of 16) frames of the decode's walk on one thread (a dependent
+    shared load of a word and its unpacking each).  Not a kernel of any
+    path: it times one walk frame's floor, for the chain bounds of the
+    decode's walk and of the dense backtrace."""
+    out = torch.empty((B,), dtype=torch.int32, device=device)
     lib = _build.load_library("viterbi")
-    with torch.cuda.device(slots.device):
-        err = lib.viterbi_backtrace(
-            slots.data_ptr(), final_alpha.data_ptr(), accept.data_ptr(),
-            src_bucket.data_ptr(), label_bucket.data_ptr(), labels.data_ptr(),
-            score.data_ptr(), B, T, S, D, _build.MAX_SMEM,
-            _build.stream_handle(slots),
-        )
-    _build.check(lib, err, "viterbi_backtrace")
-    _build.LAUNCHES["viterbi_backtrace"] += 1
-    return labels, score
+    with torch.cuda.device(device):
+        err = lib.backtrace_chain_probe(out.data_ptr(), B, frames, _build.stream_handle(out))
+    _build.check(lib, err, "backtrace_chain_probe")
+    return out
 
 
 def viterbi_scan(em, plan: Plan, input_lengths=None):
@@ -546,8 +602,9 @@ def viterbi_scan(em, plan: Plan, input_lengths=None):
     if _build.on_cuda(em):
         if int(plan.label_bucket.max()) >= C:
             raise ValueError(f"viterbi_scan: a label exceeds the {C} channels")
-        slots, final = viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, lengths,
-                                             packed=plan.packed(em.device))
-        return viterbi_backtrace_cuda(slots, final, accept, src_b, lab_b)
+        _, _, labels, score = viterbi_scan_fwd_cuda(em, src_b, lab_b, w_b, start, lengths,
+                                                    packed=plan.packed(em.device),
+                                                    accept=accept)
+        return labels, score
     slots, final = viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, lengths)
     return viterbi_backtrace_plain(slots, final, accept, src_b, lab_b)

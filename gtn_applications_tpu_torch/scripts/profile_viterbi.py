@@ -11,8 +11,8 @@ S=82, 6,480 arcs) and the backoff trigram path's decode table
 
 - the kernel (CUDA-event medians of 30, ``chip_smoke.gpu_median_ms``);
 - the instructions of each route's kernel as compiled (``cuobjdump
-  -sass``, where the toolkit has it): shared, generic and local loads,
-  branches, shuffles and the total;
+  -sass``, where the toolkit has it), the scan alone and with each walk:
+  shared, generic and local loads, branches, shuffles and the total;
 - copies of ``csrc/viterbi.cu`` with one part of the frame changed,
   built into ``build/profile_viterbi`` and timed the same way: no slot
   store (``no_slot_store``), no shared-memory load in the relaxation
@@ -59,9 +59,9 @@ VARIANTS = {
 # per warp and frame: the pass over its slots, what follows up to the
 # barrier, and the barrier; written into final_alpha at the end
 CLOCKS = [
-    ("  for (int t = 0; t < t_live; ++t) {\n    const float* prev",
+    ("  for (int t = 0; t < t_live; ++t, slot_t += S) {\n    const float* prev",
      "  long long c_pass = 0, c_tail = 0, c_sync = 0;\n"
-     "  for (int t = 0; t < t_live; ++t) {\n    const long long c0 = clock64();\n"
+     "  for (int t = 0; t < t_live; ++t, slot_t += S) {\n    const long long c0 = clock64();\n"
      "    const float* prev"),
     ("    if (nhubs > 0) {\n      __syncthreads();  // the hub chunks' parts",
      "    const long long c1 = clock64();\n"
@@ -70,10 +70,11 @@ CLOCKS = [
      "    if (in_ring) wait_rows();\n    const long long c2 = clock64();\n"
      "    __syncthreads();  // next complete, row t + 1 landed\n"
      "    c_pass += c1 - c0;\n    c_tail += c2 - c1;\n    c_sync += clock64() - c2;\n  }"),
-    ("    final_alpha[static_cast<long>(b) * S + s] = fin[s];\n}",
+    ("    final_alpha[static_cast<long>(b) * S + s] = fin[s];\n  if constexpr (!kWords) return;\n",
      "    final_alpha[static_cast<long>(b) * S + s] = fin[s];\n  __syncthreads();\n"
      "  if (lane == 0) {\n    float* out = final_alpha + static_cast<long>(b) * S + 3 * warp;\n"
-     "    out[0] = c_pass;\n    out[1] = c_tail;\n    out[2] = c_sync;\n  }\n}"),
+     "    out[0] = c_pass;\n    out[1] = c_tail;\n    out[2] = c_sync;\n  }\n"
+     "  if constexpr (!kWords) return;\n"),
 ]
 
 
@@ -100,6 +101,7 @@ def sass_counts(so):
     import re
 
     from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.ops.viterbi_scan_pallas import ROUTES, WALKS
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
@@ -112,7 +114,8 @@ def sass_counts(so):
         if "viterbi_scan_fwd_kernel" not in name:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
-        route = "ILi0E" in name and "registers" or "ILi1E" in name and "shared" or "global"
+        route, walk = (int(x) for x in re.search(r"ILi(\d)ELi(\d)E", name).groups())
+        route = f"{ROUTES[route]}/walk {(None, *WALKS)[walk]}"  # the kernel's template values
         out[route] = {"total": len(ops), **{k: sum(o.startswith(k) for o in ops)
                                             for k in ("LDS", "LDL", "LD", "STL", "BRA", "SHFL",
                                                       "BAR")}}

@@ -7,7 +7,15 @@ interpret mode off-TPU) and ``impl="scan"``; the port runs ``impl="auto"``
 ``impl="scan"``.  Tolerances: loss atol 1e-4, gradient w.r.t. the logits
 atol 1e-5 (fp32 recursions over 16 frames, exp/log taken by two libraries
 in another order; the kernel path's t = 0 step differs from the scan's
-seeding only by fp32 rounding).
+seeding only by fp32 rounding).  Infeasible samples (targets longer than
+their frames allow) follow each JAX route with the port's own: "scan"
+gives them zero gradients, the kernel route the TPU kernel's nonzero ones.
+
+The backward kernel runs only on the card; here its host plan
+(``lattice_pallas.grad_plan``) is checked, and its layout (K states a
+lane or thread, neighbours by shuffles and, on route "block", through the
+edge lanes of the warp above) is emulated in float32 with torch ops and
+held bitwise to ``ctc_grad_plain``.
 """
 
 import math
@@ -22,7 +30,9 @@ from gtn_applications_tpu.criterions.common import pad_targets as jax_pad_target
 from gtn_applications_tpu.ops import lattice as jax_lattice
 from gtn_applications_tpu_torch.criterions import CTC
 from gtn_applications_tpu_torch.criterions.common import pad_targets
-from gtn_applications_tpu_torch.ops import lattice
+from gtn_applications_tpu_torch.ops import gathers, lattice
+from gtn_applications_tpu_torch.ops import lattice_pallas as lp
+from gtn_applications_tpu_torch.ops.semiring import NEG
 
 PORT_IMPLS = ["auto", "scan"]
 
@@ -167,3 +177,195 @@ def test_ctc_criterion_refuses_unported_options(config):
     assert crit.impl == "scan"
     with pytest.raises(NotImplementedError):
         utils.load_criterion("ctc", pre, config)
+
+
+# two infeasible samples: [1, 1, 1, 1] needs 7 frames of 6, [2, 2, 2] needs
+# 5 of 4; the third is feasible
+INFEASIBLE = dict(targets=[[1, 1, 1, 1], [2, 2, 2], [0, 3]], input_lengths=[6, 4, 6])
+
+
+@pytest.mark.parametrize("port_impl,jax_impl", [("auto", "pallas"), ("scan", "scan")])
+def test_infeasible_samples_match_jax(port_impl, jax_impl):
+    """B=3, T=6, N=5 with two infeasible samples: the losses agree on every
+    route (6.666667e29 with reduction none, the batch mean of NEG's 1e30
+    twice and a finite loss); the logit gradients follow each JAX route:
+    the kernel route's (JAX's Pallas kernel in interpret mode) are nonzero
+    on the infeasible samples (max |g| 1.90 and 1.28 here), the scan's are
+    exactly 0 there."""
+    rng = np.random.RandomState(7)
+    B, T, N = 3, 6, 5
+    logits = rng.randn(B, T, N).astype(np.float32)
+    targets, lengths = jax_pad_targets(INFEASIBLE["targets"])
+    lens = jnp.asarray(INFEASIBLE["input_lengths"])
+
+    def loss_fn(x):
+        return jax_lattice.ctc_loss(jax.nn.log_softmax(x, axis=2), targets, lengths, N - 1,
+                                    "none", lens, jax_impl)
+
+    loss_j, grad_j = jax.value_and_grad(loss_fn)(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_(True)
+    tg, ln = pad_targets(INFEASIBLE["targets"])
+    loss_t = lattice.ctc_loss(torch.log_softmax(x, dim=2), tg, ln, N - 1, "none",
+                              torch.tensor(INFEASIBLE["input_lengths"]), port_impl)
+    (grad_t,) = torch.autograd.grad(loss_t, x)
+    loss_t = float(loss_t.detach())
+    assert abs(loss_t - float(loss_j)) < 1e-4 and loss_t > 6e29
+    np.testing.assert_allclose(grad_t.numpy(), np.asarray(grad_j), rtol=0, atol=1e-5)
+    dead = np.abs(grad_t.numpy()[:2])
+    if port_impl == "scan":
+        assert (dead == 0).all()
+    else:
+        assert dead.max() > 1.0 and (dead.reshape(2, -1).max(axis=1) > 0).all()
+
+
+@pytest.mark.parametrize("S,plan", [(3, ("warp", 1, 2, 8)), (32, ("warp", 1, 2, 8)),
+                                    (33, ("block", 1, 2, 4)), (89, ("block", 1, 3, 4)),
+                                    (256, ("block", 1, 8, 4)), (257, ("block", 1, 9, 4)),
+                                    (401, ("block", 1, 13, 4))])
+def test_grad_plan(S, plan):
+    """The backward kernel's route, states a lane K, warps a sample and
+    ring of rows: a chain warp and a helper warp up to 32 states, beyond
+    them a warp for each 32 states (K = ceil(S / 32 W): one state a thread
+    up to 1,024 states, 16 past 8, up to the 14,528 states the wrappers
+    take); past the block route's ring in shared memory the rows come from
+    global memory."""
+    assert lp.grad_plan(S) == plan
+    assert lp.grad_plan(4096) == ("block", 4, 32, 4)
+    assert lp.grad_plan(8192) == ("block", 8, 32, 0)
+    assert lp.grad_plan(14528) == ("block", 16, 32, 0)
+
+
+def _neighbours(x, d, route, W):
+    """x [B, K, n] by thread (route "block": thread i, slot k holds state
+    i + n k; route "warp": lane l, slot k holds state l K + k, stored here
+    as [B, K, 32] by slot) -> the values of states s + d as the kernel
+    gathers them (NEG past the last slot)."""
+    B, K, n = x.shape
+    lane = torch.arange(n) % 32
+    neg = torch.full_like(x[:, :1], NEG)
+    if route == "warp":
+        # the lane's own next slots; its top d - (K - 1 - k) from the lane
+        # above (lane + 2 for d = 2 when K = 1), NEG past lane 31
+        out = torch.empty_like(x)
+        for k in range(K):
+            if k + d < K:
+                out[:, k] = x[:, k + d]
+            else:
+                j, up = (k + d) - K, 1
+                if j >= K:  # K = 1, d = 2: two lanes up
+                    j, up = j - K, 2
+                src = lane + up
+                out[:, k] = torch.where(src < 32, x[:, j][:, src.clamp(max=31)],
+                                        torch.tensor(NEG))
+        return out
+    # route "block": the shuffle from lane + d of one's own warp, same slot;
+    # the top d lanes: lane + d - 32 of the warp above, slot k; of warp 0,
+    # slot k + 1, for the last warp
+    warp = torch.arange(n) // 32
+    y = x[:, :, warp * 32 + (lane + d) % 32]
+    up = torch.where(warp + 1 < W, warp + 1, 0) * 32 + lane + d - 32
+    above = x[:, :, up.clamp(min=0)]
+    nxt = torch.cat([above[:, 1:], neg], dim=1)
+    above = torch.where((warp + 1 < W)[None, None, :], above, nxt)
+    return torch.where((lane + d >= 32)[None, None, :], above, y)
+
+
+def _emulate_grad(em, alpha, accept, skip, lens, score, g):
+    """``ctc_grad`` on ``grad_plan``'s layout, in float32 torch ops: route
+    "warp", the chain warp's lane l holding states l K + k (neighbours
+    from the lane's own slots or the lane above), the helper's posterior
+    from the beta each frame hands it; route "block", thread i of n = 32 W
+    holding states i + n k (neighbours from the lane above, the top lanes'
+    from the edge lanes of the warp above, or, in the last warp, from warp
+    0's next slot), the posterior inline.  Each frame the posterior, eb =
+    em + beta (NEG past S) and its skip mask, lse3 in the kernel's argument
+    order."""
+    B, T, S = em.shape
+    route, K, W, _ = lp.grad_plan(S)
+    n = 32 if route == "warp" else 32 * W
+    pad = K * n - S
+
+    def lay(x):  # [B, S] -> [B, K, n]: state k n + i, or (warp) l K + k
+        x = torch.nn.functional.pad(x, (0, pad), value=0.0)
+        return x.view(B, n, K).transpose(1, 2) if route == "warp" else x.view(B, K, n)
+
+    def unlay(x):  # the inverse, [B, K, n] -> [B, S]
+        x = x.transpose(1, 2) if route == "warp" else x
+        return x.reshape(B, -1)[:, :S]
+
+    inside = lay(torch.ones(B, S)) > 0
+    skp = lay((skip > 0.5).float()) > 0
+    be = torch.where(inside, lay(accept), torch.tensor(NEG))
+    grads = torch.zeros(B, T, S)
+    for t in reversed(range(T)):
+        live = (t < lens)[:, None]
+        post = torch.exp(torch.clamp(alpha[:, t] + unlay(be) - score[:, None], max=0.0))
+        grads[:, t] = torch.where(live, post * g[:, None], 0.0)
+        eb = torch.where(inside, lay(em[:, t]) + be, torch.tensor(NEG))
+        jm = torch.where(skp, eb, torch.tensor(NEG))
+        n1, n2 = _neighbours(eb, 1, route, W), _neighbours(jm, 2, route, W)
+        be = torch.where(live[:, :, None], lp._lse3(eb, n1, n2), be)
+    return grads
+
+
+def _grad_case(name):
+    """(em, alpha, accept, skip, lens, score, g) of a CTC lattice: the
+    JAX-parity case of this file, the golden table, the infeasible case,
+    and wider ones: a full warp on route "warp" (S=31), route "block" at 2,
+    3, 4, 9 and 13 warps (S=45, 89, 127, 257 and 401)."""
+    rng = np.random.RandomState(11)
+    if name == "jax_case":
+        logits = rng.randn(4, 16, 6).astype(np.float32)
+        tgts, lens = [[0, 1, 1, 2], [3], [], [2, 2, 2, 4, 0]], [16, 12, 9, 14]
+    elif name == "golden":
+        logits = rng.randn(1, 5, 6).astype(np.float32)
+        tgts, lens = [[0, 1, 2, 1, 0]], [5]
+    elif name == "infeasible":
+        logits = rng.randn(3, 6, 5).astype(np.float32)
+        tgts, lens = INFEASIBLE["targets"], INFEASIBLE["input_lengths"]
+    else:
+        L, T = {"S31": (15, 30), "S45": (22, 40), "S89": (44, 60), "S127": (63, 80),
+                "S257": (128, 150),
+                "S401": (200, 215)}[name]
+        logits = rng.randn(2, T, 12).astype(np.float32)
+        tgts = [list(rng.randint(0, 11, L)), list(rng.randint(0, 11, L // 2))]
+        tgts[0][1::3] = tgts[0][0::3][:len(tgts[0][1::3])]  # repeats: skips disallowed
+        lens = [T, T - 9]
+    N = logits.shape[2]
+    tg, tl = pad_targets(tgts)
+    labels, skip_ok = lattice.ctc_state_tables(tg, N - 1)
+    em = gathers.gather_channels_plain(torch.log_softmax(torch.from_numpy(logits), 2),
+                                       labels.to(torch.int32))
+    start, accept = lattice.ctc_start_accept(tl, em.shape[2])
+    skip = skip_ok.to(torch.float32)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    alpha = lp.ctc_alpha_plain(em, start, skip, lens)
+    score = lp._final_score(alpha[:, -1], accept)
+    return em, alpha, accept, skip, lens, score, -1.0 / tl.to(torch.float32).clamp(min=1)
+
+
+@pytest.mark.parametrize("name", ["jax_case", "golden", "infeasible", "S31", "S45", "S89",
+                                  "S127", "S257", "S401"])
+def test_grad_layout_emulation_matches_plain(name):
+    """The backward kernel's layout, emulated, is bitwise
+    ``ctc_grad_plain``: infeasible samples and frames past the length
+    included."""
+    args = _grad_case(name)
+    S = args[0].shape[2]
+    assert lp.grad_plan(S)[0] == ("block" if S > 32 else "warp")
+    want = lp.ctc_grad_plain(*args)
+    got = _emulate_grad(*args)
+    assert torch.equal(got, want)
+    assert (want != 0).any()
+
+
+def test_profile_copies_match_the_kernel_source():
+    """Each copy ``scripts/profile_ctc_grad.py`` builds of ``csrc/ctc.cu``
+    (a part removed or changed, or ``clock64`` marks added) still finds
+    every piece of source it changes exactly once, so the script runs on
+    the card as it is."""
+    from gtn_applications_tpu_torch.scripts import profile_ctc_grad as prof
+
+    for name, subs in dict(prof.VARIANTS, clocks=prof.CLOCKS).items():
+        src = prof.patched(name, subs)
+        assert all(new in src for _, new in subs), name

@@ -39,6 +39,8 @@ MODULES = [
     "gtn_applications_tpu_torch.datasets",
     "gtn_applications_tpu_torch.datasets.synthetic_long",
     "gtn_applications_tpu_torch.scripts.build_transitions",
+    "gtn_applications_tpu_torch.scripts.compare_ctc_viterbi",
+    "gtn_applications_tpu_torch.scripts.profile_ctc_grad",
     "gtn_applications_tpu_torch.utils",
     "gtn_applications_tpu_torch.train",
     "gtn_applications_tpu_torch.test",

@@ -85,9 +85,14 @@ def test_transducer_cuda_wrappers_refuse_bad_inputs(cuda_device):
         viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src, src, w, start[:3], lens)
     with pytest.raises(ValueError):
         viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src.long(), src, w, start, lens)
-    slots = torch.zeros(B, T, S, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        viterbi_scan_pallas.viterbi_backtrace_cuda(slots, vec, start, src, src[:1])
+    with pytest.raises(ValueError):  # the decode's accept of the wrong size
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src, src, w, start, lens,
+                                                  accept=start[:3])
+    with pytest.raises(ValueError):  # a walk without accept
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src, src, w, start, lens, walk="shared")
+    with pytest.raises(ValueError, match="walk"):
+        viterbi_scan_pallas.viterbi_scan_fwd_cuda(em, src, src, w, start, lens, accept=start,
+                                                  walk="texture")
 
 
 @pytest.mark.cuda
@@ -244,6 +249,56 @@ def test_viterbi_scan_routes_match_plain_and_refuse(cuda_device):
     wide = torch.zeros(1, 1, 2**16, device=cuda_device)
     with pytest.raises(ValueError, match="2\\^16"):
         viterbi_scan_pallas.viterbi_scan_fwd_cuda(wide, src_b, lab_b, w_b, st, lens[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "long"])
+def test_viterbi_decode_routes_match_plain(cuda_device, case):
+    """The decode (scan and walk in one launch) by each route and each walk
+    that fits beside it, against the plain scan and backtrace
+    (``chip_smoke.hold_viterbi_kernels``): slots and labels bitwise, final
+    alphas and scores within 1e-6; "ties": integer weights and emissions
+    (exact ties in the scan and the argmax), at one arc a lane (hub
+    chunks) too; "long": T = 720, where the walk words fit only in the
+    global scratch (walk "chunked")."""
+    import chip_smoke
+
+    vsp = viterbi_scan_pallas
+    if case == "ties":
+        inputs = chip_smoke.viterbi_headline_inputs(torch, cuda_device, b=6, t=60, seed=8,
+                                                    integer=True)
+        S, C = inputs[4].shape[0], inputs[0].shape[2]
+        for cap in (None, 1):
+            packed = vsp.pack_buckets(*inputs[1:4], cap).to(cuda_device)
+            routes = [r for r in vsp.ROUTES if vsp.route_fits(packed, S, C, r)]
+            chip_smoke.hold_viterbi_kernels(torch, *inputs, (case, cap), routes=routes,
+                                            packed=packed, need_ties=True, walks=vsp.WALKS)
+        return
+    inputs = chip_smoke.viterbi_headline_inputs(torch, cuda_device, b=3, t=720)
+    packed = vsp.pack_buckets(*inputs[1:4]).to(cuda_device)
+    S = inputs[4].shape[0]
+    route = vsp.scan_route(packed, S, chip_smoke.N, "chunked", 720)
+    assert vsp.walk_route(packed, S, 720, chip_smoke.N, route) == "chunked"
+    chip_smoke.hold_viterbi_kernels(torch, *inputs, case, packed=packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,l,infeasible", [
+    (4, 20, 1, False), (4, 40, 15, False), (4, 60, 22, False), (6, 120, 44, False),
+    (6, 120, 44, True),
+    (4, 150, 63, False), (3, 300, 127, False), (3, 300, 128, False), (2, 500, 200, False),
+    (2, 900, 700, False),
+])
+def test_ctc_grad_routes_match_plain(cuda_device, b, t, l, infeasible):
+    """The CTC backward by route "warp" (S = 3 and 31) and "block" (S = 45,
+    89 with and without an infeasible sample, 127, 255 and 257 at 2-9
+    warps, 401 at 13, 1,401 at 32 with two states a thread) against
+    ``ctc_grad_plain`` within 1e-5 (``chip_smoke.hold_ctc_kernels``, the
+    forward with it)."""
+    import chip_smoke
+
+    args = chip_smoke.ctc_case(torch, cuda_device, b, t, l, seed=l, infeasible=infeasible)
+    chip_smoke.hold_ctc_kernels(torch, *args, (b, t, l, infeasible))
 
 
 def _sparse_factored_case(rng, b, t, s, n, density, dev):

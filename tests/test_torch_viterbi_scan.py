@@ -23,7 +23,12 @@ ragged lengths, T = 1 and an infeasible sample.
 
 The kernels run only on the card, where ``chip_smoke.py`` holds them
 against these plain versions; here that check is itself tested, with the
-plain versions standing in for the kernels.
+plain versions standing in for the kernels.  The kernel's schedule is
+emulated in float32 (its lanes, merges and hub parts, and the decode's
+walk words and walk, from the block's argmax to one word a frame), held
+bitwise to the plain scan and ``viterbi_backtrace_plain``; its host plans
+(routes, emission rows and the walk's route) are checked at the decode
+headline, the backoff trigram path's decode table and T = 608.
 """
 
 import dataclasses
@@ -239,30 +244,43 @@ def test_step_decode_matches_jax(name, T):
         assert torch.equal(routed, labels)
 
 
-@pytest.mark.parametrize("broken", [False, True])
+@pytest.mark.parametrize("broken", [False, True, "labels"])
 def test_smoke_viterbi_check_holds_slots_bitwise(monkeypatch, broken):
-    """``chip_smoke.py``'s check of the Viterbi kernels with the plain
-    versions standing in: it passes them as they are and fails one slot
-    moved to another bucket."""
+    """``chip_smoke.py``'s check of the Viterbi kernel with the plain
+    versions standing in (the decode: the plain scan and backtrace): it
+    passes them as they are, and fails one slot moved to another bucket or
+    one decoded label changed."""
     import chip_smoke
 
-    def fwd(*args, packed=None, route=None):
-        slots, final = vsp.viterbi_scan_fwd_plain(*args)
-        if broken:
-            live = (slots < vsp.DEAD).nonzero()
-            slots[tuple(live[len(live) // 2])] += 1
-        return slots, final
+    calls = []
+
+    def fwd(em, src_b, lab_b, w_b, start, lens, packed=None, route=None, accept=None,
+            walk=None):
+        calls.append((route, walk, accept is not None))
+        slots, final = vsp.viterbi_scan_fwd_plain(em, src_b, lab_b, w_b, start, lens)
+        if accept is None:
+            if broken is True:
+                live = (slots < vsp.DEAD).nonzero()
+                slots[tuple(live[len(live) // 2])] += 1
+            return slots, final
+        labels, score = vsp.viterbi_backtrace_plain(slots, final, accept, src_b, lab_b)
+        if broken == "labels":
+            labels[0, 0] += 1
+        return slots, final, labels, score
 
     monkeypatch.setattr(vsp, "viterbi_scan_fwd_cuda", fwd)
-    monkeypatch.setattr(vsp, "viterbi_backtrace_cuda", vsp.viterbi_backtrace_plain)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     inputs = chip_smoke.viterbi_headline_inputs(torch, "cpu", b=4, t=30, n=6)
     if broken:
-        with pytest.raises(AssertionError, match="slots"):
+        with pytest.raises(AssertionError, match="slots" if broken is True else "labels"):
             chip_smoke.hold_viterbi_kernels(torch, *inputs, "test")
     else:
-        assert chip_smoke.hold_viterbi_kernels(torch, *inputs, "test") == {
+        assert chip_smoke.hold_viterbi_kernels(torch, *inputs, "test", routes=vsp.ROUTES,
+                                               walks=vsp.WALKS) == {
             "viterbi_scan_fwd": 0.0, "viterbi_backtrace": 0.0}
+        # the scan alone by each route, the decode by each walk beside each
+        assert calls == [(r, w, a) for r in vsp.ROUTES
+                         for w, a in [(None, False)] + [(w, True) for w in vsp.WALKS]]
 
 
 # ---------------------------------------------------------------------------
@@ -384,12 +402,16 @@ def _merge(x, y, ties):
 def _emulate_scan(packed, em, lens, start, S):
     """``viterbi_scan_fwd_kernel`` on ``packed``, in float32: each slot's
     lanes (a strict > over the kernel's rounds, a round past a lane's arcs
-    at weight -inf), the xor shuffles of each group, the hubs' parts merged
-    in order after the barrier, the states of no arcs NEG.  (slots,
-    final, ties across lanes, ties across a hub's chunks)."""
+    at weight -inf, the packed word of the lane's best arc), the xor
+    shuffles of each group and the word from the lane that holds the
+    winning slot (d mod g), the hubs' parts merged in order after the
+    barrier, the states of no arcs NEG.  (slots, final, walk words, ties
+    across lanes, ties across a hub's chunks); a DEAD slot's word is its
+    state | DEAD_LABEL << 16, frames past the length have none (-1)."""
     f32 = np.float32
     arcs = packed.arcs.numpy()
-    src, lab = arcs[:, 0] & 0xFFFF, (arcs[:, 0].view(np.uint32) >> 16).astype(np.int64)
+    packed_w = arcs[:, 0].view(np.uint32)
+    src, lab = arcs[:, 0] & 0xFFFF, (packed_w >> 16).astype(np.int64)
     w = arcs[:, 1].view(np.float32)
     words = packed.sched.numpy()
     lanes = _lanes_of(words, packed.A)
@@ -397,6 +419,7 @@ def _emulate_scan(packed, em, lens, start, S):
     rounds = vsp.LANE_ARCS
     B, T, _ = em.shape
     slots = np.full((B, T, S), vsp.DEAD, np.int32)
+    walk = np.full((B, T, S), -1, np.int64)
     final = np.empty((B, S), np.float32)
     lane_ties, hub_ties = [0], [0]
     for b in range(B):
@@ -405,43 +428,91 @@ def _emulate_scan(packed, em, lens, start, S):
             new = np.full(S, np.nan, np.float32)
             parts = {}
 
-            def emit(s, v, d):
+            def emit(s, v, d, word):
                 assert np.isnan(new[s])  # every state once a frame
                 new[s] = max(v, f32(NEG))
-                slots[b, t, s] = d if new[s] > f32(NEG) else vsp.DEAD  # noqa: B023
+                live = new[s] > f32(NEG)
+                slots[b, t, s] = d if live else vsp.DEAD  # noqa: B023
+                walk[b, t, s] = word if live else s | vsp.DEAD_LABEL << 16  # noqa: B023
 
             for g, slot_lanes in lanes:
-                vals = []
+                vals, own = [], []
                 for key, pos, nl, d in slot_lanes:
-                    best, bj = f32(-np.inf), rounds
+                    best, bj, word = f32(-np.inf), rounds, 0
                     for j in range(rounds):
                         p = pos + j * g if j < nl else pos
                         wj = w[p] if j < nl else f32(-np.inf)
                         c = f32(f32(alpha[src[p]] + wj) + em[b, t, lab[p]])
                         if c > best:
-                            best, bj = c, j
+                            best, bj, word = c, j, int(packed_w[p])
                     vals.append((best, d + bj * g if bj < rounds else INT_MAX))
+                    own.append(word)
                 off = g // 2
                 while off:
                     vals = [_merge(vals[i], vals[i ^ off], lane_ties) for i in range(32)]
                     off //= 2
                 for i in range(0, 32, g):
                     key = slot_lanes[i][0]
+                    word = own[i | (vals[i][1] & (g - 1))]
                     if key >= 0:
-                        emit(key, *vals[i])
+                        emit(key, *vals[i], word)
                     elif key != NO_TASK:
-                        parts[-1 - key] = vals[i]
+                        parts[-1 - key] = vals[i] + (word,)
             for s in empty:
-                emit(s, f32(-np.inf), INT_MAX)
+                emit(s, f32(-np.inf), INT_MAX, 0)
             for s, p0, n in hubs:
-                m = (f32(-np.inf), INT_MAX)
+                m = (f32(-np.inf), INT_MAX, 0)
                 for p in range(p0, p0 + n):
                     m = _merge(m, parts[p], hub_ties)
                 emit(s, *m)
             assert not np.isnan(new).any()
             alpha = new
         final[b] = alpha
-    return slots, final, lane_ties[0], hub_ties[0]
+    return slots, final, walk, lane_ties[0], hub_ties[0]
+
+
+def _emulate_walk(walk, final, accept, lens, threads):
+    """The kernel's walk tail, in float32: the first argmax of final +
+    accept by ``threads`` threads (each a strict > over its states
+    s = thread, thread + threads, ...), their warps' xor merges and the
+    block's merge under "greater, else lower state"; then from the last
+    live frame down one word a frame (label the high half, -1 for
+    DEAD_LABEL, the next state the low half), -1 past the length and on a
+    sample whose score is <= NEG / 2.  (labels, score, argmax ties, DEAD
+    words walked)."""
+    B, T, S = walk.shape
+    labels = np.full((B, T), -1, np.int32)
+    score = np.empty(B, np.float32)
+    ties, dead = [0], 0
+    for b in range(B):
+        x = (final[b] + accept).astype(np.float32)
+        own = []
+        for i in range(threads):
+            v, arg = np.float32(-np.inf), INT_MAX
+            for s in range(i, S, threads):
+                if x[s] > v:
+                    v, arg = x[s], s
+            own.append((v, arg))
+        warps = []
+        for w0 in range(0, threads, 32):
+            vals = own[w0:w0 + 32]
+            off = 16
+            while off:
+                vals = [_merge(vals[i], vals[i ^ off], ties) for i in range(32)]
+                off //= 2
+            warps.append(vals[0])
+        best = (np.float32(-np.inf), INT_MAX)
+        for v in warps:
+            best = _merge(best, v, ties)
+        score[b], state = best
+        if best[0] <= np.float32(NEG / 2):
+            continue
+        for t in reversed(range(min(max(int(lens[b]), 0), T))):
+            word = int(walk[b, t, state])
+            label, state = word >> 16, word & 0xFFFF
+            dead += label == vsp.DEAD_LABEL
+            labels[b, t] = -1 if label == vsp.DEAD_LABEL else label
+    return labels, score, ties[0], dead
 
 
 def _tie_table(S=24, seed=40):
@@ -475,7 +546,8 @@ def test_lane_schedule_emulation_matches_scan_plain(cap):
     B, T, S = 3, 6, plan.S
     em = rng.randint(-1, 2, (B, T, 4)).astype(np.float32)
     lens = np.asarray([T, T - 2, 0], np.int32)
-    slots, final, lane_ties, hub_ties = _emulate_scan(packed, em, lens, plan.start.numpy(), S)
+    slots, final, _, lane_ties, hub_ties = _emulate_scan(packed, em, lens, plan.start.numpy(),
+                                                        S)
     slots_p, final_p = vsp.viterbi_scan_fwd_plain(
         torch.from_numpy(em), plan.src_bucket, plan.label_bucket, plan.w_bucket, plan.start,
         torch.from_numpy(lens))
@@ -515,3 +587,123 @@ def test_routes():
         vsp.scan_route(packed, 242, 10**5)
     with pytest.raises(ValueError, match="route"):
         vsp.route_fits(packed, 242, 240, "texture")
+
+
+@pytest.mark.parametrize("cap", [None, 2])
+def test_walk_emulation_matches_backtrace_plain(cap):
+    """The decode's walk on the kernel's walk words, emulated (the words
+    from the lanes' winning arcs, the block's argmax with ties across
+    threads and warps, one word a frame), is bitwise
+    ``viterbi_backtrace_plain`` on the plain scan's slots: integer inputs
+    with exact ties (at cap 2 across a hub's chunks), ragged lengths, a
+    sample of length 0 and one with an all-NEG frame (infeasible)."""
+    plan = _tie_table()
+    packed = vsp.pack_buckets(plan.src_bucket, plan.label_bucket, plan.w_bucket, cap)
+    rng = np.random.RandomState(42)
+    B, T, S = 4, 7, plan.S
+    em = rng.randint(-1, 2, (B, T, 4)).astype(np.float32)
+    em[3, 2] = NEG
+    lens = np.asarray([T, T - 3, 0, T], np.int32)
+    accept = plan.accept.numpy()
+    slots, final, walk, _, _ = _emulate_scan(packed, em, lens, plan.start.numpy(), S)
+    threads = vsp.WARP * max(1, min(packed.slots, vsp.MAX_WARPS))
+    labels, score, ties, _ = _emulate_walk(walk, final, accept, lens, threads)
+    slots_p, final_p = vsp.viterbi_scan_fwd_plain(
+        torch.from_numpy(em), plan.src_bucket, plan.label_bucket, plan.w_bucket, plan.start,
+        torch.from_numpy(lens))
+    np.testing.assert_array_equal(slots, slots_p.numpy())
+    labels_p, score_p = vsp.viterbi_backtrace_plain(slots_p, final_p, plan.accept,
+                                                    plan.src_bucket, plan.label_bucket)
+    np.testing.assert_array_equal(labels, labels_p.numpy())
+    np.testing.assert_array_equal(score, score_p.numpy())
+    assert ties > 0 and (labels[:2] >= 0).any()
+    assert (labels[2] == -1).all() and (labels[3] == -1).all() and score[3] <= NEG / 2
+
+
+def test_walk_takes_dead_words_as_the_plain_backtrace_takes_dead_slots():
+    """A DEAD slot on the walked path (reachable only with weights past
+    NEG's reach; here written into the slots) gives label -1 and keeps the
+    state, in the emulated walk over its word (state | DEAD_LABEL << 16)
+    as in ``viterbi_backtrace_plain``."""
+    plan = _tie_table()
+    rng = np.random.RandomState(43)
+    B, T, S = 2, 6, plan.S
+    em = torch.from_numpy(rng.randint(-1, 2, (B, T, 4)).astype(np.float32))
+    lens = torch.tensor([T, T - 1], dtype=torch.int32)
+    slots, final = vsp.viterbi_scan_fwd_plain(em, plan.src_bucket, plan.label_bucket,
+                                              plan.w_bucket, plan.start, lens)
+    labels, _ = vsp.viterbi_backtrace_plain(slots, final, plan.accept, plan.src_bucket,
+                                            plan.label_bucket)
+    # the walked states, then a DEAD slot at frame 3 of each sample's path
+    state = torch.max(final + plan.accept, dim=1).indices
+    for t in reversed(range(T)):
+        if t == 3:
+            slots[torch.arange(B), t, state] = vsp.DEAD
+            break
+        d = slots[torch.arange(B), t, state]
+        keep = d < vsp.DEAD
+        state = torch.where(keep, plan.src_bucket.long()[d.clamp(max=plan.D - 1).long(), state],
+                            state)
+    src, lab = plan.src_bucket.long(), plan.label_bucket.long()
+    d = slots.long().clamp(max=plan.D - 1)
+    states = torch.arange(S)[None, None, :].expand_as(d)
+    walk = torch.where(slots < vsp.DEAD, src[d, states] | lab[d, states] << 16,
+                       states | vsp.DEAD_LABEL << 16).numpy()
+    threads = vsp.WARP
+    got, _, _, dead = _emulate_walk(walk, final.numpy(), plan.accept.numpy(), lens.numpy(),
+                                    threads)
+    want, _ = vsp.viterbi_backtrace_plain(slots, final, plan.accept, plan.src_bucket,
+                                          plan.label_bucket)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert dead >= B and (want[:, 3] == -1).all() and not torch.equal(want, labels)
+
+
+def test_walk_routes():
+    """The decode's walk route beside the scan's: the headline (S=82,
+    T=250, C=80) keeps its words in shared memory with every emission row
+    staged; the backoff trigram path's decode table (S=95, 1,932 arcs,
+    C=12) at T=300 too; at T=608, its longest lines, the words go to the
+    global scratch and are walked by chunks (walk "chunked"); at 10^5
+    frames nothing fits and the route raises; the walk's shared memory is
+    what the kernel's layout takes."""
+    import chip_smoke
+    from gtn_applications_tpu_torch import datasets, utils
+
+    _, src_b, lab_b, w_b, *_ = chip_smoke.viterbi_headline_inputs(torch, "cpu", b=1, t=2)
+    head = vsp.pack_buckets(src_b, lab_b, w_b)
+    config = chip_smoke.main_path_config("transducer_backoff")
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
+    plan = vsp.build_plan(crit._decode_table(crit.params))
+    trigram = plan.packed("cpu")
+    assert (plan.S, trigram.A, crit.num_channels) == (95, 1932, 12)
+    got = {}
+    for name, packed, S, C, T in (("headline", head, 82, 80, 250),
+                                  ("trigram", trigram, 95, 12, 300),
+                                  ("trigram_T608", trigram, 95, 12, 608)):
+        route = vsp.scan_route(packed, S, C, "chunked", T)
+        walk = vsp.walk_route(packed, S, T, C, route)
+        got[name] = (route, walk, vsp.scan_rows(packed, S, T, C, route, walk))
+        assert vsp.walk_words(S, T, "shared") == -(-T * S // 4) * 4 + -(-T // 4) * 4 + 64
+    assert got == {"headline": ("registers", "shared", 250),
+                   "trigram": ("registers", "shared", 300),
+                   "trigram_T608": ("registers", "chunked", 608)}
+    assert vsp.walk_words(95, 608, "chunked") == 2 * vsp.WALK_CHUNK * 96 + 608 + 64
+    assert vsp.walk_words(95, 608, None) == 0
+    with pytest.raises(ValueError, match="fit"):
+        vsp.scan_route(trigram, 95, 12, "chunked", 10**5)
+    with pytest.raises(ValueError, match="walk"):
+        vsp.route_fits(trigram, 95, 12, "registers", "texture", 10)
+
+
+def test_profile_copies_match_the_kernel_source():
+    """Each copy ``scripts/profile_viterbi.py`` builds of ``csrc/viterbi.cu``
+    (a part of the scan's frame removed, or ``clock64`` marks added) still
+    finds every piece of source it changes exactly once."""
+    from gtn_applications_tpu_torch.scripts import profile_viterbi as prof
+
+    src = prof.SOURCE.read_text()
+    for name, subs in dict(prof.VARIANTS, clocks=prof.CLOCKS).items():
+        for old, _ in subs:
+            assert src.count(old) == 1, (name, old)
