@@ -20,12 +20,16 @@ prints no result):
    frames), at L=11 (S=23, the backward's route "warp") and at wider
    shapes (``CTC_WIDE``: S=241 at B=8, T=300, and S=401 at B=8, T=500, 8
    and 13 warps a sample): alpha and score within atol 1e-3 + rtol
-   1e-5, grad within 1e-5, each case's route logged; the headline's loss
+   1e-5, grad within 1e-5, each case's routes logged (the forward's
+   ``alpha_plan``: one warp at S=23, 3, 8 and 13 warps wider; the
+   backward's ``grad_plan``); the headline's loss
    and logit gradients against F.ctc_loss (same 1/len-then-mean
    reduction) within 1e-3;
 5. the dense backtrace kernel against its plain walk at the ASG bench
-   headline (B=32, T=250, C=80, backpointers of the ASG Viterbi scan) and
-   at B=8, T=1000 (a table past shared memory): paths bitwise equal;
+   headline (B=32, T=250, C=80, backpointers of the ASG Viterbi scan), at
+   B=8, T=1000 (a table past shared memory, walked through the same ring
+   of chunks) and at odd C (B=8, T=250, C=81: odd samples start
+   misaligned): paths bitwise equal, each case's chunk plan logged;
 6. the dense-scan kernels against their plain versions at the STC bench
    headline (B=32, T=250, L=30, N=80, so S=96) and at S=304 (B=8, T=128,
    L=100), on STC tables and on a dense random case of the same shape in
@@ -149,8 +153,10 @@ prints no result):
    host-clock median of 20 full train
    steps of each path and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 10's T=300 case),
-   the CTC backward also at ``CTC_WIDE`` with its kernels a call
-   (torch.profiler), the whole-scan Viterbi's scan alone and its decode
+   the CTC pair also at ``CTC_WIDE`` (with chain bounds) and the
+   backward's kernels a call (torch.profiler), the dense backtrace also
+   at B=8, T=1000 and at odd C (chain bounds of T-1 walk frames), the
+   whole-scan Viterbi's scan alone and its decode
    in turns (the walk's share is their difference) with the kernels a
    decode (torch.profiler),
    the latency of one frame of the CTC recursion's dependent chain
@@ -345,9 +351,11 @@ def hold_ctc_kernels(torch, em, start, accept, skip, il, g, what):
     if not grad_err <= 1e-5:
         raise AssertionError(f"ctc grad max|d|={grad_err} > 1e-5 at {what}")
     route, k, warps, ring = lp_mod.grad_plan(em.shape[2])
+    f_route, f_k, f_warps, f_ring = lp_mod.alpha_plan(em.shape[2])
     log(f"ctc {what}: alpha max|d| (live states) {alpha_err:.3g}, score max|d| "
-        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g} (route {route}, "
-        f"K={k}, {warps} warps a sample, a ring of {ring} frames; "
+        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g} (forward route "
+        f"{f_route}, K={f_k}, {f_warps} warps a sample, a ring of {f_ring} frames; backward "
+        f"route {route}, K={k}, {warps} warps a sample, a ring of {ring} frames; "
         f"{int((s_p <= NEG / 2).sum())} infeasible samples)")
     return {"ctc_alpha": alpha_err, "ctc_grad": grad_err}, gr_k
 
@@ -475,7 +483,9 @@ def hold_dense_bt(torch, bp, last, what):
     torch.cuda.synchronize()
     if not torch.equal(path_k, path_p):
         raise AssertionError(f"dense_backtrace differs from its plain walk at {what}")
-    log(f"dense_bt {what}: paths bitwise equal")
+    frames, ring, chunks = vsp.dense_bt_plan(bp.shape[1] + 1, bp.shape[2])
+    log(f"dense_bt {what}: paths bitwise equal (chunks of {frames} frames, a ring of {ring}, "
+        f"{chunks} chunks a sample)")
     return {"dense_bt": 0.0}
 
 
@@ -493,9 +503,14 @@ def asg_headline_inputs(torch, dev, b=B, t=T, c=ASG_C, seed=1):
     return bp.contiguous(), last.contiguous()
 
 
+# the dense backtrace's long and odd-C cases: B, T, C (odd C: (T-1) C is
+# odd, so every odd sample starts misaligned)
+DENSE_BT_MORE = ((8, 1000, ASG_C), (8, T, ASG_C + 1))
+
+
 def phase_dense_bt(torch, dev):
     errs = {}
-    for shape in [(B, T, ASG_C), (8, 1000, ASG_C)]:
+    for shape in ((B, T, ASG_C),) + DENSE_BT_MORE:
         bp, last = asg_headline_inputs(torch, dev, *shape)
         merge_errs(errs, hold_dense_bt(torch, bp, last, shape))
     return errs
@@ -2995,19 +3010,28 @@ def phase_times(torch, dev, paths):
         torch, lambda: lp_mod.ctc_grad_plain(em, alpha, accept, skip, il, score, g),
         runs=20)
     t["ctc_grad_route"] = lp_mod.grad_plan(S)
-    # the backward at its wider shapes (S = 241 and 401, route "block")
-    wide = {}
+    t["ctc_alpha_route"] = lp_mod.alpha_plan(S)
+    # the pair at its wider shapes (S = 241 and 401, route "block")
+    wide, wide_a = {}, {}
     for i, (b, tt, l) in enumerate(CTC_WIDE):
         em_w, st_w, acc_w, skip_w, il_w, g_w = ctc_case(torch, dev, b, tt, l, seed=2 + i)
         alpha_w = lp_mod.ctc_alpha_cuda(em_w, st_w, skip_w, il_w)
         args = (em_w, alpha_w, acc_w, skip_w, il_w, lp_mod._final_score(alpha_w[:, -1], acc_w),
                 g_w)
+        a_args = (em_w, st_w, skip_w, il_w)
         wide[f"S{em_w.shape[2]}"] = {
             "shape": [b, tt, em_w.shape[2]], "max_len": int(il_w.max()),
             "route": lp_mod.grad_plan(em_w.shape[2]),
             "ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_cuda(*a)),
             "plain_ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_plain(*a), runs=10)}
+        wide_a[f"S{em_w.shape[2]}"] = {
+            "shape": [b, tt, em_w.shape[2]], "max_len": int(il_w.max()),
+            "route": lp_mod.alpha_plan(em_w.shape[2]),
+            "ms": gpu_median_ms(torch, lambda a=a_args: lp_mod.ctc_alpha_cuda(*a)),
+            "plain_ms": gpu_median_ms(torch, lambda a=a_args: lp_mod.ctc_alpha_plain(*a),
+                                      runs=10)}
     t["ctc_grad_wide"] = wide
+    t["ctc_alpha_wide"] = wide_a
     # the kernels one CTC backward launches (torch.profiler)
     t["ctc_grad_kernel_launches"] = kernel_launches(
         torch, lambda: lp_mod.ctc_grad_cuda(em, alpha, accept, skip, il, score, g), "ctc_grad")
@@ -3040,6 +3064,17 @@ def phase_times(torch, dev, paths):
     t["dense_bt"] = gpu_median_ms(torch, lambda: vsp.dense_backtrace_cuda(bp, last))
     t["dense_bt_plain"] = gpu_median_ms(
         torch, lambda: vsp.dense_backtrace_plain(bp, last), runs=20)
+    t["dense_bt_plan"] = vsp.dense_bt_plan(T, ASG_C)
+    # and at its long and odd-C cases
+    more = {}
+    for shape in DENSE_BT_MORE:
+        bp_m, last_m = asg_headline_inputs(torch, dev, *shape)
+        more["x".join(map(str, shape))] = {
+            "shape": list(shape), "plan": vsp.dense_bt_plan(shape[1], shape[2]),
+            "ms": gpu_median_ms(torch, lambda a=(bp_m, last_m): vsp.dense_backtrace_cuda(*a)),
+            "plain_ms": gpu_median_ms(
+                torch, lambda a=(bp_m, last_m): vsp.dense_backtrace_plain(*a), runs=10)}
+    t["dense_bt_more"] = more
 
     # the whole-scan Viterbi at the decode headline: the scan alone and the
     # decode (scan and walk in one launch) in turns, scan, decode, decode,
@@ -3134,8 +3169,10 @@ def phase_times(torch, dev, paths):
     chain["viterbi_scan_fwd"] = int(vil.max()) * t["viterbi_chain_frame_us"] * 1e-3
     chain["viterbi_backtrace"] = int(vil.max()) * t["walk_frame_us"] * 1e-3
     chain["dense_bt"] = (bp.shape[1]) * t["walk_frame_us"] * 1e-3
-    for key, row in t["ctc_grad_wide"].items():
+    for row in list(t["ctc_grad_wide"].values()) + list(t["ctc_alpha_wide"].values()):
         row["chain_bound_ms"] = (row["max_len"] - 1) * t["chain_frame_us"] * 1e-3
+    for row in t["dense_bt_more"].values():
+        row["chain_bound_ms"] = (row["shape"][1] - 1) * t["walk_frame_us"] * 1e-3
     t["shape"] = {"B": B, "T": T, "L": L, "N": N, "S": S,
                   "asg_C": ASG_C, "stc_L": STC_L,
 
@@ -3253,11 +3290,14 @@ def run(device="cuda"):
             kernels[-1]["max_rel_err"] = errs[f"{name}_rel"]
     # the sparse tier's decode on the whole-scan Viterbi's headline table, a
     # yardstick for it (not a route of that table); the decode's whole
-    # launch beside the walk's share; the CTC backward's wider routes
+    # launch beside the walk's share; the CTC pair's wider routes, the dense
+    # backtrace's long and odd-C cases
     row = {k["name"]: k for k in kernels}
     row["viterbi_scan_fwd"]["seg_max_scan_ms"] = times["viterbi_yardstick_seg_max_scan"]
     row["viterbi_backtrace"]["decode_ms"] = times["viterbi_decode"]
     row["ctc_grad"]["wide"] = times["ctc_grad_wide"]
+    row["ctc_alpha"]["wide"] = times["ctc_alpha_wide"]
+    row["dense_bt"]["more"] = times["dense_bt_more"]
     print(json.dumps({"timing": timing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

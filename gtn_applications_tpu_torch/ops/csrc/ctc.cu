@@ -25,8 +25,24 @@
 // t >= len are a plain copy (forward) or zeros (backward), so the dependent
 // chain is max(len) long.
 //
-// ctc_alpha: one block a sample, the state double-buffered in shared
-// memory, one __syncthreads() a step.
+// ctc_alpha: route "block" of ctc_grad below, mirrored (block_plan gives its
+// layout; ops/lattice_pallas.py alpha_plan mirrors it): W = min(32, ceil(S / 32)) warps a sample,
+// thread i holding states i + 32 W k, K = ceil(S / 32 W) (16 past 8), alpha
+// and the skip flags (a bit mask) in registers.  alpha[s - 1] and
+// alpha[s - 2] come from the lanes 1 and 2 below by __shfl_up_sync; a
+// warp's lanes 0 and 1 take the warp below's lanes 30 and 31 through
+// shared memory double-buffered by frame parity (warp 0 the last warp's of
+// the slot below, NEG for slot 0): one __syncthreads() a frame.  With one
+// warp (S <= 32, route "warp") the rotation by shuffle does it all and the
+// frames have no barrier.  The skip mask sits on the destination, so the
+// exchange passes raw alpha.  The em rows pass through a ring of
+// kBlockRing frames filled by cp.async and are read into registers two
+// frames ahead, frames in pairs as one block of code: frames past the last
+// are computed and dropped (their copies read a clamped frame), each live
+// frame's row stored fire-and-forget, the frozen tail written from
+// registers after the frames.  lse3's operands and the add of em keep the
+// order of the one-block-a-sample kernel this replaced, so alpha is the
+// same bit for bit.
 //
 // ctc_grad: each frame is one block of code (no branch: frames past the
 // last are computed and dropped, stores predicated), so that the
@@ -73,52 +89,6 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
 
 __device__ __forceinline__ int live_steps(int len, int T) {
   return len < 1 ? 1 : (len < T ? len : T);
-}
-
-__global__ void ctc_alpha_kernel(const float* __restrict__ em,
-                                 const float* __restrict__ start,
-                                 const float* __restrict__ skip,
-                                 const int* __restrict__ lens,
-                                 float* __restrict__ alpha, int T, int S) {
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + S;
-  float* skp = smem + 2 * S;
-  const int b = blockIdx.x;
-  const long base = static_cast<long>(b) * T * S;
-  const float* em_b = em + base;
-  float* al_b = alpha + base;
-  const int t_live = live_steps(lens[b], T);
-
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const float v = start[static_cast<long>(b) * S + s] + em_b[s];
-    cur[s] = v;
-    al_b[s] = v;
-    skp[s] = skip[static_cast<long>(b) * S + s];
-  }
-  __syncthreads();
-
-  for (int t = 1; t < t_live; ++t) {
-    const float* em_t = em_b + static_cast<long>(t) * S;
-    float* al_t = al_b + static_cast<long>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const float stay = cur[s];
-      const float prev = s >= 1 ? cur[s - 1] : kNeg;
-      const float jump = (s >= 2 && skp[s] > 0.5f) ? cur[s - 2] : kNeg;
-      const float v = em_t[s] + lse3(stay, prev, jump);
-      nxt[s] = v;
-      al_t[s] = v;
-    }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  // frozen tail: alpha keeps its value at t = len - 1
-  for (int t = t_live; t < T; ++t) {
-    float* al_t = al_b + static_cast<long>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) al_t[s] = cur[s];
-  }
 }
 
 // The exchange of the chain warp, whose lane l holds states l K + k: the
@@ -193,6 +163,131 @@ __device__ __forceinline__ void fetch_row(float* dst, const float* row, int S, i
   for (int i = 0; i < K; ++i) {
     const int j = kConsecutive ? tid * K + i : tid + i * n;
     __pipeline_memcpy_async(dst + j, row + min(j, S - 1), sizeof(float));
+  }
+}
+
+// ctc_alpha (see the header): W warps a sample, thread i holding states
+// i + 32 W k; em through a ring of kBlockRing frames (kRinged) or read from
+// global memory (rows past the ring's shared memory); kOneWarp: W = 1, the
+// exchange all by shuffle.
+template <int K, bool kRinged, bool kOneWarp>
+__global__ void __launch_bounds__(1024)
+ctc_alpha_kernel(const float* __restrict__ em, const float* __restrict__ start,
+                 const float* __restrict__ skip, const int* __restrict__ lens,
+                 float* __restrict__ alpha, int T, int S) {
+  extern __shared__ __align__(16) float ring_a[];
+  // each warp's lanes 30 and 31 by frame parity, for lanes 0 and 1 of the
+  // warp above (and, from the last warp, of warp 0's next slot)
+  __shared__ float top[kOneWarp ? 1 : 2 * 32 * K * 2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockDim.x, W = n >> 5;
+  const int row = K * n;  // a ring slot: em's row
+  const int b = blockIdx.x;
+  const long base = static_cast<long>(b) * T * S;
+  const float* em_b = em + base;
+  float* al_b = alpha + base;
+  const int t_live = live_steps(lens[b], T);
+
+  // frame t's row (t clamped to the last) into ring slot t mod kBlockRing,
+  // each thread its own states; a commit group
+  auto fetch = [&](int t) {
+    if constexpr (kRinged) {
+      fetch_row<K, false>(ring_a + (t & (kBlockRing - 1)) * row,
+                          em_b + static_cast<long>(min(t, T - 1)) * S, S, tid, n);
+      __pipeline_commit();
+    }
+  };
+  // frame t's row into registers, from the ring or global memory
+  auto load = [&](float (&e)[K], int t) {
+    const float* se = ring_a + (t & (kBlockRing - 1)) * row;
+    const long off = static_cast<long>(min(t, T - 1)) * S;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tid + k * n;
+      e[k] = kRinged ? se[j] : em_b[off + min(j, S - 1)];
+    }
+  };
+  auto wait = [&]() {
+    if constexpr (kRinged) asm volatile("cp.async.wait_group %0;" ::"n"(kBlockRing - kAhead) : "memory");
+  };
+
+  for (int q = 0; q < kBlockRing; ++q) fetch(1 + q);
+  float a[K];
+  unsigned skp = 0, live = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = tid + k * n;
+    a[k] = kNeg;
+    if (s < S) {
+      a[k] = start[static_cast<long>(b) * S + s] + em_b[s];
+      al_b[s] = a[k];
+      live |= 1u << k;
+      if (skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
+    }
+  }
+  float e_r[kAhead][K];
+  wait();
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q) load(e_r[q], 1 + q);
+  const int below = warp > 0 ? warp - 1 : W - 1;  // the warp below; for warp 0 the last
+  const int dk = warp > 0 ? 0 : 1;                // warp's, of the slot below
+
+  // frame t: alpha[t - 1] -> alpha[t], stored where the frame is live; its
+  // ring slot refilled with frame t + kBlockRing and frame t + kAhead read
+  // into the registers it leaves; frames t >= t_live computed and dropped
+  for (int i0 = 1; i0 < t_live; i0 += kAhead) {
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const int t = i0 + q;
+      const unsigned on = static_cast<unsigned>(t < t_live);
+      float p1[K], p2[K];
+      if constexpr (kOneWarp) {
+        // a rotation by 1 and 2: lanes 31 and 30 send the slot below
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float lo = k > 0 ? a[k - 1] : kNeg;
+          p1[k] = __shfl_sync(0xffffffffu, lane == 31 ? lo : a[k], (lane + 31) & 31);
+          p2[k] = __shfl_sync(0xffffffffu, lane >= 30 ? lo : a[k], (lane + 30) & 31);
+        }
+      } else {
+        float* out = top + (t & 1) * (32 * K * 2);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          p1[k] = __shfl_up_sync(0xffffffffu, a[k], 1);
+          p2[k] = __shfl_up_sync(0xffffffffu, a[k], 2);
+          store_shared_if(out + (warp * K + k) * 2 + (lane & 1), a[k], lane >= 30);
+        }
+        __syncthreads();  // the top lanes of every warp
+        // lanes 0 and 1: s - 1 and s - 2 from the warp below's lanes 30, 31
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int kk = k - dk;
+          const float x30 = kk >= 0 ? out[(below * K + kk) * 2] : kNeg;
+          const float x31 = kk >= 0 ? out[(below * K + kk) * 2 + 1] : kNeg;
+          p1[k] = lane == 0 ? x31 : p1[k];
+          p2[k] = lane == 0 ? x30 : (lane == 1 ? x31 : p2[k]);
+        }
+      }
+      float* al_t = al_b + static_cast<long>(t) * S + tid;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float v = e_r[q][k] + lse3(a[k], p1[k], (skp >> k) & 1u ? p2[k] : kNeg);
+        const unsigned keep = (live >> k) & on;
+        store_if(al_t + k * n, v, keep);
+        a[k] = keep ? v : a[k];
+      }
+      fetch(t + kBlockRing);
+      wait();
+      load(e_r[q], t + kAhead);
+    }
+  }
+  if constexpr (kRinged) __pipeline_wait_prior(0);
+  // the frozen tail: alpha keeps its value at t = t_live - 1
+  for (int t = t_live; t < T; ++t) {
+    float* al_t = al_b + static_cast<long>(t) * S + tid;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((live >> k) & 1u) al_t[k * n] = a[k];
   }
 }
 
@@ -459,11 +554,6 @@ __global__ void ctc_chain_probe_kernel(const float* __restrict__ em,
   for (int k = 0; k < kProbeStates; ++k) out[lane * kProbeStates + k] = a[k];
 }
 
-int threads_for(int S) {
-  const int t = ((S + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -472,26 +562,48 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// ctc_grad's route and layout at S states (ops/lattice_pallas.py
-// grad_plan mirrors it): "warp" up to kWarpMaxS states, K = ceil(S / 32);
-// "block" beyond, W = min(32, ceil(S / 32)) warps and K = ceil(S / 32 W),
-// taken as 16 past 8, with its ring where kBlockRing frames of em and alpha
-// rows fit in kRingSmem (else em and alpha read from global memory).
+// The layout of a warp for each 32 states (ops/lattice_pallas.py
+// _block_plan mirrors it): W = min(32, ceil(S / 32)) warps and K =
+// ceil(S / 32 W), taken as 16 past 8, with a ring where kBlockRing frames
+// of `rows` rows (em, and alpha for ctc_grad) fit in kRingSmem (else the
+// rows are read from global memory).  ctc_alpha takes it at every S
+// (route "warp" where W = 1: no barrier); ctc_grad beyond kWarpMaxS
+// states (route "block"), below them its own route "warp", K = ceil(S /
+// 32) (ops/lattice_pallas.py grad_plan mirrors it).
 constexpr int kWarpMaxS = 32;
 constexpr long kRingSmem = 200 * 1024;
 
-struct GradPlan {
+struct StatePlan {
   bool block;
   int K, warps, ring;
 };
 
-GradPlan grad_plan(int S) {
-  if (S <= kWarpMaxS) return {false, S <= 32 ? 1 : (S + 31) / 32, 2, kRing};
+StatePlan block_plan(int S, int rows) {
   const int W = (S + 31) / 32 > 32 ? 32 : (S + 31) / 32;
   int K = (S + 32 * W - 1) / (32 * W);
   K = K > 8 ? (K > 16 ? 0 : 16) : K;
-  const long ring_bytes = 2L * kBlockRing * K * 32 * W * sizeof(float);
-  return {true, K, W, ring_bytes <= kRingSmem ? kBlockRing : 0};
+  const long ring_bytes = static_cast<long>(rows) * kBlockRing * K * 32 * W * sizeof(float);
+  return {W > 1, K, W, ring_bytes <= kRingSmem ? kBlockRing : 0};
+}
+
+StatePlan grad_plan(int S) {
+  if (S <= kWarpMaxS) return {false, S <= 32 ? 1 : (S + 31) / 32, 2, kRing};
+  return block_plan(S, 2);
+}
+
+template <int K, bool kOneWarp>
+int launch_alpha(const StatePlan& plan, const float* em, const float* start, const float* skip,
+                 const int* lens, float* alpha, int B, int T, int S, cudaStream_t st) {
+  const int threads = 32 * plan.warps;
+  const size_t smem = static_cast<size_t>(plan.ring) * K * threads * sizeof(float);
+  auto kernel = ctc_alpha_kernel<K, true, kOneWarp>;
+  if constexpr (!kOneWarp) {
+    if (!plan.ring) kernel = ctc_alpha_kernel<K, false, false>;
+  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, st>>>(em, start, skip, lens, alpha, T, S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
@@ -503,7 +615,7 @@ int launch_grad_warp(const float* em, const float* alpha, const float* accept, c
 }
 
 template <int K>
-int launch_grad_block(const GradPlan& plan, const float* em, const float* alpha,
+int launch_grad_block(const StatePlan& plan, const float* em, const float* alpha,
                       const float* accept, const float* skip, const int* lens,
                       const float* score, const float* g, float* grad, int B, int T, int S,
                       cudaStream_t st) {
@@ -521,18 +633,23 @@ int launch_grad_block(const GradPlan& plan, const float* em, const float* alpha,
 extern "C" {
 
 // em [B, T, S], start/skip [B, S] f32, lens [B] i32 -> alpha [B, T, S] f32.
-// Needs 3 * S * 4 bytes of shared memory per block.
+// One launch: W warps a sample (block_plan), a ring of em rows in shared
+// memory where it fits in kRingSmem.
 int ctc_alpha(const float* em, const float* start, const float* skip,
               const int* lens, float* alpha, int B, int T, int S,
               void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
-  const size_t smem = 3 * static_cast<size_t>(S) * sizeof(float);
-  cudaError_t err = allow_smem(ctc_alpha_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ctc_alpha_kernel<<<B, threads_for(S), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      em, start, skip, lens, alpha, T, S);
-  return static_cast<int>(cudaGetLastError());
+  const StatePlan plan = block_plan(S, 1);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!plan.block) return launch_alpha<1, true>(plan, em, start, skip, lens, alpha, B, T, S, st);
+  switch (plan.K) {
+#define ALPHA_BLOCK(k) \
+  case k: return launch_alpha<k, false>(plan, em, start, skip, lens, alpha, B, T, S, st);
+    ALPHA_BLOCK(1) ALPHA_BLOCK(2) ALPHA_BLOCK(3) ALPHA_BLOCK(4) ALPHA_BLOCK(5) ALPHA_BLOCK(6)
+    ALPHA_BLOCK(7) ALPHA_BLOCK(8) ALPHA_BLOCK(16)
+#undef ALPHA_BLOCK
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // em, alpha [B, T, S], accept/skip [B, S] f32, lens [B] i32, score/g [B] f32
@@ -542,7 +659,7 @@ int ctc_grad(const float* em, const float* alpha, const float* accept,
              const float* skip, const int* lens, const float* score,
              const float* g, float* grad, int B, int T, int S, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
-  const GradPlan plan = grad_plan(S);
+  const StatePlan plan = grad_plan(S);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!plan.block) {
     switch (plan.K) {

@@ -13,13 +13,29 @@
 // C=80, 2.6 MB for B=32, under 1 us at 3.35 TB/s) nor arithmetic, but the
 // walk itself, T-1 loads each of which needs the one before.  The TPU
 // kernel ran the time axis as its sequential grid and carried a one-hot
-// row; here one block per sample first stages its whole [T-1, C] table in
-// shared memory with coalesced loads from all threads, so each dependent
-// step of the walk is a shared-memory load (tens of cycles), not an L2 or
-// HBM round trip (hundreds).  The path is written to shared memory too and
-// stored coalesced at the end.  A table too large for shared memory is
-// walked straight from global memory (one thread, one load per step).
-//
+// row.  Here one block a sample walks its table out of a ring of kBtRing
+// chunks in shared memory, each F frames of C words (dense_bt_frames: F
+// about kBtChunkWords / C, fewer where kBtRing chunks would not fit), taken
+// from the last frame backwards:
+// - warps 1.. copy: a chunk's words are contiguous in global memory, so
+//   they go as 16-byte cp.async, every copying thread at once, with a
+//   4-byte head up to the first 16-byte boundary and a 4-byte tail; the
+//   chunk sits in its shared slot at the same offset mod 4 words as in
+//   global memory (a sample starts at b (T-1) C words, misaligned for odd
+//   b where (T-1) C is odd), so the body's copies are aligned on both
+//   sides.  Each copying thread then arrives on the slot's "full" mbarrier
+//   when its copies land (cp.async.mbarrier.arrive.noinc);
+// - thread 0 walks: it waits on the chunk's "full" mbarrier alone (no
+//   block barrier), walks its frames (one dependent shared load a frame;
+//   the path stored fire-and-forget to global memory, off the chain) and
+//   arrives on the slot's "empty" mbarrier, on which the copiers wait to
+//   refill it with the chunk kBtRing further back.  (A shared store of the
+//   path a frame, then a coalesced store a chunk, made the frame slower:
+//   scripts/profile_dense_bt.py.)
+// One route for every T.  Where kBtRing chunks of one frame do not fit (C
+// past 19,365 words at 227 KB of shared memory) thread 0 walks the table
+// straight from global memory, one dependent load a frame.
+
 // Whole-scan Viterbi.  The plan lays the table's arcs out as a dense
 // in-degree bucket grid [D, S]: slot d of destination state s is the arc
 // k = d * S + s (src, label, weight; empty slots weigh NEG), filled in
@@ -97,45 +113,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
 constexpr int kDead = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
-
-__global__ void dense_backtrace_kernel(const int* __restrict__ bp,
-                                       const int* __restrict__ last,
-                                       int* __restrict__ path, int T, int C,
-                                       int staged) {
-  extern __shared__ int smem[];
-  const int b = blockIdx.x;
-  const long n = static_cast<long>(T - 1) * C;
-  const int* bp_b = bp + static_cast<long>(b) * n;
-  int* path_b = path + static_cast<long>(b) * T;
-
-  if (staged) {
-    int* table = smem;
-    int* out = smem + n;
-    for (long i = threadIdx.x; i < n; i += blockDim.x) table[i] = bp_b[i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int state = last[b];
-      out[T - 1] = state;
-      for (int t = T - 2; t >= 0; --t) {
-        state = table[static_cast<long>(t) * C + state];
-        out[t] = state;
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < T; t += blockDim.x) path_b[t] = out[t];
-  } else if (threadIdx.x == 0) {
-    int state = last[b];
-    path_b[T - 1] = state;
-    for (int t = T - 2; t >= 0; --t) {
-      state = bp_b[static_cast<long>(t) * C + state];
-      path_b[t] = state;
-    }
-  }
-}
 
 // The lane schedule (ops/viterbi_scan_pallas.py lane_schedule): a header,
 // then 3 words a slot (g, first task, tasks), 4 a task (key, position,
@@ -516,6 +496,116 @@ viterbi_scan_fwd_kernel(const float* __restrict__ em, const int2* arcs, const in
   for (int t = threadIdx.x; t < T; t += blockDim.x) lab_b[t] = labels_s[t];
 }
 
+// The dense backtrace's ring (see the header): kBtRing chunks of F frames,
+// each at most about kBtChunkWords words (16 KB), in blocks of kBtThreads
+// (warp 0's thread 0 walks, the other warps copy).  Must match the Python
+// side (ops/viterbi_scan_pallas.py dense_bt_plan).
+constexpr int kBtRing = 3;
+constexpr int kBtChunkWords = 4096;
+constexpr int kBtThreads = 128;
+
+// A ring slot of F frames of C words: 3 words of room for the offset mod 4
+// and rounded up to 16 bytes.
+__host__ __device__ __forceinline__ int bt_slot_words(int F, int C) { return round4(F * C + 3); }
+
+// Frames a chunk for a [T-1, C] table in max_smem bytes, or 0 where
+// kBtRing chunks of one frame do not fit (the global walk).
+int dense_bt_frames(int T, int C, int max_smem) {
+  const int cap = (max_smem / (4 * kBtRing)) & ~3;  // a slot's words at most
+  const int most = (cap - 3) / C;
+  if (most < 1) return 0;
+  int F = kBtChunkWords / C < 1 ? 1 : kBtChunkWords / C;
+  F = F < most ? F : most;
+  return F < T - 1 ? F : T - 1;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile("{\n .reg .pred q;\n mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, q;\n}"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__global__ void __launch_bounds__(kBtThreads)
+dense_backtrace_kernel(const int* __restrict__ bp, const int* __restrict__ last,
+                       int* __restrict__ path, int T, int C, int F) {
+  extern __shared__ __align__(16) int bt_ring[];
+  __shared__ unsigned long long full[kBtRing], empty[kBtRing];
+  const int b = blockIdx.x;
+  const long g_b = static_cast<long>(b) * (T - 1) * C;  // the sample's first word
+  int* path_b = path + static_cast<long>(b) * T;
+  if (F == 0) {  // the global walk
+    if (threadIdx.x == 0) {
+      int state = last[b];
+      path_b[T - 1] = state;
+      for (int t = T - 2; t >= 0; --t) {
+        state = bp[g_b + static_cast<long>(t) * C + state];
+        path_b[t] = state;
+      }
+    }
+    return;
+  }
+  // chunk j holds frames [j F, min(j F + F, T - 1)); the c-th copied and
+  // walked is j = nck - 1 - c, in slot c mod kBtRing
+  const int nck = (T - 2) / F + 1;
+  const int slot = bt_slot_words(F, C);
+  const int copiers = blockDim.x - 32;
+  if (threadIdx.x < kBtRing) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&full[threadIdx.x])),
+                 "r"(copiers));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&empty[threadIdx.x])));
+  }
+  __syncthreads();  // the barriers' initialisation; none after it
+
+  if (threadIdx.x < 32) {
+    if (threadIdx.x > 0) return;
+    int state = last[b];
+    path_b[T - 1] = state;
+    for (int c = 0; c < nck; ++c) {
+      const int j = nck - 1 - c, t0 = j * F, t1 = min(t0 + F, T - 1), r = c % kBtRing;
+      mbar_wait(&full[r], (c / kBtRing) & 1);
+      // frame t1 - 1's row: the slot, the chunk's offset mod 4, its frames
+      const int* row = bt_ring + r * slot + static_cast<int>((g_b + static_cast<long>(t0) * C) & 3)
+                       + (t1 - 1 - t0) * C;
+      for (int t = t1 - 1; t >= t0; --t, row -= C) {
+        state = row[state];
+        path_b[t] = state;
+      }
+      asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}"
+                   ::"r"(smem_addr(&empty[r])) : "memory");
+    }
+    return;
+  }
+  const int ct = threadIdx.x - 32;
+  for (int c = 0; c < nck; ++c) {
+    const int j = nck - 1 - c, t0 = j * F, r = c % kBtRing;
+    const int words = (min(t0 + F, T - 1) - t0) * C;
+    if (c >= kBtRing) mbar_wait(&empty[r], (c / kBtRing - 1) & 1);  // chunk c - kBtRing walked
+    const long g0 = g_b + static_cast<long>(t0) * C;
+    const int mis = static_cast<int>(g0 & 3);
+    const int head = min((4 - mis) & 3, words);
+    const int body = (words - head) >> 2;
+    const int tail = words - head - 4 * body;
+    int* dst = bt_ring + r * slot + mis;
+    const int* src = bp + g0;
+    if (ct < head) __pipeline_memcpy_async(dst + ct, src + ct, sizeof(int));
+    for (int i = ct; i < body; i += copiers) copy16(dst + head + 4 * i, src + head + 4 * i);
+    if (ct < tail) {
+      const int k = head + 4 * body + ct;
+      __pipeline_memcpy_async(dst + k, src + k, sizeof(int));
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 ::"r"(smem_addr(&full[r])) : "memory");
+  }
+  __pipeline_wait_prior(0);
+}
+
 // One frame of the scan's chain without arcs: a dependent shared-memory
 // load and a block barrier, `frames` times, in each of B blocks.
 __global__ void viterbi_chain_probe_kernel(int* __restrict__ out, int frames) {
@@ -558,25 +648,18 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 extern "C" {
 
-// bp [B, T-1, C], last [B] int32 -> path [B, T] int32, T >= 2.  Stages a
-// sample's table and path in shared memory when ((T-1) * C + T) * 4 bytes
-// fit in max_smem.
+// bp [B, T-1, C], last [B] int32 -> path [B, T] int32, T >= 2.  A ring of
+// kBtRing chunks of dense_bt_frames(T, C, max_smem) frames in shared
+// memory, or (0 frames) the walk from global memory.
 int dense_backtrace(const int* bp, const int* last, int* path, int B, int T,
                     int C, int max_smem, void* stream) {
   if (B == 0) return 0;
-  const size_t smem =
-      (static_cast<size_t>(T - 1) * C + static_cast<size_t>(T)) * sizeof(int);
-  const int staged = smem <= static_cast<size_t>(max_smem) ? 1 : 0;
-  const size_t launch_smem = staged ? smem : 0;
-  if (launch_smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dense_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(launch_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  dense_backtrace_kernel<<<B, kThreads, launch_smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      bp, last, path, T, C, staged);
+  const int F = dense_bt_frames(T, C, max_smem);
+  const size_t smem = F ? static_cast<size_t>(kBtRing) * bt_slot_words(F, C) * sizeof(int) : 0;
+  cudaError_t err = allow_smem(dense_backtrace_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_backtrace_kernel<<<B, kBtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      bp, last, path, T, C, F);
   return static_cast<int>(cudaGetLastError());
 }
 

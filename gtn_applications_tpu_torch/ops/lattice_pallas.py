@@ -19,7 +19,10 @@ The backward kernel runs a sample's recursion on one warp where S <= 32
 (route "warp": neighbours by shuffles, no block barrier; a second warp
 takes the posterior), else on a warp for each 32 states that pass their
 edge lanes through shared memory (route "block", one barrier a frame);
-``grad_plan`` gives the route and layout the kernel takes.
+``grad_plan`` gives the route and layout the kernel takes.  The forward
+kernel runs that block route mirrored (neighbours from the lanes below),
+on one warp with no barrier where S <= 32; ``alpha_plan`` gives its
+layout.
 """
 
 import torch
@@ -82,30 +85,48 @@ def ctc_grad_plain(em, alpha, accept, skip, lens, score, g):
     return torch.stack(grads, dim=1)
 
 
-# ctc_grad's routes; must match csrc/ctc.cu grad_plan
+# ctc_grad's and ctc_alpha's routes; must match csrc/ctc.cu grad_plan and
+# block_plan
 GRAD_WARP_MAX_S = 32
 GRAD_RING = 8  # route "warp": frames of em and alpha rows in shared memory
 GRAD_BLOCK_RING = 4  # route "block": the same
 GRAD_RING_SMEM = 200 * 1024  # route "block": the ring's shared memory at most
 
 
+def _block_plan(S, rows):
+    """(warps, K, ring) of a warp for each 32 states at S states (csrc/ctc.cu
+    block_plan): W = min(32, ceil(S / 32)) warps, thread i holding states
+    i + 32 W k for k < K = ceil(S / 32 W), taken as 16 past 8; ring: the
+    frames of ``rows`` rows a sample keeps in shared memory, filled that
+    many frames ahead (0 where they do not fit in GRAD_RING_SMEM, and the
+    rows are read from global memory)."""
+    warps = min(32, -(-S // 32))
+    k = -(-S // (32 * warps))
+    k = 16 if k > 8 else k
+    fits = rows * GRAD_BLOCK_RING * k * 32 * warps * 4 <= GRAD_RING_SMEM
+    return warps, k, GRAD_BLOCK_RING if fits else 0
+
+
 def grad_plan(S):
     """(route, K, warps, ring) of the ``ctc_grad`` kernel at S states:
     "warp" up to GRAD_WARP_MAX_S states (a chain warp whose lane l holds
     states l K + k for k < K = ceil(S / 32), and a helper warp for the
-    posterior), else "block" (W = min(32, ceil(S / 32)) warps, thread i
-    holding states i + 32 W k for k < K = ceil(S / 32 W), taken as 16 past
-    8); ring: the frames of em (and alpha) rows a sample keeps in shared
-    memory, filled that many frames ahead (route "block": 0 where they do
-    not fit in GRAD_RING_SMEM, and em and alpha are read from global
-    memory)."""
+    posterior, a ring of GRAD_RING frames), else "block" (``_block_plan``
+    with em and alpha rows)."""
     if S <= GRAD_WARP_MAX_S:
         return "warp", max(1, -(-S // 32)), 2, GRAD_RING
-    warps = min(32, -(-S // 32))
-    k = -(-S // (32 * warps))
-    k = 16 if k > 8 else k
-    fits = 2 * GRAD_BLOCK_RING * k * 32 * warps * 4 <= GRAD_RING_SMEM
-    return "block", k, warps, GRAD_BLOCK_RING if fits else 0
+    warps, k, ring = _block_plan(S, 2)
+    return "block", k, warps, ring
+
+
+def alpha_plan(S):
+    """(route, K, warps, ring) of the ``ctc_alpha`` kernel at S states:
+    ``_block_plan`` with em rows; route "warp" where it takes one warp (the
+    exchange all by shuffle, no barrier), else "block" (a warp's lanes 0
+    and 1 take the warp below's top lanes through shared memory, one
+    barrier a frame)."""
+    warps, k, ring = _block_plan(S, 1)
+    return "warp" if warps == 1 else "block", k, warps, ring
 
 
 def _states(name, em, *tensors):

@@ -61,6 +61,26 @@ def dense_backtrace_plain(backptrs, last_state):
     return torch.stack(path[::-1], dim=1).to(torch.int32)
 
 
+# the dense backtrace's ring; must match csrc/viterbi.cu
+BT_RING = 3  # chunks in shared memory
+BT_CHUNK_WORDS = 4096  # a chunk's words at most, where kBtRing fit
+
+
+def dense_bt_plan(T, C, max_smem=_build.MAX_SMEM):
+    """(frames, ring, chunks) of the ``dense_backtrace`` kernel for a
+    [T-1, C] table: a ring of BT_RING chunks of ``frames`` frames each
+    (about BT_CHUNK_WORDS / C, at most T - 1, fewer where BT_RING slots of
+    round4(frames C + 3) words would not fit in ``max_smem`` bytes), walked
+    from the last frame back; frames 0 where BT_RING chunks of one frame
+    do not fit, and the table is walked from global memory."""
+    cap = (max_smem // (4 * BT_RING)) & ~3
+    most = (cap - 3) // C
+    if most < 1:
+        return 0, BT_RING, 0
+    frames = min(max(1, BT_CHUNK_WORDS // C), most, T - 1)
+    return frames, BT_RING, -(-(T - 1) // frames)
+
+
 def dense_backtrace_cuda(backptrs, last_state):
     """Launch ``dense_backtrace``: backptrs [B, T-1, C] int32 (T >= 2),
     last_state [B] int32 -> path [B, T] int32."""

@@ -12,9 +12,10 @@ route "block" (3, 8 and 13 warps), and at B=32, T=250, L=11 (S=23, route
 - the kernel (CUDA-event medians of 30, ``chip_smoke.gpu_median_ms``) and
   the chain bound (the longest sample's frames less one x one frame of
   ``ctc_chain_probe``);
-- the registers and spills of each of its kernels (``nvcc -Xptxas -v``)
-  and their instructions as compiled (``cuobjdump -sass``, where the
-  toolkit has it): calls, branches, MUFU, shuffles, loads and stores;
+- the registers and spills of each of its kernels and of the forward's
+  (``ctc_alpha``; ``nvcc -Xptxas -v``) and their instructions as compiled
+  (``cuobjdump -sass``, where the toolkit has it): calls, branches, MUFU,
+  shuffles, loads and stores;
 - copies of ``csrc/ctc.cu`` with one part changed, built into
   ``build/profile_ctc_grad`` and timed the same way: no posterior store
   (``no_post``: the helper warp's on route "warp"), the chain warp's
@@ -103,8 +104,8 @@ def build(name, subs):
 
 
 def ptxas_info():
-    """{kernel: "N registers, ..."} of the ctc_grad kernels as compiled
-    (``nvcc -Xptxas -v``)."""
+    """{kernel: "N registers, ..."} of the ctc_grad and ctc_alpha kernels
+    as compiled (``nvcc -Xptxas -v``)."""
     from gtn_applications_tpu_torch.ops import _build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -115,16 +116,18 @@ def ptxas_info():
     for line in (run.stdout + run.stderr).splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "ctc_grad_kernel" in name and ("registers" in line or "spill" in line):
+        elif name and ("ctc_grad_" in name or "ctc_alpha_kernel" in name) and (
+                "registers" in line or "spill" in line):
             out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return out
 
 
 def sass_counts(so):
-    """{kernel: {mnemonic group: count}} of the ctc_grad kernels and the
-    chain probe in the library ``so`` (``cuobjdump -sass``), or None where
-    cuobjdump is missing: calls and branches split a frame's code into
-    blocks the scheduler does not interleave."""
+    """{kernel: {mnemonic group: count}} of the ctc_grad and ctc_alpha
+    kernels and the chain probe in the library ``so`` (``cuobjdump
+    -sass``), or None where cuobjdump is missing: calls and branches split
+    a frame's code into blocks the scheduler does not interleave; local
+    loads and stores (LDL, STL) are spills."""
     import re
 
     from gtn_applications_tpu_torch.ops import _build
@@ -137,10 +140,10 @@ def sass_counts(so):
     out = {}
     for part in text.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "ctc_grad_" not in name and "chain_probe" not in name:
+        if not any(k in name for k in ("ctc_grad_", "ctc_alpha_kernel", "chain_probe")):
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
-        key = re.search(r"ctc_grad_(warp|block)_kernelILi(\d+)E", name)
+        key = re.search(r"ctc_(grad_warp|grad_block|alpha)_kernelILi(\d+)E", name)
         key = f"{key.group(1)}_K{key.group(2)}_{len(out)}" if key else "probe"
         out[key] = {"total": len(ops), **{k: sum(o.startswith(k) for o in ops)
                                           for k in ("BRA", "CALL", "MUFU", "SHFL", "LDS", "LDG",

@@ -9,6 +9,9 @@ their own tolerances there (loss 1e-4, gradients rtol 2e-3 + atol 1e-4).
 The Viterbi decode gives the same paths exactly and scores within 1e-6,
 ties included; ``dense_backtrace_plain`` gives exactly the paths of JAX
 ``dense_backtrace`` (its Pallas kernel in interpret mode), T = 1 included.
+The backtrace kernel's ring of chunks (``viterbi_scan_pallas.dense_bt_plan``)
+is emulated with numpy, its copies split as the kernel splits them, and
+held bitwise to both.
 """
 
 import jax.numpy as jnp
@@ -24,7 +27,7 @@ from gtn_applications_tpu_torch.criterions import ASG
 from gtn_applications_tpu_torch.criterions import asg as asg_mod
 from gtn_applications_tpu_torch.criterions.common import pad_targets
 from gtn_applications_tpu_torch.models.convert import criterion_params_from_jax
-from gtn_applications_tpu_torch.ops import lattice
+from gtn_applications_tpu_torch.ops import _build, lattice
 from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
 from .test_asg import EMISSIONS, LABELS
@@ -150,6 +153,104 @@ def test_dense_backtrace_plain_matches_jax(B, T, C):
     np.testing.assert_array_equal(
         vsp.dense_backtrace_plain(torch.from_numpy(bp), torch.from_numpy(last)),
         path)
+
+
+@pytest.mark.parametrize("T,C,max_smem,plan", [
+    (250, 80, None, (51, 3, 5)), (1000, 80, None, (51, 3, 20)), (2, 80, None, (1, 3, 1)),
+    (250, 81, None, (50, 3, 5)), (37, 83, None, (36, 3, 1)), (10, 19365, None, (1, 3, 9)),
+    (10, 19366, None, (0, 3, 0)), (30, 9, 480, (4, 3, 8))])
+def test_dense_bt_plan(T, C, max_smem, plan):
+    """The backtrace kernel's chunk of frames (about 4,096 words, at most
+    T - 1), ring and chunks a sample; 0 frames (the walk from global
+    memory) where three chunks of one frame do not fit."""
+    args = (T, C) if max_smem is None else (T, C, max_smem)
+    assert vsp.dense_bt_plan(*args) == plan
+
+
+def _emulate_dense_bt(bp, last, max_smem=None):
+    """``dense_backtrace`` on ``dense_bt_plan``'s ring, in numpy: chunk j
+    (frames [j F, j F + F) of the sample's table) copied c-th, j = chunks -
+    1 - c, into slot c mod ring at the offset of its first global word mod
+    4 (a 4-byte head up to a 16-byte boundary, a body of 16-byte copies
+    aligned on both sides, a 4-byte tail), then walked from its last frame,
+    one load from the slot a frame.  Returns the paths and the (head,
+    tail) splits seen."""
+    B, Tm1, C = bp.shape
+    F, R, nck = vsp.dense_bt_plan(Tm1 + 1, C, *(() if max_smem is None else (max_smem,)))
+    words = bp.reshape(-1)
+    path = np.full((B, Tm1 + 1), -7, np.int32)
+    splits = set()
+    for b in range(B):
+        state = int(last[b])
+        path[b, Tm1] = state
+        g_b = b * Tm1 * C
+        if F == 0:  # the global walk
+            for t in range(Tm1 - 1, -1, -1):
+                state = int(words[g_b + t * C + state])
+                path[b, t] = state
+            continue
+        slot = (F * C + 3 + 3) & ~3
+        ring = np.full(R * slot, -1, np.int64)
+        assert R * slot * 4 <= (max_smem or _build.MAX_SMEM)
+        for c in range(nck):
+            j = nck - 1 - c
+            t0, t1, r = j * F, min(j * F + F, Tm1), c % R
+            n = (t1 - t0) * C
+            g0 = g_b + t0 * C
+            head = min((4 - g0 % 4) % 4, n)
+            body = (n - head) // 4
+            tail = n - head - 4 * body
+            dst = r * slot + g0 % 4
+            ring[r * slot:(r + 1) * slot] = -1
+            ring[dst:dst + head] = words[g0:g0 + head]
+            assert (dst + head) % 4 == 0 and (g0 + head) % 4 == 0
+            ring[dst + head:dst + head + 4 * body] = words[g0 + head:g0 + head + 4 * body]
+            k = head + 4 * body
+            ring[dst + k:dst + k + tail] = words[g0 + k:g0 + k + tail]
+            assert dst + n <= (r + 1) * slot
+            splits.add((head, tail))
+            row = dst + (t1 - 1 - t0) * C
+            for t in range(t1 - 1, t0 - 1, -1):
+                state = int(ring[row + state])
+                assert state >= 0
+                path[b, t] = state
+                row -= C
+    return path, splits
+
+
+@pytest.mark.parametrize("B,T,C,max_smem", [
+    (3, 2, 80, None), (3, 38, 81, None), (5, 37, 83, None), (4, 30, 9, 480),
+    (3, 30, 9, 100), (3, 250, 81, None), (8, 1000, 80, None)])
+def test_dense_bt_ring_emulation_matches_plain(B, T, C, max_smem):
+    """The backtrace kernel's ring, emulated, gives exactly the paths of
+    ``dense_backtrace_plain`` and (up to T = 38) of JAX's Pallas kernel in
+    interpret mode: T = 2, T - 1 not a multiple of the chunk's frames, odd
+    C, misaligned samples and chunks (heads and tails of 1-3 words), a
+    chunk of 4 frames forced by a small shared memory and the global walk
+    (no room for 3 chunks of one frame)."""
+    rng = np.random.RandomState(B * T + C)
+    bp = rng.randint(0, C, size=(B, T - 1, C)).astype(np.int32)
+    last = rng.randint(0, C, size=B).astype(np.int32)
+    got, splits = _emulate_dense_bt(bp, last, max_smem)
+    want = vsp.dense_backtrace_plain(torch.from_numpy(bp), torch.from_numpy(last)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if T <= 38:
+        j_path = jax_vsp.dense_backtrace(jnp.asarray(bp.transpose(1, 0, 2)), jnp.asarray(last), C)
+        np.testing.assert_array_equal(got, np.asarray(j_path))
+    if (T - 1) * C % 2 == 1 and max_smem != 100:
+        assert any(h % 2 == 1 for h, _ in splits) and any(t > 0 for _, t in splits)
+
+
+def test_dense_bt_profile_copies_match_the_kernel_source():
+    """Each copy ``scripts/profile_dense_bt.py`` builds of ``csrc/viterbi.cu``
+    (a part removed or changed, or ``clock64`` marks added) still finds
+    every piece of source it changes exactly once, so the script runs on
+    the card as it is."""
+    from gtn_applications_tpu_torch.scripts import profile_dense_bt as prof
+
+    for name, subs in dict(prof.VARIANTS, clocks=prof.CLOCKS).items():
+        src = prof.patched(name, subs)
+        assert all(new in src for _, new in subs), name
 
 
 def test_asg_viterbi_golden():

@@ -11,11 +11,12 @@ seeding only by fp32 rounding).  Infeasible samples (targets longer than
 their frames allow) follow each JAX route with the port's own: "scan"
 gives them zero gradients, the kernel route the TPU kernel's nonzero ones.
 
-The backward kernel runs only on the card; here its host plan
-(``lattice_pallas.grad_plan``) is checked, and its layout (K states a
-lane or thread, neighbours by shuffles and, on route "block", through the
-edge lanes of the warp above) is emulated in float32 with torch ops and
-held bitwise to ``ctc_grad_plain``.
+The kernels run only on the card; here their host plans
+(``lattice_pallas.grad_plan`` and ``alpha_plan``) are checked, and their
+layouts (K states a lane or thread, neighbours by shuffles and, on route
+"block", through the edge lanes of the warp above or, for the forward,
+below) are emulated in float32 with torch ops and held bitwise to
+``ctc_grad_plain`` and ``ctc_alpha_plain``.
 """
 
 import math
@@ -308,12 +309,16 @@ def _emulate_grad(em, alpha, accept, skip, lens, score, g):
     return grads
 
 
-def _grad_case(name):
-    """(em, alpha, accept, skip, lens, score, g) of a CTC lattice: the
+def _lattice_case(name):
+    """(em, start, accept, skip, lens, target lengths) of a CTC lattice: the
     JAX-parity case of this file, the golden table, the infeasible case,
-    and wider ones: a full warp on route "warp" (S=31), route "block" at 2,
-    3, 4, 9 and 13 warps (S=45, 89, 127, 257 and 401)."""
+    and wider ones: a full warp (S=31), 2, 3, 4, 9 and 13 warps (S=45, 89,
+    127, 257 and 401); "lengths": S=45 with lengths 0, 1, 8 and T."""
     rng = np.random.RandomState(11)
+    if name == "lengths":
+        em, start, accept, skip, _, tl = _lattice_case("S45")
+        em, start, accept, skip, tl = (torch.cat([x, x]) for x in (em, start, accept, skip, tl))
+        return em, start, accept, skip, torch.tensor([0, 1, 8, 40], dtype=torch.int32), tl
     if name == "jax_case":
         logits = rng.randn(4, 16, 6).astype(np.float32)
         tgts, lens = [[0, 1, 1, 2], [3], [], [2, 2, 2, 4, 0]], [16, 12, 9, 14]
@@ -337,8 +342,13 @@ def _grad_case(name):
     em = gathers.gather_channels_plain(torch.log_softmax(torch.from_numpy(logits), 2),
                                        labels.to(torch.int32))
     start, accept = lattice.ctc_start_accept(tl, em.shape[2])
-    skip = skip_ok.to(torch.float32)
-    lens = torch.tensor(lens, dtype=torch.int32)
+    return em, start, accept, skip_ok.to(torch.float32), torch.tensor(lens, dtype=torch.int32), tl
+
+
+def _grad_case(name):
+    """(em, alpha, accept, skip, lens, score, g) of ``_lattice_case(name)``:
+    route "warp" for S=31 and less, "block" at 2-13 warps beyond."""
+    em, start, accept, skip, lens, tl = _lattice_case(name)
     alpha = lp.ctc_alpha_plain(em, start, skip, lens)
     score = lp._final_score(alpha[:, -1], accept)
     return em, alpha, accept, skip, lens, score, -1.0 / tl.to(torch.float32).clamp(min=1)
@@ -357,6 +367,112 @@ def test_grad_layout_emulation_matches_plain(name):
     got = _emulate_grad(*args)
     assert torch.equal(got, want)
     assert (want != 0).any()
+
+
+@pytest.mark.parametrize("S,plan", [(3, ("warp", 1, 1, 4)), (32, ("warp", 1, 1, 4)),
+                                    (33, ("block", 1, 2, 4)), (89, ("block", 1, 3, 4)),
+                                    (256, ("block", 1, 8, 4)), (257, ("block", 1, 9, 4)),
+                                    (401, ("block", 1, 13, 4)), (4096, ("block", 4, 32, 4)),
+                                    (8192, ("block", 8, 32, 4)), (14528, ("block", 16, 32, 0))])
+def test_alpha_plan(S, plan):
+    """The forward kernel's route, states a thread K, warps a sample and
+    ring of em rows: a warp for each 32 states (one warp alone, no
+    barrier, up to 32), K = ceil(S / 32 W), 16 past 8, up to the 14,528
+    states the wrappers take; past the ring's shared memory em comes from
+    global memory."""
+    assert lp.alpha_plan(S) == plan
+
+
+def _alpha_neighbours(a, W):
+    """a [B, K, n] by thread (thread i, slot k holds state i + n k, n = 32
+    W) -> (p1, p2), the values of states s - 1 and s - 2 as the forward
+    kernel gathers them (NEG below state 0).  One warp: a rotation by 1
+    and 2 lanes, lanes 31 and 30 sending the slot below.  More: the lanes
+    1 and 2 below (shuffle up), lanes 0 and 1 from the warp below's lanes
+    30 and 31 (warp 0 from the last warp's, of the slot below)."""
+    B, K, n = a.shape
+    lane, warp = torch.arange(n) % 32, torch.arange(n) // 32
+    neg = torch.full_like(a[:, :1], NEG)
+    lower = torch.cat([neg, a[:, :-1]], dim=1)  # each thread's slot k - 1
+    if W == 1:
+        def rotate(d):
+            src = (lane - d) % 32  # the lane each lane reads
+            sent = torch.where((lane >= 32 - d)[None, None, :], lower, a)
+            return sent[:, :, src]
+        return rotate(1), rotate(2)
+    p1 = a[:, :, warp * 32 + (lane - 1).clamp(min=0)]
+    p2 = a[:, :, warp * 32 + (lane - 2).clamp(min=0)]
+    below = torch.where(warp > 0, warp - 1, W - 1) * 32
+    up = (warp > 0)[None, None, :]
+    x30 = torch.where(up, a[:, :, below + 30], lower[:, :, below + 30])
+    x31 = torch.where(up, a[:, :, below + 31], lower[:, :, below + 31])
+    first = (lane == 0)[None, None, :]
+    p1 = torch.where(first, x31, p1)
+    p2 = torch.where(first, x30, torch.where((lane == 1)[None, None, :], x31, p2))
+    return p1, p2
+
+
+def _emulate_alpha(em, start, skip, lens):
+    """``ctc_alpha`` on ``alpha_plan``'s layout, in float32 torch ops:
+    thread i of n = 32 W holding states i + n k (NEG past S), neighbours as
+    ``_alpha_neighbours`` gathers them, the skip mask on the destination,
+    lse3 in the kernel's argument order and em added after it.  Frames run
+    in pairs from frame 1 while the first of a pair is live: a frame past
+    the sample's last is computed from a clamped em row and dropped.  Only
+    live frames are stored; the frozen tail is written from the state after
+    the frames.  Every entry is written exactly once (NaN marks the rest)."""
+    B, T, S = em.shape
+    _, K, W, _ = lp.alpha_plan(S)
+    n = 32 * W
+    pad = K * n - S
+
+    def lay(x):  # [B, S] -> [B, K, n]: state k n + i
+        return torch.nn.functional.pad(x, (0, pad), value=0.0).view(B, K, n)
+
+    def unlay(x):
+        return x.reshape(B, -1)[:, :S]
+
+    inside = lay(torch.ones(B, S)) > 0
+    skp = lay((skip > 0.5).float()) > 0
+    t_live = torch.where(lens < 1, 1, lens.clamp(max=T))
+    a = torch.where(inside, lay(start + em[:, 0]), torch.tensor(NEG))
+    out = torch.full((B, T, S), float("nan"))
+    written = torch.zeros(B, T, dtype=torch.int32)
+    out[:, 0], written[:, 0] = unlay(a), 1
+    i0 = 1
+    while i0 < int(t_live.max()):
+        for t in (i0, i0 + 1):
+            on = (t < t_live)[:, None, None]
+            p1, p2 = _alpha_neighbours(a, W)
+            jump = torch.where(skp, p2, torch.tensor(NEG))
+            v = lay(em[:, min(t, T - 1)]) + lp._lse3(a, p1, jump)
+            keep = inside & on
+            for b in torch.nonzero(on[:, 0, 0]).flatten().tolist():
+                out[b, t], written[b, t] = unlay(v)[b], written[b, t] + 1
+            a = torch.where(keep, v, a)
+        i0 += 2
+    for b in range(B):
+        out[b, int(t_live[b]):] = unlay(a)[b]
+        written[b, int(t_live[b]):] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("name", ["jax_case", "golden", "infeasible", "S31", "S45", "S89",
+                                  "S127", "S257", "S401", "lengths"])
+def test_alpha_layout_emulation_matches_plain(name):
+    """The forward kernel's layout, emulated, is bitwise
+    ``ctc_alpha_plain``: states by strided slots, the exchange across
+    warps and slots, the skip mask on the destination, frames past the
+    last dropped, the frozen tail; odd and even live frames, lengths 0 and
+    1, infeasible samples."""
+    em, start, _, skip, lens, _ = _lattice_case(name)
+    S = em.shape[2]
+    assert lp.alpha_plan(S)[0] == ("block" if S > 32 else "warp")
+    want = lp.ctc_alpha_plain(em, start, skip, lens)
+    got = _emulate_alpha(em, start, skip, lens)
+    assert torch.equal(got, want)
+    assert (want > NEG / 2).any()
 
 
 def test_profile_copies_match_the_kernel_source():

@@ -41,6 +41,7 @@ MODULES = [
     "gtn_applications_tpu_torch.scripts.build_transitions",
     "gtn_applications_tpu_torch.scripts.compare_ctc_viterbi",
     "gtn_applications_tpu_torch.scripts.profile_ctc_grad",
+    "gtn_applications_tpu_torch.scripts.profile_dense_bt",
     "gtn_applications_tpu_torch.utils",
     "gtn_applications_tpu_torch.train",
     "gtn_applications_tpu_torch.test",

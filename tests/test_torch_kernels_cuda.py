@@ -301,6 +301,40 @@ def test_ctc_grad_routes_match_plain(cuda_device, b, t, l, infeasible):
     chip_smoke.hold_ctc_kernels(torch, *args, (b, t, l, infeasible))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,l", [(5, 20, 1), (5, 40, 11), (5, 60, 16), (6, 120, 44),
+                                   (5, 300, 200), (5, 900, 700)])
+def test_ctc_alpha_routes_match_plain(cuda_device, b, t, l):
+    """The CTC forward by route "warp" (S = 3 and 23, one warp) and "block"
+    (S = 33 at 2 warps, 89 at 3, 401 at 13, 1,401 at 32 with two states a
+    thread), each batch with a zero-length sample, one of length 1 and,
+    past one label, an infeasible one, against ``ctc_alpha_plain`` within
+    atol 1e-3 + rtol 1e-5 on live states, the score likewise
+    (``chip_smoke.hold_ctc_kernels``, the backward with it)."""
+    import chip_smoke
+
+    em, start, accept, skip, il, g = chip_smoke.ctc_case(torch, cuda_device, b, t, l,
+                                                        seed=l + 1, infeasible=l > 1)
+    il = il.clone()
+    il[3], il[4] = 0, 1
+    route = lattice_pallas.alpha_plan(em.shape[2])
+    assert route[0] == ("warp" if em.shape[2] <= 32 else "block")
+    chip_smoke.hold_ctc_kernels(torch, em, start, accept, skip, il, g, (b, t, l, route))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c", [(2, 2, 80), (3, 250, 81), (8, 1000, 80), (5, 37, 83)])
+def test_dense_backtrace_matches_plain(cuda_device, b, t, c):
+    """The dense backtrace's ring of chunks against ``dense_backtrace_plain``,
+    bitwise, on the ASG Viterbi's own backpointers: one frame, T - 1 not a
+    multiple of the chunk's frames, odd C (samples misaligned in memory),
+    the long case (``chip_smoke.hold_dense_bt``)."""
+    import chip_smoke
+
+    bp, last = chip_smoke.asg_headline_inputs(torch, cuda_device, b, t, c)
+    chip_smoke.hold_dense_bt(torch, bp, last, (b, t, c))
+
+
 def _sparse_factored_case(rng, b, t, s, n, density, dev):
     """A factored-scan case with a random sparse adjacency (each state at
     least one arc, from its predecessor), every state labelled, one start
