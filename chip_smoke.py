@@ -12,9 +12,15 @@ prints no result):
    with nvcc (one process per source, in parallel) and, beside them, the
    native graph compiler (``make -C native``), and print the times;
 3. gather kernels against their plain versions at x [32, 250, 80],
-   idx [32, 89] with -1 padding, and at a wide S = 4096 with many
-   duplicates: the forward bitwise, the backward within 1e-5;
-4. CTC kernels against their plain versions at the bench headline
+   idx [32, 89] with -1 padding, at a wide S = 4096 with many
+   duplicates and at ASG's force-aligned shape (x [32, 250, 80], 44
+   targets a sample): the forward bitwise, the backward run twice and
+   bitwise equal to itself (no atomics), within 1e-5 of its plain version,
+   its route and tile (``gathers.gather_bwd_plan``) those the library's
+   own plan gives;
+4. CTC kernels, which read the log-probabilities by label (the gather
+   moved into their emission copies), against their plain versions
+   (``gather_channels_plain`` then the plain recursions) at the bench headline
    (B=32, T=250, L=44, N=80; the backward's route "block", 3 warps a
    sample), on the headline with an infeasible sample (22 labels in 11
    frames), at L=11 (S=23, the backward's route "warp") and at wider
@@ -22,7 +28,10 @@ prints no result):
    and 13 warps a sample): alpha and score within atol 1e-3 + rtol
    1e-5, grad within 1e-5, each case's routes logged (the forward's
    ``alpha_plan``: one warp at S=23, 3, 8 and 13 warps wider; the
-   backward's ``grad_plan``); the headline's loss
+   backward's ``grad_plan``), and alpha, score and grad bitwise equal to the
+   kernels fed the gathered emissions with identity labels (the parent's
+   composition, gather then the kernels), the sum by label of the grad
+   (``gather_bwd``) within 1e-5 of its plain version; the headline's loss
    and logit gradients against F.ctc_loss (same 1/len-then-mean
    reduction) within 1e-3;
 5. the dense backtrace kernel against its plain walk at the ASG bench
@@ -154,7 +163,13 @@ prints no result):
    steps of each path and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 10's T=300 case),
    the CTC pair also at ``CTC_WIDE`` (with chain bounds) and the
-   backward's kernels a call (torch.profiler), the dense backtrace also
+   backward's kernels a call (torch.profiler), the CTC Function
+   (``ctc_score_kernel``, wrapper included) forward and forward and
+   backward from the log-probabilities beside F.ctc_loss, with its kernels
+   a call (torch.profiler), the forward also as the gather and ``ctc_alpha``
+   on the gathered emissions (two launches), the gather backward also at
+   the wide and ASG shapes, the gather forward also at ASG's, and an empty
+   kernel (``launch_probe``: the launch floor), the dense backtrace also
    at B=8, T=1000 and at odd C (chain bounds of T-1 walk frames), the
    whole-scan Viterbi's scan alone and its decode
    in turns (the walk's share is their difference) with the kernels a
@@ -291,12 +306,16 @@ def phase_build():
     return _build.build_seconds
 
 
-def _gather_case(torch, dev, b, t, c, s, seed):
+def _gather_case(torch, dev, b, t, c, s, seed, targets=False):
+    """x [b, t, c], idx [b, s] and g [b, t, s]: CTC-like indices (every even
+    column one channel, a tenth -1) or, with ``targets``, ASG's force-aligned
+    ones (targets over all c channels, padded with 0, no -1)."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(b, t, c)).astype(np.float32)).to(dev)
     idx = rng.integers(0, c, (b, s)).astype(np.int32)
-    idx[:, 0::2] = c - 1  # every even column repeats one channel, as blanks do
-    idx[rng.random((b, s)) < 0.1] = -1
+    if not targets:
+        idx[:, 0::2] = c - 1  # every even column repeats one channel, as blanks do
+        idx[rng.random((b, s)) < 0.1] = -1
     g = rng.random((b, t, s)).astype(np.float32)
     g /= g.sum(-1, keepdims=True)  # rows sum to 1, as CTC posteriors do
     return x, torch.from_numpy(idx).to(dev), torch.from_numpy(g).to(dev)
@@ -310,61 +329,122 @@ def merge_errs(errs, more):
 
 def hold_gather_kernels(torch, x, idx, g, what):
     """Both gather kernels against their plain versions: the forward
-    bitwise, the backward within 1e-5."""
+    bitwise, the backward within 1e-5 and, run twice, bitwise equal to
+    itself; its route and tile those of the library's own plan."""
     from gtn_applications_tpu_torch.ops import gathers
 
     C = x.shape[2]
     gathers.check_indices(idx, C)
     out = gathers.gather_fwd_cuda(x, idx)
     dx = gathers.gather_bwd_cuda(g, idx, C)
+    dx_again = gathers.gather_bwd_cuda(g, idx, C)
     torch.cuda.synchronize()
     ref = gathers.gather_channels_plain(x, idx)
-    dref = gathers.gather_channels_bwd_plain(g, idx, C)
+    err = hold_gather_bwd(torch, g, idx, C, dx, dx_again, what)
     if not torch.equal(out, ref):
         raise AssertionError(f"gather fwd differs from plain at {what}")
-    err = float((dx - dref).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"gather bwd max|d|={err} > 1e-5 at {what}")
     log(f"gather {what}: fwd bitwise equal, bwd max|d| {err:.3g}")
     return {"gather_fwd": float((out - ref).abs().max()), "gather_bwd": err}
 
 
-def hold_ctc_kernels(torch, em, start, accept, skip, il, g, what):
-    """Both CTC kernels against their plain versions: alpha and score
-    within atol 1e-3 + rtol 1e-5, the gradient within 1e-5; logs the
-    backward's route (``lattice_pallas.grad_plan``) and the infeasible
-    samples.  Returns the errors and the kernel's gradient."""
+def hold_gather_bwd(torch, g, idx, C, dx, dx_again, what):
+    """The gather backward's two results ``dx`` and ``dx_again`` on (g, idx)
+    bitwise equal, within 1e-5 of its plain version; its plan the
+    library's.  Returns the error."""
+    from gtn_applications_tpu_torch.ops import gathers
+
+    S = g.shape[2]
+    plan = gathers.gather_bwd_plan(S, C)
+    if gathers.gather_bwd_kernel_plan(S, C) != plan:
+        raise AssertionError(f"gather bwd: the library's plan at S={S}, C={C} is "
+                             f"{gathers.gather_bwd_kernel_plan(S, C)}, not {plan}")
+    if not torch.equal(dx, dx_again):
+        raise AssertionError(f"gather bwd differs from itself run to run at {what}")
+    err = float((dx - gathers.gather_channels_bwd_plain(g, idx, C)).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"gather bwd max|d|={err} > 1e-5 at {what}")
+    log(f"gather bwd {what}: bitwise equal run to run, route {plan[0]}, {plan[1]} frames "
+        f"a tile, {plan[2]} rank warps, {plan[3]} shared bytes a block")
+    return err
+
+
+def emissions(torch, lp, labels):
+    """em [B, T, S] = lp at each state's label, 0 where the label lies
+    outside [0, C) (the kernels' rule), by the plain gather."""
+    from gtn_applications_tpu_torch.ops import gathers
+
+    C = lp.shape[2]
+    return gathers.gather_channels_plain(
+        lp, torch.where((labels >= 0) & (labels < C), labels, -1)).contiguous()
+
+
+def identity_labels(torch, em):
+    """Labels [B, S] int32 that read em [B, T, S] as it is (C = S)."""
+    B, _, S = em.shape
+    return torch.arange(S, dtype=torch.int32, device=em.device).expand(B, S).contiguous()
+
+
+def hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g, what):
+    """Both CTC kernels, reading lp by label, against their plain versions
+    on the gathered emissions: alpha and score within atol 1e-3 + rtol
+    1e-5, the gradient within 1e-5; alpha, score and gradient bitwise equal
+    to the kernels fed the gathered emissions with identity labels (the
+    parent's composition, the gather then the kernels); the gradient's sum
+    by label (``gather_bwd``) held as ``hold_gather_bwd`` holds it.  Logs
+    the routes (``lattice_pallas.alpha_plan``, ``grad_plan``) and the
+    infeasible samples.  Returns the errors and the kernel's gradient."""
+    from gtn_applications_tpu_torch.ops import gathers
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
     from gtn_applications_tpu_torch.ops.semiring import DEAD, NEG
 
-    a_k = lp_mod.ctc_alpha_cuda(em, start, skip, il)
+    em = emissions(torch, lp, labels)
+    ident = identity_labels(torch, em)
+    a_k = lp_mod.ctc_alpha_cuda(lp, labels, start, skip, il)
+    a_c = lp_mod.ctc_alpha_cuda(em, ident, start, skip, il)
     a_p = lp_mod.ctc_alpha_plain(em, start, skip, il)
     torch.testing.assert_close(a_k, a_p, atol=1e-3, rtol=1e-5)
     alpha_err = float((a_k - a_p).abs()[a_p > DEAD].max())
     s_k = lp_mod._final_score(a_k[:, -1], accept)
     s_p = lp_mod._final_score(a_p[:, -1], accept)
     torch.testing.assert_close(s_k, s_p, atol=1e-3, rtol=1e-5)
-    gr_k = lp_mod.ctc_grad_cuda(em, a_k, accept, skip, il, s_k, g)
+    gr_k = lp_mod.ctc_grad_cuda(lp, labels, a_k, accept, skip, il, s_k, g)
+    gr_c = lp_mod.ctc_grad_cuda(em, ident, a_c, accept, skip, il,
+                                lp_mod._final_score(a_c[:, -1], accept), g)
     gr_p = lp_mod.ctc_grad_plain(em, a_p, accept, skip, il, s_p, g)
+    C = lp.shape[2]
+    dlp = gathers.gather_bwd_cuda(gr_k, labels, C)
+    dlp_again = gathers.gather_bwd_cuda(gr_k, labels, C)
     torch.cuda.synchronize()
+    if not (torch.equal(a_k, a_c) and torch.equal(gr_k, gr_c)):
+        raise AssertionError(f"ctc {what}: the kernels reading lp by label differ from the "
+                             "kernels on the gathered emissions")
     grad_err = float((gr_k - gr_p).abs().max())
     if not grad_err <= 1e-5:
         raise AssertionError(f"ctc grad max|d|={grad_err} > 1e-5 at {what}")
+    clean = torch.where((labels >= 0) & (labels < C), labels, -1)
+    bwd_err = hold_gather_bwd(torch, gr_k, clean, C, dlp, dlp_again, what)
     route, k, warps, ring = lp_mod.grad_plan(em.shape[2])
     f_route, f_k, f_warps, f_ring = lp_mod.alpha_plan(em.shape[2])
     log(f"ctc {what}: alpha max|d| (live states) {alpha_err:.3g}, score max|d| "
-        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g} (forward route "
+        f"{float((s_k - s_p).abs().max()):.3g}, grad max|d| {grad_err:.3g}; alpha and grad "
+        f"bitwise those of the gathered composition; dlp max|d| {bwd_err:.3g} (forward route "
         f"{f_route}, K={f_k}, {f_warps} warps a sample, a ring of {f_ring} frames; backward "
         f"route {route}, K={k}, {warps} warps a sample, a ring of {ring} frames; "
         f"{int((s_p <= NEG / 2).sum())} infeasible samples)")
-    return {"ctc_alpha": alpha_err, "ctc_grad": grad_err}, gr_k
+    return {"ctc_alpha": alpha_err, "ctc_grad": grad_err, "gather_bwd": bwd_err}, gr_k
+
+
+# the gather pair's cases (B, T, C, S, targets): the CTC headline, a wide S
+# with many duplicates and ASG's force-aligned shape (targets of L labels
+# over its C = N channels)
+GATHER_CASES = ((B, T, N, 2 * L + 1, False), (8, T, N, 4096, False), (B, T, N, L, True))
 
 
 def phase_gather(torch, dev):
     errs = {}
-    for shape in [(B, T, N, 2 * L + 1), (8, T, N, 4096)]:
-        x, idx, g = _gather_case(torch, dev, *shape, seed=shape[-1])
-        merge_errs(errs, hold_gather_kernels(torch, x, idx, g, shape))
+    for *shape, targets in GATHER_CASES:
+        x, idx, g = _gather_case(torch, dev, *shape, seed=shape[-1], targets=targets)
+        merge_errs(errs, hold_gather_kernels(torch, x, idx, g, tuple(shape)))
     return errs
 
 
@@ -394,14 +474,15 @@ def headline_inputs(torch, dev, seed=0, b=B, t=T, l=L, infeasible=False):
 
 
 def ctc_kernel_inputs(torch, logits, targets, tl, blank=BLANK):
-    from gtn_applications_tpu_torch.ops import gathers, lattice
+    """The CTC kernels' inputs: log-probabilities [B, T, N], the states'
+    labels [B, S] int32, start, accept and skip [B, S]."""
+    from gtn_applications_tpu_torch.ops import lattice
 
-    lp = torch.log_softmax(logits, dim=2)
+    lp = torch.log_softmax(logits, dim=2).contiguous()
     labels, skip_ok = lattice.ctc_state_tables(targets, blank)
     labels = labels.to(torch.int32).contiguous()
-    em = gathers.gather_channels_plain(lp, labels).contiguous()
-    start, accept = lattice.ctc_start_accept(tl, em.shape[2])
-    return lp, labels, em, start.contiguous(), accept.contiguous(), \
+    start, accept = lattice.ctc_start_accept(tl, labels.shape[1])
+    return lp, labels, start.contiguous(), accept.contiguous(), \
         skip_ok.to(torch.float32).contiguous()
 
 
@@ -413,20 +494,21 @@ CTC_NARROW_L = 11
 
 
 def ctc_case(torch, dev, b=B, t=T, l=L, seed=0, infeasible=False):
-    """The CTC kernels' inputs (em, start, accept, skip, input lengths, g)
-    from ``headline_inputs``; g is d(mean of -score / len) / d score."""
+    """The CTC kernels' inputs (lp, labels, start, accept, skip, input
+    lengths, g) from ``headline_inputs``; g is d(mean of -score / len) /
+    d score."""
     logits, targets, tl, il = headline_inputs(torch, dev, seed, b, t, l, infeasible)
-    _, _, em, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
-    return em, start, accept, skip, il, -1.0 / (b * tl.to(torch.float32))
+    return (*ctc_kernel_inputs(torch, logits, targets, tl), il,
+            -1.0 / (b * tl.to(torch.float32)))
 
 
 def phase_ctc(torch, dev):
     from gtn_applications_tpu_torch.ops import lattice
 
     logits, targets, tl, il = headline_inputs(torch, dev)
-    lp, labels, em, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
+    lp, labels, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
     g = -1.0 / (B * tl.to(torch.float32))  # d(mean of -score/len) / d score
-    errs, _ = hold_ctc_kernels(torch, em, start, accept, skip, il, g,
+    errs, _ = hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g,
                                (B, T, L, N))
     # an infeasible sample (its gradient is the kernels' alone: F.ctc_loss
     # gives inf there), the backward's warp route (S = 23) and wider shapes
@@ -1858,7 +1940,7 @@ def phase_segmax(torch, dev):
 
 # path -> (config file, its forward kernels (and decode), its backward kernels)
 PATHS = {
-    "ctc": ("tds2d.json", ("gather_fwd", "ctc_alpha"), ("gather_bwd", "ctc_grad")),
+    "ctc": ("tds2d.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     "asg": ("tds2d_asg.json", ("gather_fwd", "dense_bt"), ("gather_bwd",)),
     "stc": ("tds2d_stc.json", ("dense_scan_fwd",), ("dense_scan_bwd",)),
     "transducer": ("ngram_ctc.json",
@@ -2058,13 +2140,12 @@ def phase_main_batch(torch, dev, model, config):
     diffs = card_vs_cpu(torch, dev, crit, logits, prepared, 1e-4, 1e-6, "ctc")
 
     tgts, tl = (p.to(dev) for p in prepared)
-    lp, labels, em, start, accept, skip = ctc_kernel_inputs(
-        torch, logits, tgts, tl, crit.blank)
+    lp, labels, start, accept, skip = ctc_kernel_inputs(torch, logits, tgts, tl, crit.blank)
     bsz, frames = logits.shape[:2]
     il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
     g = -1.0 / (bsz * tl.to(torch.float32).clamp(min=1))
     what = (bsz, frames, tgts.shape[1], logits.shape[2])
-    errs, grad = hold_ctc_kernels(torch, em, start, accept, skip, il, g, what)
+    errs, grad = hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g, what)
     merge_errs(errs, hold_gather_kernels(torch, lp, labels, grad, what))
     return errs, dict(diffs, card_vs_cpu_logits_max_abs_diff=d_out,
                       main_batch_shape=list(what))
@@ -2978,14 +3059,18 @@ def phase_times(torch, dev, paths):
 
     F = torch.nn.functional
     logits, targets, tl, il = headline_inputs(torch, dev)
-    lp, labels, em, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
+    lp, labels, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
+    em = emissions(torch, lp, labels)
+    ident = identity_labels(torch, em)
     S = em.shape[2]
-    alpha = lp_mod.ctc_alpha_cuda(em, start, skip, il)
+    alpha = lp_mod.ctc_alpha_cuda(lp, labels, start, skip, il)
     score = lp_mod._final_score(alpha[:, -1], accept)
     g = -1.0 / (B * tl.to(torch.float32))
-    grad = lp_mod.ctc_grad_cuda(em, alpha, accept, skip, il, score, g)
+    grad = lp_mod.ctc_grad_cuda(lp, labels, alpha, accept, skip, il, score, g)
 
     t = {}
+    # an empty kernel: the launch floor of every kernel here
+    t["launch_probe"] = gpu_median_ms(torch, lambda: gathers.launch_probe(dev))
     t["gather_fwd"] = gpu_median_ms(torch, lambda: gathers.gather_fwd_cuda(lp, labels))
     t["gather_fwd_plain"] = gpu_median_ms(
         torch, lambda: gathers.gather_channels_plain(lp, labels))
@@ -3000,41 +3085,81 @@ def phase_times(torch, dev, paths):
     t["torch_gather"] = gpu_median_ms(torch, lambda: torch.gather(lp, 2, full))
     t["torch_scatter_add"] = gpu_median_ms(
         torch, lambda: torch.zeros_like(lp).scatter_add_(2, full, grad))
+    t["gather_bwd_plan"] = gathers.gather_bwd_plan(S, N)
+    # the gather backward at the wide and ASG cases, the forward at ASG's
+    # (its caller there is the force-aligned score)
+    more, gather_bounds = {}, {}
+    for b_, t_, c_, s_, targets_ in GATHER_CASES[1:]:
+        x_m, idx_m, g_m = _gather_case(torch, dev, b_, t_, c_, s_, seed=s_, targets=targets_)
+        full_m = idx_m.long().clamp(min=0)[:, None, :].expand(b_, t_, s_)
+        key = f"{'asg' if targets_ else 'wide'}_S{s_}"
+        more[key] = {
+            "shape": [b_, t_, c_, s_], "plan": gathers.gather_bwd_plan(s_, c_),
+            "ms": gpu_median_ms(torch, lambda a=(g_m, idx_m, c_): gathers.gather_bwd_cuda(*a)),
+            "plain_ms": gpu_median_ms(
+                torch, lambda a=(g_m, idx_m, c_): gathers.gather_channels_bwd_plain(*a)),
+            "library_ms": gpu_median_ms(
+                torch, lambda a=(x_m, full_m, g_m): torch.zeros_like(a[0]).scatter_add_(
+                    2, a[1], a[2]))}
+        more[key]["bound_ms"], _ = bound_ms(
+            g_m.numel() * 4 + idx_m.numel() * 4 + x_m.numel() * 4, g_m.numel())
+        if targets_:
+            t["gather_fwd_asg"] = {
+                "shape": [b_, t_, c_, s_],
+                "ms": gpu_median_ms(torch, lambda a=(x_m, idx_m): gathers.gather_fwd_cuda(*a)),
+                "library_ms": gpu_median_ms(
+                    torch, lambda a=(x_m, full_m): torch.gather(a[0], 2, a[1])),
+                "bound_ms": bound_ms(x_m.numel() * 4 + idx_m.numel() * 4 + g_m.numel() * 4,
+                                     0)[0]}
+    t["gather_bwd_more"] = more
     t["ctc_alpha"] = gpu_median_ms(
-        torch, lambda: lp_mod.ctc_alpha_cuda(em, start, skip, il))
+        torch, lambda: lp_mod.ctc_alpha_cuda(lp, labels, start, skip, il))
+    # its plain version: the plain gather, then the plain recursion
     t["ctc_alpha_plain"] = gpu_median_ms(
-        torch, lambda: lp_mod.ctc_alpha_plain(em, start, skip, il), runs=20)
+        torch, lambda: lp_mod.ctc_alpha_plain(gathers.gather_channels_plain(lp, labels), start,
+                                              skip, il), runs=20)
+    # the forward as the parent composed it: the gather, then the kernel on
+    # the gathered emissions (identity labels), two launches
+    t["ctc_alpha_gather_then_alpha"] = gpu_median_ms(
+        torch, lambda: lp_mod.ctc_alpha_cuda(gathers.gather_fwd_cuda(lp, labels), ident, start,
+                                             skip, il))
     t["ctc_grad"] = gpu_median_ms(
-        torch, lambda: lp_mod.ctc_grad_cuda(em, alpha, accept, skip, il, score, g))
+        torch, lambda: lp_mod.ctc_grad_cuda(lp, labels, alpha, accept, skip, il, score, g))
     t["ctc_grad_plain"] = gpu_median_ms(
-        torch, lambda: lp_mod.ctc_grad_plain(em, alpha, accept, skip, il, score, g),
-        runs=20)
+        torch, lambda: lp_mod.ctc_grad_plain(gathers.gather_channels_plain(lp, labels), alpha,
+                                             accept, skip, il, score, g), runs=20)
     t["ctc_grad_route"] = lp_mod.grad_plan(S)
     t["ctc_alpha_route"] = lp_mod.alpha_plan(S)
     # the pair at its wider shapes (S = 241 and 401, route "block")
     wide, wide_a = {}, {}
     for i, (b, tt, l) in enumerate(CTC_WIDE):
-        em_w, st_w, acc_w, skip_w, il_w, g_w = ctc_case(torch, dev, b, tt, l, seed=2 + i)
-        alpha_w = lp_mod.ctc_alpha_cuda(em_w, st_w, skip_w, il_w)
-        args = (em_w, alpha_w, acc_w, skip_w, il_w, lp_mod._final_score(alpha_w[:, -1], acc_w),
-                g_w)
-        a_args = (em_w, st_w, skip_w, il_w)
-        wide[f"S{em_w.shape[2]}"] = {
-            "shape": [b, tt, em_w.shape[2]], "max_len": int(il_w.max()),
-            "route": lp_mod.grad_plan(em_w.shape[2]),
+        lp_w, lab_w, st_w, acc_w, skip_w, il_w, g_w = ctc_case(torch, dev, b, tt, l, seed=2 + i)
+        S_w = lab_w.shape[1]
+        alpha_w = lp_mod.ctc_alpha_cuda(lp_w, lab_w, st_w, skip_w, il_w)
+        args = (lp_w, lab_w, alpha_w, acc_w, skip_w, il_w,
+                lp_mod._final_score(alpha_w[:, -1], acc_w), g_w)
+        em_w = emissions(torch, lp_w, lab_w)
+        p_args = (em_w,) + args[2:]
+        a_args = (lp_w, lab_w, st_w, skip_w, il_w)
+        wide[f"S{S_w}"] = {
+            "shape": [b, tt, S_w], "max_len": int(il_w.max()),
+            "route": lp_mod.grad_plan(S_w),
             "ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_cuda(*a)),
-            "plain_ms": gpu_median_ms(torch, lambda a=args: lp_mod.ctc_grad_plain(*a), runs=10)}
-        wide_a[f"S{em_w.shape[2]}"] = {
-            "shape": [b, tt, em_w.shape[2]], "max_len": int(il_w.max()),
-            "route": lp_mod.alpha_plan(em_w.shape[2]),
-            "ms": gpu_median_ms(torch, lambda a=a_args: lp_mod.ctc_alpha_cuda(*a)),
-            "plain_ms": gpu_median_ms(torch, lambda a=a_args: lp_mod.ctc_alpha_plain(*a),
+            "plain_ms": gpu_median_ms(torch, lambda a=p_args: lp_mod.ctc_grad_plain(*a),
                                       runs=10)}
+        wide_a[f"S{S_w}"] = {
+            "shape": [b, tt, S_w], "max_len": int(il_w.max()),
+            "route": lp_mod.alpha_plan(S_w),
+            "ms": gpu_median_ms(torch, lambda a=a_args: lp_mod.ctc_alpha_cuda(*a)),
+            "plain_ms": gpu_median_ms(
+                torch, lambda a=(em_w, st_w, skip_w, il_w): lp_mod.ctc_alpha_plain(*a),
+                runs=10)}
     t["ctc_grad_wide"] = wide
     t["ctc_alpha_wide"] = wide_a
     # the kernels one CTC backward launches (torch.profiler)
     t["ctc_grad_kernel_launches"] = kernel_launches(
-        torch, lambda: lp_mod.ctc_grad_cuda(em, alpha, accept, skip, il, score, g), "ctc_grad")
+        torch, lambda: lp_mod.ctc_grad_cuda(lp, labels, alpha, accept, skip, il, score, g),
+        "ctc_grad")
 
     # F.ctc_loss copies its length tensors to the host; lengths already on
     # the host keep that copy from synchronising the device on every call
@@ -3058,6 +3183,21 @@ def phase_times(torch, dev, paths):
         torch.autograd.grad(loss, lp_req)
 
     t["port_ctc_loss_fwd_bwd"] = gpu_median_ms(torch, port_fwd_bwd)
+    # the CTC Function itself from the log-probabilities (wrapper included;
+    # the state tables made once, as F.ctc_loss takes its targets ready)
+
+    def function_fwd():
+        return lp_mod.ctc_score_kernel(lp, labels, start, accept, skip, il)
+
+    def function_fwd_bwd():
+        score_f = lp_mod.ctc_score_kernel(lp_req, labels, start, accept, skip, il)
+        torch.autograd.grad(score_f, lp_req, g)
+
+    t["ctc_function_fwd"] = gpu_median_ms(torch, function_fwd)
+    t["ctc_function_fwd_bwd"] = gpu_median_ms(torch, function_fwd_bwd)
+    t["ctc_function_kernel_launches"] = {
+        "fwd": kernel_launches(torch, function_fwd, ("ctc_", "gather_")),
+        "fwd_bwd": kernel_launches(torch, function_fwd_bwd, ("ctc_", "gather_"))}
 
     # the backtrace at the ASG headline
     bp, last = asg_headline_inputs(torch, dev)
@@ -3135,13 +3275,17 @@ def phase_times(torch, dev, paths):
     # skips the frozen tail
     live_states = int(il.clamp(max=T).sum()) * S
     state_bytes = B * S * 4
+    # the CTC kernels read lp by label: each live frame's entries at the
+    # sample's distinct labels, and the labels once
+    lp_by_label = sum(int(il[b].clamp(max=T)) * int(torch.unique(labels[b]).numel())
+                      for b in range(B)) * 4 + labels.numel() * 4
     bounds = {
         "gather_fwd": bound_ms(lp.numel() * 4 + labels.numel() * 4 + B * T * S * 4, 0),
         "gather_bwd": bound_ms(grad.numel() * 4 + labels.numel() * 4 + lp.numel() * 4,
                                grad.numel()),
-        "ctc_alpha": bound_ms(live_states * 4 + 2 * state_bytes + B * 4 + B * T * S * 4,
+        "ctc_alpha": bound_ms(lp_by_label + 2 * state_bytes + B * 4 + B * T * S * 4,
                               (live_states - B * S) * ALPHA_OPS),
-        "ctc_grad": bound_ms(2 * live_states * 4 + 2 * state_bytes + 3 * B * 4
+        "ctc_grad": bound_ms(lp_by_label + live_states * 4 + 2 * state_bytes + 3 * B * 4
                              + B * T * S * 4, live_states * GRAD_OPS),
         # the walk reads one entry of each of a sample's T-1 frames, a
         # scattered load that moves at least one 32-byte sector; last read
@@ -3297,6 +3441,15 @@ def run(device="cuda"):
     row["viterbi_backtrace"]["decode_ms"] = times["viterbi_decode"]
     row["ctc_grad"]["wide"] = times["ctc_grad_wide"]
     row["ctc_alpha"]["wide"] = times["ctc_alpha_wide"]
+    # the launch floor (an empty kernel) beside the gathers; the CTC
+    # forward as the gather and ctc_alpha, two launches; the gather
+    # backward at its wide and ASG cases, the forward at ASG's
+    for name in ("gather_fwd", "gather_bwd"):
+        row[name]["launch_floor_ms"] = times["launch_probe"]
+    row["gather_bwd"]["plan"] = times["gather_bwd_plan"]
+    row["gather_bwd"]["more"] = times["gather_bwd_more"]
+    row["gather_fwd"]["asg"] = times["gather_fwd_asg"]
+    row["ctc_alpha"]["gather_then_alpha_ms"] = times["ctc_alpha_gather_then_alpha"]
     row["dense_bt"]["more"] = times["dense_bt_more"]
     print(json.dumps({"timing": timing}))
     print(json.dumps({"kernels": kernels}))

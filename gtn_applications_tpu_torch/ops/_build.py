@@ -41,10 +41,12 @@ _SIGNATURES = {
     "gather": {
         "gather_channels_fwd": (3, 4),
         "gather_channels_bwd": (3, 4),
+        "gather_bwd_layout": (1, 2),
+        "launch_probe": (0, 0),
     },
     "ctc": {
-        "ctc_alpha": (5, 3),
-        "ctc_grad": (8, 3),
+        "ctc_alpha": (6, 4),
+        "ctc_grad": (9, 4),
         "ctc_chain_probe": (2, 1),
     },
     "viterbi": {

@@ -4,7 +4,11 @@
 // Replaces gtn_applications_tpu/ops/lattice_pallas.py: _ctc_fwd_kernel (:57)
 // and _ctc_bwd_kernel (:79), wrapped there by ctc_score_pallas (:152).
 //
-// States s = 0..S-1 (S = 2L + 1) of sample b; em, alpha, grad are [B, T, S].
+// States s = 0..S-1 (S = 2L + 1) of sample b; alpha, grad are [B, T, S], and
+// em[t, s] = lp[b, t, labels[b, s]] (0 where the label is outside [0, C)):
+// both kernels read the log-probabilities lp [B, T, C] by label, the gather
+// (gather.cu's forward, gtn_applications_tpu/ops/gathers.py:30) moved into
+// their emission copies, so em never goes through device memory.
 //   alpha:  alpha[0]   = start + em[0]
 //           alpha[t]   = em[t] + lse3(alpha, shift1(alpha), skip ? shift2(alpha))
 //           frozen (alpha[t] = alpha[t-1]) where t >= len[b]
@@ -17,7 +21,7 @@
 // read NEG.  Built without --use_fast_math: expf/logf must be the accurate
 // ones near the floor.
 //
-// What bounds it on the H100: neither bytes (about 5.7 MB move at B=32,
+// What bounds it on the H100: neither bytes (about 5 MB move at B=32,
 // T=250, S=89, under 2 us at 3.35 TB/s) nor arithmetic, but the chain of T
 // dependent steps, each an exp/log round.  The TPU kernel ran the time axis
 // as its sequential grid with a VMEM carry; Hopper blocks run in parallel
@@ -36,7 +40,8 @@
 // warp (S <= 32, route "warp") the rotation by shuffle does it all and the
 // frames have no barrier.  The skip mask sits on the destination, so the
 // exchange passes raw alpha.  The em rows pass through a ring of
-// kBlockRing frames filled by cp.async and are read into registers two
+// kBlockRing frames filled by cp.async (each state's 4-byte copy reads the
+// lp row at its label, kept in a register) and are read into registers two
 // frames ahead, frames in pairs as one block of code: frames past the last
 // are computed and dropped (their copies read a clamped frame), each live
 // frame's row stored fire-and-forget, the frozen tail written from
@@ -154,27 +159,60 @@ constexpr int kRing = 8;       // route "warp": the chain's em, the helper's alp
 constexpr int kBlockRing = 4;  // route "block": em and alpha
 constexpr int kAhead = 2;
 
-// Copy states j = tid + n i (route "block") or tid K + i (the chain warp),
-// i < K, of a row of S into the same positions of dst (those past S read
-// the row's last): one 4-byte cp.async each, each thread its own states.
-template <int K, bool kConsecutive>
+// Copy states j = tid + n i, i < K, of a row of S (alpha's) into the same
+// positions of dst (those past S read the row's last): one 4-byte cp.async
+// each, each thread its own states.
+template <int K>
 __device__ __forceinline__ void fetch_row(float* dst, const float* row, int S, int tid, int n) {
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    const int j = kConsecutive ? tid * K + i : tid + i * n;
+    const int j = tid + i * n;
     __pipeline_memcpy_async(dst + j, row + min(j, S - 1), sizeof(float));
+  }
+}
+
+// The labels of states j = tid + n i (route "block") or tid K + i (the
+// chain warp), i < K: lab[i] the channel state j emits, clamped into
+// [0, C) (0 past S) so that its copy reads a real address; bit i of the
+// result set where the label lies in [0, C), elsewhere em is 0 (the
+// gather's rule), selected where the ring's value is read.
+template <int K, bool kConsecutive>
+__device__ __forceinline__ unsigned state_labels(int (&lab)[K], const int* lab_b, int S, int C,
+                                                 int tid, int n) {
+  unsigned inr = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int j = kConsecutive ? tid * K + i : tid + i * n;
+    const int c = j < S ? lab_b[j] : -1;
+    const bool ok = c >= 0 && c < C;
+    lab[i] = ok ? c : 0;
+    inr |= static_cast<unsigned>(ok) << i;
+  }
+  return inr;
+}
+
+// Copy the emissions of those states from an lp row of C into the same
+// positions of dst: one 4-byte cp.async each at the state's label.
+template <int K, bool kConsecutive>
+__device__ __forceinline__ void fetch_labels(float* dst, const float* row, const int (&lab)[K],
+                                             int tid, int n) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int j = kConsecutive ? tid * K + i : tid + i * n;
+    __pipeline_memcpy_async(dst + j, row + lab[i], sizeof(float));
   }
 }
 
 // ctc_alpha (see the header): W warps a sample, thread i holding states
 // i + 32 W k; em through a ring of kBlockRing frames (kRinged) or read from
-// global memory (rows past the ring's shared memory); kOneWarp: W = 1, the
-// exchange all by shuffle.
+// global memory (rows past the ring's shared memory), both from lp by
+// label; kOneWarp: W = 1, the exchange all by shuffle.
 template <int K, bool kRinged, bool kOneWarp>
 __global__ void __launch_bounds__(1024)
-ctc_alpha_kernel(const float* __restrict__ em, const float* __restrict__ start,
-                 const float* __restrict__ skip, const int* __restrict__ lens,
-                 float* __restrict__ alpha, int T, int S) {
+ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
+                 const float* __restrict__ start, const float* __restrict__ skip,
+                 const int* __restrict__ lens, float* __restrict__ alpha, int T, int S,
+                 int C) {
   extern __shared__ __align__(16) float ring_a[];
   // each warp's lanes 30 and 31 by frame parity, for lanes 0 and 1 of the
   // warp above (and, from the last warp, of warp 0's next slot)
@@ -184,27 +222,30 @@ ctc_alpha_kernel(const float* __restrict__ em, const float* __restrict__ start,
   const int row = K * n;  // a ring slot: em's row
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
-  const float* em_b = em + base;
+  const float* lp_b = lp + static_cast<long>(b) * T * C;
   float* al_b = alpha + base;
   const int t_live = live_steps(lens[b], T);
+  int lab[K];
+  const unsigned inr = state_labels<K, false>(lab, labels + static_cast<long>(b) * S, S, C,
+                                              tid, n);
 
   // frame t's row (t clamped to the last) into ring slot t mod kBlockRing,
   // each thread its own states; a commit group
   auto fetch = [&](int t) {
     if constexpr (kRinged) {
-      fetch_row<K, false>(ring_a + (t & (kBlockRing - 1)) * row,
-                          em_b + static_cast<long>(min(t, T - 1)) * S, S, tid, n);
+      fetch_labels<K, false>(ring_a + (t & (kBlockRing - 1)) * row,
+                             lp_b + static_cast<long>(min(t, T - 1)) * C, lab, tid, n);
       __pipeline_commit();
     }
   };
   // frame t's row into registers, from the ring or global memory
   auto load = [&](float (&e)[K], int t) {
     const float* se = ring_a + (t & (kBlockRing - 1)) * row;
-    const long off = static_cast<long>(min(t, T - 1)) * S;
+    const long off = static_cast<long>(min(t, T - 1)) * C;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int j = tid + k * n;
-      e[k] = kRinged ? se[j] : em_b[off + min(j, S - 1)];
+      const float v = kRinged ? se[tid + k * n] : lp_b[off + lab[k]];
+      e[k] = (inr >> k) & 1u ? v : 0.0f;
     }
   };
   auto wait = [&]() {
@@ -219,7 +260,7 @@ ctc_alpha_kernel(const float* __restrict__ em, const float* __restrict__ start,
     const int s = tid + k * n;
     a[k] = kNeg;
     if (s < S) {
-      a[k] = start[static_cast<long>(b) * S + s] + em_b[s];
+      a[k] = start[static_cast<long>(b) * S + s] + ((inr >> k) & 1u ? lp_b[lab[k]] : 0.0f);
       al_b[s] = a[k];
       live |= 1u << k;
       if (skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
@@ -294,10 +335,11 @@ ctc_alpha_kernel(const float* __restrict__ em, const float* __restrict__ start,
 // Route "warp": warp 0 the chain, warp 1 the helper (see the header).
 template <int K>
 __global__ void __launch_bounds__(64)
-ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alpha,
-                     const float* __restrict__ accept, const float* __restrict__ skip,
-                     const int* __restrict__ lens, const float* __restrict__ score,
-                     const float* __restrict__ g, float* __restrict__ grad, int T, int S) {
+ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
+                     const float* __restrict__ alpha, const float* __restrict__ accept,
+                     const float* __restrict__ skip, const int* __restrict__ lens,
+                     const float* __restrict__ score, const float* __restrict__ g,
+                     float* __restrict__ grad, int T, int S, int C) {
   constexpr int kRow = 32 * K;  // a ring row: the warp's 32 K states
   __shared__ __align__(16) float em_ring[kRing][kRow];
   __shared__ __align__(16) float beta_ring[kRing][kRow];
@@ -315,9 +357,12 @@ ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alp
   __syncthreads();  // the barriers' initialisation; none in the frames
 
   if (threadIdx.x < 32) {
-    // the chain warp: states lane K + k; the em ring's copies and reads are
-    // each lane's own states (no warp sync)
-    const float* em_b = em + base;
+    // the chain warp: states lane K + k; the em ring's copies (from lp by
+    // label) and reads are each lane's own states (no warp sync)
+    const float* lp_b = lp + static_cast<long>(b) * T * C;
+    int lab[K];
+    const unsigned inr = state_labels<K, true>(lab, labels + static_cast<long>(b) * S, S, C,
+                                               lane, 32);
     float be[K];
     unsigned skp = 0, live = 0;
 #pragma unroll
@@ -328,14 +373,14 @@ ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alp
       if (s < S && skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
     }
     auto fetch = [&](int t) {
-      fetch_row<K, true>(em_ring[t & (kRing - 1)], em_b + static_cast<long>(max(t, 0)) * S, S,
-                         lane, 32);
+      fetch_labels<K, true>(em_ring[t & (kRing - 1)], lp_b + static_cast<long>(max(t, 0)) * C,
+                            lab, lane, 32);
       __pipeline_commit();
     };
     auto load = [&](float (&e)[K], int t) {
       const float* r = em_ring[t & (kRing - 1)] + lane * K;
 #pragma unroll
-      for (int k = 0; k < K; ++k) e[k] = r[k];
+      for (int k = 0; k < K; ++k) e[k] = (inr >> k) & 1u ? r[k] : 0.0f;
     };
     for (int q = 0; q < kRing; ++q) fetch(t_live - 1 - q);
     asm volatile("cp.async.wait_group %0;" ::"n"(kRing - kAhead) : "memory");
@@ -380,8 +425,8 @@ ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alp
     for (long i = lane; i < static_cast<long>(T - t_live) * S; i += 32)
       gr_b[static_cast<long>(t_live) * S + i] = 0.0f;
     auto fetch = [&](int t) {
-      fetch_row<K, false>(al_ring[t & (kRing - 1)], al_b + static_cast<long>(max(t, 0)) * S, S,
-                          lane, 32);
+      fetch_row<K>(al_ring[t & (kRing - 1)], al_b + static_cast<long>(max(t, 0)) * S, S, lane,
+                   32);
       __pipeline_commit();
     };
     for (int q = 0; q < kRing; ++q) fetch(t_live - 1 - q);
@@ -406,14 +451,15 @@ ctc_grad_warp_kernel(const float* __restrict__ em, const float* __restrict__ alp
 }
 
 // Route "block": W warps a sample, thread i holding states i + 32 W k; em
-// and alpha through a ring of kBlockRing frames (kRinged) or read from
-// global memory (rows past the ring's shared memory).
+// (from lp by label) and alpha through a ring of kBlockRing frames
+// (kRinged) or read from global memory (rows past the ring's shared memory).
 template <int K, bool kRinged>
 __global__ void __launch_bounds__(1024)
-ctc_grad_block_kernel(const float* __restrict__ em, const float* __restrict__ alpha,
-                      const float* __restrict__ accept, const float* __restrict__ skip,
-                      const int* __restrict__ lens, const float* __restrict__ score,
-                      const float* __restrict__ g, float* __restrict__ grad, int T, int S) {
+ctc_grad_block_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
+                      const float* __restrict__ alpha, const float* __restrict__ accept,
+                      const float* __restrict__ skip, const int* __restrict__ lens,
+                      const float* __restrict__ score, const float* __restrict__ g,
+                      float* __restrict__ grad, int T, int S, int C) {
   extern __shared__ __align__(16) float ring_s[];
   // each warp's lanes 0 and 1 (eb, then the skip-masked eb) by frame
   // parity, for the top lanes of the warp below
@@ -423,34 +469,38 @@ ctc_grad_block_kernel(const float* __restrict__ em, const float* __restrict__ al
   const int row = K * n;  // a ring slot: em's row, then alpha's
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
-  const float* em_b = em + base;
+  const float* lp_b = lp + static_cast<long>(b) * T * C;
   const float* al_b = alpha + base;
   float* gr_b = grad + base;
   const int len = lens[b];
   const int t_live = len < 0 ? 0 : (len < T ? len : T);
   const float sc = score[b];
   const float gb = g[b];
+  int lab[K];
+  const unsigned inr = state_labels<K, false>(lab, labels + static_cast<long>(b) * S, S, C,
+                                              tid, n);
 
   // frame t's rows into ring slot t mod kBlockRing, each thread its own
   // states (coalesced across the warp); a commit group
   auto fetch = [&](int t) {
     if constexpr (kRinged) {
       float* dst = ring_s + (t & (kBlockRing - 1)) * 2 * row;
-      const long off = static_cast<long>(max(t, 0)) * S;
-      fetch_row<K, false>(dst, em_b + off, S, tid, n);
-      fetch_row<K, false>(dst + row, al_b + off, S, tid, n);
+      const long t_c = max(t, 0);
+      fetch_labels<K, false>(dst, lp_b + t_c * C, lab, tid, n);
+      fetch_row<K>(dst + row, al_b + t_c * S, S, tid, n);
       __pipeline_commit();
     }
   };
   // frame t's rows into registers, from the ring or global memory
   auto load = [&](float (&e)[K], float (&a)[K], int t) {
     const float* se = ring_s + (t & (kBlockRing - 1)) * 2 * row;
-    const long off = static_cast<long>(max(t, 0)) * S;
+    const long t_c = max(t, 0);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int j = tid + k * n;
-      e[k] = kRinged ? se[j] : em_b[off + min(j, S - 1)];
-      a[k] = kRinged ? se[row + j] : al_b[off + min(j, S - 1)];
+      const float v = kRinged ? se[j] : lp_b[t_c * C + lab[k]];
+      e[k] = (inr >> k) & 1u ? v : 0.0f;
+      a[k] = kRinged ? se[row + j] : al_b[t_c * S + min(j, S - 1)];
     }
   };
   auto wait = [&]() {
@@ -591,8 +641,15 @@ StatePlan grad_plan(int S) {
   return block_plan(S, 2);
 }
 
+// Where both kernels read their emissions: lp [B, T, C] at each state's label.
+struct Emissions {
+  const float* lp;
+  const int* labels;
+  int C;
+};
+
 template <int K, bool kOneWarp>
-int launch_alpha(const StatePlan& plan, const float* em, const float* start, const float* skip,
+int launch_alpha(const StatePlan& plan, const Emissions& x, const float* start, const float* skip,
                  const int* lens, float* alpha, int B, int T, int S, cudaStream_t st) {
   const int threads = 32 * plan.warps;
   const size_t smem = static_cast<size_t>(plan.ring) * K * threads * sizeof(float);
@@ -602,20 +659,21 @@ int launch_alpha(const StatePlan& plan, const float* em, const float* start, con
   }
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, st>>>(em, start, skip, lens, alpha, T, S);
+  kernel<<<B, threads, smem, st>>>(x.lp, x.labels, start, skip, lens, alpha, T, S, x.C);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch_grad_warp(const float* em, const float* alpha, const float* accept, const float* skip,
-                     const int* lens, const float* score, const float* g, float* grad, int B,
-                     int T, int S, cudaStream_t st) {
-  ctc_grad_warp_kernel<K><<<B, 64, 0, st>>>(em, alpha, accept, skip, lens, score, g, grad, T, S);
+int launch_grad_warp(const Emissions& x, const float* alpha, const float* accept,
+                     const float* skip, const int* lens, const float* score, const float* g,
+                     float* grad, int B, int T, int S, cudaStream_t st) {
+  ctc_grad_warp_kernel<K><<<B, 64, 0, st>>>(x.lp, x.labels, alpha, accept, skip, lens, score, g,
+                                            grad, T, S, x.C);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
-int launch_grad_block(const StatePlan& plan, const float* em, const float* alpha,
+int launch_grad_block(const StatePlan& plan, const Emissions& x, const float* alpha,
                       const float* accept, const float* skip, const int* lens,
                       const float* score, const float* g, float* grad, int B, int T, int S,
                       cudaStream_t st) {
@@ -624,7 +682,8 @@ int launch_grad_block(const StatePlan& plan, const float* em, const float* alpha
   auto kernel = plan.ring ? ctc_grad_block_kernel<K, true> : ctc_grad_block_kernel<K, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, st>>>(em, alpha, accept, skip, lens, score, g, grad, T, S);
+  kernel<<<B, threads, smem, st>>>(x.lp, x.labels, alpha, accept, skip, lens, score, g, grad,
+                                   T, S, x.C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,19 +691,21 @@ int launch_grad_block(const StatePlan& plan, const float* em, const float* alpha
 
 extern "C" {
 
-// em [B, T, S], start/skip [B, S] f32, lens [B] i32 -> alpha [B, T, S] f32.
-// One launch: W warps a sample (block_plan), a ring of em rows in shared
-// memory where it fits in kRingSmem.
-int ctc_alpha(const float* em, const float* start, const float* skip,
-              const int* lens, float* alpha, int B, int T, int S,
-              void* stream) {
+// lp [B, T, C] f32, labels [B, S] i32 (state s emits lp[b, t, labels[b, s]],
+// 0 where the label is outside [0, C)), start/skip [B, S] f32, lens [B] i32
+// -> alpha [B, T, S] f32.  One launch: W warps a sample (block_plan), a ring
+// of em rows in shared memory where it fits in kRingSmem.
+int ctc_alpha(const float* lp, const int* labels, const float* start, const float* skip,
+              const int* lens, float* alpha, int B, int T, int S, int C, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const StatePlan plan = block_plan(S, 1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!plan.block) return launch_alpha<1, true>(plan, em, start, skip, lens, alpha, B, T, S, st);
+  const Emissions x{lp, labels, C};
+  if (!plan.block) return launch_alpha<1, true>(plan, x, start, skip, lens, alpha, B, T, S, st);
   switch (plan.K) {
 #define ALPHA_BLOCK(k) \
-  case k: return launch_alpha<k, false>(plan, em, start, skip, lens, alpha, B, T, S, st);
+  case k: return launch_alpha<k, false>(plan, x, start, skip, lens, alpha, B, T, S, st);
     ALPHA_BLOCK(1) ALPHA_BLOCK(2) ALPHA_BLOCK(3) ALPHA_BLOCK(4) ALPHA_BLOCK(5) ALPHA_BLOCK(6)
     ALPHA_BLOCK(7) ALPHA_BLOCK(8) ALPHA_BLOCK(16)
 #undef ALPHA_BLOCK
@@ -652,27 +713,31 @@ int ctc_alpha(const float* em, const float* start, const float* skip,
   }
 }
 
-// em, alpha [B, T, S], accept/skip [B, S] f32, lens [B] i32, score/g [B] f32
-// -> grad [B, T, S] f32.  Route "warp" (one warp a sample, K = ceil(S / 32)
-// states a lane) for S <= 256, else "block" (grad_plan).
-int ctc_grad(const float* em, const float* alpha, const float* accept,
-             const float* skip, const int* lens, const float* score,
-             const float* g, float* grad, int B, int T, int S, void* stream) {
+// lp [B, T, C] f32 and labels [B, S] i32 (as ctc_alpha), alpha [B, T, S],
+// accept/skip [B, S] f32, lens [B] i32, score/g [B] f32 -> grad [B, T, S]
+// f32 (d score / d em).  Route "warp" (a chain and a helper warp a sample,
+// K = ceil(S / 32) states a lane) for S <= kWarpMaxS, else "block"
+// (grad_plan).
+int ctc_grad(const float* lp, const int* labels, const float* alpha, const float* accept,
+             const float* skip, const int* lens, const float* score, const float* g,
+             float* grad, int B, int T, int S, int C, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const StatePlan plan = grad_plan(S);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Emissions x{lp, labels, C};
   if (!plan.block) {
     switch (plan.K) {
-      case 1: return launch_grad_warp<1>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 2: return launch_grad_warp<2>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 3: return launch_grad_warp<3>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 4: return launch_grad_warp<4>(em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 1: return launch_grad_warp<1>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 2: return launch_grad_warp<2>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 3: return launch_grad_warp<3>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+      case 4: return launch_grad_warp<4>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (plan.K) {
 #define GRAD_BLOCK(k) \
-  case k: return launch_grad_block<k>(plan, em, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+  case k: return launch_grad_block<k>(plan, x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
     GRAD_BLOCK(1) GRAD_BLOCK(2) GRAD_BLOCK(3) GRAD_BLOCK(4) GRAD_BLOCK(5) GRAD_BLOCK(6)
     GRAD_BLOCK(7) GRAD_BLOCK(8) GRAD_BLOCK(16)
 #undef GRAD_BLOCK

@@ -5,7 +5,15 @@ and its Pallas kernels ``_gather_fwd_kernel`` / ``_gather_bwd_kernel``).  On
 CUDA tensors the forward and backward launch the hand-written kernels of
 ``csrc/gather.cu``; on CPU tensors they run the plain versions below, which
 compute the same function.  Index -1 marks padding and gives exact zeros.
+
+The CTC pair does not gather: its kernels read the log-probabilities by
+label (``lattice_pallas``), and its backward ends in ``gather_bwd_cuda``.
+The backward kernel sums each channel's states in ascending s from a plan
+it builds in shared memory (no atomics: the same bits on every run);
+``gather_bwd_plan`` gives its route and tile.
 """
+
+import ctypes
 
 import torch
 
@@ -29,6 +37,59 @@ def gather_channels_bwd_plain(g, idx, C):
     full = idx.clamp(min=0)[:, None, :].expand(B, T, S)
     dx = torch.zeros((B, T, C), dtype=g.dtype, device=g.device)
     return dx.scatter_add_(2, full, torch.where(valid, g, 0.0))
+
+
+# gather_channels_bwd's tile, a warp's lanes, one frame each, and its warps
+# a block (csrc/gather.cu kTileFrames, kThreads / 32)
+GATHER_BWD_FRAMES = 32
+GATHER_BWD_WARPS = 8
+
+
+def gather_bwd_plan(S, C):
+    """(route, frames a tile, rank warps, shared bytes a block) of
+    ``gather_channels_bwd`` at S states and C channels (csrc/gather.cu
+    ``bwd_plan``).  The plan, in shared memory on every route, holds
+    labels, ranks and order of S ints and first of C + 1.  Route "staged":
+    beside it a tile of F g rows (F S + 4 floats: a run keeps its global
+    offset mod 4) and F dx rows of C | 1 floats, F the most frames up to
+    GATHER_BWD_FRAMES that fit in ``_build.MAX_SMEM``; the states ranked by
+    as many warps (each a run of 32-state chunks) as the dx tile holds
+    counts of C channels, at most the block's GATHER_BWD_WARPS and one a
+    chunk.  Route "global" where not one frame fits: F =
+    GATHER_BWD_FRAMES, one rank warp, g and dx in global memory.  Raises
+    where the plan alone does not fit."""
+    plan = (3 * S + C + 1) * 4
+    if plan > _build.MAX_SMEM:
+        raise ValueError(
+            f"gather_bwd builds a plan of {plan} bytes in shared memory at S={S}, "
+            f"C={C}; at most {_build.MAX_SMEM} fit"
+        )
+    cp = C | 1
+    fit = (_build.MAX_SMEM - plan - 16) // ((S + cp) * 4)
+    if fit < 1:
+        return "global", GATHER_BWD_FRAMES, 1, plan
+    frames = min(GATHER_BWD_FRAMES, fit)
+    warps = min(frames * cp // C if C > 0 else 1, GATHER_BWD_WARPS, -(-S // 32))
+    return "staged", frames, max(1, warps), plan + (frames * S + 4 + frames * cp) * 4
+
+
+def gather_bwd_kernel_plan(S, C):
+    """The CUDA library's own ``bwd_plan`` at (S, C), in the form of
+    ``gather_bwd_plan`` (a host call; builds the library)."""
+    lib = _build.load_library("gather")
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.gather_bwd_layout(ctypes.addressof(out), S, C, None),
+                 "gather_bwd_layout")
+    return ("staged" if out[0] else "global"), out[1], out[2], out[3]
+
+
+def launch_probe(device):
+    """Launch the empty kernel of ``csrc/gather.cu`` once on ``device``'s
+    current stream: its time is the launch floor of every kernel here."""
+    lib = _build.load_library("gather")
+    with torch.cuda.device(device):
+        err = lib.launch_probe(torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, err, "launch_probe")
 
 
 def check_indices(idx, C):
@@ -66,16 +127,14 @@ def gather_fwd_cuda(x, idx):
 
 def gather_bwd_cuda(g, idx, C):
     """Launch ``gather_channels_bwd``: g [B, T, S] f32, idx [B, S] int32
-    -> dx [B, T, C]."""
+    -> dx [B, T, C], each channel's states summed in ascending s (the same
+    bits on every run).  Raises where the plan does not fit in shared
+    memory (``gather_bwd_plan``)."""
     _build.require_cuda("gather_bwd", g, idx)
     B, T, S = g.shape
     _build.require("gather_bwd g", g, (B, T, S), torch.float32)
     _build.require("gather_bwd idx", idx, (B, S), torch.int32)
-    if C * 4 > _build.MAX_SMEM:
-        raise ValueError(
-            f"gather_bwd accumulates a row of C={C} floats in shared memory; "
-            f"at most {_build.MAX_SMEM // 4} channels fit"
-        )
+    gather_bwd_plan(S, C)
     dx = torch.empty((B, T, C), dtype=torch.float32, device=g.device)
     lib = _build.load_library("gather")
     with torch.cuda.device(g.device):

@@ -7,7 +7,8 @@ into the 2L+1 lattice states; the score is a fixed-shape recursion over
 ``[B, S]`` state tensors.
 
 ``impl="auto"`` runs the kernel ``Function`` of ``ops/lattice_pallas.py``:
-its CUDA kernels on CUDA tensors, its plain versions on CPU tensors.
+its CUDA kernels on CUDA tensors (they read ``log_probs`` by label, so no
+gather runs), its plain versions on CPU tensors.
 ``impl="scan"`` is a plain-torch copy of the JAX ``lax.scan`` path (a
 second oracle).  The associative-scan and chunked forms are not ported
 yet (ROADMAP queue A item 11, "Long-sequence CTC").
@@ -101,15 +102,15 @@ def ctc_forward_score(
         raise _not_ported(f"CTC over T={T} > {_MAX_KERNEL_T} frames")
 
     labels, skip_ok = ctc_state_tables(targets, blank)
-    # Emissions gathered into lattice states: [B, T, S]
-    em = gather_channels(log_probs, labels)
-
     if impl == "auto":
+        # the kernels read the emissions from log_probs by label
         from .lattice_pallas import ctc_score_kernel
 
         start, accept = ctc_start_accept(target_lengths, S)
-        return ctc_score_kernel(em, start, accept, skip_ok, input_lengths)
+        return ctc_score_kernel(log_probs, labels, start, accept, skip_ok, input_lengths)
 
+    # Emissions gathered into lattice states: [B, T, S]
+    em = gather_channels(log_probs, labels)
     alpha = torch.full((B, S), NEG, dtype=em.dtype, device=device)
     alpha[:, 0] = em[:, 0, 0]
     # state 1 only exists when the target is non-empty

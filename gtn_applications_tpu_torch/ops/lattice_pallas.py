@@ -6,14 +6,22 @@ Counterpart of ``gtn_applications_tpu/ops/lattice_pallas.py``
 file sits beside its reference; the kernels are CUDA C++ for Hopper
 (``csrc/ctc.cu``), not Pallas.
 
-``ctc_score_kernel`` is one ``torch.autograd.Function`` for both devices:
-its forward computes the ``[B, T, S]`` alpha trajectory (``ctc_alpha_cuda``
-on CUDA tensors, ``ctc_alpha_plain`` on CPU tensors) and takes the final
-score as ``_final_score`` does in JAX; its backward runs the time-reversed
-beta recursion and emits the posterior gradient with respect to the
-emissions (``ctc_grad_cuda`` / ``ctc_grad_plain``).  The layout is
-``[B, T, S]`` with S unpadded: the TPU's ``[T, B, S_pad]`` transpose and
-128-lane padding existed only for its tiling.
+``ctc_score_kernel`` is one ``torch.autograd.Function`` for both devices,
+differentiable in the log-probabilities ``lp [B, T, C]``: state s of sample
+b emits ``em[b, t, s] = lp[b, t, labels[b, s]]`` (0 where the label is
+outside [0, C)).  Its forward computes the ``[B, T, S]`` alpha trajectory
+and takes the final score as ``_final_score`` does in JAX; its backward
+runs the time-reversed beta recursion for the posterior gradient with
+respect to em and sums it by label into d lp.  On CUDA tensors the two
+kernels read lp by label themselves (``ctc_alpha_cuda``, ``ctc_grad_cuda``:
+the gather, JAX's ``_gather_fwd_kernel``, moved into their emission copies)
+and the backward ends in ``gathers.gather_bwd_cuda``: three launches a
+forward and backward.  On CPU tensors ``gather_channels_plain`` feeds
+``ctc_alpha_plain`` and ``ctc_grad_plain``, then
+``gather_channels_bwd_plain``.  The layout is ``[B, T, S]`` with S
+unpadded: the TPU's ``[T, B, S_pad]`` transpose and 128-lane padding
+existed only for its tiling.  A caller that holds em already passes it as
+lp with identity labels (``arange(S)``, C = S).
 
 The backward kernel runs a sample's recursion on one warp where S <= 32
 (route "warp": neighbours by shuffles, no block barrier; a second warp
@@ -29,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .gathers import gather_bwd_cuda, gather_channels_bwd_plain, gather_channels_plain
 from .semiring import NEG, _FLOOR
 
 
@@ -129,53 +138,62 @@ def alpha_plan(S):
     return "warp" if warps == 1 else "block", k, warps, ring
 
 
-def _states(name, em, *tensors):
-    _build.require_cuda(name, em, *tensors)
-    B, T, S = em.shape
+def _states(name, lp, labels, *tensors):
+    """(B, T, S, C) of a CTC kernel's lp [B, T, C] float32 and labels [B, S]
+    int32; raises on what the kernels do not take."""
+    _build.require_cuda(name, lp, labels, *tensors)
+    if lp.dim() != 3 or labels.dim() != 2:
+        raise ValueError(f"{name}: lp must be [B, T, C] and labels [B, S]")
+    B, T, C = lp.shape
+    S = labels.shape[1]
+    _build.require(f"{name} lp", lp, (B, T, C), torch.float32)
+    _build.require(f"{name} labels", labels, (B, S), torch.int32)
+    if C < 1:
+        raise ValueError(f"{name}: lp has no channels")
     # the backward holds four state vectors of S floats in shared memory
     if 4 * S * 4 > _build.MAX_SMEM:
         raise ValueError(f"{name}: S={S} states do not fit in shared memory")
-    return B, T, S
+    return B, T, S, C
 
 
-def ctc_alpha_cuda(em, start, skip, lens):
-    """Launch ``ctc_alpha``: em [B, T, S], start/skip [B, S] float32,
-    lens [B] int32 -> alpha [B, T, S]."""
-    B, T, S = _states("ctc_alpha", em, start, skip, lens)
-    _build.require("ctc_alpha em", em, (B, T, S), torch.float32)
+def ctc_alpha_cuda(lp, labels, start, skip, lens):
+    """Launch ``ctc_alpha``: lp [B, T, C] float32, labels [B, S] int32 (em
+    read by label), start/skip [B, S] float32, lens [B] int32 -> alpha
+    [B, T, S]."""
+    B, T, S, C = _states("ctc_alpha", lp, labels, start, skip, lens)
     _build.require("ctc_alpha start", start, (B, S), torch.float32)
     _build.require("ctc_alpha skip", skip, (B, S), torch.float32)
     _build.require("ctc_alpha lens", lens, (B,), torch.int32)
-    alpha = torch.empty((B, T, S), dtype=torch.float32, device=em.device)
+    alpha = torch.empty((B, T, S), dtype=torch.float32, device=lp.device)
     lib = _build.load_library("ctc")
-    with torch.cuda.device(em.device):
+    with torch.cuda.device(lp.device):
         err = lib.ctc_alpha(
-            em.data_ptr(), start.data_ptr(), skip.data_ptr(), lens.data_ptr(),
-            alpha.data_ptr(), B, T, S, _build.stream_handle(em),
+            lp.data_ptr(), labels.data_ptr(), start.data_ptr(), skip.data_ptr(),
+            lens.data_ptr(), alpha.data_ptr(), B, T, S, C, _build.stream_handle(lp),
         )
     _build.check(lib, err, "ctc_alpha")
     _build.LAUNCHES["ctc_alpha"] += 1
     return alpha
 
 
-def ctc_grad_cuda(em, alpha, accept, skip, lens, score, g):
-    """Launch ``ctc_grad``: em/alpha [B, T, S], accept/skip [B, S] float32,
-    lens [B] int32, score/g [B] float32 -> grad [B, T, S]."""
-    B, T, S = _states("ctc_grad", em, alpha, accept, skip, lens, score, g)
-    _build.require("ctc_grad em", em, (B, T, S), torch.float32)
+def ctc_grad_cuda(lp, labels, alpha, accept, skip, lens, score, g):
+    """Launch ``ctc_grad``: lp [B, T, C] float32, labels [B, S] int32 (em
+    read by label), alpha [B, T, S], accept/skip [B, S] float32, lens [B]
+    int32, score/g [B] float32 -> grad [B, T, S], d score / d em."""
+    B, T, S, C = _states("ctc_grad", lp, labels, alpha, accept, skip, lens, score, g)
     _build.require("ctc_grad alpha", alpha, (B, T, S), torch.float32)
     _build.require("ctc_grad accept", accept, (B, S), torch.float32)
     _build.require("ctc_grad skip", skip, (B, S), torch.float32)
     _build.require("ctc_grad lens", lens, (B,), torch.int32)
     _build.require("ctc_grad score", score, (B,), torch.float32)
     _build.require("ctc_grad g", g, (B,), torch.float32)
-    grad = torch.empty((B, T, S), dtype=torch.float32, device=em.device)
+    grad = torch.empty((B, T, S), dtype=torch.float32, device=lp.device)
     lib = _build.load_library("ctc")
-    with torch.cuda.device(em.device):
+    with torch.cuda.device(lp.device):
         err = lib.ctc_grad(
-            em.data_ptr(), alpha.data_ptr(), accept.data_ptr(),
+            lp.data_ptr(), labels.data_ptr(), alpha.data_ptr(), accept.data_ptr(),
             skip.data_ptr(), lens.data_ptr(), score.data_ptr(), g.data_ptr(),
-            grad.data_ptr(), B, T, S, _build.stream_handle(em),
+            grad.data_ptr(), B, T, S, C, _build.stream_handle(lp),
         )
     _build.check(lib, err, "ctc_grad")
     _build.LAUNCHES["ctc_grad"] += 1
@@ -192,39 +210,46 @@ def _final_score(alpha_last, accept):
 
 class _CTCScore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, em, start, accept, skip_ok, input_lengths):
-        em = em.to(torch.float32).contiguous()
+    def forward(ctx, log_probs, labels, start, accept, skip_ok, input_lengths):
+        lp = log_probs.to(torch.float32).contiguous()
+        labels = labels.to(device=lp.device, dtype=torch.int32).contiguous()
         start = start.to(torch.float32).contiguous()
         accept = accept.to(torch.float32).contiguous()
         skip = skip_ok.to(torch.float32).contiguous()
-        lens = input_lengths.to(device=em.device, dtype=torch.int32).contiguous()
-        if _build.on_cuda(em):
-            alpha = ctc_alpha_cuda(em, start, skip, lens)
+        lens = input_lengths.to(device=lp.device, dtype=torch.int32).contiguous()
+        if _build.on_cuda(lp):
+            alpha = ctc_alpha_cuda(lp, labels, start, skip, lens)
         else:
-            alpha = ctc_alpha_plain(em, start, skip, lens)
+            alpha = ctc_alpha_plain(gather_channels_plain(lp, labels), start, skip, lens)
         score = _final_score(alpha[:, -1], accept)
-        ctx.save_for_backward(em, alpha, accept, skip, lens, score)
+        ctx.save_for_backward(lp, labels, alpha, accept, skip, lens, score)
         return score
 
     @staticmethod
     def backward(ctx, g):
-        em, alpha, accept, skip, lens, score = ctx.saved_tensors
+        lp, labels, alpha, accept, skip, lens, score = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
-        if _build.on_cuda(em):
-            grad = ctc_grad_cuda(em, alpha, accept, skip, lens, score, g)
+        C = lp.shape[2]
+        if _build.on_cuda(lp):
+            grad = ctc_grad_cuda(lp, labels, alpha, accept, skip, lens, score, g)
+            dlp = gather_bwd_cuda(grad, labels, C)
         else:
+            em = gather_channels_plain(lp, labels)
             grad = ctc_grad_plain(em, alpha, accept, skip, lens, score, g)
-        return grad, None, None, None, None
+            dlp = gather_channels_bwd_plain(grad, labels, C)
+        return dlp, None, None, None, None, None
 
 
-def ctc_score_kernel(em, start, accept, skip_ok, input_lengths):
-    """Forward score [B] of the banded CTC lattice, differentiable in ``em``.
+def ctc_score_kernel(log_probs, labels, start, accept, skip_ok, input_lengths):
+    """Forward score [B] of the banded CTC lattice, differentiable in
+    ``log_probs``.
 
     Args:
-      em: [B, T, S] per-state emissions.
+      log_probs: [B, T, C] log-probabilities.
+      labels: [B, S] int, the channel each state emits (-1 for none: em 0).
       start / accept: [B, S] 0-or-NEG potentials.
       skip_ok: [B, S] {0, 1} mask.
       input_lengths: [B] int.  The t = 0 step ignores it, as the TPU kernel
         does (lengths are at least 1).
     """
-    return _CTCScore.apply(em, start, accept, skip_ok, input_lengths)
+    return _CTCScore.apply(log_probs, labels, start, accept, skip_ok, input_lengths)

@@ -1,5 +1,6 @@
-"""Time the CTC pair (``ctc_alpha``, ``ctc_grad``), the dense backtrace and
-the whole-scan Viterbi decode of this checkout against another's.
+"""Time the CTC pair (``ctc_alpha``, ``ctc_grad``), the gather backward
+(``gather_bwd``), the dense backtrace and the whole-scan Viterbi decode of
+this checkout against another's.
 
     python -m gtn_applications_tpu_torch.scripts.compare_ctc_viterbi \
         --baseline DIR [--out FILE]
@@ -12,10 +13,15 @@ DIR/build.  Both versions run on the same inputs, in turns baseline,
 this, this, baseline, each a CUDA-event median of 30 runs
 (``chip_smoke.gpu_median_ms``):
 
-- ``ctc_alpha`` at the three shapes below: the max |d| between the two
-  alphas (the same bit for bit where both keep lse3's operand order; more
-  than 1e-3 fails), this checkout's route (``lattice_pallas.alpha_plan``),
-  the chain bound and the kernels one call of each side launches;
+- the CTC forward from the log-probabilities at the three shapes below:
+  a baseline whose kernels take the gathered emissions (``ctc_alpha_cuda(em,
+  ...)``) runs its gather then its ``ctc_alpha`` (two launches); one that
+  reads them by label, its ``ctc_alpha`` alone; this checkout, its
+  ``ctc_alpha``; the two alphas must be bitwise equal.  Beside them the
+  baseline's ``ctc_alpha`` alone on the gathered emissions and this
+  checkout's on them with identity labels (its copies at the parent's
+  addresses), this checkout's route (``lattice_pallas.alpha_plan``), the
+  chain bound and the kernels one call of each side launches;
 - ``dense_backtrace`` at the ASG headline (``chip_smoke.asg_headline_inputs``:
   B=32, T=250, C=80) and ``chip_smoke.DENSE_BT_MORE`` (B=8, T=1000, C=80
   and B=8, T=250, C=81): the paths must be equal; beside them this
@@ -24,12 +30,20 @@ this, this, baseline, each a CUDA-event median of 30 runs
   a call;
 - ``ctc_grad`` at the three shapes ``chip_smoke.py`` times (the CTC
   headline, B=32, T=250, L=44, S=89, and ``chip_smoke.CTC_WIDE``: S=241 at
-  B=8, T=300 and S=401 at B=8, T=500); the two gradients must agree within
-  1e-5 (each side is held to the plain version by ``chip_smoke.py``);
-  beside them this checkout's route (``lattice_pallas.grad_plan``), the
-  chain bound (the longest sample's frames less one x one frame of
-  ``ctc_chain_probe``) and the kernels one call of each side launches
-  (torch.profiler);
+  B=8, T=300 and S=401 at B=8, T=500), each side's alone (the baseline's
+  on the gathered emissions where it takes them, this checkout's also on
+  them with identity labels) and each side's backward
+  from the posterior to d lp, ``ctc_grad`` then ``gather_bwd``; the two
+  posteriors must be bitwise equal, the two d lp within 1e-5 (a baseline's
+  gather backward with atomics sums in another order); beside them this
+  checkout's route (``lattice_pallas.grad_plan``), the chain bound (the
+  longest sample's frames less one x one frame of ``ctc_chain_probe``) and
+  the kernels one call of each side launches (torch.profiler);
+- ``gather_bwd`` alone at ``chip_smoke.GATHER_CASES`` (the CTC headline,
+  S = 4,096 at B=8 and ASG's force-aligned shape, 44 targets): within
+  1e-5 of each other, this checkout's two runs bitwise equal, its plan
+  (``gathers.gather_bwd_plan``), bound and kernels a call; and an empty
+  kernel (``gathers.launch_probe``), the launch floor;
 - the decode at the headline (``chip_smoke.viterbi_headline_inputs``:
   B=32, T=250, C=80, S=82, 6,480 arcs) and on the backoff trigram path's
   decode table (its criterion's loaded weights, S=95, 1,932 arcs; random
@@ -49,6 +63,7 @@ limit.  Run from the root of this checkout on a machine with one GPU.
 """
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
@@ -57,12 +72,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def turns(torch, cs, runs):
-    """{side: [ms, ms]} of ``runs`` timed baseline, this, this, baseline."""
+def turns(torch, cs, runs, order=("base", "new", "new", "base")):
+    """{side: [ms, ms]} of ``runs`` timed in ``order`` (baseline, this,
+    this, baseline)."""
     out = {}
-    for who in ("base", "new", "new", "base"):
+    for who in order:
         out.setdefault(who, []).append(cs.gpu_median_ms(torch, runs[who]))
     return out
+
+
+def takes_em(base):
+    """Whether the baseline's CTC kernels take the gathered emissions (its
+    ``ctc_alpha_cuda(em, ...)``) rather than lp and labels."""
+    return next(iter(inspect.signature(base.ctc_alpha_cuda).parameters)) == "em"
 
 
 def walk_frame_us(torch, cs, dev):
@@ -81,24 +103,71 @@ def alpha_ab(torch, cs, root, dev):
     from gtn_applications_tpu_torch.scripts.compare_sparse_scan import load_baseline
 
     base = load_baseline(root, "ops.lattice_pallas")
+    base_g = load_baseline(root, "ops.gathers")
+    old = takes_em(base)
     frame_us = cs.ctc_chain_frame_us(torch, dev)
-    out = {"chain_frame_us": frame_us}
+    out = {"chain_frame_us": frame_us, "baseline_takes_em": old}
     for i, (b, t, l) in enumerate(((cs.B, cs.T, cs.L),) + cs.CTC_WIDE):
-        em, start, _, skip, il, _ = cs.ctc_case(torch, dev, b, t, l, seed=i + 1 if i else 0)
-        args = (em, start, skip, il)
-        runs = {"base": lambda: base.ctc_alpha_cuda(*args), "new": lambda: lp.ctc_alpha_cuda(*args)}
-        d = float((runs["base"]() - runs["new"]()).abs().max())
-        if not d <= 1e-3:
-            raise AssertionError(f"ctc_alpha S={em.shape[2]}: the two alphas differ by {d}")
+        logp, labels, start, _, skip, il, _ = cs.ctc_case(torch, dev, b, t, l,
+                                                          seed=i + 1 if i else 0)
+        em = cs.emissions(torch, logp, labels)
+        ident = cs.identity_labels(torch, em)
+
+        def base_run():
+            if old:
+                return base.ctc_alpha_cuda(base_g.gather_fwd_cuda(logp, labels), start, skip, il)
+            return base.ctc_alpha_cuda(logp, labels, start, skip, il)
+
+        runs = {"base": base_run,
+                "new": lambda: lp.ctc_alpha_cuda(logp, labels, start, skip, il),
+                "base_alpha_alone": (lambda: base.ctc_alpha_cuda(em, start, skip, il)) if old
+                else (lambda: base.ctc_alpha_cuda(em, ident, start, skip, il)),
+                "new_on_em": lambda: lp.ctc_alpha_cuda(em, ident, start, skip, il)}
+        if not torch.equal(runs["base"](), runs["new"]()):
+            raise AssertionError(f"ctc_alpha S={em.shape[2]}: the two alphas differ")
         S = em.shape[2]
         row = {"shape": [b, t, S], "max_len": int(il.max()), "route": lp.alpha_plan(S),
-               "max_abs_alpha_diff": d,
+               "alphas_bitwise_equal": True,
                "chain_bound_ms": (int(il.max()) - 1) * frame_us * 1e-3,
-               "kernels_a_call": {who: cs.kernel_launches(torch, run, "ctc_alpha")
+               "kernels_a_call": {who: cs.kernel_launches(torch, run, ("ctc_alpha", "gather"))
                                   for who, run in runs.items()},
-               **{f"{who}_ms": ms for who, ms in turns(torch, cs, runs).items()}}
+               **{f"{who}_ms": ms for who, ms in turns(
+                   torch, cs, runs, ("base", "new", "base_alpha_alone", "new_on_em", "new_on_em",
+                                     "base_alpha_alone", "new", "base")).items()}}
         out[f"S{S}"] = row
         print(json.dumps({f"ctc_alpha_S{S}": row}), flush=True)
+    return out
+
+
+def gather_ab(torch, cs, root, dev):
+    """The gather backward alone and the launch floor (see the module
+    docstring)."""
+    from gtn_applications_tpu_torch.ops import gathers
+    from gtn_applications_tpu_torch.scripts.compare_sparse_scan import load_baseline
+
+    base_g = load_baseline(root, "ops.gathers")
+    out = {"launch_probe_ms": [cs.gpu_median_ms(torch, lambda: gathers.launch_probe(dev))
+                               for _ in range(2)]}
+    for b, t, c, s, targets in cs.GATHER_CASES:
+        x, idx, g = cs._gather_case(torch, dev, b, t, c, s, seed=s, targets=targets)
+        runs = {"base": lambda: base_g.gather_bwd_cuda(g, idx, c),
+                "new": lambda: gathers.gather_bwd_cuda(g, idx, c)}
+        new = runs["new"]()
+        if not torch.equal(new, runs["new"]()):
+            raise AssertionError(f"gather_bwd {(b, t, c, s)}: differs from itself run to run")
+        d = float((runs["base"]() - new).abs().max())
+        if not d <= 1e-5:
+            raise AssertionError(f"gather_bwd {(b, t, c, s)}: the two differ by {d}")
+        key = f"{'asg' if targets else 'ctc'}_S{s}"
+        row = {"shape": [b, t, c, s], "plan": gathers.gather_bwd_plan(s, c),
+               "max_abs_diff": d,
+               "bound_ms": cs.bound_ms(g.numel() * 4 + idx.numel() * 4 + x.numel() * 4,
+                                       g.numel()),
+               "kernels_a_call": {who: cs.kernel_launches(torch, run, "gather")
+                                  for who, run in runs.items()},
+               **{f"{who}_ms": ms for who, ms in turns(torch, cs, runs).items()}}
+        out[key] = row
+        print(json.dumps({f"gather_bwd_{key}": row}), flush=True)
     return out
 
 
@@ -128,27 +197,43 @@ def dense_bt_ab(torch, cs, root, dev, walk_us):
 
 def ctc_ab(torch, cs, root, dev):
     """The CTC backward at its three shapes (see the module docstring)."""
+    from gtn_applications_tpu_torch.ops import gathers
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp
     from gtn_applications_tpu_torch.scripts.compare_sparse_scan import load_baseline
 
     base = load_baseline(root, "ops.lattice_pallas")
+    base_g = load_baseline(root, "ops.gathers")
+    old = takes_em(base)
     frame_us = cs.ctc_chain_frame_us(torch, dev)
-    out = {"chain_frame_us": frame_us}
+    out = {"chain_frame_us": frame_us, "baseline_takes_em": old}
     for i, (b, t, l) in enumerate(((cs.B, cs.T, cs.L),) + cs.CTC_WIDE):
-        em, start, accept, skip, il, g = cs.ctc_case(torch, dev, b, t, l, seed=i + 1 if i else 0)
-        alpha = lp.ctc_alpha_cuda(em, start, skip, il)
-        args = (em, alpha, accept, skip, il, lp._final_score(alpha[:, -1], accept), g)
-        runs = {"base": lambda: base.ctc_grad_cuda(*args), "new": lambda: lp.ctc_grad_cuda(*args)}
-        d = float((runs["base"]() - runs["new"]()).abs().max())
+        logp, labels, start, accept, skip, il, g = cs.ctc_case(torch, dev, b, t, l,
+                                                               seed=i + 1 if i else 0)
+        C = logp.shape[2]
+        em = cs.emissions(torch, logp, labels)
+        alpha = lp.ctc_alpha_cuda(logp, labels, start, skip, il)
+        rest = (alpha, accept, skip, il, lp._final_score(alpha[:, -1], accept), g)
+        base_args = (em,) + rest if old else (logp, labels) + rest
+        grad = {"base": lambda: base.ctc_grad_cuda(*base_args),
+                "new": lambda: lp.ctc_grad_cuda(logp, labels, *rest),
+                "new_on_em": lambda: lp.ctc_grad_cuda(em, cs.identity_labels(torch, em), *rest)}
+        pair = {"base": lambda: base_g.gather_bwd_cuda(grad["base"](), labels, C),
+                "new": lambda: gathers.gather_bwd_cuda(grad["new"](), labels, C)}
+        if not torch.equal(grad["base"](), grad["new"]()):
+            raise AssertionError(f"ctc_grad S={em.shape[2]}: the two posteriors differ")
+        d = float((pair["base"]() - pair["new"]()).abs().max())
         if not d <= 1e-5:
-            raise AssertionError(f"ctc_grad S={em.shape[2]}: the two gradients differ by {d}")
+            raise AssertionError(f"ctc_grad S={em.shape[2]}: the two d lp differ by {d}")
         S = em.shape[2]
         row = {"shape": [b, t, S], "max_len": int(il.max()), "route": lp.grad_plan(S),
-               "max_abs_grad_diff": d,
+               "posteriors_bitwise_equal": True, "max_abs_dlp_diff": d,
                "chain_bound_ms": (int(il.max()) - 1) * frame_us * 1e-3,
-               "kernels_a_call": {who: cs.kernel_launches(torch, run, "ctc_grad")
-                                  for who, run in runs.items()},
-               **{f"{who}_ms": ms for who, ms in turns(torch, cs, runs).items()}}
+               "kernels_a_call": {who: cs.kernel_launches(torch, run, ("ctc_grad", "gather"))
+                                  for who, run in pair.items()},
+               **{f"{who}_ms": ms for who, ms in turns(
+                   torch, cs, grad, ("base", "new", "new_on_em", "new_on_em", "new",
+                                     "base")).items()},
+               **{f"{who}_with_gather_bwd_ms": ms for who, ms in turns(torch, cs, pair).items()}}
         out[f"S{S}"] = row
         print(json.dumps({f"ctc_grad_S{S}": row}), flush=True)
     return out
@@ -250,6 +335,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     walk_us = walk_frame_us(torch, cs, dev)
     result = {"card": utils.card_name_and_power_limit(),
+              "gather_bwd": gather_ab(torch, cs, args.baseline, dev),
               "ctc_alpha": alpha_ab(torch, cs, args.baseline, dev),
               "dense_bt": dense_bt_ab(torch, cs, args.baseline, dev, walk_us),
               "ctc_grad": ctc_ab(torch, cs, args.baseline, dev),

@@ -25,7 +25,9 @@ route "block" (3, 8 and 13 warps), and at B=32, T=250, L=11 (S=23, route
   its ring, em and alpha loaded from global memory two frames ahead
   (``block_no_ring``), and the boundary between the routes at 128 states
   and at none (``warp_up_to_128``: the headline on the chain and helper
-  warps, K=3; ``no_warp``: S=23 on route "block", one warp);
+  warps, K=3; ``no_warp``: S=23 on route "block", one warp), and one
+  without the select of 0 for a label outside [0, C) at the register load
+  of em (``no_select``: every label of these cases lies inside);
 - a copy that counts ``clock64`` cycles a frame (route "warp": the helper
   warp's loop, which follows the chain a frame at a time; route "block":
   thread 0's loop, the ring's copies and reads included),
@@ -61,6 +63,10 @@ VARIANTS = {
     "block_no_ring": [("constexpr long kRingSmem = 200 * 1024;", "constexpr long kRingSmem = 0;")],
     "warp_up_to_128": [("constexpr int kWarpMaxS = 32;", "constexpr int kWarpMaxS = 128;")],
     "no_warp": [("constexpr int kWarpMaxS = 32;", "constexpr int kWarpMaxS = 0;")],
+    "no_select": [("      e[k] = (inr >> k) & 1u ? v : 0.0f;\n      a[k] = kRinged",
+                   "      e[k] = v;\n      a[k] = kRinged"),
+                  ("      for (int k = 0; k < K; ++k) e[k] = (inr >> k) & 1u ? r[k] : 0.0f;",
+                   "      for (int k = 0; k < K; ++k) e[k] = r[k];")],
 }
 # cycles a frame into the sample's grad[0, 0] (frames in grad[0, 1]): on
 # route "warp" the helper's whole loop (it follows the chain warp a frame
@@ -170,10 +176,11 @@ def main(argv=None):
     dev = torch.device("cuda")
     cases = {}
     for i, (b, t, l) in enumerate(((cs.B, cs.T, cs.L),) + cs.CTC_WIDE + ((cs.B, cs.T, 11),)):
-        em, start, accept, skip, il, g = cs.ctc_case(torch, dev, b, t, l, seed=i + 1 if i else 0)
-        alpha = lp.ctc_alpha_cuda(em, start, skip, il)
-        cases[f"S{em.shape[2]}"] = (em, alpha, accept, skip, il,
-                                    lp._final_score(alpha[:, -1], accept), g)
+        logp, labels, start, accept, skip, il, g = cs.ctc_case(torch, dev, b, t, l,
+                                                               seed=i + 1 if i else 0)
+        alpha = lp.ctc_alpha_cuda(logp, labels, start, skip, il)
+        cases[f"S{labels.shape[1]}"] = (logp, labels, alpha, accept, skip, il,
+                                        lp._final_score(alpha[:, -1], accept), g)
 
     def times():
         return {name: cs.gpu_median_ms(torch, lambda c=c: lp.ctc_grad_cuda(*c))
@@ -181,18 +188,19 @@ def main(argv=None):
 
     want = {name: lp.ctc_grad_cuda(*c) for name, c in cases.items()}
     result = {"card": utils.card_name_and_power_limit(), "ms": times(),
-              "plans": {name: lp.grad_plan(c[0].shape[2]) for name, c in cases.items()},
+              "plans": {name: lp.grad_plan(c[1].shape[1]) for name, c in cases.items()},
               "ptxas": ptxas_info(), "sass": sass_counts(_build._target("ctc")[1])}
     frame_us = cs.ctc_chain_frame_us(torch, dev)
     result["chain_frame_us"] = frame_us
-    result["chain_bound_ms"] = {name: (int(c[4].max()) - 1) * frame_us * 1e-3
+    result["chain_bound_ms"] = {name: (int(c[5].max()) - 1) * frame_us * 1e-3
                                 for name, c in cases.items()}
     own = _build.load_library("ctc")
     try:
         for name, subs in VARIANTS.items():
             _build._libs["ctc"] = build(name, subs)
             result[f"ms_{name}"] = times()
-            if name in ("block_no_ring", "warp_up_to_128", "no_warp"):  # results stay
+            if name in ("block_no_ring", "warp_up_to_128", "no_warp", "no_select"):
+                # results stay (no_select: every label of these cases is in range)
                 result[f"{name}_bitwise"] = {
                     case: bool(torch.equal(lp.ctc_grad_cuda(*c), want[case]))
                     for case, c in cases.items()}

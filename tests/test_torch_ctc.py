@@ -314,11 +314,20 @@ def _lattice_case(name):
     JAX-parity case of this file, the golden table, the infeasible case,
     and wider ones: a full warp (S=31), 2, 3, 4, 9 and 13 warps (S=45, 89,
     127, 257 and 401); "lengths": S=45 with lengths 0, 1, 8 and T."""
+    logp, labels, start, accept, skip, lens, tl = _lattice_lp(name)
+    return gathers.gather_channels_plain(logp, labels), start, accept, skip, lens, tl
+
+
+def _lattice_lp(name):
+    """``_lattice_case(name)`` before the gather: (log-probabilities [B, T,
+    C], labels [B, S] int32, start, accept, skip, lens, target lengths)."""
     rng = np.random.RandomState(11)
     if name == "lengths":
-        em, start, accept, skip, _, tl = _lattice_case("S45")
-        em, start, accept, skip, tl = (torch.cat([x, x]) for x in (em, start, accept, skip, tl))
-        return em, start, accept, skip, torch.tensor([0, 1, 8, 40], dtype=torch.int32), tl
+        logp, labels, start, accept, skip, _, tl = _lattice_lp("S45")
+        logp, labels, start, accept, skip, tl = (
+            torch.cat([x, x]) for x in (logp, labels, start, accept, skip, tl))
+        return (logp, labels, start, accept, skip, torch.tensor([0, 1, 8, 40], dtype=torch.int32),
+                tl)
     if name == "jax_case":
         logits = rng.randn(4, 16, 6).astype(np.float32)
         tgts, lens = [[0, 1, 1, 2], [3], [], [2, 2, 2, 4, 0]], [16, 12, 9, 14]
@@ -339,10 +348,9 @@ def _lattice_case(name):
     N = logits.shape[2]
     tg, tl = pad_targets(tgts)
     labels, skip_ok = lattice.ctc_state_tables(tg, N - 1)
-    em = gathers.gather_channels_plain(torch.log_softmax(torch.from_numpy(logits), 2),
-                                       labels.to(torch.int32))
-    start, accept = lattice.ctc_start_accept(tl, em.shape[2])
-    return em, start, accept, skip_ok.to(torch.float32), torch.tensor(lens, dtype=torch.int32), tl
+    start, accept = lattice.ctc_start_accept(tl, labels.shape[1])
+    return (torch.log_softmax(torch.from_numpy(logits), 2), labels.to(torch.int32), start, accept,
+            skip_ok.to(torch.float32), torch.tensor(lens, dtype=torch.int32), tl)
 
 
 def _grad_case(name):
@@ -485,3 +493,103 @@ def test_profile_copies_match_the_kernel_source():
     for name, subs in dict(prof.VARIANTS, clocks=prof.CLOCKS).items():
         src = prof.patched(name, subs)
         assert all(new in src for _, new in subs), name
+
+
+class _LabelFetch:
+    """em as the fused kernels read it: ``fetch[:, t]`` is row t, state s
+    copied from ``lp[b, t]`` at its label clamped into [0, C) and selected
+    to 0 where the label lies outside [0, C) (the register load's select).
+    Stands in for em in the layout emulations, which read it by rows."""
+
+    def __init__(self, logp, labels):
+        C = logp.shape[2]
+        self.logp, self.ok = logp, (labels >= 0) & (labels < C)
+        self.lab = torch.where(self.ok, labels, 0).long()
+        self.shape = (logp.shape[0], logp.shape[1], labels.shape[1])
+
+    def __getitem__(self, key):
+        _, t = key
+        return torch.where(self.ok, torch.gather(self.logp[:, t], 1, self.lab), 0.0)
+
+
+def _fused_case(name):
+    """``_lattice_lp(name)`` with, for "out_of_range", S=45's labels out of
+    [0, C) at two states of each sample (C + 2 and -1); and em as
+    ``gather_channels_plain`` gives it, labels outside [0, C) as -1."""
+    logp, labels, start, accept, skip, lens, tl = _lattice_lp(
+        "S45" if name == "out_of_range" else name)
+    C = logp.shape[2]
+    if name == "out_of_range":
+        labels = labels.clone()
+        labels[:, 3], labels[:, 6] = C + 2, -1
+    clean = torch.where((labels >= 0) & (labels < C), labels, -1)
+    return logp, labels, gathers.gather_channels_plain(logp, clean), start, accept, skip, lens, tl
+
+
+FUSED_CASES = ["jax_case", "golden", "infeasible", "S31", "S45", "S89", "S127", "S257", "S401",
+               "lengths", "out_of_range"]
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_alpha_layout_emulation_reads_lp_by_label(name):
+    """The forward kernel's layout, emulated, fed the log-probabilities and
+    labels through the fused fetch (the label in a register, the copy at
+    the clamped label, 0 selected outside [0, C)), is bitwise
+    ``gather_channels_plain`` then ``ctc_alpha_plain``."""
+    logp, labels, em, start, _, skip, lens, _ = _fused_case(name)
+    want = lp.ctc_alpha_plain(em, start, skip, lens)
+    got = _emulate_alpha(_LabelFetch(logp, labels), start, skip, lens)
+    assert torch.equal(got, want)
+    assert (want > NEG / 2).any()
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_grad_layout_emulation_reads_lp_by_label(name):
+    """The backward kernel's layout, emulated, fed the log-probabilities and
+    labels through the fused fetch, is bitwise ``gather_channels_plain``
+    then ``ctc_grad_plain``; summed by label (the backward's last launch),
+    bitwise ``gather_channels_bwd_plain``."""
+    logp, labels, em, start, accept, skip, lens, tl = _fused_case(name)
+    alpha = lp.ctc_alpha_plain(em, start, skip, lens)
+    score = lp._final_score(alpha[:, -1], accept)
+    g = -1.0 / tl.to(torch.float32).clamp(min=1)
+    want = lp.ctc_grad_plain(em, alpha, accept, skip, lens, score, g)
+    got = _emulate_grad(_LabelFetch(logp, labels), alpha, accept, skip, lens, score, g)
+    assert torch.equal(got, want)
+    assert (want != 0).any()
+    C = logp.shape[2]
+    clean = torch.where((labels >= 0) & (labels < C), labels, -1)
+    assert torch.equal(gathers.gather_channels_bwd_plain(got, clean, C),
+                       gathers.gather_channels_bwd_plain(want, clean, C))
+
+
+def test_ctc_score_kernel_from_log_probs_matches_jax():
+    """``ctc_score_kernel`` on the log-probabilities and the state labels
+    (its CPU route: the gather, the plain recursions, the sum by label)
+    against JAX's ``ctc_forward_score`` with its Pallas kernels in
+    interpret mode: the scores within 1e-4, the gradient with respect to
+    the log-probabilities within 1e-5 (tolerances of this file's
+    parity test)."""
+    rng = np.random.RandomState(3)
+    B, T, N = 4, 16, 6
+    logits = rng.randn(B, T, N).astype(np.float32)
+    tgts, input_lengths = [[0, 1, 1, 2], [3], [], [2, 2, 2, 4, 0]], [16, 12, 9, 14]
+    cot = rng.rand(B).astype(np.float32) - 0.5
+    targets_j, lengths_j = jax_pad_targets(tgts)
+    logp_j = jax.nn.log_softmax(jnp.asarray(logits), axis=2)
+    score_j, vjp = jax.vjp(
+        lambda x: jax_lattice.ctc_forward_score(x, targets_j, lengths_j, N - 1,
+                                                jnp.asarray(input_lengths), "pallas"),
+        logp_j)
+    (dlp_j,) = vjp(jnp.asarray(cot))
+
+    tg, tl = pad_targets(tgts)
+    labels, skip_ok = lattice.ctc_state_tables(tg, N - 1)
+    start, accept = lattice.ctc_start_accept(tl, labels.shape[1])
+    logp = torch.from_numpy(np.array(logp_j)).requires_grad_(True)
+    score = lp.ctc_score_kernel(logp, labels, start, accept, skip_ok,
+                                torch.tensor(input_lengths))
+    score.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(score.detach().numpy(), np.asarray(score_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(logp.grad.numpy(), np.asarray(dlp_j), rtol=0, atol=1e-5)
+    assert logp.grad.shape == (B, T, N)

@@ -34,11 +34,21 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda_device):
         gathers.gather_fwd_cuda(x, idx.cpu())
     with pytest.raises(ValueError):
         gathers.gather_bwd_cuda(torch.zeros(2, 3, 6, device=cuda_device), idx, 4)
-    em = torch.zeros(2, 3, 5, device=cuda_device)
+    with pytest.raises(ValueError):  # a plan past shared memory
+        gathers.gather_bwd_cuda(torch.zeros(1, 1, 20000, device=cuda_device),
+                                torch.zeros(1, 20000, dtype=torch.int32, device=cuda_device), 80)
+    lp = torch.zeros(2, 3, 4, device=cuda_device)
+    state = torch.zeros(2, 5, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
-        lattice_pallas.ctc_alpha_cuda(
-            em, em[:, 0], em[:, 0], torch.zeros(2, dtype=torch.int64,
-                                                 device=cuda_device))
+        lattice_pallas.ctc_alpha_cuda(lp, idx, state, state, lens.long())
+    with pytest.raises(ValueError):
+        lattice_pallas.ctc_alpha_cuda(lp, idx.long(), state, state, lens)
+    with pytest.raises(ValueError):
+        lattice_pallas.ctc_alpha_cuda(lp[:, :, :0], idx, state, state, lens)
+    with pytest.raises(ValueError):
+        lattice_pallas.ctc_grad_cuda(lp, idx, torch.zeros(2, 3, 4, device=cuda_device), state,
+                                     state, lens, lens.float(), lens.float())
 
 
 @pytest.mark.cuda
@@ -313,13 +323,70 @@ def test_ctc_alpha_routes_match_plain(cuda_device, b, t, l):
     (``chip_smoke.hold_ctc_kernels``, the backward with it)."""
     import chip_smoke
 
-    em, start, accept, skip, il, g = chip_smoke.ctc_case(torch, cuda_device, b, t, l,
-                                                        seed=l + 1, infeasible=l > 1)
+    lp, labels, start, accept, skip, il, g = chip_smoke.ctc_case(
+        torch, cuda_device, b, t, l, seed=l + 1, infeasible=l > 1)
     il = il.clone()
     il[3], il[4] = 0, 1
-    route = lattice_pallas.alpha_plan(em.shape[2])
-    assert route[0] == ("warp" if em.shape[2] <= 32 else "block")
-    chip_smoke.hold_ctc_kernels(torch, em, start, accept, skip, il, g, (b, t, l, route))
+    route = lattice_pallas.alpha_plan(labels.shape[1])
+    assert route[0] == ("warp" if labels.shape[1] <= 32 else "block")
+    chip_smoke.hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g,
+                                (b, t, l, route))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 11, 44, 200])
+@pytest.mark.parametrize("out_of_range", [False, True])
+def test_ctc_kernels_read_lp_by_label_as_the_gather(cuda_device, l, out_of_range):
+    """The CTC pair reading the log-probabilities by label (C = 80) at S =
+    3, 23, 89 and 401, bitwise equal to the pair fed the gathered emissions
+    with identity labels, alpha, score and grad, and with one state's label
+    outside [0, C) in each sample (em 0 there, the gather's rule); its
+    gradient's sum by label deterministic (``chip_smoke.hold_ctc_kernels``)."""
+    import chip_smoke
+
+    lp, labels, start, accept, skip, il, g = chip_smoke.ctc_case(
+        torch, cuda_device, 4, 60 if l < 200 else 420, l, seed=l + 7)
+    if out_of_range:
+        labels = labels.clone()
+        labels[:, 2 * l - 1 if l > 1 else 1] = lp.shape[2] + 3
+        labels[1, 0] = -1
+    chip_smoke.hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g,
+                                (l, out_of_range))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,s,offset", [
+    (32, 250, 80, 89, 0), (32, 250, 80, 44, 0), (8, 250, 80, 4096, 0), (2, 37, 201, 5003, 0),
+    (3, 37, 11, 13, 1), (3, 40, 11, 13, 3), (2, 40, 80, 16000, 0), (2, 40, 50000, 100, 0),
+    (2, 5, 7, 21, 2),
+])
+def test_gather_bwd_is_deterministic_by_route(cuda_device, b, t, c, s, offset):
+    """The gather backward by route "staged" (32 frames a tile at the CTC
+    headline and ASG's shape, 10 at S = 4,096, 8 at S = 5,003; g starting
+    at every offset mod 4) and "global" (S = 16,000, and C = 50,000): the
+    library's plan is ``gather_bwd_plan``'s; two runs bitwise equal, within
+    1e-5 of the plain version (``chip_smoke.hold_gather_bwd``)."""
+    import numpy as np
+
+    import chip_smoke
+
+    rng = np.random.default_rng(s)
+    idx = rng.integers(0, c, (b, s)).astype(np.int32)
+    idx[:, 0::2] = c - 1
+    idx[0, :3] = [-1, c, -5]
+    flat = rng.random(offset + b * t * s).astype(np.float32)
+    g = torch.from_numpy(flat).to(cuda_device)[offset:].view(b, t, s)
+    g = g / g.sum(-1, keepdim=True)
+    g = torch.cat([torch.zeros(offset, device=cuda_device), g.reshape(-1)])[offset:].view(b, t, s)
+    assert g.is_contiguous() and (g.data_ptr() // 4) % 4 == offset % 4 or offset == 0
+    idx = torch.from_numpy(idx).to(cuda_device)
+    dx = gathers.gather_bwd_cuda(g, idx, c)
+    dx_again = gathers.gather_bwd_cuda(g, idx, c)
+    torch.cuda.synchronize()
+    chip_smoke.hold_gather_bwd(torch, g, torch.where((idx >= 0) & (idx < c), idx, -1), c,
+                               dx, dx_again, (b, t, c, s, offset))
+    assert gathers.gather_bwd_plan(s, c)[0] == ("global" if s == 16000 or c == 50000
+                                                else "staged")
 
 
 @pytest.mark.cuda
