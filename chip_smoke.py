@@ -106,7 +106,30 @@ prints no result):
    and em each shared or per sample (em also absent), and with every
    state dead; each seg_lse kernel runs twice and must agree with itself
    bitwise;
-10. seg_max, the per-step decode's tropical step, against its plain
+10. the backoff factorings (``ops/factored.py``; no kernel of ours: loops
+   of PyTorch products and elementwise ops a frame), each held to the
+   composed route (the sparse kernels) on the card, the loss within
+   5e-4 max(1, |loss|) and every gradient entry within 5e-4 + 1e-3 |g|:
+   (a) the trigram main path's first batch (the loader's, logits of its
+   TDS2d at the seeded initial weights, N(0, 0.3) transitions) through
+   the dense variant (``GTN_TRANSDUCER_FACTORED=on``: none of our kernels
+   launched) against ``off`` (composed), the factored loss on the card
+   against the CPU within 1e-4 relative; (b) bench.py's 1kwp protocol
+   (B=32, T=100, N=1,001, S_c=1,004) through the dst variant's three
+   tiers, exp-linear with the low-rank closure, exp-linear with the dense
+   closure (``GTN_FACTORED_VJP=auto``) and the staged form (``off``),
+   against ``off``; (c) the destination-factored decode on a 200-token
+   bigram (S_c * N > 2^15; B=8, T=100) against the composed decode
+   (``viterbi_batch``), labels equal, and on the 1kwp LM, the card's
+   decode of the batch against the CPU's on 4 samples, labels equal and
+   scores within 1e-4 relative.  It prints, each line with the card's
+   name and power limit, the trigram train step under off and on (host
+   clock, median of 20, and of 5 under on, whose step takes seconds) and
+   its peak memory, the loss fwd+bwd of each route (CUDA events, median of
+   10 and 3 for the trigram, 30 for the 1kwp), the kernels one call
+   launches (torch.profiler) and its peak memory, and the 1kwp decode of
+   one batch;
+11. seg_max, the per-step decode's tropical step, against its plain
    version: on the epsilon-removed decode table of the unpruned grapheme
    4-gram over the long-line texts (S=1,058, A=35,455, a hub of in-degree
    1,057, C=12; shared, by label, B=32, alpha with NEG states), on a
@@ -122,7 +145,7 @@ prints no result):
    within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
    launch) at B=32, T=300 on the card against the CPU route: labels
    bitwise, scores within 1e-6;
-11. six main paths, CTC, ASG, STC, the Transducer and the Transducer
+12. six main paths, CTC, ASG, STC, the Transducer and the Transducer
    with a loaded backoff LM, the grapheme trigram and the 4-gram:
    ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
    32: 4 steps plus validation) with the model and criterion sections of
@@ -138,7 +161,7 @@ prints no result):
    tables' closure depths say, their decode's kernel exactly once per
    decoded batch (the trigram's whole-scan Viterbi, the 4-gram's
    seg_max_scan; seg_max never), and no kernel of another path at all;
-12. the trainer's first batch of each path through its trained model: for
+13. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
    gradient) on the card against the CPU on the same logits (CTC 1e-4 and
@@ -146,10 +169,10 @@ prints no result):
    float64, loss 1e-4, gradients 1e-3 of their largest entry, the 4-gram
    on the batch's first 8 samples and 96 frames); the path's kernels
    against their plain versions on the inputs the train step and the
-   decode give them, at the tolerances of phases 3-10; and the 4-gram's
+   decode give them, at the tolerances of phases 3-9 and 11; and the 4-gram's
    decode of the first validation batch on the card (one seg_max_scan
    launch) against the CPU route, labels exactly;
-13. times: CUDA-event medians of 30 runs after warm-up at the phase 4-10
+14. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9 and 11
    headline shapes for each kernel, its plain version and the one
    PyTorch call that computes it where there is one (F.ctc_loss for the
    CTC pair, torch.gather and scatter_add_ for the gather pair; the
@@ -161,7 +184,7 @@ prints no result):
    shared memory or gathered, and without its statistics), the
    host-clock median of 20 full train
    steps of each path and of 5 decodes of the 4-gram path's first batch
-   (and seg_max_scan alone, there and at phase 10's T=300 case),
+   (and seg_max_scan alone, there and at phase 11's T=300 case),
    the CTC pair also at ``CTC_WIDE`` (with chain bounds) and the
    backward's kernels a call (torch.profiler), the CTC Function
    (``ctc_score_kernel``, wrapper included) forward and forward and
@@ -202,6 +225,7 @@ Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -1262,10 +1286,10 @@ def transducer_tables(torch, dev, crit, prepared, params):
     return {"score": score, "norm": crit._apply_params(*crit._norm_table_on(dev), params)}
 
 
-def backoff_lm_inputs(torch, dev, seed=0):
+def backoff_lm_batch(torch, dev, seed=0):
     """bench.py's inputs [B, T, N + 1] and targets for the protocol, random
     N(0, 0.3) transition weights, input lengths over 4T/5..T; returns
-    (criterion, em, lens, tables)."""
+    (criterion, em, lens, targets, params)."""
     crit = backoff_lm_criterion()
     rng = np.random.RandomState(seed)
     em = torch.as_tensor(rng.randn(LM_B, LM_T, LM_TOKENS + 1).astype(np.float32),
@@ -1275,6 +1299,12 @@ def backoff_lm_inputs(torch, dev, seed=0):
                              .astype(np.float32), device=dev)
     lens = torch.as_tensor(ragged_lengths(rng, LM_B, LM_T), dtype=torch.int32,
                            device=dev)
+    return crit, em, lens, targets, params
+
+
+def backoff_lm_inputs(torch, dev, seed=0):
+    """``backoff_lm_batch``'s (criterion, em, lens) and its composed tables."""
+    crit, em, lens, targets, params = backoff_lm_batch(torch, dev, seed)
     return crit, em, lens, transducer_tables(torch, dev, crit, crit.prepare(targets),
                                              params)
 
@@ -1655,6 +1685,308 @@ def phase_sparse(torch, dev):
                                          ("past shared memory",) + WIDE_SPARSE,
                                          past_smem=True, clusters=CLUSTER_SIZES))
     return merge_errs(errs, phase_seglse(torch, dev))
+
+
+# The backoff factorings (ops/factored.py, GTN_TRANSDUCER_FACTORED=on): no
+# kernel of ours, loops of PyTorch products and elementwise ops a frame;
+# held to the composed route (the sparse kernels) at the bounds of JAX's
+# tests/test_factored.py, scaled to the loss
+FACTORED_LOSS_TOL = 5e-4       # |d loss| <= tol max(1, |loss|)
+FACTORED_GRAD_TOL = (5e-4, 1e-3)  # |d g| <= atol + rtol |g| entry by entry
+HUGE_LM_TOKENS = 200           # the decode check's bigram: S_c * N > 2^15
+DECODE_B, DECODE_T = 8, 100
+
+
+@contextlib.contextmanager
+def factored_route(impl, vjp="auto"):
+    """``GTN_TRANSDUCER_FACTORED`` and ``GTN_FACTORED_VJP`` set in process."""
+    from gtn_applications_tpu_torch.criterions import transducer as td
+    from gtn_applications_tpu_torch.ops import factored
+
+    saved = td._FACTORED_IMPL, factored._VJP_IMPL
+    td._FACTORED_IMPL, factored._VJP_IMPL = impl, vjp
+    try:
+        yield
+    finally:
+        td._FACTORED_IMPL, factored._VJP_IMPL = saved
+
+
+def route_loss(torch, crit, logits, targets, params, impl, vjp="auto", lens=None,
+               grads=True):
+    """A function of no arguments that returns the criterion's loss (and its
+    gradients in the logits and the transitions) through the route, the
+    batch prepared once on the logits' device."""
+    from gtn_applications_tpu_torch.train import to_device
+
+    with factored_route(impl, vjp):
+        prepared = to_device(crit.prepare(targets), logits.device)
+    if ("factored" in prepared) != (impl == "on"):
+        raise AssertionError(f"route {impl}: prepare gave {sorted(prepared)}")
+    x = logits.detach().clone().requires_grad_(grads)
+    p = params.detach().clone().requires_grad_(grads)
+
+    def run():
+        with factored_route(impl, vjp):
+            loss = crit.loss({"transitions": p}, x, prepared, lens)
+            if not grads:
+                return (loss.detach(),)
+            return (loss.detach(),) + torch.autograd.grad(loss, [x, p])
+
+    return run
+
+
+def hold_route(torch, card, what, ref, got):
+    """The loss and gradients of a factored route against the composed
+    route's: the loss within FACTORED_LOSS_TOL max(1, |loss|), each
+    gradient entry within FACTORED_GRAD_TOL.  Returns the differences."""
+    loss, loss_ref = float(got[0]), float(ref[0])
+    d_loss = abs(loss - loss_ref)
+    out = {"loss": loss, "loss_abs_diff": d_loss}
+    ok = d_loss <= FACTORED_LOSS_TOL * max(1.0, abs(loss_ref))
+    for name, g, r in zip(("logit", "transitions"), got[1:], ref[1:]):
+        d = (g - r).abs()
+        out[f"{name}_grad_max_abs_diff"] = float(d.max())
+        out[f"{name}_grad_excess"] = float((d - FACTORED_GRAD_TOL[0]
+                                            - FACTORED_GRAD_TOL[1] * r.abs()).max())
+        ok = ok and out[f"{name}_grad_excess"] <= 0.0
+    log(f"[{card}] {what}: loss {loss:.6f} against composed {loss_ref:.6f} "
+        f"(|d| {d_loss:.3g}), logit grad max|d| {out['logit_grad_max_abs_diff']:.3g}, "
+        f"transitions grad max|d| {out['transitions_grad_max_abs_diff']:.3g}")
+    if not ok:
+        raise AssertionError(f"{what}: the factored route and the composed one disagree")
+    return out
+
+
+def launches_a_call(torch, fn):
+    """CUDA kernels one call of ``fn`` (run before) launches: torch.profiler
+    over one call, after a marker kernel (``kernel_counts``'s), tracing the
+    device only (the host's events of a quarter of a million launches take
+    minutes to gather), or the host too where that sees no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for activities in ([ProfilerActivity.CUDA], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and "spin_kernel" not in e.key)
+        if n:
+            return n
+    raise AssertionError("torch.profiler saw no kernel")
+
+
+def with_peak(torch, fn):
+    """(fn(), peak device bytes allocated during the call above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def route_costs(torch, fn, runs=30, warmup=5):
+    """CUDA-event median ms of ``fn`` and the kernels one call launches."""
+    return {"ms": gpu_median_ms(torch, fn, runs=runs, warmup=warmup),
+            "launches": launches_a_call(torch, fn)}
+
+
+def huge_lm_criterion(ntok=HUGE_LM_TOKENS):
+    """A pruned bigram with blanks and self-loops over ``ntok`` tokens
+    (S_c * N > 2^15: the destination-factored decode's regime), as
+    ``tests/test_torch_transducer_backoff.py`` builds it."""
+    from gtn_applications_tpu_torch.criterions import Transducer
+    from gtn_applications_tpu_torch.scripts.build_transitions import build_from_lines
+
+    rng = np.random.RandomState(3)
+    lines = [[str(i) for i in rng.randint(0, ntok, 12)] for _ in range(400)]
+    g = build_from_lines(lines, [str(i) for i in range(ntok)], [0, 0], "optional",
+                         self_loops=True)
+    return Transducer([(i,) for i in range(ntok)], {i: i for i in range(ntok)},
+                      transitions=g, blank="optional", reduction="mean")
+
+
+def factored_trigram_check(torch, dev, card):
+    """(a) the trigram main path's first batch (the loader's, logits of the
+    path's TDS2d at its seeded initial weights, N(0, 0.3) transitions):
+    the dense variant (on) against the composed route (off, the sparse
+    kernels) on the card, the factored loss on the card against the CPU,
+    each route's fwd+bwd cost, and the path's train step under each."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch import utils
+    from gtn_applications_tpu_torch.ops import _build
+
+    config = main_path_config("transducer_backoff")
+    dataset, pre, crit, model, _ = train_mod.load_experiment(
+        config, generator=torch.Generator().manual_seed(config["seed"]))
+    model.to(dev)
+    loader = utils.data_loader(dataset.Dataset(None, pre, split="train", augment=True),
+                               config, seed=config["seed"])
+    inputs, _, targets = next(iter(loader))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    params = torch.as_tensor((np.random.RandomState(21).randn(crit.num_transition_arcs)
+                              * 0.3).astype(np.float32), device=dev)
+    if not crit._factored_backoff or crit._factored_backoff_dst:
+        raise AssertionError("the trigram is not the dense variant's")
+    out = {"shape": list(logits.shape)}
+    results, fns, peaks = {}, {}, {}
+    for impl in ("off", "on"):
+        fns[impl] = route_loss(torch, crit, logits, targets, params, impl)
+        before = dict(_build.LAUNCHES)
+        results[impl], peaks[impl] = with_peak(torch, fns[impl])
+        ours = {k: n - before[k] for k, n in _build.LAUNCHES.items() if n != before[k]}
+        out[f"{impl}_our_kernels"] = ours
+        if bool(ours) != (impl == "off"):
+            raise AssertionError(f"trigram route {impl} launched our kernels {ours}")
+    out["on_vs_off"] = hold_route(torch, card, f"trigram first batch {out['shape']} dense "
+                                  "variant", results["off"], results["on"])
+    cpu = route_loss(torch, crit, logits.cpu(), targets, params.cpu(), "on", grads=False)()
+    rel = abs(float(results["on"][0]) - float(cpu[0])) / max(1.0, abs(float(cpu[0])))
+    out["card_vs_cpu_loss_rel_diff"] = rel
+    log(f"[{card}] trigram dense variant loss card vs cpu: rel |d| {rel:.3g}")
+    if not rel <= 1e-4:
+        raise AssertionError("the dense variant's loss: card and CPU disagree")
+    # the dense variant's call takes seconds (a quarter of a million
+    # launches): its medians are of fewer runs
+    reps = {"off": dict(fwd_bwd=(10, 5), step=(20, 5)), "on": dict(fwd_bwd=(3, 1), step=(5, 2))}
+    for impl in ("off", "on"):
+        out[f"{impl}_fwd_bwd"] = dict(route_costs(torch, fns[impl], *reps[impl]["fwd_bwd"]),
+                                      peak_bytes=peaks[impl])
+    for impl in ("off", "on"):
+        with factored_route(impl):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, _ = time_train_step(torch, dev, model, config, *reps[impl]["step"])
+            out[f"{impl}_train_step_ms"] = ms
+            out[f"{impl}_train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
+    for impl in ("off", "on"):
+        c = out[impl + "_fwd_bwd"]
+        log(f"[{card}] trigram route {impl}: train step {out[impl + '_train_step_ms']:.2f} ms "
+            f"(host, median of {reps[impl]['step'][0]}), peak "
+            f"{out[impl + '_train_step_peak_bytes'] / 2**30:.3f} GiB; loss fwd+bwd "
+            f"{c['ms']:.3f} ms (CUDA events, median of {reps[impl]['fwd_bwd'][0]}), "
+            f"{c['launches']} launches, peak {c['peak_bytes'] / 2**20:.1f} MiB")
+    return out
+
+
+def factored_1kwp_check(torch, dev, card):
+    """(b) bench.py's 1kwp protocol (B=32, T=100, N=1,001, S_c=1,004)
+    through the dst variant's three tiers (exp-linear with the low-rank
+    closure, exp-linear with the dense one, the staged form) against the
+    composed route on the same batch, and each one's fwd+bwd cost."""
+    crit, em, lens, targets, params = backoff_lm_batch(torch, dev)
+    if crit._factored_backoff or not crit._factored_backoff_dst or crit._eps_lr_struct is None:
+        raise AssertionError("the 1kwp LM is not the dst variant's with a low-rank closure")
+    out = {"S_c": int(crit._norm_table.start.shape[0]),
+           "lowrank_K": int(crit._eps_lr_struct[2].shape[0])}
+    ref_fn = route_loss(torch, crit, em, targets, params, "off", lens=lens)
+    ref, peak = with_peak(torch, ref_fn)
+    out["composed"] = dict(route_costs(torch, ref_fn), peak_bytes=peak)
+    struct = crit._eps_lr_struct
+    for tier, vjp, lowrank in (("exp_lowrank", "auto", True), ("exp_dense", "auto", False),
+                               ("staged", "off", False)):
+        crit._eps_lr_struct = struct if lowrank else None
+        try:
+            fn = route_loss(torch, crit, em, targets, params, "on", vjp, lens=lens)
+            got, peak = with_peak(torch, fn)
+            out[tier] = hold_route(torch, card, f"1kwp {tier}", ref, got)
+            out[tier].update(route_costs(torch, fn), peak_bytes=peak)
+        finally:
+            crit._eps_lr_struct = struct
+    for tier in ("composed", "exp_lowrank", "exp_dense", "staged"):
+        c = out[tier]
+        log(f"[{card}] 1kwp loss fwd+bwd {tier}: {c['ms']:.3f} ms (CUDA events, median of "
+            f"30), {c['launches']} launches, peak {c['peak_bytes'] / 2**20:.1f} MiB")
+    return out
+
+
+def factored_decode_check(torch, dev, card):
+    """(c) the destination-factored decode: on a 200-token bigram against
+    the composed decode (``viterbi_batch``, forced through
+    ``_DECODE_FACTORED_MIN_ARCS``) on the card, labels equal; on the 1kwp
+    LM, the card's decode of the batch against the CPU's on its first 4
+    samples, labels equal, scores within 1e-4 relative; its cost."""
+    from gtn_applications_tpu_torch.criterions import transducer as td
+    from gtn_applications_tpu_torch.ops import factored
+
+    out = {}
+    crit = huge_lm_criterion()
+    S_c, n = int(crit._norm_table.start.shape[0]), crit.num_channels
+    if not (crit._factored_backoff_dst and S_c * n > td._DECODE_FACTORED_MIN_ARCS):
+        raise AssertionError("the 200-token bigram is not the factored decode's")
+    rng = np.random.RandomState(23)
+    x = torch.as_tensor((rng.randn(DECODE_B, DECODE_T, n) * 3).astype(np.float32), device=dev)
+    lens = torch.as_tensor(ragged_lengths(rng, DECODE_B, DECODE_T), dtype=torch.int32,
+                           device=dev)
+    params = {"transitions": torch.as_tensor(
+        (rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32), device=dev)}
+    labels = crit.viterbi_dispatch(x, params, lens)[0]
+    saved = td._DECODE_FACTORED_MIN_ARCS
+    td._DECODE_FACTORED_MIN_ARCS = 1 << 60
+    try:
+        composed = crit.viterbi_dispatch(x, params, lens)[0]
+    finally:
+        td._DECODE_FACTORED_MIN_ARCS = saved
+    out["huge_lm"] = {"S_c": S_c, "N": n, "shape": [DECODE_B, DECODE_T],
+                      "labels_differ": int((labels.long() != composed.long()).sum())}
+    log(f"[{card}] decode, {HUGE_LM_TOKENS}-token bigram (S_c {S_c}, N {n}) "
+        f"[{DECODE_B}, {DECODE_T}]: factored against composed, "
+        f"{out['huge_lm']['labels_differ']} labels differ")
+    if out["huge_lm"]["labels_differ"]:
+        raise AssertionError("the factored decode and the composed one disagree")
+
+    crit, em, lens, _, params = backoff_lm_batch(torch, dev)
+    p = {"transitions": params}
+    if crit._norm_table.start.shape[0] * crit.num_channels <= td._DECODE_FACTORED_MIN_ARCS:
+        raise AssertionError("the 1kwp LM is not the factored decode's")
+    mats = crit._decode_matrices_dst(p, dev)
+    lab_k, score_k = factored.backoff_dst_viterbi(em, *mats, lens)
+    cpu = torch.device("cpu")
+    lab_c, score_c = factored.backoff_dst_viterbi(
+        em[:4].cpu(), *crit._decode_matrices_dst({"transitions": params.cpu()}, cpu),
+        lens[:4].cpu())
+    rel = float(((score_k[:4].cpu() - score_c).abs() / score_c.abs().clamp(min=1.0)).max())
+    same = torch.equal(lab_k[:4].cpu(), lab_c)
+    out["1kwp"] = {"shape": list(em.shape), "cpu_labels_equal": same,
+                   "cpu_score_rel_diff": rel}
+
+    def decode():
+        return crit.viterbi_dispatch(em, p, lens)
+
+    _, peak = with_peak(torch, decode)
+    out["1kwp"].update(route_costs(torch, decode, runs=10), peak_bytes=peak)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["1kwp"]["host_ms"] = statistics.median(host)
+    c = out["1kwp"]
+    log(f"[{card}] decode, 1kwp [{LM_B}, {LM_T}, {crit.num_channels}]: card vs cpu (4 "
+        f"samples) labels equal {same}, score rel |d| {rel:.3g}; {c['ms']:.3f} ms (CUDA "
+        f"events, median of 10), host {c['host_ms']:.3f} ms (median of 5), "
+        f"{c['launches']} launches, peak {c['peak_bytes'] / 2**20:.1f} MiB")
+    if not (same and rel <= 1e-4):
+        raise AssertionError("the 1kwp decode: card and CPU disagree")
+    return out
+
+
+def phase_backoff_factored(torch, dev, card):
+    """The backoff factorings on the card: checks (a), (b) and (c)."""
+    out = {}
+    for name, check in (("trigram", factored_trigram_check), ("1kwp", factored_1kwp_check),
+                        ("decode", factored_decode_check)):
+        t0 = time.perf_counter()
+        out[name] = check(torch, dev, card)
+        out[name]["seconds"] = time.perf_counter() - t0
+        log(f"backoff factorings, {name}: {out[name]['seconds']:.1f} s")
+    return out
 
 
 # The backoff paths' transition graphs: the grapheme LM of the recipe's
@@ -2348,9 +2680,10 @@ def phase_main_batch_backoff_4gram(torch, dev, model, config):
                       transducer_backoff_4gram_val_decode_score_abs_diff=d_score)
 
 
-def time_train_step(torch, dev, model, config):
-    """Host-clock median ms of 20 full train steps (after 5) on the first
-    batch of the train split, without augmentation."""
+def time_train_step(torch, dev, model, config, runs=20, warmup=5):
+    """Host-clock median ms of ``runs`` full train steps (after
+    ``warmup``) on the first batch of the train split, without
+    augmentation."""
     from gtn_applications_tpu_torch import datasets, utils
     from gtn_applications_tpu_torch import train as train_mod
 
@@ -2371,13 +2704,13 @@ def time_train_step(torch, dev, model, config):
     )
     gen = torch.Generator(device=dev).manual_seed(0)
     step_ms = []
-    for i in range(25):
+    for i in range(warmup + runs):
         prepared = train_mod.to_device(crit.prepare(tgts), dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(x, prepared, gen, 1.0)
         torch.cuda.synchronize()
-        if i >= 5:
+        if i >= warmup:
             step_ms.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(step_ms), list(inputs.shape)
 
@@ -2764,7 +3097,7 @@ def segmax_scan_bound(em, lens, table):
 def segmax_times(torch, dev, model, config):
     """CUDA-event medians of seg_max and its plain version at the 4-gram
     headline, and of seg_max_scan (the scan and its backtrace) at the
-    4-gram decode of phase 10 (B=32, T=300) with its plain version and at
+    4-gram decode of phase 11 (B=32, T=300) with its plain version and at
     the 4-gram path's first train batch; their bounds and chain bounds
     (live frames of the longest sample x one phase of ``sparse_scan_probe``
     at the decode's batch and cluster size); and the host-clock median of 5
@@ -3377,6 +3710,7 @@ def run(device="cuda"):
     merge_errs(errs, phase_factored_scan(torch, dev))
     merge_errs(errs, phase_viterbi(torch, dev))
     merge_errs(errs, phase_sparse(torch, dev))
+    backoff_factored = phase_backoff_factored(torch, dev, card)
     merge_errs(errs, phase_segmax(torch, dev))
     paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
              for path in PATHS}
@@ -3407,6 +3741,7 @@ def run(device="cuda"):
     launches = {name: sum(p["launches"][name] for p in paths.values())
                 for name, *_ in KERNELS}
     timing = dict(times, card=card, build_s=build_s, **diffs,
+                  backoff_factored=backoff_factored,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],
                   f_ctc_grad_max_abs_diff=errs["f_ctc_grad_max_abs_diff"],
                   step_decode_score_abs_diff=errs["step_decode_score"])

@@ -16,36 +16,45 @@ the device recursions score its tables:
     (``dense_ngram_norm``);
   * no transitions: the log-softmaxed emissions through the dense
     alignment lattice (``alignment_lattice_score`` and ``dense_scan``);
-  * the composed path: a loaded transition graph (a pruned backoff n-gram
-    with epsilon backoff arcs, ``scripts/build_transitions.py``),
-    ``ngram`` > 2, and any batch that the dense packing refuses.  The
-    transitions are composed into each sample's lattice on the host, with
-    the provenance ``widx``/``eps_widx`` of every arc's learnable weight,
-    and stacked into one arc table (a shared union skeleton where the
-    batch allows); the loss is its forward score less that of the
-    transition graph alone (``ops.sparse.forward_score_batch_tables`` and
-    ``forward_score_batch``: the ``seg_lse`` and whole sparse-scan kernels
-    on the card).
+  * a loaded transition graph (a pruned backoff n-gram with epsilon
+    backoff arcs, ``scripts/build_transitions.py``) under
+    ``GTN_TRANSDUCER_FACTORED=on``: the plain lattices against the graph
+    over a dense context axis, without composing
+    (``ops.factored.backoff_factored_score`` and ``backoff_dense_norm``
+    where the [N, S_c, S_c] matrices fit; else, for a graph whose label
+    decides an advance arc's destination, ``backoff_dst_factored_score``
+    and ``backoff_dst_norm`` over [S_c, N] matrices, with the low-rank
+    epsilon closure on the exp-linear tier);
+  * the composed path: a loaded graph otherwise, ``ngram`` > 2, every
+    batch under ``GTN_TRANSDUCER_FACTORED=off``, and any batch that the
+    dense packing refuses.  The transitions are composed into each
+    sample's lattice on the host, with the provenance ``widx``/``eps_widx``
+    of every arc's learnable weight, and stacked into one arc table (a
+    shared union skeleton where the batch allows); the loss is its forward
+    score less that of the transition graph alone
+    (``ops.sparse.forward_score_batch_tables`` and ``forward_score_batch``:
+    the ``seg_lse`` and whole sparse-scan kernels on the card).
 
-JAX routes a loaded graph through its dense backoff factorings on the TPU
-and through the composed path elsewhere; the port always composes (the
-factorings have no Pallas kernel and wait for ROADMAP queue A item 8).
+JAX factors a loaded graph under ``auto`` only on the TPU, where segment
+ops are pathological; the card runs them through hand-written kernels, so
+the port's ``auto`` composes it on every device (``on`` factors it).
 Decoding with transitions goes through a decode template of the
 transition graph (``wfst.compile``) and ``ops.sparse.viterbi_batch``: the
 whole-scan Viterbi where its in-degree bucket plan takes the table, else
 (a loaded LM whose epsilon-removed table has a hub state) the per-step
-``seg_max`` decode; without transitions, it is an argmax.  The alignment
-labels transduce to tokens by a run collapse, with ``blank="forced"``
-through the native ``forced_collapse`` (infeasible alignments decode to
-nothing).  JAX decodes a huge LM (destination-factorable, S_c * N > 2^15)
-through its destination-factored scan, which the port does not have yet:
-such a decode raises ``NotImplementedError`` (ROADMAP queue A item 8).
-The transitions' weights are learnable (zero-initialised), one per arc of
-the transition graph, whose own weights are set to 0.  The
-``ConvTransduce1D`` layer is A.9.
+``seg_max`` decode; a destination-factorable graph with S_c * N > 2^15
+(every 1k-wordpiece LM), whose epsilon-removed table would hold ~S_c * N
+arcs, decodes through ``ops.factored.backoff_dst_viterbi`` instead, as in
+JAX, whatever the routing switch says; without transitions, it is an
+argmax.  The alignment labels transduce to tokens by a run collapse, with
+``blank="forced"`` through the native ``forced_collapse`` (infeasible
+alignments decode to nothing).  The transitions' weights are learnable
+(zero-initialised), one per arc of the transition graph, whose own weights
+are set to 0.  The ``ConvTransduce1D`` layer is A.9.
 """
 
 import dataclasses
+import os
 from multiprocessing.pool import ThreadPool
 from typing import Dict
 
@@ -59,11 +68,21 @@ from ..wfst import native
 from ..wfst.graph import EPSILON, Graph, linear_graph
 from .base import Criterion
 
-# [B, S, S] adjacency + [B, S, N] label working-set gate (floats), as JAX's
+# "on": the factored scorers wherever the gates and the dense packing take
+# the batch, the loaded graph's backoff factorings included; "off" (alias
+# "step"): always compose; "auto": ngram 1-2 and no transitions factored,
+# a loaded graph composed (JAX factors it under auto only on the TPU)
+_FACTORED_IMPL = os.environ.get("GTN_TRANSDUCER_FACTORED", "auto")
+_FACTORED_DISABLED = ("off", "step")
+
+# working-set gates of the dense packing (floats), as JAX's: [B, S, S]
+# adjacency + [B, S, N] labels without transitions, the dense backoff
+# variant's per-frame [B, S, N, S_c] contraction, the dst variant's
+# [B, S, N + S_c] products
 _DENSE_MAX_WORKSET = 48_000_000
 
-# JAX decodes through its destination-factored scan once the epsilon-removed
-# decode table would exceed this many arcs (S_c * N)
+# decode through the destination-factored scan once the epsilon-removed
+# decode table would exceed this many arcs (S_c * N), as JAX does
 _DECODE_FACTORED_MIN_ARCS = 1 << 15
 
 
@@ -219,13 +238,18 @@ class Transducer(Criterion):
             self._norm_on = {}
         # full n-gram models of order 1-2 factorize (ops/factored.py)
         self._factored_ngram = ngram if ngram in (1, 2) else 0
-        # JAX's backoff factorings: only the decode's routing reads them
+        # a loaded graph factorizes over a dense context axis: "dense"
+        # ([N, S_c, S_c] matrices) or "dst" ([S_c, N], label-determined
+        # advance destinations) where the gates allow
         self._factored_backoff = self._factored_backoff_dst = False
+        self._dst_onehot = self._eps_lr_struct = None
         if self.transitions is not None and not self._factored_ngram:
             self._backoff_gates()
+        self._factored_on = {}
         self._align_cache: Dict[tuple, tuple] = {}
         self._decode_template = None
         self._decode_cache = None
+        self._decode_dst_cache = None
         # the decode table's structure for the kernels, by device (the
         # template's arcs never change; only their weights do), and the
         # normaliser's epsilon index likewise
@@ -233,9 +257,11 @@ class Transducer(Criterion):
         self._norm_indexes = {}
 
     def _backoff_gates(self):
-        """JAX's ``_factored_backoff`` (dense [N, S_c, S_c] matrices fit)
-        and ``_factored_backoff_dst`` (every label's non-self arcs share one
-        destination, and [S_c, N] fits)."""
+        """``_factored_backoff`` (the dense [N, S_c, S_c] matrices fit) and
+        ``_factored_backoff_dst`` (every label's non-self arcs share one
+        destination, and [S_c, N] fits), with the latter's destination
+        one-hot [N, S_c] and the low-rank structure of its epsilon closure
+        (``factored.eps_chain_struct``, None where it does not pay)."""
         nt = self._norm_table
         S_c, N = nt.start.shape[0], self.num_channels
         labels = nt.label.numpy()
@@ -252,6 +278,11 @@ class Transducer(Criterion):
             if dst_of.setdefault(lab, d) != d:
                 return
         self._factored_backoff_dst = True
+        p_dst = np.zeros((N, S_c), np.float32)
+        p_dst[list(dst_of), list(dst_of.values())] = 1.0
+        self._dst_onehot = p_dst
+        self._eps_lr_struct = factored.eps_chain_struct(
+            nt.eps_src.numpy(), nt.eps_dst.numpy(), S_c, nt.eps_depth)
 
     # -- parameters -----------------------------------------------------
     def init_params(self):
@@ -310,15 +341,29 @@ class Transducer(Criterion):
 
     def prepare(self, targets):
         """Compile and pack per-sample lattices (host, cached): the dense
-        tables of the factored path for ``ngram`` 1-2 and for no
-        transitions, else (or when the dense packing refuses the batch) the
-        composed arc table."""
+        tables of the factored path where ``_use_factored`` says so, else
+        (or when the dense packing refuses the batch) the composed arc
+        table."""
         keys = [tuple(int(t) for t in np.asarray(tgt).reshape(-1)) for tgt in targets]
-        if self._factored_ngram or self.transitions is None:
+        if self._use_factored():
             prepared = self._prepare_factored(keys)
             if prepared is not None:
                 return prepared
         return self._prepare_composed(keys)
+
+    def _use_factored(self):
+        """JAX's routing (``GTN_TRANSDUCER_FACTORED``): off composes; ngram
+        1-2 and no transitions factor otherwise; a loaded graph that a
+        backoff gate admits factors under "on".  JAX also factors it under
+        auto on the TPU, where segment ops are pathological; the card runs
+        its segment ops through hand-written kernels, so the port's auto
+        composes it on every device."""
+        if _FACTORED_IMPL in _FACTORED_DISABLED:
+            return False
+        if self._factored_ngram or self.transitions is None:
+            return True
+        return _FACTORED_IMPL == "on" and (self._factored_backoff
+                                           or self._factored_backoff_dst)
 
     def _prepare_composed(self, keys):
         """One arc table of the batch's composed lattices: on a union
@@ -355,7 +400,9 @@ class Transducer(Criterion):
         """Plain alignment lattices as dense adjacency + in-label tables,
         or None if a sample's lattice has epsilon arcs, a state with mixed
         in-labels, arc weights too large for the exp-space adjacency, or
-        the batch exceeds the working-set gate."""
+        the batch exceeds the working-set gate.  A loaded graph takes the
+        dense variant where its gate and working set allow, else the dst
+        variant (marked ``"factored_dst"``) where they allow."""
         cgs = [c[0] for c in self._compile_all(keys, compose_transitions=False)]
 
         N = self.num_channels
@@ -364,8 +411,18 @@ class Transducer(Criterion):
         # (untransducible targets) scores NEG
         S = -(-max([len(cg.start) for cg in cgs] + [1]) // 8) * 8
         B = len(cgs)
-        if self.transitions is None and B * S * (S + N) > _DENSE_MAX_WORKSET:
-            return None
+        variant = None
+        if self.transitions is None:
+            if B * S * (S + N) > _DENSE_MAX_WORKSET:
+                return None
+        elif not self._factored_ngram:
+            S_c = self._norm_table.start.shape[0]
+            if self._factored_backoff and B * S * N * S_c <= _DENSE_MAX_WORKSET:
+                variant = "dense"
+            elif self._factored_backoff_dst and B * S * (N + S_c) <= _DENSE_MAX_WORKSET:
+                variant = "dst"
+            else:
+                return None
         adj_exp = np.zeros((B, S, S), np.float32)
         lab_oh = np.zeros((B, S, N), np.float32)
         start = np.full((B, S), NEG, np.float32)
@@ -392,7 +449,7 @@ class Transducer(Criterion):
             start[b, : len(cg.start)] = cg.start
             accept[b, : len(cg.accept)] = cg.accept
         lengths = np.asarray([len(k) for k in keys], dtype=np.int32)
-        return {
+        prepared = {
             "factored": {
                 "adj_exp": torch.from_numpy(adj_exp),
                 "lab_oh": torch.from_numpy(lab_oh),
@@ -401,6 +458,9 @@ class Transducer(Criterion):
             },
             "target_lengths": torch.from_numpy(lengths),
         }
+        if variant == "dst":
+            prepared["factored_dst"] = ()
+        return prepared
 
     # -- loss -----------------------------------------------------------
     @staticmethod
@@ -420,6 +480,98 @@ class Transducer(Criterion):
                 self._norm_table.to(device),
                 self._norm_widx.to(device), self._norm_eps_widx.to(device))
         return self._norm_on[device]
+
+    def _eff_weights(self, params):
+        """The transition graph's effective arc and epsilon weights (its
+        static weights plus the learnable ``params``), on ``params``'
+        device: the one place the factored matrices and the low-rank
+        closure read them from (the composed normaliser's
+        ``_apply_params``)."""
+        table = self._apply_params(*self._norm_table_on(params.device), params)
+        return table.weight, table.eps_weight
+
+    def _factored_tables(self, device):
+        """The transition graph's static index arrays for the factored
+        matrices, the destination one-hot and the low-rank closure's
+        structure, on ``device`` (built once a device)."""
+        if device not in self._factored_on:
+            nt, _, _ = self._norm_table_on(device)
+            tabs = {"label": nt.label.long().clamp(0, self.num_channels - 1),
+                    "src": nt.src.long(), "dst": nt.dst.long(),
+                    "eps_src": nt.eps_src.long(), "eps_dst": nt.eps_dst.long()}
+            tabs["is_self"] = tabs["src"] == tabs["dst"]
+            if self._dst_onehot is not None:
+                tabs["p_dst"] = torch.from_numpy(self._dst_onehot).to(device)
+            if self._eps_lr_struct is not None:
+                tabs["eps_lr"] = tuple(torch.from_numpy(a).to(device)
+                                       for a in self._eps_lr_struct)
+            self._factored_on[device] = tabs
+        return self._factored_on[device]
+
+    def _eps_matrix(self, ew_eff, tabs, S_c):
+        """(E_exp [S_c, S_c], e_shift): the epsilon arcs' exp-weights under
+        a gradient-free shift, so learned weights cannot overflow."""
+        if not ew_eff.shape[0]:
+            return ew_eff.new_zeros((S_c, S_c)), ew_eff.new_zeros(())
+        e_shift = torch.clamp(torch.amax(ew_eff), min=0.0).detach()
+        E_exp = ew_eff.new_zeros((S_c, S_c)).index_put(
+            (tabs["eps_src"], tabs["eps_dst"]), torch.exp(ew_eff - e_shift),
+            accumulate=True)
+        return E_exp, e_shift
+
+    def _transition_matrices(self, w_eff, ew_eff):
+        """The dense variant's per-label exp-matrices: (start, accept,
+        T_exp [N, S_c, S_c], t_shift, E_exp, e_shift, depth).  Padding arcs
+        (weight NEG) underflow to an exact 0."""
+        nt, _, _ = self._norm_table_on(w_eff.device)
+        tabs = self._factored_tables(w_eff.device)
+        S_c, N = nt.start.shape[0], self.num_channels
+        t_shift = torch.clamp(torch.amax(w_eff), min=0.0).detach()
+        T_exp = w_eff.new_zeros((N, S_c, S_c)).index_put(
+            (tabs["label"], tabs["src"], tabs["dst"]), torch.exp(w_eff - t_shift),
+            accumulate=True)
+        return (nt.start, nt.accept, T_exp, t_shift,
+                *self._eps_matrix(ew_eff, tabs, S_c), nt.eps_depth)
+
+    def _transition_matrices_dst(self, w_eff, ew_eff):
+        """The dst variant's [S_c, N]-sized matrices: (start, accept,
+        W_adv_exp [S_c, N] of the advance arcs, D_exp_t [N, S_c] of the
+        self-loops, P_dst [N, S_c], t_shift, E_exp, e_shift, depth)."""
+        nt, _, _ = self._norm_table_on(w_eff.device)
+        tabs = self._factored_tables(w_eff.device)
+        S_c, N = nt.start.shape[0], self.num_channels
+        t_shift = torch.clamp(torch.amax(w_eff), min=0.0).detach()
+        exp_w = torch.exp(w_eff - t_shift)
+        W_adv_exp = w_eff.new_zeros((S_c, N)).index_put(
+            (tabs["src"], tabs["label"]), torch.where(tabs["is_self"], 0.0, exp_w),
+            accumulate=True)
+        D_exp_t = w_eff.new_zeros((N, S_c)).index_put(
+            (tabs["label"], tabs["src"]), torch.where(tabs["is_self"], exp_w, 0.0),
+            accumulate=True)
+        return (nt.start, nt.accept, W_adv_exp, D_exp_t, tabs["p_dst"], t_shift,
+                *self._eps_matrix(ew_eff, tabs, S_c), nt.eps_depth)
+
+    def _backoff_factored_loss(self, p, inputs, prepared, input_lengths):
+        """Per-sample losses of a loaded graph through its backoff
+        factorings: the dense variant, or the dst variant (its low-rank
+        closure on the exp tier, where the structure pays)."""
+        f = prepared["factored"]
+        lattice = (inputs, f["adj_exp"], f["lab_oh"], f["start"], f["accept"])
+        w_eff, ew_eff = self._eff_weights(p)
+        if "factored_dst" not in prepared and self._factored_backoff:
+            tmats = self._transition_matrices(w_eff, ew_eff)
+            score = factored.backoff_factored_score(*lattice, *tmats, input_lengths)
+            norm = factored.backoff_dense_norm(inputs, *tmats, input_lengths)
+            return -(score - norm)
+        tmats = self._transition_matrices_dst(w_eff, ew_eff)
+        elr = None
+        if self._eps_lr_struct is not None and factored._use_vjp():
+            elr = factored.eps_lowrank_build(
+                ew_eff, self._factored_tables(p.device)["eps_lr"])
+        score = factored.backoff_dst_factored_score(*lattice, *tmats, input_lengths,
+                                                    eps_lowrank=elr)
+        norm = factored.backoff_dst_norm(inputs, *tmats, input_lengths, eps_lowrank=elr)
+        return -(score - norm)
 
     def loss(self, params, inputs, prepared, input_lengths=None):
         """inputs: [B, T, N] logits, blank (if any) at the last channel."""
@@ -446,6 +598,9 @@ class Transducer(Criterion):
                 input_lengths,
             )
             return self._reduce(-score, prepared)
+        if not self._factored_ngram:
+            return self._reduce(self._backoff_factored_loss(
+                params["transitions"], inputs, prepared, input_lengths), prepared)
         ws, W, we, we0 = factored.ngram_rows(
             params["transitions"], self.ngram, self.num_channels
         )
@@ -484,16 +639,47 @@ class Transducer(Criterion):
         self._decode_cache = (ptr, key, table)
         return table
 
+    def _decode_matrices_dst(self, params, device):
+        """The tropical [S_c, N] matrices of ``factored.backoff_dst_viterbi``
+        under the current weights, on ``device``: (start, accept, W_adv_log,
+        D_log, dst one-hot, E_log, depth), parallel arcs max-merged, NEG
+        where there is no arc.  Cached like ``_decode_table``."""
+        ptr = params["transitions"]
+        key = (ptr._version, ptr.data_ptr(), device)
+        cached = self._decode_dst_cache
+        if cached is not None and cached[0] is ptr and cached[1] == key:
+            return cached[2]
+        nt = self._norm_table
+        S_c, N = nt.start.shape[0], self.num_channels
+        w_eff, ew_eff = (w.numpy() for w in self._eff_weights(ptr.detach().cpu()))
+        src, dst = nt.src.numpy(), nt.dst.numpy()
+        lab = np.clip(nt.label.numpy(), 0, N - 1)
+        real = nt.weight.numpy() > NEG / 2
+        is_self, is_adv = (src == dst) & real, (src != dst) & real
+        W_adv = np.full((S_c, N), NEG, np.float32)
+        np.maximum.at(W_adv, (src[is_adv], lab[is_adv]), w_eff[is_adv])
+        D = np.full((S_c, N), NEG, np.float32)
+        np.maximum.at(D, (src[is_self], lab[is_self]), w_eff[is_self])
+        E = np.full((S_c, S_c), NEG, np.float32)
+        np.maximum.at(E, (nt.eps_src.numpy(), nt.eps_dst.numpy()), ew_eff)
+        mats = tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                     for a in (nt.start, nt.accept, W_adv, D, self._dst_onehot, E))
+        mats = mats + (nt.eps_depth,)
+        self._decode_dst_cache = (ptr, key, mats)
+        return mats
+
     def viterbi_dispatch(self, outputs, params=None, input_lengths=None):
         outputs = outputs.detach()
         if self.transitions is not None:
+            params = params if params is not None else self.params
             if (self._factored_backoff_dst and self._norm_table.start.shape[0]
                     * self.num_channels > _DECODE_FACTORED_MIN_ARCS):
-                raise NotImplementedError(
-                    "decoding a transition graph of S_c * N > 2^15 goes through "
-                    "the destination-factored scan, which is not ported yet "
-                    "(ROADMAP queue A item 8)")
-            params = params if params is not None else self.params
+                # the epsilon-removed table would hold ~S_c * N arcs: decode
+                # through the destination-factored tropical scan instead
+                labels, _ = factored.backoff_dst_viterbi(
+                    outputs, *self._decode_matrices_dst(params, outputs.device),
+                    input_lengths)
+                return (labels, input_lengths)
             labels, _ = sparse.viterbi_batch(
                 outputs, self._decode_table(params), input_lengths, self._decode_plans)
         else:

@@ -13,21 +13,26 @@ graph alone.  Held to JAX here:
     corpus, at the recipe's settings and others;
   * ``prepare``'s composed tables and weight provenance, exactly;
   * the loss and its gradients to the logits and the transitions, on the
-    fixture and on the grapheme trigram, through the plain route and the
-    kernels' route (their plain versions here): loss rtol 1e-5 + atol
+    fixture, the grapheme trigram, ``ngram=3`` and a built bigram, through
+    the plain route and the kernels' route (their plain versions here) of
+    the composed path, and through the backoff factorings
+    (``GTN_TRANSDUCER_FACTORED=on`` on both sides; the bigram's dense
+    variant refused, so that it takes the dst one): loss rtol 1e-5 + atol
     1e-5, gradients rtol 1e-4 + atol 1e-6; and a numeric-gradient check of
     the transitions (as ``tests/test_transducer.py`` checks JAX's);
-  * ``ngram=3`` through the composed path;
   * the decode template and ``Transducer.viterbi`` on a backoff graph,
     labels exactly; on the unpruned grapheme 4-gram over the long-line
     texts, whose decode table the whole-scan plan refuses (the per-step
-    ``seg_max`` decode), outputs exactly; and ``blank="forced"`` decoding
-    (the native ``forced_collapse``), infeasible alignments decoding to
-    nothing;
-  * one SGD step of a narrow TDS2d with this criterion (loss 1e-4, each
-    update within 1e-3 of its norm), and train.py + test.py end to end on
-    the CPU with a transitions file: the trigram, and a 4-gram whose decode
-    runs the per-step path.
+    ``seg_max`` decode), outputs exactly; on a 200-token bigram (S_c * N
+    past 2^15: the destination-factored decode), labels exactly; and
+    ``blank="forced"`` decoding (the native ``forced_collapse``),
+    infeasible alignments decoding to nothing;
+  * one SGD step of a narrow TDS2d with this criterion, composed and
+    through the dense factoring (loss 1e-4, each update within 1e-3 of its
+    norm), and train.py + test.py end to end on the CPU with a transitions
+    file: the trigram, and a 4-gram whose decode runs the per-step path.
+
+The backoff factorings function by function: ``test_torch_factored_backoff.py``.
 """
 
 import json
@@ -172,7 +177,28 @@ def _ngram3_pair():
     return td.Transducer(*args, **kw), jax_td.Transducer(*args, **kw)
 
 
-CASES = {"fixture": _fixture_pair, "trigram": _trigram_pair, "ngram3": _ngram3_pair}
+def _bigram_dst_pair(ntok=4):
+    """A pruned bigram with blanks and self-loops by ``build_transitions``,
+    its dense variant refused on both sides (as for a 1k-wordpiece LM), so
+    that the factored route takes the destination-factored one."""
+    rng = np.random.RandomState(8)
+    lines = [[str(i) for i in rng.randint(0, ntok, rng.randint(3, 9))] for _ in range(150)]
+    toks = [str(i) for i in range(ntok)]
+    t2i = {t: i for i, t in enumerate(toks)}
+    g = bt.build_from_lines(lines, toks, [0, 0], "optional", self_loops=True)
+    jg = jax_bt.build_graph(jax_bt.add_self_loops(jax_bt.add_blank_grams(
+        jax_bt.prune_ngrams(jax_bt.count_ngrams(lines, 2, t2i), [0, 0]), ntok, "optional")))
+    kw = dict(blank="optional", reduction="mean")
+    pair = td.Transducer(toks, t2i, transitions=g, **kw), jax_td.Transducer(
+        toks, t2i, transitions=jg, **kw)
+    for crit in pair:
+        assert crit._factored_backoff_dst
+        crit._factored_backoff = False
+    return pair
+
+
+CASES = {"fixture": _fixture_pair, "trigram": _trigram_pair, "ngram3": _ngram3_pair,
+         "bigram_dst": _bigram_dst_pair}
 
 
 def _targets(name, rng, B=4):
@@ -180,7 +206,7 @@ def _targets(name, rng, B=4):
         pre, _ = _texts()
         ds = synthetic.Dataset(None, pre, split="train")
         return [ds[i][1].tolist() for i in range(B)], 48
-    n = 5 if name == "fixture" else 3
+    n = {"fixture": 5, "bigram_dst": 4}.get(name, 3)
     return [rng.randint(0, n, size=rng.randint(1, 4)).tolist() for _ in range(B)], 9
 
 
@@ -208,12 +234,19 @@ def test_composed_prepare_matches_jax(name):
     assert crit._factored_backoff_dst == jcrit._factored_backoff_dst
 
 
-@pytest.mark.parametrize("route", ["plain", "kernels"])
+@pytest.mark.parametrize("route", ["plain", "kernels", "factored"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_loss_and_gradients_match_jax(name, route, monkeypatch):
+    """Composed (the plain route, or the kernels' with their plain versions
+    standing in), or through the backoff factorings with
+    ``GTN_TRANSDUCER_FACTORED=on`` on both sides: the dense variant for the
+    fixture, the trigram and ngram=3, the dst variant for the bigram."""
     if route == "kernels":
         monkeypatch.setattr(sparse, "forward_score_batch_tables",
                             sparse._forward_batched_kernels)
+    if route == "factored":
+        monkeypatch.setattr(td, "_FACTORED_IMPL", "on")
+        monkeypatch.setattr(jax_td, "_FACTORED_IMPL", "on")
     crit, jcrit = CASES[name]()
     rng = np.random.RandomState(2)
     targets, T = _targets(name, rng)
@@ -222,13 +255,16 @@ def test_loss_and_gradients_match_jax(name, route, monkeypatch):
     lens = np.asarray([T, T - 1, T - 3, T], np.int32)
     trans = (rng.randn(crit.num_transition_arcs) * 0.3).astype(np.float32)
 
-    jprep = jcrit.prepare(targets)
+    jprep, prep = jcrit.prepare(targets), crit.prepare(targets)
+    assert sorted(prep) == sorted(jprep)
+    assert ("factored" in prep) == (route == "factored")
+    assert ("factored_dst" in prep) == (route == "factored" and name == "bigram_dst")
     j_loss, (j_gp, j_gx) = jax.value_and_grad(
         lambda p, x: jcrit.loss({"transitions": p}, x, jprep, jnp.asarray(lens)),
         argnums=(0, 1))(jnp.asarray(trans), jnp.asarray(x))
     p_t = torch.from_numpy(trans).requires_grad_(True)
     x_t = torch.from_numpy(x).requires_grad_(True)
-    loss = crit.loss({"transitions": p_t}, x_t, crit.prepare(targets), torch.from_numpy(lens))
+    loss = crit.loss({"transitions": p_t}, x_t, prep, torch.from_numpy(lens))
     gx, gp = torch.autograd.grad(loss, [x_t, p_t])
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), **LOSS_TOL)
     np.testing.assert_allclose(gx.numpy(), np.asarray(j_gx), err_msg="logits", **GRAD_TOL)
@@ -336,26 +372,58 @@ def test_forced_blank_decode_matches_jax(ngram):
     assert preds[0].tolist() == [0, 1, 2] and any(len(p) == 0 for p in preds)
 
 
-def test_huge_lm_decode_raises():
-    """A destination-factorable graph with S_c * N > 2^15: JAX decodes it
-    through its destination-factored scan (ROADMAP A.8), the port raises."""
+def test_huge_lm_decode_matches_jax(tmp_path):
+    """A destination-factorable graph with S_c * N > 2^15 (a 200-token
+    bigram, S_c = 204): both packages decode it through the
+    destination-factored scan, with the same labels and outputs; the
+    learned weights' update reaches the port's cached matrices."""
     ntok = 200
     rng = np.random.RandomState(3)
     lines = [[str(i) for i in rng.randint(0, ntok, 12)] for _ in range(400)]
-    g = bt.build_from_lines(lines, [str(i) for i in range(ntok)], [0, 0], "optional",
-                            self_loops=True)
-    crit = td.Transducer([(i,) for i in range(ntok)], {i: i for i in range(ntok)},
-                         transitions=g, blank="optional", reduction="mean")
-    assert crit._factored_backoff_dst
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        crit.viterbi(torch.zeros(1, 3, ntok + 1),
-                     {"transitions": torch.zeros(crit.num_transition_arcs)})
+    path = tmp_path / "lm.bin"
+    wgraph.save(path, bt.build_from_lines(lines, [str(i) for i in range(ntok)], [0, 0],
+                                          "optional", self_loops=True))
+    args = ([(i,) for i in range(ntok)], {i: i for i in range(ntok)})
+    kw = dict(blank="optional", reduction="mean")
+    crit = td.Transducer(*args, transitions=wgraph.load(path), **kw)
+    jcrit = jax_td.Transducer(*args, transitions=jax_wfst.load(path), **kw)
+    assert crit._factored_backoff_dst and jcrit._factored_backoff_dst
+    assert crit._norm_table.start.shape[0] * crit.num_channels > td._DECODE_FACTORED_MIN_ARCS
+    B, T = 4, 12
+    x = (rng.randn(B, T, ntok + 1) * 3).astype(np.float32)
+    lens = np.asarray([T, T - 3, 5, 1], np.int32)
+    w = torch.from_numpy((rng.randn(crit.num_transition_arcs) * 0.5).astype(np.float32))
+    for _ in range(2):
+        params = {"transitions": w}
+        labels, _ = crit.viterbi_dispatch(torch.from_numpy(x), params, torch.from_numpy(lens))
+        jlabels, _ = jcrit.viterbi_dispatch(jnp.asarray(x),
+                                            {"transitions": jnp.asarray(w.numpy())},
+                                            jnp.asarray(lens))
+        np.testing.assert_array_equal(labels.numpy(), np.asarray(jlabels))
+        preds = crit.viterbi(torch.from_numpy(x), params, torch.from_numpy(lens))
+        assert [p.tolist() for p in preds] == [np.asarray(p).tolist() for p in jcrit.viterbi(
+            jnp.asarray(x), {"transitions": jnp.asarray(w.numpy())}, jnp.asarray(lens))]
+        assert all(len(p) for p in preds)
+        with torch.no_grad():
+            w.mul_(-1.0)  # an in-place update, as an optimizer makes
 
 
 def test_train_step_matches_jax(tmp_path):
     """One SGD step of a narrow TDS2d with pruned_ngram_ctc.json's
     criterion (the grapheme trigram loaded from a file; random transitions
     with their own learning rate) against JAX."""
+    _train_step_matches_jax(tmp_path)
+
+
+def test_factored_train_step_matches_jax(tmp_path, monkeypatch):
+    """The same step through the dense backoff factoring
+    (``GTN_TRANSDUCER_FACTORED=on`` on both sides)."""
+    monkeypatch.setattr(td, "_FACTORED_IMPL", "on")
+    monkeypatch.setattr(jax_td, "_FACTORED_IMPL", "on")
+    _train_step_matches_jax(tmp_path, factored=True)
+
+
+def _train_step_matches_jax(tmp_path, factored=False):
     pre, texts = _texts()
     path = tmp_path / "trigram.bin"
     wgraph.save(path, bt.grapheme_lm(texts, pre.tokens))
@@ -380,13 +448,14 @@ def test_train_step_matches_jax(tmp_path):
     old = [p.detach().double().clone() for p in params]
 
     jstep = jax_train.make_train_step(flax_model, jcrit, lr, crit_lr, max_grad_norm)
+    jprep, prep = jcrit.prepare(targets), crit.prepare(targets)
+    assert ("factored" in prep) == ("factored" in jprep) == factored
     jparams, jloss, _ = jstep(
         {"model": variables, "criterion": {"transitions": jnp.asarray(trans)}},
-        jnp.asarray(inputs), jcrit.prepare(targets), jax.random.PRNGKey(1),
-        jnp.float32(1.0),
+        jnp.asarray(inputs), jprep, jax.random.PRNGKey(1), jnp.float32(1.0),
     )
     step = train_mod.make_train_step(model, crit, lr, crit_lr, max_grad_norm)
-    loss, _ = step(torch.from_numpy(inputs), crit.prepare(targets), torch.Generator(), 1.0)
+    loss, _ = step(torch.from_numpy(inputs), prep, torch.Generator(), 1.0)
     assert abs(float(loss) - float(jloss)) < 1e-4
 
     ref = tds2d_from_flax(jax.tree_util.tree_map(np.asarray, jparams["model"]),
