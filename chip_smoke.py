@@ -47,10 +47,14 @@ prints no result):
    tables with half of the arcs' weights 85-100 nats down (which states
    underflow is decided by the shift), and on bench.py's
    word decompositions at the 1k inventory (B=32, T=100, 15 pieces,
-   S=376); each case logs its real arcs, degrees and routes: the live
-   sets equal, the trajectory within atol 1e-3 + rtol 1e-5 on live
-   states, dem (with dadj and without) and dadj entry by entry within
-   1e-5 (|p| + the median nonzero |p|);
+   S=376); the S=304 and hub cases with every state accepting, so that
+   their backward meets live states; each case logs its real arcs,
+   degrees and routes, and how many of its sums the FLT_MIN gate declares
+   dead (positive with denormal terms kept, below FLT_MIN with them
+   flushed, as JAX's devices flush them; the underflow case must have
+   some): the live sets equal, the trajectory within atol 1e-3 + rtol
+   1e-5 on live states, dem (with dadj and without) and dadj entry by
+   entry within 1e-5 (|p| + the median nonzero |p|);
 7. the factored-scan kernels against their plain versions on the bigram
    Transducer's lattices: the bench ngram-2 headline (B=32, T=250, L=44,
    N=80, blank none, so S=96), ``configs/iamdb/ngram_ctc.json``'s IAM width
@@ -62,8 +66,10 @@ prints no result):
    with each label's weights from most sources 85-110 nats below its
    shift (which states underflow is decided by the TPU's per-label shift)
    and a batch of 5; each case logs its real arcs, largest in- and
-   out-degree and the routes that carried them (registers, shared or
-   global; emission rows staged or in the ring): the live sets equal, the
+   out-degree, the routes that carried them (registers, shared or
+   global; emission rows staged or in the ring) and the sums the FLT_MIN
+   gate declares dead (the underflow case must have some): the live sets
+   equal, the
    trajectory within atol 1e-3 + rtol 1e-5 on live states, dem, dadj,
    dwsel and dws entry by entry within 1e-5 (|p| + the median nonzero
    |p|), with dadj and without;
@@ -145,14 +151,18 @@ prints no result):
    within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
    launch) at B=32, T=300 on the card against the CPU route: labels
    bitwise, scores within 1e-6;
-12. six main paths, CTC, ASG, STC, the Transducer and the Transducer
-   with a loaded backoff LM, the grapheme trigram and the 4-gram:
+12. nine main paths, CTC, ASG, STC, the Transducer and the Transducer
+   with a loaded backoff LM, the grapheme trigram and the 4-gram, and CTC
+   on the RNN and TDS encoders and on TDS2d computing in bf16:
    ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
    32: 4 steps plus validation) with the model and criterion sections of
-   configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json
-   and pruned_ngram_ctc.json unchanged (the last two on the long-line
-   corpus, their transitions the grapheme trigram of the recipe's settings
-   and the unpruned 4-gram, built into build/), then ``test.run_test`` on
+   configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json,
+   pruned_ngram_ctc.json, rnn.json, tds.json and tds2d.json unchanged
+   (the backoff paths on the long-line corpus, their transitions the
+   grapheme trigram of the recipe's settings and the unpruned 4-gram,
+   built into build/), but for ``CONFIG_EDITS`` (rnn.json, which has no
+   ``optim.step_size``, takes the other IAM configs' 100; the bf16 path
+   adds ``"dtype": "bfloat16"``), then ``test.run_test`` on
    the checkpoint; the launch counters are zeroed just before each path
    and read just after: each kernel of the path must have launched once
    per train step (backward kernels) or once per train step and per
@@ -171,7 +181,11 @@ prints no result):
    against their plain versions on the inputs the train step and the
    decode give them, at the tolerances of phases 3-9 and 11; and the 4-gram's
    decode of the first validation batch on the card (one seg_max_scan
-   launch) against the CPU route, labels exactly;
+   launch) against the CPU route, labels exactly; the bf16 path's first
+   batch through its trained model in bf16 and in fp32 at the same
+   weights: logits fp32, their max |d| within 0.3 (JAX's own gap at this
+   width, ``BF16_LOGITS_TOL``) and the CTC loss's relative gap within 1e-2,
+   printed with the card's name and power limit;
 14. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9 and 11
    headline shapes for each kernel, its plain version and the one
    PyTorch call that computes it where there is one (F.ctc_loss for the
@@ -183,7 +197,8 @@ prints no result):
    the seg_lse forward also by its other route, alpha, w and em staged in
    shared memory or gathered, and without its statistics), the
    host-clock median of 20 full train
-   steps of each path and of 5 decodes of the 4-gram path's first batch
+   steps of each path (a line each with the card's name and power
+   limit) and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 11's T=300 case),
    the CTC pair also at ``CTC_WIDE`` (with chain bounds) and the
    backward's kernels a call (torch.profiler), the CTC Function
@@ -683,18 +698,51 @@ def entrywise_err(torch, k, p):
     return float(((k - p).abs().double() / (a + m)).max())
 
 
+def _gated(raw, z):
+    """Sums that are positive with denormal terms kept (``raw``) and below
+    FLT_MIN with them flushed (``z``, the recursion's): dead since the
+    gate, alive before it (lifted by the 1e-37 floor of the log)."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    return (raw > 0) & (z < dsp._TINY)
+
+
+def dense_subnormal_sums(torch, traj, adj, start, has_lab, il):
+    """How many (b, t, u) sums of the plain dense recursion on ``traj``, on
+    applied frames of labelled states, the FLT_MIN gate declares dead:
+    positive with denormal terms kept, below FLT_MIN with them flushed, as
+    JAX's devices flush them."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    prev = torch.cat([traj[:, :1], traj[:, :-1]], dim=1)  # frame t reads t - 1
+    x = prev - prev.amax(dim=2, keepdim=True).clamp(min=NEG)
+    e, raw = dsp._exp(x), torch.exp(x)
+    e[:, 0] = raw[:, 0] = dsp._start_e(start)
+    # z[b, t, u] = sum_s adj[u, s] e[t, s]
+    z, raw = (torch.bmm(v, adj.transpose(1, 2)) for v in (e, raw))
+    t = torch.arange(traj.shape[1], device=traj.device)
+    applied = (t[None, :] < il[:, None].long()) | (t[None, :] == 0)
+    hit = _gated(raw, z) & (has_lab[:, None, :] > 0) & applied[:, :, None]
+    return int(hit.sum())
+
+
 def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, what,
-                            all_live=False):
+                            all_live=False, underflow=False):
     """Both dense-scan kernels against their plain versions on the same
     inputs: the trajectory within atol 1e-3 + rtol 1e-5 on live states;
     dem and dadj entry by entry, |k - p| <= 1e-5 (|p| + median nonzero
     |p|); the backward without dadj gives the same dem.  With ``all_live``
-    every state of every frame must be live."""
+    every state of every frame must be live; with ``underflow`` the FLT_MIN
+    gate must declare some sums dead (``dense_subnormal_sums``)."""
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
     from gtn_applications_tpu_torch.ops.semiring import DEAD
 
     tr_k = dsp.dense_scan_fwd_cuda(em_state, adj, start, has_lab, il)
     tr_p = dsp.dense_scan_fwd_plain(em_state, adj, start, has_lab, il)
+    subnormal = dense_subnormal_sums(torch, tr_p, adj, start, has_lab, il)
+    if underflow and not subnormal:
+        raise AssertionError(f"dense_scan: no sum below FLT_MIN in the underflow case {what}")
     live = tr_p > DEAD
     if not torch.equal(tr_k > DEAD, live):
         raise AssertionError(f"dense_scan_fwd: live states differ at {what}")
@@ -728,7 +776,8 @@ def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, wh
         raise AssertionError("dense_scan_bwd returned dadj without need_dadj")
     log(f"dense_scan {what}: traj max|d| (live states) {fwd_err:.3g}, entrywise "
         f"error dem {rels['dem']:.3g}, dadj {rels['dadj']:.3g} (dadj max|d| "
-        f"{errs['dadj']:.3g}, largest {float(dadj_p.abs().max()):.3g})")
+        f"{errs['dadj']:.3g}, largest {float(dadj_p.abs().max()):.3g}); sums below "
+        f"FLT_MIN, dead: {subnormal} of {live.numel()}")
     return {"dense_scan_fwd": fwd_err,
             "dense_scan_bwd": max(errs["dem"], errs["dadj"]),
             "dense_scan_bwd_rel": max(rels.values())}
@@ -738,7 +787,8 @@ def dense_hub_inputs(torch, dev, b=WIDE_STC[0], t=WIDE_STC[1], length=WIDE_STC[2
                      degree=(150, 251)):
     """The S = 304 STC lattices with a hub: one labelled state a sample
     takes arcs (weights exp(N(0, 1))) from 150-250 (``degree``) random
-    states, past the 32 kCap arcs a group's lanes hold in registers."""
+    states, past the 32 kCap arcs a group's lanes hold in registers.
+    Every state accepts (``accept_every_state``)."""
     inputs = list(stc_headline_inputs(torch, dev, b, t, length, seed=seed))
     rng = np.random.RandomState(seed)
     adj, has_lab = inputs[1].clone(), inputs[3]
@@ -750,6 +800,17 @@ def dense_hub_inputs(torch, dev, b=WIDE_STC[0], t=WIDE_STC[1], length=WIDE_STC[2
         adj[i, hub, srcs] = torch.as_tensor(np.exp(rng.randn(srcs.numel())).astype(np.float32),
                                             device=dev)
     inputs[1] = adj.contiguous()
+    return accept_every_state(torch, inputs)
+
+
+def accept_every_state(torch, inputs):
+    """``inputs`` with every state accepting, so that the backward meets
+    each state still live at the end: on the 100-label STC lattices of 128
+    frames no accepting state is live then (the states that lag 88 nats
+    behind the frame's best die, as on JAX's devices), and the cotangent
+    would be 0."""
+    inputs = list(inputs)
+    inputs[4] = torch.zeros_like(inputs[4])
     return tuple(inputs)
 
 
@@ -828,6 +889,8 @@ def dense_cases(torch, dev):
     cases = []
     for b, t, length in [(B, T, STC_L), WIDE_STC]:
         inputs = stc_headline_inputs(torch, dev, b, t, length)
+        if (b, t, length) == WIDE_STC:
+            inputs = accept_every_state(torch, inputs)
         what = (b, t, inputs[0].shape[2])
         cases.append((inputs, what, False))
         # the same shape with every state live and z far from the floor
@@ -845,7 +908,8 @@ def phase_dense_scan(torch, dev):
     errs = {}
     for inputs, what, all_live in dense_cases(torch, dev):
         log(f"dense_scan {what}: {json.dumps(dense_routes(torch, inputs[1], inputs[3], inputs[5]))}")
-        merge_errs(errs, hold_dense_scan_kernels(torch, *inputs, what, all_live=all_live))
+        merge_errs(errs, hold_dense_scan_kernels(torch, *inputs, what, all_live=all_live,
+                                                 underflow=what[0] == "underflow"))
     return errs
 
 
@@ -933,18 +997,42 @@ def hold_entrywise(torch, name, k, p, what):
     return rel, float((k - p).abs().max()) if p.numel() else 0.0
 
 
+def factored_subnormal_sums(torch, traj, adj, wsel, lab, start, il):
+    """How many (b, t, u) sums of the plain factored recursion on ``traj``
+    (u's column, its in-label's), on applied frames of labelled states, the
+    FLT_MIN gate declares dead (``dense_subnormal_sums``)."""
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+    from gtn_applications_tpu_torch.ops.semiring import NEG
+
+    has = lab.sum(-1) > 0
+    z = dsp._bmv(adj, dsp._start_e(start))
+    count = int((_gated(z, z) & has).sum())
+    for t in range(1, traj.shape[1]):
+        v = traj[:, t - 1, :, None] + wsel
+        x = v - v.amax(dim=1, keepdim=True).clamp(min=NEG)
+        # the one-hot picks column l_u
+        z, raw = ((torch.bmm(adj, e) * lab).sum(-1) for e in (dsp._exp(x), torch.exp(x)))
+        count += int((_gated(raw, z) & has & (t < il)[:, None]).sum())
+    return count
+
+
 def hold_factored_scan_kernels(torch, em_state, adj, wsel, lab, ws_state, start,
-                               accept, il, what, all_live=False):
+                               accept, il, what, all_live=False, underflow=False):
     """Both factored-scan kernels against their plain versions on the same
     inputs: the trajectory within atol 1e-3 + rtol 1e-5 on live states;
     dem, dadj, dwsel and dws entry by entry, |k - p| <= 1e-5 (|p| + median
     nonzero |p|); the backward without dadj gives the same rest.  With
-    ``all_live`` every state of every frame must be live."""
+    ``all_live`` every state of every frame must be live; with
+    ``underflow`` the FLT_MIN gate must declare some sums dead."""
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
     from gtn_applications_tpu_torch.ops.semiring import DEAD
 
     tr_k = dsp.factored_scan_fwd_cuda(em_state, adj, wsel, lab, ws_state, start, il)
     tr_p = dsp.factored_scan_fwd_plain(em_state, adj, wsel, lab, ws_state, start, il)
+    subnormal = factored_subnormal_sums(torch, tr_p, adj, wsel, lab, start, il)
+    if underflow and not subnormal:
+        raise AssertionError(f"factored_scan: no sum below FLT_MIN in the underflow "
+                             f"case {what}")
     live = tr_p > DEAD
     if not torch.equal(tr_k > DEAD, live):
         raise AssertionError(f"factored_scan_fwd: live states differ at {what}")
@@ -971,7 +1059,8 @@ def hold_factored_scan_kernels(torch, em_state, adj, wsel, lab, ws_state, start,
     log(f"factored_scan {what}: traj max|d| (live states) {fwd_err:.3g}, entrywise "
         f"error dem {rels['dem']:.3g}, dadj {rels['dadj']:.3g}, dwsel "
         f"{rels['dwsel']:.3g}, dws {rels['dws']:.3g} (dwsel max|d| "
-        f"{errs['dwsel']:.3g}, largest {float(out_p[2].abs().max()):.3g})")
+        f"{errs['dwsel']:.3g}, largest {float(out_p[2].abs().max()):.3g}); sums below "
+        f"FLT_MIN, dead: {subnormal} of {live.numel()}")
     return {"factored_scan_fwd": fwd_err,
             "factored_scan_bwd": max(errs.values()),
             "factored_scan_bwd_rel": max(rels.values())}
@@ -1036,7 +1125,8 @@ def phase_factored_scan(torch, dev):
     for inputs, what, all_live in cases:
         routes = factored_routes(torch, inputs[1], inputs[3], inputs[7], inputs[2].shape[2])
         log(f"factored_scan {what}: {json.dumps(routes)}")
-        merge_errs(errs, hold_factored_scan_kernels(torch, *inputs, what, all_live=all_live))
+        merge_errs(errs, hold_factored_scan_kernels(torch, *inputs, what, all_live=all_live,
+                                                    underflow=what[0] == "underflow"))
     return errs
 
 
@@ -2285,29 +2375,47 @@ PATHS = {
     "transducer_backoff_4gram": ("pruned_ngram_ctc.json",
                                  ("seg_lse_fwd", "sparse_scan_fwd", "seg_max_scan"),
                                  ("seg_lse_bwd", "sparse_scan_bwd")),
+    # the IAM recipes' other encoders, and TDS2d computing in bf16, with CTC
+    "ctc_rnn": ("rnn.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    "ctc_tds": ("tds.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    "ctc_bf16": ("tds2d.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
 }
 # the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json
 DATASETS = {"transducer_backoff": "synthetic_long",
             "transducer_backoff_4gram": "synthetic_long"}
+# what a path adds to its config: rnn.json has no optim.step_size, which the
+# trainer reads (as JAX's does), so it takes the other IAM configs' 100;
+# ctc_bf16 is tds2d.json with bf16 encoder compute
+CONFIG_EDITS = {"ctc_rnn": {"optim": {"step_size": 100}},
+                "ctc_bf16": {"model": {"dtype": "bfloat16"}}}
+# the bf16 model's first-batch logits against the fp32 model's at the same
+# weights: JAX's bound at a narrow width (tests/test_models.py,
+# test_tds2d_bf16_compute) is 0.15, and JAX's own gap at tds2d.json's width
+# is 0.26-0.29 (Flax TDS2d, two init seeds, 16 synthetic lines, jitted and
+# op by op, on the CPU), so the bound here is 0.3; and the CTC loss's
+# relative gap, the CPU test's bound
+BF16_LOGITS_TOL = 0.3
+BF16_LOSS_TOL = 0.01
 SPLITS = {"train": 64, "validation": 16, "test": 16}  # synthetic split sizes
 
 
 def main_path_config(path):
     """The config's model and criterion sections unchanged (the backoff
-    paths' transitions: the grapheme LM of ``LM_PRUNE``); synthetic data,
-    2 epochs."""
+    paths' transitions: the grapheme LM of ``LM_PRUNE``) but for
+    ``CONFIG_EDITS``; synthetic data, 2 epochs."""
     with open(ROOT / "configs" / "iamdb" / PATHS[path][0]) as fid:
         base = json.load(fid)
     if "transitions" in base.get("criterion", {}):
         base["criterion"] = dict(base["criterion"],
                                  transitions=str(lm_transitions(LM_PRUNE[path])))
+    edits = CONFIG_EDITS.get(path, {})
     config = {
         "seed": 0,
         "data": {"dataset": DATASETS.get(path, "synthetic"), "num_features": 64},
         "model_type": base["model_type"],
-        "model": base["model"],
+        "model": dict(base["model"], **edits.get("model", {})),
         "criterion_type": base.get("criterion_type", "ctc"),
-        "optim": dict(base["optim"], epochs=2),
+        "optim": dict(base["optim"], epochs=2, **edits.get("optim", {})),
     }
     if "criterion" in base:
         config["criterion"] = base["criterion"]
@@ -2680,6 +2788,35 @@ def phase_main_batch_backoff_4gram(torch, dev, model, config):
                       transducer_backoff_4gram_val_decode_score_abs_diff=d_score)
 
 
+def phase_bf16_gap(torch, dev, model, config, card):
+    """The ctc_bf16 path's first train batch through its trained model, in
+    bf16 and, at the same weights, in fp32: the logits fp32 either way,
+    their max |d| within BF16_LOGITS_TOL and the CTC loss's relative gap
+    within BF16_LOSS_TOL."""
+    import copy
+
+    from gtn_applications_tpu_torch.train import to_device
+
+    inputs, crit, prepared = first_batch(torch, config, "ctc_bf16")
+    model32 = copy.deepcopy(model)
+    model32.dtype = torch.float32
+    x, prepared = torch.from_numpy(inputs).to(dev), to_device(prepared, dev)
+    with torch.no_grad():
+        out16, out32 = model(x), model32(x)
+        l16, l32 = (float(crit.loss(crit.params, o, prepared)) for o in (out16, out32))
+    d_out = float((out16 - out32).abs().max())
+    gap = abs(l16 - l32) / abs(l32)
+    log(f"[{card}] main batch ctc_bf16 {list(out16.shape)}: bf16 against fp32 at the "
+        f"same weights: logits max|d| {d_out:.4g} (bound {BF16_LOGITS_TOL}), loss "
+        f"{l16:.6f} against {l32:.6f}, relative gap {gap:.4g} (bound {BF16_LOSS_TOL})")
+    if out16.dtype != torch.float32:
+        raise AssertionError(f"ctc_bf16: logits are {out16.dtype}, not float32")
+    if not (d_out < BF16_LOGITS_TOL and gap < BF16_LOSS_TOL):
+        raise AssertionError("ctc_bf16: bf16 compute strays from fp32 past its bound")
+    return {"ctc_bf16_logits_max_abs_diff": d_out, "ctc_bf16_loss_rel_gap": gap,
+            "ctc_bf16_loss": l16, "ctc_bf16_loss_fp32": l32}
+
+
 def time_train_step(torch, dev, model, config, runs=20, warmup=5):
     """Host-clock median ms of ``runs`` full train steps (after
     ``warmup``) on the first batch of the train split, without
@@ -2700,7 +2837,7 @@ def time_train_step(torch, dev, model, config, runs=20, warmup=5):
     step = train_mod.make_train_step(
         model, crit, optim["learning_rate"],
         optim.get("crit_learning_rate", optim["learning_rate"]),
-        optim["max_grad_norm"],
+        optim.get("max_grad_norm"),
     )
     gen = torch.Generator(device=dev).manual_seed(0)
     step_ms = []
@@ -3723,7 +3860,12 @@ def run(device="cuda"):
         main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
         merge_errs(errs, main_errs)
         diffs.update(more)
+    diffs.update(phase_bf16_gap(torch, dev, paths["ctc_bf16"]["model"],
+                                main_path_config("ctc_bf16"), card))
     times, bounds, chain = phase_times(torch, dev, paths)
+    for path in PATHS:
+        log(f"[{card}] train step {path}: {times[f'train_step_{path}']:.2f} ms (host clock, "
+            f"median of 20), batch {times[f'train_step_{path}_shape']}")
     for more in (dense_times(torch, dev), factored_times(torch, dev), sparse_times(torch, dev)):
         times.update(more[0])
         bounds.update(more[1])

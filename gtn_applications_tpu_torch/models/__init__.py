@@ -1,2 +1,3 @@
-from .tds import InstanceNorm
+from .rnn import RNN
+from .tds import TDS, InstanceNorm, TDSBlock
 from .tds2d import TDS2d, TDSBlock2d

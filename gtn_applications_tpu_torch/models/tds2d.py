@@ -7,31 +7,19 @@ reference's channel order: the input is viewed as [B, c_in, H/c_in, W]
 with C major, a block's CD channels are C-major/D-minor, and the head
 flattens [B, W', C, H'] with C major.  ``lane_pack`` and ``conv_layout``
 select TPU lane-packing layouts of the same math in JAX; they are accepted
-and the plain convolution runs.  ``TDS2dTransducer`` is not ported yet
+and the plain convolution runs.  ``dtype`` (``torch.bfloat16``) computes
+the convolutions, dense layers and activations in that dtype with fp32
+parameters, fp32 instance-norm statistics and fp32 logits, as JAX's
+``dtype`` does (``models/tds.py``).  ``TDS2dTransducer`` is not ported yet
 (ROADMAP queue A item 9).
 """
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .tds import InstanceNorm, dropout, lecun_normal_
-
-
-def _init_conv(conv, generator):
-    kh, kw = conv.kernel_size
-    lecun_normal_(conv.weight, kh * kw * conv.in_channels, generator)
-    nn.init.zeros_(conv.bias)
-
-
-def _init_linear(linear, generator):
-    lecun_normal_(linear.weight, linear.in_features, generator)
-    nn.init.zeros_(linear.bias)
-
-
-def _dense(linear, x):
-    """A Dense layer over the channel dim of [B, C, H, W]."""
-    return linear(x.movedim(1, -1)).movedim(-1, 1)
+from .tds import InstanceNorm, conv_as, dense_as, dropout, init_conv, init_linear
 
 
 class TDSBlock2d(nn.Module):
@@ -54,23 +42,23 @@ class TDSBlock2d(nn.Module):
         self.fc1 = nn.Linear(CD, CD)
         self.fc2 = nn.Linear(CD, CD)
         self.norm2 = InstanceNorm(CD)
-        _init_conv(self.conv, generator)
-        _init_linear(self.fc1, generator)
-        _init_linear(self.fc2, generator)
+        init_conv(self.conv, generator)
+        init_linear(self.fc1, generator)
+        init_linear(self.fc2, generator)
 
     def forward(self, x, train=False, generator=None):
         B, CD, H, W = x.shape
         C, D = self.in_channels, self.img_depth
         # [B, C, D, H, W] (C major) -> fold D into the batch for the conv
         y = x.view(B, C, D, H, W).transpose(1, 2).reshape(B * D, C, H, W)
-        y = F.relu(self.conv(y))
+        y = F.relu(conv_as(self.conv, y))
         y = dropout(y, self.dropout, train, generator)
         y = y.view(B, D, C, H, W).transpose(1, 2).reshape(B, CD, H, W)
         x = self.norm1(y + x)
 
-        y = F.relu(_dense(self.fc1, x))
+        y = F.relu(dense_as(self.fc1, x))
         y = dropout(y, self.dropout, train, generator)
-        y = _dense(self.fc2, y)
+        y = dense_as(self.fc2, y)
         y = dropout(y, self.dropout, train, generator)
         return self.norm2(y + x)
 
@@ -83,7 +71,7 @@ class TDS2d(nn.Module):
 
     def __init__(self, input_size, output_size, depth, tds_groups,
                  kernel_size, dropout, in_channels=1, lane_pack=False,
-                 conv_layout="transpose", generator=None):
+                 conv_layout="transpose", dtype=None, generator=None):
         super().__init__()
         stride_h = int(np.prod([g["stride"][0] for g in tds_groups]))
         if input_size % stride_h != 0:
@@ -96,6 +84,7 @@ class TDS2d(nn.Module):
         self.tds_groups = tds_groups
         self.in_channels = in_channels
         self.dropout = dropout
+        self.dtype = dtype or torch.float32
         kh, kw = kernel_size
         self.convs = nn.ModuleList()
         self.norms = nn.ModuleList()
@@ -108,7 +97,7 @@ class TDS2d(nn.Module):
                 c_in, c_out, (kh, kw), stride=tuple(group["stride"]),
                 padding=(kh // 2, kw // 2),
             )
-            _init_conv(conv, generator)
+            init_conv(conv, generator)
             self.convs.append(conv)
             self.norms.append(InstanceNorm(c_out))
             for _ in range(group["num_blocks"]):
@@ -120,7 +109,7 @@ class TDS2d(nn.Module):
             c_in = c_out
         h_out = input_size // stride_h
         self.linear = nn.Linear(c_in * h_out, output_size)
-        _init_linear(self.linear, generator)
+        init_linear(self.linear, generator)
 
     @property
     def time_stride(self):
@@ -130,10 +119,10 @@ class TDS2d(nn.Module):
     def forward(self, inputs, train=False, generator=None):
         B, H, W = inputs.shape
         c_in = self.in_channels
-        x = inputs.view(B, c_in, H // c_in, W)
+        x = inputs.view(B, c_in, H // c_in, W).to(self.dtype)
         blocks = iter(self.blocks)
         for conv, norm, n_blocks in zip(self.convs, self.norms, self._group_blocks):
-            x = F.relu(conv(x))
+            x = F.relu(conv_as(conv, x))
             x = dropout(x, self.dropout, train, generator)
             x = norm(x)
             for _ in range(n_blocks):
@@ -141,4 +130,5 @@ class TDS2d(nn.Module):
         # [B, C, H', W'] -> [B, W', C*H'] (C major)
         B2, C2, H2, W2 = x.shape
         x = x.permute(0, 3, 1, 2).reshape(B2, W2, C2 * H2)
-        return self.linear(x)
+        # logits in fp32 for the lattice criteria
+        return self.linear(x.to(torch.float32))

@@ -13,15 +13,18 @@
 //   forward:  t = 0: e = exp(min(start, 0)) * (start > NEG/2)
 //             t > 0: sh = max(max(alpha), NEG), e = exp(alpha - sh)
 //             z[u]  = sum_s adj[u, s] e[s]
-//             alpha[u] = (z > 0 && lab[u]) ? em[t, u] + sh + log(max(z, 1e-37))
+//             alpha[u] = (z >= FLT_MIN && lab[u]) ? em[t, u] + sh + log(max(z, 1e-37))
 //                                          : NEG        (sh = 0 at t = 0)
 //             frozen (alpha kept) where t >= len; frame 0 always applied.
 //   backward: g = dL/dalpha[T-1]; for t = T-1 .. 0 on applied frames:
-//             ga = (z > 0 && lab) ? g : 0;  dem[t] = ga;  dz = ga / max(z, floor)
+//             ga = (z >= FLT_MIN && lab) ? g : 0;  dem[t] = ga;  dz = ga / max(z, floor)
 //             dadj[u, s] += dz[u] e[s];  g[s] = (sum_u adj[u, s] dz[u]) e[s]
 //             (frozen frames: dem = 0, g passes through).
 // The floor is 1e-37 (the JAX kernels' and ops/factored.py's), not the CTC
-// kernels' 1e-30.  Built without --use_fast_math.
+// kernels' 1e-30.  Built without --use_fast_math, so a sum can be a float32
+// denormal: one below FLT_MIN is dead (kTiny), as on JAX's devices, which
+// flush denormals to zero; kept alive, the floor would lift it to e^-85 of
+// its shift, a frame at a time.
 //
 // What bounds them on the H100: the lattices are almost empty (the STC
 // headline, S=96, holds 273 real arcs a sample, 3 % of S^2, in-degree at
@@ -44,10 +47,20 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kFloor = 1e-37f;
+constexpr float kTiny = 1.17549435e-38f;  // FLT_MIN
 constexpr unsigned kFull = 0xffffffffu;
 
+// exp(x) with a result below FLT_MIN flushed to 0, as JAX's devices do:
+// kLogTiny is the least float whose expf is normal, so the test runs beside
+// the exp rather than after it (one select on the chain; no fast math).
+constexpr float kLogTiny = -0x1.5d589ep+6f;  // -87.33654f
+__device__ __forceinline__ float exp_ftz(float x) {
+  const float e = expf(x);
+  return x >= kLogTiny ? e : 0.0f;
+}
+
 __device__ __forceinline__ float start_e(float s) {
-  return s > kNeg / 2 ? expf(fminf(s, 0.0f)) : 0.0f;
+  return s > kNeg / 2 ? exp_ftz(fminf(s, 0.0f)) : 0.0f;
 }
 
 __device__ __forceinline__ int live_steps(int len, int T) {
@@ -76,13 +89,13 @@ __device__ __forceinline__ void frame_sync(int threads) {
 // l from state s.  The TPU kernel computes, every frame, the full
 //   v[s, l] = alpha[s] + wsel[s, l],  sh[l] = max(max_s v[s, l], NEG)
 //   z[u, l] = sum_s adj[u, s] exp(v[s, l] - sh[l])     ([S, S] x [S, N])
-//   alpha[u] = has[u] ? em[t, u] + (z[u, l_u] > 0 ? sh + log(max(z, 1e-37))
+//   alpha[u] = has[u] ? em[t, u] + (z[u, l_u] >= FLT_MIN ? sh + log(max(z, 1e-37))
 //                                                 : NEG) : NEG
 // and keeps only column l_u of row u.  Frame 0 enters from
 // e0 = exp(min(start, 0)) (start > NEG/2) and adds ws[u]:
-// alpha = (z > 0 && has) ? (em + ws) + log(max(z, 1e-37)) : NEG.  Frames
+// alpha = (z >= FLT_MIN && has) ? (em + ws) + log(max(z, 1e-37)) : NEG.  Frames
 // t >= len keep alpha; frame 0 is always applied.  The backward replays the
-// trajectory: with ga = has ? g : 0 (dem[t] = ga) and dz[u] = z > 0 ?
+// trajectory: with ga = has ? g : 0 (dem[t] = ga) and dz[u] = z >= FLT_MIN ?
 // ga / max(z, 1e-37) : 0, an arc s -> u adds (adj[u, s] dz[u]) E[s, l_u] to
 // g_{t-1}[s] and to dwsel[s, l_u], where E[s, l] = exp(v[s, l] - sh[l]);
 // dadj[u, s] = sum_t dz_t[u] E_t[s, l_u] over every s (non-arcs too), and
@@ -122,7 +135,7 @@ __device__ __forceinline__ void frame_sync(int threads) {
 // - a pass over all frames spread across the card (grid B x chunks, a warp
 //   a frame, no barrier in its loop) recomputes each live frame's shifts
 //   sh_t[j] from traj with the forward's arcs and rounds, and its sums as
-//   rz_t[u] = z > 0 ? 1 / max(z, 1e-37) : 0, into scratch of B T (Lmax + S)
+//   rz_t[u] = z >= FLT_MIN ? 1 / max(z, 1e-37) : 0, into scratch of B T (Lmax + S)
 //   floats, so the chain multiplies (dz = ga rz: one rounding more than
 //   ga / max(z, 1e-37), within the tests' 1e-5) instead of dividing;
 // - the chain (one block a sample) keeps the arcs by source (u | slot << 16,
@@ -588,7 +601,7 @@ __device__ __forceinline__ float dest_sum(const Task& t, const int2* arcs,
       s = arc.x;
       a = __int_as_float(arc.y);
     }
-    const float e = frame0 ? x[s] : expf((kLabels ? x[s] + wcol[s] : x[s]) - sh);
+    const float e = frame0 ? x[s] : exp_ftz((kLabels ? x[s] + wcol[s] : x[s]) - sh);
     z += a * e;
   }
   for (int off = t.g >> 1; off > 0; off >>= 1) z += __shfl_xor_sync(kFull, z, off);
@@ -677,9 +690,9 @@ __device__ __forceinline__ void emit_alpha(int u, int g, float z, float sh, bool
   if (u >= 0 && (lane & (g - 1)) == 0) {
     float v;
     if (f0)
-      v = z > 0.0f ? em + logf(fmaxf(z, kFloor)) : kNeg;
+      v = z >= kTiny ? em + logf(fmaxf(z, kFloor)) : kNeg;
     else
-      v = em + (z > 0.0f ? sh + logf(fmaxf(z, kFloor)) : kNeg);
+      v = em + (z >= kTiny ? sh + logf(fmaxf(z, kFloor)) : kNeg);
     next[u] = v;
     tr_t[u] = v;
   }
@@ -757,7 +770,7 @@ __device__ __forceinline__ void fwd_round_regs(const FactPtrs& p, const FwdArgs&
 #pragma unroll
   for (int k = 0; k < kCap; ++k) {
     if (k < 2 || k < q.tk.n) {  // the first two always, so they overlap (pads add +0)
-      const float e = f0 ? x[q.xs[k]] : expf((x[q.xs[k]] + q.wv[k]) - sh);
+      const float e = f0 ? x[q.xs[k]] : exp_ftz((x[q.xs[k]] + q.wv[k]) - sh);
       z += q.av[k] * e;
     }
   }
@@ -896,7 +909,7 @@ factored_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__
 }
 
 // The backward's statistics of each live frame, off the chain: sh_t[j]
-// (t >= 1) and, for the labelled states, rz_t[u] = z > 0 ? 1 / max(z,
+// (t >= 1) and, for the labelled states, rz_t[u] = z >= FLT_MIN ? 1 / max(z,
 // 1e-37) : 0, from traj; grid (B, chunks), a warp a frame with its own row
 // of the previous alpha in shared memory.
 __global__ void __launch_bounds__(kFactThreads)
@@ -960,7 +973,7 @@ factored_stats_kernel(const float* __restrict__ traj, const float* __restrict__ 
       const float z = dest_sum(tk, arcs, A, x, p.wt + (tk.j0 + tk.k) * S, sh, t == 0, S,
                                dense);
       if (tk.u >= 0 && (lane & (tk.g - 1)) == 0)
-        rz_t[tk.u] = z > 0.0f ? 1.0f / fmaxf(z, kFloor) : 0.0f;
+        rz_t[tk.u] = z >= kTiny ? 1.0f / fmaxf(z, kFloor) : 0.0f;
     }
     __syncwarp();  // the row is read before the next frame overwrites it
   }
@@ -1040,7 +1053,7 @@ __device__ __forceinline__ float arc_term(int2 arc, float ps, int s, const float
                                           int S, const float* zr, const float* shr,
                                           const float* gcur) {
   const int u = arc.x & 0xffff, j = arc.x >> 16;
-  const float e = expf((ps + wt[j * S + s]) - shr[j]);
+  const float e = exp_ftz((ps + wt[j * S + s]) - shr[j]);
   return (__int_as_float(arc.y) * (gcur[u] * zr[u])) * e;
 }
 
@@ -1280,7 +1293,7 @@ __global__ void scan_dadj_kernel(const float* __restrict__ traj,
       const float* sh_b = sh_s + static_cast<long>(b) * T * L;
       for (int t = t_live - 1; t >= 1; --t)
         acc += dz_b[static_cast<long>(t) * S + u] *
-               expf((tr_b[static_cast<long>(t - 1) * S + s] + w) - sh_b[static_cast<long>(t) * L + j]);
+               exp_ftz((tr_b[static_cast<long>(t - 1) * S + s] + w) - sh_b[static_cast<long>(t) * L + j]);
       acc += dz_b[u] * start_e(start[static_cast<long>(b) * S + s]);
     }
     dadj[(static_cast<long>(b) * S + u) * S + s] = acc;
@@ -1304,7 +1317,7 @@ __global__ void scan_dadj_kernel(const float* __restrict__ traj,
 //   of adj exp(alpha[s] - sh), an exp a source per arc, so no barrier
 //   separates the exps from the sums; the group merges by xor
 //   shuffles; its first lane stores the new alpha, (em + sh) + log z where
-//   z > 0 else NEG, to shared memory and, fire and forget, to traj; the
+//   z >= FLT_MIN else NEG, to shared memory and, fire and forget, to traj; the
 //   warp's maximum goes out by one redux; one named barrier among the frame
 //   warps ends the frame.  Routes: registers (at most kDenseRegRounds
 //   rounds a warp, each lane's arcs in its registers), shared (the arcs in
@@ -1314,7 +1327,7 @@ __global__ void scan_dadj_kernel(const float* __restrict__ traj,
 //   a copy, before frame 0 where they fit beside the arcs, else through a
 //   ring of kRing rows filled kRing - 1 frames ahead.
 // - Backward, what does not depend on g apart from what does:
-//   - dense_stats_kernel: each live frame's sh_t and rz_t[u] = z > 0 ?
+//   - dense_stats_kernel: each live frame's sh_t and rz_t[u] = z >= FLT_MIN ?
 //     1 / max(z, 1e-37) : 0 (0 for states without a label), recomputed from
 //     traj with the forward's arcs and rounds; grid B x chunks of one wave,
 //     a warp a frame, no barrier in its loop; B T (S + 1) floats of scratch;
@@ -1378,7 +1391,7 @@ __device__ __forceinline__ void load_dense_lane(const FactPtrs& p, const int2* a
 __device__ __forceinline__ float dense_alpha(int u, int g, float z, float sh, float em,
                                              float* next, float* tr_t, int lane) {
   const float lz = logf(fmaxf(z, kFloor));
-  const float v = u >= 0 && z > 0.0f ? (em + sh) + lz : kNeg;
+  const float v = u >= 0 && z >= kTiny ? (em + sh) + lz : kNeg;
   if (u >= 0 && (lane & (g - 1)) == 0) {
     tr_t[u] = v;
     next[u] = v;
@@ -1449,7 +1462,7 @@ __device__ __forceinline__ void dense_fwd_frames(const FactPtrs& p, const DenseF
 #pragma unroll
           for (int k = 0; k < kCap; ++k) {  // every slot, no branch (pads add +0)
             const float xs = x[l.xs[k]];
-            z += l.av[k] * (f0 ? xs : expf(xs - sh));
+            z += l.av[k] * (f0 ? xs : exp_ftz(xs - sh));
           }
           for (int off = l.g >> 1; off > 0; off >>= 1) z += __shfl_xor_sync(kFull, z, off);
           wm = fmaxf(wm, dense_alpha(l.u, l.g, z, sh, em, next, tr_t, lane));
@@ -1547,7 +1560,7 @@ dense_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ ad
 }
 
 // The backward's statistics of each live frame, off the chain: sh_t (t >=
-// 1) and rz_t[u] = z > 0 ? 1 / max(z, 1e-37) : 0 (0 for the states without
+// 1) and rz_t[u] = z >= FLT_MIN ? 1 / max(z, 1e-37) : 0 (0 for the states without
 // a label), from traj; grid (B, chunks), a warp a frame with its own row
 // of the previous alpha in shared memory.
 __global__ void __launch_bounds__(kFactThreads)
@@ -1611,7 +1624,7 @@ dense_stats_kernel(const float* __restrict__ traj, const float* __restrict__ adj
       const Task tk = round_task(p, r, lane, S, dense);
       const float z = dest_sum<false>(tk, arcs, A, x, nullptr, sh, t == 0, S, dense);
       if (tk.u >= 0 && (lane & (tk.g - 1)) == 0)
-        rz_t[tk.u] = z > 0.0f ? 1.0f / fmaxf(z, kFloor) : 0.0f;
+        rz_t[tk.u] = z >= kTiny ? 1.0f / fmaxf(z, kFloor) : 0.0f;
     }
     __syncwarp();  // the row is read before the next frame overwrites it
   }
@@ -1751,7 +1764,7 @@ __device__ __forceinline__ void dense_chain_frames(const FactPtrs& p, const Dens
       for (int i = 0; i < kDenseRegRounds; ++i) {
         if (warp + i * c.warps < c.rounds) {
           const DenseSrc& l = q[i];
-          const float e = l.s < S ? expf(prev[l.s] - sh) : 0.0f;
+          const float e = l.s < S ? exp_ftz(prev[l.s] - sh) : 0.0f;
           float sum = 0.0f;
 #pragma unroll
           for (int k = 0; k < kCap; ++k) {
@@ -1768,7 +1781,7 @@ __device__ __forceinline__ void dense_chain_frames(const FactPtrs& p, const Dens
     } else {
       for (int r = warp; r < c.rounds; r += c.warps) {
         const SrcTask st = source_task(p, r, lane, S, g);
-        const float e = st.s < S ? expf(prev[st.s] - sh) : 0.0f;
+        const float e = st.s < S ? exp_ftz(prev[st.s] - sh) : 0.0f;
         float sum = 0.0f;
         for (int k = 0; k < st.n; ++k) {
           const int2 arc = c.arcs[st.a0 + k * g];

@@ -12,8 +12,11 @@ Recursion (frame 0 always applied; frames t >= len keep alpha):
     t = 0 : e = exp(min(start, 0)) * (start > NEG/2)
     t > 0 : sh = max(max(alpha), NEG) (no gradient), e = exp(alpha - sh)
     z[u]  = sum_s adj_exp[u, s] * e[s]
-    new   = em_state[t] + sh + log(max(z, 1e-37))  where (z > 0) & has_lab
+    new   = em_state[t] + sh + log(max(z, 1e-37))  where (z >= FLT_MIN) & has_lab
             else NEG
+
+(a sum below the least normal float32 is dead, as on JAX's devices, which
+flush denormals to zero; the floor then only bounds normal sums).
 
 ``dense_scan`` returns the final alpha; its backward replays the
 trajectory in reverse, recomputing ``z``, and gives cotangents to
@@ -35,10 +38,21 @@ from .semiring import NEG
 # as the JAX module (and ops/factored.py): a normal fp32 number, so log z
 # bottoms out at -85, not at the CTC kernels' -69
 _FLOOR = 1e-37
+# the least normal float32: a sum below it is dead, as on JAX's devices,
+# which flush denormals to zero; kept alive, the floor above would lift it
+# to e^-85 of its shift, a frame at a time (csrc/dense_scan.cu: kTiny)
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _exp(x):
+    """exp(x) with a result below the least normal float32 flushed to 0,
+    as JAX's devices flush it (csrc/dense_scan.cu: exp_ftz)."""
+    e = torch.exp(x)
+    return torch.where(e >= _TINY, e, 0.0)
 
 
 def _start_e(start):
-    return torch.exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
+    return _exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
 
 
 def _bmv(adj, e):
@@ -57,13 +71,13 @@ def dense_scan_fwd_plain(em_state, adj_exp, start, has_lab, lengths):
     lab = has_lab > 0.0
     lens = lengths.view(B, 1)
     z = _bmv(adj_exp, _start_e(start))
-    alpha = torch.where((z > 0.0) & lab,
+    alpha = torch.where((z >= _TINY) & lab,
                         em_state[:, 0] + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
     traj = [alpha]
     for t in range(1, T):
         sh = torch.clamp(torch.amax(alpha, dim=1, keepdim=True), min=NEG)
-        z = _bmv(adj_exp, torch.exp(alpha - sh))
-        new = torch.where((z > 0.0) & lab,
+        z = _bmv(adj_exp, _exp(alpha - sh))
+        new = torch.where((z >= _TINY) & lab,
                           em_state[:, t] + sh + torch.log(torch.clamp(z, min=_FLOOR)),
                           NEG)
         alpha = torch.where(t < lens, new, alpha)
@@ -85,12 +99,12 @@ def dense_scan_bwd_plain(traj, adj_exp, start, has_lab, lengths, g_final,
         if t > 0:
             prev = traj[:, t - 1]
             sh = torch.clamp(torch.amax(prev, dim=1, keepdim=True), min=NEG)
-            e = torch.exp(prev - sh)
+            e = _exp(prev - sh)
         else:
             e = _start_e(start)
         z = _bmv(adj_exp, e)
         live = (t < lens) | (t == 0)
-        ga = torch.where(live & (z > 0.0) & lab, g, 0.0)
+        ga = torch.where(live & (z >= _TINY) & lab, g, 0.0)
         dem[t] = ga
         dz = ga / torch.clamp(z, min=_FLOOR)
         if need_dadj:
@@ -207,11 +221,11 @@ def dense_scan(em_state, adj_exp, start, has_lab, lengths):
 # ``factored.factored_lattice_score``:
 #
 #   t = 0 : z = adj_exp @ exp(min(start, 0)) * (start > NEG/2)
-#           alpha = (z > 0) & has ? (em_state + ws_state) + log(max(z, floor))
+#           alpha = (z >= FLT_MIN) & has ? (em_state + ws_state) + log(max(z, floor))
 #                                 : NEG
 #   t > 0 : v[s, l] = alpha[s] + wsel[s, l],  sh[l] = max(max_s v, NEG)
 #           z[u, l] = sum_s adj_exp[u, s] exp(v[s, l] - sh[l])
-#           m = z > 0 ? sh + log(max(z, floor)) : NEG
+#           m = z >= FLT_MIN ? sh + log(max(z, floor)) : NEG
 #           alpha[u] = has[u] ? em_state[t, u] + m[u, l_u] : NEG
 #
 # (frames t >= len keep alpha) where has[u] = lab_oh[u] is not all zero and
@@ -231,15 +245,15 @@ def factored_scan_fwd_plain(em_state, adj_exp, wsel, lab_oh, ws_state, start,
     has = torch.sum(lab_oh, dim=-1) > 0.0
     lens = lengths.view(B, 1)
     z = _bmv(adj_exp, _start_e(start))
-    alpha = torch.where((z > 0.0) & has,
+    alpha = torch.where((z >= _TINY) & has,
                         em_state[:, 0] + ws_state
                         + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
     traj = [alpha]
     for t in range(1, T):
         v = alpha[:, :, None] + wsel                          # [B, S, N]
         sh = torch.clamp(torch.amax(v, dim=1, keepdim=True), min=NEG)
-        z = torch.bmm(adj_exp, torch.exp(v - sh))             # [B, S, N]
-        m = torch.where(z > 0.0, sh + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
+        z = torch.bmm(adj_exp, _exp(v - sh))             # [B, S, N]
+        m = torch.where(z >= _TINY, sh + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
         pick = torch.sum(m * lab_oh, dim=-1)
         new = torch.where(has, em_state[:, t] + pick, NEG)
         alpha = torch.where(t < lens, new, alpha)
@@ -262,12 +276,12 @@ def factored_scan_bwd_plain(traj, adj_exp, wsel, lab_oh, start, lengths,
     for t in reversed(range(1, T)):
         v = traj[:, t - 1, :, None] + wsel
         sh = torch.clamp(torch.amax(v, dim=1, keepdim=True), min=NEG)
-        E = torch.exp(v - sh)
+        E = _exp(v - sh)
         z = torch.bmm(adj_exp, E)
         live = t < lens
         ga = torch.where(live & has, g, 0.0)
         dem[t] = ga
-        dz = torch.where(z > 0.0,
+        dz = torch.where(z >= _TINY,
                          ga[:, :, None] * lab_oh / torch.clamp(z, min=_FLOOR), 0.0)
         if need_dadj:
             dadj = dadj + torch.bmm(dz, E.transpose(1, 2))
@@ -276,7 +290,7 @@ def factored_scan_bwd_plain(traj, adj_exp, wsel, lab_oh, start, lengths,
         g = torch.sum(dv, dim=-1) + torch.where(live, 0.0, g)
     e = _start_e(start)
     z = _bmv(adj_exp, e)
-    ga = torch.where((z > 0.0) & has, g, 0.0)
+    ga = torch.where((z >= _TINY) & has, g, 0.0)
     dem[0] = ga
     if need_dadj:
         dadj = dadj + (ga / torch.clamp(z, min=_FLOOR))[:, :, None] * e[:, None, :]

@@ -52,7 +52,7 @@ import os
 import numpy as np
 import torch
 
-from .dense_scan_pallas import _FLOOR, dense_scan, factored_scan
+from .dense_scan_pallas import _FLOOR, _TINY, dense_scan, factored_scan
 from .semiring import DEAD, NEG, logaddexp, logsumexp
 
 # the destination-factored backoff score: "auto" (JAX's default) through
@@ -252,14 +252,9 @@ def _shift(x, dim):
     return torch.clamp(torch.amax(x, dim=dim, keepdim=True), min=NEG).detach()
 
 
-# the least normal float32: a sum below it is dead, as on JAX's devices,
-# which flush denormals to zero; kept alive, the floor of the log below
-# would lift it to e^-85 of its shift (up to 18 nats), a frame at a time
-_TINY = torch.finfo(torch.float32).tiny
-
-
 def _log_or_neg(z, base):
-    """base + log z for a live (normal, positive) sum z, else NEG."""
+    """base + log z for a live (normal, positive) sum z, else NEG: a sum
+    below the least normal float32 is dead, as on JAX's devices."""
     return torch.where(z >= _TINY, base + torch.log(torch.clamp(z, min=_FLOOR)), NEG)
 
 

@@ -58,8 +58,11 @@ packing built anew).
 on the lattices of ``chip_smoke.NGRAM_CASES`` (B=32, T=250: the ngram-2
 headline, S=96; the IAM width, S=136; the forced blank, S=136):
 baseline, this, this, baseline for the forward, the backward without
-dadj (the main path's) and with it; the two forwards' live sets must be
-equal and their trajectories within atol 1e-3 + rtol 1e-5 on live states.
+dadj (the main path's) and with it (both backwards on the baseline's
+trajectory); this forward's live states must be live in the baseline's,
+and the states live only there (a baseline without the FLT_MIN gate) and
+the trajectories' largest difference on this one's live states are
+logged.
 Beside them: this checkout's routes (``chip_smoke.factored_routes``), its
 bound (``chip_smoke.factored_work``) and the count of PRs 3-8, the chain
 bound (the longest sample's frames x ``factored_chain_probe``'s frame) and
@@ -84,9 +87,9 @@ transitions-free Transducer) instead, at ``chip_smoke.dense_time_cases``
 (the STC headline, B=32, T=250, S=96; S=304, B=8, T=128; the word
 decompositions at the 1k inventory, B=32, T=100, S=376): baseline, this,
 this, baseline for the forward, the backward without dadj (the main
-paths') and with it; the two forwards' live sets must be equal and their
-trajectories within atol 1e-3 + rtol 1e-5 on live states, and the two
-backwards' dem and dadj are compared entry by entry
+paths') and with it; the forwards' live sets and trajectories as for
+``--factored``, and the two backwards' dem and dadj (on the baseline's
+trajectory) are compared entry by entry
 (``chip_smoke.entrywise_err``, logged: each side is held to the plain
 versions by ``chip_smoke.py``).  Beside them: this checkout's routes
 (``chip_smoke.dense_routes``), its bounds by real arcs
@@ -317,6 +320,19 @@ def viterbi_ab(torch, cs, root, dev, caps):
     return out
 
 
+def live_sets(torch, name, traj_n, traj_b, dead):
+    """This checkout's live states (which must all be live in the
+    baseline's trajectory) and how many states live only in the
+    baseline's: a baseline without the FLT_MIN gate keeps alive, lifted by
+    the 1e-37 floor, sums that this checkout declares dead, and what such
+    states feed differs too, so the trajectories' values are logged, not
+    held (``chip_smoke.py`` holds each kernel to its plain version)."""
+    live, base_live = traj_n > dead, traj_b > dead
+    if bool((live & ~base_live).any()):
+        raise AssertionError(f"{name}: states live here and dead in the baseline")
+    return live, int((base_live & ~live).sum())
+
+
 def factored_ab(torch, cs, root, dev):
     """The ``--factored`` comparison (see the module docstring)."""
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
@@ -330,10 +346,7 @@ def factored_ab(torch, cs, root, dev):
         fwd_args = (em, adj, wsel, lab, ws, st, il)
         traj_n = dsp.factored_scan_fwd_cuda(*fwd_args)
         traj_b = base.factored_scan_fwd_cuda(*fwd_args)
-        live = traj_b > DEAD
-        if not torch.equal(traj_n > DEAD, live):
-            raise AssertionError(f"{name}: the two forwards' live sets differ")
-        torch.testing.assert_close(traj_n[live], traj_b[live], atol=1e-3, rtol=1e-5)
+        live, killed = live_sets(torch, name, traj_n, traj_b, DEAD)
         g = cs.score_cotangent(torch, traj_b[:, -1], acc)
         bwd_args = (traj_b, adj, wsel, lab, st, il, g)
         run = {who: {"fwd": lambda m=m: m.factored_scan_fwd_cuda(*fwd_args),
@@ -343,6 +356,7 @@ def factored_ab(torch, cs, root, dev):
         b, T, S = em.shape
         row = {"shape": [b, T, S, wsel.shape[2]], "max_len": int(il.max()),
                "max_abs_traj_diff": float((traj_n - traj_b).abs()[live].max()),
+               "live_only_in_baseline": killed,
                "routes": cs.factored_routes(torch, adj, lab, il, wsel.shape[2]),
                "chain_bound_ms": {"fwd": int(il.max()) * frame_us * 1e-3,
                                   "bwd": (int(il.max()) - 1) * frame_us * 1e-3},
@@ -373,10 +387,7 @@ def dense_ab(torch, cs, root, dev):
         fwd_args = (em, adj, st, lab, il)
         traj_n = dsp.dense_scan_fwd_cuda(*fwd_args)
         traj_b = base.dense_scan_fwd_cuda(*fwd_args)
-        live = traj_b > DEAD
-        if not torch.equal(traj_n > DEAD, live):
-            raise AssertionError(f"{name}: the two forwards' live sets differ")
-        torch.testing.assert_close(traj_n[live], traj_b[live], atol=1e-3, rtol=1e-5)
+        live, killed = live_sets(torch, name, traj_n, traj_b, DEAD)
         g = cs.score_cotangent(torch, traj_b[:, -1], acc)
         bwd_args = (traj_b, adj, st, lab, il, g)
         bwd_diff = {}
@@ -393,6 +404,7 @@ def dense_ab(torch, cs, root, dev):
         chain, frame_us = cs.dense_chain_bounds(torch, dev, routes, b, int(il.max()))
         row = {"shape": [b, T, S], "max_len": int(il.max()),
                "max_abs_traj_diff": float((traj_n - traj_b).abs()[live].max()),
+               "live_only_in_baseline": killed,
                "entrywise_bwd_diff": bwd_diff,
                "routes": routes, "chain_bound_ms": chain, "chain_frame_us": frame_us,
                "bound_ms": cs.dense_bounds(em, adj, lab, il),

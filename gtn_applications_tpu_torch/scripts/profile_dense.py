@@ -51,12 +51,12 @@ VARIANTS = {
                   (CHAIN_LOOP, "  for (int f = 0; f < 0; ++f) {\n"),
                   (STATS_LOOP, "  for (int t = t1; t < t1; t += kFactWarps) {\n")],
     "no_stats": [(STATS_LOOP, "  for (int t = t1; t < t1; t += kFactWarps) {\n")],
-    "no_exp": [("            z += l.av[k] * (f0 ? xs : expf(xs - sh));",
+    "no_exp": [("            z += l.av[k] * (f0 ? xs : exp_ftz(xs - sh));",
                 "            z += l.av[k] * (f0 ? xs : xs - sh);")],
     "no_log": [("  const float lz = logf(fmaxf(z, kFloor));", "  const float lz = z;")],
     "no_traj_store": [("    tr_t[u] = v;\n    next[u] = v;", "    next[u] = v;")],
     "no_redux": [("    wm = warp_max(wm);\n", "")],
-    "no_chain_exp": [("          const float e = l.s < S ? expf(prev[l.s] - sh) : 0.0f;",
+    "no_chain_exp": [("          const float e = l.s < S ? exp_ftz(prev[l.s] - sh) : 0.0f;",
                       "          const float e = l.s < S ? prev[l.s] - sh : 0.0f;")],
 }
 # the forward's prologue by part and its frames (thread 0, into traj[b, 0,

@@ -52,14 +52,14 @@ VARIANTS = {
     "no_stats": [(STATS_LOOP, "  for (int t = t1; t < t1; t += blockDim.x >> 5) {\n")],
     "no_shift": [("    sh = __shfl_sync(kFull, group_shift<K>(x, p.wt, q.wr, q.tk, a.S, lane), "
                   "8 * q.tk.k);", "    sh = x[lane];")],
-    "no_log": [("      v = em + (z > 0.0f ? sh + logf(fmaxf(z, kFloor)) : kNeg);",
-                "      v = em + (z > 0.0f ? sh + z : kNeg);")],
+    "no_log": [("      v = em + (z >= kTiny ? sh + logf(fmaxf(z, kFloor)) : kNeg);",
+                "      v = em + (z >= kTiny ? sh + z : kNeg);")],
     "no_traj_store": [("    next[u] = v;\n    tr_t[u] = v;", "    next[u] = v;")],
-    "no_dest_exp": [("    const float e = frame0 ? x[s] : expf((kLabels ? x[s] + wcol[s] : x[s]) - sh);",
+    "no_dest_exp": [("    const float e = frame0 ? x[s] : exp_ftz((kLabels ? x[s] + wcol[s] : x[s]) - sh);",
                      "    const float e = frame0 ? x[s] : (kLabels ? x[s] + wcol[s] : x[s]) - sh;"),
-                    ("    const float e = f0 ? x[q.xs[k]] : expf((x[q.xs[k]] + q.wv[k]) - sh);",
+                    ("    const float e = f0 ? x[q.xs[k]] : exp_ftz((x[q.xs[k]] + q.wv[k]) - sh);",
                      "    const float e = f0 ? x[q.xs[k]] : (x[q.xs[k]] + q.wv[k]) - sh;")],
-    "no_chain_exp": [("  const float e = expf((ps + wt[j * S + s]) - shr[j]);",
+    "no_chain_exp": [("  const float e = exp_ftz((ps + wt[j * S + s]) - shr[j]);",
                       "  const float e = (ps + wt[j * S + s]) - shr[j];")],
 }
 # the forward's prologue, and per warp and frame its pass and its barrier;

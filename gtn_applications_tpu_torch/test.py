@@ -14,7 +14,8 @@ import logging
 
 from . import utils
 from .train import (
-    criterion_to_device, evaluate, load_experiment, make_eval_step, select_device,
+    criterion_to_device, dataset_kwargs, evaluate, load_experiment, make_eval_step,
+    select_device,
 )
 
 
@@ -46,7 +47,8 @@ def run_test(args):
 
     dataset, preprocessor, criterion, model, _ = load_experiment(config)
     ds = dataset.Dataset(
-        config["data"].get("data_path"), preprocessor, split=args.split
+        config["data"].get("data_path"), preprocessor, split=args.split,
+        **dataset_kwargs(config),
     )
     loader = utils.data_loader(ds, config)
 

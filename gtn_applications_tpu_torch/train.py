@@ -184,20 +184,22 @@ def load_experiment(config, generator=None):
     dataset_name = config["data"]["dataset"]
     if not hasattr(ds_pkg, dataset_name) or dataset_name == "text":
         raise ValueError(
-            f"Unknown dataset {dataset_name} (the port has 'synthetic' and "
-            "'synthetic_long'; "
-            "the others wait for their data)"
+            f"Unknown dataset {dataset_name} (the port has 'iamdb', "
+            "'synthetic' and 'synthetic_long'; the speech datasets are not "
+            "ported yet, ROADMAP queue A item 16)"
         )
     dataset = getattr(ds_pkg, dataset_name)
 
     input_size = config["data"]["num_features"]
-    preprocessor = dataset.Preprocessor(
-        config["data"].get("data_path"),
+    kwargs = dict(
         num_features=input_size,
         tokens_path=config["data"].get("tokens", None),
         lexicon_path=config["data"].get("lexicon", None),
         prepend_wordsep=config["data"].get("prepend_wordsep", False),
     )
+    if dataset_name == "iamdb":
+        kwargs["use_words"] = config["data"].get("use_words", False)
+    preprocessor = dataset.Preprocessor(config["data"].get("data_path"), **kwargs)
     criterion, output_size = utils.load_criterion(
         config.get("criterion_type", "ctc"),
         preprocessor,
@@ -208,6 +210,12 @@ def load_experiment(config, generator=None):
         generator=generator,
     )
     return dataset, preprocessor, criterion, model, input_size
+
+
+def dataset_kwargs(config):
+    """``data.fast_pipeline`` (iamdb): the float and jitter stages run once
+    a batch in the dataset's own collate."""
+    return {"fast_pipeline": True} if config["data"].get("fast_pipeline", False) else {}
 
 
 def train(args):
@@ -227,8 +235,10 @@ def train(args):
         config, init_gen
     )
     data_path = config["data"].get("data_path")
-    trainset = dataset.Dataset(data_path, preprocessor, split="train", augment=True)
-    valset = dataset.Dataset(data_path, preprocessor, split="validation")
+    ds_kwargs = dataset_kwargs(config)
+    trainset = dataset.Dataset(data_path, preprocessor, split="train", augment=True,
+                               **ds_kwargs)
+    valset = dataset.Dataset(data_path, preprocessor, split="validation", **ds_kwargs)
     train_loader = utils.data_loader(trainset, config, seed=seed)
     val_loader = utils.data_loader(valset, config, seed=seed)
 

@@ -1,13 +1,14 @@
 """Experiment runtime: factories, batching, metrics, timers, checkpoints.
 
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
-TDS2d path uses with the CTC, ASG, STC and Transducer criteria.  The batch
-sampler emits width-sorted, bucketed batches; timers synchronise the CUDA
-device before reading the clock; and checkpoints are pickled
-``state_dict``s.  Only the ``tds2d`` model and the ``ctc``, ``asg``,
-``stc`` and ``transducer`` criteria resolve in the factories so far; a
-Transducer's ``transitions`` file is read with the port's ``wfst`` graph
-files.
+RNN, TDS and TDS2d encoders use with the CTC, ASG, STC and Transducer
+criteria.  The batch sampler emits width-sorted, bucketed batches, collated
+by a dataset's own ``collate_fn`` where it has one; timers synchronise the
+CUDA device before reading the clock; and checkpoints are pickled
+``state_dict``s.  The ``rnn``, ``tds`` and ``tds2d`` models and the
+``ctc``, ``asg``, ``stc`` and ``transducer`` criteria resolve in the
+factories; a Transducer's ``transitions`` file is read with the port's
+``wfst`` graph files.
 """
 
 import logging
@@ -79,6 +80,11 @@ class Subset:
     def __getitem__(self, i):
         return self.dataset[self.indices[i]]
 
+    @property
+    def collate_fn(self):
+        """The dataset's own collate (iamdb's ``fast_pipeline``), if any."""
+        return getattr(self.dataset, "collate_fn", None)
+
     def __len__(self):
         return len(self.indices)
 
@@ -129,16 +135,18 @@ def padding_collate(samples, width_multiple=16):
 class DataLoader:
     """Sampler -> padded numpy batches, with up to two batches built ahead
     on a background thread so host data work overlaps device steps.  A
-    producer exception is re-raised at the consumer."""
+    producer exception is re-raised at the consumer.  Batches are collated
+    by ``collate_fn``, ``padding_collate`` unless given."""
 
     PREFETCH = 2
 
-    def __init__(self, dataset, sampler):
+    def __init__(self, dataset, sampler, collate_fn=None):
         self.dataset = dataset
         self.sampler = sampler
+        self.collate_fn = collate_fn or padding_collate
 
     def _build(self, batch_indices):
-        return padding_collate([self.dataset[i] for i in batch_indices])
+        return self.collate_fn([self.dataset[i] for i in batch_indices])
 
     class _Raise:
         def __init__(self, exc):
@@ -181,6 +189,8 @@ def data_loader(dataset, config, seed=0):
     return DataLoader(
         dataset,
         BatchSortedSampler(dataset, config["optim"]["batch_size"], seed=seed),
+        # a dataset's own collate (iamdb's fast_pipeline) before the default
+        collate_fn=getattr(dataset, "collate_fn", None),
     )
 
 
@@ -282,25 +292,30 @@ def card_name_and_power_limit():
 
 
 def load_model(model_type, input_size, output_size, config, generator=None):
-    """Model factory.  Only ``tds2d`` is ported; its parameters are drawn
-    from ``generator``."""
-    from .models import TDS2d
+    """Model factory: ``rnn``, ``tds`` and ``tds2d``, their parameters drawn
+    from ``generator``.  An optional ``"dtype"`` (``"bfloat16"`` or
+    ``"float32"``) sets the compute dtype of the TDS encoders, as in JAX:
+    bf16 activations with fp32 parameters and fp32 logits; the RNN ignores
+    it."""
+    from .models import RNN, TDS, TDS2d
 
     config = dict(config)
     dtype = config.pop("dtype", None)
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"model dtype {dtype!r} is not ported yet (ROADMAP queue A)"
-        )
+    if dtype is not None and model_type in ("tds", "tds2d"):
+        # as JAX reads the key: any other value computes in fp32
+        config["dtype"] = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    kwargs = dict(input_size=input_size, output_size=output_size,
+                  generator=generator, **config)
+    if model_type == "rnn":
+        return RNN(**kwargs)
+    if model_type == "tds":
+        return TDS(**kwargs)
     if model_type == "tds2d":
-        return TDS2d(
-            input_size=input_size, output_size=output_size,
-            generator=generator, **config,
-        )
-    if model_type in ("rnn", "tds", "tds2d_transducer"):
+        return TDS2d(**kwargs)
+    if model_type == "tds2d_transducer":
         raise NotImplementedError(
             f"model type {model_type!r} is not ported yet (ROADMAP queue A "
-            "items 9-10)"
+            "item 9)"
         )
     raise ValueError(f"Unknown model type {model_type}")
 
@@ -321,11 +336,8 @@ def load_criterion(criterion_type, preprocessor, config):
             num_tokens + num_replabels + int(use_garbage),
         )
     if criterion_type == "ctc":
-        if "use_pt" in config:
-            raise NotImplementedError(
-                "CTC use_pt selects a library CTC, which the port never "
-                "calls: its CTC runs on its own kernels"
-            )
+        # ``use_pt`` is accepted and ignored, as JAX's factory does: the
+        # port's CTC runs on its own kernels either way
         if "chunk" in config:
             raise NotImplementedError(
                 "CTC chunk is not ported yet (ROADMAP queue A item 11, "

@@ -170,14 +170,32 @@ def test_ctc_unported_forms_raise():
 
 @pytest.mark.parametrize("config", [{"chunk": 256}, {"use_pt": True}])
 def test_ctc_criterion_refuses_unported_options(config):
+    """``chunk`` raises until ROADMAP A.11; ``use_pt`` is accepted and
+    ignored, as JAX's factory does (its CTC runs on its own kernels either
+    way): the criterion it gives scores and differentiates as the one
+    without it."""
     from gtn_applications_tpu_torch import utils
     from gtn_applications_tpu_torch.datasets import synthetic
 
     pre = synthetic.Preprocessor(None, num_features=16)
-    crit, _ = utils.load_criterion("ctc", pre, {"impl": "scan"})
+    crit, n_out = utils.load_criterion("ctc", pre, {"impl": "scan"})
     assert crit.impl == "scan"
-    with pytest.raises(NotImplementedError):
-        utils.load_criterion("ctc", pre, config)
+    if "chunk" in config:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            utils.load_criterion("ctc", pre, config)
+        return
+    crit_pt, n_pt = utils.load_criterion("ctc", pre, dict(config, impl="scan"))
+    assert n_pt == n_out and crit_pt.impl == "scan"
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 9, n_out).astype(np.float32)
+    targets = [[1, 2, 3], [4]]
+    grads = []
+    for c in (crit, crit_pt):
+        x_t = torch.from_numpy(x).requires_grad_(True)
+        loss = c.loss({}, x_t, c.prepare(targets), torch.tensor([9, 7]))
+        grads.append((float(loss.detach()), torch.autograd.grad(loss, x_t)[0]))
+    assert grads[0][0] == grads[1][0] and np.isfinite(grads[0][0])
+    assert torch.equal(grads[0][1], grads[1][1])
 
 
 # two infeasible samples: [1, 1, 1, 1] needs 7 frames of 6, [2, 2, 2] needs

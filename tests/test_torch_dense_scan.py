@@ -127,7 +127,8 @@ def test_smoke_dense_scan_check_holds_each_dadj_entry(monkeypatch, case, rel):
     fails a dadj one typical entry of which is off by 1e-4 relative, an
     error far below a tolerance scaled by dadj's largest entry (1e6 here
     on the STC tables); on each of the smoke's cases, cut to a few
-    samples and frames."""
+    samples and frames (the underflow case still has sums the FLT_MIN
+    gate declares dead)."""
     import chip_smoke
 
     monkeypatch.setattr(dsp, "dense_scan_fwd_cuda", dsp.dense_scan_fwd_plain)
@@ -148,7 +149,7 @@ def test_smoke_dense_scan_check_holds_each_dadj_entry(monkeypatch, case, rel):
     else:
         inputs = chip_smoke.word_decomp_inputs(torch, "cpu", 2, 30, pieces=3)
     check = lambda: chip_smoke.hold_dense_scan_kernels(  # noqa: E731
-        torch, *inputs, case, all_live=case == "all_live")
+        torch, *inputs, case, all_live=case == "all_live", underflow=case == "underflow")
     if rel:
         with pytest.raises(AssertionError, match="dadj: entrywise error"):
             check()
@@ -195,8 +196,8 @@ def test_alignment_lattice_score_matches_jax(B, T, S, N):
 # adjacency, a member's sum by the lanes of its round's group (lane k of a
 # group of g takes every g-th arc, then the group's xor merge); the shift
 # the largest alpha of the previous frame; the backward as per-frame
-# statistics from traj (sh_t, rz_t = 1 / max(z, floor), 0 where z = 0 and
-# for the states without a label), the g chain by source (each source's
+# statistics from traj (sh_t, rz_t = 1 / max(z, floor), 0 where z is below
+# the least normal float32 and for the states without a label), the g chain by source (each source's
 # adj dz[u], dz = g[u] rz[u], summed by the lanes of its group, times
 # exp(traj[t-1, s] - sh_t)), and the dense dadj from the saved dz, one
 # rounding more than the plain version's g / max(z, floor).  Tolerances, against the
@@ -206,11 +207,18 @@ def test_alignment_lattice_score_matches_jax(B, T, S, N):
 # its order); live values within atol 1e-4 + rtol 1e-5 (the sums run in
 # another order, and alpha reaches ~100, where a float32 ulp is 7.6e-6);
 # cotangents entry by entry within 1e-5 (|p| + median nonzero |p|), the
-# card's criterion.  On the underflow case JAX flushes denormal sums to
-# zero, see the test.
+# card's criterion.  A sum below the least normal float32 is dead, as JAX's
+# devices and XLA's CPU flush it to zero.
 # ---------------------------------------------------------------------
 
 FLOOR = 1e-37
+TINY = torch.finfo(torch.float32).tiny
+
+
+def _exp(x):
+    """The kernels' exp: a result below the least normal float32 is 0."""
+    e = torch.exp(x)
+    return torch.where(e >= TINY, e, torch.zeros(()))
 
 
 def _lane_sum(terms, g):
@@ -249,7 +257,7 @@ def _dense_compact(adj_b, has_b):
 
 
 def _start_e(start):
-    return torch.exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
+    return _exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
 
 
 def _sums(x, adj_b, members, dest, g_mem, sh, frame0):
@@ -257,15 +265,15 @@ def _sums(x, adj_b, members, dest, g_mem, sh, frame0):
     z = []
     for m, u in enumerate(members):
         srcs = dest[m]
-        e = x[srcs] if frame0 else torch.exp(x[srcs] - sh)
+        e = x[srcs] if frame0 else _exp(x[srcs] - sh)
         z.append(_lane_sum(adj_b[u, srcs] * e, g_mem[m]))
     return z
 
 
 def emulate_dense_fwd(em_state, adj, start, has_lab, lengths):
     """The forward kernel's arithmetic: traj [B, T, S], and the number of
-    (frame, labelled state) pairs whose sum underflowed to 0 while one of
-    its sources was live."""
+    (frame, labelled state) pairs whose sum fell below the least normal
+    float32 while one of its sources was live."""
     B, T, S = em_state.shape
     traj = torch.full((B, T, S), NEG, dtype=torch.float32)
     underflow = 0
@@ -281,7 +289,7 @@ def emulate_dense_fwd(em_state, adj, start, has_lab, lengths):
             z = _sums(x, adj[b], members, dest, g_mem, sh, frame0)
             new = torch.full((S,), NEG, dtype=torch.float32)
             for m, u in enumerate(members):
-                if z[m] > 0:
+                if z[m] >= TINY:
                     new[u] = (em_state[b, t, u] + sh) + torch.log(torch.clamp(z[m], min=FLOOR))
                 elif not frame0 and bool((alpha[dest[m]] > DEAD).any()):
                     underflow += 1
@@ -308,7 +316,7 @@ def emulate_dense_bwd(traj, adj, start, has_lab, lengths, g_final, need_dadj=Tru
             zm = _sums(x, adj[b], members, dest, g_mem, sh[t], t == 0)
             rz[t] = torch.zeros(S, dtype=torch.float32)
             for m, u in enumerate(members):
-                if zm[m] > 0:
+                if zm[m] >= TINY:
                     rz[t][u] = 1.0 / torch.clamp(zm[m], min=FLOOR)
         # the chain: one sparse product by source a frame
         g = g_final[b].clone()
@@ -321,7 +329,7 @@ def emulate_dense_bwd(traj, adj, start, has_lab, lengths, g_final, need_dadj=Tru
             for s, arcs in enumerate(src):
                 if arcs:
                     terms = torch.stack([a * (g[u] * rz[t][u]) for u, a in arcs])
-                    g_next[s] = _lane_sum(terms, g_src) * torch.exp(traj[b, t - 1, s] - sh[t])
+                    g_next[s] = _lane_sum(terms, g_src) * _exp(traj[b, t - 1, s] - sh[t])
             g = g_next
         ga0 = torch.where(rz[0] > 0, g, torch.zeros(()))
         dem[b, 0] = ga0
@@ -330,7 +338,7 @@ def emulate_dense_bwd(traj, adj, start, has_lab, lengths, g_final, need_dadj=Tru
             for u in members:
                 row = torch.zeros(S, dtype=torch.float32)
                 for t in range(t_live - 1, 0, -1):
-                    row = row + dz[t][u] * torch.exp(traj[b, t - 1] - sh[t])
+                    row = row + dz[t][u] * _exp(traj[b, t - 1] - sh[t])
                 dadj[b, u] = row + dz[0][u] * e0
     return dem, dadj
 
@@ -416,14 +424,6 @@ def test_emulated_dense_kernels_match_plain_and_jax(case):
     j_alpha = np.asarray(j_alpha)
     j_live = j_alpha > DEAD
     mine_live = traj[:, -1].numpy() > DEAD
-    if case == "underflow":
-        # XLA's CPU exp flushes float32 denormals to zero (as the TPU has
-        # none); PyTorch's plain version, and the kernels built without
-        # fast math, keep them, so a state whose z is denormal lives here
-        # and dies in JAX, and its later frames differ: JAX's live set is a
-        # subset, and no more holds (ROADMAP queue C)
-        assert not (j_live & ~mine_live).any()
-        return
     np.testing.assert_array_equal(mine_live, j_live)
     np.testing.assert_allclose(traj[:, -1].numpy()[j_live], j_alpha[j_live],
                                atol=1e-4, rtol=1e-5)

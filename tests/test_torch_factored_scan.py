@@ -184,11 +184,12 @@ def _nudge_median_dwsel(bwd, rel):
 
 
 @pytest.mark.parametrize("rel", [0.0, 1e-4])
-@pytest.mark.parametrize("case", ["ngram", "all_live"])
+@pytest.mark.parametrize("case", ["ngram", "all_live", "underflow"])
 def test_smoke_factored_scan_check_holds_each_entry(monkeypatch, case, rel):
     """``chip_smoke.py``'s check of the factored kernels, with the plain
     versions standing in: it passes them as they are and fails a dwsel one
-    typical entry of which is off by 1e-4 relative."""
+    typical entry of which is off by 1e-4 relative (the underflow case cut
+    to 4 samples and 30 frames, with sums the FLT_MIN gate declares dead)."""
     import chip_smoke
 
     monkeypatch.setattr(dsp, "factored_scan_fwd_cuda", dsp.factored_scan_fwd_plain)
@@ -198,10 +199,12 @@ def test_smoke_factored_scan_check_holds_each_entry(monkeypatch, case, rel):
     if case == "ngram":
         inputs = chip_smoke.factored_headline_inputs(torch, "cpu", b=4, t=30,
                                                      length=5, n=8)
-    else:
+    elif case == "all_live":
         inputs = chip_smoke.factored_random_inputs(torch, "cpu", 4, 30, 24, 8)
+    else:
+        inputs = chip_smoke.factored_underflow_inputs(torch, "cpu", b=4, t=30)
     check = lambda: chip_smoke.hold_factored_scan_kernels(  # noqa: E731
-        torch, *inputs, case, all_live=case == "all_live")
+        torch, *inputs, case, all_live=case == "all_live", underflow=case == "underflow")
     if rel:
         with pytest.raises(AssertionError, match="dwsel: entrywise error"):
             check()
@@ -227,11 +230,18 @@ def test_smoke_factored_scan_check_holds_each_entry(monkeypatch, case, rel):
 # sums run in another order, and alpha reaches ~100, where a float32 ulp is
 # 7.6e-6); cotangents entry by entry within 1e-5 (|p| + median nonzero
 # |p|), the card's criterion, and against JAX within GRAD_TOL (JAX's
-# Pallas pair in interpret mode; on the underflow case JAX flushes denormal
-# sums to zero, see the test).
+# Pallas pair in interpret mode).  A sum below the least normal float32 is
+# dead, as JAX's devices and XLA's CPU flush it to zero.
 # ---------------------------------------------------------------------
 
 FLOOR = 1e-37
+TINY = torch.finfo(torch.float32).tiny
+
+
+def _exp(x):
+    """The kernels' exp: a result below the least normal float32 is 0."""
+    e = torch.exp(x)
+    return torch.where(e >= TINY, e, torch.zeros(()))
 
 
 def _lane_sum(terms, g):
@@ -269,7 +279,7 @@ def _compact(adj_b, lab_b):
 
 
 def _start_e(start):
-    return torch.exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
+    return _exp(torch.clamp(start, max=0.0)) * (start > NEG / 2)
 
 
 def _frame_stats(x, adj_b, wt, members, jslot, dest, g_mem, frame0):
@@ -282,7 +292,7 @@ def _frame_stats(x, adj_b, wt, members, jslot, dest, g_mem, frame0):
     for m, u in enumerate(members):
         j, srcs = jslot[u], dest[m]
         a = adj_b[u, srcs]
-        e = x[srcs] if frame0 else torch.exp((x[srcs] + wt[j, srcs]) - sh[j])
+        e = x[srcs] if frame0 else _exp((x[srcs] + wt[j, srcs]) - sh[j])
         z.append(_lane_sum(a * e, g_mem[m]))
     return sh, z
 
@@ -309,11 +319,11 @@ def emulate_fwd(em_state, adj, wsel, lab_oh, ws_state, start, lengths):
                 zu = z[m]
                 if frame0:
                     new[u] = ((em_state[b, 0, u] + ws_state[b, u]) + torch.log(
-                        torch.clamp(zu, min=FLOOR))) if zu > 0 else NEG
+                        torch.clamp(zu, min=FLOOR))) if zu >= TINY else NEG
                 else:
                     new[u] = em_state[b, t, u] + ((sh[jslot[u]] + torch.log(
-                        torch.clamp(zu, min=FLOOR))) if zu > 0 else NEG)
-                    if zu == 0 and bool((alpha[dest[m]] > DEAD).any()):
+                        torch.clamp(zu, min=FLOOR))) if zu >= TINY else NEG)
+                    if zu < TINY and bool((alpha[dest[m]] > DEAD).any()):
                         underflow += 1
             alpha = new
             traj[b, t] = alpha
@@ -341,9 +351,9 @@ def emulate_bwd(traj, adj, wsel, lab_oh, start, lengths, g_final, need_dadj=True
         for t in range(t_live):
             x = e0 if t == 0 else traj[b, t - 1]
             sh, zm = _frame_stats(x, adj[b], wt, members, jslot, dest, g_mem, t == 0)
-            rz = torch.zeros(S, dtype=torch.float32)  # 1 / max(z, floor), 0 where z = 0
+            rz = torch.zeros(S, dtype=torch.float32)  # 1 / max(z, floor), 0 below FLT_MIN
             for m, u in enumerate(members):
-                rz[u] = 1.0 / torch.clamp(zm[m], min=FLOOR) if zm[m] > 0 else 0.0
+                rz[u] = 1.0 / torch.clamp(zm[m], min=FLOOR) if zm[m] >= TINY else 0.0
             stats[t] = (sh, rz)
         # the chain: one sparse product by source a frame
         g = g_final[b].clone()
@@ -360,7 +370,7 @@ def emulate_bwd(traj, adj, wsel, lab_oh, start, lengths, g_final, need_dadj=True
                     continue
                 terms = []
                 for k, (u, j, a) in enumerate(arcs):
-                    e = torch.exp((traj[b, t - 1, s] + wt[j, s]) - sh[j])
+                    e = _exp((traj[b, t - 1, s] + wt[j, s]) - sh[j])
                     term = (a * (g[u] * rz[u])) * e
                     terms.append(term)
                     acc[s][k] = acc[s][k] + term
@@ -383,7 +393,7 @@ def emulate_bwd(traj, adj, wsel, lab_oh, start, lengths, g_final, need_dadj=True
             for u in members:
                 j, row = jslot[u], torch.zeros(S, dtype=torch.float32)
                 for t in range(t_live - 1, 0, -1):
-                    row = row + dz[t][u] * torch.exp(
+                    row = row + dz[t][u] * _exp(
                         (traj[b, t - 1] + wt[j]) - stats[t][0][j])
                 dadj[b, u] = row + dz[0][u] * e0
     return dem, dadj, dwsel, dws
@@ -467,14 +477,6 @@ def test_emulated_kernels_match_plain_and_jax(case):
     j_alpha = np.asarray(j_alpha)
     j_live = j_alpha > DEAD
     mine_live = traj[:, -1].numpy() > DEAD
-    if case == "underflow":
-        # XLA's CPU exp flushes float32 denormals to zero (as the TPU has
-        # none); PyTorch's plain version, and the kernels built without
-        # fast math, keep them, so a state whose z is denormal lives here
-        # (85 nats down) and dies in JAX, and its later frames differ: JAX's
-        # live set is a subset, and no more holds (ROADMAP queue C)
-        assert not (j_live & ~mine_live).any()
-        return
     np.testing.assert_array_equal(mine_live, j_live)
     np.testing.assert_allclose(traj[:, -1].numpy()[j_live], j_alpha[j_live],
                                atol=1e-4, rtol=1e-5)

@@ -150,6 +150,38 @@ def test_loss_matches_jax(name, monkeypatch):
                                    err_msg="transitions", **GRAD_TOL)
 
 
+def test_bigram_loss_with_underflowing_sums_matches_jax(monkeypatch):
+    """Logits x20 put most states' sums 88-104 nats below their shift by
+    T=19: a float32 sum below the least normal number is dead in JAX (its
+    devices and XLA's CPU flush it to zero) and must be dead in the port's
+    factored scan too.  Kept alive, the 1e-37 floor of the log lifted such
+    a state to e^-85 of its shift every frame: the loss ran 0.18 % low here
+    (420.657 against JAX's 421.396), and 2430.67 against 2810.67 at logits
+    x3, T=600.  Tolerances as test_loss_matches_jax."""
+    rng = np.random.RandomState(0)
+    crit, jcrit = _numeric(12, ngram=2, reduction="mean")
+    B, T, N = 4, 19, crit.num_channels
+    targets = [rng.randint(0, 12, size=6).tolist() for _ in range(B)]
+    x = (rng.randn(B, T, N) * 20.0).astype(np.float32)
+    lens = np.full(B, T, np.int32)
+    trans = (rng.randn(crit.num_transition_arcs) * 0.3).astype(np.float32)
+
+    jprep = _jax_prepare(jcrit, targets, monkeypatch)
+    j_loss, (j_gt, j_gx) = jax.value_and_grad(
+        lambda w, x: jcrit.loss({"transitions": w}, x, jprep, jnp.asarray(lens)),
+        argnums=(0, 1))(jnp.asarray(trans), jnp.asarray(x))
+
+    t_t = torch.from_numpy(trans).requires_grad_(True)
+    x_t = torch.from_numpy(x).requires_grad_(True)
+    loss = crit.loss({"transitions": t_t}, x_t, crit.prepare(targets), torch.from_numpy(lens))
+    g_x, g_t = torch.autograd.grad(loss, (x_t, t_t))
+
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_x.numpy(), np.asarray(j_gx), err_msg="logits", **GRAD_TOL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(j_gt), err_msg="transitions",
+                               **GRAD_TOL)
+
+
 @pytest.mark.parametrize("name", ["ngram1", "ngram2_optional_norep", "word_decomps"])
 def test_viterbi_matches_jax(name):
     rng = np.random.RandomState(7)

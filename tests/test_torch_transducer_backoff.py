@@ -29,10 +29,12 @@ graph alone.  Held to JAX here:
     infeasible alignments decoding to nothing;
   * one SGD step of a narrow TDS2d with this criterion, composed and
     through the dense factoring (loss 1e-4, each update within 1e-3 of its
-    norm), and train.py + test.py end to end on the CPU with a transitions
-    file: the trigram, and a 4-gram whose decode runs the per-step path.
+    norm).
 
-The backoff factorings function by function: ``test_torch_factored_backoff.py``.
+train.py + test.py end to end on the CPU with a transitions file (the
+trigram, and a 4-gram whose decode runs the per-step path):
+``test_torch_transducer_backoff_train.py``.  The backoff factorings
+function by function: ``test_torch_factored_backoff.py``.
 """
 
 import json
@@ -52,7 +54,6 @@ from gtn_applications_tpu.models import TDS2d as FlaxTDS2d
 from gtn_applications_tpu.scripts import build_transitions as jax_bt
 from gtn_applications_tpu.wfst import compile as jax_wcompile
 from gtn_applications_tpu_torch import profile_step, utils
-from gtn_applications_tpu_torch import test as test_mod
 from gtn_applications_tpu_torch import train as train_mod
 from gtn_applications_tpu_torch.criterions import transducer as td
 from gtn_applications_tpu_torch.datasets import synthetic, synthetic_long
@@ -467,50 +468,6 @@ def _train_step_matches_jax(tmp_path, factored=False):
                            [q.detach().double() for q in ref_params], names)
     assert total > 0.05
     assert float((params[-1].detach().double() - old[-1]).norm()) > 1e-3
-
-
-def _train_then_test(tmp_path, g):
-    """train.py then test.py (--disable_cuda) with pruned_ngram_ctc.json's
-    criterion and optimiser sections, its transitions ``g`` from a file, on
-    a small TDS2d and the synthetic lines; the trained transitions are
-    saved and restored."""
-    path = tmp_path / "lm.bin"
-    wgraph.save(path, g)
-    with open("configs/iamdb/pruned_ngram_ctc.json") as fid:
-        base = json.load(fid)
-    config = {
-        "seed": 0, "data": {"dataset": "synthetic", "num_features": 16},
-        "model_type": "tds2d", "model": MODEL, "criterion_type": "transducer",
-        "criterion": dict(base["criterion"], transitions=str(path)),
-        "optim": dict(base["optim"], epochs=1, batch_size=32),
-    }
-    cfg = tmp_path / "config.json"
-    cfg.write_text(json.dumps(config))
-    ckpt = ["--config", str(cfg), "--checkpoint_path", str(tmp_path), "--disable_cuda"]
-    _, history = train_mod.train(train_mod.parse_args(ckpt))
-    assert np.isfinite(history[-1]["train_loss"]) and np.isfinite(history[-1]["val_loss"])
-    state = utils.load_checkpoint(str(tmp_path), load_last=True)
-    assert float(state["criterion"]["transitions"].abs().sum()) > 0
-    meters = test_mod.run_test(test_mod.parse_args(ckpt + ["--split", "test"]))
-    assert meters.num_samples == 16 and np.isfinite(meters.avg_loss)
-
-
-def test_pruned_ngram_ctc_train_then_test_cpu(tmp_path):
-    """The recipe's grapheme trigram over the synthetic train texts."""
-    pre, texts = _texts()
-    _train_then_test(tmp_path, bt.grapheme_lm(texts, pre.tokens))
-
-
-def test_4gram_train_then_test_cpu(tmp_path):
-    """An unpruned grapheme 4-gram over 16 synthetic train texts (S=432,
-    A=11,077 after epsilon removal), whose decode table the whole-scan
-    plan refuses: every decode of the run takes the per-step path."""
-    pre, texts = _texts()
-    g = bt.grapheme_lm(texts[:16], pre.tokens, (0, 0, 0, 0))
-    table = wcompile.apply_decode_weights(wcompile.build_decode_template(g),
-                                          np.zeros(g.num_arcs(), np.float32))
-    assert vsp.build_plan(table) is None
-    _train_then_test(tmp_path, g)
 
 
 def test_synthetic_long_matches_jax():
