@@ -34,6 +34,22 @@ prints no result):
    (``gather_bwd``) within 1e-5 of its plain version; the headline's loss
    and logit gradients against F.ctc_loss (same 1/len-then-mean
    reduction) within 1e-3;
+   4b. the CTC pair's chunk route (``ctc_score_chunked``: #1 and #2 in
+   their chunk mode, a chunk of frames a call from a carried alpha and
+   beta, #4 once) at B=8, T=9,728 with targets of 18 labels (S=37, the
+   long recipe's widest: both kernels' block routes) and of 15 (S=31: the
+   backward's warp route), and at B=32, T=8,192, S=401 (the block rings),
+   each at chunks of 128 and 256, the lengths ragged with a sample of one
+   frame, one ending on the first call's last frame, one on a later
+   call's, one inside the first chunk and an empty target: fwd+bwd of the
+   score against the plain chunk route on the card, scores within 1e-5
+   relative, d lp entry by entry within 1e-5 of |p| plus the median
+   nonzero |p|; against the whole-T plain versions in float64, the scores
+   within 1e-5 relative and d lp no farther from them than the whole-T
+   kernel route's on the same inputs (or within 1e-5); launches a call
+   exactly 2 nc of #1, nc of #2 and one of #4; fwd+bwd of both routes
+   (CUDA events, median of 30), their launches and peak memory, on lines
+   that name the card;
 5. the dense backtrace kernel against its plain walk at the ASG bench
    headline (B=32, T=250, C=80, backpointers of the ASG Viterbi scan), at
    B=8, T=1000 (a table past shared memory, walked through the same ring
@@ -151,9 +167,14 @@ prints no result):
    within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
    launch) at B=32, T=300 on the card against the CPU route: labels
    bitwise, scores within 1e-6;
-12. nine main paths, CTC, ASG, STC, the Transducer and the Transducer
-   with a loaded backoff LM, the grapheme trigram and the 4-gram, and CTC
-   on the RNN and TDS encoders and on TDS2d computing in bf16:
+12. twelve main paths, CTC, ASG, STC, the Transducer and the Transducer
+   with a loaded backoff LM, the grapheme trigram and the 4-gram, CTC on
+   the RNN and TDS encoders and on TDS2d computing in bf16, long-sequence
+   CTC (``configs/synthetic/long_ctx_assoc.json`` as shipped: "assoc",
+   chunk 256, 4,096-9,728 frames, whose emission gather runs the gather
+   pair; and under "auto", which routes it to the chunked CTC kernels) and
+   the speech recipe's TDS (``configs/librispeech/tds.json``'s model and
+   criterion on synthetic tones through the mel spectrogram):
    ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
    32: 4 steps plus validation) with the model and criterion sections of
    configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json,
@@ -163,7 +184,8 @@ prints no result):
    built into build/), but for ``CONFIG_EDITS`` (rnn.json, which has no
    ``optim.step_size``, takes the other IAM configs' 100; the bf16 path
    adds ``"dtype": "bfloat16"``), then ``test.run_test`` on
-   the checkpoint; the launch counters are zeroed just before each path
+   the checkpoint (the long paths read their config's own 8 samples a
+   split); the launch counters are zeroed just before each path
    and read just after: each kernel of the path must have launched once
    per train step (backward kernels) or once per train step and per
    evaluation batch (forward kernels and the decode's, which every batch
@@ -577,6 +599,181 @@ def phase_ctc(torch, dev):
     if not (d_loss <= 1e-3 and d_grad <= 1e-3):
         raise AssertionError("CTC loss disagrees with F.ctc_loss")
     return dict(errs, f_ctc_loss_abs_diff=d_loss, f_ctc_grad_max_abs_diff=d_grad)
+
+
+# the chunk route's cases (B, T, L): the long recipe's widest target (L =
+# 18, S = 37: two warps a sample, both kernels' block routes), L = 15 (S =
+# 31: one warp, the backward's warp route) and S = 401 (13 warps and the
+# block rings); each at every chunk of CTC_CHUNKS
+CTC_LONG = ((8, 9728, 18), (8, 9728, 15), (32, 8192, 200))
+CTC_CHUNKS = (128, 256)
+
+
+def ctc_long_case(torch, dev, b, t, l, chunk, seed):
+    """``headline_inputs`` at (b, t, l) with the chunk split's edge cases:
+    sample 1 one frame (one label), sample 2 ending on the first call's
+    last frame (1 + chunk), sample 3 on a later call's (1 + 3 chunk),
+    sample 4 an empty target, sample 5 ending inside the first chunk."""
+    logits, targets, tl, il = headline_inputs(torch, dev, seed, b, t, l)
+    il[1], il[2], il[3], il[5] = 1, 1 + chunk, 1 + 3 * chunk, chunk // 2
+    tl[2], tl[3], tl[5] = min(l, chunk // 4), min(l, chunk // 2), min(l, chunk // 8)
+    tl[4] = 0
+    targets[4] = 0
+    return logits, targets, tl, il
+
+
+def ctc_fwd_bwd(torch, fn, lp, g):
+    """(score, d lp) of one forward and backward of ``fn`` from lp, the
+    cotangent g [B] on the score."""
+    x = lp.detach().requires_grad_(True)
+    score = fn(x)
+    (dlp,) = torch.autograd.grad(score, x, g)
+    return score.detach(), dlp
+
+
+def host_and_device_ms(torch, fn, runs=10):
+    """(host-clock median ms of one call of ``fn`` ending in a synchronise,
+    device ms a call: the CUDA kernels' own time by torch.profiler over
+    ``runs`` calls).  Where the first is well above the second the call
+    waits on the host, its launches and wrappers, not on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    host = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+             for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    return statistics.median(host), us / runs / 1e3
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Inside it the kernels' Functions take their plain versions on CUDA
+    tensors too (``_build.on_cuda`` answers False): the plain reference of
+    a whole route, run on the card with the card's own exp and log."""
+    from gtn_applications_tpu_torch.ops import _build
+
+    on_cuda = _build.on_cuda
+    _build.on_cuda = lambda *tensors: False
+    try:
+        yield
+    finally:
+        _build.on_cuda = on_cuda
+
+
+def ctc_exact(torch, lp, labels, start, accept, skip, il, g):
+    """(score, d lp) of the whole-T plain versions in float64 on the card:
+    the reference both float32 routes are measured against at long T,
+    where the whole-T route's posterior exp(alpha + beta - score) carries
+    the rounding of float32 alpha and beta of |score| ~ 10^4."""
+    from gtn_applications_tpu_torch.ops import gathers
+    from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
+
+    x = lp.double()
+    em = gathers.gather_channels_plain(x, labels)
+    alpha = lp_mod.ctc_alpha_plain(em, start.double(), skip, il)
+    score = lp_mod._final_score(alpha[:, -1], accept.double())
+    grad = lp_mod.ctc_grad_plain(em, alpha, accept.double(), skip, il, score, g.double())
+    return score, gathers.gather_channels_bwd_plain(grad, labels, lp.shape[2])
+
+
+def phase_ctc_chunked(torch, dev, card):
+    """The CTC pair's chunk route (``ctc_score_chunked``: #1 and #2 a chunk
+    at a time from a carried alpha and beta, #4 once) at ``CTC_LONG`` and
+    ``CTC_CHUNKS`` against the plain chunk route (the same Function on the
+    card under ``plain_route``): scores within 1e-5 relative, d lp entry
+    by entry within 1e-5 of |p| plus the median nonzero |p|; and, with the
+    whole-T kernel route on the same inputs, against the whole-T plain
+    versions in float64 (``ctc_exact``): scores within 1e-5 relative, d lp
+    no farther from float64's (the same entrywise error) than the whole-T
+    route's, or within 1e-5; the launches a call exactly 2 nc of #1, nc of #2 and one of
+    #4; each route's fwd+bwd (CUDA events, median of 30; host clock and the
+    kernels' own device time, ``host_and_device_ms``) and peak memory."""
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
+
+    errs = {"ctc_alpha": 0.0, "ctc_grad": 0.0}
+    rows = []
+    for i, (b, t, l) in enumerate(CTC_LONG):
+        for chunk in CTC_CHUNKS:
+            logits, targets, tl, il = ctc_long_case(torch, dev, b, t, l, chunk, seed=30 + i)
+            lp, labels, start, accept, skip = ctc_kernel_inputs(torch, logits, targets, tl)
+            g = -1.0 / (b * tl.to(torch.float32).clamp(min=1))
+            args = (labels, start, accept, skip, il)
+            chunked = lambda x, c=chunk, a=args: lp_mod.ctc_score_chunked(x, *a, chunk=c)  # noqa: E731
+            full = lambda x, a=args: lp_mod.ctc_score_kernel(x, *a)  # noqa: E731
+            _build.reset_launches()
+            (s_c, d_c), peak_c = with_peak(torch, lambda: ctc_fwd_bwd(torch, chunked, lp, g))
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            nc = len(lp_mod.chunk_spans(t, chunk))
+            if launches != {"ctc_alpha": 2 * nc, "ctc_grad": nc, "gather_bwd": 1}:
+                raise AssertionError(f"ctc chunk route {(b, t, l, chunk)}: launches {launches}, "
+                                     f"expected {2 * nc}, {nc} and 1")
+            with plain_route():
+                s_p, d_p = ctc_fwd_bwd(torch, chunked, lp, g)
+            # the whole-T route on the same inputs (the lengths follow the chunk)
+            _build.reset_launches()
+            (s_w, d_w), peak_w = with_peak(torch, lambda: ctc_fwd_bwd(torch, full, lp, g))
+            whole_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            whole_ms = gpu_median_ms(torch, lambda: ctc_fwd_bwd(torch, full, lp, g))
+            s_x, d_x = ctc_exact(torch, lp, labels, start, accept, skip, il, g)
+            rel = lambda s, r: float(((s.double() - r.double()).abs()  # noqa: E731
+                                      / r.double().abs().clamp(min=1e-30)).max())
+            s_err, d_err = rel(s_c, s_p), entrywise_err(torch, d_c, d_p)
+            if not (s_err <= 1e-5 and d_err <= 1e-5):
+                raise AssertionError(
+                    f"ctc chunk route {(b, t, l, chunk)} against the plain chunk route: score "
+                    f"relative {s_err:.3g}, d lp entrywise {d_err:.3g} (bounds 1e-5)")
+            exact = {"chunk": (rel(s_c, s_x), entrywise_err(torch, d_c.double(), d_x)),
+                     "whole": (rel(s_w, s_x), entrywise_err(torch, d_w.double(), d_x))}
+            if not (exact["chunk"][0] <= 1e-5
+                    and exact["chunk"][1] <= max(exact["whole"][1], 1e-5)):
+                raise AssertionError(
+                    f"ctc chunk route {(b, t, l, chunk)} against float64: score relative "
+                    f"{exact['chunk'][0]:.3g} (bound 1e-5), d lp entrywise "
+                    f"{exact['chunk'][1]:.3g} (bound: the whole-T route's "
+                    f"{exact['whole'][1]:.3g}, or 1e-5)")
+            errs["ctc_alpha"] = max(errs["ctc_alpha"], s_err)
+            errs["ctc_grad"] = max(errs["ctc_grad"], d_err)
+            ms = gpu_median_ms(torch, lambda: ctc_fwd_bwd(torch, chunked, lp, g))
+            host_ms, device_ms = host_and_device_ms(torch, lambda: ctc_fwd_bwd(torch, chunked, lp, g))
+            whole_host_ms, whole_device_ms = host_and_device_ms(
+                torch, lambda: ctc_fwd_bwd(torch, full, lp, g))
+            S = labels.shape[1]
+            row = {"B": b, "T": t, "S": S, "chunk": chunk, "calls": nc,
+                   "alpha_route": lp_mod.alpha_plan(S), "grad_route": lp_mod.grad_plan(S),
+                   "fwd_bwd_ms": ms, "whole_fwd_bwd_ms": whole_ms,
+                   "host_ms": host_ms, "device_ms": device_ms,
+                   "whole_host_ms": whole_host_ms, "whole_device_ms": whole_device_ms,
+                   "launches": launches, "whole_launches": whole_launches,
+                   "peak_bytes": peak_c, "whole_peak_bytes": peak_w,
+                   "score_rel_err_plain": s_err, "dlp_entrywise_err_plain": d_err,
+                   "score_rel_err_f64": exact["chunk"][0],
+                   "dlp_entrywise_err_f64": exact["chunk"][1],
+                   "whole_score_rel_err_f64": exact["whole"][0],
+                   "whole_dlp_entrywise_err_f64": exact["whole"][1]}
+            rows.append(row)
+            log(f"[{card}] ctc chunk route B={b} T={t} S={S} chunk={chunk} ({nc} calls; "
+                f"forward {row['alpha_route']}, backward {row['grad_route']}): fwd+bwd "
+                f"{ms:.4f} ms against the whole-T route's {whole_ms:.4f} ms (CUDA events, "
+                f"median of 30; host clock {host_ms:.4f} against {whole_host_ms:.4f} ms, the "
+                f"kernels' device time {device_ms:.4f} against {whole_device_ms:.4f} ms); "
+                f"launches a call {launches} against {whole_launches}; peak "
+                f"{peak_c / 2**20:.1f} MiB against {peak_w / 2**20:.1f} MiB; against the plain "
+                f"chunk route score relative {s_err:.3g}, d lp entrywise {d_err:.3g}; against "
+                f"float64 score relative {exact['chunk'][0]:.3g}, d lp entrywise "
+                f"{exact['chunk'][1]:.3g} (the whole-T route's {exact['whole'][0]:.3g}, "
+                f"{exact['whole'][1]:.3g})")
+    return errs, rows
 
 
 # ASG / STC bench headlines (bench.py): C = 80 channels for ASG (no
@@ -2360,7 +2557,8 @@ def phase_segmax(torch, dev):
     return errs
 
 
-# path -> (config file, its forward kernels (and decode), its backward kernels)
+# path -> (config file, under configs/iamdb/ unless it names its folder;
+# its forward kernels (and decode), its backward kernels)
 PATHS = {
     "ctc": ("tds2d.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     "asg": ("tds2d_asg.json", ("gather_fwd", "dense_bt"), ("gather_bwd",)),
@@ -2379,15 +2577,30 @@ PATHS = {
     "ctc_rnn": ("rnn.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     "ctc_tds": ("tds.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     "ctc_bf16": ("tds2d.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    # long-sequence CTC, the hermetic recipe as shipped ("assoc", chunk 256:
+    # plain torch but for its emission gather, which goes through the gather
+    # pair as JAX's goes through its Pallas gather on the TPU) and under
+    # "auto", which routes its 4,096-9,728 frames to the chunked CTC kernels
+    "ctc_long_assoc": ("synthetic/long_ctx_assoc.json", ("gather_fwd",), ("gather_bwd",)),
+    "ctc_long": ("synthetic/long_ctx_assoc.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    # the speech recipe's TDS (4/8/16 channels x 5 blocks over 80 mel bins)
+    "ctc_speech": ("librispeech/tds.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
 }
-# the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json
+# the paths whose lines run past 4,096 frames, where "auto" takes the chunk
+# route: their CTC launches are counted exactly (chunked_ctc_expected_launches)
+CHUNKED_PATHS = ("ctc_long",)
+# the long-line corpus for the time stride of 16 of pruned_ngram_ctc.json;
+# synthetic tones for the speech recipe, whose 1k-wordpiece token files are
+# not in the repository (a hermetic config's own data stays as shipped)
 DATASETS = {"transducer_backoff": "synthetic_long",
-            "transducer_backoff_4gram": "synthetic_long"}
+            "transducer_backoff_4gram": "synthetic_long",
+            "ctc_speech": "synthetic_audio"}
 # what a path adds to its config: rnn.json has no optim.step_size, which the
 # trainer reads (as JAX's does), so it takes the other IAM configs' 100;
 # ctc_bf16 is tds2d.json with bf16 encoder compute
 CONFIG_EDITS = {"ctc_rnn": {"optim": {"step_size": 100}},
-                "ctc_bf16": {"model": {"dtype": "bfloat16"}}}
+                "ctc_bf16": {"model": {"dtype": "bfloat16"}},
+                "ctc_long": {"criterion": {"impl": "auto"}}}
 # the bf16 model's first-batch logits against the fp32 model's at the same
 # weights: JAX's bound at a narrow width (tests/test_models.py,
 # test_tds2d_bf16_compute) is 0.15, and JAX's own gap at tds2d.json's width
@@ -2397,28 +2610,43 @@ CONFIG_EDITS = {"ctc_rnn": {"optim": {"step_size": 100}},
 BF16_LOGITS_TOL = 0.3
 BF16_LOSS_TOL = 0.01
 SPLITS = {"train": 64, "validation": 16, "test": 16}  # synthetic split sizes
+AUDIO_SPLITS = {"train": 48, "validation": 12, "test": 12}  # synthetic_audio's
+
+
+def split_sizes(config):
+    """The samples of each split a path's run reads: its dataset's, cut to
+    the config's ``data.num_samples``."""
+    sizes = AUDIO_SPLITS if config["data"]["dataset"] == "synthetic_audio" else SPLITS
+    cap = config["data"].get("num_samples")
+    return {k: min(v, cap) if cap else v for k, v in sizes.items()}
 
 
 def main_path_config(path):
     """The config's model and criterion sections unchanged (the backoff
     paths' transitions: the grapheme LM of ``LM_PRUNE``) but for
-    ``CONFIG_EDITS``; synthetic data, 2 epochs."""
-    with open(ROOT / "configs" / "iamdb" / PATHS[path][0]) as fid:
+    ``CONFIG_EDITS``; synthetic data (a hermetic config's own, as shipped),
+    2 epochs."""
+    name = PATHS[path][0]
+    with open(ROOT / "configs" / (name if "/" in name else f"iamdb/{name}")) as fid:
         base = json.load(fid)
     if "transitions" in base.get("criterion", {}):
         base["criterion"] = dict(base["criterion"],
                                  transitions=str(lm_transitions(LM_PRUNE[path])))
     edits = CONFIG_EDITS.get(path, {})
+    data = {"dataset": DATASETS.get(path, "synthetic"),
+            "num_features": base["data"]["num_features"] if path in DATASETS else 64}
+    if base["data"]["dataset"].startswith("synthetic"):
+        data = {k: v for k, v in base["data"].items() if k != "data_path"}
     config = {
         "seed": 0,
-        "data": {"dataset": DATASETS.get(path, "synthetic"), "num_features": 64},
+        "data": data,
         "model_type": base["model_type"],
         "model": dict(base["model"], **edits.get("model", {})),
         "criterion_type": base.get("criterion_type", "ctc"),
         "optim": dict(base["optim"], epochs=2, **edits.get("optim", {})),
     }
-    if "criterion" in base:
-        config["criterion"] = base["criterion"]
+    if "criterion" in base or "criterion" in edits:
+        config["criterion"] = dict(base.get("criterion", {}), **edits.get("criterion", {}))
     return config
 
 
@@ -2445,13 +2673,14 @@ def phase_main_path(torch, dev, path, config):
     launches = dict(_build.LAUNCHES)
 
     epochs, batch = config["optim"]["epochs"], config["optim"]["batch_size"]
-    steps = epochs * -(-SPLITS["train"] // batch)
-    evals = epochs * -(-SPLITS["validation"] // batch) + -(-SPLITS["test"] // batch)
+    sizes = split_sizes(config)
+    steps = epochs * -(-sizes["train"] // batch)
+    evals = epochs * -(-sizes["validation"] // batch) + -(-sizes["test"] // batch)
     for h in history:
         for key in ("train_loss", "val_loss", "val_cer", "val_wer"):
             if not math.isfinite(h[key]):
                 raise AssertionError(f"{path} epoch {h['epoch']}: {key} = {h[key]}")
-    if not (meters.num_samples == SPLITS["test"] and meters.num_tokens > 0
+    if not (meters.num_samples == sizes["test"] and meters.num_tokens > 0
             and math.isfinite(meters.avg_loss) and math.isfinite(meters.cer)
             and math.isfinite(meters.wer)):
         raise AssertionError(f"{path} test split: {meters}")
@@ -2462,6 +2691,11 @@ def phase_main_path(torch, dev, path, config):
             raise AssertionError(
                 f"{path}: kernel {name} launched {n} times, expected "
                 + (f">= {need}" if need else "none (not on this path)"))
+    if config.get("criterion", {}).get("impl") == "auto" and path in CHUNKED_PATHS:
+        expected = chunked_ctc_expected_launches(torch, model, config)
+        got = {name: launches.get(name, 0) for name in expected}
+        if got != expected:
+            raise AssertionError(f"{path}: CTC kernels launched {got}, expected {expected}")
     if path in LM_PRUNE:
         expected = backoff_expected_launches(config, steps, evals)
         for name, n in expected.items():
@@ -2474,6 +2708,41 @@ def phase_main_path(torch, dev, path, config):
     return {"model": model, "launches": launches, "history": history,
             "seconds": seconds, "steps": steps, "evals": evals,
             "test": {"loss": meters.avg_loss, "cer": meters.cer, "wer": meters.wer}}
+
+
+def chunked_ctc_expected_launches(torch, model, config):
+    """The CTC kernels' launches on a path whose criterion takes "auto" over
+    long lines: a batch of T frames (the model's output on it) past 4,096
+    goes the chunk route, nc = len(chunk_spans(T, chunk)) calls, and a
+    train step launches 2 nc of #1 (the forward and the backward's
+    recompute), nc of #2 and one #4, an evaluation batch nc of #1; a batch
+    of at most 4,096 frames one of each.  The batches are the trainer's
+    and the test's (an epoch only permutes their order, and synthetic data
+    has no augmentation that changes a width)."""
+    from gtn_applications_tpu_torch import datasets, utils
+    from gtn_applications_tpu_torch.ops import lattice
+    from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
+
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    chunk = config["criterion"].get("chunk") or lattice._CHUNK
+    dev = next(model.parameters()).device
+
+    def calls(split):
+        ds = data.Dataset(None, pre, split=split, augment=split == "train")
+        out = []
+        for inputs, _, _ in utils.data_loader(ds, config, seed=config["seed"]):
+            with torch.no_grad():
+                t = model(torch.as_tensor(inputs, dtype=torch.float32, device=dev)).shape[1]
+            out.append(len(lp_mod.chunk_spans(t, chunk)) if t > lattice._MAX_WHOLE_T else 0)
+        return out
+
+    epochs = config["optim"]["epochs"]
+    train, evals = calls("train"), calls("validation") * epochs + calls("test")
+    return {"ctc_alpha": epochs * sum(2 * nc or 1 for nc in train)
+            + sum(nc or 1 for nc in evals),
+            "ctc_grad": epochs * sum(nc or 1 for nc in train),
+            "gather_bwd": epochs * len(train)}
 
 
 def backoff_expected_launches(config, steps, evals):
@@ -3842,6 +4111,7 @@ def run(device="cuda"):
     build_s = phase_build()
     errs = phase_gather(torch, dev)
     errs.update(phase_ctc(torch, dev))
+    chunk_errs, chunk_rows = phase_ctc_chunked(torch, dev, card)
     merge_errs(errs, phase_dense_bt(torch, dev))
     merge_errs(errs, phase_dense_scan(torch, dev))
     merge_errs(errs, phase_factored_scan(torch, dev))
@@ -3927,6 +4197,12 @@ def run(device="cuda"):
     row["gather_bwd"]["more"] = times["gather_bwd_more"]
     row["gather_fwd"]["asg"] = times["gather_fwd_asg"]
     row["ctc_alpha"]["gather_then_alpha_ms"] = times["ctc_alpha_gather_then_alpha"]
+    # the pair's chunk route (fwd+bwd of the score, both kernels and #4) at
+    # the long shapes, with its launches a call and peak memory beside the
+    # whole-T route's; its largest errors against the plain chunk route
+    for name in ("ctc_alpha", "ctc_grad"):
+        row[name]["chunked"] = chunk_rows
+        row[name]["chunked_max_err"] = chunk_errs[name]
     row["dense_bt"]["more"] = times["dense_bt_more"]
     print(json.dumps({"timing": timing}))
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 Counterpart of ``gtn_applications_tpu/criterions/ctc.py``.  The lattice is
 a batched fixed-shape recursion on the device (``ops.lattice.ctc_loss``),
 whose gradient is the exact posterior marginals from the CTC kernel pair.
-The port never calls a library CTC, so the reference's ``use_pt`` flag
-has no counterpart.
+The port never calls a library CTC: the reference's ``use_pt`` flag is
+accepted and ignored.
 """
 
 import numpy as np
@@ -22,12 +22,18 @@ class CTC(Criterion):
     Args:
       blank: index of the blank label (the reference appends blank last:
         output_size = num_tokens + 1).
-      impl: lattice implementation, 'auto' (kernel) or 'scan'.
+      use_pt: accepted and ignored (the reference's switch to the library
+        CTC; the port's runs on its own kernels either way).
+      impl: lattice implementation, 'auto' (kernel; 'chunked' past 4,096
+        frames), 'scan', 'assoc' or 'chunked' (``ops.lattice``).
+      chunk: chunk size for 'assoc' (the chunk-transfer form) and
+        'chunked'; None keeps each impl's default.
     """
 
-    def __init__(self, blank, impl="auto"):
+    def __init__(self, blank, use_pt=True, impl="auto", chunk=None):
         self.blank = blank
         self.impl = impl
+        self.chunk = chunk
 
     def prepare(self, targets):
         return pad_targets(targets)
@@ -37,7 +43,7 @@ class CTC(Criterion):
         log_probs = F.log_softmax(inputs, dim=2)
         return lattice.ctc_loss(
             log_probs, targets, target_lengths, self.blank, "mean",
-            input_lengths, self.impl,
+            input_lengths, self.impl, self.chunk,
         )
 
     def viterbi_dispatch(self, outputs, params=None, input_lengths=None):

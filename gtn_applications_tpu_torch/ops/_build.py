@@ -45,8 +45,8 @@ _SIGNATURES = {
         "launch_probe": (0, 0),
     },
     "ctc": {
-        "ctc_alpha": (6, 4),
-        "ctc_grad": (9, 4),
+        "ctc_alpha": (9, 6),
+        "ctc_grad": (10, 7),
         "ctc_chain_probe": (2, 1),
     },
     "viterbi": {

@@ -16,6 +16,34 @@
 //             grad[t] = t < len ? exp(min(alpha[t] + beta - score, 0)) * g : 0
 //             eb      = em[t] + beta
 //             beta    = t < len ? lse3(eb, eb[s+1], skip[s+2] ? eb[s+2]) : beta
+// Chunk calls (the rest of ctc_alpha's and ctc_grad's arguments): a call
+// runs frames [t0, t0 + T) of an lp of Tl frames (lp[b] + t0 C, its own T
+// stride: no slice is copied), lens read relative to t0 (a sample's live
+// frames in the call: len - t0, clamped into [0, T]); the score's
+// recursion over a long T is then a chain of such calls, each carrying one
+// [B, S] row:
+//   alpha:  alpha_in [B, S] (the alpha of frame t0 - 1) stands for
+//           alpha[-1]: frame 0 of the call is em[t0] + lse3(alpha_in, ...)
+//           where t0 < len, else alpha_in frozen; no alpha_in: frame 0 is
+//           start + em[t0], whatever len is.  alpha_out [B, S] takes the
+//           call's last alpha (the next call's alpha_in).
+//   grad:   beta starts at beta_in [B, S] (accept for the call holding
+//           the last frame, else the beta_out of the call after it) and
+//           beta_out [B, S] takes the beta after the transition of the
+//           call's frame 0 (the accept of the call before it); a sample
+//           with len <= t0 emits zeros and passes beta_in through.  grad
+//           rows go to a tensor of Tg >= T frames a sample (grad[b] + t0 S
+//           from the caller), so that the calls fill one [B, Tg, S]
+//           posterior.
+// The chunk mode keeps alpha and beta growing over one call's frames, not
+// over T (ops/lattice_pallas.py says the same of the plain versions): a
+// carried alpha_in less its carry_shift (its largest entry, 0 where all
+// are dead; to shift_out where given, which the caller adds up in float64
+// into the score), and, called without a score, ctc_grad's beta_in less
+// its own, the posterior against the call's own score and each frame's
+// row over its own sum (see ctc_grad_warp_kernel).  With t0 = 0, T = Tl =
+// Tg, no alpha_in, a score and no beta_out a call is the whole-T recursion
+// above, unchanged.
 // lse3 is the TPU kernel's exactly: max clamped to NEG, log(max(sum, 1e-30)),
 // all three exponentials taken even for NEG inputs.  Out-of-range shifts
 // read NEG.  Built without --use_fast_math: expf/logf must be the accurate
@@ -94,6 +122,33 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
 
 __device__ __forceinline__ int live_steps(int len, int T) {
   return len < 1 ? 1 : (len < T ? len : T);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The shift a chunk call takes off its carried row (lattice_pallas.py
+// carry_shift): the row's largest entry over the block's W warps (each
+// thread's own max in v; red holds W floats), 0 where every entry is
+// dead.  One barrier where W > 1; every thread must call it.
+__device__ __forceinline__ float carry_shift(float v, float* red, int lane, int warp, int W) {
+  v = warp_max(v);
+  if (W > 1) {
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    v = red[0];
+    for (int w = 1; w < W; ++w) v = fmaxf(v, red[w]);
+  }
+  return v > 0.5f * kNeg ? v : 0.0f;
 }
 
 // The exchange of the chain warp, whose lane l holds states l K + k: the
@@ -206,25 +261,32 @@ __device__ __forceinline__ void fetch_labels(float* dst, const float* row, const
 // ctc_alpha (see the header): W warps a sample, thread i holding states
 // i + 32 W k; em through a ring of kBlockRing frames (kRinged) or read from
 // global memory (rows past the ring's shared memory), both from lp by
-// label; kOneWarp: W = 1, the exchange all by shuffle.
+// label; kOneWarp: W = 1, the exchange all by shuffle.  A carried
+// alpha_in gives up its carry_shift first (to shift_out where given).
 template <int K, bool kRinged, bool kOneWarp>
 __global__ void __launch_bounds__(1024)
 ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
-                 const float* __restrict__ start, const float* __restrict__ skip,
-                 const int* __restrict__ lens, float* __restrict__ alpha, int T, int S,
-                 int C) {
+                 const float* __restrict__ start, const float* __restrict__ alpha_in,
+                 const float* __restrict__ skip, const int* __restrict__ lens,
+                 float* __restrict__ alpha, float* __restrict__ alpha_out,
+                 float* __restrict__ shift_out, int T, int S, int C, int Tl, int t0) {
   extern __shared__ __align__(16) float ring_a[];
   // each warp's lanes 30 and 31 by frame parity, for lanes 0 and 1 of the
   // warp above (and, from the last warp, of warp 0's next slot)
   __shared__ float top[kOneWarp ? 1 : 2 * 32 * K * 2];
+  __shared__ float red[kOneWarp ? 1 : 32];  // carry_shift's warp maxima
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = blockDim.x, W = n >> 5;
   const int row = K * n;  // a ring slot: em's row
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
-  const float* lp_b = lp + static_cast<long>(b) * T * C;
+  const float* lp_b = lp + (static_cast<long>(b) * Tl + t0) * C;
   float* al_b = alpha + base;
-  const int t_live = live_steps(lens[b], T);
+  // chunk mode: frame 0 is a transition from alpha_in; whole mode: the init
+  const bool carried = alpha_in != nullptr;
+  const int first = carried ? 0 : 1;
+  const int len = lens[b] - t0;
+  const int t_live = carried ? (len < 0 ? 0 : (len < T ? len : T)) : live_steps(len, T);
   int lab[K];
   const unsigned inr = state_labels<K, false>(lab, labels + static_cast<long>(b) * S, S, C,
                                               tid, n);
@@ -252,7 +314,7 @@ ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
     if constexpr (kRinged) asm volatile("cp.async.wait_group %0;" ::"n"(kBlockRing - kAhead) : "memory");
   };
 
-  for (int q = 0; q < kBlockRing; ++q) fetch(1 + q);
+  for (int q = 0; q < kBlockRing; ++q) fetch(first + q);
   float a[K];
   unsigned skp = 0, live = 0;
 #pragma unroll
@@ -260,23 +322,39 @@ ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
     const int s = tid + k * n;
     a[k] = kNeg;
     if (s < S) {
-      a[k] = start[static_cast<long>(b) * S + s] + ((inr >> k) & 1u ? lp_b[lab[k]] : 0.0f);
-      al_b[s] = a[k];
+      if (carried) {
+        a[k] = alpha_in[static_cast<long>(b) * S + s];
+      } else {
+        a[k] = start[static_cast<long>(b) * S + s] + ((inr >> k) & 1u ? lp_b[lab[k]] : 0.0f);
+        al_b[s] = a[k];
+      }
       live |= 1u << k;
       if (skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
     }
   }
+  if (carried) {
+    // alpha_in less its largest entry: alpha grows over one call, not over T
+    float m = -3.0e38f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((live >> k) & 1u) m = fmaxf(m, a[k]);
+    m = carry_shift(m, red, lane, warp, W);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((live >> k) & 1u) a[k] -= m;
+    if (shift_out != nullptr && tid == 0) shift_out[b] = m;
+  }
   float e_r[kAhead][K];
   wait();
 #pragma unroll
-  for (int q = 0; q < kAhead; ++q) load(e_r[q], 1 + q);
+  for (int q = 0; q < kAhead; ++q) load(e_r[q], first + q);
   const int below = warp > 0 ? warp - 1 : W - 1;  // the warp below; for warp 0 the last
   const int dk = warp > 0 ? 0 : 1;                // warp's, of the slot below
 
   // frame t: alpha[t - 1] -> alpha[t], stored where the frame is live; its
   // ring slot refilled with frame t + kBlockRing and frame t + kAhead read
   // into the registers it leaves; frames t >= t_live computed and dropped
-  for (int i0 = 1; i0 < t_live; i0 += kAhead) {
+  for (int i0 = first; i0 < t_live; i0 += kAhead) {
 #pragma unroll
     for (int q = 0; q < kAhead; ++q) {
       const int t = i0 + q;
@@ -330,16 +408,98 @@ ctc_alpha_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
     for (int k = 0; k < K; ++k)
       if ((live >> k) & 1u) al_t[k * n] = a[k];
   }
+  if (alpha_out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((live >> k) & 1u) alpha_out[static_cast<long>(b) * S + tid + k * n] = a[k];
+  }
+}
+
+// The chunk mode of both routes (kLocal: no score): beta starts at beta_in
+// less its carry_shift; the posterior is measured against the call's own
+// score, p = exp(min(alpha + beta - Z, 0)) with Z = lse(alpha + beta) at
+// its last frame (the frozen frame where a sample ends earlier), and after
+// the frames each row is rescaled to p g / sum(p), the frame's own
+// normaliser (0 g where Z is dead): the rounding that alpha and beta
+// gather over the call cancels in each frame, and no reduction runs in
+// the chain.
+
+// Z of a chunk call from this thread's alpha (the call's last row) and
+// beta entries in v (live where bit k of `live`), over the block's W
+// warps (red: 2 W floats; two barriers where W > 1): lse as _final_score
+// takes it.
+template <int K>
+__device__ __forceinline__ float chunk_score(const float (&v)[K], unsigned live, float* red,
+                                             int lane, int warp, int W) {
+  float m = -3.0e38f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if ((live >> k) & 1u) m = fmaxf(m, v[k]);
+  m = warp_max(m);
+  if (W > 1) {
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    m = red[0];
+    for (int w = 1; w < W; ++w) m = fmaxf(m, red[w]);
+  }
+  m = fmaxf(m, kNeg);
+  float r = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if ((live >> k) & 1u) r += expf(v[k] - m);
+  r = warp_sum(r);
+  if (W > 1) {
+    if (lane == 0) red[32 + warp] = r;
+    __syncthreads();
+    r = red[32];
+    for (int w = 1; w < W; ++w) r += red[32 + w];
+  }
+  return m + logf(fmaxf(r, kFloor));
+}
+
+// The rows [0, t_live) of a chunk call's posterior p (a row of S floats a
+// frame at gr), each taken to p g / sum(p): warp w of W takes kNormRows
+// rows at a time, rows w kNormRows + i of each group of W kNormRows, its
+// lanes states lane + 32 j, the rows' loads and sums interleaved.
+constexpr int kNormRows = 8;
+
+__device__ __forceinline__ void normalise_rows(float* gr, int t_live, int S, float g, int lane,
+                                               int warp, int W) {
+  for (int t0 = warp * kNormRows; t0 < t_live; t0 += W * kNormRows) {
+    float r[kNormRows];
+#pragma unroll
+    for (int i = 0; i < kNormRows; ++i) r[i] = 0.0f;
+    for (int s = lane; s < S; s += 32) {
+#pragma unroll
+      for (int i = 0; i < kNormRows; ++i)
+        if (t0 + i < t_live) r[i] += gr[static_cast<long>(t0 + i) * S + s];
+    }
+#pragma unroll
+    for (int i = 0; i < kNormRows; ++i) {
+      r[i] = warp_sum(r[i]);
+      r[i] = r[i] > 0.0f ? g / r[i] : 0.0f;
+    }
+    for (int s = lane; s < S; s += 32) {
+#pragma unroll
+      for (int i = 0; i < kNormRows; ++i) {
+        if (t0 + i < t_live) {
+          float* p = gr + static_cast<long>(t0 + i) * S + s;
+          *p = *p * r[i];
+        }
+      }
+    }
+  }
 }
 
 // Route "warp": warp 0 the chain, warp 1 the helper (see the header).
-template <int K>
+template <int K, bool kLocal>
 __global__ void __launch_bounds__(64)
 ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
                      const float* __restrict__ alpha, const float* __restrict__ accept,
                      const float* __restrict__ skip, const int* __restrict__ lens,
                      const float* __restrict__ score, const float* __restrict__ g,
-                     float* __restrict__ grad, int T, int S, int C) {
+                     float* __restrict__ grad, float* __restrict__ beta_out, int T, int S,
+                     int C, int Tl, int t0, int Tg) {
   constexpr int kRow = 32 * K;  // a ring row: the warp's 32 K states
   __shared__ __align__(16) float em_ring[kRing][kRow];
   __shared__ __align__(16) float beta_ring[kRing][kRow];
@@ -348,8 +508,11 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
-  const int len = lens[b];
+  const int len = lens[b] - t0;
   const int t_live = len < 0 ? 0 : (len < T ? len : T);
+  // beta after frame 0's transition, where the caller asks for it
+  const unsigned has_out = beta_out != nullptr;
+  float* bo_b = beta_out + (has_out ? static_cast<long>(b) * S : 0);
   if (threadIdx.x < kRing) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(smem_addr(&full[threadIdx.x])));
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 32;" ::"r"(smem_addr(&empty[threadIdx.x])));
@@ -359,7 +522,7 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
   if (threadIdx.x < 32) {
     // the chain warp: states lane K + k; the em ring's copies (from lp by
     // label) and reads are each lane's own states (no warp sync)
-    const float* lp_b = lp + static_cast<long>(b) * T * C;
+    const float* lp_b = lp + (static_cast<long>(b) * Tl + t0) * C;
     int lab[K];
     const unsigned inr = state_labels<K, true>(lab, labels + static_cast<long>(b) * S, S, C,
                                                lane, 32);
@@ -372,6 +535,20 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
       if (s < S) live |= 1u << k;
       if (s < S && skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
     }
+    if constexpr (kLocal) {
+      // beta_in less its largest entry
+      float m = -3.0e38f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if ((live >> k) & 1u) m = fmaxf(m, be[k]);
+      m = carry_shift(m, nullptr, lane, 0, 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if ((live >> k) & 1u) be[k] -= m;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (t_live == 0 && has_out && ((live >> k) & 1u)) bo_b[lane * K + k] = be[k];
     auto fetch = [&](int t) {
       fetch_labels<K, true>(em_ring[t & (kRing - 1)], lp_b + static_cast<long>(max(t, 0)) * C,
                             lab, lane, 32);
@@ -409,7 +586,11 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
         }
         neighbours_above<K>(eb, jm, n1, n2, lane);
 #pragma unroll
-        for (int k = 0; k < K; ++k) be[k] = lse3(eb[k], n1[k], n2[k]);
+        for (int k = 0; k < K; ++k) {
+          be[k] = lse3(eb[k], n1[k], n2[k]);
+          store_if(bo_b + lane * K + k, be[k],
+                   (live >> k) & has_out & static_cast<unsigned>(t == 0));
+        }
         fetch(t - kRing);
         asm volatile("cp.async.wait_group %0;" ::"n"(kRing - kAhead) : "memory");
         load(e_r[q], t - kAhead);
@@ -418,9 +599,33 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
   } else {
     // the helper warp: states lane + 32 j, the posterior and the zeros
     const float* al_b = alpha + base;
-    float* gr_b = grad + base;
-    const float sc = score[b];
-    const float gb = g[b];
+    float* gr_b = grad + static_cast<long>(b) * Tg * S;
+    float sc = kLocal ? 0.0f : score[b];
+    float gb = g[b];
+    if constexpr (kLocal) {
+      // Z from alpha's last row and beta_in less its shift (the chain
+      // warp's, taken again: a maximum is exact)
+      float v[K], m = -3.0e38f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int s = lane + 32 * j;
+        v[j] = s < S ? accept[static_cast<long>(b) * S + s] : kNeg;
+        if (s < S) m = fmaxf(m, v[j]);
+      }
+      m = carry_shift(m, nullptr, lane, 0, 1);
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int s = min(lane + 32 * j, S - 1);
+        v[j] = al_b[static_cast<long>(T - 1) * S + s] + (v[j] - m);
+      }
+      unsigned on = 0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) on |= static_cast<unsigned>(lane + 32 * j < S) << j;
+      sc = chunk_score<K>(v, on, nullptr, lane, 0, 1);
+    }
+    // the posterior's scale in the frames: g, or 1 where the rows are
+    // rescaled after them
+    const float gs = kLocal ? 1.0f : gb;
     for (int q = 0; q < kRing; ++q) mbar_arrive(&empty[q]);
     for (long i = lane; i < static_cast<long>(T - t_live) * S; i += 32)
       gr_b[static_cast<long>(t_live) * S + i] = 0.0f;
@@ -439,7 +644,7 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         const int s = lane + 32 * j;
-        post[j] = expf(fminf(al_t[s] + beta_ring[slot][s] - sc, 0.0f)) * gb;
+        post[j] = expf(fminf(al_t[s] + beta_ring[slot][s] - sc, 0.0f)) * gs;
       }
       mbar_arrive(&empty[slot]);
       fetch(t - kRing);
@@ -447,34 +652,41 @@ ctc_grad_warp_kernel(const float* __restrict__ lp, const int* __restrict__ label
 #pragma unroll
       for (int j = 0; j < K; ++j) store_if(gr_t + lane + 32 * j, post[j], lane + 32 * j < S);
     }
+    if constexpr (kLocal) normalise_rows(gr_b, t_live, S, sc > 0.5f * kNeg ? gb : 0.0f, lane,
+                                         0, 1);
   }
 }
 
 // Route "block": W warps a sample, thread i holding states i + 32 W k; em
 // (from lp by label) and alpha through a ring of kBlockRing frames
 // (kRinged) or read from global memory (rows past the ring's shared memory).
-template <int K, bool kRinged>
+template <int K, bool kRinged, bool kLocal>
 __global__ void __launch_bounds__(1024)
 ctc_grad_block_kernel(const float* __restrict__ lp, const int* __restrict__ labels,
                       const float* __restrict__ alpha, const float* __restrict__ accept,
                       const float* __restrict__ skip, const int* __restrict__ lens,
                       const float* __restrict__ score, const float* __restrict__ g,
-                      float* __restrict__ grad, int T, int S, int C) {
+                      float* __restrict__ grad, float* __restrict__ beta_out, int T, int S,
+                      int C, int Tl, int t0, int Tg) {
   extern __shared__ __align__(16) float ring_s[];
   // each warp's lanes 0 and 1 (eb, then the skip-masked eb) by frame
   // parity, for the top lanes of the warp below
   __shared__ float bnd[2 * 2 * 32 * K * 2];
+  __shared__ float red[kLocal ? 2 * 32 : 1];  // kLocal: the entry's reductions
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = blockDim.x, W = n >> 5;
   const int row = K * n;  // a ring slot: em's row, then alpha's
   const int b = blockIdx.x;
   const long base = static_cast<long>(b) * T * S;
-  const float* lp_b = lp + static_cast<long>(b) * T * C;
+  const float* lp_b = lp + (static_cast<long>(b) * Tl + t0) * C;
   const float* al_b = alpha + base;
-  float* gr_b = grad + base;
-  const int len = lens[b];
+  float* gr_b = grad + static_cast<long>(b) * Tg * S;
+  const int len = lens[b] - t0;
   const int t_live = len < 0 ? 0 : (len < T ? len : T);
-  const float sc = score[b];
+  // beta after frame 0's transition, where the caller asks for it
+  const unsigned has_out = beta_out != nullptr;
+  float* bo_b = beta_out + (has_out ? static_cast<long>(b) * S : 0);
+  float sc = kLocal ? 0.0f : score[b];
   const float gb = g[b];
   int lab[K];
   const unsigned inr = state_labels<K, false>(lab, labels + static_cast<long>(b) * S, S, C,
@@ -517,6 +729,28 @@ ctc_grad_block_kernel(const float* __restrict__ lp, const int* __restrict__ labe
     if (s < S) live |= 1u << k;
     if (s < S && skip[static_cast<long>(b) * S + s] > 0.5f) skp |= 1u << k;
   }
+  if constexpr (kLocal) {
+    // beta_in less its largest entry; Z from alpha's last row and that beta
+    float m = -3.0e38f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((live >> k) & 1u) m = fmaxf(m, be[k]);
+    m = carry_shift(m, red, lane, warp, W);
+    float v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if ((live >> k) & 1u) be[k] -= m;
+      v[k] = al_b[static_cast<long>(T - 1) * S + min(tid + k * n, S - 1)] + be[k];
+    }
+    __syncthreads();  // red's first use done
+    sc = chunk_score<K>(v, live, red, lane, warp, W);
+  }
+  // the posterior's scale in the frames: g, or 1 where the rows are
+  // rescaled after them
+  const float gs = kLocal ? 1.0f : gb;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (t_live == 0 && has_out && ((live >> k) & 1u)) bo_b[tid + k * n] = be[k];
   for (long i = tid; i < static_cast<long>(T - t_live) * S; i += n)
     gr_b[static_cast<long>(t_live) * S + i] = 0.0f;
   float e_r[kAhead][K], a_r[kAhead][K];
@@ -538,7 +772,7 @@ ctc_grad_block_kernel(const float* __restrict__ lp, const int* __restrict__ labe
       float eb[K], jm[K], n1[K], n2[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        store_if(gr_t + k * n, expf(fminf(a_r[q][k] + be[k] - sc, 0.0f)) * gb,
+        store_if(gr_t + k * n, expf(fminf(a_r[q][k] + be[k] - sc, 0.0f)) * gs,
                  (live >> k) & static_cast<unsigned>(t >= 0));
         eb[k] = (live >> k) & 1u ? e_r[q][k] + be[k] : kNeg;
         jm[k] = (skp >> k) & 1u ? eb[k] : kNeg;
@@ -561,11 +795,17 @@ ctc_grad_block_kernel(const float* __restrict__ lp, const int* __restrict__ labe
         n1[k] = lane == 31 ? x1 : n1[k];
         n2[k] = lane >= 30 ? x2 : n2[k];
         be[k] = lse3(eb[k], n1[k], n2[k]);
+        store_if(bo_b + tid + k * n, be[k],
+                 (live >> k) & has_out & static_cast<unsigned>(t == 0));
       }
       fetch(t - kBlockRing);
       wait();
       load(e_r[q], a_r[q], t - kAhead);
     }
+  }
+  if constexpr (kLocal) {
+    __syncthreads();  // every row of the call stored
+    normalise_rows(gr_b, t_live, S, sc > 0.5f * kNeg ? gb : 0.0f, lane, warp, W);
   }
 }
 
@@ -641,16 +881,18 @@ StatePlan grad_plan(int S) {
   return block_plan(S, 2);
 }
 
-// Where both kernels read their emissions: lp [B, T, C] at each state's label.
+// Where both kernels read their emissions: lp [B, Tl, C] at each state's
+// label, from frame t0 on.
 struct Emissions {
   const float* lp;
   const int* labels;
-  int C;
+  int C, Tl, t0;
 };
 
 template <int K, bool kOneWarp>
-int launch_alpha(const StatePlan& plan, const Emissions& x, const float* start, const float* skip,
-                 const int* lens, float* alpha, int B, int T, int S, cudaStream_t st) {
+int launch_alpha(const StatePlan& plan, const Emissions& x, const float* start,
+                 const float* alpha_in, const float* skip, const int* lens, float* alpha,
+                 float* alpha_out, float* shift_out, int B, int T, int S, cudaStream_t st) {
   const int threads = 32 * plan.warps;
   const size_t smem = static_cast<size_t>(plan.ring) * K * threads * sizeof(float);
   auto kernel = ctc_alpha_kernel<K, true, kOneWarp>;
@@ -659,31 +901,37 @@ int launch_alpha(const StatePlan& plan, const Emissions& x, const float* start, 
   }
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, st>>>(x.lp, x.labels, start, skip, lens, alpha, T, S, x.C);
+  kernel<<<B, threads, smem, st>>>(x.lp, x.labels, start, alpha_in, skip, lens, alpha, alpha_out,
+                                   shift_out, T, S, x.C, x.Tl, x.t0);
   return static_cast<int>(cudaGetLastError());
 }
 
+// score null: the chunk mode (kLocal)
 template <int K>
 int launch_grad_warp(const Emissions& x, const float* alpha, const float* accept,
                      const float* skip, const int* lens, const float* score, const float* g,
-                     float* grad, int B, int T, int S, cudaStream_t st) {
-  ctc_grad_warp_kernel<K><<<B, 64, 0, st>>>(x.lp, x.labels, alpha, accept, skip, lens, score, g,
-                                            grad, T, S, x.C);
+                     float* grad, float* beta_out, int B, int T, int Tg, int S, cudaStream_t st) {
+  auto kernel = score ? ctc_grad_warp_kernel<K, false> : ctc_grad_warp_kernel<K, true>;
+  kernel<<<B, 64, 0, st>>>(x.lp, x.labels, alpha, accept, skip, lens, score, g, grad, beta_out,
+                           T, S, x.C, x.Tl, x.t0, Tg);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
 int launch_grad_block(const StatePlan& plan, const Emissions& x, const float* alpha,
                       const float* accept, const float* skip, const int* lens,
-                      const float* score, const float* g, float* grad, int B, int T, int S,
-                      cudaStream_t st) {
+                      const float* score, const float* g, float* grad, float* beta_out, int B,
+                      int T, int Tg, int S, cudaStream_t st) {
   const int threads = 32 * plan.warps;
   const size_t smem = static_cast<size_t>(plan.ring) * 2 * K * threads * sizeof(float);
-  auto kernel = plan.ring ? ctc_grad_block_kernel<K, true> : ctc_grad_block_kernel<K, false>;
+  auto kernel = plan.ring ? (score ? ctc_grad_block_kernel<K, true, false>
+                                   : ctc_grad_block_kernel<K, true, true>)
+                          : (score ? ctc_grad_block_kernel<K, false, false>
+                                   : ctc_grad_block_kernel<K, false, true>);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<B, threads, smem, st>>>(x.lp, x.labels, alpha, accept, skip, lens, score, g, grad,
-                                   T, S, x.C);
+                                   beta_out, T, S, x.C, x.Tl, x.t0, Tg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -691,21 +939,29 @@ int launch_grad_block(const StatePlan& plan, const Emissions& x, const float* al
 
 extern "C" {
 
-// lp [B, T, C] f32, labels [B, S] i32 (state s emits lp[b, t, labels[b, s]],
-// 0 where the label is outside [0, C)), start/skip [B, S] f32, lens [B] i32
-// -> alpha [B, T, S] f32.  One launch: W warps a sample (block_plan), a ring
-// of em rows in shared memory where it fits in kRingSmem.
-int ctc_alpha(const float* lp, const int* labels, const float* start, const float* skip,
-              const int* lens, float* alpha, int B, int T, int S, int C, void* stream) {
+// lp [B, Tl, C] f32, labels [B, S] i32 (state s emits lp[b, t, labels[b, s]],
+// 0 where the label is outside [0, C)), alpha_in or start, skip [B, S] f32,
+// lens [B] i32 -> alpha [B, T, S] f32 of frames [t0, t0 + T) and, where
+// alpha_out is given, their last alpha [B, S] (chunk mode, see the header;
+// start is read only without alpha_in).  One launch: W warps a sample
+// (block_plan), a ring of em rows in shared memory where it fits in
+// kRingSmem.
+int ctc_alpha(const float* lp, const int* labels, const float* start, const float* alpha_in,
+              const float* skip, const int* lens, float* alpha, float* alpha_out,
+              float* shift_out, int B, int Tl, int t0, int T, int S, int C, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
-  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 0 || t0 < 0 || t0 + T > Tl) return static_cast<int>(cudaErrorInvalidValue);
   const StatePlan plan = block_plan(S, 1);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Emissions x{lp, labels, C};
-  if (!plan.block) return launch_alpha<1, true>(plan, x, start, skip, lens, alpha, B, T, S, st);
+  const Emissions x{lp, labels, C, Tl, t0};
+  if (!plan.block)
+    return launch_alpha<1, true>(plan, x, start, alpha_in, skip, lens, alpha, alpha_out,
+                                 shift_out, B, T, S, st);
   switch (plan.K) {
-#define ALPHA_BLOCK(k) \
-  case k: return launch_alpha<k, false>(plan, x, start, skip, lens, alpha, B, T, S, st);
+#define ALPHA_BLOCK(k)                                                                        \
+  case k:                                                                                     \
+    return launch_alpha<k, false>(plan, x, start, alpha_in, skip, lens, alpha, alpha_out,      \
+                                  shift_out, B, T, S, st);
     ALPHA_BLOCK(1) ALPHA_BLOCK(2) ALPHA_BLOCK(3) ALPHA_BLOCK(4) ALPHA_BLOCK(5) ALPHA_BLOCK(6)
     ALPHA_BLOCK(7) ALPHA_BLOCK(8) ALPHA_BLOCK(16)
 #undef ALPHA_BLOCK
@@ -713,31 +969,37 @@ int ctc_alpha(const float* lp, const int* labels, const float* start, const floa
   }
 }
 
-// lp [B, T, C] f32 and labels [B, S] i32 (as ctc_alpha), alpha [B, T, S],
-// accept/skip [B, S] f32, lens [B] i32, score/g [B] f32 -> grad [B, T, S]
-// f32 (d score / d em).  Route "warp" (a chain and a helper warp a sample,
-// K = ceil(S / 32) states a lane) for S <= kWarpMaxS, else "block"
-// (grad_plan).
-int ctc_grad(const float* lp, const int* labels, const float* alpha, const float* accept,
-             const float* skip, const int* lens, const float* score, const float* g,
-             float* grad, int B, int T, int S, int C, void* stream) {
+// lp [B, Tl, C] f32 and labels [B, S] i32 (as ctc_alpha), alpha [B, T, S]
+// of frames [t0, t0 + T), beta_in/skip [B, S] f32, lens [B] i32, score/g
+// [B] f32 -> grad rows [B, T, S] f32 (d score / d em) in a tensor of Tg
+// frames a sample (grad points at its frame t0) and, where beta_out is
+// given, beta after frame 0's transition [B, S] (chunk mode, see the
+// header).  Route "warp" (a chain and a helper warp a sample, K = ceil(S /
+// 32) states a lane) for S <= kWarpMaxS, else "block" (grad_plan).
+int ctc_grad(const float* lp, const int* labels, const float* alpha, const float* beta_in,
+             const float* skip, const int* lens, const float* score, const float* g, float* grad,
+             float* beta_out, int B, int Tl, int t0, int T, int Tg, int S, int C, void* stream) {
   if (B == 0 || T == 0 || S == 0) return 0;
-  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C <= 0 || t0 < 0 || t0 + T > Tl || Tg < T) return static_cast<int>(cudaErrorInvalidValue);
   const StatePlan plan = grad_plan(S);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Emissions x{lp, labels, C};
+  const Emissions x{lp, labels, C, Tl, t0};
   if (!plan.block) {
     switch (plan.K) {
-      case 1: return launch_grad_warp<1>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 2: return launch_grad_warp<2>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 3: return launch_grad_warp<3>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
-      case 4: return launch_grad_warp<4>(x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+#define GRAD_WARP(k)                                                                           \
+  case k:                                                                                      \
+    return launch_grad_warp<k>(x, alpha, beta_in, skip, lens, score, g, grad, beta_out,        \
+                               B, T, Tg, S, st);
+      GRAD_WARP(1) GRAD_WARP(2) GRAD_WARP(3) GRAD_WARP(4)
+#undef GRAD_WARP
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (plan.K) {
-#define GRAD_BLOCK(k) \
-  case k: return launch_grad_block<k>(plan, x, alpha, accept, skip, lens, score, g, grad, B, T, S, st);
+#define GRAD_BLOCK(k)                                                                         \
+  case k:                                                                                     \
+    return launch_grad_block<k>(plan, x, alpha, beta_in, skip, lens, score, g, grad, beta_out, \
+                                B, T, Tg, S, st);
     GRAD_BLOCK(1) GRAD_BLOCK(2) GRAD_BLOCK(3) GRAD_BLOCK(4) GRAD_BLOCK(5) GRAD_BLOCK(6)
     GRAD_BLOCK(7) GRAD_BLOCK(8) GRAD_BLOCK(16)
 #undef GRAD_BLOCK

@@ -20,8 +20,12 @@ import torch
 from . import _build
 
 
-def gather_channels_plain(x, idx):
-    """out[b, t, s] = x[b, t, idx[b, s]], 0 where idx is -1."""
+def gather_channels_plain(x, idx, t0=0, frames=None):
+    """out[b, t, s] = x[b, t0 + t, idx[b, s]], 0 where idx is -1, over
+    ``frames`` frames from t0 (default: to the end); a view of x's frames,
+    no copy of them."""
+    if t0 or frames is not None:
+        x = x[:, t0:x.shape[1] if frames is None else t0 + frames]
     B, T, _ = x.shape
     idx = idx.long()
     valid = (idx >= 0)[:, None, :]

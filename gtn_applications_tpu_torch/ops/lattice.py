@@ -8,10 +8,16 @@ into the 2L+1 lattice states; the score is a fixed-shape recursion over
 
 ``impl="auto"`` runs the kernel ``Function`` of ``ops/lattice_pallas.py``:
 its CUDA kernels on CUDA tensors (they read ``log_probs`` by label, so no
-gather runs), its plain versions on CPU tensors.
+gather runs), its plain versions on CPU tensors; past 4,096 frames it
+takes the chunked form, as JAX's does.  ``impl="chunked"`` is that
+Function run a chunk of frames at a time (``ctc_score_chunked``: the
+kernels' chunk mode, the boundary alphas alone kept for the backward).
 ``impl="scan"`` is a plain-torch copy of the JAX ``lax.scan`` path (a
-second oracle).  The associative-scan and chunked forms are not ported
-yet (ROADMAP queue A item 11, "Long-sequence CTC").
+second oracle).  ``impl="assoc"`` is JAX's associative form over band
+operators (``ctc_forward_score_assoc``): plain torch as JAX's is jnp and
+lax, but for its emission gather, which runs the gather kernels as JAX's
+runs its Pallas gather on a TPU.  ``impl="pallas"`` raises: the port's
+kernels run under "auto".
 
 ASG: the free energy is a max-shifted exp-matmul scan against the dense
 transition matrix (plain ``torch.matmul``, as JAX leaves it to XLA), the
@@ -20,13 +26,20 @@ gather kernel, and the Viterbi decode a max/argmax scan whose backpointers
 the dense backtrace kernel walks (``ops/viterbi_scan_pallas.py``).
 """
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .semiring import NEG, gather_channels, logaddexp, logsumexp, logsumexp_stack
 
-# Beyond this many frames the JAX package routes "auto" to the chunked scan,
-# which the port does not have yet.
-_MAX_KERNEL_T = 4096
+# Beyond this many frames "auto" routes to the chunked form, as JAX's does:
+# the whole-T Function keeps the [B, T, S] alpha trajectory for its backward,
+# and its float32 alpha and beta of |score| itself lose the gradient's
+# precision as T grows (the chunked form's stay within a chunk's growth).
+_MAX_WHOLE_T = 4096
+# JAX's default chunk of ctc_forward_score_chunked
+_CHUNK = 128
 
 
 def ctc_state_tables(targets, blank):
@@ -60,15 +73,20 @@ def ctc_start_accept(target_lengths, S):
     return start, accept
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A item 11, "
-        "Long-sequence CTC)"
-    )
+def _accepted_score(alpha, target_lengths):
+    """logaddexp of alpha [B, S] at the accepting states 2 len and 2 len - 1
+    (only 2 len == 0 when len == 0)."""
+    tl = target_lengths.long()
+    last = torch.gather(alpha, 1, (2 * tl)[:, None])[:, 0]
+    prev_idx = torch.clamp(2 * tl - 1, min=0)
+    prev = torch.gather(alpha, 1, prev_idx[:, None])[:, 0]
+    prev = torch.where(tl > 0, prev, NEG)
+    return logaddexp(last, prev)
 
 
 def ctc_forward_score(
     log_probs, targets, target_lengths, blank, input_lengths=None, impl="auto",
+    chunk=None,
 ):
     """Log-semiring forward score of the CTC lattice.
 
@@ -78,8 +96,13 @@ def ctc_forward_score(
       target_lengths: ``[B]`` true target lengths.
       blank: blank index.
       input_lengths: optional ``[B]`` true input lengths (default: T).
-      impl: 'auto' (the kernel Function) or 'scan' (plain recursion).
-        'assoc' and 'chunked' are not ported.
+      impl: 'auto' (the kernel Function; 'chunked' past 4,096 frames),
+        'scan' (plain recursion), 'assoc' (associative form over band
+        operators, ``ctc_forward_score_assoc``) or 'chunked' (the kernel
+        Function a chunk of frames at a time, O(T / chunk) memory between
+        forward and backward).  'pallas' raises ``ValueError``.
+      chunk: chunk size for 'assoc' (the chunk-transfer form) and
+        'chunked' (default 128); None keeps each impl's default.
 
     Returns:
       ``[B]`` forward scores (log total path probability).
@@ -93,20 +116,24 @@ def ctc_forward_score(
         input_lengths = torch.full((B,), T, dtype=torch.int32, device=device)
     input_lengths = input_lengths.to(device)
 
-    if impl in ("assoc", "chunked"):
-        raise _not_ported(f"CTC impl={impl!r}")
-    if impl not in ("auto", "scan"):
+    if impl == "auto" and T > _MAX_WHOLE_T:
+        impl = "chunked"
+    if impl not in ("auto", "scan", "assoc", "chunked"):
         raise ValueError(f"unknown CTC impl {impl!r}")
-
-    if impl == "auto" and T > _MAX_KERNEL_T:
-        raise _not_ported(f"CTC over T={T} > {_MAX_KERNEL_T} frames")
+    if impl == "assoc":
+        return ctc_forward_score_assoc(
+            log_probs, targets, target_lengths, blank, input_lengths, chunk
+        )
 
     labels, skip_ok = ctc_state_tables(targets, blank)
-    if impl == "auto":
+    if impl in ("auto", "chunked"):
         # the kernels read the emissions from log_probs by label
-        from .lattice_pallas import ctc_score_kernel
+        from .lattice_pallas import ctc_score_chunked, ctc_score_kernel
 
         start, accept = ctc_start_accept(target_lengths, S)
+        if impl == "chunked":
+            return ctc_score_chunked(log_probs, labels, start, accept, skip_ok,
+                                     input_lengths, _CHUNK if chunk is None else chunk)
         return ctc_score_kernel(log_probs, labels, start, accept, skip_ok, input_lengths)
 
     # Emissions gathered into lattice states: [B, T, S]
@@ -126,14 +153,7 @@ def ctc_forward_score(
         skip = torch.where(skip_ok, shift(alpha, 2), NEG)
         new = em[:, t] + logsumexp_stack([stay, prev, skip])
         alpha = torch.where(t < lens, new, alpha)
-
-    # Accepting states are 2*len and 2*len - 1 (only 2*len == 0 when len == 0).
-    tl = target_lengths.long()
-    last = torch.gather(alpha, 1, (2 * tl)[:, None])[:, 0]
-    prev_idx = torch.clamp(2 * tl - 1, min=0)
-    prev = torch.gather(alpha, 1, prev_idx[:, None])[:, 0]
-    prev = torch.where(tl > 0, prev, NEG)
-    return logaddexp(last, prev)
+    return _accepted_score(alpha, target_lengths)
 
 
 def ctc_loss(
@@ -144,6 +164,7 @@ def ctc_loss(
     reduction="mean",
     input_lengths=None,
     impl="auto",
+    chunk=None,
 ):
     """Mean-over-batch negative CTC forward score.
 
@@ -151,7 +172,7 @@ def ctc_loss(
     before the batch mean, as in the reference criterion.
     """
     scores = ctc_forward_score(
-        log_probs, targets, target_lengths, blank, input_lengths, impl
+        log_probs, targets, target_lengths, blank, input_lengths, impl, chunk
     )
     losses = -scores
     if reduction == "mean":
@@ -172,6 +193,162 @@ def ctc_greedy_decode(outputs):
     criterion wrapper.
     """
     return torch.argmax(outputs, dim=2)
+
+
+def _assoc_combine(a, b):
+    """(b o a)[i, j] = lse_k b[i, k] + a[k, j], a applied first: JAX's
+    combine exactly, a per-entry max over k (no gradient) clamped at NEG
+    and the sum floored at 1e-30 before its log."""
+    x = b[..., :, :, None] + a[..., None, :, :]
+    m = torch.clamp(torch.amax(x, dim=-2, keepdim=True), min=NEG).detach()
+    s = torch.sum(torch.exp(x - m), dim=-2, keepdim=True)
+    return (m + torch.log(torch.clamp(s, min=1e-30)))[..., 0, :]
+
+
+def _fold(ops):
+    """The composition of ops [n, ...] in time order (ops[0] applied
+    first), a pairwise tree of ``_assoc_combine`` with log depth.  JAX runs
+    ``lax.associative_scan``, which torch lacks, and reads only its last
+    prefix, the composition of all; the tree computes that alone.  The
+    order of the folds changes rounding only."""
+    while ops.shape[0] > 1:
+        n = ops.shape[0] // 2 * 2
+        pairs = _assoc_combine(ops[0:n:2], ops[1:n:2])
+        ops = torch.cat([pairs, ops[n:]], dim=0)
+    return ops[0]
+
+
+def _assoc_inputs(log_probs, targets, target_lengths, blank, input_lengths):
+    B, T, _ = log_probs.shape
+    device = log_probs.device
+    targets = targets.to(device)
+    target_lengths = target_lengths.to(device)
+    if input_lengths is None:
+        input_lengths = torch.full((B,), T, dtype=torch.int32, device=device)
+    labels, skip_ok = ctc_state_tables(targets, blank)
+    em = gather_channels(log_probs, labels)  # [B, T, S]
+    return em, skip_ok, target_lengths, input_lengths.to(device)
+
+
+def ctc_forward_score_assoc(
+    log_probs, targets, target_lengths, blank, input_lengths=None, chunk=None
+):
+    """CTC forward score as a composition of band transition operators.
+
+    The log-semiring recursion is associative, so the score is the
+    composition of per-frame [S, S] operators ``M_t[s', s] = em[t, s'] +
+    log(allowed(s -> s'))``, frame 0's diagonal (it consumes its emission
+    without a transition), frames at t >= input_length the identity: JAX's
+    sequence-sharding form (O(T S^3) work and O(T S^2) memory, log T
+    depth).  The composition is ``_fold``'s pairwise tree.
+
+    ``chunk``: the chunk-transfer form (``_ctc_assoc_chunked``), one dense
+    operator a chunk of frames instead of one a frame.
+
+    Plain torch, as JAX computes it with jnp and lax: the recursion,
+    combine and fold reach no Pallas kernel in JAX, so the port writes none;
+    the emission gather (``semiring.gather_channels``) runs the gather
+    kernels, as JAX's runs its Pallas gather on a TPU.
+    """
+    if chunk is not None:
+        return _ctc_assoc_chunked(
+            log_probs, targets, target_lengths, blank, input_lengths, chunk
+        )
+    em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
+        log_probs, targets, target_lengths, blank, input_lengths)
+    B, T, S = em.shape
+    device = em.device
+
+    # allowed-transition mask [B, S, S]: stay, advance, skip
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    eye, adv = i == j, i == j + 1
+    skp = (i == j + 2)[None] & skip_ok[:, :, None]
+    allowed = torch.where(eye[None] | adv[None] | skp, 0.0, NEG)
+
+    # per-frame operators, the identity for t >= input_length
+    ident = torch.where(eye, 0.0, NEG)[None, None]
+    ops = em.transpose(0, 1)[:, :, :, None] + allowed[None]  # [T, B, S, S]
+    live = (torch.arange(T, device=device)[:, None] < input_lengths[None, :])[..., None, None]
+    ops = torch.where(live, ops, ident)
+    ops0 = torch.where(eye[None], em[:, 0, :, None], NEG)
+    ops = torch.cat([ops0[None], ops[1:]], dim=0)
+
+    total = _fold(ops)  # [B, S, S]
+    s_idx = torch.arange(S, device=device)[None, :]
+    start = torch.where(
+        (s_idx == 0) | ((s_idx == 1) & (target_lengths[:, None] > 0)), 0.0, NEG)
+    alpha_final = logsumexp(total + start[:, None, :], dim=-1)  # [B, S]
+    return _accepted_score(alpha_final, target_lengths)
+
+
+def _shift_rows(M, k):
+    """M shifted down by k along its s_out axis (-2), NEG filled."""
+    return torch.cat([torch.full_like(M[..., :k, :], NEG), M[..., :-k, :]], dim=-2)
+
+
+def _ctc_assoc_chunked(
+    log_probs, targets, target_lengths, blank, input_lengths, chunk
+):
+    """Chunk-transfer form of ``ctc_forward_score_assoc``: a banded
+    in-chunk recursion builds one dense [S, S] transfer a chunk, for all
+    chunks at once as JAX's ``vmap`` does ([nc, B, S, S]); the transfers
+    compose by ``_fold``.  Frame 0 is the init, frames 1..T-1 split into
+    chunks, the last padded with frames at t = T (the identity).  The
+    in-chunk recursion runs under ``torch.utils.checkpoint``, as JAX's under
+    ``jax.checkpoint``: the backward recomputes it rather than keep [B, S,
+    S] a frame."""
+    em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
+        log_probs, targets, target_lengths, blank, input_lengths)
+    B, T, S = em.shape
+    device = em.device
+    em = em.transpose(0, 1)  # [T, B, S]
+
+    alpha0 = torch.full((B, S), NEG, dtype=em.dtype, device=device)
+    alpha0[:, 0] = em[0, :, 0]
+    if S > 1:
+        alpha0[:, 1] = torch.where(target_lengths > 0, em[0, :, 1], NEG)
+
+    n_steps = T - 1
+    nc = max(-(-n_steps // chunk), 1)
+    pad = nc * chunk - n_steps
+    em_rest = torch.cat(
+        [em[1:], torch.zeros((pad, B, S), dtype=em.dtype, device=device)], dim=0
+    ).reshape(nc, chunk, B, S)
+    ts = torch.cat([
+        torch.arange(1, T, device=device),
+        torch.full((pad,), T, dtype=torch.long, device=device),
+    ]).reshape(nc, chunk)
+
+    skip = skip_ok[None, :, :, None]
+
+    def frames(M, em_seg, ts_seg):
+        for j in range(ts_seg.shape[1]):
+            stay = M
+            prev = _shift_rows(M, 1)
+            jump = torch.where(skip, _shift_rows(M, 2), NEG)
+            new = em_seg[:, j, :, :, None] + logsumexp_stack([stay, prev, jump])
+            live = (ts_seg[:, j, None] < input_lengths[None, :])[..., None, None]
+            M = torch.where(live, new, M)
+        return M
+
+    def transfers(em_rest):
+        # M[c, b, i, j]: the score of reaching state i from state j across
+        # the frames of chunk c seen so far; the identity to start.  The
+        # backward's recompute runs segments of ~sqrt(chunk) frames, each
+        # checkpointed again, so that it holds one segment's frames at a
+        # time (the same numbers; JAX leaves that schedule to XLA)
+        eye = torch.where(torch.eye(S, dtype=torch.bool, device=device), 0.0, NEG)
+        M = eye.expand(nc, B, S, S)
+        seg = max(1, math.isqrt(chunk))
+        for j0 in range(0, chunk, seg):
+            M = checkpoint(frames, M, em_rest[:, j0:j0 + seg], ts[:, j0:j0 + seg],
+                           use_reentrant=False)
+        return M
+
+    total = _fold(checkpoint(transfers, em_rest, use_reentrant=False))
+    alpha_final = logsumexp(total + alpha0[:, None, :], dim=-1)
+    return _accepted_score(alpha_final, target_lengths)
 
 
 # ---------------------------------------------------------------------------

@@ -49,11 +49,12 @@ OUT_DIR = ROOT / "build" / "profile_ctc_grad"
 
 HELPER_STORE = ("      for (int j = 0; j < K; ++j) store_if(gr_t + lane + 32 * j, post[j], "
                 "lane + 32 * j < S);\n")
-BLOCK_POST = ("        store_if(gr_t + k * n, expf(fminf(a_r[q][k] + be[k] - sc, 0.0f)) * gb,\n"
+BLOCK_POST = ("        store_if(gr_t + k * n, expf(fminf(a_r[q][k] + be[k] - sc, 0.0f)) * gs,\n"
               "                 (live >> k) & static_cast<unsigned>(t >= 0));\n")
 BLOCK_LOOP = ("  for (int i0 = 0; i0 < t_live; i0 += kAhead) {\n#pragma unroll\n"
               "    for (int q = 0; q < kAhead; ++q) {\n      const int t = t_live - 1 - i0 - q;\n")
-BLOCK_END = "      load(e_r[q], a_r[q], t - kAhead);\n    }\n  }\n}\n\n// Latency probe"
+BLOCK_END = ("      load(e_r[q], a_r[q], t - kAhead);\n    }\n  }\n  if constexpr (kLocal) {\n"
+             "    __syncthreads();  // every row of the call stored\n")
 VARIANTS = {
     "no_post": [(HELPER_STORE, ""), (BLOCK_POST, "")],
     "no_exchange": [("        neighbours_above<K>(eb, jm, n1, n2, lane);\n",
@@ -75,14 +76,16 @@ CLOCKS = [
     ("    for (int i = 0; i < t_live; ++i) {\n      const int t = t_live - 1 - i, slot",
      "    const long long c_start = clock64();\n"
      "    for (int i = 0; i < t_live; ++i) {\n      const int t = t_live - 1 - i, slot"),
-    (HELPER_STORE + "    }\n  }\n}\n",
+    (HELPER_STORE + "    }\n    if constexpr (kLocal) normalise_rows(",
      HELPER_STORE + "    }\n    if (lane == 0) {\n"
      "      gr_b[0] = static_cast<float>(clock64() - c_start);\n"
-     "      gr_b[1] = static_cast<float>(t_live);\n    }\n  }\n}\n"),
+     "      gr_b[1] = static_cast<float>(t_live);\n    }\n"
+     "    if constexpr (kLocal) normalise_rows("),
     (BLOCK_LOOP, "  const long long c_start = clock64();\n" + BLOCK_LOOP),
     (BLOCK_END, "      load(e_r[q], a_r[q], t - kAhead);\n    }\n  }\n"
      "  if (tid == 0) {\n    gr_b[0] = static_cast<float>(clock64() - c_start);\n"
-     "    gr_b[1] = static_cast<float>(t_live);\n  }\n}\n\n// Latency probe"),
+     "    gr_b[1] = static_cast<float>(t_live);\n  }\n  if constexpr (kLocal) {\n"
+     "    __syncthreads();  // every row of the call stored\n"),
 ]
 
 

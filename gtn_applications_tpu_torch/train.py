@@ -5,7 +5,8 @@ experiment configs, the epoch loop with SGD and a halving learning-rate
 schedule, global-norm gradient clipping, per-epoch train and validation
 CER/WER, best-checkpoint tracking and restore.  The device mesh, the fused
 multi-step executables, orbax checkpoints and the profiler are not ported
-yet (ROADMAP queue A item 12).
+yet (ROADMAP queue A item 12): ``optim.seq_parallel`` is read and, on the
+one device, falls back to data-only with JAX's warning.
 
 Runs on CUDA unless ``--disable_cuda`` asks for the CPU; without that flag
 and without a GPU it raises.  TF32 is switched off for cuDNN convolutions
@@ -54,6 +55,17 @@ def select_device(disable_cuda=False):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def check_seq_parallel(seq_parallel):
+    """``optim.seq_parallel`` time shards: JAX's ``make_mesh`` falls back to
+    a data-only mesh with a warning where they do not divide the devices;
+    the port trains on one device, so any n > 1 takes that fallback."""
+    if seq_parallel > 1:
+        logging.warning(
+            "seq_parallel=%d does not divide %d devices; using a "
+            "data-only mesh", seq_parallel, 1,
+        )
 
 
 def clip_global_norm(grads, max_norm):
@@ -183,11 +195,7 @@ def load_experiment(config, generator=None):
 
     dataset_name = config["data"]["dataset"]
     if not hasattr(ds_pkg, dataset_name) or dataset_name == "text":
-        raise ValueError(
-            f"Unknown dataset {dataset_name} (the port has 'iamdb', "
-            "'synthetic' and 'synthetic_long'; the speech datasets are not "
-            "ported yet, ROADMAP queue A item 16)"
-        )
+        raise ValueError(f"Unknown dataset {dataset_name}")
     dataset = getattr(ds_pkg, dataset_name)
 
     input_size = config["data"]["num_features"]
@@ -265,6 +273,7 @@ def train(args):
     step_size = config["optim"]["step_size"]
     max_grad_norm = config["optim"].get("max_grad_norm", None)
     use_lengths = config["optim"].get("use_input_lengths", False)
+    check_seq_parallel(config["optim"].get("seq_parallel", 1))
 
     train_step = make_train_step(model, criterion, lr, crit_lr, max_grad_norm)
     eval_step = make_eval_step(model, criterion)

@@ -336,14 +336,13 @@ def load_criterion(criterion_type, preprocessor, config):
             num_tokens + num_replabels + int(use_garbage),
         )
     if criterion_type == "ctc":
-        # ``use_pt`` is accepted and ignored, as JAX's factory does: the
-        # port's CTC runs on its own kernels either way
-        if "chunk" in config:
-            raise NotImplementedError(
-                "CTC chunk is not ported yet (ROADMAP queue A item 11, "
-                "Long-sequence CTC)"
-            )
-        return CTC(num_tokens, config.get("impl", "auto")), num_tokens + 1
+        # ``use_pt`` is accepted and ignored: the port's CTC runs on its own
+        # kernels either way
+        return (
+            CTC(num_tokens, config.get("use_pt", True), config.get("impl", "auto"),
+                config.get("chunk", None)),
+            num_tokens + 1,
+        )
     if criterion_type == "stc":
         # the model emits [blank, tokens...]; star channels are internal.
         # The class defaults to reduction "none", the factory to "mean".

@@ -4,8 +4,9 @@ Counterpart of the parts of ``gtn_applications_tpu/wfst/native.py`` that
 the port calls: loading ``native/libtwgraph.so``, ``to_native`` and
 ``from_native``, epsilon removal (``remove``, for
 ``compile.compile_acceptor(remove_eps=True)``), the one-call per-target
-pipeline ``compile_alignment``, and the forced-blank decode cleanup
-``forced_collapse``.
+pipeline ``compile_alignment``, the forced-blank decode cleanup
+``forced_collapse``, and the FLAC decoder ``decode_flac`` (``native/flac.cc``,
+for ``datasets.audio.load_audio``).
 Both packages share the library; its source is ``native/graph_compiler.cc``
 at the root of the checkout.  The ``.so`` is not committed: the first call
 builds it with ``make -C native`` (g++), under a file lock in ``build/``
@@ -95,6 +96,51 @@ def load_library():
         ]
         _LIB = lib
         return lib
+
+
+def available():
+    """Whether the native library loads (building it if needed)."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def _bind_flac(lib):
+    if getattr(lib, "_flac_bound", False):
+        return
+    lib.tw_flac_decode_alloc.restype = ctypes.POINTER(ctypes.c_int32)
+    lib.tw_flac_decode_alloc.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.tw_flac_free.argtypes = [ctypes.POINTER(ctypes.c_int32)]
+    lib._flac_bound = True
+
+
+def decode_flac(data: bytes):
+    """Decode a FLAC stream (``native/flac.cc``) to PCM.
+
+    Returns ``(samples, sample_rate, bits_per_sample)``, samples an int32
+    array of shape [frames, channels].  Raises ValueError on malformed
+    input and RuntimeError where the native library cannot be built.
+    """
+    lib = load_library()
+    _bind_flac(lib)
+    info = np.zeros(4, dtype=np.int64)
+    ptr = lib.tw_flac_decode_alloc(
+        data, len(data), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if not ptr:
+        raise ValueError("malformed or unsupported FLAC stream")
+    try:
+        frames, channels = int(info[3]), int(info[1])
+        samples = np.ctypeslib.as_array(ptr, shape=(frames * channels,))
+        samples = samples.reshape(frames, channels).copy()
+    finally:
+        lib.tw_flac_free(ptr)
+    return samples, int(info[0]), int(info[2])
 
 
 class _Handle:

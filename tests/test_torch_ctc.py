@@ -157,23 +157,39 @@ def test_ctc_viterbi_collapse_and_uniform():
 
 
 def test_ctc_unported_forms_raise():
-    lp = torch.zeros(1, 4, 3)
-    tg, ln = pad_targets([[0]])
-    for impl in ("assoc", "chunked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lattice.ctc_loss(lp, tg, ln, 2, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lattice.ctc_loss(torch.zeros(1, 4097, 3), tg, ln, 2)
+    """The forms that raised before the long-sequence slice score as JAX's:
+    "assoc" and "chunked", and T = 4,097 under "auto" (which both packages
+    route to "chunked"); "pallas" still raises ``ValueError`` (the port's
+    kernels run under "auto")."""
+    rng = np.random.RandomState(7)
+    tgts = [[0, 1, 1], [2]]
+    targets, lengths = pad_targets(tgts)
+    jt, jl = jax_pad_targets(tgts)
+    for impl, T in (("assoc", 12), ("chunked", 12), ("auto", 4097)):
+        x = rng.randn(2, T, 4).astype(np.float32)
+        il = [T, T - 3]
+        want = jax.jit(lambda v, n, impl=impl: jax_lattice.ctc_forward_score(
+            jax.nn.log_softmax(v, axis=2), jt, jl, 3, n, impl))(
+            jnp.asarray(x), jnp.asarray(il, jnp.int32))
+        got = lattice.ctc_forward_score(
+            torch.log_softmax(torch.from_numpy(x), 2), targets, lengths, 3,
+            torch.tensor(il), impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4 if impl == "assoc"
+                                   else 1e-5)
     with pytest.raises(ValueError):
-        lattice.ctc_loss(lp, tg, ln, 2, impl="pallas")
+        lattice.ctc_loss(torch.zeros(1, 4, 3), targets[:1], lengths[:1], 2, impl="pallas")
 
 
 @pytest.mark.parametrize("config", [{"chunk": 256}, {"use_pt": True}])
 def test_ctc_criterion_refuses_unported_options(config):
-    """``chunk`` raises until ROADMAP A.11; ``use_pt`` is accepted and
-    ignored, as JAX's factory does (its CTC runs on its own kernels either
-    way): the criterion it gives scores and differentiates as the one
-    without it."""
+    """Options the factory takes as JAX's does: ``chunk`` reaches the
+    lattice (with ``impl: "assoc"``, JAX's long-context recipe, the
+    chunk-transfer form) and the criterion scores and differentiates as
+    JAX's; ``use_pt`` is accepted and ignored (the port's CTC runs on its
+    own kernels either way): the criterion it gives scores and
+    differentiates as the one without it."""
+    from gtn_applications_tpu import utils as jax_utils
+    from gtn_applications_tpu.datasets import synthetic as jax_synthetic
     from gtn_applications_tpu_torch import utils
     from gtn_applications_tpu_torch.datasets import synthetic
 
@@ -181,8 +197,23 @@ def test_ctc_criterion_refuses_unported_options(config):
     crit, n_out = utils.load_criterion("ctc", pre, {"impl": "scan"})
     assert crit.impl == "scan"
     if "chunk" in config:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            utils.load_criterion("ctc", pre, config)
+        cfg = dict(config, impl="assoc")
+        crit_c, n_c = utils.load_criterion("ctc", pre, cfg)
+        jcrit, n_j = jax_utils.load_criterion(
+            "ctc", jax_synthetic.Preprocessor(None, num_features=16), cfg)
+        assert (crit_c.impl, crit_c.chunk, n_c) == (jcrit.impl, jcrit.chunk, n_j)
+        rng = np.random.RandomState(1)
+        x = rng.randn(2, 300, n_c).astype(np.float32)
+        targets = [[1, 2, 3], [4, 4]]
+        il = np.array([300, 261], np.int32)
+        loss_j, g_j = jax.jit(jax.value_and_grad(
+            lambda v: jcrit.loss({}, v, jcrit.prepare(targets), jnp.asarray(il))))(
+            jnp.asarray(x))
+        x_t = torch.from_numpy(x).requires_grad_(True)
+        loss_t = crit_c.loss({}, x_t, crit_c.prepare(targets), torch.from_numpy(il))
+        (g_t,) = torch.autograd.grad(loss_t, x_t)
+        np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-4)
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-3, atol=1e-4)
         return
     crit_pt, n_pt = utils.load_criterion("ctc", pre, dict(config, impl="scan"))
     assert n_pt == n_out and crit_pt.impl == "scan"

@@ -38,6 +38,14 @@ MODULES = [
     "gtn_applications_tpu_torch.models.convert",
     "gtn_applications_tpu_torch.datasets",
     "gtn_applications_tpu_torch.datasets.synthetic_long",
+    "gtn_applications_tpu_torch.datasets.audio",
+    "gtn_applications_tpu_torch.datasets.audioset",
+    "gtn_applications_tpu_torch.datasets.librispeech",
+    "gtn_applications_tpu_torch.datasets.wsj",
+    "gtn_applications_tpu_torch.datasets.synthetic_audio",
+    "gtn_applications_tpu_torch.datasets.preprocess_librispeech",
+    "gtn_applications_tpu_torch.datasets.preprocess_wsj",
+    "gtn_applications_tpu_torch.criterions.ctc",
     "gtn_applications_tpu_torch.scripts.build_transitions",
     "gtn_applications_tpu_torch.scripts.compare_ctc_viterbi",
     "gtn_applications_tpu_torch.scripts.profile_ctc_grad",

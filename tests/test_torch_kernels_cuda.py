@@ -541,3 +541,93 @@ def test_dense_scan_routes_match_plain(cuda_device, case, route, rows, chain):
         [route], [rows], [chain]), routes
     chip_smoke.hold_dense_scan_kernels(torch, *inputs, case,
                                        all_live=case.startswith("all_live"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,l", [(5, 60, 11), (5, 60, 15), (6, 120, 44), (4, 300, 200)])
+def test_ctc_chunk_mode_calls_match_plain(cuda_device, b, t, l):
+    """One chunk-mode call of each CTC kernel at S = 23, 31 (the backward's
+    warp route), 89 and 401 (block routes), frames [25, 45) of lp: #1 from
+    a carried ``alpha_in`` (its ``carry_shift`` into ``shift_out``, the
+    rows and ``alpha_out``) and #2 without a score (beta_in less its
+    shift, the call's own score, each row over its own sum, ``beta_out``;
+    at S = 401 a sample with no state live on both sides, whose chunk
+    score is dead, emits 0) against the plain versions on the card: the
+    shift exactly, alpha and beta within atol 1e-3 + rtol 1e-5 on live
+    states, the posterior within 1e-5."""
+    import chip_smoke
+
+    lp, labels, start, accept, skip, il, g = chip_smoke.ctc_case(
+        torch, cuda_device, b, t, l, seed=l + 7, infeasible=True)
+    il = il.clone()
+    il[0], il[1] = t, 31  # sample 1 ends inside the call
+    t0, n = 25, 20
+    head = lattice_pallas.ctc_alpha_cuda(lp, labels, start, skip, il, 0, t0)
+    a_in = head[:, -1].contiguous()
+    a_out = torch.empty_like(a_in)
+    shift = torch.empty((b,), device=cuda_device)
+    alpha = lattice_pallas.ctc_alpha_cuda(lp, labels, start, skip, il, t0, n, a_in, a_out,
+                                          shift_out=shift)
+    beta_in = torch.randn(b, labels.shape[1], device=cuda_device) * 3 - 500
+    beta_in[:, ::3] = lattice_pallas.NEG
+    # sample 0's beta only in the last state: at S = 401 no state of the
+    # call holds both alpha and beta
+    beta_in[0, :-1] = lattice_pallas.NEG
+    beta_out = torch.empty_like(beta_in)
+    grad = lattice_pallas.ctc_grad_cuda(lp, labels, alpha, beta_in, skip, il, None, g, t0,
+                                        beta_out)
+    em = gathers.gather_channels_plain(lp, labels, t0, n)
+    alpha_p = lattice_pallas.ctc_alpha_plain(em, None, skip, il - t0, a_in)
+    grad_p, beta_p = lattice_pallas.ctc_grad_plain(em, alpha, beta_in, skip, il - t0, None,
+                                                   g, True)
+    assert torch.equal(shift, lattice_pallas.carry_shift(a_in))
+    for got, want in ((alpha, alpha_p), (a_out, alpha_p[:, -1]), (beta_out, beta_p)):
+        live = want > -1e29
+        assert torch.equal(live, got > -1e29)
+        assert ((got - want).abs()[live] <= 1e-3 + 1e-5 * want.abs()[live]).all()
+    assert grad_p[1:].abs().max() > 0
+    if labels.shape[1] > 100:
+        assert not grad[0].any() and not grad_p[0].any()
+    assert float((grad - grad_p).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,l,chunk", [(6, 300, 11, 16), (6, 300, 15, 37), (6, 260, 44, 64),
+                                         (6, 400, 200, 128), (6, 40, 11, 100)])
+def test_ctc_chunk_route_matches_whole_and_plain(cuda_device, b, t, l, chunk):
+    """The CTC pair's chunk route (``ctc_score_chunked``: #1 and #2 in their
+    chunk mode, a chunk a call from a carried alpha and beta) at S = 23, 31
+    (the backward's warp route), 89 and 401 (the block routes and rings),
+    with a one-frame sample, one ending on the first call's last frame, one
+    on a later call's, an empty target and one ending in the first chunk,
+    and a chunk past T: score and d lp within the smoke's bounds of the
+    plain chunk route on the card, and against float64 no farther than
+    the whole-T route or within 1e-5 (``chip_smoke``, phase 4b); the
+    kernels' chunk-mode refusals."""
+    import chip_smoke
+
+    logits, targets, tl, il = chip_smoke.ctc_long_case(torch, cuda_device, b, t, l, chunk,
+                                                       seed=l)
+    il.clamp_(max=t)
+    lp, labels, start, accept, skip = chip_smoke.ctc_kernel_inputs(torch, logits, targets, tl)
+    g = -1.0 / (b * tl.to(torch.float32).clamp(min=1))
+    args = (labels, start, accept, skip, il)
+    s_c, d_c = chip_smoke.ctc_fwd_bwd(
+        torch, lambda x: lattice_pallas.ctc_score_chunked(x, *args, chunk=chunk), lp, g)
+    with chip_smoke.plain_route():
+        s_p, d_p = chip_smoke.ctc_fwd_bwd(
+            torch, lambda x: lattice_pallas.ctc_score_chunked(x, *args, chunk=chunk), lp, g)
+    rel = lambda s, r: float(((s.double() - r.double()).abs()  # noqa: E731
+                              / r.double().abs().clamp(min=1e-30)).max())
+    assert rel(s_c, s_p) <= 1e-5 and chip_smoke.entrywise_err(torch, d_c, d_p) <= 1e-5
+    s_w, d_w = chip_smoke.ctc_fwd_bwd(
+        torch, lambda x: lattice_pallas.ctc_score_kernel(x, *args), lp, g)
+    s_x, d_x = chip_smoke.ctc_exact(torch, lp, *args[:4], il, g)
+    assert rel(s_c, s_x) <= 1e-5
+    whole = chip_smoke.entrywise_err(torch, d_w.double(), d_x)
+    assert chip_smoke.entrywise_err(torch, d_c.double(), d_x) <= max(whole, 1e-5)
+    with pytest.raises(ValueError):  # frames past lp's
+        lattice_pallas.ctc_alpha_cuda(lp, labels, start, skip, il, t0=t - 2, frames=3)
+    with pytest.raises(ValueError):  # a carried alpha of the wrong shape
+        lattice_pallas.ctc_alpha_cuda(lp, labels, start, skip, il, t0=1, frames=2,
+                                      alpha_in=start[:, 1:].contiguous())
