@@ -167,18 +167,29 @@ prints no result):
    within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
    launch) at B=32, T=300 on the card against the CPU route: labels
    bitwise, scores within 1e-6;
-12. twelve main paths, CTC, ASG, STC, the Transducer and the Transducer
+12. fourteen main paths, CTC, ASG, STC, the Transducer and the Transducer
    with a loaded backoff LM, the grapheme trigram and the 4-gram, CTC on
    the RNN and TDS encoders and on TDS2d computing in bf16, long-sequence
    CTC (``configs/synthetic/long_ctx_assoc.json`` as shipped: "assoc",
    chunk 256, 4,096-9,728 frames, whose emission gather runs the gather
-   pair; and under "auto", which routes it to the chunked CTC kernels) and
+   pair; and under "auto", which routes it to the chunked CTC kernels),
    the speech recipe's TDS (``configs/librispeech/tds.json``'s model and
-   criterion on synthetic tones through the mel spectrogram):
+   criterion on synthetic tones through the mel spectrogram), and CTC
+   over wordpieces: ``configs/iamdb/word_pieces.json`` (TDS2d, batch 32,
+   100 pieces) on the synthetic lines and ``convtrans.json`` as shipped
+   (``TDS2dTransducer``: TDS2d, the WFST convolution ``ConvTransduce1D``
+   over 200 pieces, kernel 7, stride 4, TDS2d; batch 8, 1,000 pieces) on
+   the long lines (its convolution takes the direct route there: the
+   inner pieces have at most 4 graphemes, S = 9, so the widest batch's
+   emissions are 61.3 M entries, under the V-chunk threshold of 64 M);
+   their token and lexicon files, which the repository does
+   not hold, trained first by the port's ``scripts/wordpiece.py`` on
+   6,000 synthetic lines and written by ``make_wordpieces.save_pieces``:
    ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
    32: 4 steps plus validation) with the model and criterion sections of
    configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json,
-   pruned_ngram_ctc.json, rnn.json, tds.json and tds2d.json unchanged
+   pruned_ngram_ctc.json, rnn.json, tds.json, tds2d.json, word_pieces.json
+   and convtrans.json unchanged
    (the backoff paths on the long-line corpus, their transitions the
    grapheme trigram of the recipe's settings and the unpruned 4-gram,
    built into build/), but for ``CONFIG_EDITS`` (rnn.json, which has no
@@ -197,7 +208,9 @@ prints no result):
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
    gradient) on the card against the CPU on the same logits (CTC 1e-4 and
-   1e-6, the others 1e-4 and 1e-5; the backoff paths against the CPU in
+   1e-6, or the logit gradient within the CPU's own float32 error against
+   its plain recursion in float64 where that is larger; the others 1e-4
+   and 1e-5; the backoff paths against the CPU in
    float64, loss 1e-4, gradients 1e-3 of their largest entry, the 4-gram
    on the batch's first 8 samples and 96 frames); the path's kernels
    against their plain versions on the inputs the train step and the
@@ -207,7 +220,14 @@ prints no result):
    batch through its trained model in bf16 and in fp32 at the same
    weights: logits fp32, their max |d| within 0.3 (JAX's own gap at this
    width, ``BF16_LOGITS_TOL``) and the CTC loss's relative gap within 1e-2,
-   printed with the card's name and power limit;
+   printed with the card's name and power limit; the wordpiece paths as
+   CTC's (convtrans's logits through the whole model), and convtrans's
+   ``ConvTransduce1D`` on its first encoder's output on the card against
+   the CPU, by the route the batch takes and by the V-chunked one: scores
+   within 1e-5 + 1e-5 |s|, the input's gradient for a seeded cotangent
+   within 1e-5 + 1e-4 |g| (each 1e-5, or the CPU's own float32 error
+   against the layer in float64 where that is larger), and the two routes
+   on the card within 1e-5 + 1e-5 |s| and 1e-5 + 1e-4 |g| of each other;
 14. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9 and 11
    headline shapes for each kernel, its plain version and the one
    PyTorch call that computes it where there is one (F.ctc_loss for the
@@ -256,7 +276,10 @@ prints no result):
    at the forward's and the chain's block sizes); and the device
    time and kernel launches (torch.profiler) of the Transducer's
    ``dense_ngram_norm`` forward and backward at its main path's batch
-   shape.
+   shape; and ``ConvTransduce1D``'s forward and forward+backward on the
+   convtrans train step's batch (CUDA events, median of 10) by the route
+   that batch takes and by the other, with the taken route's share of
+   the step, on a line with the card's name and power limit.
 
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -2585,6 +2608,10 @@ PATHS = {
     "ctc_long": ("synthetic/long_ctx_assoc.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     # the speech recipe's TDS (4/8/16 channels x 5 blocks over 80 mel bins)
     "ctc_speech": ("librispeech/tds.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    # CTC over wordpieces: TDS2d over 100 pieces, and TDS2dTransducer (TDS2d,
+    # the WFST convolution over 200 pieces, TDS2d) over 1,000
+    "ctc_wordpieces": ("word_pieces.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    "convtrans": ("convtrans.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
 }
 # the paths whose lines run past 4,096 frames, where "auto" takes the chunk
 # route: their CTC launches are counted exactly (chunked_ctc_expected_launches)
@@ -2594,7 +2621,17 @@ CHUNKED_PATHS = ("ctc_long",)
 # not in the repository (a hermetic config's own data stays as shipped)
 DATASETS = {"transducer_backoff": "synthetic_long",
             "transducer_backoff_4gram": "synthetic_long",
-            "ctc_speech": "synthetic_audio"}
+            "ctc_speech": "synthetic_audio",
+            "convtrans": "synthetic_long"}
+# the wordpiece paths' inventories, whose token and lexicon files the
+# configs name but the repository does not hold: path -> (pieces of the
+# CTC inventory, pieces of the inner one of the model's WFST convolution).
+# ``wordpiece_inventories`` trains them with the port's unigram trainer on
+# WP_SENTENCES lines of the synthetic corpus (make_wordpieces' --text_file
+# use; 6,000 lines hold 1,000 pieces, 2,000 only 999) and writes them with
+# ``make_wordpieces.save_pieces``
+WORDPIECES = {"ctc_wordpieces": (100, None), "convtrans": (1000, 200)}
+WP_SENTENCES, WP_SEED = 6000, 7
 # what a path adds to its config: rnn.json has no optim.step_size, which the
 # trainer reads (as JAX's does), so it takes the other IAM configs' 100;
 # ctc_bf16 is tds2d.json with bf16 encoder compute
@@ -2621,11 +2658,55 @@ def split_sizes(config):
     return {k: min(v, cap) if cap else v for k, v in sizes.items()}
 
 
+def wordpiece_file(kind, n):
+    """The ``word_pieces_{kind}_{n}.txt`` file of ``wordpiece_inventories``."""
+    return WORK / "wordpieces" / f"word_pieces_{kind}_{n}.txt"
+
+
+def wordpiece_inventories():
+    """The token and lexicon files of every inventory ``WORDPIECES`` names,
+    trained by ``scripts.wordpiece.train_unigram`` on WP_SENTENCES lines of
+    the synthetic corpus and written by ``make_wordpieces.save_pieces``,
+    their vocabulary the words of the synthetic and synthetic_long
+    splits.  Each inner inventory's pieces must fit the convolution's
+    kernel (``ConvTransduce1D`` raises otherwise).  Returns the seconds."""
+    from gtn_applications_tpu_torch import datasets
+    from gtn_applications_tpu_torch.scripts import make_wordpieces, wordpiece
+
+    t0 = time.perf_counter()
+    (WORK / "wordpieces").mkdir(parents=True, exist_ok=True)
+    pre = datasets.synthetic.Preprocessor(None, num_features=8)
+    vocab = sorted({word for module in (datasets.synthetic, datasets.synthetic_long)
+                    for split in SPLITS
+                    for text in module.Dataset(None, pre, split=split).texts
+                    for word in text.split("▁")})
+    text = datasets.synthetic._make_corpus(WP_SENTENCES, WP_SEED)
+    sizes = sorted({n for path_sizes in WORDPIECES.values() for n in path_sizes if n})
+    for n in sizes:
+        model = wordpiece.train_unigram(text, n)
+        if len(model.log_probs) != n:
+            raise AssertionError(f"the corpus holds {len(model.log_probs)} pieces, not {n}")
+        make_wordpieces.save_pieces(model, n, str(WORK / "wordpieces" / "word_pieces"), vocab)
+    seconds = time.perf_counter() - t0
+    log(f"wordpiece inventories {sizes} over {WP_SENTENCES} lines, lexicon of "
+        f"{len(vocab)} words: {seconds:.1f} s")
+    return seconds
+
+
+def path_preprocessor(data, config):
+    """The path's preprocessor as ``train.load_experiment`` builds it: with
+    the config's wordpiece tokens and lexicon where it names them."""
+    return data.Preprocessor(None, num_features=config["data"]["num_features"],
+                             tokens_path=config["data"].get("tokens"),
+                             lexicon_path=config["data"].get("lexicon"))
+
+
 def main_path_config(path):
     """The config's model and criterion sections unchanged (the backoff
-    paths' transitions: the grapheme LM of ``LM_PRUNE``) but for
-    ``CONFIG_EDITS``; synthetic data (a hermetic config's own, as shipped),
-    2 epochs."""
+    paths' transitions: the grapheme LM of ``LM_PRUNE``; the wordpiece
+    paths' token and lexicon files: those of ``wordpiece_inventories``)
+    but for ``CONFIG_EDITS``; synthetic data (a hermetic config's own, as
+    shipped), 2 epochs."""
     name = PATHS[path][0]
     with open(ROOT / "configs" / (name if "/" in name else f"iamdb/{name}")) as fid:
         base = json.load(fid)
@@ -2637,11 +2718,18 @@ def main_path_config(path):
             "num_features": base["data"]["num_features"] if path in DATASETS else 64}
     if base["data"]["dataset"].startswith("synthetic"):
         data = {k: v for k, v in base["data"].items() if k != "data_path"}
+    model = dict(base["model"], **edits.get("model", {}))
+    if path in WORDPIECES:
+        outer, inner = WORDPIECES[path]
+        data.update(tokens=str(wordpiece_file("tokens", outer)),
+                    lexicon=str(wordpiece_file("lex", outer)))
+        if inner:
+            model["tokens"] = str(wordpiece_file("tokens", inner))
     config = {
         "seed": 0,
         "data": data,
         "model_type": base["model_type"],
-        "model": dict(base["model"], **edits.get("model", {})),
+        "model": model,
         "criterion_type": base.get("criterion_type", "ctc"),
         "optim": dict(base["optim"], epochs=2, **edits.get("optim", {})),
     }
@@ -2724,7 +2812,7 @@ def chunked_ctc_expected_launches(torch, model, config):
     from gtn_applications_tpu_torch.ops import lattice_pallas as lp_mod
 
     data = getattr(datasets, config["data"]["dataset"])
-    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    pre = path_preprocessor(data, config)
     chunk = config["criterion"].get("chunk") or lattice._CHUNK
     dev = next(model.parameters()).device
 
@@ -2761,7 +2849,7 @@ def backoff_expected_launches(config, steps, evals):
     from gtn_applications_tpu_torch.ops import viterbi_scan_pallas as vsp
 
     data = getattr(datasets, config["data"]["dataset"])
-    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    pre = path_preprocessor(data, config)
     crit, _ = utils.load_criterion(config["criterion_type"], pre, config["criterion"])
     depth = lambda t: t.eps_depth if t.eps_src.shape[-1] else 0  # noqa: E731
     norm = depth(crit._norm_table)
@@ -2791,7 +2879,7 @@ def first_batch(torch, config, path, split="train", n=None):
     from gtn_applications_tpu_torch import datasets, utils
 
     data = getattr(datasets, config["data"]["dataset"])
-    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    pre = path_preprocessor(data, config)
     dataset = data.Dataset(None, pre, split=split, augment=split == "train")
     loader = utils.data_loader(dataset, config, seed=config["seed"])
     inputs, _, targets = next(iter(loader))
@@ -2802,9 +2890,16 @@ def first_batch(torch, config, path, split="train", n=None):
     return inputs[:n], crit, crit.prepare(targets[:n])
 
 
-def card_vs_cpu(torch, dev, crit, logits, prepared, tol_loss, tol_grad, path):
+def card_vs_cpu(torch, dev, crit, logits, prepared, tol_loss, tol_grad, path, exact=None):
     """The criterion's loss and gradients (logits, and its parameters) on
-    the card against the CPU on the same logits."""
+    the card against the CPU on the same logits.  With ``exact`` (a
+    function of the logits giving the loss in float64), the logit gradient
+    is held within tol_grad or, where that is larger, within the CPU's own
+    float32 error against float64: at a CTC path's T of 512 frames and
+    1,001 classes, float32 itself is ~1e-6 off (the CPU's route 4.9e-7 to
+    8.4e-6 over eight trained models, ``repeat_convtrans_checks``, the
+    card's within 1.3x of it), so two float32 routes agree only to about
+    that."""
     from gtn_applications_tpu_torch.train import to_device
 
     def loss_and_grads(device):
@@ -2820,33 +2915,61 @@ def card_vs_cpu(torch, dev, crit, logits, prepared, tol_loss, tol_grad, path):
     d_loss = abs(loss_g - loss_c)
     d_grads = [float((a - b).abs().max()) for a, b in zip(grads_g, grads_c)]
     names = ["logit"] + list(crit.params)
+    tols = [tol_grad] * len(names)
+    more, note = {}, ""
+    if exact is not None:
+        x = logits.detach().cpu().double().requires_grad_(True)
+        loss_x = exact(x)
+        (grad_x,) = torch.autograd.grad(loss_x, [x])
+        loss_x = float(loss_x.detach())
+        err_c = float((grads_c[0].double() - grad_x).abs().max())
+        err_g = float((grads_g[0].double() - grad_x).abs().max())
+        tols[0] = max(tol_grad, err_c)
+        note = (f" (bound {tols[0]:.3g}: against float64, the CPU's logit grad max|d| "
+                f"{err_c:.3g}, the card's {err_g:.3g}; loss the CPU's "
+                f"{abs(loss_c - loss_x):.3g}, the card's {abs(loss_g - loss_x):.3g})")
+        more = {f"{path}_cpu_vs_cpu64_logit_grad_max_abs_diff": err_c,
+                f"{path}_card_vs_cpu64_logit_grad_max_abs_diff": err_g}
     log(f"main batch {path} {list(logits.shape)}: loss {loss_g:.6f} card vs cpu "
         f"|d| {d_loss:.3g}, "
-        + ", ".join(f"{n} grad max|d| {d:.3g}" for n, d in zip(names, d_grads)))
-    if not (d_loss <= tol_loss and all(d <= tol_grad for d in d_grads)):
+        + ", ".join(f"{n} grad max|d| {d:.3g}" for n, d in zip(names, d_grads)) + note)
+    if not (d_loss <= tol_loss and all(d <= t for d, t in zip(d_grads, tols))):
         raise AssertionError(f"{path}: the card and the CPU disagree on the main batch")
-    return {f"{path}_card_vs_cpu_loss_abs_diff": d_loss,
+    return {f"{path}_card_vs_cpu_loss_abs_diff": d_loss, **more,
             **{f"{path}_card_vs_cpu_{n}_grad_max_abs_diff": d
                for n, d in zip(names, d_grads)}}
 
 
-def phase_main_batch(torch, dev, model, config):
-    """The CTC trainer's first batch through the trained model: the encoder
+def ctc_loss_exact(torch, crit, prepared, logits):
+    """The CTC criterion's loss on CPU logits in float64: the plain
+    recursion (impl "scan"), which keeps the dtype (the kernel Function
+    computes in float32)."""
+    from gtn_applications_tpu_torch.ops import lattice
+
+    targets, lengths = prepared
+    return lattice.ctc_loss(torch.log_softmax(logits, 2), targets.cpu(), lengths.cpu(),
+                            crit.blank, "mean", None, "scan")
+
+
+def phase_main_batch(torch, dev, model, config, path="ctc"):
+    """A CTC trainer's first batch through the trained model: the model
     on the card against the CPU, the CTC loss and logit gradient on the
     card against the CPU on the same logits, and the four kernels against
     their plain versions on the inputs the train step gives them (no input
-    lengths, as the config sets none: every frame is live)."""
+    lengths, as the config sets none: every frame is live).  The results'
+    keys name the path, but for ``ctc``."""
     import copy
 
-    inputs, crit, prepared = first_batch(torch, config, "ctc")
+    inputs, crit, prepared = first_batch(torch, config, path)
     cpu_model = copy.deepcopy(model).cpu()
     with torch.no_grad():
         logits = model(torch.from_numpy(inputs).to(dev))
         d_out = float((logits.cpu() - cpu_model(torch.from_numpy(inputs))).abs().max())
-    log(f"main batch ctc: card vs cpu logits max|d| {d_out:.3g}")
+    log(f"main batch {path}: card vs cpu logits max|d| {d_out:.3g}")
     if not d_out <= 1e-3:
-        raise AssertionError("the card and the CPU disagree on the logits")
-    diffs = card_vs_cpu(torch, dev, crit, logits, prepared, 1e-4, 1e-6, "ctc")
+        raise AssertionError(f"{path}: the card and the CPU disagree on the logits")
+    diffs = card_vs_cpu(torch, dev, crit, logits, prepared, 1e-4, 1e-6, path,
+                        exact=functools.partial(ctc_loss_exact, torch, crit, prepared))
 
     tgts, tl = (p.to(dev) for p in prepared)
     lp, labels, start, accept, skip = ctc_kernel_inputs(torch, logits, tgts, tl, crit.blank)
@@ -2856,8 +2979,147 @@ def phase_main_batch(torch, dev, model, config):
     what = (bsz, frames, tgts.shape[1], logits.shape[2])
     errs, grad = hold_ctc_kernels(torch, lp, labels, start, accept, skip, il, g, what)
     merge_errs(errs, hold_gather_kernels(torch, lp, labels, grad, what))
-    return errs, dict(diffs, card_vs_cpu_logits_max_abs_diff=d_out,
-                      main_batch_shape=list(what))
+    prefix = "" if path == "ctc" else f"{path}_"
+    return errs, dict(diffs, **{f"{prefix}card_vs_cpu_logits_max_abs_diff": d_out,
+                                f"{prefix}main_batch_shape": list(what)})
+
+
+# ConvTransduce1D on the card against the CPU on the same input: scores
+# within CONV_ATOL + CONV_RTOL |s|, the input's gradient entry by entry
+# within CONV_GRAD_ATOL + CONV_GRAD_RTOL |g| (the CPU tests' bound against
+# JAX): a K-step recursion of logsumexps, whose exp and log differ by an
+# ulp or two between the card and the CPU
+CONV_ATOL, CONV_RTOL = 1e-5, 1e-5
+CONV_GRAD_ATOL, CONV_GRAD_RTOL = 1e-5, 1e-4
+
+
+def conv_route(conv, x):
+    """The route ``conv_transduce_scores`` takes for ``conv`` on input x
+    [B, T, C]: "chunked" past its threshold with more than 128 entries."""
+    from gtn_applications_tpu_torch.ops import convkernel
+
+    W = (x.shape[1] - 1) // conv.stride + 1
+    return convkernel.route(x.shape[0], W, conv.kernel_size, *conv.tables.label.shape)
+
+
+@contextlib.contextmanager
+def conv_route_forced(route):
+    """``conv_transduce_scores`` forced to ``route``: its threshold set to
+    infinity ("direct") or 0 ("chunked")."""
+    from gtn_applications_tpu_torch.ops import convkernel
+
+    threshold = convkernel._CHUNK_THRESHOLD
+    convkernel._CHUNK_THRESHOLD = float("inf") if route == "direct" else 0
+    try:
+        yield
+    finally:
+        convkernel._CHUNK_THRESHOLD = threshold
+
+
+def phase_main_batch_convtrans(torch, dev, model, config):
+    """The convtrans path's first batch: phase_main_batch's checks (the
+    whole model's logits card against CPU, the CTC loss and gradient, the
+    CTC kernels against their plain versions), then the model's
+    ConvTransduce1D on the card against the CPU on the same input (its
+    first encoder's output on the card), ``hold_conv_card_vs_cpu``."""
+    errs, diffs = phase_main_batch(torch, dev, model, config, "convtrans")
+    inputs, _, _ = first_batch(torch, config, "convtrans")
+    with torch.no_grad():
+        x = model.tds1(torch.from_numpy(inputs).to(dev))
+    return errs, dict(diffs, **hold_conv_card_vs_cpu(torch, dev, model.conv, x))
+
+
+def hold_conv_card_vs_cpu(torch, dev, conv, x):
+    """ConvTransduce1D ``conv`` on the card against the CPU on the same
+    input x (on the card), by the route x takes and by the other: its
+    scores and the gradient of its input for a seeded cotangent, each
+    within the CONV_* bounds or, where that is larger, within the CPU's
+    own float32 error against the layer in float64 on the CPU (the
+    gradient sums ~400 terms an entry, so a small entry's absolute error
+    is float32's summation floor: the CPU's 1.2e-6 to 5.1e-6 past 1e-4 |g|
+    over eight trained models, ``repeat_convtrans_checks``); the two
+    routes on the card agree to the CONV_* bounds."""
+    import copy
+
+    cpu_conv = copy.deepcopy(conv).cpu()
+    exact_conv = copy.deepcopy(conv).cpu().double()
+
+    def scores_and_grad(layer, device, dtype=torch.float32):
+        xi = x.detach().to(device, dtype).requires_grad_(True)
+        out = layer(xi)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+        out.backward(cot.to(device, dtype))
+        return out.detach().cpu().double(), xi.grad.cpu().double()
+
+    def excess(got, ref, rtol):
+        return float(((got - ref).abs() - rtol * ref.abs()).max())
+
+    taken = conv_route(conv, x)
+    out_x, grad_x = scores_and_grad(exact_conv, torch.device("cpu"), torch.float64)
+    card, diffs = {}, {}
+    for route in (taken, "chunked" if taken == "direct" else "direct"):
+        with conv_route_forced(route):
+            card[route] = scores_and_grad(conv, dev)
+            out_c, grad_c = scores_and_grad(cpu_conv, torch.device("cpu"))
+        out_g, grad_g = card[route]
+        d_out, d_grad = excess(out_g, out_c, CONV_RTOL), excess(grad_g, grad_c, CONV_GRAD_RTOL)
+        f_out, f_grad = excess(out_c, out_x, CONV_RTOL), excess(grad_c, grad_x, CONV_GRAD_RTOL)
+        b_out, b_grad = max(CONV_ATOL, f_out), max(CONV_GRAD_ATOL, f_grad)
+        log(f"main batch convtrans: ConvTransduce1D {list(x.shape)} -> {list(out_g.shape)}, "
+            f"route {route}{' (the batch takes it)' if route == taken else ''}, card vs "
+            f"cpu: scores |d| - {CONV_RTOL:g}|s| max {d_out:.3g} (bound {b_out:.3g}), "
+            f"input grad |d| - {CONV_GRAD_RTOL:g}|g| max {d_grad:.3g} (bound {b_grad:.3g}); "
+            f"against float64 the CPU's {f_out:.3g} and {f_grad:.3g}, the card's "
+            f"{excess(out_g, out_x, CONV_RTOL):.3g} and "
+            f"{excess(grad_g, grad_x, CONV_GRAD_RTOL):.3g}")
+        if not (d_out <= b_out and d_grad <= b_grad
+                and torch.isfinite(out_g).all() and torch.isfinite(grad_g).all()):
+            raise AssertionError(f"convtrans: the card and the CPU disagree on "
+                                 f"ConvTransduce1D's {route} route")
+        diffs[f"convtrans_conv_{route}_card_vs_cpu_excess"] = d_out
+        diffs[f"convtrans_conv_{route}_grad_card_vs_cpu_excess"] = d_grad
+        diffs[f"convtrans_conv_{route}_cpu_vs_cpu64_excess"] = [f_out, f_grad]
+    d_out = excess(card["chunked"][0], card["direct"][0], CONV_RTOL)
+    d_grad = excess(card["chunked"][1], card["direct"][1], CONV_GRAD_RTOL)
+    log(f"main batch convtrans: ConvTransduce1D on the card, chunked vs direct: scores "
+        f"{d_out:.3g}, input grad {d_grad:.3g} (bounds {CONV_ATOL:g}, {CONV_GRAD_ATOL:g})")
+    if not (d_out <= CONV_ATOL and d_grad <= CONV_GRAD_ATOL):
+        raise AssertionError("convtrans: ConvTransduce1D's routes disagree on the card")
+    return dict(diffs, convtrans_conv_routes_excess=[d_out, d_grad],
+                convtrans_conv_shape=list(card[taken][0].shape),
+                convtrans_conv_route=taken)
+
+
+def convtrans_times(torch, dev, model, config, step_ms):
+    """ConvTransduce1D's forward and forward+backward (CUDA events, median
+    of 10) on its first encoder's output for ``time_train_step``'s batch,
+    by the route that batch takes and by the other one, and the share of
+    the path's train step (``step_ms``) the taken route's fwd+bwd is."""
+    from gtn_applications_tpu_torch import datasets, utils
+
+    data = getattr(datasets, config["data"]["dataset"])
+    ds = data.Dataset(None, path_preprocessor(data, config), split="train")
+    inputs, _, _ = utils.padding_collate(
+        [ds[i] for i in range(config["optim"]["batch_size"])])
+    with torch.no_grad():
+        x = model.tds1(torch.from_numpy(inputs).to(dev))
+        cot = torch.randn_like(model.conv(x))
+    route = conv_route(model.conv, x)
+
+    def fwd():
+        return model.conv(x.detach().requires_grad_(True))
+
+    def fwd_bwd():
+        fwd().backward(cot)
+
+    out = {}
+    for name in (route, "chunked" if route == "direct" else "direct"):
+        with conv_route_forced(name):
+            out[f"{name}_fwd_ms"] = gpu_median_ms(torch, fwd, runs=10, warmup=2)
+            out[f"{name}_fwd_bwd_ms"] = gpu_median_ms(torch, fwd_bwd, runs=10, warmup=2)
+    out.update(route=route, shape=list(x.shape), train_step_ms=step_ms,
+               share=out[f"{route}_fwd_bwd_ms"] / step_ms)
+    return out
 
 
 def phase_main_batch_asg(torch, dev, model, config):
@@ -3094,7 +3356,7 @@ def time_train_step(torch, dev, model, config, runs=20, warmup=5):
     from gtn_applications_tpu_torch import train as train_mod
 
     data = getattr(datasets, config["data"]["dataset"])
-    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    pre = path_preprocessor(data, config)
     ds = data.Dataset(None, pre, split="train")
     optim = config["optim"]
     inputs, _, tgts = utils.padding_collate(
@@ -4119,6 +4381,7 @@ def run(device="cuda"):
     merge_errs(errs, phase_sparse(torch, dev))
     backoff_factored = phase_backoff_factored(torch, dev, card)
     merge_errs(errs, phase_segmax(torch, dev))
+    wordpiece_s = wordpiece_inventories()
     paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
              for path in PATHS}
     diffs = {}
@@ -4126,7 +4389,10 @@ def run(device="cuda"):
                         ("stc", phase_main_batch_stc),
                         ("transducer", phase_main_batch_transducer),
                         ("transducer_backoff", phase_main_batch_backoff),
-                        ("transducer_backoff_4gram", phase_main_batch_backoff_4gram)):
+                        ("transducer_backoff_4gram", phase_main_batch_backoff_4gram),
+                        ("ctc_wordpieces", functools.partial(phase_main_batch,
+                                                             path="ctc_wordpieces")),
+                        ("convtrans", phase_main_batch_convtrans)):
         main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
         merge_errs(errs, main_errs)
         diffs.update(more)
@@ -4146,13 +4412,22 @@ def run(device="cuda"):
     times.update(more_times)
     bounds.update(more_bounds)
     chain.update(more_chain)
+    conv = convtrans_times(torch, dev, paths["convtrans"]["model"],
+                           main_path_config("convtrans"), times["train_step_convtrans"])
+    times["convtrans_conv"] = conv
+    log(f"[{card}] ConvTransduce1D of the convtrans step's batch ({conv['route']}, input "
+        f"{conv['shape']}): fwd {conv[conv['route'] + '_fwd_ms']:.3f} ms, fwd+bwd "
+        f"{conv[conv['route'] + '_fwd_bwd_ms']:.3f} ms (CUDA events, median of 10), "
+        f"{100 * conv['share']:.1f}% of the train step's {conv['train_step_ms']:.2f} ms; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in conv.items() if k.endswith("_ms")
+                    and not k.startswith(conv["route"]) and k != "train_step_ms"))
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)
 
     launches = {name: sum(p["launches"][name] for p in paths.values())
                 for name, *_ in KERNELS}
-    timing = dict(times, card=card, build_s=build_s, **diffs,
+    timing = dict(times, card=card, build_s=build_s, wordpiece_s=wordpiece_s, **diffs,
                   backoff_factored=backoff_factored,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],
                   f_ctc_grad_max_abs_diff=errs["f_ctc_grad_max_abs_diff"],

@@ -10,15 +10,19 @@ interleaving.  The transition gradient comes from autograd.
 Decoding is the tropical scan of ``ops.lattice.asg_viterbi``, whose
 backpointers the dense backtrace kernel walks on the card.  Unlike the JAX
 class, there is no silent retry with another backtrace: on a CUDA tensor
-the kernel runs or the call raises.  The host cleanup is the Python
-``_cleanup``; the native ``asg_collapse`` binding and
-``create_transitions_graph`` wait for ROADMAP queue A item 7.
+the kernel runs or the call raises.  The host cleanup takes the native
+``asg_collapse`` where ``wfst.native.enabled()``, as JAX's does, else the
+Python ``_cleanup`` (also its test oracle).  ``create_transitions_graph``
+builds the transition matrix's WFST, in the arc order of the matrix's
+row-major layout.
 """
 
 import numpy as np
 import torch
 
 from ..ops import lattice
+from ..wfst import native
+from ..wfst.graph import Graph
 from .base import Criterion
 from .common import pad_targets
 
@@ -72,6 +76,25 @@ def unpack_replabels(tokens, num_replabels):
     return decoded
 
 
+def create_transitions_graph(transitions):
+    """Dense ASG transition matrix -> WFST: node 0 is the start, node i+1
+    accepts label i; arc order (start arcs, then the (i, j) double loop)
+    follows the matrix's row-major layout, so that arc weights and
+    transition parameters index alike."""
+    transitions = np.asarray(transitions)
+    num_classes = transitions.shape[1]
+    assert transitions.shape == (num_classes + 1, num_classes)
+    g = Graph()
+    g.add_node(True)
+    for i in range(1, num_classes + 1):
+        g.add_node(False, True)
+        g.add_arc(0, i, i - 1, i - 1, float(transitions[0, i - 1]))
+    for i in range(num_classes):
+        for j in range(num_classes):
+            g.add_arc(j + 1, i + 1, i, i, float(transitions[i + 1, j]))
+    return g
+
+
 class ASG(Criterion):
     """ASG loss with learned transitions."""
 
@@ -116,7 +139,13 @@ class ASG(Criterion):
 
     def viterbi_finalize(self, handle):
         paths, input_lengths = handle
-        return self._cleanup(paths.cpu().numpy(), input_lengths)
+        paths = paths.cpu().numpy()
+        if native.enabled():
+            if input_lengths is not None:
+                input_lengths = torch.as_tensor(input_lengths).cpu().numpy()
+            return native.asg_collapse(
+                paths, input_lengths, self.garbage_idx, self.num_replabels)
+        return self._cleanup(paths, input_lengths)
 
     def viterbi(self, outputs, params=None, input_lengths=None):
         """Device tropical scan + host cleanup."""

@@ -50,18 +50,25 @@ argmax.  The alignment labels transduce to tokens by a run collapse, with
 ``blank="forced"`` through the native ``forced_collapse`` (infeasible
 alignments decode to nothing).  The transitions' weights are learnable
 (zero-initialised), one per arc of the transition graph, whose own weights
-are set to 0.  The ``ConvTransduce1D`` layer is A.9.
+are set to 0.
+
+The WFST convolution layer ``ConvTransduce1D`` (and ``make_kernel_graph``,
+the host graph of one of its kernels) is here too, as in JAX: every
+sliding window of its input scored against every lexicon entry's kernel
+lattice by ``ops.convkernel``.
 """
 
 import dataclasses
+import math
 import os
 from multiprocessing.pool import ThreadPool
 from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..ops import factored, sparse
+from ..ops import convkernel, factored, sparse
 from ..ops.semiring import NEG
 from ..wfst import compile as wcompile
 from ..wfst import native
@@ -715,3 +722,121 @@ class Transducer(Criterion):
         if input_lengths is not None:
             keep &= np.arange(Tn)[None, :] < np.asarray(input_lengths)[:, None]
         return [labels[b, keep[b]].astype(np.int32) for b in range(Bn)]
+
+
+# ---------------------------------------------------------------------------
+# WFST convolution layer
+# ---------------------------------------------------------------------------
+
+
+def make_kernel_graph(x, blank_idx, blank_optional, spike=False):
+    """Host Graph of a conv-transduce kernel; for tests and debugging, the
+    layer itself runs on compiled banded tables
+    (``ops.convkernel.compile_kernels``).
+
+    Per token: a 'token' state (self-loop unless spike) and a 'post-blank'
+    state; accept at the last pair (the token state only when blank is
+    optional).  With optional blank, distinct adjacent tokens connect
+    directly, skipping the blank."""
+    g = Graph()
+    entry = g.add_node(True, len(x) == 0)
+    g.add_arc(entry, entry, blank_idx)
+    prev_tok_state = None
+    prev_label = None
+    for pos, label in enumerate(x):
+        last = pos + 1 == len(x)
+        tok_state = g.add_node(False, blank_optional and last)
+        gap_state = g.add_node(False, last)
+        g.add_arc(entry, tok_state, label)
+        if not spike:
+            g.add_arc(tok_state, tok_state, label)
+        g.add_arc(tok_state, gap_state, blank_idx)
+        g.add_arc(gap_state, gap_state, blank_idx)
+        if blank_optional and prev_tok_state is not None and prev_label != label:
+            g.add_arc(prev_tok_state, tok_state, label)
+        prev_tok_state, prev_label = tok_state, label
+        entry = gap_state
+    return g
+
+
+class ConvTransduce1D(nn.Module):
+    """1-D convolutional transducer layer: each output channel is the
+    forward (or Viterbi) score of a small kernel WFST over a sliding
+    ``kernel_size`` window of the input, [B, T, C] -> [B, W, V] with
+    W = (T - 1) // stride + 1 and V lexicon entries.
+
+    All kernel lattices of all windows are scored in one batched banded
+    recursion (``ops.convkernel``).  With ``learn_params`` the kernels' arc
+    weights are the parameter ``kernel_params``, zero at the start; as in
+    JAX, where they sit in the model's parameters, they take the model's
+    learning rate and gradient clipping.  ``normalize="pre"`` pads the
+    input and log-softmaxes it before windowing and exponentiates the
+    scores, ``"post"`` softmaxes the scores over V; ``scale`` divides them
+    by 1, sqrt(K) or K."""
+
+    def __init__(self, lexicon, kernel_size, stride, blank_idx,
+                 blank_optional=True, learn_params=False, scale="none",
+                 normalize="none", viterbi=False, spike=False):
+        super().__init__()
+        self.normalize = normalize
+        self.viterbi = viterbi
+        if scale == "none":
+            self.scale = 1.0
+        elif scale == "sqrt":
+            self.scale = math.sqrt(kernel_size)
+        elif scale == "linear":
+            self.scale = float(kernel_size)
+        else:
+            raise ValueError(f"Unknown scale {scale}")
+        if normalize not in ["none", "pre", "post"]:
+            raise ValueError(f"Unknown normalization {normalize}")
+        if kernel_size % 2 == 0:
+            raise ValueError("Use an odd kernel size for easy padding.")
+
+        def size_with_rep(token):
+            reps = sum(t1 == t2 for t1, t2 in zip(token[:-1], token[1:]))
+            return len(token) + reps
+
+        min_kernel_size = max(size_with_rep(l) for l in lexicon)
+        if kernel_size < min_kernel_size:
+            raise ValueError(f"Kernel size needed of at least {min_kernel_size}.")
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.learn_params = learn_params
+        tables = convkernel.compile_kernels(lexicon, blank_idx, blank_optional, spike)
+        self.num_params = tables.num_params
+        # the tables follow the module's device; they are rebuilt from the
+        # lexicon, so no checkpoint holds them
+        for name, value in convkernel.tables_on(tables, "cpu")._asdict().items():
+            if name != "num_params":
+                self.register_buffer(f"tables_{name}", value, persistent=False)
+        self.kernel_params = (
+            nn.Parameter(torch.zeros(tables.num_params)) if learn_params else None
+        )
+
+    @property
+    def tables(self):
+        return convkernel.KernelTables(
+            **{n: getattr(self, f"tables_{n}") for n in convkernel._FIELDS},
+            num_params=self.num_params,
+        )
+
+    def forward(self, inputs):
+        # pad the raw scores first so that with normalize='pre' the padded
+        # edge frames normalize to uniform log-probs (-log C), not 0
+        pad = self.kernel_size // 2
+        inputs = torch.nn.functional.pad(inputs, (0, 0, pad, pad))
+        if self.normalize == "pre":
+            inputs = torch.log_softmax(inputs, dim=2)
+        windows = convkernel.make_windows(
+            inputs, self.kernel_size, self.stride, padded=True
+        )
+        outputs = convkernel.conv_transduce_scores(
+            windows, self.tables, self.kernel_params, self.viterbi
+        )
+        outputs = outputs / self.scale
+        if self.normalize == "post":
+            outputs = torch.softmax(outputs, dim=2)
+        if self.normalize == "pre":
+            outputs = torch.exp(outputs)
+        return outputs

@@ -1,3 +1,3 @@
 from .rnn import RNN
 from .tds import TDS, InstanceNorm, TDSBlock
-from .tds2d import TDS2d, TDSBlock2d
+from .tds2d import TDS2d, TDS2dTransducer, TDSBlock2d

@@ -1,18 +1,22 @@
-"""Load a Flax ``TDS2d``, ``TDS`` or ``RNN`` parameter tree into the
-port's module, and JAX criterion parameters into the port's criterion.
+"""Load a Flax ``TDS2d``, ``TDS2dTransducer``, ``TDS`` or ``RNN`` parameter
+tree into the port's module, and JAX criterion parameters into the port's
+criterion.
 
 The tree is the one the JAX package's ``init`` returns, as nested dicts of
 numpy arrays (with or without the outer ``"params"`` key).  Flax names a
 TDS encoder's modules ``Conv_i`` / ``InstanceNorm_i`` (one per group),
 ``TDSBlock2d_j`` or ``TDSBlock_j`` (numbered across groups) and
 ``Dense_0`` (the head); a block holds ``Conv_0``, ``InstanceNorm_0``,
-``Dense_0``, ``Dense_1`` and ``InstanceNorm_1``.  An RNN's are ``Conv_i``,
+``Dense_0``, ``Dense_1`` and ``InstanceNorm_1``.  A ``TDS2dTransducer``
+holds two TDS2d encoders ``tds1_mod`` and ``tds2_mod``, the Dense
+``linear``, and either the WFST layer's ``kernel_params`` (learned kernels
+only) or the control's Conv ``conv1d``.  An RNN's are ``Conv_i``,
 its cells ``<Cell>_k`` (k = 2 layer + direction when bidirectional, else
 the layer) and ``Dense_0``.  Layouts:
 
   * conv kernel (kh, kw, Cin, Cout)     -> (Cout, Cin, kh, kw)
   * TDS2d block conv (kh, kw, 1, C, C)  -> squeeze depth, then as above
-  * TDS conv (k, Cin, Cout)             -> (Cout, Cin, k)
+  * TDS conv, the control's conv1d (k, Cin, Cout) -> (Cout, Cin, k)
   * TDS block conv (k, 1, C, C) over (W, H) -> (C, C, 1, k) over (H, W)
   * Dense kernel (in, out)              -> Linear weight (out, in)
   * cell gates' Dense kernels (in, H)   -> rows of torch's stacked
@@ -67,6 +71,22 @@ def tds2d_from_flax(params, model):
         _dense(block.fc2, bp["Dense_1"])
         _norm(block.norm2, bp["InstanceNorm_1"])
     _dense(model.linear, p["Dense_0"])
+    return model
+
+
+def tds2d_transducer_from_flax(params, model):
+    """Copy Flax TDS2dTransducer ``params`` into the port's ``model`` in
+    place and return the model."""
+    p = params.get("params", params)
+    tds2d_from_flax(p["tds1_mod"], model.tds1)
+    tds2d_from_flax(p["tds2_mod"], model.tds2)
+    _dense(model.linear, p["linear"])
+    if model.wfst:
+        if model.conv.kernel_params is not None:
+            _copy(model.conv.kernel_params, p["kernel_params"])
+    else:
+        _copy(model.conv.weight, np.asarray(p["conv1d"]["kernel"]).transpose(2, 1, 0))
+        _copy(model.conv.bias, p["conv1d"]["bias"])
     return model
 
 

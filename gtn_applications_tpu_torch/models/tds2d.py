@@ -10,8 +10,9 @@ select TPU lane-packing layouts of the same math in JAX; they are accepted
 and the plain convolution runs.  ``dtype`` (``torch.bfloat16``) computes
 the convolutions, dense layers and activations in that dtype with fp32
 parameters, fp32 instance-norm statistics and fp32 logits, as JAX's
-``dtype`` does (``models/tds.py``).  ``TDS2dTransducer`` is not ported yet
-(ROADMAP queue A item 9).
+``dtype`` does (``models/tds.py``).  ``TDS2dTransducer`` is TDS2d, the
+WFST convolution ``criterions.transducer.ConvTransduce1D`` (or a plain
+``nn.Conv1d`` control), a linear layer and a second TDS2d.
 """
 
 import numpy as np
@@ -130,5 +131,67 @@ class TDS2d(nn.Module):
         # [B, C, H', W'] -> [B, W', C*H'] (C major)
         B2, C2, H2, W2 = x.shape
         x = x.permute(0, 3, 1, 2).reshape(B2, W2, C2 * H2)
-        # logits in fp32 for the lattice criteria
-        return self.linear(x.to(torch.float32))
+        # logits in the parameters' dtype: fp32 for the lattice criteria
+        return self.linear(x.to(self.linear.weight.dtype))
+
+
+class TDS2dTransducer(nn.Module):
+    """TDS2d -> ConvTransduce1D (or a plain Conv1d control) -> Linear ->
+    TDS2d, [B, H, W] -> [B, W', output_size].
+
+    ``tokens`` is the path to the wordpiece token list that the convolution
+    emits; its lexicon maps each token to its grapheme indices (the sorted
+    characters of the list, blank last), which the first TDS2d scores.
+    Extra arguments of the WFST layer arrive in ``conv_kwargs``."""
+
+    def __init__(self, input_size, output_size, tokens, kernel_size, stride,
+                 tds1, tds2, wfst=True, conv_kwargs=None, generator=None):
+        super().__init__()
+        with open(tokens, "r") as fid:
+            output_tokens = [l.strip() for l in fid]
+        input_tokens = sorted(set(t for token in output_tokens for t in token))
+        input_tokens = {t: e for e, t in enumerate(input_tokens)}
+        lexicon = [tuple(input_tokens[t] for t in token) for token in output_tokens]
+        in_token_size = len(input_tokens) + 1
+        blank_idx = len(input_tokens)
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.tds1_groups = tds1["tds_groups"]
+        self.tds2_groups = tds2["tds_groups"]
+        self.wfst = wfst
+
+        self.tds1 = TDS2d(input_size=input_size, output_size=in_token_size,
+                          generator=generator, **tds1)
+        stride_h = int(np.prod([g["stride"][0] for g in tds1["tds_groups"]]))
+        inner_size = input_size // stride_h
+        if wfst:
+            from ..criterions.transducer import ConvTransduce1D
+
+            self.conv = ConvTransduce1D(
+                lexicon, kernel_size, stride, blank_idx, **(conv_kwargs or {}))
+        else:
+            self.conv = nn.Conv1d(in_token_size, len(lexicon), kernel_size,
+                                  stride=stride, padding=kernel_size // 2)
+            init_conv(self.conv, generator)
+        in_channels = tds1["tds_groups"][-1]["channels"] * tds1["depth"]
+        self.linear = nn.Linear(len(lexicon), in_channels * inner_size)
+        init_linear(self.linear, generator)
+        self.tds2 = TDS2d(input_size=inner_size, output_size=output_size,
+                          generator=generator, **dict(tds2, in_channels=in_channels))
+
+    @property
+    def time_stride(self):
+        """Total downsampling along W (frames per output step)."""
+        s1 = int(np.prod([g["stride"][1] for g in self.tds1_groups]))
+        s2 = int(np.prod([g["stride"][1] for g in self.tds2_groups]))
+        return s1 * self.stride * s2
+
+    def forward(self, inputs, train=False, generator=None):
+        x = self.tds1(inputs, train=train, generator=generator)  # [B, W, C]
+        if self.wfst:
+            x = self.conv(x)
+        else:
+            x = self.conv(x.transpose(1, 2)).transpose(1, 2)
+        x = self.linear(x)  # [B, W', in_channels * inner_size]
+        # the second encoder reads it as an image [B, H, W']
+        return self.tds2(x.transpose(1, 2), train=train, generator=generator)

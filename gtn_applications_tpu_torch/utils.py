@@ -1,14 +1,15 @@
 """Experiment runtime: factories, batching, metrics, timers, checkpoints.
 
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
-RNN, TDS and TDS2d encoders use with the CTC, ASG, STC and Transducer
-criteria.  The batch sampler emits width-sorted, bucketed batches, collated
-by a dataset's own ``collate_fn`` where it has one; timers synchronise the
-CUDA device before reading the clock; and checkpoints are pickled
-``state_dict``s.  The ``rnn``, ``tds`` and ``tds2d`` models and the
-``ctc``, ``asg``, ``stc`` and ``transducer`` criteria resolve in the
-factories; a Transducer's ``transitions`` file is read with the port's
-``wfst`` graph files.
+RNN, TDS and TDS2d encoders and the TDS2d transducer model use with the
+CTC, ASG, STC and Transducer criteria.  The batch sampler emits
+width-sorted, bucketed batches, collated by a dataset's own ``collate_fn``
+where it has one; timers synchronise the CUDA device before reading the
+clock; and checkpoints are pickled ``state_dict``s.  The ``rnn``, ``tds``,
+``tds2d`` and ``tds2d_transducer`` models and the ``ctc``, ``asg``,
+``stc`` and ``transducer`` criteria resolve in the factories; a
+Transducer's ``transitions`` file is read with the port's ``wfst`` graph
+files.
 """
 
 import logging
@@ -32,8 +33,17 @@ from .criterions.common import round_up
 
 
 def edit_distance(a, b) -> int:
-    """Levenshtein distance over any two sequences."""
+    """Levenshtein distance over any two sequences: by the native DP
+    (``wfst.native.edit_distance_i32``, the items mapped to ids) where the
+    library is enabled, as in JAX, else in Python."""
+    from .wfst import native
+
     a, b = list(a), list(b)
+    if native.enabled():
+        ids = {}
+        return native.edit_distance_i32(
+            np.asarray([ids.setdefault(x, len(ids)) for x in a], dtype=np.int32),
+            np.asarray([ids.setdefault(x, len(ids)) for x in b], dtype=np.int32))
     if len(a) < len(b):
         a, b = b, a
     if not b:
@@ -292,12 +302,12 @@ def card_name_and_power_limit():
 
 
 def load_model(model_type, input_size, output_size, config, generator=None):
-    """Model factory: ``rnn``, ``tds`` and ``tds2d``, their parameters drawn
-    from ``generator``.  An optional ``"dtype"`` (``"bfloat16"`` or
-    ``"float32"``) sets the compute dtype of the TDS encoders, as in JAX:
-    bf16 activations with fp32 parameters and fp32 logits; the RNN ignores
-    it."""
-    from .models import RNN, TDS, TDS2d
+    """Model factory: ``rnn``, ``tds``, ``tds2d`` and ``tds2d_transducer``,
+    their parameters drawn from ``generator``.  An optional ``"dtype"``
+    (``"bfloat16"`` or ``"float32"``) sets the compute dtype of the TDS
+    encoders, as in JAX: bf16 activations with fp32 parameters and fp32
+    logits; the RNN and the transducer model ignore it."""
+    from .models import RNN, TDS, TDS2d, TDS2dTransducer
 
     config = dict(config)
     dtype = config.pop("dtype", None)
@@ -313,10 +323,7 @@ def load_model(model_type, input_size, output_size, config, generator=None):
     if model_type == "tds2d":
         return TDS2d(**kwargs)
     if model_type == "tds2d_transducer":
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet (ROADMAP queue A "
-            "item 9)"
-        )
+        return TDS2dTransducer(**kwargs)
     raise ValueError(f"Unknown model type {model_type}")
 
 

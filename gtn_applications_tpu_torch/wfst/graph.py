@@ -4,9 +4,10 @@ Counterpart of the ``Graph`` class, ``linear_graph`` and the file I/O
 (``savetxt``/``loadtxt``, the binary ``save``/``load``) of
 ``gtn_applications_tpu/wfst/graph.py``, kept as a copy so that the port
 does not import the JAX package (whose ``wfst`` package imports JAX).
-What the STC label graphs, the Transducer's builders and its loaded
-transition graphs need is here: building nodes and arcs, copying, arc
-sorting, and the counts and start nodes that ``wfst.compile`` reads.
+What the STC label graphs, the Transducer's builders, its loaded
+transition graphs and the graph operations of ``wfst.ops`` need is here:
+building nodes and arcs, copying, arc sorting, the counts, start and accept
+nodes and adjacency lists, and the Graphviz dump ``write_dot``.
 Graphs are built on the host once per target and compiled to fixed-shape
 tables that the device recursions consume.
 
@@ -69,6 +70,29 @@ class Graph:
 
     def accept_nodes(self):
         return sorted(self.finals)
+
+    def is_accept(self, node):
+        return node in self.finals
+
+    def num_start(self):
+        return sum(self.start)
+
+    def num_accept(self):
+        return len(self.finals)
+
+    def out_arcs(self):
+        """Adjacency: the arc indices leaving each node, in arc order."""
+        adj = [[] for _ in range(self.num_nodes())]
+        for i, s in enumerate(self.arc_src):
+            adj[s].append(i)
+        return adj
+
+    def in_arcs(self):
+        """The arc indices entering each node, in arc order."""
+        adj = [[] for _ in range(self.num_nodes())]
+        for i, d in enumerate(self.arc_dst):
+            adj[d].append(i)
+        return adj
 
     def arcs(self):
         """Iterate (src, dst, ilabel, olabel, weight) tuples."""
@@ -214,6 +238,32 @@ def load(path) -> Graph:
         for arc in zip(*fields, weights):
             g.add_arc(*arc)
         return g
+
+
+def write_dot(g: Graph, path, isymbols=None, osymbols=None):
+    """Graphviz dump for debugging: accepting nodes double circles, start
+    nodes bold, arcs ``ilabel[:olabel]/weight`` through the optional
+    symbol tables (epsilon as "ε")."""
+    def sym(table, label):
+        if label == EPSILON:
+            return "ε"
+        if table is not None and label in table:
+            return str(table[label])
+        return str(label)
+
+    lines = ["digraph FST {", "rankdir = LR;"]
+    for i in range(g.num_nodes()):
+        shape = "doublecircle" if g.is_accept(i) else "circle"
+        style = ' style="bold"' if g.start[i] else ""
+        lines.append(f'  {i} [shape={shape}{style}];')
+    for s, d, il, ol, w in g.arcs():
+        label = sym(isymbols, il)
+        if il != ol or osymbols is not None:
+            label += ":" + sym(osymbols, ol)
+        lines.append(f'  {s} -> {d} [label="{label}/{w:.4g}"];')
+    lines.append("}")
+    with open(path, "w") as fid:
+        fid.write("\n".join(lines) + "\n")
 
 
 def linear_graph(sequence):

@@ -1,23 +1,28 @@
-"""ctypes bindings to the native (C++) graph compiler, for the Transducer.
+"""ctypes bindings to the native (C++) graph compiler.
 
 Counterpart of the parts of ``gtn_applications_tpu/wfst/native.py`` that
 the port calls: loading ``native/libtwgraph.so``, ``to_native`` and
-``from_native``, epsilon removal (``remove``, for
-``compile.compile_acceptor(remove_eps=True)``), the one-call per-target
-pipeline ``compile_alignment``, the forced-blank decode cleanup
-``forced_collapse``, and the FLAC decoder ``decode_flac`` (``native/flac.cc``,
-for ``datasets.audio.load_audio``).
+``from_native``; the graph operations ``compose`` (with arc provenance),
+``remove``, ``trim``, ``project``, ``forward_score`` and ``viterbi_score``
+(``wfst.ops`` dispatches to them); the one-call per-target pipeline
+``compile_alignment``; the decode cleanups ``forced_collapse`` (the
+forced-blank Transducer) and ``asg_collapse`` (ASG); the wordpiece
+segmenter ``WordpieceEncoder`` and its E-step ``wordpiece_estep``
+(``scripts/wordpiece.py``); ``edit_distance_i32``; and the FLAC decoder
+``decode_flac`` (``native/flac.cc``, for ``datasets.audio.load_audio``).
 Both packages share the library; its source is ``native/graph_compiler.cc``
 at the root of the checkout.  The ``.so`` is not committed: the first call
 builds it with ``make -C native`` (g++), under a file lock in ``build/``
 so that concurrent processes build it once.  If it cannot be built, the call
-raises and says how to build it; there is no pure-Python fallback in the
-port (JAX's ``wfst/ops.py``, the graph operations in Python, is not
-ported).
+raises and says how to build it.  Where JAX's callers fall back to Python
+(``wfst.ops``, the wordpiece scripts, ASG's cleanup), the port's do so on
+the same condition, ``enabled()``: the library loads and ``TW_NATIVE`` is
+not ``0``.
 """
 
 import ctypes
 import fcntl
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -105,6 +110,28 @@ def available():
     except (RuntimeError, OSError):
         return False
     return True
+
+
+def enabled():
+    """Whether JAX's native routes are taken: the library loads and
+    ``TW_NATIVE`` is not ``0`` (JAX's ``native.available()``)."""
+    return os.environ.get("TW_NATIVE", "1") != "0" and available()
+
+
+def _bind_ops(lib):
+    if getattr(lib, "_ops_bound", False):
+        return
+    lib.tw_export_prov.argtypes = [ctypes.c_void_p] * 3
+    lib.tw_compose.restype = ctypes.c_void_p
+    lib.tw_compose.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.tw_trim.restype = ctypes.c_void_p
+    lib.tw_trim.argtypes = [ctypes.c_void_p]
+    lib.tw_project.restype = ctypes.c_void_p
+    lib.tw_project.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for fn in ("tw_forward_score", "tw_viterbi_score"):
+        getattr(lib, fn).restype = ctypes.c_double
+        getattr(lib, fn).argtypes = [ctypes.c_void_p]
+    lib._ops_bound = True
 
 
 def _bind_flac(lib):
@@ -218,6 +245,63 @@ def remove(g: Graph) -> Graph:
     return from_native(_Handle(lib, hr))
 
 
+def _ops_library():
+    lib = load_library()
+    _bind_ops(lib)
+    return lib
+
+
+def compose(g1: Graph, g2: Graph, return_arc_map=False):
+    """``wfst.ops.compose_py`` natively: the composed, trimmed graph and,
+    with ``return_arc_map``, each arc's (g1 arc or -1, g2 arc or -1)."""
+    lib = _ops_library()
+    h1, h2 = to_native(g1), to_native(g2)
+    hr = _Handle(lib, lib.tw_compose(h1.h, h2.h, 1 if return_arc_map else 0))
+    out = from_native(hr)
+    if not return_arc_map:
+        return out
+    a = lib.tw_num_arcs(hr.h)
+    p1 = np.zeros(a, dtype=np.int64)
+    p2 = np.zeros(a, dtype=np.int64)
+    if a:
+        lib.tw_export_prov(hr.h, p1.ctypes.data, p2.ctypes.data)
+    return out, list(zip(p1.tolist(), p2.tolist()))
+
+
+def trim(g: Graph) -> Graph:
+    """``wfst.ops.trim`` natively: the states on a start-to-accept path."""
+    lib = _ops_library()
+    h = to_native(g)
+    return from_native(_Handle(lib, lib.tw_trim(h.h)))
+
+
+def project(g: Graph, input_side=True) -> Graph:
+    """``wfst.ops.project_input`` (``input_side``) or ``project_output``
+    natively."""
+    lib = _ops_library()
+    h = to_native(g)
+    return from_native(_Handle(lib, lib.tw_project(h.h, 1 if input_side else 0)))
+
+
+def _score(g, fn, what):
+    lib = _ops_library()
+    h = to_native(g)
+    s = getattr(lib, fn)(h.h)
+    if np.isnan(s):
+        raise ValueError(f"graph has cycles; {what} requires a DAG")
+    return float(s)
+
+
+def forward_score(g: Graph) -> float:
+    """``wfst.ops.forward_score_py`` natively (log semiring)."""
+    return _score(g, "tw_forward_score", "forward_score")
+
+
+def viterbi_score(g: Graph) -> float:
+    """``wfst.ops.viterbi_score_py`` natively (tropical semiring)."""
+    return _score(g, "tw_viterbi_score", "viterbi_score")
+
+
 def forced_collapse(paths, blank_idx, lengths=None):
     """The forced-blank Transducer's decode cleanup in one native call:
     collapse each alignment's runs and keep its tokens if the forced token
@@ -284,3 +368,155 @@ def compile_alignment(lexicon_handle, tokens_handle, transitions_handle, target)
         "eps_widx": eps_widx.astype(np.int32),
         "eps_depth": depth,
     }
+
+
+def asg_collapse(paths, lengths=None, garbage_idx=None, num_replabels=0):
+    """ASG's decode cleanup in one native call: collapse each path's runs,
+    drop the garbage label, unpack the replabels.  paths [B, T] int,
+    lengths [B] or None.  Returns a list of B int32 arrays."""
+    lib = load_library()
+    if not getattr(lib, "_asg_bound", False):
+        lib.tw_asg_collapse.restype = ctypes.c_int64
+        lib.tw_asg_collapse.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
+        lib._asg_bound = True
+    paths = np.ascontiguousarray(paths, dtype=np.int32)
+    B, T = paths.shape
+    cap = max(B * T * (num_replabels + 1), 1)
+    out = np.zeros(cap, dtype=np.int32)
+    counts = np.zeros(B, dtype=np.int64)
+    lens = None if lengths is None else np.ascontiguousarray(lengths, dtype=np.int32)
+    n = lib.tw_asg_collapse(
+        paths.ctypes.data, B, T, None if lens is None else lens.ctypes.data,
+        -1 if garbage_idx is None else int(garbage_idx), int(num_replabels),
+        out.ctypes.data, cap, counts.ctypes.data)
+    if n < 0:
+        raise RuntimeError("asg_collapse: the output buffer overflowed")
+    ends = np.cumsum(counts)
+    return [out[e - c:e].copy() for e, c in zip(ends, counts)]
+
+
+def edit_distance_i32(a, b):
+    """Levenshtein distance between two int32 sequences, natively."""
+    lib = load_library()
+    if not getattr(lib, "_ed_bound", False):
+        lib.tw_edit_distance.restype = ctypes.c_int64
+        lib.tw_edit_distance.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib._ed_bound = True
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    b = np.ascontiguousarray(b, dtype=np.int32)
+    return int(lib.tw_edit_distance(a.ctypes.data, len(a), b.ctypes.data, len(b)))
+
+
+def _bind_wordpiece(lib):
+    if getattr(lib, "_wp_bound", False):
+        return
+    lib.tw_wp_model_new.restype = ctypes.c_void_p
+    lib.tw_wp_model_new.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.tw_wp_model_free.argtypes = [ctypes.c_void_p]
+    lib.tw_wp_encode.restype = ctypes.c_int64
+    lib.tw_wp_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64,
+    ]
+    lib.tw_wp_encode_batch.restype = ctypes.c_int64
+    lib.tw_wp_encode_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.tw_wp_estep.restype = ctypes.c_double
+    lib.tw_wp_estep.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    lib._wp_bound = True
+
+
+def _unknown_char(data, v):
+    """The UTF-8 character at byte offset -1 - v of ``data`` (the
+    segmenter's code for a character no piece covers)."""
+    off = -1 - int(v)
+    end = off + 1
+    while end < len(data) and (data[end] & 0xC0) == 0x80:
+        end += 1
+    return data[off:end].decode("utf-8")
+
+
+class WordpieceEncoder:
+    """Native unigram Viterbi segmenter, with ``scripts.wordpiece``'s
+    ``UnigramModel`` semantics: a DP over code points, ties to the longest
+    piece, a character no piece covers kept at log-probability -100."""
+
+    def __init__(self, pieces, log_probs):
+        lib = load_library()
+        _bind_wordpiece(lib)
+        self.lib = lib
+        self.pieces = list(pieces)
+        arr = (ctypes.c_char_p * len(self.pieces))(
+            *[p.encode("utf-8") for p in self.pieces])
+        lp = np.ascontiguousarray(log_probs, dtype=np.float32)
+        self.h = lib.tw_wp_model_new(arr, lp.ctypes.data, len(self.pieces))
+        self._buf = np.zeros(4096, dtype=np.int32)
+
+    def __del__(self):
+        if getattr(self, "h", None):
+            self.lib.tw_wp_model_free(self.h)
+            self.h = None
+
+    def encode(self, text):
+        """``text`` segmented into a list of pieces."""
+        data = text.encode("utf-8")
+        n = self.lib.tw_wp_encode(self.h, data, len(data), self._buf.ctypes.data,
+                                  len(self._buf))
+        if n == -1:  # the buffer is too small
+            self._buf = np.zeros(len(self._buf) * 4, dtype=np.int32)
+            return self.encode(text)
+        if n < 0:
+            raise ValueError("wordpiece encode failed")
+        return [self.pieces[v] if v >= 0 else _unknown_char(data, v)
+                for v in self._buf[:n].tolist()]
+
+    def encode_batch(self, texts):
+        """Each of ``texts`` segmented, in one native call."""
+        datas = [t.encode("utf-8") for t in texts]
+        offsets = np.zeros(len(texts) + 1, dtype=np.int64)
+        np.cumsum([len(d) for d in datas], out=offsets[1:])
+        cap = max(4096, sum(len(t) for t in texts) + len(texts))
+        out = np.zeros(cap, dtype=np.int32)
+        counts = np.zeros(len(texts), dtype=np.int64)
+        n = self.lib.tw_wp_encode_batch(
+            self.h, b"".join(datas), offsets.ctypes.data, len(texts),
+            out.ctypes.data, cap, counts.ctypes.data)
+        if n < 0:
+            raise ValueError("wordpiece batch encode failed")
+        ids = out[:int(n)].tolist()
+        results, pos = [], 0
+        for d, c in zip(datas, counts.tolist()):
+            results.append([self.pieces[v] if v >= 0 else _unknown_char(d, v)
+                            for v in ids[pos:pos + c]])
+            pos += c
+        return results
+
+
+def wordpiece_estep(encoder: WordpieceEncoder, sentences):
+    """Expected piece counts over all segmentations (forward-backward),
+    natively.  Returns ({piece: count} for the pieces with a positive count,
+    in the encoder's order; the total log-likelihood)."""
+    lib = encoder.lib
+    data = bytearray()
+    offsets = np.zeros(len(sentences) + 1, dtype=np.int64)
+    for i, s in enumerate(sentences):
+        data.extend(s.encode("utf-8"))
+        offsets[i + 1] = len(data)
+    expected = np.zeros(len(encoder.pieces), dtype=np.float64)
+    ll = lib.tw_wp_estep(encoder.h, bytes(data), offsets.ctypes.data,
+                         len(sentences), expected.ctypes.data)
+    counts = {p: float(c) for p, c in zip(encoder.pieces, expected) if c > 0.0}
+    return counts, float(ll)

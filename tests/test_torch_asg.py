@@ -309,3 +309,48 @@ def test_criterion_params_from_jax():
     assert params["transitions"].requires_grad
     np.testing.assert_array_equal(params["transitions"].detach().numpy(), trans)
     assert criterion_params_from_jax({}) == {}
+
+
+@pytest.mark.parametrize("num_replabels,use_garbage", [(0, False), (1, True), (2, True)])
+def test_native_cleanup_and_transitions_graph_match_jax(monkeypatch, num_replabels,
+                                                        use_garbage):
+    """The decode cleanup takes the native ``asg_collapse`` where the
+    library is enabled, as JAX's does, and gives the Python ``_cleanup``'s
+    tokens and JAX's exactly (runs of repeat labels, garbage, lengths past
+    T and zero); ``TW_NATIVE=0`` takes the Python cleanup.
+    ``create_transitions_graph`` builds JAX's graph arc for arc."""
+    from gtn_applications_tpu.wfst import native as jax_native
+    from gtn_applications_tpu_torch.wfst import native
+
+    rng = np.random.RandomState(7 + num_replabels)
+    crit = ASG(4, num_replabels, use_garbage)
+    jcrit = jax_asg.ASG(4, num_replabels, use_garbage)
+    B, T = 6, 40
+    paths = rng.randint(0, crit.N, (B, T)).astype(np.int32)
+    paths[0, :] = crit.N - 1
+    paths[1, 5:20] = num_replabels  # a long run of one token
+    lens = np.array([T, 0, 17, 1, T + 5, 33], np.int32)
+    for lengths in (None, lens):
+        handle = (torch.from_numpy(paths),
+                  None if lengths is None else torch.from_numpy(lengths))
+        native_out = crit.viterbi_finalize(handle)
+        python_out = crit._cleanup(paths, lengths)
+        jax_out = jcrit.viterbi_finalize((jnp.asarray(paths), lengths))
+        direct = native.asg_collapse(paths, lengths, crit.garbage_idx, num_replabels)
+        for outs in (python_out, jax_out, direct):
+            assert [o.tolist() for o in native_out] == [o.tolist() for o in outs]
+        assert all(o.dtype == np.int32 for o in native_out)
+    calls = []
+    monkeypatch.setattr(native, "asg_collapse", lambda *a: calls.append(a))
+    crit.viterbi_finalize((torch.from_numpy(paths), torch.from_numpy(lens)))
+    assert len(calls) == 1 and jax_native.available()
+    monkeypatch.setenv("TW_NATIVE", "0")
+    assert [o.tolist() for o in crit.viterbi_finalize((torch.from_numpy(paths), None))] \
+        == [o.tolist() for o in crit._cleanup(paths, None)]
+    assert len(calls) == 1
+
+    trans = rng.randn(crit.N + 1, crit.N).astype(np.float32)
+    g = asg_mod.create_transitions_graph(trans)
+    j = jax_asg.create_transitions_graph(trans)
+    assert (g.start, g.finals, list(g.arcs())) == (j.start, j.finals, list(j.arcs()))
+    assert g.num_arcs() == crit.N * (crit.N + 1)

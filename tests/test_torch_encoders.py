@@ -17,6 +17,7 @@ within 1e-2 of the fp32 model's, relative.
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +33,7 @@ from gtn_applications_tpu.models import TDS2d as FlaxTDS2d
 from gtn_applications_tpu_torch import train as train_mod
 from gtn_applications_tpu_torch import utils
 from gtn_applications_tpu_torch.criterions import CTC
-from gtn_applications_tpu_torch.models import RNN, TDS, TDS2d
+from gtn_applications_tpu_torch.models import RNN, TDS, TDS2d, TDS2dTransducer
 from gtn_applications_tpu_torch.models.convert import (
     rnn_from_flax, tds2d_from_flax, tds_from_flax,
 )
@@ -150,7 +151,7 @@ def test_bf16_compute_matches_jax(name):
     assert torch.isfinite(x_t.grad).all()
 
 
-def test_load_model_builds_the_encoders():
+def test_load_model_builds_the_encoders(tmp_path):
     gen = torch.Generator().manual_seed(0)
     for name, cls, stride in (("rnn", RNN, 4), ("tds", TDS, 4), ("tds2d", TDS2d, 4)):
         with open(f"configs/iamdb/{name}.json") as fid:
@@ -164,8 +165,19 @@ def test_load_model_builds_the_encoders():
         if name != "rnn":
             fp32 = utils.load_model(name, 64, 80, dict(cfg, dtype="float32"))
             assert fp32.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        utils.load_model("tds2d_transducer", 64, 80, {})
+    # the transducer model from convtrans.json's model section, its inner
+    # inventory a small token file (the dtype key dropped, as JAX drops it)
+    with open("configs/iamdb/convtrans.json") as fid:
+        cfg = json.load(fid)["model"]
+    tokens = tmp_path / "tokens.txt"
+    tokens.write_text("ab\nba\na\nb\nabc\n")
+    model = utils.load_model("tds2d_transducer", 64, 80,
+                             dict(cfg, tokens=str(tokens), dtype="bfloat16"), generator=gen)
+    assert isinstance(model, TDS2dTransducer) and model.time_stride == 16
+    assert model.conv.kernel_size == 7 and model.conv.scale == math.sqrt(7)
+    assert model.tds1.linear.out_features == 4  # a, b, c and the blank
+    assert model.linear.in_features == 5 and model.tds2.linear.out_features == 80
+    assert model.tds1.dtype == model.tds2.dtype == torch.float32
     with open("configs/iamdb/rnn.json") as fid:
         cfg = json.load(fid)["model"]
     with pytest.raises(ValueError, match="cell type"):

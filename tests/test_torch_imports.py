@@ -30,12 +30,15 @@ MODULES = [
     "gtn_applications_tpu_torch.wfst.graph",
     "gtn_applications_tpu_torch.wfst.compile",
     "gtn_applications_tpu_torch.wfst.native",
+    "gtn_applications_tpu_torch.wfst.ops",
+    "gtn_applications_tpu_torch.ops.convkernel",
     "gtn_applications_tpu_torch.criterions",
     "gtn_applications_tpu_torch.criterions.asg",
     "gtn_applications_tpu_torch.criterions.stc",
     "gtn_applications_tpu_torch.criterions.transducer",
     "gtn_applications_tpu_torch.models",
     "gtn_applications_tpu_torch.models.convert",
+    "gtn_applications_tpu_torch.models.tds2d",
     "gtn_applications_tpu_torch.datasets",
     "gtn_applications_tpu_torch.datasets.synthetic_long",
     "gtn_applications_tpu_torch.datasets.audio",
@@ -47,7 +50,12 @@ MODULES = [
     "gtn_applications_tpu_torch.datasets.preprocess_wsj",
     "gtn_applications_tpu_torch.criterions.ctc",
     "gtn_applications_tpu_torch.scripts.build_transitions",
+    "gtn_applications_tpu_torch.scripts.wordpiece",
+    "gtn_applications_tpu_torch.scripts.make_wordpieces",
+    "gtn_applications_tpu_torch.scripts.fit_piece_scores",
+    "gtn_applications_tpu_torch.scripts.load_arpa",
     "gtn_applications_tpu_torch.scripts.compare_ctc_viterbi",
+    "gtn_applications_tpu_torch.scripts.repeat_convtrans_checks",
     "gtn_applications_tpu_torch.scripts.profile_ctc_grad",
     "gtn_applications_tpu_torch.scripts.profile_dense_bt",
     "gtn_applications_tpu_torch.scripts.profile_gather_bwd",
