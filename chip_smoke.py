@@ -146,9 +146,10 @@ prints no result):
    decode of the batch against the CPU's on 4 samples, labels equal and
    scores within 1e-4 relative.  It prints, each line with the card's
    name and power limit, the trigram train step under off and on (host
-   clock, median of 20, and of 5 under on, whose step takes seconds) and
+   clock, median of 20, and of 3 under on, whose step takes seconds) and
    its peak memory, the loss fwd+bwd of each route (CUDA events, median of
-   10 and 3 for the trigram, 30 for the 1kwp), the kernels one call
+   10 and 2 for the trigram, 30 for the 1kwp's composed route and 10 for
+   its dst tiers), the kernels one call
    launches (torch.profiler) and its peak memory, and the 1kwp decode of
    one batch;
 11. seg_max, the per-step decode's tropical step, against its plain
@@ -239,7 +240,8 @@ prints no result):
    the seg_lse forward also by its other route, alpha, w and em staged in
    shared memory or gathered, and without its statistics), the
    host-clock median of 20 full train
-   steps of each path (a line each with the card's name and power
+   steps of each path (of 10 for ``SLOW_STEP_PATHS``, whose steps take
+   most of a second; a line each with the card's name and power
    limit) and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 11's T=300 case),
    the CTC pair also at ``CTC_WIDE`` (with chain bounds) and the
@@ -280,6 +282,28 @@ prints no result):
    convtrans train step's batch (CUDA events, median of 10) by the route
    that batch takes and by the other, with the taken route's share of
    the step, on a line with the card's name and power limit.
+
+15. distributed (``phase_distributed``, after the main paths, the kernels
+   built before any spawn): ``dryrun.dryrun_multichip(2)``, two gloo ranks
+   sharing the card (NCCL refuses two ranks on one device), each leg
+   (ctc, asg, stc, transducer_ngram, transducer_plain, tds2d_transducer,
+   the loaded backoff LM, the seq-parallel assoc CTC on a 1 x 2 grid)
+   against its one-process step on the card, loss within 1e-5 relative,
+   each rank's parameters after the step and the seq leg's gradient
+   within rtol 1e-4 / atol 1e-5; the ctc path's
+   model at tds2d.json's widths (dropout 0) on a global batch of 32, two
+   ranks of 16, 3 steps, against one process on the same batches in the
+   ranks' row blocks (losses 1e-5 relative, every parameter rtol 1e-4 /
+   atol 1e-5; cuDNN deterministic) and on the whole batch (step 1 only:
+   later steps amplify the rounding of other convolution shapes), the
+   host-clock step times and the gradient reduction's share, on a line
+   with the card's name and power limit; NCCL collectives in a world of
+   one, then one epoch of the ctc path through ``train.main``'s
+   rendezvous flags over NCCL, its history equal to the plain run's;
+   both examples at their shipped epochs, their final validation CER.
+   The ranks' and runs' kernel launches join the ``kernels`` line's.
+   ``python3 chip_smoke.py --only distributed`` runs phases 1, 2 and 15
+   alone and prints no result line.
 
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -2161,8 +2185,9 @@ def factored_trigram_check(torch, dev, card):
     if not rel <= 1e-4:
         raise AssertionError("the dense variant's loss: card and CPU disagree")
     # the dense variant's call takes seconds (a quarter of a million
-    # launches): its medians are of fewer runs
-    reps = {"off": dict(fwd_bwd=(10, 5), step=(20, 5)), "on": dict(fwd_bwd=(3, 1), step=(5, 2))}
+    # launches): its medians are of fewer runs, which keeps the smoke
+    # inside its time limit
+    reps = {"off": dict(fwd_bwd=(10, 5), step=(20, 5)), "on": dict(fwd_bwd=(2, 1), step=(3, 1))}
     for impl in ("off", "on"):
         out[f"{impl}_fwd_bwd"] = dict(route_costs(torch, fns[impl], *reps[impl]["fwd_bwd"]),
                                       peak_bytes=peaks[impl])
@@ -2204,13 +2229,16 @@ def factored_1kwp_check(torch, dev, card):
             fn = route_loss(torch, crit, em, targets, params, "on", vjp, lens=lens)
             got, peak = with_peak(torch, fn)
             out[tier] = hold_route(torch, card, f"1kwp {tier}", ref, got)
-            out[tier].update(route_costs(torch, fn), peak_bytes=peak)
+            # a tier's call takes 0.3-0.5 s: a median of 10 keeps the
+            # smoke inside its time limit
+            out[tier].update(route_costs(torch, fn, runs=10, warmup=2), peak_bytes=peak)
         finally:
             crit._eps_lr_struct = struct
     for tier in ("composed", "exp_lowrank", "exp_dense", "staged"):
         c = out[tier]
         log(f"[{card}] 1kwp loss fwd+bwd {tier}: {c['ms']:.3f} ms (CUDA events, median of "
-            f"30), {c['launches']} launches, peak {c['peak_bytes'] / 2**20:.1f} MiB")
+            f"{30 if tier == 'composed' else 10}), {c['launches']} launches, "
+            f"peak {c['peak_bytes'] / 2**20:.1f} MiB")
     return out
 
 
@@ -3348,6 +3376,16 @@ def phase_bf16_gap(torch, dev, model, config, card):
             "ctc_bf16_loss": l16, "ctc_bf16_loss_fp32": l32}
 
 
+# the paths whose train step takes most of a second: medians of 10 steps
+# after 2, which keeps the smoke inside its time limit
+SLOW_STEP_PATHS = ("transducer_backoff", "transducer_backoff_4gram", "ctc_long_assoc")
+
+
+def step_runs(path):
+    """(runs, warmup) of ``path``'s train-step median."""
+    return (10, 2) if path in SLOW_STEP_PATHS else (20, 5)
+
+
 def time_train_step(torch, dev, model, config, runs=20, warmup=5):
     """Host-clock median ms of ``runs`` full train steps (after
     ``warmup``) on the first batch of the train split, without
@@ -4258,7 +4296,7 @@ def phase_times(torch, dev, paths):
     # one full train step of each path at its main path's shape
     for path, info in paths.items():
         t[f"train_step_{path}"], t[f"train_step_{path}_shape"] = time_train_step(
-            torch, dev, info["model"], main_path_config(path))
+            torch, dev, info["model"], main_path_config(path), *step_runs(path))
 
     # one frame of the recursion's dependent chain
     t["chain_frame_us"] = ctc_chain_frame_us(torch, dev, lp)
@@ -4325,6 +4363,388 @@ def phase_times(torch, dev, paths):
     return t, bounds, chain
 
 
+# the distributed phase: ranks of the dry run and of the full-width data-
+# parallel check (gloo ranks sharing the card: NCCL refuses two ranks on one
+# device), the full-width check's global batch and steps.  Its reference is
+# one process on the same batches that computes each global batch's
+# gradient in the ranks' row blocks and sums them (the ranks' arithmetic,
+# cuDNN deterministic on both sides): losses as the dry run's legs, the
+# parameters after the last step as tests/test_fused_steps_mesh.py's
+# tolerances.  One process on the whole batch of 32 is held after the first
+# step only, from equal parameters: at lr 0.1 the trajectory amplifies
+# float32 rounding (a run on the same rows in another order lands ~5% of
+# the update's norm away after three steps on the CPU), so later steps are
+# logged beside it
+DIST_RANKS = 2
+DP_BATCH, DP_STEPS = 32, 3
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+REDUCE_RUNS = 5
+
+
+def dp_config():
+    """The ctc path's config (``configs/iamdb/tds2d.json``'s model at full
+    width on the synthetic corpus) with dropout 0: each rank draws its own
+    dropout masks, which no one-process run reproduces."""
+    config = main_path_config("ctc")
+    config["model"] = dict(config["model"], dropout=0.0)
+    config["optim"] = dict(config["optim"], batch_size=DP_BATCH)
+    return config
+
+
+def dp_batches(config):
+    """DP_STEPS global batches of the trainer's loader (its epochs in
+    order): [(inputs numpy, targets), ...]."""
+    from gtn_applications_tpu_torch import datasets, utils
+
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = path_preprocessor(data, config)
+    loader = utils.data_loader(data.Dataset(None, pre, split="train", augment=True),
+                               config, seed=config["seed"])
+    out = []
+    while len(out) < DP_STEPS:
+        out += [(inputs, targets) for inputs, _, targets in loader]
+    return out[:DP_STEPS]
+
+
+def block_step(torch, model, crit, lr, max_grad_norm, blocks):
+    """The train step of ``train.make_train_step`` over a global batch in
+    ``blocks`` row blocks computed in turn by one process: each block's
+    loss times its rows differentiated, the gradients summed and divided
+    by the rows, as the ranks' all-reduce does; then the clip and SGD."""
+    from gtn_applications_tpu_torch import train as train_mod
+
+    params = list(model.parameters()) + list(crit.params.values())
+
+    def step(x, prepared_blocks, generator, lr_scale):
+        for p in params:
+            p.grad = None
+        n, weighted = x.shape[0], 0.0
+        for rows, prepared in zip(torch.arange(n).chunk(blocks), prepared_blocks):
+            out = model(x[rows], train=True, generator=generator)
+            loss = crit.loss(crit.params, out, prepared)
+            (loss * len(rows)).backward()
+            weighted = weighted + loss.detach() * len(rows)
+        grads = [p.grad / n for p in params]
+        train_mod.clip_global_norm(grads, max_grad_norm)
+        with torch.no_grad():
+            for p, g in zip(params, grads):
+                p.sub_(lr * lr_scale * g)
+        return weighted / n
+
+    return step
+
+
+def dp_steps(torch, dev, config, batches, mesh=None, blocks=None):
+    """DP_STEPS train steps of the ctc path's model from seed 0 on
+    ``batches``: this rank's rows of each on a ``mesh``, else all of them
+    (in ``blocks`` row blocks with ``block_step``).  Returns the losses,
+    the parameters after the first step and after the last (numpy), the
+    host-clock ms of each step (ending in a device sync), the kernel
+    launches of the steps and, on a mesh, the host-clock median ms of the
+    gradient reduction alone."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    _, pre, crit, model, _ = train_mod.load_experiment(
+        config, torch.Generator().manual_seed(config["seed"]))
+    model.to(dev)
+    train_mod.criterion_to_device(crit, dev)
+    optim = config["optim"]
+    lr, max_norm = optim["learning_rate"], optim["max_grad_norm"]
+    group = mesh.group("data") if mesh is not None else None
+    if blocks:
+        step = block_step(torch, model, crit, lr, max_norm, blocks)
+    else:
+        step = train_mod.make_train_step(model, crit, lr, lr, max_norm, group)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    losses, step_ms = [], []
+    _build.reset_launches()
+    for inputs, targets in batches:
+        rows = np.arange(len(targets))
+        if mesh is not None:
+            inputs, rows = pmesh.shard_batch(inputs, mesh), pmesh.shard_batch(rows, mesh)
+        x = torch.as_tensor(inputs).to(dev)
+        if blocks:
+            prepared = [train_mod.to_device(crit.prepare([targets[i] for i in r]), dev)
+                        for r in np.array_split(rows, blocks)]
+        else:
+            prepared = train_mod.to_device(crit.prepare([targets[i] for i in rows]), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, prepared, gen, 1.0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss[0] if isinstance(loss, tuple) else loss))
+        if len(losses) == 1:
+            first = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+    launches = dict(_build.LAUNCHES)
+    reduce_ms = None
+    if group is not None:
+        grads = [p.detach().clone() for p in model.parameters()]
+        times = []
+        for _ in range(REDUCE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_mod.reduce_gradients(grads, torch.ones((), device=dev), 16, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms = statistics.median(times)
+    params = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+    return {"losses": losses, "params": params, "first": first, "step_ms": step_ms,
+            "launches": launches, "reduce_ms": reduce_ms,
+            "n_params": sum(p.numel() for p in model.parameters())}
+
+
+def update_distance(params, ref, init):
+    """||params - ref|| over every parameter, as a share of ||ref - init||
+    (the run's whole update)."""
+    num = sum(float(np.sum((params[k] - v) ** 2)) for k, v in ref.items())
+    den = sum(float(np.sum((v - init[k]) ** 2)) for k, v in ref.items())
+    return (num / den) ** 0.5
+
+
+def dp_rank(rank, n, device, config, batches):
+    """A rank of the full-width data-parallel check (``dp_steps`` on its
+    rows), cuDNN deterministic."""
+    import torch
+
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    return dp_steps(torch, dev, config, batches, pmesh.make_mesh())
+
+
+def _hold_losses(got, want, what, steps):
+    for i in steps:
+        if abs(got[i] - want[i]) > DP_LOSS_RTOL * abs(want[i]):
+            raise AssertionError(f"{what}, step {i + 1}: loss {got[i]} against {want[i]} "
+                                 f"(rtol {DP_LOSS_RTOL})")
+
+
+def _hold_params(got, want, what):
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, err_msg=f"{what}: {k}", **DP_PARAM_TOL)
+    return max(float(np.abs(got[k] - v).max()) for k, v in want.items())
+
+
+def hold_dp(ranks, blocked, whole, init):
+    """Each rank against the one process computing the ranks' row blocks
+    (every step's loss, the parameters after the last step) and against
+    the one process on the whole batch (the first step's loss and the
+    parameters after it; the later steps' distance is returned, not
+    held)."""
+    errs = {"blocked_param_max_abs_err": 0.0, "whole_first_param_max_abs_err": 0.0}
+    for rank, r in enumerate(ranks):
+        _hold_losses(r["losses"], blocked["losses"], f"rank {rank} against one process "
+                     "in row blocks", range(DP_STEPS))
+        errs["blocked_param_max_abs_err"] = max(
+            errs["blocked_param_max_abs_err"],
+            _hold_params(r["params"], blocked["params"], f"rank {rank}, one process in blocks"))
+        _hold_losses(r["losses"], whole["losses"], f"rank {rank} against one process", [0])
+        errs["whole_first_param_max_abs_err"] = max(
+            errs["whole_first_param_max_abs_err"],
+            _hold_params(r["first"], whole["first"], f"rank {rank} after step 1, one process"))
+    errs["blocked_loss_rel_err"] = max(abs(a - b) / abs(b) for r in ranks
+                                       for a, b in zip(r["losses"], blocked["losses"]))
+    errs["whole_loss_rel_err"] = [max(abs(r["losses"][i] - whole["losses"][i])
+                                      / abs(whole["losses"][i]) for r in ranks)
+                                  for i in range(DP_STEPS)]
+    errs["whole_update_distance"] = max(update_distance(r["params"], whole["params"], init)
+                                        for r in ranks)
+    errs["blocked_whole_update_distance"] = update_distance(blocked["params"],
+                                                            whole["params"], init)
+    return errs
+
+
+def nccl_probe(torch, dev):
+    """A process group of one over NCCL (its communicator is made at the
+    first collective, which a world of one's train step never calls): the
+    mesh helpers' all-reduce, gather and broadcast of CUDA tensors and
+    ``Meters.sync`` through it."""
+    import torch.distributed as dist
+
+    from gtn_applications_tpu_torch import utils
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{pmesh.free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(6.0, device=dev)
+        got = (pmesh.all_reduce(x), pmesh.all_gather(x)[0], pmesh.broadcast(x))
+        meters = utils.Meters(loss=1.5, num_samples=3, num_tokens=7)
+        meters.sync()
+    finally:
+        dist.destroy_process_group()
+    if not all(torch.equal(g, x) for g in got) or (meters.loss, meters.num_tokens) != (1.5, 7):
+        raise AssertionError(f"NCCL collectives of a world of one: {got}, {meters}")
+
+
+def world_of_one_nccl(torch, dev, card, work):
+    """One epoch of the ctc path through ``train.main``'s rendezvous flags
+    (``--world_size 1 --coordinator_address``), a process group of one
+    over NCCL, against the plain run of the same config; cuDNN
+    deterministic in both, so the histories are equal.  Returns the kernel
+    launches of the NCCL run."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    nccl_probe(torch, dev)
+    config = main_path_config("ctc")
+    config["optim"] = dict(config["optim"], epochs=1)
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = work / "config.json"
+    cfg.write_text(json.dumps(config))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, plain = train_mod.train(train_mod.parse_args(
+            ["--config", str(cfg), "--checkpoint_path", str(work / "plain")]))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        _, nccl = train_mod.main(
+            ["--config", str(cfg), "--checkpoint_path", str(work / "nccl"), "--world_size",
+             "1", "--coordinator_address", f"127.0.0.1:{pmesh.free_port()}",
+             "--process_id", "0"])
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if torch.distributed.is_initialized():
+        raise AssertionError("train.main left its process group initialised")
+    if nccl != plain:
+        raise AssertionError(f"NCCL world of one: history {nccl}, plain run {plain}")
+    log(f"[{card}] NCCL world of one (train.main rendezvous, ctc path, 1 epoch): "
+        f"{seconds:.1f} s, history equal to the plain run's: {json.dumps(nccl)}")
+    return launches, seconds
+
+
+def run_examples(torch, dev, card, work):
+    """Both examples on the card at their shipped epochs; their final
+    validation CER and kernel launches."""
+    from gtn_applications_tpu_torch.examples import marginalized_transducer, quickstart
+    from gtn_applications_tpu_torch.ops import _build
+
+    out, launches = {}, {}
+    for name, run in (("quickstart", lambda d: quickstart.main(["--workdir", d])[0]),
+                      ("marginalized_transducer",
+                       lambda d: marginalized_transducer.main(["--workdir", d]))):
+        (work / name).mkdir(parents=True, exist_ok=True)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        history = run(str(work / name))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for k, v in _build.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        final = history[-1]
+        if not all(math.isfinite(final[k]) for k in ("train_loss", "val_loss", "val_cer")):
+            raise AssertionError(f"example {name}: {final}")
+        out[name] = {"epochs": len(history), "val_cer": final["val_cer"],
+                     "val_loss": final["val_loss"], "seconds": seconds}
+        log(f"[{card}] example {name}: {len(history)} epochs in {seconds:.1f} s, final "
+            f"validation CER {final['val_cer']:.2f}, loss {final['val_loss']:.4f}")
+    return out, launches
+
+
+def add_launches(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_distributed(torch, dev, card, device="cuda"):
+    """The multi-process paths, the kernels built before any spawn:
+    ``dryrun_multichip(2)`` (gloo ranks on ``device``) against each leg's
+    one-process step on the same device (losses, parameters after the
+    step; the seq leg's loss and gradient
+    against the one-process assoc form); the ctc path's full-width model
+    on a global batch of 32, two ranks of 16, for 3 steps against one
+    process on the same batches (``hold_dp``: in the ranks' row blocks,
+    every loss and parameter; on the whole batch, the first step), with
+    the host-clock step times and the gradient reduction's share; a
+    world of one over NCCL through ``train.py``'s rendezvous; both
+    examples.  Returns (timing, kernel launches of the ranks and runs)."""
+    from gtn_applications_tpu_torch import dryrun
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    launches = {}
+    results, refs = dryrun.dryrun_multichip(DIST_RANKS, device, "gloo", check=True,
+                                            prefix=f"[{card}] ")
+    leg_errs = {name: abs(results[0][name]["loss"] - refs[name]["loss"])
+                / abs(refs[name]["loss"]) for name in refs}
+    leg_param_errs = {name: max(float(np.abs(r[name]["params"][k] - ref).max())
+                                for r in results for k, ref in refs[name]["params"].items())
+                      for name in refs if name != dryrun.SEQ_LEG}
+    seq_grad_err = float(np.abs(dryrun.assemble_seq_grad(results, DIST_RANKS)
+                                - refs[dryrun.SEQ_LEG]["grad"]).max())
+    for r in results:
+        add_launches(launches, r["launches"])
+    log(f"[{card}] dryrun_multichip({DIST_RANKS}) against one process on the card: loss "
+        f"relative errors {json.dumps(leg_errs)}, parameters after the step max |d| "
+        f"{json.dumps(leg_param_errs)}, seq leg gradient max |d| {seq_grad_err:.3g}")
+
+    config = dp_config()
+    batches = dp_batches(config)
+    rank_device = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(dp_rank, DIST_RANKS, args=(rank_device, config, batches),
+                        backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        blocked = dp_steps(torch, dev, config, batches, blocks=DIST_RANKS)
+        whole = dp_steps(torch, dev, config, batches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    from gtn_applications_tpu_torch import train as train_mod
+
+    init_model = train_mod.load_experiment(
+        config, torch.Generator().manual_seed(config["seed"]))[3]
+    init = {k: v.numpy() for k, v in init_model.state_dict().items()}
+    errs = hold_dp(ranks, blocked, whole, init)
+    for r in ranks:
+        add_launches(launches, r["launches"])
+    # the first step of each run builds its plans and algorithms: the later
+    # steps' mean is the step time
+    rank_ms = statistics.mean(statistics.mean(r["step_ms"][1:]) for r in ranks)
+    one_ms = statistics.mean(whole["step_ms"][1:])
+    reduce_ms = statistics.mean(r["reduce_ms"] for r in ranks)
+    log(f"[{card}] full-width ctc step, {DIST_RANKS} gloo ranks of {DP_BATCH // DIST_RANKS} "
+        f"on one card: {rank_ms:.2f} ms (host clock, steps 2-{DP_STEPS}), gradient "
+        f"reduction ({whole['n_params']:,} parameters, gloo) {reduce_ms:.2f} "
+        f"ms, {100 * reduce_ms / rank_ms:.1f}% of the step; one process of {DP_BATCH}: "
+        f"{one_ms:.2f} ms (cuDNN deterministic on both); losses {ranks[0]['losses']}, one "
+        f"process {whole['losses']}, in row blocks {blocked['losses']}; errors "
+        f"{json.dumps(errs)}; spawn and steps {spawn_s:.1f} s")
+
+    nccl_launches, nccl_s = world_of_one_nccl(torch, dev, card, WORK / "dist_nccl")
+    add_launches(launches, nccl_launches)
+    examples, example_launches = run_examples(torch, dev, card, WORK / "examples")
+    add_launches(launches, example_launches)
+    seconds = time.perf_counter() - t_phase
+    log(f"[{card}] distributed phase: {seconds:.1f} s, launches {json.dumps(launches)}")
+    timing = {"dryrun_loss_rel_err": leg_errs, "dryrun_param_max_abs_err": leg_param_errs,
+              "dryrun_seq_grad_max_abs_err": seq_grad_err,
+              "dp_rank_step_ms": rank_ms, "dp_one_process_step_ms": one_ms,
+              "dp_reduce_ms": reduce_ms, "dp_reduce_share": reduce_ms / rank_ms,
+              "dp_errors": errs,
+              "dp_step_ms": {"ranks": [r["step_ms"] for r in ranks], "one": whole["step_ms"],
+                             "blocks": blocked["step_ms"]},
+              "nccl_world_of_one_s": nccl_s, "examples": examples,
+              "distributed_s": seconds, "distributed_launches": launches}
+    return timing, launches
+
+
 KERNELS = [
     ("gather_fwd", "gtn_applications_tpu_torch/ops/csrc/gather.cu",
      "gtn_applications_tpu/ops/gathers.py:30", "torch_gather"),
@@ -4363,7 +4783,10 @@ KERNELS = [
 ]
 
 
-def run(device="cuda"):
+def run(device="cuda", only=None):
+    """Every phase; with ``only="distributed"``, the device, the build and
+    the distributed phase alone (a quicker check of that phase, which
+    prints no result line)."""
     import torch
 
     import gtn_applications_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -4371,6 +4794,12 @@ def run(device="cuda"):
     card = phase_device(torch)
     dev = torch.device(device)
     build_s = phase_build()
+    if only == "distributed":
+        timing, _ = phase_distributed(torch, dev, card)
+        print(json.dumps({"timing": dict(timing, build_s=build_s)}))
+        return
+    if only is not None:
+        raise ValueError(f"unknown phase {only!r}")
     errs = phase_gather(torch, dev)
     errs.update(phase_ctc(torch, dev))
     chunk_errs, chunk_rows = phase_ctc_chunked(torch, dev, card)
@@ -4401,7 +4830,7 @@ def run(device="cuda"):
     times, bounds, chain = phase_times(torch, dev, paths)
     for path in PATHS:
         log(f"[{card}] train step {path}: {times[f'train_step_{path}']:.2f} ms (host clock, "
-            f"median of 20), batch {times[f'train_step_{path}_shape']}")
+            f"median of {step_runs(path)[0]}), batch {times[f'train_step_{path}_shape']}")
     for more in (dense_times(torch, dev), factored_times(torch, dev), sparse_times(torch, dev)):
         times.update(more[0])
         bounds.update(more[1])
@@ -4424,9 +4853,11 @@ def run(device="cuda"):
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)
+    dist_timing, dist_launches = phase_distributed(torch, dev, card)
+    times.update(dist_timing)
 
     launches = {name: sum(p["launches"][name] for p in paths.values())
-                for name, *_ in KERNELS}
+                + dist_launches.get(name, 0) for name, *_ in KERNELS}
     timing = dict(times, card=card, build_s=build_s, wordpiece_s=wordpiece_s, **diffs,
                   backoff_factored=backoff_factored,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],
@@ -4487,9 +4918,13 @@ def run(device="cuda"):
     }}))
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     try:
-        run()
+        if argv[:1] == ["--only"]:
+            run(only=argv[1])
+        else:
+            run()
     except Exception:  # report which phase failed, exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

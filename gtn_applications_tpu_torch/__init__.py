@@ -10,8 +10,11 @@ Transducer's transition-factored scan, the sparse-arc scan of composed
 lattices (one step, ``seg_lse``, and the whole scan) and the whole-scan
 Viterbi decode run on CUDA kernels written by hand for ``sm_90a``
 (``ops/csrc/``), each with a plain PyTorch version that CPU tensors take.  The Transducer's host compilation calls the native graph
-compiler (``native/``, built at first use with ``make -C native``).  Module and function names
-mirror the JAX package.
+compiler (``native/``, built at first use with ``make -C native``).  Training and
+evaluation run over ``torch.distributed``, one process per device
+(``parallel/``), with a multi-process dry run (``dryrun.py``) and two
+examples (``examples/``).  Module and function names mirror the JAX
+package.
 """
 
 __version__ = "0.1.0"

@@ -32,6 +32,11 @@
 // values the posteriors compare stay small (at alpha ~ 700, one fp32 ulp is
 // 6e-5, and exp(c - y) between two summation orders would differ by that),
 // and the shift, which the gradient does not depend on, carries the rest.
+// The forward carries alpha in float64 and rounds it to float only where
+// it writes the trajectory (its shifts within a row, exponentials, sums
+// and logarithms stay float: value_f, lae_f): a float state
+// rounds a few times a frame, and over 576 frames a state 60-80 nats below
+// the frame's largest drifted 1.8e-3 from the float64 recursion.
 // Its backward recomputes each live frame's chain from
 // the saved trajectory and runs it in reverse (the closure's logaddexp,
 // then each epsilon step's VJP, then the arc step's), writing dem [B, T, C]
@@ -141,6 +146,23 @@ struct Seg {
 template <typename V>
 __device__ __forceinline__ V posterior(V c, Seg<V> sg, V g) {
   return (c > V(kDead) && sg.z > V(0)) ? ex(c - sg.m) / sg.z * g : V(0);
+}
+
+// A Seg's value and logaddexp of double values by float exp and log (the
+// forward scan's): z is a float sum, and the logaddexp's sum lies in
+// [1, 2], so the float log loses nothing the double result keeps.
+__device__ __forceinline__ double value_f(Seg<double> sg) {
+  const float z = static_cast<float>(sg.z);
+  return z > 0.0f ? sg.m + static_cast<double>(logf(fmaxf(z, kFloor)))
+                  : static_cast<double>(kNeg);
+}
+
+__device__ __forceinline__ double lae_f(double a, double b) {
+  const double m = fmax(fmax(a, b), static_cast<double>(kNeg));
+  const float s = (a > kDead ? expf(static_cast<float>(a - m)) : 0.0f) +
+                  (b > kDead ? expf(static_cast<float>(b - m)) : 0.0f);
+  return s > 0.0f ? m + static_cast<double>(logf(fmaxf(s, kFloor)))
+                  : static_cast<double>(kNeg);
 }
 
 // A carve of shared memory (or of a global scratch slice), 4-byte words;
@@ -743,9 +765,13 @@ __device__ __forceinline__ V merged_max(const V* part_m, const int* hub) {
 // One logsumexp phase over a list of this rank's part: the Seg of every
 // row, handed to emit(row, seg) by one lane of its group (a hub's by one
 // thread after its chunks' maxima, then sums, have met in part_m/part_z).
-// value(k): the contribution at position k.  Every thread calls it.
-template <typename V, typename F, typename Emit>
-__device__ void lse_phase(const int* part, int list, V* part_m, V* part_z, F value,
+// value(k): the contribution at position k.  Every thread calls it.  The
+// group's shift m, the exponentials and their sum z are taken in Z (V by
+// default; the forward scan's float beside its double values: m is only a
+// shift, m + log z is exact for any m near the largest c, and exp(c - m)
+// of c - m <= ~0 needs no more; the values c do).
+template <typename V, typename Z = V, typename F, typename Emit>
+__device__ void lse_phase(const int* part, int list, V* part_m, Z* part_z, F value,
                           Emit emit) {
   const ListHead h = list_head(part, list);
   const int lane = threadIdx.x & 31;
@@ -761,30 +787,30 @@ __device__ void lse_phase(const int* part, int list, V* part_m, V* part_z, F val
       c[j] = k < t.end ? value(k) : V(-INFINITY);
       m = vmax(m, c[j]);
     }
-    m = vmax(group_max(m, t.g), V(kNeg));
+    m = vmax(static_cast<V>(group_max(static_cast<Z>(m), t.g)), V(kNeg));
     if (t.aux >= 0) {  // a hub chunk (one a warp): its sum after the merge
       if (lane == 0) part_m[t.aux & kChunkMask] = m;
       continue;
     }
-    V z = V(0);
+    Z z = Z(0);
 #pragma unroll
     for (int j = 0; j < kLaneArcs; ++j)
-      if (c[j] > V(kDead)) z += ex(c[j] - m);
+      if (c[j] > V(kDead)) z += ex(static_cast<Z>(c[j] - m));
     z = group_sum(z, t.g);
-    if (t.sub == 0 && t.key >= 0) emit(t.key, Seg<V>{m, z});
+    if (t.sub == 0 && t.key >= 0) emit(t.key, Seg<V>{m, static_cast<V>(z)});
   }
   if (h.nhubs == 0) return;
   __syncthreads();
   for (int q = warp; q < h.nchunks; q += nwarps) {  // the chunks' slots come first
     const Task t = slot_task(part, h, q, lane);
     const V m = merged_max(part_m, part + h.hub_off + 3 * (t.aux >> 16));
-    V z = V(0);
+    Z z = Z(0);
 #pragma unroll
     for (int j = 0; j < kLaneArcs; ++j) {
       const int k = t.beg + lane + j * 32;
       if (k < t.end) {
         const V c = value(k);
-        if (c > V(kDead)) z += ex(c - m);
+        if (c > V(kDead)) z += ex(static_cast<Z>(c - m));
       }
     }
     z = group_sum(z, 32);
@@ -793,9 +819,9 @@ __device__ void lse_phase(const int* part, int list, V* part_m, V* part_z, F val
   __syncthreads();
   for (int i = threadIdx.x; i < h.nhubs; i += blockDim.x) {
     const int* hub = part + h.hub_off + 3 * i;
-    V z = V(0);
+    Z z = Z(0);
     for (int p = hub[1]; p < hub[1] + hub[2]; ++p) z += part_z[p];
-    emit(hub[0], Seg<V>{merged_max(part_m, hub), z});
+    emit(hub[0], Seg<V>{merged_max(part_m, hub), static_cast<V>(z)});
   }
 }
 
@@ -855,9 +881,10 @@ __device__ __forceinline__ void push(cg::cluster_group& cl, V* buf, int s, V x) 
 }
 
 // Shared memory in 4-byte words, as ops/sparse_scan_pallas.py smem_words:
-// the forward's state, and its staged tables and schedule.
+// the forward's state (its vectors and shifts float64, the sums and the
+// emission rows float), and its staged tables and schedule.
 __host__ __device__ long fwd_state_words(int S, int C, int n, int p) {
-  return 32 + 4L * S + n + 2L * C + 2L * p;
+  return 64 + 8L * S + 2L * n + 2L * C + 3L * p;
 }
 
 __host__ __device__ long fwd_table_words(int a, int e, int fwd_words) {
@@ -906,19 +933,22 @@ sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ a
   const int* part = sched + (static_cast<long>(qb ? b : 0) * k + rank) * stride;
   const int s0 = part[kS0], s1 = part[kS1], a0 = part[kA0], a1 = part[kA1];
   const int e0 = part[kE0], e1 = part[kE1];
+  // the state in float64, carved first: a float state takes a rounding a
+  // frame, and over hundreds of frames those of a state tens of nats below
+  // the frame's largest add up to more than 1e-3
   Carve cv{smem};
-  float* red = cv.floats(32);
-  float* cur0 = cv.floats(S);
-  float* cur1 = cv.floats(S);
+  double* red = cv.doubles(32);
+  double* cur0 = cv.doubles(S);
+  double* cur1 = cv.doubles(S);
   // the frames' acc, every state, by frame parity: frame t reads alpha as
   // acc[t - 1] less the running frame shift sh, and writes acc[t]
-  float* acc0 = cv.floats(S);
-  float* acc1 = cv.floats(S);
-  float* accl = cv.floats(n_own);  // acc_d of the own states
+  double* acc0 = cv.doubles(S);
+  double* acc1 = cv.doubles(S);
+  double* accl = cv.doubles(n_own);  // acc_d of the own states
+  double* part_m = cv.doubles(parts);
+  float* part_z = cv.floats(parts);
   float* em0 = cv.floats(C);  // the emission rows, by frame parity
   float* em1 = cv.floats(C);
-  float* part_m = cv.floats(parts);
-  float* part_z = cv.floats(parts);
   const long so = sb ? static_cast<long>(b) : 0;
   const int* Sr = src + so * A;
   const int* Lb = label + so * A;
@@ -942,8 +972,8 @@ sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ a
   const int t_live = min(max(lens[b], 0), T);
   const float* em_b = em + static_cast<long>(b) * T * C;
   double* shift_b = shift + static_cast<long>(b) * (T + 1);
-  double k_run = 0.0;  // a sum of hundreds of shifts, kept exact
-  float sh = 0.0f;
+  double k_run = 0.0;  // a sum of hundreds of shifts
+  double sh = 0.0;
   const bool lead = rank == 0 && threadIdx.x == 0;
   if (lead) shift_b[0] = 0.0;
   if (t_live > 0)
@@ -951,39 +981,41 @@ sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ a
   cl.sync();  // every block of the cluster runs, its staging done
 
   for (int t = 0; t < t_live; ++t) {
-    const float* prev = (t & 1) ? acc0 : acc1;
-    float* accp = (t & 1) ? acc1 : acc0;
+    const double* prev = (t & 1) ? acc0 : acc1;
+    double* accp = (t & 1) ? acc1 : acc0;
     const float* em_row = (t & 1) ? em1 : em0;
     if (t + 1 < t_live) prefetch((t & 1) ? em0 : em1, em_b + static_cast<long>(t + 1) * C, C);
     // the arc step: y into acc_0 (own) and cur_0 (or, without a closure,
     // the frame's acc) of every block
-    lse_phase<float>(
+    lse_phase<double, float>(
         part, kDst, part_m, part_z,
         [&](int kk) {
           const int s = Sr[kk];
           const int l = Lb[kk];
-          return ((s >= 0 ? prev[s] - sh : kNeg) + W[kk]) +
-                 ((l >= 0 && l < C) ? em_row[l] : 0.0f);
+          return ((s >= 0 ? prev[s] - sh : static_cast<double>(kNeg)) +
+                  static_cast<double>(W[kk])) +
+                 ((l >= 0 && l < C) ? static_cast<double>(em_row[l]) : 0.0);
         },
-        [&](int s, Seg<float> sg) {
-          const float v = sg.value();
+        [&](int s, Seg<double> sg) {
+          const double v = value_f(sg);
           accl[s - s0] = v;
           push(cl, depth > 0 ? cur0 : accp, s, v);
         });
     cl.sync();
     for (int d = 0; d < depth; ++d) {
-      const float* c0 = (d & 1) ? cur1 : cur0;
-      float* c1 = (d & 1) ? cur0 : cur1;
+      const double* c0 = (d & 1) ? cur1 : cur0;
+      double* c1 = (d & 1) ? cur0 : cur1;
       const bool last = d == depth - 1;
-      lse_phase<float>(
+      lse_phase<double, float>(
           part, kEpsDst, part_m, part_z,
           [&](int kk) {
             const int s = ES[kk];
-            return (s >= 0 ? c0[s] : kNeg) + EW[kk];
+            return (s >= 0 ? c0[s] : static_cast<double>(kNeg)) +
+                   static_cast<double>(EW[kk]);
           },
-          [&](int s, Seg<float> sg) {
-            const float v = sg.value();
-            const float a = lae(accl[s - s0], v);
+          [&](int s, Seg<double> sg) {
+            const double v = value_f(sg);
+            const double a = lae_f(accl[s - s0], v);
             accl[s - s0] = a;
             if (last) {
               push(cl, accp, s, a);
@@ -995,25 +1027,27 @@ sparse_scan_fwd_kernel(const float* __restrict__ em, const float* __restrict__ a
     }
     // the frame's shift: its largest alpha, 0 if every state is dead; every
     // block takes it from its own copy of acc, so all agree
-    float m = -INFINITY;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) m = fmaxf(m, accp[s]);
+    double m = -INFINITY;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) m = fmax(m, accp[s]);
     m = warp_max(m);
     if (lane == 0) red[warp] = m;
     __pipeline_wait_prior(0);
     __syncthreads();
     m = -INFINITY;
-    for (int i = 0; i < nwarps; ++i) m = fmaxf(m, red[i]);
-    sh = m > kDead ? m : 0.0f;
+    for (int i = 0; i < nwarps; ++i) m = fmax(m, red[i]);
+    sh = m > kDead ? m : 0.0;
     k_run += sh;
     float* tr = traj + tb + static_cast<long>(t + 1) * S;
-    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) tr[s] = accp[s] - sh;
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x)
+      tr[s] = static_cast<float>(accp[s] - sh);
     if (lead) shift_b[t + 1] = k_run;
   }
   // frozen tail: alpha and the shift keep their values past the length
-  const float* last = ((t_live - 1) & 1) ? acc1 : acc0;
+  const double* last = ((t_live - 1) & 1) ? acc1 : acc0;
   for (int t = t_live; t < T; ++t) {
     float* tr = traj + tb + static_cast<long>(t + 1) * S;
-    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x) tr[s] = last[s] - sh;
+    for (int s = s0 + threadIdx.x; s < s1; s += blockDim.x)
+      tr[s] = static_cast<float>(last[s] - sh);
     if (lead) shift_b[t + 1] = k_run;
   }
   cl.sync();  // no block leaves while another may still address its memory

@@ -231,7 +231,8 @@ def _assoc_inputs(log_probs, targets, target_lengths, blank, input_lengths):
 
 
 def ctc_forward_score_assoc(
-    log_probs, targets, target_lengths, blank, input_lengths=None, chunk=None
+    log_probs, targets, target_lengths, blank, input_lengths=None, chunk=None,
+    seq_group=None,
 ):
     """CTC forward score as a composition of band transition operators.
 
@@ -245,41 +246,67 @@ def ctc_forward_score_assoc(
     ``chunk``: the chunk-transfer form (``_ctc_assoc_chunked``), one dense
     operator a chunk of frames instead of one a frame.
 
+    ``seq_group``: the sequence-parallel form over a ``torch.distributed``
+    group of n ranks (the ``'seq'`` axis of ``parallel.mesh``).
+    ``log_probs`` is then this rank's contiguous slice of T / n frames
+    (group rank 0 holds frame 0; ``input_lengths`` count global frames, T
+    by default).  Each rank composes its own frames' operators (or chunk
+    transfers) into one [B, S, S] operator; the operators are gathered
+    across the group and composed in rank order, the prefix combine JAX's
+    XLA inserts across ``'seq'``.  Every rank returns the same score, and
+    the gradient reaches each rank's own frames once
+    (``parallel.mesh.all_gather_replicated``).
+
     Plain torch, as JAX computes it with jnp and lax: the recursion,
     combine and fold reach no Pallas kernel in JAX, so the port writes none;
     the emission gather (``semiring.gather_channels``) runs the gather
     kernels, as JAX's runs its Pallas gather on a TPU.
     """
+    if seq_group is not None:
+        return _ctc_assoc_seq(log_probs, targets, target_lengths, blank,
+                              input_lengths, chunk, seq_group)
     if chunk is not None:
         return _ctc_assoc_chunked(
             log_probs, targets, target_lengths, blank, input_lengths, chunk
         )
     em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
         log_probs, targets, target_lengths, blank, input_lengths)
+    total = _fold(_frame_operators(em, skip_ok, input_lengths, 0, True))  # [B, S, S]
+    return _accepted_score(_apply_start(total, target_lengths), target_lengths)
+
+
+def _frame_operators(em, skip_ok, input_lengths, t0, first):
+    """The per-frame operators [T, B, S, S] of frames t0.. of em [B, T, S]:
+    stay, advance and skip where allowed, the identity for frames at t >=
+    input_length, and, with ``first``, frame 0's diagonal."""
     B, T, S = em.shape
     device = em.device
-
-    # allowed-transition mask [B, S, S]: stay, advance, skip
     i = torch.arange(S, device=device)[:, None]
     j = torch.arange(S, device=device)[None, :]
     eye, adv = i == j, i == j + 1
     skp = (i == j + 2)[None] & skip_ok[:, :, None]
     allowed = torch.where(eye[None] | adv[None] | skp, 0.0, NEG)
 
-    # per-frame operators, the identity for t >= input_length
     ident = torch.where(eye, 0.0, NEG)[None, None]
     ops = em.transpose(0, 1)[:, :, :, None] + allowed[None]  # [T, B, S, S]
-    live = (torch.arange(T, device=device)[:, None] < input_lengths[None, :])[..., None, None]
+    ts = t0 + torch.arange(T, device=device)
+    live = (ts[:, None] < input_lengths[None, :])[..., None, None]
     ops = torch.where(live, ops, ident)
-    ops0 = torch.where(eye[None], em[:, 0, :, None], NEG)
-    ops = torch.cat([ops0[None], ops[1:]], dim=0)
+    if first:
+        ops0 = torch.where(eye[None], em[:, 0, :, None], NEG)
+        ops = torch.cat([ops0[None], ops[1:]], dim=0)
+    return ops
 
-    total = _fold(ops)  # [B, S, S]
-    s_idx = torch.arange(S, device=device)[None, :]
+
+def _apply_start(total, target_lengths):
+    """alpha at the last frame from the composed operator: the start
+    potential (states 0 and, for a nonempty target, 1) folded into the
+    apply; frame 0's operator already consumed its emission."""
+    S = total.shape[-1]
+    s_idx = torch.arange(S, device=total.device)[None, :]
     start = torch.where(
         (s_idx == 0) | ((s_idx == 1) & (target_lengths[:, None] > 0)), 0.0, NEG)
-    alpha_final = logsumexp(total + start[:, None, :], dim=-1)  # [B, S]
-    return _accepted_score(alpha_final, target_lengths)
+    return logsumexp(total + start[:, None, :], dim=-1)  # [B, S]
 
 
 def _shift_rows(M, k):
@@ -287,37 +314,22 @@ def _shift_rows(M, k):
     return torch.cat([torch.full_like(M[..., :k, :], NEG), M[..., :-k, :]], dim=-2)
 
 
-def _ctc_assoc_chunked(
-    log_probs, targets, target_lengths, blank, input_lengths, chunk
-):
-    """Chunk-transfer form of ``ctc_forward_score_assoc``: a banded
-    in-chunk recursion builds one dense [S, S] transfer a chunk, for all
-    chunks at once as JAX's ``vmap`` does ([nc, B, S, S]); the transfers
-    compose by ``_fold``.  Frame 0 is the init, frames 1..T-1 split into
-    chunks, the last padded with frames at t = T (the identity).  The
-    in-chunk recursion runs under ``torch.utils.checkpoint``, as JAX's under
-    ``jax.checkpoint``: the backward recomputes it rather than keep [B, S,
-    S] a frame."""
-    em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
-        log_probs, targets, target_lengths, blank, input_lengths)
-    B, T, S = em.shape
+def _chunk_transfers(em, ts, skip_ok, input_lengths, chunk, pad_t):
+    """One dense [S, S] transfer a chunk of ``chunk`` frames, for all chunks
+    at once as JAX's ``vmap`` does: [nc, B, S, S] from em [n, B, S] at
+    global frames ``ts`` [n], the last chunk padded with frames at t =
+    ``pad_t`` (the identity).  The in-chunk recursion runs under
+    ``torch.utils.checkpoint``, as JAX's under ``jax.checkpoint``: the
+    backward recomputes it rather than keep [B, S, S] a frame."""
+    n_steps, B, S = em.shape
     device = em.device
-    em = em.transpose(0, 1)  # [T, B, S]
-
-    alpha0 = torch.full((B, S), NEG, dtype=em.dtype, device=device)
-    alpha0[:, 0] = em[0, :, 0]
-    if S > 1:
-        alpha0[:, 1] = torch.where(target_lengths > 0, em[0, :, 1], NEG)
-
-    n_steps = T - 1
     nc = max(-(-n_steps // chunk), 1)
     pad = nc * chunk - n_steps
     em_rest = torch.cat(
-        [em[1:], torch.zeros((pad, B, S), dtype=em.dtype, device=device)], dim=0
+        [em, torch.zeros((pad, B, S), dtype=em.dtype, device=device)], dim=0
     ).reshape(nc, chunk, B, S)
     ts = torch.cat([
-        torch.arange(1, T, device=device),
-        torch.full((pad,), T, dtype=torch.long, device=device),
+        ts, torch.full((pad,), pad_t, dtype=torch.long, device=device),
     ]).reshape(nc, chunk)
 
     skip = skip_ok[None, :, :, None]
@@ -346,9 +358,65 @@ def _ctc_assoc_chunked(
                            use_reentrant=False)
         return M
 
-    total = _fold(checkpoint(transfers, em_rest, use_reentrant=False))
+    return checkpoint(transfers, em_rest, use_reentrant=False)
+
+
+def _ctc_assoc_chunked(
+    log_probs, targets, target_lengths, blank, input_lengths, chunk
+):
+    """Chunk-transfer form of ``ctc_forward_score_assoc``: a banded
+    in-chunk recursion builds one dense [S, S] transfer a chunk
+    (``_chunk_transfers``); the transfers compose by ``_fold``.  Frame 0
+    is the init, frames 1..T-1 split into chunks, the last padded with
+    frames at t = T (the identity)."""
+    em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
+        log_probs, targets, target_lengths, blank, input_lengths)
+    B, T, S = em.shape
+    device = em.device
+    em = em.transpose(0, 1)  # [T, B, S]
+
+    alpha0 = torch.full((B, S), NEG, dtype=em.dtype, device=device)
+    alpha0[:, 0] = em[0, :, 0]
+    if S > 1:
+        alpha0[:, 1] = torch.where(target_lengths > 0, em[0, :, 1], NEG)
+
+    total = _fold(_chunk_transfers(em[1:], torch.arange(1, T, device=device), skip_ok,
+                                   input_lengths, chunk, T))
     alpha_final = logsumexp(total + alpha0[:, None, :], dim=-1)
     return _accepted_score(alpha_final, target_lengths)
+
+
+def _ctc_assoc_seq(log_probs, targets, target_lengths, blank, input_lengths, chunk,
+                   seq_group):
+    """The sequence-parallel form of ``ctc_forward_score_assoc`` (see
+    there): this rank's operator, gathered and composed in rank order."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh
+
+    rank, n = dist.get_rank(seq_group), dist.get_world_size(seq_group)
+    B, T_local, _ = log_probs.shape
+    t0 = rank * T_local
+    if input_lengths is None:
+        input_lengths = torch.full((B,), T_local * n, dtype=torch.int32)
+    em, skip_ok, target_lengths, input_lengths = _assoc_inputs(
+        log_probs, targets, target_lengths, blank, input_lengths)
+    if chunk is None:
+        local = _fold(_frame_operators(em, skip_ok, input_lengths, t0, rank == 0))
+    else:
+        # group rank 0's frame 0 is its diagonal operator, the others chunk
+        # transfers from the rank's first frame on
+        first = int(rank == 0)
+        em_t = em.transpose(0, 1)
+        ts = t0 + torch.arange(first, T_local, device=em.device)
+        ops = _chunk_transfers(em_t[first:], ts, skip_ok, input_lengths, chunk,
+                               T_local * n)
+        if first:
+            ops0 = _frame_operators(em[:, :1], skip_ok, input_lengths, 0, True)
+            ops = torch.cat([ops0, ops], dim=0)
+        local = _fold(ops)
+    total = _fold(mesh.all_gather_replicated(local, seq_group))
+    return _accepted_score(_apply_start(total, target_lengths), target_lengths)
 
 
 # ---------------------------------------------------------------------------

@@ -423,11 +423,12 @@ def smem_words(sizes, S, C, depth, backward):
     lies there (the state vectors other blocks write into, and the
     posteriors they read); ``own`` (the backward's float64 state of the
     rank's own states and arcs) there or in global scratch; the staged
-    tables and schedule there when all three fit."""
+    tables and schedule there when all three fit.  The forward's state
+    vectors and shifts are float64, its sums and emission rows float."""
     n, a, e, p = sizes["states"], sizes["arcs"], sizes["eps"], sizes["parts"]
     D = depth
     if not backward:
-        return 32 + 4 * S + n + 2 * C + 2 * p, 0, 3 * a + 2 * e + sizes["fwd_words"]
+        return 64 + 8 * S + 2 * n + 2 * C + 3 * p, 0, 3 * a + 2 * e + sizes["fwd_words"]
     shared = 2 * (D * S + 2 * p) + 2 * S + 2 * a + 2 * e + 2 * C
     own = 2 * (n * (5 * D + 6) + a + e)
     tables = (3 * a + 2 * e + sizes["stride"] + sizes["src_refs"] + sizes["eps_refs"]

@@ -20,7 +20,13 @@ in turns: baseline, this, this, baseline, each a CUDA-event median of 30
 runs (``chip_smoke.gpu_median_ms``).  One JSON line (also written to
 FILE) gives the times in ms, the card's name and power limit and, per
 case, the largest difference between the two trajectories on live
-states.  ``--clusters`` also times this checkout's pair at each of those
+states.  ``--accuracy SCALE ...`` also gives each forward's distance from the
+scan in float64 (the plain version on the same inputs): the largest
+|d| on the trajectory's live states within 80 nats of each frame's
+largest, as ``chip_smoke.hold_sparse_kernels`` holds it, with the
+emissions scaled by each SCALE, beside the float32 plain version's;
+``--frames`` sets the cases' T (default 300).
+``--clusters`` also times this checkout's pair at each of those
 cluster sizes, with how many of its clusters the card holds at once.
 ``--phases`` also times it at each closure depth from 0 to the table's
 (its batch's cluster size throughout): the time at depth 0 is the arc
@@ -122,11 +128,13 @@ def load_baseline(root, name="ops.sparse_scan_pallas"):
     return importlib.import_module("baseline_port." + name)
 
 
-def cases(torch, cs, dev):
-    """(name, em, lens, table) of the six cases."""
+def cases(torch, cs, dev, t=300):
+    """(name, em, lens, table) of the six cases; the backoff paths' at
+    ``t`` frames."""
     _, em, lens, tables = cs.backoff_lm_inputs(torch, dev)
-    _, em3, lens3, tables3 = cs.backoff_main_inputs(torch, dev)
-    _, em4, lens4, tables4 = cs.backoff_main_inputs(torch, dev, path="transducer_backoff_4gram")
+    _, em3, lens3, tables3 = cs.backoff_main_inputs(torch, dev, t=t)
+    _, em4, lens4, tables4 = cs.backoff_main_inputs(torch, dev, t=t,
+                                                    path="transducer_backoff_4gram")
     return [("1kwp_norm", em, lens, tables["norm"]), ("1kwp_score", em, lens, tables["score"]),
             ("trigram_norm", em3, lens3, tables3["norm"]),
             ("trigram_score", em3, lens3, tables3["score"]),
@@ -508,6 +516,11 @@ def main(argv=None):
                         help="compare the seg_lse pair instead")
     parser.add_argument("--dense", action="store_true",
                         help="compare the dense scan pair instead")
+    parser.add_argument("--accuracy", type=float, nargs="*", default=[],
+                        help="also hold each forward to float64 with the emissions "
+                             "scaled by each of these")
+    parser.add_argument("--frames", type=int, default=300,
+                        help="frames of the backoff paths' cases")
     parser.add_argument("--out", default=None, help="also write the JSON line here")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
@@ -540,7 +553,7 @@ def main(argv=None):
         result["cases"] = dense_ab(torch, cs, args.baseline, dev)
         return _report("compare_dense", result, args.out)
     base = load_baseline(args.baseline)
-    for name, em, lens, table in cases(torch, cs, dev):
+    for name, em, lens, table in cases(torch, cs, dev, args.frames):
         (src, dst, label, w, esrc, edst, ew), start, accept, depth = cs.sparse_fields(table)
         B, S, C = em.shape[0], start.shape[-1], em.shape[2]
         alpha0 = start.expand(B, S).contiguous()
@@ -566,6 +579,21 @@ def main(argv=None):
                "S": S, "A": int(src.shape[1]), "E": int(esrc.shape[1]), "depth": depth,
                "em": list(em.shape), "max_len": int(lens.max()),
                "cluster": ssp.choose_cluster(runs["new"][3], B, depth, dev)}
+        for scale in args.accuracy:
+            ems = (em * scale).contiguous()
+            f64 = [x.double() for x in (ems, alpha0, w, ew)]
+            ref, _ = ssp.sparse_scan_fwd_plain(f64[0], f64[1], lens, runs["new"][3], f64[2],
+                                               f64[3], depth)
+            keep = (ref > DEAD) & (ref > -80.0)
+            plain, _ = ssp.sparse_scan_fwd_plain(ems, alpha0, lens, runs["new"][3], w, ew,
+                                                 depth)
+            trajs = {who: mod.sparse_scan_fwd_cuda(ems, alpha0, lens, runs[who][3], w, ew,
+                                                   depth)[0]
+                     for who, mod in (("base", base), ("new", ssp))}
+            trajs["plain32"] = plain
+            row.setdefault("err64", {})[str(scale)] = {
+                who: float((tr.double() - ref)[keep].abs().max())
+                for who, tr in trajs.items()}
         for who in ("base", "new", "new", "base"):
             fwd, bwd = runs[who][:2]
             row.setdefault(f"{who}_fwd_ms", []).append(cs.gpu_median_ms(torch, fwd))

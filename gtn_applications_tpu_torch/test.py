@@ -2,7 +2,11 @@
 print per-utterance HYP/REF and the aggregate loss/CER/WER.
 
 Counterpart of ``gtn_applications_tpu/test.py``.  Runs on CUDA unless
-``--disable_cuda`` asks for the CPU.
+``--disable_cuda`` asks for the CPU.  Under a process group (``train.py``'s
+rendezvous flags or torchrun's environment) every rank evaluates the whole
+split, as JAX's multi-host evaluation does: each decodes its own batches
+and ``Meters.sync`` sums the counts, so the rates and the mean loss are
+the one-process run's (and each sample counts once a rank).
 
     python -m gtn_applications_tpu_torch.test --config CONFIG.json \
         --checkpoint_path DIR [--split test] [--disable_cuda]
@@ -12,10 +16,12 @@ import argparse
 import json
 import logging
 
+import torch.distributed as dist
+
 from . import utils
 from .train import (
-    criterion_to_device, dataset_kwargs, evaluate, load_experiment, make_eval_step,
-    select_device,
+    add_distributed_args, criterion_to_device, dataset_kwargs, evaluate,
+    init_distributed, load_experiment, make_eval_step, make_mesh, select_device,
 )
 
 
@@ -35,6 +41,7 @@ def parse_args(argv=None):
     parser.add_argument(
         "--disable_cuda", action="store_true", help="Run on the CPU."
     )
+    add_distributed_args(parser)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     return args
@@ -52,7 +59,10 @@ def run_test(args):
     )
     loader = utils.data_loader(ds, config)
 
-    state = utils.load_checkpoint(args.checkpoint_path, load_last=args.load_last)
+    template = {"model": model.state_dict(), "criterion": dict(criterion.params),
+                "epoch": 0, "num_updates": 0}
+    state = utils.load_checkpoint(args.checkpoint_path, load_last=args.load_last,
+                                  template=template)
     model.load_state_dict(state["model"])
     model.to(device)
     criterion_to_device(criterion, device, state["criterion"])
@@ -67,6 +77,7 @@ def run_test(args):
     meters = evaluate(
         model, criterion, loader, preprocessor, make_eval_step(model, criterion),
         device, config["optim"].get("use_input_lengths", False), report,
+        make_mesh(),
     )
     print(
         "Loss {:.3f}, CER {:.3f}, WER {:.3f}".format(
@@ -77,7 +88,13 @@ def run_test(args):
 
 
 def main(argv=None):
-    run_test(parse_args(argv))
+    args = parse_args(argv)
+    created = init_distributed(args, select_device(args.disable_cuda))
+    try:
+        return run_test(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

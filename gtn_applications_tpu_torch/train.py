@@ -1,12 +1,24 @@
-"""Training entry point (PyTorch, one device).
+"""Training entry point (PyTorch): one process per device.
 
-Counterpart of ``gtn_applications_tpu/train.py`` for one CUDA device: JSON
-experiment configs, the epoch loop with SGD and a halving learning-rate
-schedule, global-norm gradient clipping, per-epoch train and validation
-CER/WER, best-checkpoint tracking and restore.  The device mesh, the fused
-multi-step executables, orbax checkpoints and the profiler are not ported
-yet (ROADMAP queue A item 12): ``optim.seq_parallel`` is read and, on the
-one device, falls back to data-only with JAX's warning.
+Counterpart of ``gtn_applications_tpu/train.py``: JSON experiment configs,
+the epoch loop with SGD and a halving learning-rate schedule, global-norm
+gradient clipping, per-epoch train and validation CER/WER (train CER/WER on
+every ``optim.metrics_interval``-th step), best-checkpoint tracking and
+restore, and a profiler trace of the first epoch (``--profile_dir``).
+
+Distribution: one process per device over ``torch.distributed``, the grid
+of ``parallel.mesh``.  Each rank loads its own rows (the sampler deals
+chunk ``rank + i * world_size``), so the global batch is ``batch_size``
+rows, ``batch_size // world_size`` a rank; the step's gradient is that of
+the global batch's loss, reduced over the ``'data'`` group before the
+global-norm clip.  Rendezvous by the flags (``--world_size``,
+``--coordinator_address host:port``, ``--process_id``, as JAX's) or by
+torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``); NCCL on CUDA at ``cuda:LOCAL_RANK``,
+gloo on the CPU.
+Only rank 0 logs.  ``optim.seq_parallel`` > 1 on a world it divides raises:
+the sequence-parallel train step is ROADMAP item A.17; a world it does not
+divide keeps JAX's data-only fallback and warning.
 
 Runs on CUDA unless ``--disable_cuda`` asks for the CPU; without that flag
 and without a GPU it raises.  TF32 is switched off for cuDNN convolutions
@@ -14,18 +26,35 @@ and cuBLAS matmuls: the reference numbers are fp32.
 
     python -m gtn_applications_tpu_torch.train --config CONFIG.json \
         --checkpoint_path DIR [--disable_cuda]
+    torchrun --nproc_per_node 2 -m gtn_applications_tpu_torch.train \
+        --config CONFIG.json --checkpoint_path DIR
 """
 
 import argparse
 import json
 import logging
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import utils
 from .ops.sparse import ArcTable
+from .parallel import mesh as pmesh
+
+
+def add_distributed_args(parser):
+    """JAX's rendezvous flags."""
+    parser.add_argument(
+        "--world_size", default=0, type=int,
+        help="Number of processes (0: torchrun's WORLD_SIZE, else one)",
+    )
+    parser.add_argument("--coordinator_address", default=None, type=str,
+                        help="host:port of rank 0's rendezvous")
+    parser.add_argument("--process_id", default=None, type=int,
+                        help="This process's rank (with --coordinator_address)")
 
 
 def parse_args(argv=None):
@@ -39,13 +68,40 @@ def parse_args(argv=None):
     parser.add_argument("--restore", action="store_true")
     parser.add_argument("--last_epoch", type=int, default=0)
     parser.add_argument("--checkpoint_path", default="/tmp/", type=str)
+    parser.add_argument(
+        "--profile_dir", default=None, type=str,
+        help="Write a torch.profiler trace of the first training epoch "
+        "into this directory (trace_rank<r>.json)",
+    )
+    add_distributed_args(parser)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     return args
 
 
+def init_distributed(args, device):
+    """Join a process group (NCCL on CUDA, gloo on the CPU) as ``args`` or
+    torchrun's environment say; returns True if this call created it
+    (False where neither asks for one, or one exists already)."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if getattr(args, "coordinator_address", None) is not None:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{args.coordinator_address}",
+            world_size=args.world_size or 1, rank=args.process_id or 0,
+        )
+        return True
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+        return True
+    return False
+
+
 def select_device(disable_cuda=False):
-    """The device an entry point runs on; full fp32 math on CUDA."""
+    """The device an entry point runs on: the CPU, or the card of this
+    process's local rank (``LOCAL_RANK``, else the global rank, modulo the
+    cards); full fp32 math on CUDA."""
     if disable_cuda:
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -54,18 +110,51 @@ def select_device(disable_cuda=False):
         )
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    index = pmesh.local_rank() % torch.cuda.device_count()
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
-def check_seq_parallel(seq_parallel):
-    """``optim.seq_parallel`` time shards: JAX's ``make_mesh`` falls back to
-    a data-only mesh with a warning where they do not divide the devices;
-    the port trains on one device, so any n > 1 takes that fallback."""
-    if seq_parallel > 1:
-        logging.warning(
-            "seq_parallel=%d does not divide %d devices; using a "
-            "data-only mesh", seq_parallel, 1,
+# the grid of ranks: ('data',), or ('data', 'seq') where seq_parallel
+# time shards divide the world
+make_mesh = pmesh.make_mesh
+
+
+def check_seq_parallel(mesh):
+    """Raise where the grid has a ``'seq'`` axis of more than one rank: the
+    sequence-parallel train step is not ported (ROADMAP A.17)."""
+    if mesh.dim("seq") > 1:
+        raise NotImplementedError(
+            f"optim.seq_parallel={mesh.dim('seq')} over {mesh.size} ranks: the "
+            "sequence-parallel train step is ROADMAP item A.17 (the encoder's "
+            "time shards: halos for TDS2d's strided convolutions, normalisation "
+            "statistics across shards); ops.lattice.ctc_forward_score_assoc takes "
+            "a 'seq' group already"
         )
+
+
+def input_time_axis(inputs, num_features):
+    """Time axis of a padded input batch: image layout [B, H=num_features,
+    W=time] -> 2; feature-stream layout [B, T=time, F=num_features] -> 1.
+    None for non-3D inputs."""
+    if np.ndim(inputs) != 3:
+        return None
+    return 2 if inputs.shape[1] == num_features else 1
+
+
+def shard_batch(batch, mesh, time_axis=None):
+    """This rank's rows of the step's global batch, as a tensor: its own
+    local batch (JAX's ``global_batch_from_local``), zero-padded along
+    ``time_axis`` to the widest rank's width in the ``'data'`` group, so
+    that every rank's rows are those of one global array (the padded
+    frames count where the criterion scores them: CTC without input
+    lengths, STC's division by T).  Its prepared targets and outputs are
+    its own rows as they are (JAX's ``shard_prepared`` and ``local_rows``
+    have no counterpart)."""
+    batch = torch.as_tensor(batch)
+    if time_axis is not None and mesh.dim("data") > 1:
+        batch = pmesh.pad_to_group_max(batch, time_axis, mesh.group("data"))
+    return batch
 
 
 def clip_global_norm(grads, max_norm):
@@ -77,17 +166,37 @@ def clip_global_norm(grads, max_norm):
     return grads
 
 
-def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm):
-    """The train step: forward, loss, backward, clip, SGD.
+def _data_group(group):
+    """``group`` where it spans more than one rank, else None."""
+    if group is None or not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return None
+    return group
 
-    ``step(inputs, prepared, generator, lr_scale, input_lengths=None)``
-    updates the parameters of ``model`` (and of the criterion, if it has
-    any) in place with ``p -= lr * lr_scale * g`` and returns the detached
-    (loss, outputs).  ``generator`` draws the dropout masks.
-    ``input_lengths`` (None for reference parity: the reference scores the
-    zero-padded frames) masks padded frames out of the lattice."""
+
+def reduce_gradients(grads, weighted_loss, n_local, group):
+    """One SUM all-reduce over ``group`` of the gradients of ``loss x
+    n_local`` flattened with that product and ``n_local``; everything
+    divided by the global row count.  Returns (gradients of the global
+    batch's mean loss, that loss)."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [weighted_loss.reshape(1).to(grads[0].dtype),
+                        torch.tensor([float(n_local)], dtype=grads[0].dtype,
+                                     device=grads[0].device)])
+    flat = pmesh.all_reduce(flat, group)
+    flat = flat[:-1] / flat[-1]
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return out, flat[-1]
+
+
+def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=None):
+    """The train step shared by ``make_train_step`` and
+    ``make_fused_train_steps``."""
     model_params = list(model.parameters())
     crit_params = list(criterion.params.values())
+    group = _data_group(group)
 
     def step(inputs, prepared, generator, lr_scale, input_lengths=None):
         params = model_params + crit_params
@@ -95,8 +204,17 @@ def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm):
             p.grad = None
         outputs = model(inputs, train=True, generator=generator)
         loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
-        loss.backward()
-        grads = [p.grad for p in params]
+        if group is None:
+            loss.backward()
+            grads = [p.grad for p in params]
+        else:
+            # every criterion returns its batch mean: the global batch's
+            # loss is sum_r loss_r B_r / B, so each rank differentiates
+            # loss_r B_r and the reduction divides by B
+            n_local = inputs.shape[0]
+            (loss * n_local).backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            grads, loss = reduce_gradients(grads, loss.detach() * n_local, n_local, group)
         if max_grad_norm is not None:
             clip_global_norm(grads, max_grad_norm)
         with torch.no_grad():
@@ -107,6 +225,50 @@ def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm):
         return loss.detach(), outputs.detach()
 
     return step
+
+
+def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm, group=None):
+    """The train step: forward, loss, backward, gradient reduction over
+    ``group`` (the ``'data'`` ranks; None in one process), clip, SGD.
+
+    ``step(inputs, prepared, generator, lr_scale, input_lengths=None)``
+    updates the parameters of ``model`` (and of the criterion, if it has
+    any) in place with ``p -= lr * lr_scale * g``, where g is the gradient
+    of the global batch's loss clipped to ``max_grad_norm`` by its global
+    norm, and returns the detached (global batch's loss, this rank's
+    outputs).  ``generator`` draws the dropout masks.  ``input_lengths``
+    (None for reference parity: the reference scores the zero-padded
+    frames) masks padded frames out of the lattice."""
+    return _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group)
+
+
+def _index_tree(tree, k):
+    """Entry ``k`` of every tensor or numpy leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {key: _index_tree(v, k) for key, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_index_tree(v, k) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray)) and tree.ndim >= 1:
+        return tree[k]
+    return tree
+
+
+def make_fused_train_steps(model, criterion, lr_model, lr_crit, max_grad_norm,
+                           num_steps, group=None):
+    """``num_steps`` SGD steps in one call: ``fused(inputs_k, prepared_k,
+    generator, lr_scale)`` takes inputs [K, B, ...] and prepared targets
+    whose leaves carry a leading [K] axis (one batch shape), runs the step
+    of ``make_train_step`` on each k in order (JAX's update order) and
+    returns the mean of the K losses.  JAX fuses them into one executable
+    to spare a remote TPU's dispatch; here they are K calls."""
+    step = _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group)
+
+    def fused(inputs_k, prepared_k, generator, lr_scale):
+        losses = [step(inputs_k[k], _index_tree(prepared_k, k), generator, lr_scale)[0]
+                  for k in range(num_steps)]
+        return torch.stack(losses).mean()
+
+    return fused
 
 
 def make_eval_step(model, criterion):
@@ -144,7 +306,7 @@ def to_device(obj, device):
 
 
 def _to_device(inputs, prepared, device):
-    return torch.from_numpy(inputs).to(device), to_device(prepared, device)
+    return torch.as_tensor(inputs).to(device), to_device(prepared, device)
 
 
 def criterion_to_device(criterion, device, params=None):
@@ -157,13 +319,28 @@ def criterion_to_device(criterion, device, params=None):
     return criterion
 
 
+def prepared_batches(loader, criterion):
+    """``(inputs, widths, targets, criterion.prepare(targets))`` of each
+    batch of ``loader``, prepared in turn.  JAX prepares on a background
+    thread to overlap the device's steps; on an H100 such a thread made
+    the marginalized example's epoch 4.5 % slower, the step and
+    ``prepare`` sharing the GIL (``scripts/time_prefetch.py``)."""
+    for inputs, widths, targets in loader:
+        yield inputs, widths, targets, criterion.prepare(targets)
+
+
 def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
-             use_lengths=False, report=None):
+             use_lengths=False, report=None, mesh=None):
     """Meters (loss, CER, WER) over ``data_loader``; ``report``, if given,
-    is called with each batch's decoded predictions and targets."""
+    is called with each batch's decoded predictions and targets.  With a
+    ``mesh`` of several ranks, each rank scores and decodes its own rows
+    (padded to the widest rank's, ``shard_batch``), and the meters are
+    summed over the ranks (``Meters.sync``)."""
+    mesh = mesh or pmesh.Mesh((1,), ("data",))
     meters = utils.Meters()
     losses = []
     for inputs, widths, targets in data_loader:
+        inputs = shard_batch(inputs, mesh, input_time_axis(inputs, preprocessor.num_features))
         inputs, prepared = _to_device(inputs, criterion.prepare(targets), device)
         lens = output_lengths(model, widths).to(device) if use_lengths else None
         loss, outputs = eval_step(inputs, prepared, lens)
@@ -177,14 +354,17 @@ def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
         meters.add_decodes(predictions, targets, preprocessor)
     if losses:
         meters.loss += float(torch.stack(losses).sum())
+    if mesh.size > 1:
+        meters.sync()
     return meters
 
 
 def test(model, criterion, data_loader, preprocessor, eval_step, device,
-         use_lengths=False):
-    """Loss, CER and WER over ``data_loader``."""
+         use_lengths=False, mesh=None):
+    """Loss, CER and WER over ``data_loader`` (over every rank's rows with
+    a ``mesh`` of several ranks)."""
     meters = evaluate(model, criterion, data_loader, preprocessor, eval_step,
-                      device, use_lengths)
+                      device, use_lengths, mesh=mesh)
     return meters.avg_loss, meters.cer, meters.wer
 
 
@@ -227,16 +407,24 @@ def dataset_kwargs(config):
 
 
 def train(args):
-    """Train as ``args`` says; returns (model, history), where history
-    holds one dict of train/validation metrics per epoch."""
+    """Train as ``args`` says, on this rank's share of the process group
+    if there is one; returns (model, history), where history holds one
+    dict of train/validation metrics per epoch (the same on every rank)."""
+    rank, world_size = pmesh.world()
+    if rank > 0:
+        logging.getLogger().setLevel(logging.CRITICAL)
     device = select_device(getattr(args, "disable_cuda", False))
     with open(args.config, "r") as fid:
         config = json.load(fid)
         logging.info("Using the config \n{}".format(json.dumps(config)))
 
+    mesh = make_mesh(config["optim"].get("seq_parallel", 1))
+    check_seq_parallel(mesh)
     seed = config.get("seed", 0)
     init_gen = torch.Generator().manual_seed(seed)
-    dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    # each rank its own dropout stream, from (seed, rank); rank 0's is the
+    # one-process run's
+    dropout_gen = torch.Generator(device=device).manual_seed(seed + 1 + 65536 * rank)
 
     logging.info("Loading dataset ...")
     dataset, preprocessor, criterion, model, input_size = load_experiment(
@@ -247,14 +435,23 @@ def train(args):
     trainset = dataset.Dataset(data_path, preprocessor, split="train", augment=True,
                                **ds_kwargs)
     valset = dataset.Dataset(data_path, preprocessor, split="validation", **ds_kwargs)
-    train_loader = utils.data_loader(trainset, config, seed=seed)
-    val_loader = utils.data_loader(valset, config, seed=seed)
+    train_loader = utils.data_loader(trainset, config, rank, world_size, seed)
+    val_loader = utils.data_loader(valset, config, rank, world_size, seed)
+    # JAX's train draws a first batch to shape its initialisation, and with
+    # it one batch order: drawing that order too keeps JAX's epochs' order
+    iter(train_loader.sampler)
 
     model.to(device)
     criterion_to_device(criterion, device)
+    if world_size > 1:
+        pmesh.replicate(model)
+        criterion_to_device(criterion, device, pmesh.replicate(dict(criterion.params)))
     num_updates = 0
     if args.restore:
-        state = utils.load_checkpoint(args.checkpoint_path, load_last=True)
+        template = {"model": model.state_dict(), "criterion": dict(criterion.params),
+                    "epoch": 0, "num_updates": 0}
+        state = utils.load_checkpoint(args.checkpoint_path, load_last=True,
+                                      template=template)
         model.load_state_dict(state["model"])
         criterion_to_device(criterion, device, state["criterion"])
         num_updates = state.get("num_updates", 0)
@@ -262,8 +459,8 @@ def train(args):
 
     n_params = sum(p.numel() for p in model.parameters())
     logging.info(
-        "Training {} model with {:,} parameters on {}.".format(
-            config["model_type"], n_params, device
+        "Training {} model with {:,} parameters on {} ({} ranks).".format(
+            config["model_type"], n_params, device, world_size
         )
     )
 
@@ -273,15 +470,25 @@ def train(args):
     step_size = config["optim"]["step_size"]
     max_grad_norm = config["optim"].get("max_grad_norm", None)
     use_lengths = config["optim"].get("use_input_lengths", False)
-    check_seq_parallel(config["optim"].get("seq_parallel", 1))
+    # train CER/WER decodes every metrics_interval-th step (1: every step)
+    metrics_interval = config["optim"].get("metrics_interval", 1)
+    ckpt_format = config["optim"].get("checkpoint_format", "pickle")
 
-    train_step = make_train_step(model, criterion, lr, crit_lr, max_grad_norm)
+    train_step = make_train_step(model, criterion, lr, crit_lr, max_grad_norm,
+                                 mesh.group("data"))
     eval_step = make_eval_step(model, criterion)
 
     timers = utils.Timer(["ds_fetch", "step", "metrics", "train_total", "test_total"])
     min_val_loss = min_val_cer = min_val_wer = float("inf")
     history = []
     for epoch in range(args.last_epoch, epochs):
+        profiler = None
+        if getattr(args, "profile_dir", None) and epoch == args.last_epoch:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.__enter__()
         logging.info("Epoch {} started. ".format(epoch + 1))
         lr_scale = 0.5 ** (epoch // step_size)
         criterion.train()
@@ -290,10 +497,10 @@ def train(args):
         losses = []
         timers.reset()
         timers.start("train_total").start("ds_fetch")
-        for inputs, widths, targets in train_loader:
-            inputs, prepared = _to_device(
-                inputs, criterion.prepare(targets), device
-            )
+        for step_idx, (inputs, widths, targets, prepared) in enumerate(
+                prepared_batches(train_loader, criterion)):
+            inputs = shard_batch(inputs, mesh, input_time_axis(inputs, input_size))
+            inputs, prepared = _to_device(inputs, prepared, device)
             lens = output_lengths(model, widths).to(device) if use_lengths else None
             timers.stop("ds_fetch").start("step")
             loss, outputs = train_step(
@@ -303,15 +510,23 @@ def train(args):
             num_updates += 1
             losses.append(loss * len(targets))
             meters.num_samples += len(targets)
-            predictions = criterion.viterbi_finalize(
-                criterion.viterbi_dispatch(outputs, criterion.params, lens)
-            )
-            meters.add_decodes(predictions, targets, preprocessor)
+            if step_idx % metrics_interval == 0:
+                predictions = criterion.viterbi_finalize(criterion.viterbi_dispatch(
+                    outputs, criterion.params, lens))
+                meters.add_decodes(predictions, targets, preprocessor)
             timers.stop("metrics").start("ds_fetch")
         if losses:
             meters.loss += float(torch.stack(losses).sum())
         timers.stop("ds_fetch").stop("train_total", sync=True)
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(args.profile_dir, exist_ok=True)
+            trace = os.path.join(args.profile_dir, f"trace_rank{rank}.json")
+            profiler.export_chrome_trace(trace)
+            logging.info(f"Profiler trace written to {trace}")
         epoch_time = time.time() - start_time
+        if world_size > 1:
+            meters.sync()
         logging.info(
             "Epoch {} complete. "
             "nUpdates {}, Loss {:.3f}, CER {:.3f}, WER {:.3f},"
@@ -325,19 +540,22 @@ def train(args):
         criterion.eval()
         val_loss, val_cer, val_wer = test(
             model, criterion, val_loader, preprocessor, eval_step, device,
-            use_lengths,
+            use_lengths, mesh,
         )
         timers.stop("test_total", sync=True)
-        utils.save_checkpoint(
-            args.checkpoint_path,
-            {
-                "model": model.state_dict(),
-                "criterion": dict(criterion.params),
-                "epoch": epoch,
-                "num_updates": num_updates,
-            },
-            save_best=(val_cer < min_val_cer),
-        )
+        # pickle saves from rank 0 only; the collective format on every rank
+        if rank == 0 or ckpt_format == "orbax":
+            utils.save_checkpoint(
+                args.checkpoint_path,
+                {
+                    "model": model.state_dict(),
+                    "criterion": dict(criterion.params),
+                    "epoch": epoch,
+                    "num_updates": num_updates,
+                },
+                save_best=(val_cer < min_val_cer),
+                format=ckpt_format,
+            )
         min_val_loss = min(val_loss, min_val_loss)
         min_val_cer = min(val_cer, min_val_cer)
         min_val_wer = min(val_wer, min_val_wer)
@@ -364,7 +582,15 @@ def train(args):
 
 
 def main(argv=None):
-    train(parse_args(argv))
+    """Parse ``argv``, join the process group it or torchrun's environment
+    asks for, train; returns ``train``'s (model, history)."""
+    args = parse_args(argv)
+    created = init_distributed(args, select_device(args.disable_cuda))
+    try:
+        return train(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

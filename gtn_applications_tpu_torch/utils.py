@@ -3,20 +3,24 @@
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
 RNN, TDS and TDS2d encoders and the TDS2d transducer model use with the
 CTC, ASG, STC and Transducer criteria.  The batch sampler emits
-width-sorted, bucketed batches, collated by a dataset's own ``collate_fn``
-where it has one; timers synchronise the CUDA device before reading the
-clock; and checkpoints are pickled ``state_dict``s.  The ``rnn``, ``tds``,
+width-sorted, bucketed batches, dealt to ranks as JAX's, collated by a
+dataset's own ``collate_fn`` where it has one; ``Meters.sync`` sums the
+metrics over the ranks; timers synchronise the CUDA device before reading the
+clock; and checkpoints are pickled ``state_dict``s or, in the collective
+format, ``torch.distributed.checkpoint`` directories.  The ``rnn``, ``tds``,
 ``tds2d`` and ``tds2d_transducer`` models and the ``ctc``, ``asg``,
 ``stc`` and ``transducer`` criteria resolve in the factories; a
 Transducer's ``transitions`` file is read with the port's ``wfst`` graph
 files.
 """
 
+import importlib.util
 import logging
 import os
 import pickle
 import queue
 import subprocess
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -77,6 +81,16 @@ def compute_edit_distance(predictions, targets, preprocessor):
 # ---------------------------------------------------------------------------
 
 
+def module_from_file(module_name, file_path):
+    """Import a module by path and register it (the standard library's
+    importlib recipe)."""
+    spec = importlib.util.spec_from_file_location(module_name, file_path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 class Subset:
     def __init__(self, dataset, indices):
         self.dataset = dataset
@@ -100,26 +114,37 @@ class Subset:
 
 
 class BatchSortedSampler:
-    """Width-sorted batching for one device.
+    """Width-sorted batching with rank dealing.
 
-    Samples are sorted by input width and grouped into batches of
-    ``batch_size``.  Each pass permutes the batch order only, preserving
-    the width homogeneity that keeps padding low.  (The JAX sampler also
-    deals batches to ranks; the mesh is not ported yet.)
+    Samples are sorted by input width and grouped into local batches of
+    ``batch_size // world_size``, and chunk ``rank + i * world_size`` is
+    dealt to each rank, as JAX's sampler deals them: the ranks' i-th
+    batches together are the one-rank sampler's i-th batch.  Shuffling
+    permutes the batch order only (every rank draws the same permutation
+    from ``seed``), preserving the width homogeneity that keeps padding
+    low.
     """
 
-    def __init__(self, dataset, batch_size, seed=0):
+    def __init__(self, dataset, batch_size, world_rank=0, world_size=1, shuffle=True,
+                 seed=0):
+        local_batchsize = batch_size // world_size
         widths = (in_size[0] for in_size, _ in dataset.sample_sizes())
         sorted_indices = [
             i for i, _ in sorted(enumerate(widths), key=lambda x: x[1])
         ]
-        self.batches = [sorted_indices[i:i + batch_size]
-                        for i in range(0, len(sorted_indices), batch_size)]
-        self.length = len(self.batches)
+        chunks = [sorted_indices[i:i + local_batchsize]
+                  for i in range(0, len(sorted_indices), local_batchsize)]
+        # deal chunk (rank + i * world_size) to this rank
+        self.length = len(chunks) // world_size
+        self.batches = chunks[world_rank::world_size][: self.length]
+        self.shuffle = shuffle
         self._rng = np.random.RandomState(seed)
 
     def __iter__(self):
-        return (self.batches[i] for i in self._rng.permutation(self.length))
+        order = (
+            self._rng.permutation(self.length) if self.shuffle else range(self.length)
+        )
+        return (self.batches[i] for i in order)
 
     def __len__(self):
         return self.length
@@ -190,7 +215,7 @@ class DataLoader:
         return len(self.sampler)
 
 
-def data_loader(dataset, config, seed=0):
+def data_loader(dataset, config, world_rank=0, world_size=1, seed=0):
     num_samples = config["data"].get("num_samples", None)
     if num_samples is not None:
         logging.info(f"Using {num_samples} of {len(dataset)}.")
@@ -198,7 +223,8 @@ def data_loader(dataset, config, seed=0):
         dataset = Subset(dataset, rng.permutation(len(dataset))[:num_samples])
     return DataLoader(
         dataset,
-        BatchSortedSampler(dataset, config["optim"]["batch_size"], seed=seed),
+        BatchSortedSampler(dataset, config["optim"]["batch_size"], world_rank,
+                           world_size, seed=seed),
         # a dataset's own collate (iamdb's fast_pipeline) before the default
         collate_fn=getattr(dataset, "collate_fn", None),
     )
@@ -217,6 +243,26 @@ class Meters:
     edit_distance_tokens: int = 0
     num_words: int = 0
     edit_distance_words: int = 0
+
+    def sync(self, group=None):
+        """Sum the six counts over the ranks of ``group`` (the world by
+        default): one all-reduce of a float32 vector, JAX's precision
+        (its ``process_allgather`` of float32 values, summed)."""
+        from .parallel import mesh
+
+        vals = torch.tensor(
+            [self.loss, self.num_samples, self.num_tokens,
+             self.edit_distance_tokens, self.num_words, self.edit_distance_words],
+            dtype=torch.float32,
+        )
+        (
+            self.loss,
+            self.num_samples,
+            self.num_tokens,
+            self.edit_distance_tokens,
+            self.num_words,
+            self.edit_distance_words,
+        ) = mesh.all_reduce(vals, group).tolist()
 
     # derived rates: zero-safe, error rates in percent
     @staticmethod
@@ -393,10 +439,28 @@ def _to_cpu(obj):
     return obj
 
 
-def save_checkpoint(checkpoint_path, state, save_best=False):
-    """Pickle the train state (``state_dict``s and counters) on the host
-    into ``model.checkpoint`` (and ``model.checkpoint.best``)."""
+DCP_DIR = "model.dcp"
+
+
+def save_checkpoint(checkpoint_path, state, save_best=False, format="pickle"):
+    """Persist the train state (``state_dict``s and counters).
+
+    ``format="pickle"`` pickles it on the host into ``model.checkpoint``
+    (and ``model.checkpoint.best``); the caller saves from rank 0 only.
+    ``format="orbax"``, JAX's collective per-host format, is
+    ``torch.distributed.checkpoint`` here: every rank calls it and writes
+    its part into the directory ``model.dcp`` (and ``model.dcp.best``)."""
     os.makedirs(checkpoint_path, exist_ok=True)
+    if format == "orbax":
+        import torch.distributed.checkpoint as dcp
+
+        payload = _to_cpu(state)
+        for suffix in ("", ".best") if save_best else ("",):
+            path = os.path.join(checkpoint_path, DCP_DIR + suffix)
+            dcp.save(payload, storage_writer=dcp.FileSystemWriter(path, overwrite=True))
+        return
+    if format != "pickle":
+        raise ValueError(f"unknown checkpoint format {format!r}")
     payload = _to_cpu(state)
     path = os.path.join(checkpoint_path, "model.checkpoint")
     with open(path, "wb") as fid:
@@ -406,10 +470,29 @@ def save_checkpoint(checkpoint_path, state, save_best=False):
             pickle.dump(payload, fid)
 
 
-def load_checkpoint(checkpoint_path, load_last=False):
-    """Load a train state written by ``save_checkpoint``.  Only load
+def load_checkpoint(checkpoint_path, load_last=False, template=None):
+    """Load a train state written by ``save_checkpoint``, detecting its
+    format.  A ``torch.distributed.checkpoint`` directory is read into
+    ``template`` (a state of the same structure, e.g. the current model's,
+    which every rank passes) and returned; a pickle needs none.  Only load
     checkpoints this program wrote: unpickling runs code."""
     suffix = "" if load_last else ".best"
+    dcp_path = os.path.join(checkpoint_path, DCP_DIR + suffix)
+    if os.path.isdir(dcp_path):
+        if template is None:
+            raise ValueError(f"{dcp_path} is a torch.distributed.checkpoint: pass the "
+                             "state to load it into as template")
+        import torch.distributed.checkpoint as dcp
+
+        dcp.load(template, checkpoint_id=dcp_path)
+        return template
     path = os.path.join(checkpoint_path, "model.checkpoint" + suffix)
     with open(path, "rb") as fid:
         return pickle.load(fid)
+
+
+def load_from_checkpoint(checkpoint_path, load_last=False, template=None):
+    """The (model ``state_dict``, criterion parameters) pair of a saved
+    train state."""
+    state = load_checkpoint(checkpoint_path, load_last, template)
+    return state["model"], state["criterion"]

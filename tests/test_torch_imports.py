@@ -59,10 +59,19 @@ MODULES = [
     "gtn_applications_tpu_torch.scripts.profile_ctc_grad",
     "gtn_applications_tpu_torch.scripts.profile_dense_bt",
     "gtn_applications_tpu_torch.scripts.profile_gather_bwd",
+    "gtn_applications_tpu_torch.scripts.example_fingerprint",
+    "gtn_applications_tpu_torch.scripts.time_prefetch",
     "gtn_applications_tpu_torch.utils",
     "gtn_applications_tpu_torch.train",
     "gtn_applications_tpu_torch.test",
     "gtn_applications_tpu_torch.profile_step",
+    "gtn_applications_tpu_torch.parallel",
+    "gtn_applications_tpu_torch.parallel.mesh",
+    "gtn_applications_tpu_torch.dryrun",
+    "gtn_applications_tpu_torch.examples.quickstart",
+    "gtn_applications_tpu_torch.examples.marginalized_transducer",
+    # the spawned ranks of the multi-process tests
+    "tests.torch_dist_workers",
     "chip_smoke",
 ]
 
