@@ -304,6 +304,23 @@ prints no result):
    The ranks' and runs' kernel launches join the ``kernels`` line's.
    ``python3 chip_smoke.py --only distributed`` runs phases 1, 2 and 15
    alone and prints no result line.
+16. sequence parallelism (``phase_seq_parallel``, after phase 15): leg (a)
+   ``configs/synthetic/long_ctx_assoc.json`` as shipped (``seq_parallel``
+   4, "assoc" CTC, chunk 256, T = 8,192-9,216) through ``train.train`` on
+   four gloo ranks sharing the card, each holding a quarter of the frames
+   through TDS2d and composing its own CTC operators, against one
+   process: every epoch's losses, error rates and the parameters after
+   the last step; leg (b) ``configs/iamdb/tds2d.json``'s full-width model
+   (dropout 0, CTC "auto") on a 1 x 2 grid, 3 steps on the distributed
+   phase's batches padded to a width that 8 divides, the logits gathered
+   along time for the CTC kernels, against one process (step 1's loss and
+   update distance tightly, the later steps to float32 rounding's bound).
+   Each leg's rank step and one process's (host clock), the halo,
+   statistics, gather and gradient collectives a step and the peak
+   ``max_memory_allocated`` a rank and in one process, on lines with the
+   card's name and power limit.  The ranks' and runs' launches join the
+   ``kernels`` line's.  ``python3 chip_smoke.py --only seq`` runs phases 1,
+   2 and 16 alone and prints no result line.
 
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -371,6 +388,11 @@ def gpu_median_ms(torch, fn, runs=30, warmup=5):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def phase_device(torch):
@@ -4437,8 +4459,9 @@ def block_step(torch, model, crit, lr, max_grad_norm, blocks):
 
 def dp_steps(torch, dev, config, batches, mesh=None, blocks=None):
     """DP_STEPS train steps of the ctc path's model from seed 0 on
-    ``batches``: this rank's rows of each on a ``mesh``, else all of them
-    (in ``blocks`` row blocks with ``block_step``).  Returns the losses,
+    ``batches``: this rank's rows of each on a ``mesh`` (and its time shard
+    where the mesh has a ``'seq'`` axis), else all of them (in ``blocks``
+    row blocks with ``block_step``).  Returns the losses,
     the parameters after the first step and after the last (numpy), the
     host-clock ms of each step (ending in a device sync), the kernel
     launches of the steps and, on a mesh, the host-clock median ms of the
@@ -4454,10 +4477,11 @@ def dp_steps(torch, dev, config, batches, mesh=None, blocks=None):
     optim = config["optim"]
     lr, max_norm = optim["learning_rate"], optim["max_grad_norm"]
     group = mesh.group("data") if mesh is not None else None
+    seq_group = mesh.group("seq") if mesh is not None else None
     if blocks:
         step = block_step(torch, model, crit, lr, max_norm, blocks)
     else:
-        step = train_mod.make_train_step(model, crit, lr, lr, max_norm, group)
+        step = train_mod.make_train_step(model, crit, lr, lr, max_norm, group, seq_group)
     gen = torch.Generator(device=dev).manual_seed(1)
     losses, step_ms = [], []
     _build.reset_launches()
@@ -4465,30 +4489,36 @@ def dp_steps(torch, dev, config, batches, mesh=None, blocks=None):
         rows = np.arange(len(targets))
         if mesh is not None:
             inputs, rows = pmesh.shard_batch(inputs, mesh), pmesh.shard_batch(rows, mesh)
-        x = torch.as_tensor(inputs).to(dev)
+        x, axis = torch.as_tensor(inputs), None
+        if seq_group is not None:
+            x, axis = train_mod.shard_time(x, mesh, 2, model)
+            if axis is None:
+                raise AssertionError(f"width {inputs.shape[2]} kept whole on the seq grid")
+        x = x.to(dev)
         if blocks:
             prepared = [train_mod.to_device(crit.prepare([targets[i] for i in r]), dev)
                         for r in np.array_split(rows, blocks)]
         else:
             prepared = train_mod.to_device(crit.prepare([targets[i] for i in rows]), dev)
-        torch.cuda.synchronize()
+        sync(torch, dev)
         t0 = time.perf_counter()
-        loss = step(x, prepared, gen, 1.0)
-        torch.cuda.synchronize()
+        loss = step(x, prepared, gen, 1.0) if blocks else step(x, prepared, gen, 1.0,
+                                                                 None, axis)
+        sync(torch, dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss[0] if isinstance(loss, tuple) else loss))
         if len(losses) == 1:
             first = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
     launches = dict(_build.LAUNCHES)
     reduce_ms = None
-    if group is not None:
+    if group is not None and seq_group is None:
         grads = [p.detach().clone() for p in model.parameters()]
         times = []
         for _ in range(REDUCE_RUNS):
-            torch.cuda.synchronize()
+            sync(torch, dev)
             t0 = time.perf_counter()
             train_mod.reduce_gradients(grads, torch.ones((), device=dev), 16, group)
-            torch.cuda.synchronize()
+            sync(torch, dev)
             times.append((time.perf_counter() - t0) * 1e3)
         reduce_ms = statistics.median(times)
     params = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
@@ -4745,6 +4775,328 @@ def phase_distributed(torch, dev, card, device="cuda"):
     return timing, launches
 
 
+# Phase 16, the sequence-parallel train step.  Leg (a): the hermetic
+# long-context recipe as shipped (``seq_parallel`` 4, "assoc" CTC, chunk
+# 256, 8 lines of 8,192-9,216 frames, 2 epochs) through ``train.train`` on
+# SEQ_RANKS_A gloo ranks sharing the card, against one process: every
+# epoch's losses within DP_LOSS_RTOL, the parameters after the last step
+# within DP_PARAM_TOL, the error rates within SEQ_RATE_TOL points (a greedy
+# decode of ~70,000 frames at random weights may flip a near tie of two
+# logits 1e-6 apart).  Leg (b): the ctc path's full-width model (dropout 0,
+# CTC "auto") on a 1 x SEQ_RANKS_B grid, DP_STEPS steps on the distributed
+# phase's batches padded to a width that 8 divides, against one process:
+# step 1's loss within DP_LOSS_RTOL and its update distance (the ranks'
+# parameters from one process's, over one process's update) within
+# SEQ_FIRST_TOL; the later steps' losses and the last update distance
+# within SEQ_LATER_TOL.  Time shards move float32 rounding into the
+# cotangents of every layer (halos, statistics), which the network
+# amplifies.  On the chip machine's CPU (``scripts/seq_rounding.py
+# --device cpu``, these batches) the two ranks lay 1.08e-7, 1.37e-6 and
+# 1.71e-2 (losses, relative) and 2.47e-3 and 0.686 (update distance after
+# steps 1 and 3) from one process; the first step's bound and the later
+# losses' are 10x that, the last update distance's 1.0, under the sqrt(2)
+# of two unrelated updates of one norm
+SEQ_RANKS_A, SEQ_RANKS_B = 4, 2
+SEQ_WIDTH_MULTIPLE = 8
+SEQ_FIRST_TOL = 2.5e-2
+SEQ_LATER_TOL = {"loss_rel": 0.17, "update_distance": 1.0}
+SEQ_RATE_TOL = 1.0
+SEQ_STEP_RUNS = 3
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, dev):
+    """Host-clock ms of the sequence-parallel collectives while inside:
+    the halo exchanges, the statistics' all-reduces and the gathers along
+    time (forward and backward), and the gradient reduction, each bracketed
+    by device syncs.  Yields the dict it fills."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    times = {"halo_ms": 0.0, "stats_ms": 0.0, "gather_ms": 0.0, "reduce_ms": 0.0}
+
+    def timed(fn, key):
+        def run(*args):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(torch, dev)
+            times[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    saved = []
+    for cls, key in ((pmesh._HaloExchange, "halo_ms"), (pmesh._AllReduceSum, "stats_ms"),
+                     (pmesh._GatherOwnGrad, "gather_ms")):
+        for name in ("forward", "backward"):
+            saved.append((cls, name, cls.__dict__[name]))
+            setattr(cls, name, staticmethod(timed(getattr(cls, name), key)))
+    saved.append((train_mod, "reduce_gradients", train_mod.reduce_gradients))
+    train_mod.reduce_gradients = timed(train_mod.reduce_gradients, "reduce_ms")
+    try:
+        yield times
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+def seq_step_costs(torch, dev, config, inputs, targets, mesh=None):
+    """A train step of the config's model (seed weights) on ``inputs``, on
+    this rank's time shard over ``mesh`` (whole in one process): the
+    host-clock median ms of SEQ_STEP_RUNS steps after a warm-up, the
+    collectives' ms of one more step (``timed_collectives``), and the peak
+    ``max_memory_allocated`` MiB over them above what the process held
+    before them (the model, the batch and, in the whole smoke, the earlier
+    phases' tensors)."""
+    from gtn_applications_tpu_torch import train as train_mod
+
+    _, _, crit, model, _ = train_mod.load_experiment(
+        config, torch.Generator().manual_seed(config["seed"]))
+    model.to(dev)
+    train_mod.criterion_to_device(crit, dev)
+    optim = config["optim"]
+    groups = (mesh.group("data"), mesh.group("seq")) if mesh is not None else (None, None)
+    step = train_mod.make_train_step(model, crit, optim["learning_rate"],
+                                     optim["learning_rate"], optim["max_grad_norm"], *groups)
+    x, axis = torch.as_tensor(inputs), None
+    if mesh is not None:
+        x, axis = train_mod.shard_time(x, mesh, 2, model)
+        if axis is None:
+            raise AssertionError(f"width {inputs.shape[2]} kept whole on the seq grid")
+    x = x.to(dev)
+    prepared = train_mod.to_device(crit.prepare(targets), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    times = []
+    for k in range(SEQ_STEP_RUNS + 1):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        step(x, prepared, gen, 1.0, None, axis)
+        sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    with timed_collectives(torch, dev) as collectives:
+        step(x, prepared, gen, 1.0, None, axis)
+    peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2**20 if dev.type == "cuda"
+            else None)
+    return dict(collectives, step_ms=statistics.median(times[1:]), peak_mib=peak,
+                shard=list(x.shape))
+
+
+def seq_rank_device(device):
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+    return torch, dev
+
+
+def first_train_batch(config):
+    """The first batch of the trainer's loader: (inputs numpy, targets)."""
+    from gtn_applications_tpu_torch import datasets, utils
+
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = path_preprocessor(data, config)
+    loader = utils.data_loader(data.Dataset(None, pre, split="train", augment=True),
+                               config, seed=config["seed"])
+    inputs, _, targets = next(iter(loader))
+    return inputs, targets
+
+
+def seq_recipe_rank(rank, n, device, cfg, work):
+    """Leg (a) on a rank: ``train.train`` of the config file (its grid
+    from ``optim.seq_parallel``), its history, final parameters and kernel
+    launches, then ``seq_step_costs`` on its first batch."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    torch, dev = seq_rank_device(device)
+    argv = ["--config", cfg, "--checkpoint_path", f"{work}/rank{rank}"]
+    _build.reset_launches()
+    model, history = train_mod.train(train_mod.parse_args(
+        argv + (["--disable_cuda"] if dev.type == "cpu" else [])))
+    launches = dict(_build.LAUNCHES)
+    config = json.loads(Path(cfg).read_text())
+    costs = seq_step_costs(torch, dev, config, *first_train_batch(config),
+                           pmesh.make_mesh(config["optim"]["seq_parallel"]))
+    return {"history": history, "launches": launches, "costs": costs,
+            "params": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}}
+
+
+def seq_dp_rank(rank, n, device, config, batches):
+    """Leg (b) on a rank: ``dp_steps`` on its time shards of a 1 x n grid,
+    then ``seq_step_costs`` on the first batch."""
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    torch, dev = seq_rank_device(device)
+    mesh = pmesh.make_mesh(n)
+    out = dp_steps(torch, dev, config, batches, mesh)
+    out["costs"] = seq_step_costs(torch, dev, config, *batches[0], mesh)
+    return out
+
+
+def pad_width(inputs, multiple):
+    """``inputs`` [B, H, W] zero-padded along W to a multiple of
+    ``multiple``."""
+    pad = -inputs.shape[2] % multiple
+    return np.pad(inputs, ((0, 0), (0, 0), (0, pad))) if pad else inputs
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def seq_leg_recipe(torch, dev, card, device):
+    """Leg (a): ``long_ctx_assoc.json`` as shipped on SEQ_RANKS_A ranks
+    against one process (cuDNN deterministic on both): every epoch's
+    losses, the error rates, the parameters after the last step."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    config = main_path_config("ctc_long_assoc")
+    if config["optim"].get("seq_parallel") != SEQ_RANKS_A:
+        raise AssertionError(f"long_ctx_assoc.json: seq_parallel {config['optim']}")
+    work = WORK / "seq_recipe"
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = work / "config.json"
+    cfg.write_text(json.dumps(config))
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(seq_recipe_rank, SEQ_RANKS_A,
+                        args=(device, str(cfg), str(work)), backend="gloo", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _build.reset_launches()
+        model, history = train_mod.train(train_mod.parse_args(
+            ["--config", str(cfg), "--checkpoint_path", str(work / "one")]
+            + (["--disable_cuda"] if dev.type == "cpu" else [])))
+        launches = dict(_build.LAUNCHES)
+        one = seq_step_costs(torch, dev, config, *first_train_batch(config))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    params = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    errs = {"loss_rel": 0.0, "rate_abs": 0.0, "param_max_abs": 0.0}
+    failures = []
+    for rank, r in enumerate(ranks):
+        if len(r["history"]) != len(history):
+            failures.append(f"rank {rank}: {len(r['history'])} epochs")
+        for got, want in zip(r["history"], history):
+            for key in ("train_loss", "val_loss", "train_cer", "val_cer", "val_wer"):
+                loss = key.endswith("loss")
+                err = _rel(got[key], want[key]) if loss else abs(got[key] - want[key])
+                errs["loss_rel" if loss else "rate_abs"] = max(
+                    errs["loss_rel" if loss else "rate_abs"], err)
+                if err > (DP_LOSS_RTOL if loss else SEQ_RATE_TOL):
+                    failures.append(f"rank {rank} epoch {got['epoch']}: {key} {got[key]} "
+                                    f"against {want[key]}")
+        for k, v in params.items():
+            d = np.abs(r["params"][k] - v)
+            errs["param_max_abs"] = max(errs["param_max_abs"], float(d.max()))
+            if (d > DP_PARAM_TOL["atol"] + DP_PARAM_TOL["rtol"] * np.abs(v)).any():
+                failures.append(f"rank {rank}: parameter {k}, max |d| {float(d.max()):.3g}")
+        add_launches(launches, r["launches"])
+    costs = [r["costs"] for r in ranks]
+    log(f"[{card}] seq leg (a) long_ctx_assoc.json, {SEQ_RANKS_A} gloo ranks on one card "
+        f"(time shard {costs[0]['shard']}): step {statistics.mean(c['step_ms'] for c in costs):.2f}"
+        f" ms a rank against one process's {one['step_ms']:.2f} ms (host clock, median of "
+        f"{SEQ_STEP_RUNS}); collectives a step: halo {statistics.mean(c['halo_ms'] for c in costs):.2f}"
+        f" ms, statistics {statistics.mean(c['stats_ms'] for c in costs):.2f} ms, gathers "
+        f"{statistics.mean(c['gather_ms'] for c in costs):.2f} ms, gradient reduction "
+        f"{statistics.mean(c['reduce_ms'] for c in costs):.2f} ms; peak memory "
+        f"{max(c['peak_mib'] or 0 for c in costs):.1f} MiB a rank against "
+        f"{one['peak_mib'] or 0:.1f} MiB; history against one process's (errors "
+        f"{json.dumps(errs)}): {json.dumps(ranks[0]['history'])}; spawn {spawn_s:.1f} s")
+    if failures:
+        raise AssertionError("leg (a) against one process: " + "; ".join(failures))
+    return {"ranks": costs, "one": one, "errors": errs, "history": ranks[0]["history"],
+            "spawn_s": spawn_s}, launches
+
+
+def seq_leg_full_width(torch, dev, card, device):
+    """Leg (b): the ctc path's full-width model on a 1 x SEQ_RANKS_B grid
+    against one process on the same padded batches (cuDNN deterministic):
+    step 1's loss at DP_LOSS_RTOL and update distance at SEQ_FIRST_TOL, the
+    later steps' losses and the last update distance at SEQ_LATER_TOL."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.parallel import mesh as pmesh
+
+    config = dp_config()
+    batches = [(pad_width(x, SEQ_WIDTH_MULTIPLE), t) for x, t in dp_batches(config)]
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(seq_dp_rank, SEQ_RANKS_B, args=(device, config, batches),
+                        backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = dp_steps(torch, dev, config, batches)
+        one = seq_step_costs(torch, dev, config, *batches[0])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    init = {k: v.numpy() for k, v in train_mod.load_experiment(
+        config, torch.Generator().manual_seed(config["seed"]))[3].state_dict().items()}
+    launches = dict(whole["launches"])
+    for r in ranks:
+        add_launches(launches, r["launches"])
+    errs = {"loss_rel": [max(_rel(r["losses"][i], whole["losses"][i]) for r in ranks)
+                         for i in range(DP_STEPS)],
+            "first_update_distance": max(update_distance(r["first"], whole["first"], init)
+                                         for r in ranks),
+            "update_distance": max(update_distance(r["params"], whole["params"], init)
+                                   for r in ranks),
+            "first_param_max_abs": max(float(np.abs(r["first"][k] - v).max())
+                                       for r in ranks for k, v in whole["first"].items())}
+    failures = []
+    if errs["loss_rel"][0] > DP_LOSS_RTOL or errs["first_update_distance"] > SEQ_FIRST_TOL:
+        failures.append(f"step 1 beyond loss {DP_LOSS_RTOL}, update {SEQ_FIRST_TOL}")
+    if (max(errs["loss_rel"][1:]) > SEQ_LATER_TOL["loss_rel"]
+            or errs["update_distance"] > SEQ_LATER_TOL["update_distance"]):
+        failures.append(f"steps 2-{DP_STEPS} beyond {SEQ_LATER_TOL}")
+    costs = [r["costs"] for r in ranks]
+    log(f"[{card}] seq leg (b) tds2d.json full width, {SEQ_RANKS_B} gloo ranks on one card "
+        f"(time shard {costs[0]['shard']} of width {batches[0][0].shape[2]}): step "
+        f"{statistics.mean(c['step_ms'] for c in costs):.2f} ms a rank against one process's "
+        f"{one['step_ms']:.2f} ms (host clock, median of {SEQ_STEP_RUNS}); collectives a step: "
+        f"halo {statistics.mean(c['halo_ms'] for c in costs):.2f} ms, statistics "
+        f"{statistics.mean(c['stats_ms'] for c in costs):.2f} ms, gathers "
+        f"{statistics.mean(c['gather_ms'] for c in costs):.2f} ms, gradient reduction "
+        f"{statistics.mean(c['reduce_ms'] for c in costs):.2f} ms; peak memory "
+        f"{max(c['peak_mib'] or 0 for c in costs):.1f} MiB a rank against "
+        f"{one['peak_mib'] or 0:.1f} MiB; losses {ranks[0]['losses']}, one process "
+        f"{whole['losses']}; errors {json.dumps(errs)}; spawn {spawn_s:.1f} s")
+    if failures:
+        raise AssertionError(f"leg (b) against one process: {failures}: {errs}")
+    return {"ranks": costs, "one": one, "errors": errs, "spawn_s": spawn_s}, launches
+
+
+def phase_seq_parallel(torch, dev, card, device="cuda"):
+    """The sequence-parallel train step on gloo ranks sharing the card,
+    both legs against one process.  Returns (timing, kernel launches of the
+    ranks and the one-process runs)."""
+    t0 = time.perf_counter()
+    rank_device = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else "cpu"
+    try:
+        recipe, launches = seq_leg_recipe(torch, dev, card, rank_device)
+    except AssertionError as exc:  # leg (b) still runs and logs its numbers
+        recipe, launches = exc, {}
+    full, more = seq_leg_full_width(torch, dev, card, rank_device)
+    if isinstance(recipe, AssertionError):
+        raise recipe
+    add_launches(launches, more)
+    seconds = time.perf_counter() - t0
+    log(f"[{card}] sequence-parallel phase: {seconds:.1f} s, launches {json.dumps(launches)}")
+    return {"seq_recipe": recipe, "seq_full_width": full, "seq_parallel_s": seconds,
+            "seq_parallel_launches": launches}, launches
+
+
 KERNELS = [
     ("gather_fwd", "gtn_applications_tpu_torch/ops/csrc/gather.cu",
      "gtn_applications_tpu/ops/gathers.py:30", "torch_gather"),
@@ -4784,8 +5136,8 @@ KERNELS = [
 
 
 def run(device="cuda", only=None):
-    """Every phase; with ``only="distributed"``, the device, the build and
-    the distributed phase alone (a quicker check of that phase, which
+    """Every phase; with ``only="distributed"`` or ``only="seq"``, the
+    device, the build and that phase alone (a quicker check of it, which
     prints no result line)."""
     import torch
 
@@ -4794,8 +5146,9 @@ def run(device="cuda", only=None):
     card = phase_device(torch)
     dev = torch.device(device)
     build_s = phase_build()
-    if only == "distributed":
-        timing, _ = phase_distributed(torch, dev, card)
+    if only in ("distributed", "seq"):
+        phase = phase_distributed if only == "distributed" else phase_seq_parallel
+        timing, _ = phase(torch, dev, card)
         print(json.dumps({"timing": dict(timing, build_s=build_s)}))
         return
     if only is not None:
@@ -4855,9 +5208,12 @@ def run(device="cuda", only=None):
         torch, dev, b, frames, n)
     dist_timing, dist_launches = phase_distributed(torch, dev, card)
     times.update(dist_timing)
+    seq_timing, seq_launches = phase_seq_parallel(torch, dev, card)
+    times.update(seq_timing)
 
     launches = {name: sum(p["launches"][name] for p in paths.values())
-                + dist_launches.get(name, 0) for name, *_ in KERNELS}
+                + dist_launches.get(name, 0) + seq_launches.get(name, 0)
+                for name, *_ in KERNELS}
     timing = dict(times, card=card, build_s=build_s, wordpiece_s=wordpiece_s, **diffs,
                   backoff_factored=backoff_factored,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],

@@ -6,7 +6,8 @@ criterion follows the same split:
   * ``prepare(targets)``  — host-side: ragged targets -> padded tensors
     (shape-bucketed, so the lattice sees few distinct shapes).
   * ``loss(params, inputs, prepared, input_lengths)`` — differentiable in
-    ``params`` and ``inputs``.
+    ``params`` and ``inputs``; ``seq_loss`` the same loss from this rank's
+    time shard of ``inputs`` over a ``'seq'`` group.
   * ``init_params()`` — learnable parameters, a dict of tensors ({} when
     stateless).
   * ``viterbi(outputs, params)`` — decoding: device work + host cleanup,
@@ -40,6 +41,17 @@ class Criterion:
 
     def loss(self, params, inputs, prepared, input_lengths=None):
         raise NotImplementedError
+
+    def seq_loss(self, params, inputs, prepared, input_lengths, seq_group):
+        """``loss`` of the global batch from this rank's time shard of
+        ``inputs`` [B, T / n, C] over ``seq_group`` (``input_lengths``
+        global): the shards gathered along time, the gradient reaching
+        each rank's own frames once (``parallel.mesh.gather_time``), and
+        the whole-T route.  Every rank of the group returns the same loss."""
+        from ..parallel import mesh
+
+        return self.loss(params, mesh.gather_time(inputs, seq_group), prepared,
+                         input_lengths)
 
     def viterbi(self, outputs, params=None, input_lengths=None):
         raise NotImplementedError

@@ -38,13 +38,24 @@ class CTC(Criterion):
     def prepare(self, targets):
         return pad_targets(targets)
 
-    def loss(self, params, inputs, prepared, input_lengths=None):
+    def loss(self, params, inputs, prepared, input_lengths=None, seq_group=None):
+        """The batch-mean loss; with ``seq_group`` (impl 'assoc'),
+        ``inputs`` is this rank's time shard (``seq_loss``)."""
         targets, target_lengths = prepared
         log_probs = F.log_softmax(inputs, dim=2)
         return lattice.ctc_loss(
             log_probs, targets, target_lengths, self.blank, "mean",
-            input_lengths, self.impl, self.chunk,
+            input_lengths, self.impl, self.chunk, seq_group,
         )
+
+    def seq_loss(self, params, inputs, prepared, input_lengths, seq_group):
+        """Under 'assoc' the sequence-parallel form: each rank composes its
+        own frames' operators (``ops.lattice.ctc_forward_score_assoc``);
+        every other impl gathers the shards along time and runs its
+        whole-T route (``Criterion.seq_loss``)."""
+        if self.impl != "assoc":
+            return super().seq_loss(params, inputs, prepared, input_lengths, seq_group)
+        return self.loss(params, inputs, prepared, input_lengths, seq_group)
 
     def viterbi_dispatch(self, outputs, params=None, input_lengths=None):
         return (lattice.ctc_greedy_decode(outputs), input_lengths)

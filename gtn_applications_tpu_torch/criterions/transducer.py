@@ -5,8 +5,9 @@ reference composes, per sample, the target chain with a lexicon (wordpiece
 decompositions), then with a token graph (alignments over emission labels)
 and optionally with a transition model, and scores the result against the
 emissions.  Here the per-target pipeline runs once per distinct target in
-the native graph compiler (``wfst.native.compile_alignment``), cached, and
-the device recursions score its tables:
+the native graph compiler (``wfst.native.compile_alignment``), cached, or,
+where the library is not enabled (``TW_NATIVE=0``), through JAX's Python
+pipeline on ``wfst.ops``; the device recursions score its tables:
 
   * ``ngram`` 1 or 2: the transition weight between two alignment arcs
     depends only on their labels, so the plain alignment lattice is packed
@@ -47,8 +48,9 @@ whole-scan Viterbi where its in-degree bucket plan takes the table, else
 arcs, decodes through ``ops.factored.backoff_dst_viterbi`` instead, as in
 JAX, whatever the routing switch says; without transitions, it is an
 argmax.  The alignment labels transduce to tokens by a run collapse, with
-``blank="forced"`` through the native ``forced_collapse`` (infeasible
-alignments decode to nothing).  The transitions' weights are learnable
+``blank="forced"`` through the native ``forced_collapse``, or the token
+graph in Python without the library (infeasible alignments decode to
+nothing).  The transitions' weights are learnable
 (zero-initialised), one per arc of the transition graph, whose own weights
 are set to 0.
 
@@ -72,6 +74,7 @@ from ..ops import convkernel, factored, sparse
 from ..ops.semiring import NEG
 from ..wfst import compile as wcompile
 from ..wfst import native
+from ..wfst import ops as wops
 from ..wfst.graph import EPSILON, Graph, linear_graph
 from .base import Criterion
 
@@ -300,7 +303,10 @@ class Transducer(Criterion):
     # -- host compilation ----------------------------------------------
     def _native_handles(self):
         """Persistent native handles of the lexicon, token and transition
-        graphs, warmed so that the prepare thread pool can share them."""
+        graphs, warmed so that the prepare thread pool can share them; None
+        where the native library is not enabled."""
+        if not native.enabled():
+            return None
         if not hasattr(self, "_nh"):
             self._nh = (
                 native.to_native(self.lexicon, warm=True),
@@ -312,36 +318,59 @@ class Transducer(Criterion):
 
     def _compile_target(self, target: tuple, compose_transitions=True):
         """(compiled lattice, widx, eps_widx) of one target (cached): with
-        the transitions composed in, or the plain alignment lattice."""
+        the transitions composed in, or the plain alignment lattice.  One
+        native call where the library is enabled, else JAX's Python
+        pipeline on ``wfst.ops``."""
         key = target if compose_transitions else (target, "plain")
         cached = self._align_cache.get(key)
         if cached is not None:
             return cached
-        lex, tok, trans = self._native_handles()
-        t = native.compile_alignment(lex, tok, trans if compose_transitions else None,
-                                     target)
-        cg = wcompile.CompiledGraph(
-            src=t["src"], dst=t["dst"], label=t["label"], weight=t["weight"],
-            arc_id=np.arange(len(t["src"]), dtype=np.int32),
-            start=t["start"], accept=t["accept"],
-            eps_src=t["eps_src"], eps_dst=t["eps_dst"],
-            eps_weight=t["eps_weight"],
-            eps_arc_id=np.arange(len(t["eps_src"]), dtype=np.int32),
-            eps_depth=t["eps_depth"],
-        )
+        handles = self._native_handles()
+        if handles is not None:
+            lex, tok, trans = handles
+            t = native.compile_alignment(
+                lex, tok, trans if compose_transitions else None, target)
+            cg = wcompile.CompiledGraph(
+                src=t["src"], dst=t["dst"], label=t["label"], weight=t["weight"],
+                arc_id=np.arange(len(t["src"]), dtype=np.int32),
+                start=t["start"], accept=t["accept"],
+                eps_src=t["eps_src"], eps_dst=t["eps_dst"],
+                eps_weight=t["eps_weight"],
+                eps_arc_id=np.arange(len(t["eps_src"]), dtype=np.int32),
+                eps_depth=t["eps_depth"],
+            )
+            result = (cg, t["widx"], t["eps_widx"])
+        else:
+            result = self._compile_target_py(target, compose_transitions)
         if len(self._align_cache) > 100000:
             self._align_cache.clear()
-        result = (cg, t["widx"], t["eps_widx"])
         self._align_cache[key] = result
         return result
 
+    def _compile_target_py(self, target, compose_transitions):
+        """``_compile_target`` in Python: every wordpiece decomposition of
+        the target (chain o lexicon, output side, epsilons removed), the
+        token graph composed with it (input side) and, with transitions,
+        composed under them; each compiled arc's transition arc (-1 for
+        none) as its provenance ``widx`` / ``eps_widx``."""
+        chain = make_chain_graph(target)
+        tokens_target = wops.remove(wops.project_output(wops.compose(chain, self.lexicon)))
+        alignments = wops.project_input(wops.remove(wops.compose(self.tokens, tokens_target)))
+        if self.transitions is not None and compose_transitions:
+            composed, prov = wops.compose(self.transitions, alignments, return_arc_map=True)
+            cg = wcompile.compile_acceptor(composed)
+            prov1 = np.asarray([p[0] for p in prov] + [-1], dtype=np.int32)
+            return cg, prov1[cg.arc_id], prov1[cg.eps_arc_id]
+        cg = wcompile.compile_acceptor(alignments)
+        return (cg, -np.ones(len(cg.src), dtype=np.int32),
+                -np.ones(len(cg.eps_src), dtype=np.int32))
+
     def _compile_all(self, keys, compose_transitions):
         """Compile the batch's targets, cache misses in parallel on a
-        thread pool (the native pipeline releases the GIL)."""
+        thread pool where the native pipeline runs (it releases the GIL)."""
         missing = [k for k in dict.fromkeys(keys)
                    if (k if compose_transitions else (k, "plain")) not in self._align_cache]
-        if len(missing) > 1:
-            self._native_handles()
+        if len(missing) > 1 and self._native_handles() is not None:
             with ThreadPool(min(8, len(missing))) as pool:
                 pool.map(lambda k: self._compile_target(k, compose_transitions), missing)
         return [self._compile_target(k, compose_transitions) for k in keys]
@@ -712,9 +741,19 @@ class Transducer(Criterion):
         transduction is run-collapse-then-drop-blank; -1 labels occur only
         on dead frames, which the length mask removes.  For 'forced' the
         native ``forced_collapse`` also checks the alignment against the
-        forced token graph."""
+        forced token graph; where the library is not enabled, each path
+        goes through the token graph in Python (``_alignment_to_tokens``)."""
         if self.blank == "forced":
-            return native.forced_collapse(labels, self._num_tokens, input_lengths)
+            if native.enabled():
+                return native.forced_collapse(labels, self._num_tokens, input_lengths)
+            lens = None if input_lengths is None else np.asarray(input_lengths)
+            out = []
+            for b in range(labels.shape[0]):
+                seq = [int(l) for l in labels[b] if l >= 0]
+                if lens is not None:
+                    seq = seq[: int(lens[b])]
+                out.append(np.asarray(self._alignment_to_tokens(seq), dtype=np.int32))
+            return out
         Bn, Tn = labels.shape
         keep = np.ones((Bn, Tn), dtype=bool)
         keep[:, 1:] = labels[:, 1:] != labels[:, :-1]
@@ -722,6 +761,19 @@ class Transducer(Criterion):
         if input_lengths is not None:
             keep &= np.arange(Tn)[None, :] < np.asarray(input_lengths)[:, None]
         return [labels[b, keep[b]].astype(np.int32) for b in range(Bn)]
+
+    def _alignment_to_tokens(self, seq):
+        """The tokens of one alignment label sequence by the forced token
+        graph, the shortest output on ties (reference transducer.py:224-229):
+        the path composed with the tokens, each non-epsilon output
+        penalised by 1e-6, the best path's output side, epsilons removed;
+        nothing where the graph does not accept the path."""
+        composed = wops.compose(make_chain_graph(seq), self.tokens)
+        for i in range(composed.num_arcs()):
+            if composed.arc_olabel[i] != EPSILON:
+                composed.arc_weight[i] -= 1e-6
+        best = wops.viterbi_path(composed)
+        return wops.remove(wops.project_output(best)).labels_to_list()
 
 
 # ---------------------------------------------------------------------------

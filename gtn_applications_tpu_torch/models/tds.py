@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 class InstanceNorm(nn.Module):
     """InstanceNorm with affine params over a channel-first tensor
@@ -25,7 +27,10 @@ class InstanceNorm(nn.Module):
 
     Statistics are taken in fp32 in one pass, E[x^2] - E[x]^2 (clamped at
     0), as the JAX module does, over every spatial position including
-    zero-padded width columns; the result has the input's dtype."""
+    zero-padded width columns; the result has the input's dtype.  With a
+    ``seq_group``, ``x`` is this rank's time shard along the last axis:
+    the (sum, sum of squares) pair is summed over the group's shards, so
+    the statistics are the global width's."""
 
     def __init__(self, features):
         super().__init__()
@@ -33,12 +38,18 @@ class InstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
+    def forward(self, x, seq_group=None):
         dtype = x.dtype
         x32 = x.to(torch.float32)
         dims = tuple(range(2, x.dim()))
-        mean = torch.mean(x32, dim=dims, keepdim=True)
-        m2 = torch.mean(x32 * x32, dim=dims, keepdim=True)
+        if seq_group is None:
+            mean = torch.mean(x32, dim=dims, keepdim=True)
+            m2 = torch.mean(x32 * x32, dim=dims, keepdim=True)
+        else:
+            count = math.prod(x.shape[2:]) * torch.distributed.get_world_size(seq_group)
+            sums = torch.stack([torch.sum(x32, dim=dims), torch.sum(x32 * x32, dim=dims)])
+            sums = mesh.all_reduce_sum(sums, seq_group) / count
+            mean, m2 = (v.view(v.shape + (1,) * len(dims)) for v in sums.unbind(0))
         var = torch.clamp(m2 - mean * mean, min=0.0)
         y = (x32 - mean) * torch.rsqrt(var + 1e-5)
         shape = (1, self.features) + (1,) * len(dims)

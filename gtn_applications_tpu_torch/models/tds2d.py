@@ -13,6 +13,16 @@ parameters, fp32 instance-norm statistics and fp32 logits, as JAX's
 ``dtype`` does (``models/tds.py``).  ``TDS2dTransducer`` is TDS2d, the
 WFST convolution ``criterions.transducer.ConvTransduce1D`` (or a plain
 ``nn.Conv1d`` control), a linear layer and a second TDS2d.
+
+Sequence parallelism: ``TDS2d(..., seq_group=g)`` takes this rank's
+contiguous time shard of the input [B, H, W / n] (group rank 0 holds
+frame 0) and returns its shard of the logits [B, W' / n, C]: the global
+function, as XLA partitions JAX's over a ``'seq'`` mesh axis.  Every
+convolution along W reads ``kw // 2`` frames of each neighbour
+(``parallel.mesh.halo_exchange``, zeros at the global ends) and runs
+without time padding, each instance norm sums its statistics over the
+shards, and the head is per frame.  ``fits_time_shards`` says where a
+width allows it.
 """
 
 import numpy as np
@@ -20,7 +30,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .tds import InstanceNorm, conv_as, dense_as, dropout, init_conv, init_linear
+
+
+def conv_time_shard(conv, x, seq_group):
+    """``conv`` (a Conv2d over [.., H, W], odd kernel width, 'same' time
+    padding) on this rank's time shard of x: the shard's frames of the
+    global convolution, by a halo of ``kw // 2`` frames a side and no time
+    padding; ``conv_as`` where there is no group."""
+    if seq_group is None:
+        return conv_as(conv, x)
+    x = mesh.halo_exchange(x, conv.padding[1], seq_group)
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride,
+                    (conv.padding[0], 0))
 
 
 class TDSBlock2d(nn.Module):
@@ -47,25 +70,26 @@ class TDSBlock2d(nn.Module):
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
 
-    def forward(self, x, train=False, generator=None):
+    def forward(self, x, train=False, generator=None, seq_group=None):
         B, CD, H, W = x.shape
         C, D = self.in_channels, self.img_depth
         # [B, C, D, H, W] (C major) -> fold D into the batch for the conv
         y = x.view(B, C, D, H, W).transpose(1, 2).reshape(B * D, C, H, W)
-        y = F.relu(conv_as(self.conv, y))
+        y = F.relu(conv_time_shard(self.conv, y, seq_group))
         y = dropout(y, self.dropout, train, generator)
         y = y.view(B, D, C, H, W).transpose(1, 2).reshape(B, CD, H, W)
-        x = self.norm1(y + x)
+        x = self.norm1(y + x, seq_group)
 
         y = F.relu(dense_as(self.fc1, x))
         y = dropout(y, self.dropout, train, generator)
         y = dense_as(self.fc2, y)
         y = dropout(y, self.dropout, train, generator)
-        return self.norm2(y + x)
+        return self.norm2(y + x, seq_group)
 
 
 class TDS2d(nn.Module):
-    """TDS2d encoder: [B, H, W] -> [B, W', output_size].
+    """TDS2d encoder: [B, H, W] -> [B, W', output_size]; with a
+    ``seq_group``, a time shard of each (the module docstring).
 
     Parameters are initialised from ``generator`` (Flax's defaults: LeCun
     normal kernels, zero biases, unit norm scales)."""
@@ -117,17 +141,34 @@ class TDS2d(nn.Module):
         """Total downsampling along W (frames per output step)."""
         return int(np.prod([g["stride"][1] for g in self.tds_groups]))
 
-    def forward(self, inputs, train=False, generator=None):
+    def fits_time_shards(self, width, n):
+        """Whether a global input width splits into ``n`` time shards whose
+        forward (``seq_group``) gives the global function: at every strided
+        convolution each shard's width is a multiple of the stride (so each
+        shard starts on an output frame), and at every layer it holds the
+        ``kw // 2`` frames its neighbour's halo reads."""
+        if width % n:
+            return False
+        w, halo = width // n, self.convs[0].padding[1]
+        for group in self.tds_groups:
+            if w % group["stride"][1] or w < halo:
+                return False
+            w //= group["stride"][1]
+            if w < halo:
+                return False
+        return True
+
+    def forward(self, inputs, train=False, generator=None, seq_group=None):
         B, H, W = inputs.shape
         c_in = self.in_channels
         x = inputs.view(B, c_in, H // c_in, W).to(self.dtype)
         blocks = iter(self.blocks)
         for conv, norm, n_blocks in zip(self.convs, self.norms, self._group_blocks):
-            x = F.relu(conv_as(conv, x))
+            x = F.relu(conv_time_shard(conv, x, seq_group))
             x = dropout(x, self.dropout, train, generator)
-            x = norm(x)
+            x = norm(x, seq_group)
             for _ in range(n_blocks):
-                x = next(blocks)(x, train=train, generator=generator)
+                x = next(blocks)(x, train=train, generator=generator, seq_group=seq_group)
         # [B, C, H', W'] -> [B, W', C*H'] (C major)
         B2, C2, H2, W2 = x.shape
         x = x.permute(0, 3, 1, 2).reshape(B2, W2, C2 * H2)

@@ -86,7 +86,7 @@ def _accepted_score(alpha, target_lengths):
 
 def ctc_forward_score(
     log_probs, targets, target_lengths, blank, input_lengths=None, impl="auto",
-    chunk=None,
+    chunk=None, seq_group=None,
 ):
     """Log-semiring forward score of the CTC lattice.
 
@@ -103,10 +103,18 @@ def ctc_forward_score(
         forward and backward).  'pallas' raises ``ValueError``.
       chunk: chunk size for 'assoc' (the chunk-transfer form) and
         'chunked' (default 128); None keeps each impl's default.
+      seq_group: 'assoc' only: ``log_probs`` is this rank's time shard
+        over the group (``ctc_forward_score_assoc``), ``input_lengths``
+        global.
 
     Returns:
       ``[B]`` forward scores (log total path probability).
     """
+    if seq_group is not None:
+        if impl != "assoc":
+            raise ValueError(f"a time-sharded CTC score needs impl 'assoc', not {impl!r}")
+        return ctc_forward_score_assoc(log_probs, targets, target_lengths, blank,
+                                       input_lengths, chunk, seq_group)
     B, T, _ = log_probs.shape
     device = log_probs.device
     S = 2 * targets.shape[1] + 1
@@ -165,14 +173,16 @@ def ctc_loss(
     input_lengths=None,
     impl="auto",
     chunk=None,
+    seq_group=None,
 ):
     """Mean-over-batch negative CTC forward score.
 
     With reduction == 'mean' each sample's loss is scaled by 1/len(target)
-    before the batch mean, as in the reference criterion.
+    before the batch mean, as in the reference criterion.  ``seq_group``:
+    ``log_probs`` is this rank's time shard (``ctc_forward_score``).
     """
     scores = ctc_forward_score(
-        log_probs, targets, target_lengths, blank, input_lengths, impl, chunk
+        log_probs, targets, target_lengths, blank, input_lengths, impl, chunk, seq_group
     )
     losses = -scores
     if reduction == "mean":

@@ -29,7 +29,12 @@ stitch local rows into one global array have no function here:
   ==============================  =========================================
 
 Collectives go through ``all_reduce``, ``all_gather`` and ``broadcast``
-below.  Gloo serves several ranks on one card (NCCL refuses two ranks on
+below; the sequence-parallel step's differentiable ones are
+``all_gather_replicated`` (and ``gather_time``), ``halo_exchange`` (the
+frames a time shard's convolution reads from its neighbours) and
+``all_reduce_sum`` (statistics over every shard's frames), autograd
+Functions written here with the gradient conventions of a loss that every
+rank of the ``'seq'`` group computes alike.  Gloo serves several ranks on one card (NCCL refuses two ranks on
 one device): it takes CUDA tensors for each of these collectives.  NCCL
 takes CUDA tensors only, so a host tensor (a width, the meters) visits
 this rank's card for it.
@@ -185,6 +190,82 @@ def all_gather_replicated(x, group):
     if group is None:
         return x[None]
     return _GatherOwnGrad.apply(x, group)
+
+
+def gather_time(x, group, axis=1):
+    """The group's time shards of ``x`` joined along ``axis`` in rank
+    order (group rank 0's frames first), differentiable as
+    ``all_gather_replicated``; ``x`` itself where there is no group."""
+    if group is None:
+        return x
+    parts = all_gather_replicated(x, group)
+    return torch.cat(tuple(parts.unbind(0)), dim=axis)
+
+
+class _HaloExchange(torch.autograd.Function):
+    """``x`` [..., W] of a time shard extended along its last axis by the
+    ``h`` frames on either side that its time neighbours hold (zeros at the
+    global ends).  Every rank's two edges go through one all-gather (gloo's
+    send and recv take CPU tensors only, and ranks sharing a card run
+    gloo).  The backward returns each halo's cotangent to the rank that
+    owns those frames, also by one all-gather, and adds it there."""
+
+    @staticmethod
+    def forward(ctx, x, h, group):
+        rank, n = dist.get_rank(group), dist.get_world_size(group)
+        ctx.h, ctx.group, ctx.rank, ctx.n = h, group, rank, n
+        edges = all_gather(torch.stack([x[..., :h], x[..., -h:]]), group)
+        left = edges[rank - 1, 1] if rank > 0 else torch.zeros_like(x[..., :h])
+        right = edges[rank + 1, 0] if rank < n - 1 else torch.zeros_like(x[..., :h])
+        return torch.cat([left, x, right], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, rank, n = ctx.h, ctx.rank, ctx.n
+        halos = all_gather(torch.stack([g[..., :h], g[..., -h:]]), ctx.group)
+        dx = g[..., h:-h].clone()
+        if rank > 0:  # the left neighbour's right halo is this rank's first h frames
+            dx[..., :h] += halos[rank - 1, 1]
+        if rank < n - 1:  # the right neighbour's left halo, its last h frames
+            dx[..., -h:] += halos[rank + 1, 0]
+        return dx, None, None
+
+
+def halo_exchange(x, h, group):
+    """``x`` [..., W_local], this rank's contiguous time shard along its
+    last axis, with ``h`` frames of each neighbouring shard on either side
+    ([..., h + W_local + h]; zeros beyond the first and the last shard, the
+    global array's zero padding), so that a convolution of width 2 h + 1
+    without time padding gives this shard's frames of the global
+    convolution.  Needs W_local >= h on every rank.  ``x`` itself where
+    ``h`` is 0 or there is no group."""
+    if group is None or h == 0:
+        return x
+    return _HaloExchange.apply(x, h, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """SUM all-reduce whose backward all-reduces the cotangent: every
+    rank's loss reads the sum through its own frames only (the logits are
+    gathered with ``all_gather_replicated``), so the gradient of the sum is
+    the sum of the ranks' cotangents, and each term's is that whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+def all_reduce_sum(x, group):
+    """The differentiable sum of ``x`` over ``group`` (statistics over
+    every time shard); ``x`` itself where there is no group."""
+    if group is None:
+        return x
+    return _AllReduceSum.apply(x, group)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,12 @@ Counterpart of ``gtn_applications_tpu/test.py``.  Runs on CUDA unless
 ``--disable_cuda`` asks for the CPU.  Under a process group (``train.py``'s
 rendezvous flags or torchrun's environment) every rank evaluates the whole
 split, as JAX's multi-host evaluation does: each decodes its own batches
-and ``Meters.sync`` sums the counts, so the rates and the mean loss are
-the one-process run's (and each sample counts once a rank).
+and ``Meters.sync`` sums the counts over the ``'data'`` ranks, so the
+rates and the mean loss are the one-process run's (and each sample counts
+once a data rank).  With ``optim.seq_parallel`` dividing the world, the
+ranks of a ``'seq'`` line split each batch's time axis as ``train.py``
+does (JAX's ``test.py`` shards it so too) and gather the logits before
+decoding.
 
     python -m gtn_applications_tpu_torch.test --config CONFIG.json \
         --checkpoint_path DIR [--split test] [--disable_cuda]
@@ -74,10 +78,11 @@ def run_test(args):
             print(f"REF: {preprocessor.to_text(t)}")
             print("=" * 80)
 
+    mesh = make_mesh(config["optim"].get("seq_parallel", 1))
     meters = evaluate(
-        model, criterion, loader, preprocessor, make_eval_step(model, criterion),
-        device, config["optim"].get("use_input_lengths", False), report,
-        make_mesh(),
+        model, criterion, loader, preprocessor,
+        make_eval_step(model, criterion, mesh.group("seq")), device,
+        config["optim"].get("use_input_lengths", False), report, mesh,
     )
     print(
         "Loss {:.3f}, CER {:.3f}, WER {:.3f}".format(

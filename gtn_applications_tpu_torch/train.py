@@ -7,18 +7,32 @@ every ``optim.metrics_interval``-th step), best-checkpoint tracking and
 restore, and a profiler trace of the first epoch (``--profile_dir``).
 
 Distribution: one process per device over ``torch.distributed``, the grid
-of ``parallel.mesh``.  Each rank loads its own rows (the sampler deals
-chunk ``rank + i * world_size``), so the global batch is ``batch_size``
-rows, ``batch_size // world_size`` a rank; the step's gradient is that of
-the global batch's loss, reduced over the ``'data'`` group before the
-global-norm clip.  Rendezvous by the flags (``--world_size``,
-``--coordinator_address host:port``, ``--process_id``, as JAX's) or by
-torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``MASTER_ADDR``, ``MASTER_PORT``); NCCL on CUDA at ``cuda:LOCAL_RANK``,
-gloo on the CPU.
-Only rank 0 logs.  ``optim.seq_parallel`` > 1 on a world it divides raises:
-the sequence-parallel train step is ROADMAP item A.17; a world it does not
-divide keeps JAX's data-only fallback and warning.
+of ``parallel.mesh``.  Each data rank loads its own rows (the sampler
+deals chunk ``d + i * data_ranks`` to data coordinate d), so the global
+batch is ``batch_size`` rows, ``batch_size // data_ranks`` a rank; the
+step's gradient is that of the global batch's loss, reduced over the
+ranks before the global-norm clip.  Rendezvous by the flags
+(``--world_size``, ``--coordinator_address host:port``, ``--process_id``,
+as JAX's) or by torchrun's environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); NCCL on CUDA at
+``cuda:LOCAL_RANK``, gloo on the CPU.  Only rank 0 logs.
+
+Sequence parallelism (``optim.seq_parallel`` = n dividing the world: a
+``('data', 'seq')`` grid): the ranks of a ``'seq'`` line hold the same
+rows, padded to one width across the whole step, and each keeps a
+contiguous 1/n of the time axis through the encoder (JAX shards the
+inputs' time axis and lets XLA partition).  TDS2d runs on its shard
+(halos and statistics across shards, ``models/tds2d.py``); other encoders
+gather their input and run whole on each rank, keeping their shard of the
+output.  The criterion scores the global batch on every rank of the line
+(``Criterion.seq_loss``: the assoc CTC from its shards, others on the
+gathered log-probabilities), and each rank's backward yields its frames'
+share of the model's gradient, so the step sums the gradients over
+``'seq'`` and ``'data'`` at once and divides by the global rows (the
+criterion's parameters, scored after the gather, count once a line).  A
+width whose shards do not fit the encoder keeps time whole on every rank,
+with a one-shot warning.  A world it does not divide keeps JAX's
+data-only fallback and warning.
 
 Runs on CUDA unless ``--disable_cuda`` asks for the CPU; without that flag
 and without a GPU it raises.  TF32 is switched off for cuDNN convolutions
@@ -120,19 +134,6 @@ def select_device(disable_cuda=False):
 make_mesh = pmesh.make_mesh
 
 
-def check_seq_parallel(mesh):
-    """Raise where the grid has a ``'seq'`` axis of more than one rank: the
-    sequence-parallel train step is not ported (ROADMAP A.17)."""
-    if mesh.dim("seq") > 1:
-        raise NotImplementedError(
-            f"optim.seq_parallel={mesh.dim('seq')} over {mesh.size} ranks: the "
-            "sequence-parallel train step is ROADMAP item A.17 (the encoder's "
-            "time shards: halos for TDS2d's strided convolutions, normalisation "
-            "statistics across shards); ops.lattice.ctc_forward_score_assoc takes "
-            "a 'seq' group already"
-        )
-
-
 def input_time_axis(inputs, num_features):
     """Time axis of a padded input batch: image layout [B, H=num_features,
     W=time] -> 2; feature-stream layout [B, T=time, F=num_features] -> 1.
@@ -145,16 +146,66 @@ def input_time_axis(inputs, num_features):
 def shard_batch(batch, mesh, time_axis=None):
     """This rank's rows of the step's global batch, as a tensor: its own
     local batch (JAX's ``global_batch_from_local``), zero-padded along
-    ``time_axis`` to the widest rank's width in the ``'data'`` group, so
-    that every rank's rows are those of one global array (the padded
-    frames count where the criterion scores them: CTC without input
-    lengths, STC's division by T).  Its prepared targets and outputs are
-    its own rows as they are (JAX's ``shard_prepared`` and ``local_rows``
-    have no counterpart)."""
+    ``time_axis`` to the widest rank's width in the step (every rank of
+    the grid), so that every rank's rows are those of one global array
+    (the padded frames count where the criterion scores them: CTC without
+    input lengths, STC's division by T).  Its prepared targets and outputs
+    are its own rows as they are (JAX's ``shard_prepared`` and
+    ``local_rows`` have no counterpart)."""
     batch = torch.as_tensor(batch)
-    if time_axis is not None and mesh.dim("data") > 1:
-        batch = pmesh.pad_to_group_max(batch, time_axis, mesh.group("data"))
+    if time_axis is not None and mesh.size > 1:
+        batch = pmesh.pad_to_group_max(batch, time_axis, dist.group.WORLD)
     return batch
+
+
+def time_shards_fit(model, width, n):
+    """Whether a global width splits into ``n`` time shards for ``model``:
+    its own rule where it runs on a shard (``TDS2d.fits_time_shards``),
+    else equal input shards and an output length that n divides."""
+    fits = getattr(model, "fits_time_shards", None)
+    if fits is not None:
+        return fits(width, n)
+    return width % n == 0 and -(-width // getattr(model, "time_stride", 1)) % n == 0
+
+
+def shard_time(batch, mesh, time_axis, model):
+    """(this rank's contiguous time slice of ``batch`` along ``'seq'``,
+    ``time_axis``) where the grid has a ``'seq'`` axis and the width fits
+    the model's shards (``time_shards_fit``); else (``batch``, None),
+    with the one-shot warning where the width does not fit."""
+    n = mesh.dim("seq")
+    if n <= 1 or time_axis is None:
+        return batch, None
+    width = batch.shape[time_axis]
+    if not time_shards_fit(model, width, n):
+        pmesh._warn_once(
+            ("seq", width, n),
+            "time extent %d does not fit %d 'seq' shards of %s: keeping time whole "
+            "on every 'seq' rank", width, n, type(model).__name__,
+        )
+        return batch, None
+    return pmesh._slice(batch, time_axis, n, mesh.coord("seq")), time_axis
+
+
+def encode(model, inputs, train=False, generator=None, seq_group=None, time_axis=None):
+    """The model's outputs [B, T', C]; with a ``seq_group``, ``inputs`` is
+    this rank's time shard along ``time_axis`` and the result its shard of
+    the outputs [B, T' / n, C].  A model without a sharded forward (only
+    TDS2d has one) gathers its input along time and runs whole on every
+    rank of the group, keeping its shard of the output."""
+    if seq_group is None:
+        return model(inputs, train=train, generator=generator)
+    if hasattr(model, "fits_time_shards"):
+        return model(inputs, train=train, generator=generator, seq_group=seq_group)
+    pmesh._warn_once(
+        ("seq whole", type(model).__name__),
+        "%s has no time-sharded forward: each 'seq' rank gathers its input along "
+        "time and runs the encoder whole", type(model).__name__,
+    )
+    whole = torch.cat(tuple(pmesh.all_gather(inputs, seq_group).unbind(0)), dim=time_axis)
+    outputs = model(whole, train=train, generator=generator)
+    return pmesh._slice(outputs, 1, dist.get_world_size(seq_group),
+                        dist.get_rank(seq_group))
 
 
 def clip_global_norm(grads, max_norm):
@@ -191,20 +242,27 @@ def reduce_gradients(grads, weighted_loss, n_local, group):
     return out, flat[-1]
 
 
-def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=None):
+def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=None,
+                     seq_group=None):
     """The train step shared by ``make_train_step`` and
     ``make_fused_train_steps``."""
     model_params = list(model.parameters())
     crit_params = list(criterion.params.values())
-    group = _data_group(group)
+    group, seq_group = _data_group(group), _data_group(seq_group)
 
-    def step(inputs, prepared, generator, lr_scale, input_lengths=None):
+    def step(inputs, prepared, generator, lr_scale, input_lengths=None, time_axis=None):
         params = model_params + crit_params
         for p in params:
             p.grad = None
-        outputs = model(inputs, train=True, generator=generator)
-        loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
-        if group is None:
+        sharded = seq_group is not None and time_axis is not None
+        if sharded:
+            outputs = encode(model, inputs, True, generator, seq_group, time_axis)
+            loss = criterion.seq_loss(criterion.params, outputs, prepared, input_lengths,
+                                      seq_group)
+        else:
+            outputs = model(inputs, train=True, generator=generator)
+            loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
+        if group is None and seq_group is None:
             loss.backward()
             grads = [p.grad for p in params]
         else:
@@ -214,7 +272,22 @@ def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=N
             n_local = inputs.shape[0]
             (loss * n_local).backward()
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            grads, loss = reduce_gradients(grads, loss.detach() * n_local, n_local, group)
+            weighted = loss.detach() * n_local
+            if seq_group is None:
+                grads, loss = reduce_gradients(grads, weighted, n_local, group)
+            else:
+                # the ranks of a 'seq' line compute one loss: on time shards
+                # each holds its frames' share of the model's gradient,
+                # summed over 'seq' and 'data' in one all-reduce over the
+                # grid; the criterion's parameters (used after the gather),
+                # and every parameter with time whole, get the whole
+                # gradient on each rank, which the line's first rank alone
+                # adds.  The loss and the rows count once a line.
+                first = float(dist.get_rank(seq_group) == 0)
+                partial = len(model_params) if sharded else 0
+                grads = grads[:partial] + [g * first for g in grads[partial:]]
+                grads, loss = reduce_gradients(grads, weighted * first, n_local * first,
+                                               dist.group.WORLD)
         if max_grad_norm is not None:
             clip_global_norm(grads, max_grad_norm)
         with torch.no_grad():
@@ -227,19 +300,25 @@ def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=N
     return step
 
 
-def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm, group=None):
+def make_train_step(model, criterion, lr_model, lr_crit, max_grad_norm, group=None,
+                    seq_group=None):
     """The train step: forward, loss, backward, gradient reduction over
-    ``group`` (the ``'data'`` ranks; None in one process), clip, SGD.
+    ``group`` (the ``'data'`` ranks; None in one process) and ``seq_group``
+    (the ``'seq'`` ranks, on a ``('data', 'seq')`` grid), clip, SGD.
 
-    ``step(inputs, prepared, generator, lr_scale, input_lengths=None)``
-    updates the parameters of ``model`` (and of the criterion, if it has
-    any) in place with ``p -= lr * lr_scale * g``, where g is the gradient
-    of the global batch's loss clipped to ``max_grad_norm`` by its global
-    norm, and returns the detached (global batch's loss, this rank's
-    outputs).  ``generator`` draws the dropout masks.  ``input_lengths``
-    (None for reference parity: the reference scores the zero-padded
-    frames) masks padded frames out of the lattice."""
-    return _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group)
+    ``step(inputs, prepared, generator, lr_scale, input_lengths=None,
+    time_axis=None)`` updates the parameters of ``model`` (and of the
+    criterion, if it has any) in place with ``p -= lr * lr_scale * g``,
+    where g is the gradient of the global batch's loss clipped to
+    ``max_grad_norm`` by its global norm, and returns the detached (global
+    batch's loss, this rank's outputs).  ``generator`` draws the dropout
+    masks.  ``input_lengths`` (None for reference parity: the reference
+    scores the zero-padded frames) masks padded frames out of the lattice;
+    on a time shard they count global frames.  ``time_axis``: ``inputs``
+    is this rank's time shard along that axis (``shard_time``), and the
+    outputs are its shard of the logits."""
+    return _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group,
+                            seq_group)
 
 
 def _index_tree(tree, k):
@@ -271,9 +350,20 @@ def make_fused_train_steps(model, criterion, lr_model, lr_crit, max_grad_norm,
     return fused
 
 
-def make_eval_step(model, criterion):
+def make_eval_step(model, criterion, seq_group=None):
+    """``step(inputs, prepared, input_lengths=None, time_axis=None)`` ->
+    (loss, outputs) without gradients; on a time shard (``time_axis``,
+    over ``seq_group``) the loss of the global batch and the outputs
+    gathered along time."""
+    seq_group = _data_group(seq_group)
+
     @torch.no_grad()
-    def step(inputs, prepared, input_lengths=None):
+    def step(inputs, prepared, input_lengths=None, time_axis=None):
+        if seq_group is not None and time_axis is not None:
+            outputs = encode(model, inputs, False, None, seq_group, time_axis)
+            loss = criterion.seq_loss(criterion.params, outputs, prepared, input_lengths,
+                                      seq_group)
+            return loss, pmesh.gather_time(outputs, seq_group)
         outputs = model(inputs)
         loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
         return loss, outputs
@@ -334,16 +424,19 @@ def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
     """Meters (loss, CER, WER) over ``data_loader``; ``report``, if given,
     is called with each batch's decoded predictions and targets.  With a
     ``mesh`` of several ranks, each rank scores and decodes its own rows
-    (padded to the widest rank's, ``shard_batch``), and the meters are
-    summed over the ranks (``Meters.sync``)."""
+    (padded to the widest rank's, ``shard_batch``; on a ``'seq'`` axis its
+    time shard, the logits gathered before decoding), and the meters are
+    summed over the ``'data'`` ranks (``Meters.sync``)."""
     mesh = mesh or pmesh.Mesh((1,), ("data",))
     meters = utils.Meters()
     losses = []
     for inputs, widths, targets in data_loader:
-        inputs = shard_batch(inputs, mesh, input_time_axis(inputs, preprocessor.num_features))
+        time_axis = input_time_axis(inputs, preprocessor.num_features)
+        inputs, time_axis = shard_time(shard_batch(inputs, mesh, time_axis), mesh,
+                                       time_axis, model)
         inputs, prepared = _to_device(inputs, criterion.prepare(targets), device)
         lens = output_lengths(model, widths).to(device) if use_lengths else None
-        loss, outputs = eval_step(inputs, prepared, lens)
+        loss, outputs = eval_step(inputs, prepared, lens, time_axis)
         losses.append(loss * len(targets))
         meters.num_samples += len(targets)
         predictions = criterion.viterbi_finalize(
@@ -355,7 +448,7 @@ def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
     if losses:
         meters.loss += float(torch.stack(losses).sum())
     if mesh.size > 1:
-        meters.sync()
+        meters.sync(mesh.group("data"))
     return meters
 
 
@@ -419,7 +512,6 @@ def train(args):
         logging.info("Using the config \n{}".format(json.dumps(config)))
 
     mesh = make_mesh(config["optim"].get("seq_parallel", 1))
-    check_seq_parallel(mesh)
     seed = config.get("seed", 0)
     init_gen = torch.Generator().manual_seed(seed)
     # each rank its own dropout stream, from (seed, rank); rank 0's is the
@@ -435,8 +527,10 @@ def train(args):
     trainset = dataset.Dataset(data_path, preprocessor, split="train", augment=True,
                                **ds_kwargs)
     valset = dataset.Dataset(data_path, preprocessor, split="validation", **ds_kwargs)
-    train_loader = utils.data_loader(trainset, config, rank, world_size, seed)
-    val_loader = utils.data_loader(valset, config, rank, world_size, seed)
+    # the ranks of a 'seq' line read the same rows
+    data_rank, data_ranks = mesh.coord("data"), mesh.dim("data")
+    train_loader = utils.data_loader(trainset, config, data_rank, data_ranks, seed)
+    val_loader = utils.data_loader(valset, config, data_rank, data_ranks, seed)
     # JAX's train draws a first batch to shape its initialisation, and with
     # it one batch order: drawing that order too keeps JAX's epochs' order
     iter(train_loader.sampler)
@@ -475,8 +569,8 @@ def train(args):
     ckpt_format = config["optim"].get("checkpoint_format", "pickle")
 
     train_step = make_train_step(model, criterion, lr, crit_lr, max_grad_norm,
-                                 mesh.group("data"))
-    eval_step = make_eval_step(model, criterion)
+                                 mesh.group("data"), mesh.group("seq"))
+    eval_step = make_eval_step(model, criterion, mesh.group("seq"))
 
     timers = utils.Timer(["ds_fetch", "step", "metrics", "train_total", "test_total"])
     min_val_loss = min_val_cer = min_val_wer = float("inf")
@@ -499,18 +593,22 @@ def train(args):
         timers.start("train_total").start("ds_fetch")
         for step_idx, (inputs, widths, targets, prepared) in enumerate(
                 prepared_batches(train_loader, criterion)):
-            inputs = shard_batch(inputs, mesh, input_time_axis(inputs, input_size))
+            time_axis = input_time_axis(inputs, input_size)
+            inputs, time_axis = shard_time(shard_batch(inputs, mesh, time_axis), mesh,
+                                           time_axis, model)
             inputs, prepared = _to_device(inputs, prepared, device)
             lens = output_lengths(model, widths).to(device) if use_lengths else None
             timers.stop("ds_fetch").start("step")
             loss, outputs = train_step(
-                inputs, prepared, dropout_gen, lr_scale, lens
+                inputs, prepared, dropout_gen, lr_scale, lens, time_axis
             )
             timers.stop("step").start("metrics")
             num_updates += 1
             losses.append(loss * len(targets))
             meters.num_samples += len(targets)
             if step_idx % metrics_interval == 0:
+                if time_axis is not None:
+                    outputs = pmesh.gather_time(outputs, mesh.group("seq"))
                 predictions = criterion.viterbi_finalize(criterion.viterbi_dispatch(
                     outputs, criterion.params, lens))
                 meters.add_decodes(predictions, targets, preprocessor)
@@ -526,7 +624,7 @@ def train(args):
             logging.info(f"Profiler trace written to {trace}")
         epoch_time = time.time() - start_time
         if world_size > 1:
-            meters.sync()
+            meters.sync(mesh.group("data"))
         logging.info(
             "Epoch {} complete. "
             "nUpdates {}, Loss {:.3f}, CER {:.3f}, WER {:.3f},"

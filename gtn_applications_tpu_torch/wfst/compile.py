@@ -11,8 +11,8 @@ parameter update in O(nnz) numpy; a batch of compiled graphs becomes one
 table of the sparse scorer, on a shared union skeleton
 (``union_stack_arc_tables``) or stacked per sample (``stack_arc_tables``),
 both with JAX's shape bucketing.  ``compile_acceptor(remove_eps=True)``
-removes epsilons through the native graph compiler, as JAX's does when
-the library is there (the port has no Python fallback).
+removes epsilons through ``wfst.ops.remove``: the native graph compiler
+where it is enabled, else the Python operation, as JAX's does.
 """
 
 from typing import NamedTuple, Sequence
@@ -22,7 +22,7 @@ import torch
 
 from ..ops.semiring import NEG
 from ..ops.sparse import ArcTable
-from . import native
+from . import ops as gops
 from .graph import EPSILON, Graph
 
 
@@ -72,11 +72,11 @@ def compile_acceptor(g: Graph, semiring: str = "log",
     Args:
       semiring: 'log' combines parallel final weights of a node with
         logsumexp, 'tropical' with max (Viterbi decode tables).
-      remove_eps: fold the epsilon arcs away first (the native graph
-        compiler's ``remove``), as a Viterbi table needs.
+      remove_eps: fold the epsilon arcs away first (``wfst.ops.remove``),
+        as a Viterbi table needs.
     """
     if remove_eps:
-        g = native.remove(g)
+        g = gops.remove(g)
 
     S = g.num_nodes()
     src, dst, label, weight, arc_id = [], [], [], [], []

@@ -7,7 +7,8 @@ does not import the JAX package (whose ``wfst`` package imports JAX).
 What the STC label graphs, the Transducer's builders, its loaded
 transition graphs and the graph operations of ``wfst.ops`` need is here:
 building nodes and arcs, copying, arc sorting, the counts, start and accept
-nodes and adjacency lists, and the Graphviz dump ``write_dot``.
+nodes and adjacency lists, the weights and labels along arc order, and the
+Graphviz dump ``write_dot``.
 Graphs are built on the host once per target and compiled to fixed-shape
 tables that the device recursions consume.
 
@@ -99,8 +100,20 @@ class Graph:
         return zip(self.arc_src, self.arc_dst, self.arc_ilabel,
                    self.arc_olabel, self.arc_weight)
 
+    def is_acceptor(self):
+        return all(i == o for i, o in zip(self.arc_ilabel, self.arc_olabel))
+
     def has_simple_finals(self):
         return all(ws == [0.0] for ws in self.finals.values())
+
+    def weights(self):
+        return list(self.arc_weight)
+
+    def labels_to_list(self, ilabel=True):
+        """Labels along arc order, epsilons dropped (gtn's
+        ``labels_to_list``)."""
+        labels = self.arc_ilabel if ilabel else self.arc_olabel
+        return [l for l in labels if l != EPSILON]
 
     def set_weights(self, weights):
         """Overwrite all arc weights from a flat sequence."""
@@ -266,14 +279,24 @@ def write_dot(g: Graph, path, isymbols=None, osymbols=None):
         fid.write("\n".join(lines) + "\n")
 
 
-def linear_graph(sequence):
-    """A chain acceptor over a label sequence: node i -> i + 1 on
-    sequence[i], node 0 starts, the last node accepts.  (The JAX function's
-    ``(T, C)`` emission-lattice form is not needed by the port.)"""
+def linear_graph(sequence_or_T, num_labels=None):
+    """A chain acceptor over a label sequence (node i -> i + 1 on
+    sequence[i], node 0 starts, the last node accepts); or, with
+    ``num_labels`` C, the T x C emission-lattice skeleton (gtn's
+    ``linear_graph(T, C)``): nodes 0..T, an arc t -> t + 1 for every label,
+    its weights settable by ``set_weights`` in time-major label order."""
     g = Graph()
-    seq = list(sequence)
-    g.add_node(True, len(seq) == 0)
-    for i, s in enumerate(seq):
-        g.add_node(False, i == len(seq) - 1)
-        g.add_arc(i, i + 1, s)
+    if num_labels is None:
+        seq = list(sequence_or_T)
+        g.add_node(True, len(seq) == 0)
+        for i, s in enumerate(seq):
+            g.add_node(False, i == len(seq) - 1)
+            g.add_arc(i, i + 1, s)
+        return g
+    T, C = int(sequence_or_T), int(num_labels)
+    g.add_node(True, T == 0)
+    for t in range(T):
+        g.add_node(False, t == T - 1)
+        for c in range(C):
+            g.add_arc(t, t + 1, c)
     return g

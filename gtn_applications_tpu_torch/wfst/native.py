@@ -6,7 +6,13 @@ the port calls: loading ``native/libtwgraph.so``, ``to_native`` and
 ``remove``, ``trim``, ``project``, ``forward_score`` and ``viterbi_score``
 (``wfst.ops`` dispatches to them); the one-call per-target pipeline
 ``compile_alignment``; the decode cleanups ``forced_collapse`` (the
-forced-blank Transducer) and ``asg_collapse`` (ASG); the wordpiece
+forced-blank Transducer) and ``asg_collapse`` (ASG); the six batched graph
+engines (``ctc_engine_batch``, ``asg_engine_batch``,
+``transducer_engine_batch``, ``transducer_viterbi_batch``,
+``transducer_ngram_engine_batch``, ``acceptor_engine_batch``: the
+reference's per-sample compose, forward score and graph autodiff on a host
+thread pool, numpy in and out, bench denominators and differential
+oracles, not a device path); the wordpiece
 segmenter ``WordpieceEncoder`` and its E-step ``wordpiece_estep``
 (``scripts/wordpiece.py``); ``edit_distance_i32``; and the FLAC decoder
 ``decode_flac`` (``native/flac.cc``, for ``datasets.audio.load_audio``).
@@ -322,6 +328,172 @@ def forced_collapse(paths, blank_idx, lengths=None):
         raise RuntimeError("forced_collapse: the output buffer overflowed")
     ends = np.cumsum(counts)
     return [out[e - c:e].copy() for e, c in zip(ends, counts)]
+
+
+def _bind_engines(lib):
+    if getattr(lib, "_engines_bound", False):
+        return
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    for fn, args in (
+        ("tw_ctc_engine_batch", [i64] * 3 + [vp] * 3 + [i64, ctypes.c_int32] + [vp] * 2),
+        ("tw_asg_engine_batch", [i64] * 3 + [vp] * 3 + [i64] + [vp] * 4),
+        ("tw_transducer_engine_batch", [i64] * 3 + [vp] * 5 + [i64] + [vp] * 2),
+        ("tw_transducer_viterbi_batch", [i64] * 3 + [vp] * 3 + [i64]),
+        ("tw_transducer_ngram_engine_batch", [i64] * 3 + [vp] * 6 + [i64] + [vp] * 3),
+        ("tw_acceptor_engine_batch", [i64] * 3 + [vp] * 4),
+    ):
+        getattr(lib, fn).restype = i64
+        getattr(lib, fn).argtypes = args
+    lib._engines_bound = True
+
+
+def _engine_log_probs(log_probs):
+    """(the engines' library, contiguous float32 log_probs [B, T, C], B,
+    T, C)."""
+    lib = load_library()
+    _bind_engines(lib)
+    lp = np.ascontiguousarray(log_probs, dtype=np.float32)
+    return (lib, lp) + lp.shape
+
+
+def _engine_targets(targets):
+    """(int32 targets zero-padded to [B, max(1, L)], int64 lengths,
+    max(1, L))."""
+    lens = np.array([len(t) for t in targets], dtype=np.int64)
+    lmax = max(1, int(lens.max()) if len(targets) else 1)
+    tg = np.zeros((len(targets), lmax), dtype=np.int32)
+    for b, t in enumerate(targets):
+        tg[b, : len(t)] = t
+    return tg, lens, lmax
+
+
+def _check_fails(fails, what):
+    if fails:
+        raise ValueError(f"{fails} samples had no accepting {what}path")
+
+
+def ctc_engine_batch(log_probs, targets, blank):
+    """Graph-engine CTC forward and backward over a batch on the host: per
+    sample the emission graph composed with the CTC acceptor, its log
+    forward score and graph autodiff (reference ``criterions/ctc.py``),
+    a thread pool over the batch.
+
+    log_probs [B, T, C]; targets: lists of label ids; blank: the blank id.
+    Returns (losses [B], grad [B, T, C]): losses[b] = -log p(target_b),
+    grad = d losses / d log_probs (no batch reduction).  Raises ValueError
+    where a sample has no accepting path."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    tg, lens, lmax = _engine_targets(targets)
+    losses = np.zeros(B, dtype=np.float32)
+    grad = np.zeros((B, T, C), dtype=np.float32)
+    fails = lib.tw_ctc_engine_batch(B, T, C, lp.ctypes.data, tg.ctypes.data,
+                                    lens.ctypes.data, lmax, int(blank),
+                                    losses.ctypes.data, grad.ctypes.data)
+    _check_fails(fails, "CTC ")
+    return losses, grad
+
+
+def asg_engine_batch(log_probs, targets, transitions):
+    """Graph-engine ASG forward and backward over a batch on the host
+    (reference ``criterions/asg.py``: the free and force-aligned graphs'
+    log forward scores, graph autodiff).
+
+    log_probs [B, T, C]; targets: prepared id lists (replabels and garbage
+    applied); transitions [(C + 1), C].  Returns (losses [B], grad_em
+    [B, T, C], grad_trans [(C + 1), C] summed over the batch), losses[b] =
+    logZ_free - logZ_forced."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    tg, lens, lmax = _engine_targets(targets)
+    tw = np.ascontiguousarray(transitions, dtype=np.float32)
+    if tw.shape != (C + 1, C):
+        raise ValueError(f"transitions {tw.shape}, expected {(C + 1, C)}")
+    losses = np.zeros(B, dtype=np.float32)
+    grad_em = np.zeros((B, T, C), dtype=np.float32)
+    grad_trans = np.zeros((C + 1, C), dtype=np.float32)
+    fails = lib.tw_asg_engine_batch(B, T, C, lp.ctypes.data, tg.ctypes.data,
+                                    lens.ctypes.data, lmax, tw.ctypes.data,
+                                    losses.ctypes.data, grad_em.ctypes.data,
+                                    grad_trans.ctypes.data)
+    _check_fails(fails, "ASG ")
+    return losses, grad_em, grad_trans
+
+
+def transducer_engine_batch(log_probs, lexicon, tokens, targets):
+    """Graph-engine Transducer forward and backward without transitions on
+    the host: per sample -forward_score(emissions o alignment graph of the
+    target), the decompositions marginalised through the lexicon.
+
+    log_probs [B, T, C]; lexicon, tokens: the criterion's host ``Graph``s;
+    targets: grapheme id lists.  Returns (losses [B], grad [B, T, C])."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    tg, lens, lmax = _engine_targets(targets)
+    hl = to_native(lexicon, warm=True)
+    ht = to_native(tokens, warm=True)
+    losses = np.zeros(B, dtype=np.float32)
+    grad = np.zeros((B, T, C), dtype=np.float32)
+    fails = lib.tw_transducer_engine_batch(B, T, C, lp.ctypes.data, hl.h, ht.h,
+                                           tg.ctypes.data, lens.ctypes.data, lmax,
+                                           losses.ctypes.data, grad.ctypes.data)
+    _check_fails(fails, "alignment ")
+    return losses, grad
+
+
+def transducer_viterbi_batch(log_probs, tokens, cap=None):
+    """Graph-engine Transducer decode without transitions on the host: per
+    sample the best path through the emissions, composed with the token
+    graph, its best path projected on the output, epsilons dropped.
+
+    log_probs [B, T, C]; tokens: the criterion's host ``Graph``; cap: most
+    labels a sample (default T).  Returns B lists of token ids."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    ht = to_native(tokens, warm=True)
+    cap = int(cap or max(T, 1))
+    out = np.full((B, cap), -1, dtype=np.int32)
+    fails = lib.tw_transducer_viterbi_batch(B, T, C, lp.ctypes.data, ht.h,
+                                            out.ctypes.data, cap)
+    _check_fails(fails, "decode ")
+    return [[int(v) for v in row[row >= 0]] for row in out]
+
+
+def transducer_ngram_engine_batch(log_probs, lexicon, tokens, transitions, targets):
+    """Graph-engine Transducer forward and backward with a transition
+    graph on the host: per sample logZ(em o trans) - logZ(em o (trans o
+    alignment graph)), with graph autodiff of the emissions and of the
+    transitions' arc weights.
+
+    log_probs [B, T, C]; lexicon, tokens, transitions: the criterion's host
+    ``Graph``s; targets: grapheme id lists.  Returns (losses [B], grad_em
+    [B, T, C], grad_trans [transition arcs], summed over the batch)."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    tg, lens, lmax = _engine_targets(targets)
+    hl = to_native(lexicon, warm=True)
+    ht = to_native(tokens, warm=True)
+    htr = to_native(transitions, warm=True)
+    losses = np.zeros(B, dtype=np.float32)
+    grad_em = np.zeros((B, T, C), dtype=np.float32)
+    grad_trans = np.zeros(transitions.num_arcs(), dtype=np.float32)
+    fails = lib.tw_transducer_ngram_engine_batch(
+        B, T, C, lp.ctypes.data, hl.h, ht.h, htr.h, tg.ctypes.data, lens.ctypes.data,
+        lmax, losses.ctypes.data, grad_em.ctypes.data, grad_trans.ctypes.data)
+    _check_fails(fails, "ngram ")
+    return losses, grad_em, grad_trans
+
+
+def acceptor_engine_batch(log_probs, graphs):
+    """Graph-engine forward and backward of per-sample acceptors on the
+    host: losses[b] = -logZ(em_b o graphs[b]) (STC's star graphs, built a
+    batch).  Returns (losses [B], grad [B, T, C])."""
+    lib, lp, B, T, C = _engine_log_probs(log_probs)
+    handles = [to_native(g) for g in graphs]  # alive until the call returns
+    harr = (ctypes.c_void_p * B)(*[h.h for h in handles])
+    losses = np.zeros(B, dtype=np.float32)
+    grad = np.zeros((B, T, C), dtype=np.float32)
+    fails = lib.tw_acceptor_engine_batch(B, T, C, lp.ctypes.data,
+                                         ctypes.addressof(harr), losses.ctypes.data,
+                                         grad.ctypes.data)
+    del handles
+    _check_fails(fails, "")
+    return losses, grad
 
 
 def compile_alignment(lexicon_handle, tokens_handle, transitions_handle, target):

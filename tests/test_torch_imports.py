@@ -61,6 +61,7 @@ MODULES = [
     "gtn_applications_tpu_torch.scripts.profile_gather_bwd",
     "gtn_applications_tpu_torch.scripts.example_fingerprint",
     "gtn_applications_tpu_torch.scripts.time_prefetch",
+    "gtn_applications_tpu_torch.scripts.seq_rounding",
     "gtn_applications_tpu_torch.utils",
     "gtn_applications_tpu_torch.train",
     "gtn_applications_tpu_torch.test",

@@ -22,8 +22,10 @@
     ``train.py --restore`` and read by ``test.py``; ``module_from_file``;
     ``train.py``'s rendezvous flags for a world of one over gloo give the
     one-process history (which writes a profiler trace of its epoch with
-    ``--profile_dir``); ``optim.seq_parallel`` on a grid with a ``'seq'``
-    axis raises, naming ROADMAP A.17.
+    ``--profile_dir``); on a grid with a ``'seq'`` axis, ``train.py``'s
+    time shard of a rank's rows is the block JAX's ``train.shard_batch``
+    lays on that device of a 2 x 2 mesh, and a width the encoder's shards
+    do not fit stays whole, with the warning.
 """
 
 import json
@@ -343,8 +345,31 @@ def test_world_of_one_by_flags_restores_collective_checkpoint(tmp_path):
     assert [h["epoch"] for h in more] == [2]
 
 
-def test_seq_parallel_grid_raises_naming_a17():
-    mesh = pmesh.Mesh((1, 2), ("data", "seq"))
-    with pytest.raises(NotImplementedError, match="A.17"):
-        train_mod.check_seq_parallel(mesh)
-    train_mod.check_seq_parallel(pmesh.Mesh((2,), ("data",)))
+def test_seq_parallel_grid_raises_naming_a17(caplog):
+    """Named for what it held before the sequence-parallel step was
+    ported (a NotImplementedError naming ROADMAP A.17); it now holds the
+    step's time shards: each rank of a 2 x 2 grid keeps its data rows (its
+    own loader's) and ``train.shard_time`` its contiguous half of the
+    frames, JAX's block on that device; the narrow TDS2d's shards of a
+    width of 14 (7 frames, stride 2) do not fit, so time stays whole."""
+    assert not hasattr(train_mod, "check_seq_parallel")
+    x = np.arange(4 * 16 * 16, dtype=np.float32).reshape(4, 16, 16)
+    devices = np.asarray(jax.devices()[:4]).reshape(2, 2)
+    jmesh = JaxMesh(devices, ("data", "seq"))
+    arr = jax_train.shard_batch(x, jmesh, jax_train.input_time_axis(x, 16))
+    where = {d.id: idx for idx, d in np.ndenumerate(jmesh.devices)}
+    model = TDS2d(input_size=16, output_size=5, **MODEL)
+    for shard in arr.addressable_shards:
+        d, s = where[shard.device.id]
+        mesh = _port_mesh((2, 2), ("data", "seq"), (d, s))
+        rows = torch.from_numpy(x[2 * d:2 * d + 2])
+        got, axis = train_mod.shard_time(train_mod.shard_batch(rows, mesh, 2), mesh, 2, model)
+        assert axis == 2
+        np.testing.assert_array_equal(got.numpy(), np.asarray(shard.data))
+    y = torch.from_numpy(x[:2, :, :14])
+    pmesh._warned_indivisible.discard(("seq", 14, 2))
+    with caplog.at_level(logging.WARNING):
+        got, axis = train_mod.shard_time(y, _port_mesh((2, 2), ("data", "seq"), (0, 1)), 2,
+                                         model)
+    assert axis is None and got is y
+    assert any("keeping time whole" in r.getMessage() for r in caplog.records)

@@ -9,9 +9,12 @@ validation loss, CER and WER each epoch) equals the one-process run's: the
 sampler deals each global batch's rows to the ranks, the step reduces the
 gradient of the global batch's loss, and ``Meters.sync`` sums the counts.
 Losses within rtol 1e-5 (the ranks sum the gradient in another order),
-error rates exactly.  The same spawn then asks for ``optim.seq_parallel:
-2`` on the world of two, which raises ``NotImplementedError`` naming
-ROADMAP A.17.
+error rates exactly.  The same spawn then trains 2 epochs with
+``optim.seq_parallel: 2`` on the world of two, a ``('data', 'seq')`` grid
+of 1 x 2: each rank holds half of each batch's frames through the TDS2d
+(every batch's padded width splits into shards that its strides and
+halos allow); its history, and ``test.py``'s meters on the same grid,
+equal the one-process run's at the same tolerances.
 """
 
 import json
@@ -70,7 +73,7 @@ def runs(tmp_path_factory):
     two = _config(tmp, "two", checkpoint_format="orbax")
     seq = _config(tmp, "seq", seq_parallel=2)
     ranks = pmesh.spawn(workers.train_ranks, N,
-                        args=(*_argv(two, tmp / "two"), _argv(seq, tmp / "seq")[0]),
+                        args=(*_argv(two, tmp / "two"), *_argv(seq, tmp / "seq")),
                         timeout=600)
     return single, ranks, tmp
 
@@ -97,6 +100,20 @@ def test_two_ranks_test_split_like_one(runs):
 
 
 def test_seq_parallel_on_two_ranks_raises(runs):
-    _, ranks, _ = runs
+    """Named for what it held before the sequence-parallel step was
+    ported (a NotImplementedError); it now holds that step's training and
+    ``test.py`` on the seq grid."""
+    single, ranks, _ = runs
+    loss, cer, wer, n = single["test"]
     for r in ranks:
-        assert r["seq_error"] is not None and "A.17" in r["seq_error"]
+        # 8 train and 2 validation batches an epoch, 2 test batches
+        assert r["seq_batches"] == [22, 0]
+        assert len(r["seq"]["history"]) == 2
+        for got, want in zip(r["seq"]["history"], single["history"]):
+            for key in ("train_loss", "val_loss"):
+                np.testing.assert_allclose(got[key], want[key], rtol=1e-5)
+            for key in ("epoch", "train_cer", "val_cer", "val_wer"):
+                assert got[key] == want[key], key
+        np.testing.assert_allclose(r["seq"]["test"][0], loss, rtol=1e-5)
+        # each rank counts each sample once: the 'data' group is the rank alone
+        assert r["seq"]["test"][1:] == [cer, wer, n]

@@ -12,7 +12,7 @@ from gtn_applications_tpu_torch import dryrun, utils
 from gtn_applications_tpu_torch import train as train_mod
 from gtn_applications_tpu_torch.criterions import CTC
 from gtn_applications_tpu_torch.datasets import synthetic
-from gtn_applications_tpu_torch.models import TDS2d
+from gtn_applications_tpu_torch.models import TDS, TDS2d
 from gtn_applications_tpu_torch.parallel import mesh as pmesh
 
 # the narrow TDS2d of the port's train tests (tests/test_torch_train.py)
@@ -112,14 +112,78 @@ def train_run(rank, n, train_argv, test_argv):
                                          meters.num_samples]}
 
 
-def train_ranks(rank, n, train_argv, test_argv, seq_argv):
-    """``train_run``, then ``train.train`` with ``optim.seq_parallel``
-    dividing the world: its NotImplementedError's message under
-    "seq_error" (None if it trained)."""
+def train_ranks(rank, n, train_argv, test_argv, seq_argv, seq_test_argv):
+    """``train_run``, then ``train_run`` with ``optim.seq_parallel``
+    dividing the world: its history and test meters under "seq", and how
+    many of its batches (train, validation and test) ran on time shards
+    and how many kept time whole under "seq_batches"."""
     out = train_run(rank, n, train_argv, test_argv)
-    out["seq_error"] = None
+    shard_time, sharded = train_mod.shard_time, []
+
+    def recording(*args):
+        batch, axis = shard_time(*args)
+        sharded.append(axis is not None)
+        return batch, axis
+
+    train_mod.shard_time = recording
     try:
-        train_mod.train(train_mod.parse_args(seq_argv))
-    except NotImplementedError as exc:
-        out["seq_error"] = str(exc)
+        out["seq"] = train_run(rank, n, seq_argv, seq_test_argv)
+    finally:
+        train_mod.shard_time = shard_time
+    out["seq_batches"] = [sum(sharded), len(sharded) - sum(sharded)]
+    return out
+
+
+SEQ_MODEL = {
+    "depth": 2,
+    "tds_groups": [
+        {"channels": 4, "num_blocks": 1, "stride": [2, 1]},
+        {"channels": 8, "num_blocks": 1, "stride": [2, 2]},
+    ],
+    "dropout": 0.0,
+}
+
+
+def seq_model(kind, kernel, n_out):
+    """The small encoder of the sequence-parallel tests: TDS2d (depth 2,
+    channels 4 and 8, time strides 1 and 2) or, for the gathered route, the
+    1-D TDS, on 16 features."""
+    if kind == "tds":
+        return TDS(16, n_out, [{"channels": 2, "num_blocks": 1, "stride": 2}], kernel[1], 0.0)
+    return TDS2d(input_size=16, output_size=n_out, kernel_size=kernel, **SEQ_MODEL)
+
+
+def seq_steps(rank, n, seq, cases):
+    """``train.make_train_step`` on the ``('data', 'seq')`` grid that
+    ``seq`` makes of the world, on each case: (encoder kind, kernel,
+    weights, criterion options, global inputs [B, 16, W], targets, lr,
+    max_grad_norm, steps).  This rank takes its data rows, pads to the
+    step's width and its time shard (``train.shard_time``).  Returns a
+    case's losses, its rows, the time axis it was sharded along (None if
+    whole), its first step's outputs and the parameters after the first
+    and the last step."""
+    torch.set_num_threads(1)
+    mesh = pmesh.make_mesh(seq)
+    out = []
+    for kind, kernel, weights, crit_kw, inputs, targets, lr, max_norm, steps in cases:
+        crit = CTC(**crit_kw)
+        model = seq_model(kind, kernel, crit_kw["blank"] + 1)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+        step = train_mod.make_train_step(model, crit, lr, lr, max_norm, mesh.group("data"),
+                                         mesh.group("seq"))
+        rows = pmesh.shard_batch(torch.arange(inputs.shape[0]), mesh).numpy()
+        x = train_mod.shard_batch(torch.from_numpy(inputs[rows]), mesh, 2)
+        x, axis = train_mod.shard_time(x, mesh, 2, model)
+        prepared = crit.prepare([targets[i] for i in rows])
+        losses, params = [], []
+        for k in range(steps):
+            loss, outputs = step(x, prepared, torch.Generator(), 1.0, None, axis)
+            losses.append(float(loss))
+            if k == 0:
+                first_outputs = outputs.numpy()
+            if k in (0, steps - 1):
+                params.append({k: v.detach().numpy().copy()
+                               for k, v in model.state_dict().items()})
+        out.append({"losses": losses, "rows": rows, "axis": axis, "outputs": first_outputs,
+                    "first": params[0], "last": params[-1]})
     return out
