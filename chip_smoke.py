@@ -168,7 +168,7 @@ prints no result):
    within 1e-6; and the routed decode (``viterbi_batch``: one seg_max_scan
    launch) at B=32, T=300 on the card against the CPU route: labels
    bitwise, scores within 1e-6;
-12. fourteen main paths, CTC, ASG, STC, the Transducer and the Transducer
+12. seventeen main paths, CTC, ASG, STC, the Transducer and the Transducer
    with a loaded backoff LM, the grapheme trigram and the 4-gram, CTC on
    the RNN and TDS encoders and on TDS2d computing in bf16, long-sequence
    CTC (``configs/synthetic/long_ctx_assoc.json`` as shipped: "assoc",
@@ -183,11 +183,30 @@ prints no result):
    the long lines (its convolution takes the direct route there: the
    inner pieces have at most 4 graphemes, S = 9, so the widest batch's
    emissions are 61.3 M entries, under the V-chunk threshold of 64 M);
+   the word-decomposition Transducer (no transitions, blank optional, no
+   repeats, ``prepend_wordsep``: each line's lattice marginalises over its
+   decompositions into 1,000 pieces, N = 1,001 outputs, scored by the
+   dense scan) as ``configs/iamdb/word_decomps.json`` ships it (TDS2d
+   4/16/32/64 channels at a time stride of 16, batch 32) on the long
+   lines (256-608 frames for at most 19 graphemes a line, so no line is
+   too short for its targets; S = 56-80) and as
+   ``configs/librispeech/word_decomps.json`` ships it (TDS 4/8/16 channels
+   x 5 blocks over 80 mel bins, batch 32) on synthetic tones, both over
+   ``convtrans``'s 1,000-piece tokens (the inventory keeps every single
+   grapheme, so every line decomposes; a line too short for its pieces
+   would make the loss infinite, which the finite-loss check refuses);
+   and ``configs/iamdb/tds2d_words.json`` (CTC on tds2d.json's TDS2d,
+   strides [2, 1] in its last two groups, batch 128, lr 0.5,
+   max_grad_norm 10) on the synthetic lines, which keep ``use_words`` as
+   a flag and have no word images: its 64 lines make one batch an epoch,
+   and its timed step takes the config's 128 (the lines twice); the WSJ
+   twins of the speech configs run only in the CPU tests;
    their token and lexicon files, which the repository does
    not hold, trained first by the port's ``scripts/wordpiece.py`` on
    6,000 synthetic lines and written by ``make_wordpieces.save_pieces``:
-   ``train.train`` of the port for 2 epochs (64 synthetic samples, batch
-   32: 4 steps plus validation) with the model and criterion sections of
+   ``train.train`` of the port for ``EPOCHS`` (1 epoch, 2 for the
+   recipe paths and ctc_long_assoc; 64 synthetic samples, batch 32: 2
+   steps an epoch plus validation) with the model and criterion sections of
    configs/iamdb/tds2d.json, tds2d_asg.json, tds2d_stc.json, ngram_ctc.json,
    pruned_ngram_ctc.json, rnn.json, tds.json, tds2d.json, word_pieces.json
    and convtrans.json unchanged
@@ -195,7 +214,8 @@ prints no result):
    grapheme trigram of the recipe's settings and the unpruned 4-gram,
    built into build/), but for ``CONFIG_EDITS`` (rnn.json, which has no
    ``optim.step_size``, takes the other IAM configs' 100; the bf16 path
-   adds ``"dtype": "bfloat16"``), then ``test.run_test`` on
+   adds ``"dtype": "bfloat16"``; their other data keys as shipped), then
+   ``test.run_test`` on
    the checkpoint (the long paths read their config's own 8 samples a
    split); the launch counters are zeroed just before each path
    and read just after: each kernel of the path must have launched once
@@ -204,7 +224,9 @@ prints no result):
    reaches), the backoff paths' sparse kernels exactly as often as their
    tables' closure depths say, their decode's kernel exactly once per
    decoded batch (the trigram's whole-scan Viterbi, the 4-gram's
-   seg_max_scan; seg_max never), and no kernel of another path at all;
+   seg_max_scan; seg_max never), the word decompositions' dense pair and
+   ctc_words' CTC kernels exactly once a step and a batch, and no kernel
+   of another path at all;
 13. the trainer's first batch of each path through its trained model: for
    CTC the logits on the card against the CPU within 1e-3; the loss and
    the logit gradient (and ASG's and the Transducer's transitions
@@ -229,6 +251,11 @@ prints no result):
    within 1e-5 + 1e-4 |g| (each 1e-5, or the CPU's own float32 error
    against the layer in float64 where that is larger), and the two routes
    on the card within 1e-5 + 1e-5 |s| and 1e-5 + 1e-4 |g| of each other;
+   ctc_words as CTC's; the word decompositions: loss and logit gradient
+   on the card against the CPU (1e-4, 1e-5) and the dense pair on the
+   batch's em_state and adj, the backward within 1e-5 or, where larger,
+   twice the float32 plain version's own error on dem against float64
+   (over T = 576 frames each float32 backward lies ~1e-5 from float64);
 14. times: CUDA-event medians of 30 runs after warm-up at the phase 4-9 and 11
    headline shapes for each kernel, its plain version and the one
    PyTorch call that computes it where there is one (F.ctc_loss for the
@@ -239,8 +266,8 @@ prints no result):
    forward and backward, and the kernels it launches by torch.profiler;
    the seg_lse forward also by its other route, alpha, w and em staged in
    shared memory or gathered, and without its statistics), the
-   host-clock median of 20 full train
-   steps of each path (of 10 for ``SLOW_STEP_PATHS``, whose steps take
+   host-clock median of 10 full train
+   steps of each path (after 3, or 2 for ``SLOW_STEP_PATHS``, whose steps take
    most of a second; a line each with the card's name and power
    limit) and of 5 decodes of the 4-gram path's first batch
    (and seg_max_scan alone, there and at phase 11's T=300 case),
@@ -281,7 +308,14 @@ prints no result):
    shape; and ``ConvTransduce1D``'s forward and forward+backward on the
    convtrans train step's batch (CUDA events, median of 10) by the route
    that batch takes and by the other, with the taken route's share of
-   the step, on a line with the card's name and power limit.
+   the step, on a line with the card's name and power limit; for the
+   three recipe paths (``recipe_costs``) the host's ``prepare`` of the
+   batch (first call and warm median of 10), the train step's peak
+   memory, and for the word decompositions the einsum before the dense
+   scan (``ops/factored.py``, TF32 off; forward and forward+backward
+   against its bound) and the dense pair at the batch's shapes; the
+   chain bound of a one-step kernel (seg_lse's pair, seg_max) is an empty
+   launch (``launch_probe``).
 
 15. distributed (``phase_distributed``, after the main paths, the kernels
    built before any spawn): ``dryrun.dryrun_multichip(2)``, two gloo ranks
@@ -321,7 +355,26 @@ prints no result):
    card's name and power limit.  The ranks' and runs' launches join the
    ``kernels`` line's.  ``python3 chip_smoke.py --only seq`` runs phases 1,
    2 and 16 alone and prints no result line.
+17. JAX's route switches (``phase_routes``, after phase 16), each on a
+   path's first batch (at the path's seeded initial weights) against the
+   default route on the card: STC under ``GTN_STC_DENSE=off`` (its sparse
+   tier: one whole sparse scan forward and backward) against the dense
+   route (loss 1e-4, logit gradient 1e-5), the sparse pair held on its
+   table; the grapheme trigram under ``GTN_SPARSE_SCAN=step`` (the gather
+   pair, then each frame a seg_lse launch and one a closure round,
+   forward and backward, counted exactly) against the whole scan (loss
+   within 1e-4 and each gradient within 1e-3 of its largest entry, or the
+   CPU's own float32 error against float64 where larger), seg_lse held
+   on two frames of each table (its backward within 1e-5 entrywise, or
+   the float32 plain version's own error where larger); its decode under
+   ``GTN_VITERBI_SCAN=step`` (T seg_max launches and the walk) against
+   the whole-scan Viterbi, labels equal, and seg_max bitwise against its
+   plain version on every frame; each route's fwd+bwd or decode on the
+   host clock.  Their launches join the ``kernels`` line's.  ``python3
+   chip_smoke.py --only routes`` runs phases 1, 2 and 17 alone and prints
+   no result line.
 
+Each phase prints its seconds on a line of its own (``phase NAME: S s``).
 Output: the nvidia-smi line, a ``{"timing": ...}`` line, a
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 """
@@ -994,13 +1047,21 @@ def dense_subnormal_sums(torch, traj, adj, start, has_lab, il):
 
 
 def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, what,
-                            all_live=False, underflow=False):
+                            all_live=False, underflow=False, floor32=False):
     """Both dense-scan kernels against their plain versions on the same
     inputs: the trajectory within atol 1e-3 + rtol 1e-5 on live states;
     dem and dadj entry by entry, |k - p| <= 1e-5 (|p| + median nonzero
     |p|); the backward without dadj gives the same dem.  With ``all_live``
     every state of every frame must be live; with ``underflow`` the FLT_MIN
-    gate must declare some sums dead (``dense_subnormal_sums``)."""
+    gate must declare some sums dead (``dense_subnormal_sums``).  With
+    ``floor32`` the bound is 1e-5 or, where larger, twice the float32
+    plain version's own entrywise error on dem against the plain version
+    in float64 (from the same float32 trajectory): over hundreds of frames
+    the backward's chain rounds once a frame, each float32 version lies
+    ~1e-5 from float64 at T = 576, and a kernel as accurate as the plain
+    version lies within twice that of it.  (dadj is not compared with
+    float64: there the FLT_MIN gate decides some sums on either side of
+    it, alike in both float32 versions.)"""
     from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
     from gtn_applications_tpu_torch.ops.semiring import DEAD
 
@@ -1021,6 +1082,16 @@ def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, wh
     dem_p, dadj_p = dsp.dense_scan_bwd_plain(tr_p, adj, start, has_lab, il, g)
     dem_only, none = dsp.dense_scan_bwd_cuda(tr_p, adj, start, has_lab, il, g,
                                             need_dadj=False)
+    tol = 1e-5
+    if floor32:
+        dem64, _ = dsp.dense_scan_bwd_plain(
+            *(x.double() for x in (tr_p, adj, start, has_lab)), il, g.double(),
+            need_dadj=False)
+        own = entrywise_err(torch, dem_p, dem64)
+        tol = max(tol, 2 * own)
+        log(f"dense_scan_bwd dem at {what}: against float64, the float32 plain version's "
+            f"entrywise error {own:.3g}, the kernel's {entrywise_err(torch, dem_k, dem64):.3g}; "
+            f"bound {tol:.3g}")
     torch.cuda.synchronize()
     errs, rels = {}, {}
     for name, k, p in (("dem", dem_k, dem_p), ("dadj", dadj_k, dadj_p),
@@ -1034,9 +1105,9 @@ def hold_dense_scan_kernels(torch, em_state, adj, start, has_lab, accept, il, wh
                                  f"differ at {what}")
         k, p = k[finite], p[finite]
         rels[name] = entrywise_err(torch, k, p)
-        if not rels[name] <= 1e-5:
+        if not rels[name] <= tol:
             raise AssertionError(f"dense_scan_bwd {name}: entrywise error "
-                                 f"{rels[name]} > 1e-5 at {what}")
+                                 f"{rels[name]} > {tol:.3g} at {what}")
         errs[name] = float((k - p).abs().max())
     if none is not None:
         raise AssertionError("dense_scan_bwd returned dadj without need_dadj")
@@ -1250,16 +1321,16 @@ def factored_random_inputs(torch, dev, b, t, s, n, seed=5):
             to(ragged_lengths(rng, b, t).astype(np.int32)))
 
 
-def hold_entrywise(torch, name, k, p, what):
+def hold_entrywise(torch, name, k, p, what, tol=1e-5):
     """``entrywise_err`` of k against p on the entries p keeps finite (both
-    must overflow alike), raising past 1e-5; returns (rel, max abs)."""
+    must overflow alike), raising past ``tol``; returns (rel, max abs)."""
     finite = torch.isfinite(p)
     if not torch.equal(torch.isfinite(k), finite):
         raise AssertionError(f"{name}: non-finite entries differ at {what}")
     k, p = k[finite], p[finite]
     rel = entrywise_err(torch, k, p)
-    if not rel <= 1e-5:
-        raise AssertionError(f"{name}: entrywise error {rel} > 1e-5 at {what}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: entrywise error {rel} > {tol:.3g} at {what}")
     return rel, float((k - p).abs().max()) if p.numel() else 0.0
 
 
@@ -1748,10 +1819,14 @@ def hold_cluster_refused(torch, em, alpha0, lens, plan, w, ew, depth, k, fit):
         raise AssertionError(f"sparse_scan: a cluster of {k} that does not fit launched")
 
 
-def hold_seglse(torch, alpha, src, dst, w, em, idx, g, what):
+def hold_seglse(torch, alpha, src, dst, w, em, idx, g, what, floor32=False):
     """The seg_lse pair on one step against its plain versions in float64:
     values within atol 1e-3 + rtol 1e-5 on live states, dalpha and
-    dcontrib entry by entry within 1e-5 (|p| + the median nonzero |p|).
+    dcontrib entry by entry within 1e-5 (|p| + the median nonzero |p|);
+    with ``floor32``, within the float32 plain version's own entrywise
+    error against float64 where that is larger (a step of the per-frame
+    scan, whose alpha of hundreds of nats rounds each exponent's argument
+    by ~1e-5 in float32, as every float32 route does).
     Each kernel runs twice and must agree with itself bitwise, the
     forward also by its other route (alpha, w and em staged in shared
     memory or gathered from device memory, where both fit) and without its
@@ -1781,9 +1856,16 @@ def hold_seglse(torch, alpha, src, dst, w, em, idx, g, what):
             and torch.equal(da_only, bwd[0]) and none is None):
         raise AssertionError(f"seg_lse_bwd: two runs differ at {what}")
     da_p, dc_p = slp.seg_lse_bwd_plain(a64, src, dst, w64, em64, g.double())
+    floors = (slp.seg_lse_bwd_plain(alpha, src, dst, w, 0.0 if em is None else em, g)
+              if floor32 else (None, None))
     errs["seg_lse_bwd"] = errs["seg_lse_bwd_rel"] = 0.0
-    for name, k, p in (("dalpha", bwd[0], da_p), ("dcontrib", bwd[1], dc_p)):
-        rel, err = hold_entrywise(torch, f"seg_lse_bwd {name}", k, p, what)
+    for name, k, p, f in (("dalpha", bwd[0], da_p, floors[0]),
+                          ("dcontrib", bwd[1], dc_p, floors[1])):
+        tol = 1e-5 if f is None else max(1e-5, entrywise_err(torch, f.double(), p))
+        if tol > 1e-5:
+            log(f"seg_lse_bwd {name} at {what}: bound {tol:.3g}, the float32 plain "
+                "version's own error against float64")
+        rel, err = hold_entrywise(torch, f"seg_lse_bwd {name}", k, p, what, tol)
         errs["seg_lse_bwd_rel"] = max(errs["seg_lse_bwd_rel"], rel)
         errs["seg_lse_bwd"] = max(errs["seg_lse_bwd"], err)
     return errs, out_p
@@ -2662,7 +2744,27 @@ PATHS = {
     # the WFST convolution over 200 pieces, TDS2d) over 1,000
     "ctc_wordpieces": ("word_pieces.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
     "convtrans": ("convtrans.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
+    # the word-decomposition Transducer (1,000 pieces, no transitions: each
+    # line's lattice marginalises over its pieces' decompositions of the
+    # graphemes, scored by the dense scan) on TDS2d at a time stride of 16
+    # over IAM-length lines, and on the speech recipe's TDS; and the IAM
+    # word recipe's TDS2d (tds2d.json's strides, batch 128) with CTC
+    "transducer_wordpieces": ("word_decomps.json", ("dense_scan_fwd",), ("dense_scan_bwd",)),
+    "transducer_speech": ("librispeech/word_decomps.json", ("dense_scan_fwd",),
+                          ("dense_scan_bwd",)),
+    "ctc_words": ("tds2d_words.json", ("ctc_alpha",), ("gather_bwd", "ctc_grad")),
 }
+# the paths whose kernels launch exactly once per train step (backward
+# kernels) or once per train step and evaluation batch (forward kernels):
+# the word decompositions decode by the frames' argmax (no transitions),
+# and every ctc_words batch lies under 4,096 frames
+EXACT_LAUNCH_PATHS = ("transducer_wordpieces", "transducer_speech", "ctc_words")
+# the paths whose step recipe_costs takes apart
+RECIPE_PATHS = ("transducer_wordpieces", "transducer_speech", "ctc_words")
+# a path's epochs: the recipe paths 2, ctc_long_assoc 2 (the seq phase
+# trains it as shipped); the others 1, which no check of theirs needs a
+# second for, to keep the smoke inside its time
+EPOCHS = dict.fromkeys(RECIPE_PATHS + ("ctc_long_assoc",), 2)
 # the paths whose lines run past 4,096 frames, where "auto" takes the chunk
 # route: their CTC launches are counted exactly (chunked_ctc_expected_launches)
 CHUNKED_PATHS = ("ctc_long",)
@@ -2672,7 +2774,9 @@ CHUNKED_PATHS = ("ctc_long",)
 DATASETS = {"transducer_backoff": "synthetic_long",
             "transducer_backoff_4gram": "synthetic_long",
             "ctc_speech": "synthetic_audio",
-            "convtrans": "synthetic_long"}
+            "convtrans": "synthetic_long",
+            "transducer_wordpieces": "synthetic_long",
+            "transducer_speech": "synthetic_audio"}
 # the wordpiece paths' inventories, whose token and lexicon files the
 # configs name but the repository does not hold: path -> (pieces of the
 # CTC inventory, pieces of the inner one of the model's WFST convolution).
@@ -2680,7 +2784,8 @@ DATASETS = {"transducer_backoff": "synthetic_long",
 # WP_SENTENCES lines of the synthetic corpus (make_wordpieces' --text_file
 # use; 6,000 lines hold 1,000 pieces, 2,000 only 999) and writes them with
 # ``make_wordpieces.save_pieces``
-WORDPIECES = {"ctc_wordpieces": (100, None), "convtrans": (1000, 200)}
+WORDPIECES = {"ctc_wordpieces": (100, None), "convtrans": (1000, 200),
+              "transducer_wordpieces": (1000, None), "transducer_speech": (1000, None)}
 WP_SENTENCES, WP_SEED = 6000, 7
 # what a path adds to its config: rnn.json has no optim.step_size, which the
 # trainer reads (as JAX's does), so it takes the other IAM configs' 100;
@@ -2754,9 +2859,11 @@ def path_preprocessor(data, config):
 def main_path_config(path):
     """The config's model and criterion sections unchanged (the backoff
     paths' transitions: the grapheme LM of ``LM_PRUNE``; the wordpiece
-    paths' token and lexicon files: those of ``wordpiece_inventories``)
-    but for ``CONFIG_EDITS``; synthetic data (a hermetic config's own, as
-    shipped), 2 epochs."""
+    paths' token and lexicon files, where the config names them: those of
+    ``wordpiece_inventories``) but for ``CONFIG_EDITS``; synthetic data (a
+    hermetic config's own, as shipped), its other data keys as shipped
+    (``prepend_wordsep``; ``use_words``, which the synthetic lines keep as
+    a flag, having no word images), ``EPOCHS`` epochs."""
     name = PATHS[path][0]
     with open(ROOT / "configs" / (name if "/" in name else f"iamdb/{name}")) as fid:
         base = json.load(fid)
@@ -2764,15 +2871,18 @@ def main_path_config(path):
         base["criterion"] = dict(base["criterion"],
                                  transitions=str(lm_transitions(LM_PRUNE[path])))
     edits = CONFIG_EDITS.get(path, {})
-    data = {"dataset": DATASETS.get(path, "synthetic"),
-            "num_features": base["data"]["num_features"] if path in DATASETS else 64}
+    data = {k: v for k, v in base["data"].items()
+            if k not in ("data_path", "tokens", "lexicon")}
+    data.update(dataset=DATASETS.get(path, "synthetic"),
+                num_features=base["data"]["num_features"] if path in DATASETS else 64)
     if base["data"]["dataset"].startswith("synthetic"):
         data = {k: v for k, v in base["data"].items() if k != "data_path"}
     model = dict(base["model"], **edits.get("model", {}))
     if path in WORDPIECES:
         outer, inner = WORDPIECES[path]
-        data.update(tokens=str(wordpiece_file("tokens", outer)),
-                    lexicon=str(wordpiece_file("lex", outer)))
+        data.update({key: str(wordpiece_file(kind, outer))
+                     for key, kind in (("tokens", "tokens"), ("lexicon", "lex"))
+                     if key in base["data"]})
         if inner:
             model["tokens"] = str(wordpiece_file("tokens", inner))
     config = {
@@ -2781,7 +2891,7 @@ def main_path_config(path):
         "model_type": base["model_type"],
         "model": model,
         "criterion_type": base.get("criterion_type", "ctc"),
-        "optim": dict(base["optim"], epochs=2, **edits.get("optim", {})),
+        "optim": dict(base["optim"], epochs=EPOCHS.get(path, 1), **edits.get("optim", {})),
     }
     if "criterion" in base or "criterion" in edits:
         config["criterion"] = dict(base.get("criterion", {}), **edits.get("criterion", {}))
@@ -2823,12 +2933,14 @@ def phase_main_path(torch, dev, path, config):
             and math.isfinite(meters.wer)):
         raise AssertionError(f"{path} test split: {meters}")
     _, fwd, bwd = PATHS[path]
-    for name, n in launches.items():
+    exact = path in EXACT_LAUNCH_PATHS
+    for name in set(launches) | set(fwd) | set(bwd):
+        n = launches.get(name, 0)
         need = steps + evals if name in fwd else steps if name in bwd else 0
-        if (n < need) if need else n:
+        if (n != need) if exact or not need else n < need:
             raise AssertionError(
                 f"{path}: kernel {name} launched {n} times, expected "
-                + (f">= {need}" if need else "none (not on this path)"))
+                + (f"{'' if exact else '>= '}{need}" if need else "none (not on this path)"))
     if config.get("criterion", {}).get("impl") == "auto" and path in CHUNKED_PATHS:
         expected = chunked_ctc_expected_launches(torch, model, config)
         got = {name: launches.get(name, 0) for name in expected}
@@ -3209,6 +3321,127 @@ def phase_main_batch_stc(torch, dev, model, config):
     return errs, dict(diffs, stc_main_batch_shape=list(what))
 
 
+def word_decomp_scan_inputs(torch, logits, prepared):
+    """The dense scan's inputs as the transitions-free Transducer's loss
+    builds them: em_state [B, T, S] (log_softmax of the logits contracted
+    with each state's in-label, ``ops/factored.py``'s einsum), adj [B, S,
+    S], start, has_lab and accept [B, S]."""
+    f = prepared["factored"]
+    em = torch.log_softmax(logits, dim=2)
+    em_state = torch.einsum("btn,bsn->bts", em, f["lab_oh"])
+    has_lab = (f["lab_oh"].sum(-1) > 0).to(torch.float32)
+    return (em_state.contiguous(), f["adj_exp"].contiguous(), f["start"].contiguous(),
+            has_lab.contiguous(), f["accept"])
+
+
+def phase_main_batch_word_decomps(torch, dev, model, config, path):
+    """A word-decomposition Transducer trainer's first batch: loss and logit
+    gradient on the card against the CPU (1e-4, 1e-5), and both dense-scan
+    kernels on the inputs its loss gives them (``floor32``: at T = 576
+    each float32 backward lies ~1e-5 from float64)."""
+    from gtn_applications_tpu_torch.train import to_device
+
+    inputs, crit, prepared = first_batch(torch, config, path)
+    if "factored" not in prepared or crit.transitions is not None:
+        raise AssertionError(f"{path}: the batch is not the dense scan's ({sorted(prepared)})")
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    diffs = card_vs_cpu(torch, dev, crit, logits, prepared, 1e-4, 1e-5, path)
+    scan_inputs = word_decomp_scan_inputs(torch, logits, to_device(prepared, dev))
+    bsz, frames = logits.shape[:2]
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    what = (path, bsz, frames, scan_inputs[0].shape[2], logits.shape[2])
+    errs = hold_dense_scan_kernels(torch, *scan_inputs, il, what, floor32=True)
+    return errs, dict(diffs, **{f"{path}_main_batch_shape": list(what[1:]),
+                                f"{path}_max_target": int(prepared["target_lengths"].max())})
+
+
+def recipe_costs(torch, dev, card, path, model, config):
+    """What a recipe path's train step is made of, on the first train batch
+    at the config's batch: ``prepare`` of the batch (host clock; the first
+    call on a new criterion, which compiles each line's lattice, and the
+    median of 10 on a warm cache), the train step's peak memory, and for
+    the word decompositions the einsum before the dense scan
+    (``ops/factored.py``, TF32 off: forward and forward+backward, CUDA
+    events, median of 30, against its bound: the three tensors once, 2 B T
+    S N operations) and the dense pair at the batch's shapes with its
+    bound by real arcs (``dense_bounds``)."""
+    from gtn_applications_tpu_torch import datasets, utils
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch.ops import dense_scan_pallas as dsp
+
+    data = getattr(datasets, config["data"]["dataset"])
+    pre = path_preprocessor(data, config)
+    ds = data.Dataset(None, pre, split="train")
+    optim = config["optim"]
+    inputs, _, tgts = utils.padding_collate(
+        [ds[i % len(ds)] for i in range(optim["batch_size"])])
+    crit, _ = utils.load_criterion(config["criterion_type"], pre, config.get("criterion", {}))
+    t0 = time.perf_counter()
+    prepared = crit.prepare(tgts)
+    out = {"prepare_cold_ms": (time.perf_counter() - t0) * 1e3}
+    warm = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        crit.prepare(tgts)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    out["prepare_ms"] = statistics.median(warm)
+    train_mod.criterion_to_device(crit, dev)
+    x = torch.from_numpy(inputs).to(dev)
+    step = train_mod.make_train_step(model, crit, optim["learning_rate"],
+                                     optim.get("crit_learning_rate", optim["learning_rate"]),
+                                     optim.get("max_grad_norm"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    on_dev = train_mod.to_device(prepared, dev)
+    step(x, on_dev, gen, 1.0)
+    _, out["step_peak_bytes"] = with_peak(torch, lambda: step(x, on_dev, gen, 1.0))
+    out["batch"] = list(inputs.shape)
+    line = (f"[{card}] {path} batch {out['batch']}: prepare {out['prepare_ms']:.3f} ms "
+            f"(median of 10; first call {out['prepare_cold_ms']:.1f} ms), train step peak "
+            f"{out['step_peak_bytes'] / 2**20:.1f} MiB")
+    if "factored" in prepared:
+        with torch.no_grad():
+            logits = model(x)
+        em = torch.log_softmax(logits, dim=2)
+        lab_oh = on_dev["factored"]["lab_oh"]
+        b, t, n = em.shape
+        S = lab_oh.shape[1]
+        em_req = em.detach().clone().requires_grad_(True)
+        g = torch.randn(b, t, S, device=dev)
+
+        def fwd():
+            return torch.einsum("btn,bsn->bts", em, lab_oh)
+
+        def fwd_bwd():
+            y = torch.einsum("btn,bsn->bts", em_req, lab_oh)
+            return torch.autograd.grad(y, em_req, g)
+
+        out["einsum_fwd_ms"] = gpu_median_ms(torch, fwd)
+        out["einsum_fwd_bwd_ms"] = gpu_median_ms(torch, fwd_bwd)
+        out["einsum_bound_ms"], out["einsum_bound_by"] = bound_ms(
+            (b * t * n + b * S * n + b * t * S) * 4, 2 * b * t * S * n)
+        out["einsum_tf32"] = bool(torch.backends.cuda.matmul.allow_tf32)
+        em_s, adj, st, has, acc = word_decomp_scan_inputs(torch, logits, on_dev)
+        il = torch.full((b,), t, dtype=torch.int32, device=dev)
+        traj = dsp.dense_scan_fwd_cuda(em_s, adj, st, has, il)
+        gf = score_cotangent(torch, traj[:, -1], acc)
+        out["dense_scan_fwd_ms"] = gpu_median_ms(
+            torch, lambda: dsp.dense_scan_fwd_cuda(em_s, adj, st, has, il))
+        out["dense_scan_bwd_ms"] = gpu_median_ms(torch, lambda: dsp.dense_scan_bwd_cuda(
+            traj, adj, st, has, il, gf, need_dadj=False))
+        forms = dense_bounds(em_s, adj, has, il)
+        out["dense_scan_fwd_bound"], out["dense_scan_bwd_bound"] = forms["fwd"], forms["bwd"]
+        out["dense_S"], out["dense_routes"] = S, dense_routes(torch, adj, has, il)
+        line += (f"; einsum [{b}, {t}, {n}] x [{b}, {S}, {n}] fwd {out['einsum_fwd_ms']:.4f} "
+                 f"ms, fwd+bwd {out['einsum_fwd_bwd_ms']:.4f} ms (bound "
+                 f"{out['einsum_bound_ms']:.4f} ms by {out['einsum_bound_by']}, TF32 "
+                 f"{out['einsum_tf32']}); dense pair S={S}: fwd {out['dense_scan_fwd_ms']:.4f} "
+                 f"ms (bound {forms['fwd'][0]:.5f}), bwd {out['dense_scan_bwd_ms']:.4f} ms "
+                 f"(bound {forms['bwd'][0]:.5f}) (CUDA events, median of 30)")
+    log(line)
+    return out
+
+
 def phase_main_batch_transducer(torch, dev, model, config):
     """The Transducer trainer's first batch: loss, logit and transitions
     gradients on the card against the CPU; both factored-scan kernels on
@@ -3400,12 +3633,14 @@ def phase_bf16_gap(torch, dev, model, config, card):
 
 # the paths whose train step takes most of a second: medians of 10 steps
 # after 2, which keeps the smoke inside its time limit
-SLOW_STEP_PATHS = ("transducer_backoff", "transducer_backoff_4gram", "ctc_long_assoc")
+SLOW_STEP_PATHS = ("transducer_backoff", "transducer_backoff_4gram", "ctc_long_assoc",
+                   "transducer_wordpieces")
 
 
 def step_runs(path):
-    """(runs, warmup) of ``path``'s train-step median."""
-    return (10, 2) if path in SLOW_STEP_PATHS else (20, 5)
+    """(runs, warmup) of ``path``'s train-step median (of 10, which keeps
+    the smoke inside its time limit)."""
+    return (10, 2) if path in SLOW_STEP_PATHS else (10, 3)
 
 
 def time_train_step(torch, dev, model, config, runs=20, warmup=5):
@@ -3419,8 +3654,9 @@ def time_train_step(torch, dev, model, config, runs=20, warmup=5):
     pre = path_preprocessor(data, config)
     ds = data.Dataset(None, pre, split="train")
     optim = config["optim"]
+    # the config's batch (ctc_words' 128 takes the split's 64 lines twice)
     inputs, _, tgts = utils.padding_collate(
-        [ds[i] for i in range(optim["batch_size"])])
+        [ds[i % len(ds)] for i in range(optim["batch_size"])])
     crit, _ = utils.load_criterion(config["criterion_type"], pre,
                                    config.get("criterion", {}))
     train_mod.criterion_to_device(crit, dev)
@@ -5097,6 +5333,302 @@ def phase_seq_parallel(torch, dev, card, device="cuda"):
             "seq_parallel_launches": launches}, launches
 
 
+# JAX's route switches on the card (phase 17): each switched route on the
+# batch of a path against the default route on the same inputs
+@contextlib.contextmanager
+def switched(module, name, value):
+    """``module.name`` set to ``value`` (a route switch) inside."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def route_batch(torch, dev, path):
+    """The loader's first train batch of ``path`` through the path's model
+    at its seeded initial weights, in eval mode: (criterion in eval mode,
+    logits on the card, targets, the criterion's parameters on the card:
+    N(0, 0.3) transitions where it has any)."""
+    from gtn_applications_tpu_torch import train as train_mod
+    from gtn_applications_tpu_torch import utils
+
+    config = main_path_config(path)
+    dataset, pre, crit, model, _ = train_mod.load_experiment(
+        config, generator=torch.Generator().manual_seed(config["seed"]))
+    model.to(dev).eval()
+    loader = utils.data_loader(dataset.Dataset(None, pre, split="train"), config,
+                               seed=config["seed"])
+    inputs, _, targets = next(iter(loader))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(inputs).to(dev))
+    crit.eval()
+    params = {}
+    if getattr(crit, "num_transition_arcs", 0):
+        params["transitions"] = torch.as_tensor(
+            (np.random.RandomState(21).randn(crit.num_transition_arcs) * 0.3)
+            .astype(np.float32), device=dev)
+    return crit, logits, targets, params
+
+
+def host_ms(torch, fn, runs=5, warmup=1):
+    """Host-clock median ms of ``runs`` calls of ``fn``, each ending in a
+    synchronise (after ``warmup``)."""
+    ms = []
+    for i in range(warmup + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def route_run(torch, crit, logits, prepared, params, launched):
+    """(loss, [logit gradient, then the parameters']) of one loss and
+    backward; the kernels it launched are added to ``launched``."""
+    from gtn_applications_tpu_torch.ops import _build
+
+    x = logits.detach().clone().requires_grad_(True)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    before = dict(_build.LAUNCHES)
+    loss = crit.loss(p, x, prepared)
+    grads = torch.autograd.grad(loss, [x] + list(p.values()))
+    torch.cuda.synchronize()
+    add_launches(launched, {k: n - before[k] for k, n in _build.LAUNCHES.items()})
+    return loss.detach().double().cpu(), [g.double().cpu() for g in grads]
+
+
+def only_launched(launched, want, what):
+    """Raise unless the route launched exactly the kernels of ``want``
+    (name -> count, or None for at least one)."""
+    got = {k: n for k, n in launched.items() if n}
+    want = {k: n for k, n in want.items() if n != 0}
+    if set(got) != set(want) or any(n is not None and got[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+
+
+def route_stc(torch, dev, card):
+    """STC's first batch under ``GTN_STC_DENSE=off`` (the sparse tier: one
+    whole sparse scan forward and backward, its union table of depth 0)
+    against the dense route (one dense-scan forward and backward): the loss
+    and logit gradient at card_vs_cpu's bounds (1e-4, 1e-5); then the
+    sparse kernels against their plain versions on that table."""
+    import dataclasses
+
+    from gtn_applications_tpu_torch.criterions import stc as stc_mod
+    from gtn_applications_tpu_torch.train import to_device
+
+    crit, logits, targets, params = route_batch(torch, dev, "stc")
+    dense = to_device(crit.prepare(targets), dev)
+    with switched(stc_mod, "_DENSE_IMPL", "off"):
+        sparse_prep = to_device(crit.prepare(targets), dev)
+    if "dense" not in dense or "dense" in sparse_prep:
+        raise AssertionError("stc: GTN_STC_DENSE does not choose the tier")
+    ref_launch, got_launch = {}, {}
+    ref = route_run(torch, crit, logits, dense, params, ref_launch)
+    got = route_run(torch, crit, logits, sparse_prep, params, got_launch)
+    only_launched(ref_launch, {"dense_scan_fwd": 1, "dense_scan_bwd": 1}, "stc dense route")
+    only_launched(got_launch, {"sparse_scan_fwd": 1, "sparse_scan_bwd": 1},
+                  "stc under GTN_STC_DENSE=off")
+    d_loss = float((got[0] - ref[0]).abs())
+    d_grad = float((got[1][0] - ref[1][0]).abs().max())
+    log(f"[{card}] route GTN_STC_DENSE=off, stc first batch {list(logits.shape)}: loss "
+        f"{float(got[0]):.6f} against the dense route's |d| {d_loss:.3g}, logit grad "
+        f"max|d| {d_grad:.3g}; launches {got_launch}")
+    if not (d_loss <= 1e-4 and d_grad <= 1e-5):
+        raise AssertionError("stc: the sparse tier and the dense route disagree")
+    em = crit.star_channels(torch.log_softmax(logits, 2), sparse_prep["select"])
+    table = sparse_prep["table"]
+    table = dataclasses.replace(
+        table, weight=table.weight + sparse_prep["star_mask"] * sparse_prep["log_penalty"])
+    bsz, frames = logits.shape[:2]
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    errs = hold_sparse_kernels(torch, em.contiguous(), table, il,
+                               ("route stc sparse tier", bsz, frames))
+    ms = {name: host_ms(torch, lambda p=prep: route_run(torch, crit, logits, p, params, {}))
+          for name, prep in (("dense", dense), ("sparse", sparse_prep))}
+    log(f"[{card}] stc first batch loss fwd+bwd (host clock, median of 5): dense route "
+        f"{ms['dense']:.3f} ms, GTN_STC_DENSE=off {ms['sparse']:.3f} ms")
+    return errs, got_launch, {"stc_loss_abs_diff": d_loss, "stc_logit_grad_max_abs_diff": d_grad,
+                              "stc_shape": list(logits.shape),
+                              "stc_fwd_bwd_ms": ms}
+
+
+def rel_errs(got, ref):
+    """(|d loss|, each gradient's max|d| over its largest |entry|)."""
+    return (float((got[0] - ref[0]).abs()),
+            [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1], ref[1])])
+
+
+def step_alphas(torch, em, table, frames):
+    """The per-step scan's alpha [B, S] before each frame of ``frames``
+    (ascending) on ``table`` over em [B, T, C], advanced by the kernels
+    (seg_lse a step and its closure) without gradients, every frame live;
+    with the arcs' emissions [B, T, A]."""
+    from gtn_applications_tpu_torch.ops import seglse_pallas as slp
+    from gtn_applications_tpu_torch.ops.semiring import gather_channels, logaddexp
+
+    (src, dst, label, w, esrc, edst, ew), start, _, depth = sparse_fields(table)
+    B, S = em.shape[0], start.shape[-1]
+    em_arc = gather_channels(em, label.expand(B, label.shape[-1]).contiguous())
+    idx, eidx = slp.arc_index(src, dst, S), slp.arc_index(esrc, edst, S) if depth else None
+
+    def closure(alpha):
+        acc = cur = alpha
+        for _ in range(depth):
+            cur = slp.seg_lse(cur, esrc, edst, ew, None, eidx)
+            acc = logaddexp(acc, cur)
+        return acc
+
+    out, alpha = {}, closure(start.expand(B, S)).contiguous()
+    with torch.no_grad():
+        for t in range(max(frames) + 1):
+            if t in frames:
+                out[t] = alpha
+            alpha = closure(slp.seg_lse(alpha, src, dst, w, em_arc[:, t].contiguous(), idx))
+    return out, em_arc, idx
+
+
+def route_trigram(torch, dev, card):
+    """The trigram path's first batch (its composed tables and grapheme
+    trigram, N(0, 0.3) transitions) under ``GTN_SPARSE_SCAN=step`` (each
+    frame a seg_lse and its closure, the gather pair around: no whole
+    scan) against the whole scan: the loss within 1e-4 and each gradient
+    within 1e-3 of its largest entry (card_vs_cpu64's bounds; the step
+    route carries its state a frame at a time in float32, as the CPU's
+    float32 route does, the whole scan in float64).  Then the decode under
+    ``GTN_VITERBI_SCAN=step`` (a seg_max launch a frame and the walk)
+    against the whole-scan Viterbi's: labels equal, scores within 1e-6 of
+    their size; seg_lse held against its plain versions on two frames of
+    each table, seg_max on every frame of the decode."""
+    from gtn_applications_tpu_torch.ops import _build
+    from gtn_applications_tpu_torch.ops import sparse as sparse_mod
+    from gtn_applications_tpu_torch.ops import segmax_pallas as smp
+    from gtn_applications_tpu_torch.ops.seglse_pallas import arc_index, take
+    from gtn_applications_tpu_torch.train import to_device
+
+    crit, logits, targets, params = route_batch(torch, dev, "transducer_backoff")
+    prepared = crit.prepare(targets)
+    on_dev = to_device(prepared, dev)
+    launched, whole_launch = {}, {}
+    whole = route_run(torch, crit, logits, on_dev, params, whole_launch)
+    with switched(sparse_mod, "_SCAN_IMPL", "step"):
+        step = route_run(torch, crit, logits, on_dev, params, launched)
+    # a table of closure depth d: d seg_lse for its start, then the step
+    # route's 1 + d a frame, or one whole scan
+    tables = transducer_tables(torch, dev, crit, prepared, params["transitions"])
+    depths = [sparse_fields(t)[3] for t in tables.values()]
+    bsz, frames = logits.shape[:2]
+    starts = sum(depths)
+    steps = starts + sum(frames * (1 + d) for d in depths)
+    only_launched(whole_launch, dict(sparse_scan_fwd=2, sparse_scan_bwd=2, seg_lse_fwd=starts,
+                                     seg_lse_bwd=starts), "trigram whole scan")
+    only_launched(launched, dict(gather_fwd=2, gather_bwd=2, seg_lse_fwd=steps,
+                                 seg_lse_bwd=steps), "trigram under GTN_SPARSE_SCAN=step")
+    d_loss, d_grads = rel_errs(step, whole)
+    out = {"shape": list(logits.shape), "step_vs_whole_loss_abs_diff": d_loss,
+           "step_vs_whole_grad_rel_errs": d_grads}
+    log(f"[{card}] route GTN_SPARSE_SCAN=step, trigram first batch {out['shape']}: loss "
+        f"{float(step[0]):.6f} against the whole scan's |d| {d_loss:.3g} (bound 1e-4), "
+        f"logit and transitions grads max|d| / max|p| {d_grads[0]:.3g}, {d_grads[1]:.3g} "
+        f"(bound 1e-3); launches {launched}")
+    if not (d_loss <= 1e-4 and all(d <= 1e-3 for d in d_grads)):
+        raise AssertionError("trigram: the step route and the whole scan disagree")
+
+    # seg_lse on two frames of each table, kernels against plain versions
+    errs = {}
+    rng = np.random.RandomState(22)
+    for key, table in tables.items():
+        (src, dst, _, w, _, _, _), start, _, _ = sparse_fields(table)
+        alphas, em_arc, idx = step_alphas(torch, logits.contiguous(), table,
+                                          (0, frames // 2))
+        for t, alpha in alphas.items():
+            g = torch.as_tensor(rng.rand(bsz, alpha.shape[1]).astype(np.float32), device=dev)
+            step_errs, _ = hold_seglse(torch, alpha, src, dst, w, em_arc[:, t].contiguous(),
+                                       idx, g, ("route step trigram", key, "frame", t),
+                                       floor32=True)
+            merge_errs(errs, step_errs)
+
+    # the decode: the whole-scan Viterbi, then seg_max a frame
+    table = crit._decode_table({"transitions": params["transitions"].cpu()})
+    il = torch.full((bsz,), frames, dtype=torch.int32, device=dev)
+    vit_launch = {}
+    before = dict(_build.LAUNCHES)
+    lab_w, score_w = sparse_mod.viterbi_batch(logits, table, il)
+    torch.cuda.synchronize()
+    add_launches(vit_launch, {k: n - before[k] for k, n in _build.LAUNCHES.items()})
+    only_launched(vit_launch, {"viterbi_scan_fwd": 1, "viterbi_backtrace": 1},
+                  "trigram decode (whole)")
+    step_launch = {}
+    before = dict(_build.LAUNCHES)
+    with switched(sparse_mod, "_VIT_IMPL", "step"):
+        lab_s, score_s = sparse_mod.viterbi_batch(logits, table, il)
+    torch.cuda.synchronize()
+    add_launches(step_launch, {k: n - before[k] for k, n in _build.LAUNCHES.items()})
+    only_launched(step_launch, {"seg_max": frames}, "trigram decode under GTN_VITERBI_SCAN=step")
+    add_launches(launched, step_launch)
+    d_score = float(((score_s - score_w).abs() / score_w.abs().clamp(min=1.0)).max())
+    if not torch.equal(lab_s, lab_w) or not d_score <= 1e-6:
+        raise AssertionError(f"trigram decode: the step route differs from the whole-scan "
+                             f"Viterbi (labels equal {torch.equal(lab_s, lab_w)}, score "
+                             f"relative |d| {d_score:.3g})")
+    # seg_max on every frame of that decode, kernel against plain, bitwise
+    src, dst, label = (t.to(dev)[None] for t in (table.src, table.dst, table.label))
+    w = table.weight.to(dev)[None].float()
+    S, C = table.start.shape[0], logits.shape[2]
+    idx = arc_index(src, dst, S, label, C)
+    w_s = take(w, idx.order)
+    alpha = table.start.to(dev).float().expand(bsz, S).contiguous()
+    for t in range(frames):
+        row = logits[:, t]
+        new_k, arc_k = smp.seg_max_cuda(alpha, w_s, row, idx)
+        new_p, arc_p = smp.seg_max_plain(alpha, src, dst, w, row, label)
+        if not (torch.equal(new_k, new_p) and torch.equal(arc_k, arc_p)):
+            raise AssertionError(f"seg_max: the kernel differs from plain at decode frame {t}")
+        alpha = new_k
+    errs["seg_max"] = 0.0
+    log(f"[{card}] route GTN_VITERBI_SCAN=step, trigram decode {[bsz, frames, C]}: labels "
+        f"equal to the whole-scan Viterbi's, score relative max|d| {d_score:.3g}, "
+        f"{step_launch} launches; seg_max bitwise equal to plain on all {frames} frames")
+    out.update(decode_score_rel_diff=d_score, decode_shape=[bsz, frames, C])
+    # each route's loss fwd+bwd and decode (host clock, median of 3, each
+    # route warm from its check above)
+    runs = dict(runs=3, warmup=0)
+    out["fwd_bwd_ms"] = {"whole": host_ms(
+        torch, lambda: route_run(torch, crit, logits, on_dev, params, {}), **runs)}
+    with switched(sparse_mod, "_SCAN_IMPL", "step"):
+        out["fwd_bwd_ms"]["step"] = host_ms(
+            torch, lambda: route_run(torch, crit, logits, on_dev, params, {}), **runs)
+    out["decode_ms"] = {"whole": host_ms(
+        torch, lambda: sparse_mod.viterbi_batch(logits, table, il), **runs)}
+    with switched(sparse_mod, "_VIT_IMPL", "step"):
+        out["decode_ms"]["step"] = host_ms(
+            torch, lambda: sparse_mod.viterbi_batch(logits, table, il), **runs)
+    log(f"[{card}] trigram first batch (host clock, median of 3): loss fwd+bwd whole scan "
+        f"{out['fwd_bwd_ms']['whole']:.3f} ms, GTN_SPARSE_SCAN=step "
+        f"{out['fwd_bwd_ms']['step']:.3f} ms; decode whole-scan Viterbi "
+        f"{out['decode_ms']['whole']:.3f} ms, GTN_VITERBI_SCAN=step "
+        f"{out['decode_ms']['step']:.3f} ms")
+    return errs, launched, out
+
+
+def phase_routes(torch, dev, card):
+    """JAX's route switches on the card: STC under GTN_STC_DENSE=off, the
+    trigram under GTN_SPARSE_SCAN=step and its decode under
+    GTN_VITERBI_SCAN=step, each against the default route.  Returns
+    (errors, the switched routes' launches, timing)."""
+    t0 = time.perf_counter()
+    errs, launched, stc = route_stc(torch, dev, card)
+    more_errs, more_launched, trigram = route_trigram(torch, dev, card)
+    merge_errs(errs, more_errs)
+    add_launches(launched, more_launched)
+    return errs, launched, {"routes_stc": stc, "routes_trigram": trigram,
+                            "routes_s": time.perf_counter() - t0}
+
+
 KERNELS = [
     ("gather_fwd", "gtn_applications_tpu_torch/ops/csrc/gather.cu",
      "gtn_applications_tpu/ops/gathers.py:30", "torch_gather"),
@@ -5135,61 +5667,104 @@ KERNELS = [
 ]
 
 
+# the seconds of each phase, each also printed on a line of its own
+PHASE_S = {}
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds printed and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f} s")
+    return out
+
+
+# the first-batch checks of the main paths (phase 13), in order
+MAIN_BATCH_CHECKS = {
+    "ctc": phase_main_batch, "asg": phase_main_batch_asg, "stc": phase_main_batch_stc,
+    "transducer": phase_main_batch_transducer,
+    "transducer_backoff": phase_main_batch_backoff,
+    "transducer_backoff_4gram": phase_main_batch_backoff_4gram,
+    "ctc_wordpieces": functools.partial(phase_main_batch, path="ctc_wordpieces"),
+    "convtrans": phase_main_batch_convtrans,
+    "transducer_wordpieces": functools.partial(phase_main_batch_word_decomps,
+                                               path="transducer_wordpieces"),
+    "transducer_speech": functools.partial(phase_main_batch_word_decomps,
+                                           path="transducer_speech"),
+    "ctc_words": functools.partial(phase_main_batch, path="ctc_words"),
+}
+
+
+def main_paths(torch, dev, names):
+    """Phases 12 and 13 for the paths ``names``: each path's run, then each
+    one's first-batch check.  Returns (paths, errors, differences)."""
+    paths = {path: timed(f"main_path_{path}", phase_main_path, torch, dev, path,
+                         main_path_config(path)) for path in names}
+    errs, diffs = {}, {}
+    for path, check in MAIN_BATCH_CHECKS.items():
+        if path in paths:
+            main_errs, more = timed(f"main_batch_{path}", check, torch, dev,
+                                    paths[path]["model"], main_path_config(path))
+            merge_errs(errs, main_errs)
+            diffs.update(more)
+    return paths, errs, diffs
+
+
+def recipe_times(torch, dev, card, paths):
+    """``recipe_costs`` of the recipe paths."""
+    return {f"recipe_{path}": recipe_costs(torch, dev, card, path, paths[path]["model"],
+                                           main_path_config(path))
+            for path in RECIPE_PATHS}
+
+
 def run(device="cuda", only=None):
-    """Every phase; with ``only="distributed"`` or ``only="seq"``, the
-    device, the build and that phase alone (a quicker check of it, which
-    prints no result line)."""
+    """Every phase; with ``only`` one of "distributed", "seq" or "routes",
+    the device, the build and that phase alone (a quicker check of it,
+    which prints no result line)."""
     import torch
 
     import gtn_applications_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    card = phase_device(torch)
+    card = timed("device", phase_device, torch)
     dev = torch.device(device)
-    build_s = phase_build()
-    if only in ("distributed", "seq"):
-        phase = phase_distributed if only == "distributed" else phase_seq_parallel
-        timing, _ = phase(torch, dev, card)
-        print(json.dumps({"timing": dict(timing, build_s=build_s)}))
+    build_s = timed("build", phase_build)
+    if only in ("distributed", "seq", "routes"):
+        phase, at = {"distributed": (phase_distributed, 0), "seq": (phase_seq_parallel, 0),
+                     "routes": (phase_routes, 2)}[only]
+        timing = timed(only, phase, torch, dev, card)[at]
+        print(json.dumps({"timing": dict(timing, build_s=build_s, phase_s=PHASE_S)}))
         return
     if only is not None:
         raise ValueError(f"unknown phase {only!r}")
-    errs = phase_gather(torch, dev)
-    errs.update(phase_ctc(torch, dev))
-    chunk_errs, chunk_rows = phase_ctc_chunked(torch, dev, card)
-    merge_errs(errs, phase_dense_bt(torch, dev))
-    merge_errs(errs, phase_dense_scan(torch, dev))
-    merge_errs(errs, phase_factored_scan(torch, dev))
-    merge_errs(errs, phase_viterbi(torch, dev))
-    merge_errs(errs, phase_sparse(torch, dev))
-    backoff_factored = phase_backoff_factored(torch, dev, card)
-    merge_errs(errs, phase_segmax(torch, dev))
-    wordpiece_s = wordpiece_inventories()
-    paths = {path: phase_main_path(torch, dev, path, main_path_config(path))
-             for path in PATHS}
-    diffs = {}
-    for path, check in (("ctc", phase_main_batch), ("asg", phase_main_batch_asg),
-                        ("stc", phase_main_batch_stc),
-                        ("transducer", phase_main_batch_transducer),
-                        ("transducer_backoff", phase_main_batch_backoff),
-                        ("transducer_backoff_4gram", phase_main_batch_backoff_4gram),
-                        ("ctc_wordpieces", functools.partial(phase_main_batch,
-                                                             path="ctc_wordpieces")),
-                        ("convtrans", phase_main_batch_convtrans)):
-        main_errs, more = check(torch, dev, paths[path]["model"], main_path_config(path))
-        merge_errs(errs, main_errs)
-        diffs.update(more)
-    diffs.update(phase_bf16_gap(torch, dev, paths["ctc_bf16"]["model"],
-                                main_path_config("ctc_bf16"), card))
-    times, bounds, chain = phase_times(torch, dev, paths)
+    errs = timed("gather", phase_gather, torch, dev)
+    errs.update(timed("ctc", phase_ctc, torch, dev))
+    chunk_errs, chunk_rows = timed("ctc_chunked", phase_ctc_chunked, torch, dev, card)
+    merge_errs(errs, timed("dense_bt", phase_dense_bt, torch, dev))
+    merge_errs(errs, timed("dense_scan", phase_dense_scan, torch, dev))
+    merge_errs(errs, timed("factored_scan", phase_factored_scan, torch, dev))
+    merge_errs(errs, timed("viterbi", phase_viterbi, torch, dev))
+    merge_errs(errs, timed("sparse", phase_sparse, torch, dev))
+    backoff_factored = timed("backoff_factored", phase_backoff_factored, torch, dev, card)
+    merge_errs(errs, timed("segmax", phase_segmax, torch, dev))
+    wordpiece_s = timed("wordpieces", wordpiece_inventories)
+    paths, main_errs, diffs = main_paths(torch, dev, PATHS)
+    merge_errs(errs, main_errs)
+    diffs.update(timed("bf16_gap", phase_bf16_gap, torch, dev, paths["ctc_bf16"]["model"],
+                       main_path_config("ctc_bf16"), card))
+    times, bounds, chain = timed("times", phase_times, torch, dev, paths)
+    times.update(timed("recipe_times", recipe_times, torch, dev, card, paths))
     for path in PATHS:
         log(f"[{card}] train step {path}: {times[f'train_step_{path}']:.2f} ms (host clock, "
             f"median of {step_runs(path)[0]}), batch {times[f'train_step_{path}_shape']}")
-    for more in (dense_times(torch, dev), factored_times(torch, dev), sparse_times(torch, dev)):
+    for name, fn in (("dense_times", dense_times), ("factored_times", factored_times),
+                     ("sparse_times", sparse_times)):
+        more = timed(name, fn, torch, dev)
         times.update(more[0])
         bounds.update(more[1])
         chain.update(more[2])
-    more_times, more_bounds, more_chain = segmax_times(
-        torch, dev, paths["transducer_backoff_4gram"]["model"],
+    more_times, more_bounds, more_chain = timed(
+        "segmax_times", segmax_times, torch, dev, paths["transducer_backoff_4gram"]["model"],
         main_path_config("transducer_backoff_4gram"))
     times.update(more_times)
     bounds.update(more_bounds)
@@ -5206,15 +5781,23 @@ def run(device="cuda", only=None):
     b, frames, _, n = diffs["transducer_main_batch_shape"]
     times["dense_ngram_norm_fwd_bwd"], times["dense_ngram_norm_launches"] = norm_cost(
         torch, dev, b, frames, n)
-    dist_timing, dist_launches = phase_distributed(torch, dev, card)
+    # a one-step kernel's dependent chain is one frame: no launch of it can
+    # take less than an empty kernel's (``launch_probe``)
+    for name in ("seg_lse_fwd", "seg_lse_bwd", "seg_max"):
+        chain[name] = times["launch_probe"]
+    dist_timing, dist_launches = timed("distributed", phase_distributed, torch, dev, card)
     times.update(dist_timing)
-    seq_timing, seq_launches = phase_seq_parallel(torch, dev, card)
+    seq_timing, seq_launches = timed("seq_parallel", phase_seq_parallel, torch, dev, card)
     times.update(seq_timing)
+    route_errs, route_launches, route_timing = timed("routes", phase_routes, torch, dev, card)
+    merge_errs(errs, route_errs)
+    times.update(route_timing)
 
     launches = {name: sum(p["launches"][name] for p in paths.values())
                 + dist_launches.get(name, 0) + seq_launches.get(name, 0)
-                for name, *_ in KERNELS}
+                + route_launches.get(name, 0) for name, *_ in KERNELS}
     timing = dict(times, card=card, build_s=build_s, wordpiece_s=wordpiece_s, **diffs,
+                  phase_s=PHASE_S,
                   backoff_factored=backoff_factored,
                   f_ctc_loss_abs_diff=errs["f_ctc_loss_abs_diff"],
                   f_ctc_grad_max_abs_diff=errs["f_ctc_grad_max_abs_diff"],

@@ -15,13 +15,16 @@ that the dense tier's working-set gate refuses is scored by the sparse
 tier, as in the JAX class: the graphs stacked into one arc table (a shared
 union skeleton where the batch allows) whose star arcs carry the penalty
 as their weight (``ops.sparse.forward_score_batch_tables``: the whole
-sparse-scan kernels on the card).
+sparse-scan kernels on the card).  ``GTN_STC_DENSE=off`` (or ``0``; JAX's
+switch, read into ``_DENSE_IMPL`` at import) keeps every batch on the
+sparse tier, as in JAX.
 
 Blank index is REQUIRED to be 0.
 """
 
 import dataclasses
 import math
+import os
 from typing import Dict
 
 import numpy as np
@@ -34,6 +37,8 @@ from ..wfst.graph import Graph
 from .base import Criterion
 from .ctc import CTC
 
+# JAX's switch: "off" or "0" scores every batch on the sparse tier
+_DENSE_IMPL = os.environ.get("GTN_STC_DENSE", "auto")
 # [B, S, S] adjacency + [B, S, C] label working-set gate (floats)
 _DENSE_MAX_WORKSET = 48_000_000
 
@@ -127,7 +132,7 @@ class STC(Criterion):
     def prepare(self, targets, select_multiple=8):
         """Host: per-batch token subsetting, target remapping, STC graph
         compilation to dense tables (an arc table where the dense gate refuses
-        the batch), and the annealed penalty (a host
+        the batch or ``GTN_STC_DENSE`` is off), and the annealed penalty (a host
         float).  The annealing step counts only in training mode."""
         if self.training:
             self.nstep += 1
@@ -153,7 +158,7 @@ class STC(Criterion):
             "select": torch.as_tensor(select_padded, dtype=torch.int64),
             "log_penalty": math.log(prob),
         }
-        dense = self._prepare_dense(compiled, Csel)
+        dense = None if _DENSE_IMPL in ("off", "0") else self._prepare_dense(compiled, Csel)
         if dense is not None:
             prepared["dense"] = dense
         else:

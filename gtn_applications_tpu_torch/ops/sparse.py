@@ -12,7 +12,12 @@ potentials through ``seglse_pallas.seg_lse``, then the whole scan
 tensors they take the plain version (``forward_score`` over the batch,
 which autograd differentiates; JAX's ``vmap`` of it).  Both compute the
 same numbers: each destination shifted by its own max, dead contributions
-masked.
+masked.  ``GTN_SPARSE_SCAN=step`` (JAX's switch, read into ``_SCAN_IMPL``
+at import) makes the kernel route scan frame by frame instead, as JAX's
+per-step route does: the arcs' emissions gathered once, then one
+``seg_lse`` and the epsilon closure a frame (``_forward_batched_steps``),
+whose backward is ``seg_lse``'s own a frame; "whole" and "auto" take the
+whole scan (the port keeps no VMEM budget, so "auto" always admits it).
 
 Decode: ``viterbi_batch`` takes a shared, epsilon-free table.  It buckets
 the table's arcs (``viterbi_scan_pallas.build_plan``) and runs the
@@ -21,8 +26,13 @@ in-degree blows the bucket grid up, as in a loaded backoff LM's
 epsilon-removed table) goes to ``_viterbi_batched``, the tropical scan of
 ``seg_max`` steps and its backtrace (JAX takes the same two routes on the
 TPU, the second as a ``jax.lax.scan`` of ``seg_max``): on CUDA tensors one
-``segmax_pallas.seg_max_scan`` launch a batch.  ``viterbi`` is JAX's
-per-sample oracle, with its 1e-6 near-tie rule.
+``segmax_pallas.seg_max_scan`` launch a batch.  ``GTN_VITERBI_SCAN=step``
+(read into ``_VIT_IMPL``) decodes every shared, epsilon-free table by
+JAX's per-step route instead: a ``seg_max`` launch a frame, then the walk
+(``_viterbi_steps``); "whole" and "auto" take the two routes above.  JAX's
+escape from a failing whole-scan kernel to the step route is not kept: a
+kernel that fails raises.  ``viterbi`` is JAX's per-sample oracle, with
+its 1e-6 near-tie rule.
 
 Arc table convention (padded to fixed length; each field 1-D, or [B, ·]
 per sample):
@@ -33,6 +43,7 @@ per sample):
 """
 
 import dataclasses
+import os
 
 import torch
 
@@ -65,6 +76,19 @@ class ArcTable:
 
 def _as2d(x):
     return x[None] if x.dim() == 1 else x
+
+
+def _norm_impl(value):
+    """JAX's route names: on and off alias whole and step."""
+    return {"on": "whole", "off": "step"}.get(value, value)
+
+
+# JAX's route switches (``gtn_applications_tpu/ops/sparse.py``), read at
+# import; tests set the module attributes.  "whole": the whole scan (the
+# whole-scan Viterbi, or ``seg_max_scan`` where its plan refuses the
+# table); "step": a kernel launch a frame; "auto": the whole routes
+_SCAN_IMPL = _norm_impl(os.environ.get("GTN_SPARSE_SCAN", "auto"))
+_VIT_IMPL = _norm_impl(os.environ.get("GTN_VITERBI_SCAN", "auto"))
 
 
 def _eps_closure(alpha, table: ArcTable):
@@ -128,24 +152,48 @@ def _forward_batched_kernels(em, table: ArcTable, input_lengths=None, indexes=No
     S = start.shape[-1]
     if input_lengths is None:
         input_lengths = torch.full((B,), T, dtype=torch.int32, device=em.device)
-    alpha0 = start.expand(B, S)
     eps_src, eps_dst, eps_w = fields[4:]
     depth = table.eps_depth if eps_src.shape[-1] else 0
-    if depth:
-        idx = None
-        if _build.on_cuda(em):
-            indexes = {} if indexes is None else indexes
-            key = (em.device, S)
-            if key not in indexes:
-                indexes[key] = arc_index(eps_src, eps_dst, S)
-            idx = indexes[key]
-        acc = cur = alpha0
+    eps_idx = None
+    if depth and _build.on_cuda(em):
+        indexes = {} if indexes is None else indexes
+        key = (em.device, S)
+        if key not in indexes:
+            indexes[key] = arc_index(eps_src, eps_dst, S)
+        eps_idx = indexes[key]
+
+    def closure(alpha):
+        acc = cur = alpha
         for _ in range(depth):
-            cur = seg_lse(cur, eps_src, eps_dst, eps_w, None, idx)
+            cur = seg_lse(cur, eps_src, eps_dst, eps_w, None, eps_idx)
             acc = logaddexp(acc, cur)
-        alpha0 = acc
+        return acc
+
+    alpha0 = closure(start.expand(B, S))
+    if _norm_impl(_SCAN_IMPL) == "step":
+        return _forward_batched_steps(em, fields, alpha0, accept, input_lengths, closure)
     return sparse_scan_pallas.scan_scores(em, fields, alpha0, accept,
                                           input_lengths, depth)
+
+
+def _forward_batched_steps(em, fields, alpha0, accept, input_lengths, closure):
+    """JAX's per-step route (``GTN_SPARSE_SCAN=step``): the arcs' emissions
+    gathered once ([B, T, A]: the gather kernels on CUDA tensors), then
+    each frame one ``seg_lse`` over the arc table and the epsilon
+    ``closure``, a sample's state kept past its length."""
+    from .seglse_pallas import arc_index, seg_lse
+
+    B, T, C = em.shape
+    src, dst, label, weight = fields[:4]
+    S = alpha0.shape[-1]
+    em_arc = gather_channels(em, label.expand(B, label.shape[-1]).contiguous())
+    idx = arc_index(src, dst, S) if _build.on_cuda(em) else None
+    lens = torch.as_tensor(input_lengths, device=em.device).view(B, 1)
+    alpha = alpha0
+    for t in range(T):
+        new = closure(seg_lse(alpha, src, dst, weight, em_arc[:, t], idx))
+        alpha = torch.where(t < lens, new, alpha)
+    return logsumexp(alpha + accept, dim=-1)
 
 
 def forward_score_batch(em, table: ArcTable, input_lengths=None, indexes=None):
@@ -265,7 +313,45 @@ def viterbi_batch(em, table: ArcTable, input_lengths=None, plans=None):
                          "the table has per-sample fields")
     if em.shape[1] == 0:
         raise ValueError("viterbi_batch needs at least one frame")
+    if _norm_impl(_VIT_IMPL) == "step":
+        return _viterbi_steps(em, table, input_lengths, plans)
     plan = viterbi_scan_pallas.build_plan(table)
     if plan is not None:
         return viterbi_scan_pallas.viterbi_scan(em, plan, input_lengths)
     return _viterbi_batched(em, table, input_lengths, plans)
+
+
+def _viterbi_steps(em, table: ArcTable, input_lengths=None, plans=None):
+    """JAX's per-step decode (``GTN_VITERBI_SCAN=step``,
+    ``_viterbi_batched_pallas``): T ``seg_max`` steps, one launch a frame
+    on CUDA tensors, each reading its frame's row by the arcs' labels, a
+    sample's state kept and its backarcs 2^30 past its length; then the
+    walk (``seg_max_backtrace_plain``: JAX's backtrace scan).  ``plans``
+    keeps the table's labelled arc index by device and channel count."""
+    from . import segmax_pallas as smp
+    from .seglse_pallas import arc_index
+
+    B, T, C = em.shape
+    em = em.detach().to(torch.float32)
+    dev = em.device
+    table = table.to(dev)
+    S = table.start.shape[-1]
+    lens = (torch.full((B,), T, dtype=torch.int32) if input_lengths is None
+            else torch.as_tensor(input_lengths)).to(dev)
+    src, dst, label, weight = (_as2d(getattr(table, f))
+                               for f in ("src", "dst", "label", "weight"))
+    idx = None
+    if _build.on_cuda(em):
+        plans = {} if plans is None else plans
+        key = ("step", dev, C)
+        if key not in plans:
+            plans[key] = arc_index(src, dst, S, label, C)
+        idx = plans[key]
+    live = (torch.arange(T, device=dev)[:, None] < lens[None, :])[:, :, None]
+    alpha = table.start.to(torch.float32).expand(B, S).contiguous()
+    backarcs = []
+    for t in range(T):
+        new, arc = smp.seg_max(alpha, src, dst, weight, em[:, t], idx, label)
+        alpha = torch.where(live[t], new, alpha)
+        backarcs.append(torch.where(live[t], arc, smp.BIG))
+    return smp.seg_max_backtrace_plain(torch.stack(backarcs, dim=1), alpha, table)

@@ -2,13 +2,18 @@
 
     python -m gtn_applications_tpu_torch.profile_step [--steps 10] \
         [--config configs/iamdb/tds2d_asg.json | tds2d_stc.json | ngram_ctc.json
-                  | pruned_ngram_ctc.json] [--prune 0 5 10]
+                  | pruned_ngram_ctc.json | word_decomps.json | ...] [--prune 0 5 10] \
+        [--tokens FILE]
 
 Builds the model and criterion of the config (configs/iamdb/tds2d.json, the
 CTC path, by default) with random weights from a seed, takes one batch of
-32 synthetic 64-row lines (the long-line corpus for a config that loads a
-transition graph: pruned_ngram_ctc.json's time stride of 16 needs it), warms
-up, then
+the config's batch size (the split's lines again where it holds fewer):
+synthetic 64-row lines, the long-line corpus for a TDS2d at a time stride
+of 16 (pruned_ngram_ctc.json's, word_decomps.json's) or for a config that
+loads a transition graph, synthetic tones for a speech config; with the
+config's ``prepend_wordsep`` and token and lexicon files (the token file
+``--tokens`` where the config's own is absent, e.g. the 1,000 pieces that
+``chip_smoke.wordpiece_inventories`` writes), warms up, then
 runs ``--steps`` train steps under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON object: the host-clock median step time, the
 device-busy share of the profiled window (kernel time over wall time), and
@@ -30,7 +35,7 @@ import torch
 
 from . import train as train_mod
 from . import utils
-from .datasets import synthetic, synthetic_long
+from .datasets import synthetic, synthetic_audio, synthetic_long
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs" / "iamdb" / "tds2d.json"
@@ -51,13 +56,27 @@ def long_corpus_lm(path, prune):
     return path
 
 
+SPEECH = ("librispeech", "wsj", "audioset")
+
+
+def _time_stride(config):
+    """The time stride of a TDS2d config's groups (1 for other models)."""
+    stride = 1
+    for group in config["model"].get("tds_groups", []):
+        stride *= group.get("stride", [1, 1])[1]
+    return stride if config["model_type"] == "tds2d" else 1
+
+
 def _data_and_criterion(config, prune=(0, 5, 10)):
-    """(dataset module, criterion config): the long-line corpus and, where
-    the config's transition graph file is absent, the grapheme LM of
+    """(dataset module, criterion config): synthetic tones for a speech
+    config; the long-line corpus for a time stride of 16 and, where the
+    config's transition graph file is absent, the grapheme LM of
     ``prune`` built over that corpus."""
     crit_cfg = dict(config.get("criterion", {}))
     if "transitions" not in crit_cfg:
-        return synthetic, crit_cfg
+        if config["data"]["dataset"] in SPEECH:
+            return synthetic_audio, crit_cfg
+        return (synthetic_long if _time_stride(config) >= 16 else synthetic), crit_cfg
     if not Path(crit_cfg["transitions"]).exists():
         name = "_".join(str(p) for p in prune)
         crit_cfg["transitions"] = str(long_corpus_lm(
@@ -73,17 +92,26 @@ def _self_device_us(evt):
     return 0.0
 
 
-def profile(steps=10, top=12, seed=0, config_path=CONFIG, prune=(0, 5, 10)):
+def _file(config, key, given=None):
+    """``given``, else the config's data file ``key`` where it exists."""
+    path = given or config["data"].get(key)
+    return path if path and Path(path).exists() else None
+
+
+def profile(steps=10, top=12, seed=0, config_path=CONFIG, prune=(0, 5, 10), tokens=None):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     device = train_mod.select_device()
     with open(config_path) as fid:
         config = json.load(fid)
     data, crit_cfg = _data_and_criterion(config, tuple(prune))
-    pre = data.Preprocessor(None, num_features=config["data"]["num_features"])
+    pre = data.Preprocessor(None, num_features=config["data"]["num_features"],
+                            tokens_path=_file(config, "tokens", tokens),
+                            lexicon_path=_file(config, "lexicon"),
+                            prepend_wordsep=config["data"].get("prepend_wordsep", False))
     ds = data.Dataset(None, pre, split="train")
     batch = config["optim"]["batch_size"]
-    inputs, _, targets = utils.padding_collate([ds[i] for i in range(batch)])
+    inputs, _, targets = utils.padding_collate([ds[i % len(ds)] for i in range(batch)])
     crit, n_out = utils.load_criterion(
         config.get("criterion_type", "ctc"), pre, crit_cfg)
     train_mod.criterion_to_device(crit, device)
@@ -139,6 +167,7 @@ def profile(steps=10, top=12, seed=0, config_path=CONFIG, prune=(0, 5, 10)):
     return {
         "card": utils.card_name_and_power_limit(),
         "criterion": config.get("criterion_type", "ctc"),
+        "dataset": data.__name__.rsplit(".", 1)[-1],
         "input_shape": list(inputs.shape),
         "steps": steps,
         "host_step_ms_median": statistics.median(host_ms),
@@ -158,8 +187,10 @@ def main(argv=None):
     parser.add_argument("--prune", type=int, nargs="+", default=[0, 5, 10],
                         help="count thresholds of the grapheme LM built where the "
                              "config's transition graph file is absent")
+    parser.add_argument("--tokens", help="token file where the config's is absent")
     args = parser.parse_args(argv)
-    print(json.dumps(profile(args.steps, config_path=args.config, prune=args.prune)))
+    print(json.dumps(profile(args.steps, config_path=args.config, prune=args.prune,
+                             tokens=args.tokens)))
 
 
 if __name__ == "__main__":

@@ -157,6 +157,29 @@ def test_smoke_dense_scan_check_holds_each_dadj_entry(monkeypatch, case, rel):
         assert check()["dense_scan_bwd_rel"] == 0.0
 
 
+@pytest.mark.parametrize("rel", [0.0, 1e-4])
+def test_smoke_dense_check_against_float64_keeps_its_bound(monkeypatch, rel):
+    """The check's ``floor32`` form (the word decompositions' first batch):
+    the backward within 1e-5 or, where larger, twice the float32 plain
+    version's own error on dem against float64.  The plain versions
+    standing in for the kernels pass it; a dadj entry off by 1e-4 of its
+    size fails it, float32's own error on this case being ~5e-7."""
+    import chip_smoke
+
+    monkeypatch.setattr(dsp, "dense_scan_fwd_cuda", dsp.dense_scan_fwd_plain)
+    monkeypatch.setattr(dsp, "dense_scan_bwd_cuda",
+                        _nudge_median_entry(dsp.dense_scan_bwd_plain, rel))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    inputs = chip_smoke.word_decomp_inputs(torch, "cpu", 2, 30, pieces=3)
+    check = lambda: chip_smoke.hold_dense_scan_kernels(  # noqa: E731
+        torch, *inputs, "word_decomps", floor32=True)
+    if rel:
+        with pytest.raises(AssertionError, match="dadj: entrywise error"):
+            check()
+    else:
+        assert check()["dense_scan_bwd_rel"] < 1e-5
+
+
 @pytest.mark.parametrize("B,T,S,N", CASES)
 def test_alignment_lattice_score_matches_jax(B, T, S, N):
     rng = np.random.RandomState(B + S + N)
