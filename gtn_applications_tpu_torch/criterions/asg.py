@@ -20,6 +20,7 @@ row-major layout.
 import numpy as np
 import torch
 
+from .. import utils
 from ..ops import lattice
 from ..wfst import native
 from ..wfst.graph import Graph
@@ -139,10 +140,10 @@ class ASG(Criterion):
 
     def viterbi_finalize(self, handle):
         paths, input_lengths = handle
-        paths = paths.cpu().numpy()
+        paths = utils.to_host(paths).numpy()
         if native.enabled():
             if input_lengths is not None:
-                input_lengths = torch.as_tensor(input_lengths).cpu().numpy()
+                input_lengths = utils.to_host(torch.as_tensor(input_lengths)).numpy()
             return native.asg_collapse(
                 paths, input_lengths, self.garbage_idx, self.num_replabels)
         return self._cleanup(paths, input_lengths)
@@ -155,7 +156,7 @@ class ASG(Criterion):
 
     def _cleanup(self, paths, input_lengths):
         if input_lengths is not None:
-            input_lengths = np.asarray(torch.as_tensor(input_lengths).cpu())
+            input_lengths = np.asarray(utils.to_host(torch.as_tensor(input_lengths)))
         out = []
         for b, path in enumerate(paths):
             if input_lengths is not None:

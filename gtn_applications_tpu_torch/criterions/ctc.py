@@ -11,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import utils
 from ..ops import lattice
 from .base import Criterion
 from .common import pad_targets
@@ -62,7 +63,7 @@ class CTC(Criterion):
 
     def viterbi_finalize(self, handle):
         preds, input_lengths = handle
-        return self._collapse(preds.cpu().numpy(), input_lengths)
+        return self._collapse(utils.to_host(preds).numpy(), input_lengths)
 
     def viterbi(self, outputs, params=None, input_lengths=None):
         """Greedy best-path decode with repeat/blank collapse.  Returns a
@@ -77,6 +78,6 @@ class CTC(Criterion):
         keep[:, 1:] = preds[:, 1:] != preds[:, :-1]
         keep &= preds != self.blank
         if input_lengths is not None:
-            lens = np.asarray(torch.as_tensor(input_lengths).cpu())
+            lens = np.asarray(utils.to_host(torch.as_tensor(input_lengths)))
             keep &= np.arange(T)[None, :] < lens[:, None]
         return [preds[b, keep[b]].astype(np.int32) for b in range(B)]

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import utils
 from ..ops import convkernel, factored, sparse
 from ..ops.semiring import NEG
 from ..wfst import compile as wcompile
@@ -671,7 +672,7 @@ class Transducer(Criterion):
         if self._decode_template is None:
             self._decode_template = wcompile.build_decode_template(self.transitions)
         table = wcompile.apply_decode_weights(
-            self._decode_template, ptr.detach().cpu().numpy())
+            self._decode_template, utils.to_host(ptr.detach()).numpy())
         self._decode_cache = (ptr, key, table)
         return table
 
@@ -687,7 +688,7 @@ class Transducer(Criterion):
             return cached[2]
         nt = self._norm_table
         S_c, N = nt.start.shape[0], self.num_channels
-        w_eff, ew_eff = (w.numpy() for w in self._eff_weights(ptr.detach().cpu()))
+        w_eff, ew_eff = (w.numpy() for w in self._eff_weights(utils.to_host(ptr.detach())))
         src, dst = nt.src.numpy(), nt.dst.numpy()
         lab = np.clip(nt.label.numpy(), 0, N - 1)
         real = nt.weight.numpy() > NEG / 2
@@ -725,8 +726,8 @@ class Transducer(Criterion):
     def viterbi_finalize(self, handle):
         labels, input_lengths = handle
         if input_lengths is not None:
-            input_lengths = torch.as_tensor(input_lengths).cpu().numpy()
-        return self._transduce(labels.cpu().numpy(), input_lengths)
+            input_lengths = utils.to_host(torch.as_tensor(input_lengths)).numpy()
+        return self._transduce(utils.to_host(labels).numpy(), input_lengths)
 
     def viterbi(self, outputs, params=None, input_lengths=None):
         """Best alignment path through the emissions (and the transitions),

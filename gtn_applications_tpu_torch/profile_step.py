@@ -16,8 +16,10 @@ config's ``prepend_wordsep`` and token and lexicon files (the token file
 ``chip_smoke.wordpiece_inventories`` writes), warms up, then
 runs ``--steps`` train steps under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON object: the host-clock median step time, the
-device-busy share of the profiled window (kernel time over wall time), and
-the operators and kernels that took the most device time.  Needs a GPU.
+device-busy share of the profiled window (the union of the device's
+kernel, copy and fill intervals over wall time: overlapping kernels count
+once), and the operators and kernels that took the most device time.
+Needs a GPU.
 Where the config's transition graph file is absent (the IAM recipe's
 ``<replace_me>`` paths), the grapheme LM of ``--prune``'s count thresholds
 (one per order; default the recipe's trigram, ``0 5 10``; ``0 0 0 0`` is
@@ -90,6 +92,28 @@ def _self_device_us(evt):
         if hasattr(evt, name):
             return getattr(evt, name)
     return 0.0
+
+
+def union_us(intervals):
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, end = 0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _device_intervals_us(prof):
+    """(start, end) in us of every device operation the profiler traced."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            out.append((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+    return out
 
 
 def _file(config, key, given=None):
@@ -173,7 +197,8 @@ def profile(steps=10, top=12, seed=0, config_path=CONFIG, prune=(0, 5, 10), toke
         "host_step_ms_median": statistics.median(host_ms),
         "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
         "kernel_ms_per_step": kernel_us / 1e3 / steps,
-        "device_busy_share": kernel_us / wall_us if wall_us else None,
+        "device_busy_share": union_us(_device_intervals_us(prof)) / wall_us
+        if wall_us else None,
         "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
         "top_ops_self_device": rows(ops),
         "top_kernels": rows(kernels),

@@ -4,7 +4,12 @@ Counterpart of ``gtn_applications_tpu/train.py``: JSON experiment configs,
 the epoch loop with SGD and a halving learning-rate schedule, global-norm
 gradient clipping, per-epoch train and validation CER/WER (train CER/WER on
 every ``optim.metrics_interval``-th step), best-checkpoint tracking and
-restore, and a profiler trace of the first epoch (``--profile_dir``).
+restore, and a profiler trace of the first epoch (``--profile_dir``) with
+the spans of ``utils.Recorder`` on its time axis.  Each epoch installs a
+recorder, whose span totals and the step's first and last CUDA-event
+marks give the "Timing Info" log line (``timing_info``); ``make_train_step``,
+``make_eval_step``, ``prepared_batches``, ``_to_device`` and ``evaluate``
+record into whichever recorder a caller installs (none: one test each).
 
 Distribution: one process per device over ``torch.distributed``, the grid
 of ``parallel.mesh``.  Each data rank loads its own rows (the sampler
@@ -48,7 +53,6 @@ import argparse
 import json
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -84,8 +88,8 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint_path", default="/tmp/", type=str)
     parser.add_argument(
         "--profile_dir", default=None, type=str,
-        help="Write a torch.profiler trace of the first training epoch "
-        "into this directory (trace_rank<r>.json)",
+        help="Write a torch.profiler trace of the first training epoch, with "
+        "the recorder's spans, into this directory (trace_rank<r>.json)",
     )
     add_distributed_args(parser)
     args = parser.parse_args(argv)
@@ -251,51 +255,69 @@ def _train_step_body(model, criterion, lr_model, lr_crit, max_grad_norm, group=N
     group, seq_group = _data_group(group), _data_group(seq_group)
 
     def step(inputs, prepared, generator, lr_scale, input_lengths=None, time_axis=None):
-        params = model_params + crit_params
-        for p in params:
-            p.grad = None
-        sharded = seq_group is not None and time_axis is not None
-        if sharded:
-            outputs = encode(model, inputs, True, generator, seq_group, time_axis)
-            loss = criterion.seq_loss(criterion.params, outputs, prepared, input_lengths,
-                                      seq_group)
-        else:
-            outputs = model(inputs, train=True, generator=generator)
-            loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
-        if group is None and seq_group is None:
-            loss.backward()
-            grads = [p.grad for p in params]
-        else:
-            # every criterion returns its batch mean: the global batch's
-            # loss is sum_r loss_r B_r / B, so each rank differentiates
-            # loss_r B_r and the reduction divides by B
-            n_local = inputs.shape[0]
-            (loss * n_local).backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-            weighted = loss.detach() * n_local
-            if seq_group is None:
-                grads, loss = reduce_gradients(grads, weighted, n_local, group)
-            else:
-                # the ranks of a 'seq' line compute one loss: on time shards
-                # each holds its frames' share of the model's gradient,
-                # summed over 'seq' and 'data' in one all-reduce over the
-                # grid; the criterion's parameters (used after the gather),
-                # and every parameter with time whole, get the whole
-                # gradient on each rank, which the line's first rank alone
-                # adds.  The loss and the rows count once a line.
-                first = float(dist.get_rank(seq_group) == 0)
-                partial = len(model_params) if sharded else 0
-                grads = grads[:partial] + [g * first for g in grads[partial:]]
-                grads, loss = reduce_gradients(grads, weighted * first, n_local * first,
-                                               dist.group.WORLD)
-        if max_grad_norm is not None:
-            clip_global_norm(grads, max_grad_norm)
-        with torch.no_grad():
-            for p, g in zip(model_params, grads):
-                p.sub_(lr_model * lr_scale * g)
-            for p, g in zip(crit_params, grads[len(model_params):]):
-                p.sub_(lr_crit * lr_scale * g)
-        return loss.detach(), outputs.detach()
+        with utils.span("step"):
+            params = model_params + crit_params
+            with utils.span("zero_grad"):
+                for p in params:
+                    p.grad = None
+            sharded = seq_group is not None and time_axis is not None
+            with utils.span("forward"):
+                utils.mark("forward")
+                if sharded:
+                    outputs = encode(model, inputs, True, generator, seq_group, time_axis)
+                else:
+                    outputs = model(inputs, train=True, generator=generator)
+                utils.mark("forward.end")
+            with utils.span("loss"):
+                if sharded:
+                    loss = criterion.seq_loss(criterion.params, outputs, prepared,
+                                              input_lengths, seq_group)
+                else:
+                    loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
+            reduced = group is not None or seq_group is not None
+            with utils.span("backward"):
+                # splits the criterion's backward from the encoder's
+                utils.mark_grad(outputs, "outputs.grad")
+                if not reduced:
+                    loss.backward()
+                    grads = [p.grad for p in params]
+                else:
+                    # every criterion returns its batch mean: the global
+                    # batch's loss is sum_r loss_r B_r / B, so each rank
+                    # differentiates loss_r B_r and the reduction divides by B
+                    n_local = inputs.shape[0]
+                    (loss * n_local).backward()
+                    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                             for p in params]
+                utils.mark("backward.end")
+            with utils.span("optimizer"):
+                if reduced:
+                    weighted = loss.detach() * n_local
+                    if seq_group is None:
+                        grads, loss = reduce_gradients(grads, weighted, n_local, group)
+                    else:
+                        # the ranks of a 'seq' line compute one loss: on time
+                        # shards each holds its frames' share of the model's
+                        # gradient, summed over 'seq' and 'data' in one
+                        # all-reduce over the grid; the criterion's parameters
+                        # (used after the gather), and every parameter with
+                        # time whole, get the whole gradient on each rank,
+                        # which the line's first rank alone adds.  The loss
+                        # and the rows count once a line.
+                        first = float(dist.get_rank(seq_group) == 0)
+                        partial = len(model_params) if sharded else 0
+                        grads = grads[:partial] + [g * first for g in grads[partial:]]
+                        grads, loss = reduce_gradients(grads, weighted * first,
+                                                       n_local * first, dist.group.WORLD)
+                if max_grad_norm is not None:
+                    clip_global_norm(grads, max_grad_norm)
+                with torch.no_grad():
+                    for p, g in zip(model_params, grads):
+                        p.sub_(lr_model * lr_scale * g)
+                    for p, g in zip(crit_params, grads[len(model_params):]):
+                        p.sub_(lr_crit * lr_scale * g)
+                utils.mark("optimizer.end")
+            return loss.detach(), outputs.detach()
 
     return step
 
@@ -359,14 +381,22 @@ def make_eval_step(model, criterion, seq_group=None):
 
     @torch.no_grad()
     def step(inputs, prepared, input_lengths=None, time_axis=None):
-        if seq_group is not None and time_axis is not None:
-            outputs = encode(model, inputs, False, None, seq_group, time_axis)
-            loss = criterion.seq_loss(criterion.params, outputs, prepared, input_lengths,
-                                      seq_group)
-            return loss, pmesh.gather_time(outputs, seq_group)
-        outputs = model(inputs)
-        loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
-        return loss, outputs
+        sharded = seq_group is not None and time_axis is not None
+        with utils.span("step"):
+            with utils.span("forward"):
+                if sharded:
+                    outputs = encode(model, inputs, False, None, seq_group, time_axis)
+                else:
+                    outputs = model(inputs)
+            with utils.span("loss"):
+                if sharded:
+                    loss = criterion.seq_loss(criterion.params, outputs, prepared,
+                                              input_lengths, seq_group)
+                else:
+                    loss = criterion.loss(criterion.params, outputs, prepared, input_lengths)
+            if sharded:
+                outputs = pmesh.gather_time(outputs, seq_group)
+            return loss, outputs
 
     return step
 
@@ -396,7 +426,8 @@ def to_device(obj, device):
 
 
 def _to_device(inputs, prepared, device):
-    return torch.as_tensor(inputs).to(device), to_device(prepared, device)
+    with utils.span("to_device"):
+        return torch.as_tensor(inputs).to(device), to_device(prepared, device)
 
 
 def criterion_to_device(criterion, device, params=None):
@@ -414,9 +445,12 @@ def prepared_batches(loader, criterion):
     batch of ``loader``, prepared in turn.  JAX prepares on a background
     thread to overlap the device's steps; on an H100 such a thread made
     the marginalized example's epoch 4.5 % slower, the step and
-    ``prepare`` sharing the GIL (``scripts/time_prefetch.py``)."""
-    for inputs, widths, targets in loader:
-        yield inputs, widths, targets, criterion.prepare(targets)
+    ``prepare`` sharing the GIL (``scripts/time_prefetch.py``).  Spans:
+    ``fetch`` (the wait on ``loader``) and ``prepare``."""
+    for inputs, widths, targets in utils.fetched(loader):
+        with utils.span("prepare"):
+            prepared = criterion.prepare(targets)
+        yield inputs, widths, targets, prepared
 
 
 def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
@@ -426,27 +460,32 @@ def evaluate(model, criterion, data_loader, preprocessor, eval_step, device,
     ``mesh`` of several ranks, each rank scores and decodes its own rows
     (padded to the widest rank's, ``shard_batch``; on a ``'seq'`` axis its
     time shard, the logits gathered before decoding), and the meters are
-    summed over the ``'data'`` ranks (``Meters.sync``)."""
+    summed over the ``'data'`` ranks (``Meters.sync``).  Spans: ``fetch``,
+    ``prepare``, ``decode`` (dispatch and finalize) beside those of
+    ``_to_device``, the eval step and the meters."""
     mesh = mesh or pmesh.Mesh((1,), ("data",))
     meters = utils.Meters()
     losses = []
-    for inputs, widths, targets in data_loader:
+    for inputs, widths, targets in utils.fetched(data_loader):
         time_axis = input_time_axis(inputs, preprocessor.num_features)
         inputs, time_axis = shard_time(shard_batch(inputs, mesh, time_axis), mesh,
                                        time_axis, model)
-        inputs, prepared = _to_device(inputs, criterion.prepare(targets), device)
+        with utils.span("prepare"):
+            prepared = criterion.prepare(targets)
+        inputs, prepared = _to_device(inputs, prepared, device)
         lens = output_lengths(model, widths).to(device) if use_lengths else None
         loss, outputs = eval_step(inputs, prepared, lens, time_axis)
         losses.append(loss * len(targets))
         meters.num_samples += len(targets)
-        predictions = criterion.viterbi_finalize(
-            criterion.viterbi_dispatch(outputs, criterion.params, lens)
-        )
+        with utils.span("decode"):
+            predictions = criterion.viterbi_finalize(
+                criterion.viterbi_dispatch(outputs, criterion.params, lens)
+            )
         if report is not None:
             report(predictions, targets)
         meters.add_decodes(predictions, targets, preprocessor)
     if losses:
-        meters.loss += float(torch.stack(losses).sum())
+        meters.loss += float(utils.to_host(torch.stack(losses).sum()))
     if mesh.size > 1:
         meters.sync(mesh.group("data"))
     return meters
@@ -497,6 +536,32 @@ def dataset_kwargs(config):
     """``data.fast_pipeline`` (iamdb): the float and jitter stages run once
     a batch in the dataset's own collate."""
     return {"fast_pipeline": True} if config["data"].get("fast_pipeline", False) else {}
+
+
+# the profiler annotation that puts the recorder's spans on the trace's clock
+TRACE_CLOCK = "recorder.clock"
+# the train step's first and last device marks, all that ``timing_info`` reads
+STEP_MARKS = ("forward", "optimizer.end")
+
+
+def timing_info(train_recorder, val_recorder):
+    """The "Timing Info" log line's numbers (ms) from an epoch's recorders:
+    the mean host time of each phase of a train step (``enqueue``, the
+    step's own, returns before the device has run it), the step's device
+    time from its marks (CUDA only), the train epoch and the validation
+    pass, each with a synchronise at its end."""
+    out = {}
+    for name, key in (("fetch", "fetch"), ("prepare", "prepare"), ("to_device", "to_device"),
+                      ("step", "enqueue"), ("sync", "sync"), ("meters", "meters")):
+        ms = train_recorder.mean_ms(name)
+        if ms is not None:
+            out[key] = ms
+    device = train_recorder.mark_ms(*STEP_MARKS)
+    if device is not None:
+        out["step_device"] = device
+    out["train_total"] = train_recorder.mean_ms("train_epoch")
+    out["test_total"] = val_recorder.mean_ms("validation")
+    return out
 
 
 def train(args):
@@ -572,7 +637,6 @@ def train(args):
                                  mesh.group("data"), mesh.group("seq"))
     eval_step = make_eval_step(model, criterion, mesh.group("seq"))
 
-    timers = utils.Timer(["ds_fetch", "step", "metrics", "train_total", "test_total"])
     min_val_loss = min_val_cer = min_val_wer = float("inf")
     history = []
     for epoch in range(args.last_epoch, epochs):
@@ -583,46 +647,49 @@ def train(args):
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=activities)
             profiler.__enter__()
+            clocks = [utils.trace_clock(TRACE_CLOCK)]
+        # spans kept for the profiled epoch's trace only; otherwise summed
+        # as they close, and the step's two marks folded as it completes
+        recorder = utils.Recorder(device, marks=STEP_MARKS, keep=profiler is not None)
         logging.info("Epoch {} started. ".format(epoch + 1))
         lr_scale = 0.5 ** (epoch // step_size)
         criterion.train()
-        start_time = time.time()
         meters = utils.Meters()
         losses = []
-        timers.reset()
-        timers.start("train_total").start("ds_fetch")
-        for step_idx, (inputs, widths, targets, prepared) in enumerate(
-                prepared_batches(train_loader, criterion)):
-            time_axis = input_time_axis(inputs, input_size)
-            inputs, time_axis = shard_time(shard_batch(inputs, mesh, time_axis), mesh,
-                                           time_axis, model)
-            inputs, prepared = _to_device(inputs, prepared, device)
-            lens = output_lengths(model, widths).to(device) if use_lengths else None
-            timers.stop("ds_fetch").start("step")
-            loss, outputs = train_step(
-                inputs, prepared, dropout_gen, lr_scale, lens, time_axis
-            )
-            timers.stop("step").start("metrics")
-            num_updates += 1
-            losses.append(loss * len(targets))
-            meters.num_samples += len(targets)
-            if step_idx % metrics_interval == 0:
-                if time_axis is not None:
-                    outputs = pmesh.gather_time(outputs, mesh.group("seq"))
-                predictions = criterion.viterbi_finalize(criterion.viterbi_dispatch(
-                    outputs, criterion.params, lens))
-                meters.add_decodes(predictions, targets, preprocessor)
-            timers.stop("metrics").start("ds_fetch")
-        if losses:
-            meters.loss += float(torch.stack(losses).sum())
-        timers.stop("ds_fetch").stop("train_total", sync=True)
+        with utils.recording(recorder), utils.span("train_epoch"):
+            for step_idx, (inputs, widths, targets, prepared) in enumerate(
+                    prepared_batches(train_loader, criterion)):
+                time_axis = input_time_axis(inputs, input_size)
+                inputs, time_axis = shard_time(shard_batch(inputs, mesh, time_axis), mesh,
+                                               time_axis, model)
+                inputs, prepared = _to_device(inputs, prepared, device)
+                lens = output_lengths(model, widths).to(device) if use_lengths else None
+                loss, outputs = train_step(
+                    inputs, prepared, dropout_gen, lr_scale, lens, time_axis
+                )
+                num_updates += 1
+                losses.append(loss * len(targets))
+                meters.num_samples += len(targets)
+                if step_idx % metrics_interval == 0:
+                    if time_axis is not None:
+                        outputs = pmesh.gather_time(outputs, mesh.group("seq"))
+                    predictions = criterion.viterbi_finalize(criterion.viterbi_dispatch(
+                        outputs, criterion.params, lens))
+                    meters.add_decodes(predictions, targets, preprocessor)
+            if losses:
+                meters.loss += float(utils.to_host(torch.stack(losses).sum()))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+        recorder.resolve()
         if profiler is not None:
+            clocks.append(utils.trace_clock(TRACE_CLOCK))
             profiler.__exit__(None, None, None)
             os.makedirs(args.profile_dir, exist_ok=True)
             trace = os.path.join(args.profile_dir, f"trace_rank{rank}.json")
             profiler.export_chrome_trace(trace)
+            utils.add_spans_to_trace(trace, recorder, clocks, TRACE_CLOCK)
             logging.info(f"Profiler trace written to {trace}")
-        epoch_time = time.time() - start_time
+        epoch_time = recorder.mean_ms("train_epoch") / 1e3
         if world_size > 1:
             meters.sync(mesh.group("data"))
         logging.info(
@@ -634,13 +701,15 @@ def train(args):
             ),
         )
         logging.info("Evaluating validation set..")
-        timers.start("test_total")
-        criterion.eval()
-        val_loss, val_cer, val_wer = test(
-            model, criterion, val_loader, preprocessor, eval_step, device,
-            use_lengths, mesh,
-        )
-        timers.stop("test_total", sync=True)
+        val_recorder = utils.Recorder(keep=False)
+        with utils.recording(val_recorder), utils.span("validation"):
+            criterion.eval()
+            val_loss, val_cer, val_wer = test(
+                model, criterion, val_loader, preprocessor, eval_step, device,
+                use_lengths, mesh,
+            )
+            if device.type == "cuda":
+                torch.cuda.synchronize()
         # pickle saves from rank 0 only; the collective format on every rank
         if rank == 0 or ckpt_format == "orbax":
             utils.save_checkpoint(
@@ -666,10 +735,8 @@ def train(args):
         )
         logging.info(
             "Timing Info: "
-            + ", ".join(
-                "{} : {:.2f}ms".format(k, v * 1000.0)
-                for k, v in timers.value().items()
-            )
+            + ", ".join("{} : {:.2f}ms".format(k, v)
+                        for k, v in timing_info(recorder, val_recorder).items())
         )
         history.append({
             "epoch": epoch + 1, "train_loss": meters.avg_loss,

@@ -1,20 +1,23 @@
-"""Experiment runtime: factories, batching, metrics, timers, checkpoints.
+"""Experiment runtime: factories, batching, metrics, tracing, checkpoints.
 
 Counterpart of the parts of ``gtn_applications_tpu/utils.py`` that the
 RNN, TDS and TDS2d encoders and the TDS2d transducer model use with the
 CTC, ASG, STC and Transducer criteria.  The batch sampler emits
 width-sorted, bucketed batches, dealt to ranks as JAX's, collated by a
 dataset's own ``collate_fn`` where it has one; ``Meters.sync`` sums the
-metrics over the ranks; timers synchronise the CUDA device before reading the
-clock; and checkpoints are pickled ``state_dict``s or, in the collective
-format, ``torch.distributed.checkpoint`` directories.  The ``rnn``, ``tds``,
+metrics over the ranks; a ``Recorder``, once installed, keeps the train
+and eval paths' spans, counters and CUDA-event marks; and checkpoints are
+pickled ``state_dict``s or, in the collective format,
+``torch.distributed.checkpoint`` directories.  The ``rnn``, ``tds``,
 ``tds2d`` and ``tds2d_transducer`` models and the ``ctc``, ``asg``,
 ``stc`` and ``transducer`` criteria resolve in the factories; a
 Transducer's ``transitions`` file is read with the port's ``wfst`` graph
 files.
 """
 
+import contextlib
 import importlib.util
+import json
 import logging
 import os
 import pickle
@@ -274,8 +277,10 @@ class Meters:
         return self._rate(self.loss, self.num_samples)
 
     def add_decodes(self, predictions, targets, preprocessor):
-        """Count token and word edit distances of decoded ``predictions``."""
-        td, wd, nt, nw = compute_edit_distance(predictions, targets, preprocessor)
+        """Count token and word edit distances of decoded ``predictions``
+        (a ``meters`` span)."""
+        with span("meters"):
+            td, wd, nt, nw = compute_edit_distance(predictions, targets, preprocessor)
         self.edit_distance_tokens += td
         self.num_tokens += nt
         self.edit_distance_words += wd
@@ -291,44 +296,264 @@ class Meters:
 
 
 # ---------------------------------------------------------------------------
-# Timers
+# Tracing
 # ---------------------------------------------------------------------------
 
+# the installed Recorder, or None: tracing is off
+_recorder = None
+_OFF = contextlib.nullcontext()
+_END = object()
 
-class Timer:
-    """Host-clock phase timers; ``stop(key, sync=True)`` first waits for
-    the CUDA device so that the phase includes its device work."""
 
-    def __init__(self, keys):
-        self.keys = keys
-        self.reset()
+class _Span:
+    __slots__ = ("rec", "name", "entry")
 
-    def start(self, key):
-        self.running_time[key] = time.perf_counter()
+    def __init__(self, rec, name):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        self.entry = entry = [self.name, time.perf_counter_ns(), None,
+                              rec._open[-1] if rec._open else -1, rec.step]
+        if rec.keep:
+            rec._open.append(len(rec.spans))
+            rec.spans.append(entry)
+        else:
+            rec._open.append(-1)
+        return entry
+
+    def __exit__(self, *exc):
+        rec, entry = self.rec, self.entry
+        entry[2] = time.perf_counter_ns()
+        rec._open.pop()
+        total = rec.totals.get(entry[0])
+        if total is None:
+            rec.totals[entry[0]] = [entry[2] - entry[1], 1]
+        else:
+            total[0] += entry[2] - entry[1]
+            total[1] += 1
+        return False
+
+
+class Recorder:
+    """Spans, counters and device marks of the train and eval paths.  A
+    caller creates one and installs it (``recording``); with none
+    installed, ``span``, ``mark``, ``mark_grad``, ``to_host`` and
+    ``fetched`` cost one test of a module-level value.
+
+    Each closed span adds its host time to ``totals`` (name: [ns, n]), each
+    count to ``counters`` (name: n).  Marks are CUDA events recorded on the
+    current stream where ``device`` is a CUDA device (no marks otherwise),
+    only those named in ``marks`` where it is given, and never waited on;
+    once a step's events have completed, the device ms from each of its
+    marks to each later one go into ``intervals`` ((a, b): [ms, n]).
+
+    With ``keep`` (the default) the records stay until read.  ``spans``:
+    ``[name, start_ns, end_ns, parent, step]`` in opening order, on
+    ``time.perf_counter_ns()``; ``parent`` is the index of the span that
+    was open when it opened (-1 at the top), ``step`` the index of the
+    batch it belongs to: ``fetched`` opens the next index as each batch
+    arrives, so the spans of one train step or eval batch share it.
+    ``counts``: ``(name, n, span, step)``, ``span`` the innermost span open
+    (-1 for none).  ``marks``: ``[name, step, event]``; ``resolve()``,
+    after the caller's own synchronise, turns each event into milliseconds
+    from the first mark.  Without ``keep`` no span or count is kept, and
+    a step's marks are folded and dropped once a later batch has arrived
+    and their events have completed: what the recorder holds does not grow
+    over an epoch."""
+
+    def __init__(self, device=None, marks=None, keep=True):
+        self.device_marks = device is not None and torch.device(device).type == "cuda"
+        self.mark_names = None if marks is None else frozenset(marks)
+        self.keep = keep
+        self.spans, self.counts, self.marks = [], [], []
+        self.totals, self.counters, self.intervals = {}, {}, {}
+        self.step = 0
+        self._open = []
+        self._zero = None
+        self._settled = 0   # kept marks before this index are folded
+
+    def span(self, name):
+        return _Span(self, name)
+
+    def count(self, name, n=1):
+        self.counters[name] = self.counters.get(name, 0) + n
+        if self.keep:
+            self.counts.append((name, n, self._open[-1] if self._open else -1, self.step))
+
+    def records(self, name):
+        """Whether a mark called ``name`` is recorded."""
+        return self.device_marks and (self.mark_names is None or name in self.mark_names)
+
+    def mark(self, name):
+        if self.records(name):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            if self._zero is None:
+                self._zero = event
+            self.marks.append([name, self.step, event])
+
+    def _settle(self, final):
+        """Fold the marks of each step before the current one whose events
+        have completed (with ``final``, of every step) into ``intervals``;
+        kept marks become ms from the first mark, the others go."""
+        marks, i = self.marks, self._settled
+        while i < len(marks):
+            j = i
+            while j < len(marks) and marks[j][1] == marks[i][1]:
+                j += 1
+            if not final and (marks[i][1] == self.step
+                              or not all(m[2].query() for m in marks[i:j])):
+                break
+            ms = [self._zero.elapsed_time(m[2]) for m in marks[i:j]]
+            for a in range(j - i):
+                for b in range(a + 1, j - i):
+                    key = (marks[i + a][0], marks[i + b][0])
+                    total = self.intervals.setdefault(key, [0.0, 0])
+                    total[0] += ms[b] - ms[a]
+                    total[1] += 1
+            for m, t in zip(marks[i:j], ms):
+                m[2] = t
+            i = j
+        if self.keep:
+            self._settled = i
+        else:
+            del marks[:i]
+
+    def resolve(self):
+        """Fold every mark (call after a synchronise: each event must have
+        completed)."""
+        self._settle(True)
         return self
 
-    def stop(self, key, sync=False):
-        if sync and torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        self.total_time[key] += time.perf_counter() - self.running_time[key]
-        self.n[key] += 1
-        self.running_time[key] = None
-        return self
+    def fetch(self, it):
+        """``next(it)`` (``_END`` once spent), its wait a ``fetch`` span; a
+        batch that arrives opens the next step index, its fetch included."""
+        with self.span("fetch") as entry:
+            item = next(it, _END)
+        if item is not _END:
+            self.step += 1
+            entry[4] = self.step
+            if not self.keep and self.marks:
+                self._settle(False)
+        return item
 
-    def reset(self):
-        self.total_time = {k: 0.0 for k in self.keys}
-        self.running_time = {k: None for k in self.keys}
-        self.n = {k: 0 for k in self.keys}
-        return self
+    def mean_ms(self, name):
+        """Mean host ms of the spans called ``name``, or None if none."""
+        total = self.totals.get(name)
+        return total[0] / total[1] / 1e6 if total else None
 
-    def value(self):
-        """Mean seconds per start/stop pair, for phases that ever ran."""
-        vals = {
-            k: self.total_time[k] / self.n[k] for k in self.keys if self.n[k]
-        }
-        if not vals:
-            raise ValueError("Trying to divide by zero in TimeMeter")
-        return vals
+    def mark_ms(self, a, b):
+        """Mean device ms from mark ``a`` to mark ``b`` over the folded
+        steps that hold both, or None if none."""
+        total = self.intervals.get((a, b))
+        return total[0] / total[1] if total else None
+
+
+def span_path(spans, i):
+    """The names from the top span down to ``spans[i]`` (spans as
+    ``Recorder.spans`` holds them), joined by /."""
+    names = []
+    while i >= 0:
+        names.append(spans[i][0])
+        i = spans[i][3]
+    return "/".join(reversed(names))
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Install ``recorder`` for the body of a ``with`` (nested installs
+    restore the one before)."""
+    global _recorder
+    saved, _recorder = _recorder, recorder
+    try:
+        yield recorder
+    finally:
+        _recorder = saved
+
+
+def span(name):
+    """A ``with`` block recorded as a span called ``name``."""
+    rec = _recorder
+    return _OFF if rec is None else _Span(rec, name)
+
+
+def mark(name):
+    """A device mark called ``name`` at this point of the current stream."""
+    rec = _recorder
+    if rec is not None:
+        rec.mark(name)
+
+
+def mark_grad(tensor, name):
+    """A device mark called ``name`` where backward has formed the
+    gradient of ``tensor`` (a hook on it, registered only where the
+    recorder records that mark)."""
+    rec = _recorder
+    if rec is not None and rec.records(name) and tensor.requires_grad:
+        tensor.register_hook(lambda grad: rec.mark(name))
+
+
+def to_host(tensor):
+    """``tensor.cpu()``: a blocking read of the device, recorded as a
+    ``sync`` span and a count of ``syncs``."""
+    rec = _recorder
+    if rec is None:
+        return tensor.cpu()
+    rec.count("syncs")
+    with _Span(rec, "sync"):
+        return tensor.cpu()
+
+
+def fetched(iterable):
+    """The items of ``iterable``; with a recorder, each wait a ``fetch``
+    span that opens the item's step index (``Recorder.fetch``)."""
+    it = iter(iterable)
+    while True:
+        rec = _recorder
+        item = next(it, _END) if rec is None else rec.fetch(it)
+        if item is _END:
+            return
+        yield item
+
+
+def trace_clock(name):
+    """A ``record_function(name)`` annotation for a profiler's trace, run
+    twice (the first call is slow); returns the ``perf_counter_ns()`` at
+    the middle of the second, for ``add_spans_to_trace``."""
+    for _ in range(2):
+        t0 = time.perf_counter_ns()
+        with torch.profiler.record_function(name):
+            pass
+        t1 = time.perf_counter_ns()
+    return (t0 + t1) // 2
+
+
+def add_spans_to_trace(path, recorder, clocks_ns, clock_name):
+    """Append ``recorder``'s kept spans to the Chrome trace at ``path`` that
+    ``torch.profiler`` exported, on its time axis.  ``clocks_ns``: what
+    ``trace_clock(clock_name)`` returned, in order, at least once; each
+    pairs with the middle of its second annotation in the trace, and two
+    or more fit the trace's clock as a line in ``perf_counter_ns()`` (the
+    two clocks drift apart by some 1e-4)."""
+    with open(path) as fid:
+        trace = json.load(fid)
+    events = trace["traceEvents"]
+    marks = sorted(e["ts"] + e["dur"] / 2 for e in events
+                   if e.get("name") == clock_name and e.get("cat") == "user_annotation")
+    xs, ys = [c / 1e3 for c in clocks_ns], marks[1::2]
+    slope = (ys[-1] - ys[0]) / (xs[-1] - xs[0]) if len(xs) > 1 else 1.0
+    to_us = lambda ns: ys[0] + slope * (ns / 1e3 - xs[0])
+    pid = max((e["pid"] for e in events if isinstance(e.get("pid"), int)), default=0) + 1
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": "program spans"}})
+    for i, (name, start, end, _, step) in enumerate(recorder.spans):
+        if end is not None:
+            events.append({"ph": "X", "cat": "program", "name": name, "pid": pid, "tid": 0,
+                           "ts": to_us(start), "dur": to_us(end) - to_us(start),
+                           "args": {"step": step, "path": span_path(recorder.spans, i)}})
+    with open(path, "w") as fid:
+        json.dump(trace, fid)
 
 
 def card_name_and_power_limit():
